@@ -1,0 +1,13 @@
+"""Hot-path ops of the port: hand-written CUDA kernels for Hopper beside
+their plain PyTorch versions.
+
+A wrapper runs its plain version only for tensors on the CPU; for a CUDA
+tensor it launches its kernel (built from ``csrc/`` at first use by
+:mod:`tony_tpu_torch.ops._build`) or raises. ``LAUNCHES`` counts kernel
+launches by wrapper name.
+"""
+
+from tony_tpu_torch.ops.attention import (LAUNCHES, flash_decode,
+                                          reference_attention)
+
+__all__ = ["LAUNCHES", "flash_decode", "reference_attention"]
