@@ -8,6 +8,8 @@ the card with::
 
 from __future__ import annotations
 
+import math
+
 import pytest
 import torch
 
@@ -64,3 +66,141 @@ def test_flash_decode_kernel_rejects_off_shapes(gen):
     q, k, v, pos = _inputs(gen, 1, 4, 2, 16, 16, 32, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         attn.flash_decode(q, k, v, pos)
+
+
+def _flash_inputs(gen, b, h, hkv, t, tk, d, dtype, packed):
+    """q/k/v/dO as the model hands them over: packed [b, t, h·d]
+    projections viewed as [b, h, t, d], or contiguous [b, h, t, d]."""
+    def make(n, length):
+        if packed:
+            x = torch.randn((b, length, n * d), generator=gen, device="cuda")
+            return x.to(dtype).unflatten(2, (n, d)).transpose(1, 2)
+        return torch.randn((b, n, length, d), generator=gen,
+                           device="cuda").to(dtype)
+    return make(h, t), make(hkv, tk), make(hkv, tk), make(h, t)
+
+
+def _tol(ref, dtype):
+    scale = float(ref.float().abs().max())
+    if dtype == torch.float32:
+        return 1e-5 * max(1.0, scale)
+    return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
+FLASH_CASES = [  # b, h, hkv, t, tk, d, causal, packed
+    (2, 4, 4, 128, 128, 128, True, True), (1, 4, 2, 96, 96, 128, True, True),
+    (2, 2, 2, 40, 40, 64, True, False), (1, 4, 1, 100, 70, 16, False, False),
+    (1, 2, 2, 70, 40, 12, True, False), (1, 2, 1, 200, 200, 8, True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,t,tk,d,causal,packed", FLASH_CASES)
+def test_flash_attention_kernels_vs_plain(gen, dtype, b, h, hkv, t, tk, d,
+                                          causal, packed):
+    q, k, v, do = _flash_inputs(gen, b, h, hkv, t, tk, d, dtype, packed)
+    scale = d ** -0.5
+    n0 = dict(LAUNCHES)
+    out, lse = attn._flash_fwd_cuda(q, k, v, causal, scale)
+    dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert LAUNCHES[name] == n0[name] + 1
+    ref_o, ref_lse = attn._flash_fwd_plain(q, k, v, causal, scale)
+    ref_dq, dsum = attn._flash_bwd_dq_plain(q, k, v, ref_o, do, ref_lse,
+                                            causal, scale)
+    ref_dk, ref_dv = attn._flash_bwd_dkv_plain(q, k, v, do, ref_lse, dsum,
+                                               causal, scale)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride() and dq.stride() == q.stride()
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(
+        1.0, float(ref_lse.abs().max()))
+    for got, ref in ((out, ref_o), (dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert float((got.float() - ref.float()).abs().max()) <= _tol(
+            ref, dtype)
+
+
+def test_flash_attention_dkv_is_deterministic(gen):
+    q, k, v, do = _flash_inputs(gen, 1, 8, 2, 256, 256, 128, torch.bfloat16,
+                                True)
+    out, lse = attn._flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    a = attn._flash_bwd_cuda(q, k, v, out, lse, do, True, 128 ** -0.5)
+    b = attn._flash_bwd_cuda(q, k, v, out, lse, do, True, 128 ** -0.5)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_attention_autograd_on_the_card(gen):
+    """The public entry on CUDA tensors goes through the kernels, forward
+    and backward, and never through the plain version."""
+    q, k, v, do = _flash_inputs(gen, 1, 4, 2, 64, 64, 128, torch.float32,
+                                True)
+    qp, kp, vp = (x.transpose(1, 2).reshape(1, 64, -1).detach()
+                  .requires_grad_() for x in (q, k, v))
+    n0 = dict(LAUNCHES)
+    out = attn.flash_attention_packed(qp, kp, vp, 4)
+    out.backward(do.transpose(1, 2).reshape(1, 64, -1))
+    assert LAUNCHES["flash_attention_fwd"] == n0["flash_attention_fwd"] + 1
+    assert LAUNCHES["flash_attention_bwd_dkv"] == \
+        n0["flash_attention_bwd_dkv"] + 1
+    assert qp.grad.shape == qp.shape and kp.grad.shape == kp.shape
+
+
+def test_flash_attention_kernel_rejects_off_shapes(gen):
+    q = torch.zeros((1, 2, 16, 256), device="cuda")
+    with pytest.raises(ValueError, match="up to 128"):
+        attn.flash_attention(q, q, q)
+    q = torch.zeros((1, 2, 16, 16), dtype=torch.float16, device="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        attn.flash_attention(q, q, q)
+
+
+def test_adamw_on_the_card_matches_the_cpu(gen):
+    """Three updates on the card against the CPU (which
+    tests/test_torch_train.py holds against optax), to 1e-6 of each
+    leaf's scale: not bitwise, because PyTorch's CUDA division by a
+    Python scalar multiplies by its reciprocal."""
+    from tony_tpu_torch.train import adamw
+
+    shapes = [(64, 32), (1000,)]
+    params = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    cpu = [p.cpu() for p in params]
+    tx = adamw(1e-2, weight_decay=0.1)
+    s_gpu, s_cpu = tx.init(params), tx.init(cpu)
+    for _ in range(3):
+        grads = [torch.randn(s, generator=gen, device="cuda") * 1e-3
+                 for s in shapes]
+        s_gpu = tx.update(grads, s_gpu, params)
+        s_cpu = tx.update([g.cpu() for g in grads], s_cpu, cpu)
+    for a, b in zip(params + s_gpu.mu + s_gpu.nu, cpu + s_cpu.mu + s_cpu.nu):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6 * float(
+            b.abs().max())
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """A tiny decoder on the packed route (head_dim 128, GQA), f32: one
+    step's loss and grads on the card (kernels, cuBLAS) against the CPU
+    (plain versions)."""
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.train import next_token_loss
+
+    kw = dict(dim=256, n_heads=2, n_kv_heads=1, ffn_hidden=256,
+              attention="flash", remat=True, dtype=torch.float32, seed=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    models = [get_model("llama-tiny", device=d, **kw) for d in ("cpu",
+                                                                "cuda")]
+    models[1].load_state_dict(models[0].state_dict())   # one set of weights
+    tokens = torch.randint(0, 256, (2, 200), generator=gen, device="cuda")
+    n0 = LAUNCHES["flash_attention_fwd"]
+    out = []
+    for m in models:
+        tok = tokens.to(next(m.parameters()).device)
+        loss = next_token_loss(m(tok), tok)
+        loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.cpu()
+                                  for n, p in m.named_parameters()}))
+    assert LAUNCHES["flash_attention_fwd"] == n0 + 2 * 2   # remat: twice
+    assert out[1][0] == pytest.approx(out[0][0], rel=1e-5)
+    for name, g in out[0][1].items():
+        rel = float((out[1][1][name] - g).norm() / g.norm())
+        assert rel <= 1e-4, name

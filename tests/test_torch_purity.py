@@ -37,10 +37,13 @@ def test_sources_found():
     names = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     for must in ("tony_tpu_torch/ops/attention.py",
                  "tony_tpu_torch/models/transformer.py",
+                 "tony_tpu_torch/train/__init__.py",
                  "tony_tpu_torch/serve/engine.py",
                  "tony_tpu_torch/serve/kvcache.py", "chip_smoke.py"):
         assert must in names
-    assert (ROOT / "tony_tpu_torch/ops/csrc/flash_decode.cu").is_file()
+    from tony_tpu_torch.ops import _build
+    for name in _build.SOURCES:
+        assert (ROOT / f"tony_tpu_torch/ops/csrc/{name}.cu").is_file()
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -132,8 +132,9 @@ class TestPieces:
                   else (jnp.bfloat16, torch.bfloat16))
         ref = jtr.rope(jnp.asarray(x, jd), jnp.asarray(pos), 10000.0,
                        seq_axis=1)
-        got = ttr.rope(torch.from_numpy(x).to(td), torch.from_numpy(pos),
-                       10000.0, seq_axis=1)
+        got = ttr.apply_rope(torch.from_numpy(x).to(td),
+                             ttr.rope_tables(torch.from_numpy(pos), 16,
+                                             10000.0), seq_axis=1)
         assert got.dtype == td
         tol = 1e-5 if dtype == "f32" else 1e-2
         np.testing.assert_allclose(got.float().numpy(),
@@ -143,7 +144,8 @@ class TestPieces:
     def test_rope_is_interleaved_not_rotate_half(self):
         x = torch.zeros(1, 1, 1, 4)
         x[..., 0] = 1.0                      # pair (0, 1) holds (1, 0)
-        y = ttr.rope(x, torch.tensor([1]), 10000.0)
+        y = ttr.apply_rope(x, ttr.rope_tables(torch.tensor([1]), 4,
+                                              10000.0))
         assert y[..., 1].item() == pytest.approx(np.sin(1.0), abs=1e-6)
         assert y[..., 2].item() == 0.0
 
@@ -187,7 +189,15 @@ class TestPieces:
         tm = get_model("llama-tiny", dim=256, n_heads=4, n_kv_heads=4,
                        ffn_hidden=512, device="cpu", seed=3)
         w = tm.layers[0].mlp.w_up.weight.detach()
-        assert w.dtype == torch.bfloat16
+        # Stored in f32 (the JAX module's param_dtype); a server stores
+        # cfg.dtype, which is the same draw cast once.
+        assert w.dtype == torch.float32
+        served = get_model("llama-tiny", dim=256, n_heads=4, n_kv_heads=4,
+                           ffn_hidden=512, device="cpu", seed=3,
+                           param_dtype=torch.bfloat16)
+        assert torch.equal(served.layers[0].mlp.w_up.weight,
+                           w.to(torch.bfloat16))
+        assert served.final_norm.scale.dtype == torch.float32
         assert float(w.float().std()) == pytest.approx(256 ** -0.5,
                                                        rel=0.1)
         assert float(w.float().abs().max()) <= 2.1 * 256 ** -0.5 / 0.8796
@@ -223,7 +233,8 @@ class TestConvert:
         bf = jax.tree.map(lambda a: np.asarray(a.astype(jnp.bfloat16)),
                           params)
         assert bf["embedding"].dtype.name == "bfloat16"
-        tm = get_model("llama-tiny", n_layers=LAYERS, device="cpu")
+        tm = get_model("llama-tiny", n_layers=LAYERS, device="cpu",
+                       param_dtype=torch.bfloat16)
         load_jax_params(tm, {"params": bf})
         ref = torch.from_numpy(np.asarray(params["embedding"])).to(
             torch.bfloat16)
@@ -245,13 +256,10 @@ class TestConvert:
 
 
 class TestUnported:
-    def test_training_forward_raises(self):
-        tm = get_model("llama-tiny", device="cpu")
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tm(torch.zeros((1, 16), dtype=torch.int32))
-
-    @pytest.mark.parametrize("kw", [dict(xent_chunk=8), dict(quant=True),
-                                    dict(moe_experts=4)])
+    @pytest.mark.parametrize("kw", [
+        dict(xent_chunk=8), dict(quant=True), dict(moe_experts=4),
+        dict(remat=True, remat_policy="dots"), dict(attention="ring"),
+        dict(mesh=object())])
     def test_unported_config_raises(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model("llama-tiny", device="cpu", **kw)

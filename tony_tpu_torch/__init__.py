@@ -2,7 +2,8 @@
 
 The JAX package :mod:`tony_tpu` is the reference; this package holds its
 counterparts module for module (``ops/attention.py``,
-``models/transformer.py``, ``serve/kvcache.py``, ``serve/engine.py``) in
+``models/transformer.py``, ``train/__init__.py``, ``serve/kvcache.py``,
+``serve/engine.py``) in
 PyTorch, with every Pallas kernel on a ported path rewritten by hand in
 CUDA C++ for Hopper (``ops/csrc/``). It imports torch and numpy only —
 never jax, flax, optax or anything of :mod:`tony_tpu`.

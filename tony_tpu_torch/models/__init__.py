@@ -1,9 +1,10 @@
 """Model zoo of the port: the counterpart of :mod:`tony_tpu.models`.
 
-Only the Llama-style decoder's serving path is ported so far
-(:mod:`~tony_tpu_torch.models.transformer`), registered as ``llama2-7b``
-and ``llama-tiny`` with the JAX package's defaults. Models are
-``torch.nn.Module``s built on an explicit device (``None`` = the card).
+Only the Llama-style decoder is ported so far
+(:mod:`~tony_tpu_torch.models.transformer`: its training and serving
+forwards), registered as ``llama2-7b`` and ``llama-tiny`` with the JAX
+package's defaults. Models are ``torch.nn.Module``s built on an explicit
+device (``None`` = the card).
 """
 
 from typing import Any, Callable, Dict

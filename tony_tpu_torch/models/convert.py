@@ -94,8 +94,11 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def load_jax_params(model: Transformer, tree: Mapping[str, Any]
                     ) -> Transformer:
     """Fill ``model`` in place from a JAX param tree of numpy arrays,
-    casting to each parameter's dtype and device. Every parameter must
-    be covered and every converted leaf used, with equal shapes."""
+    casting to each parameter's storage dtype and device: an f32 tree
+    lands bitwise in the default f32 parameters (training), and a server
+    built with ``param_dtype=cfg.dtype`` gets the one cast that the JAX
+    module makes at every use. Every parameter must be covered and every
+    converted leaf used, with equal shapes."""
     src = params_from_jax(tree)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(src))

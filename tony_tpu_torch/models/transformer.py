@@ -1,18 +1,31 @@
-"""Llama-style decoder, serving path: the counterpart of
+"""Llama-style decoder: the counterpart of
 :mod:`tony_tpu.models.transformer`.
 
-Only the ``kv=`` serving forward is ported: the t rows are NEW tokens at
-per-sequence absolute ``positions`` ``[b, t]``, the context lives in a
-per-layer KV buffer ``[b, ctx, n_kv_heads·head_dim]``, the rows'
-post-rope k/v are written into that buffer before attention (so a row
-attends itself and everything the cache holds below its position),
-attention runs through :func:`tony_tpu_torch.ops.flash_decode`, and the
-raw rows come back for the engine to commit into its paged pool.
+Two forwards:
 
-The numerics follow the JAX module: projections in ``cfg.dtype`` with
-the f32 parameters cast to it (here the parameters are stored in
-``cfg.dtype``), RMSNorm in f32 with an f32 scale, interleaved-pair
-rotary embeddings computed in f32 by bf16×f32 promotion, logits in f32.
+* training (``kv=None``): tokens ``[b, t]`` at positions ``arange(t)``
+  (or given), causal attention through
+  :func:`tony_tpu_torch.ops.flash_attention_packed` (head_dim a multiple
+  of 128, no mesh — the JAX module's packed route),
+  :func:`~tony_tpu_torch.ops.flash_attention` (any other head_dim) or
+  :func:`~tony_tpu_torch.ops.reference_attention`; with ``remat`` each
+  block runs under ``torch.utils.checkpoint`` (the counterpart of
+  ``nn.remat``). Returns f32 logits and runs with autograd.
+* serving (``kv=``): the t rows are NEW tokens at per-sequence absolute
+  ``positions`` ``[b, t]``, the context lives in a per-layer KV buffer
+  ``[b, ctx, n_kv_heads·head_dim]``, the rows' post-rope k/v are written
+  into that buffer before attention (so a row attends itself and
+  everything the cache holds below its position), attention runs through
+  :func:`tony_tpu_torch.ops.flash_decode`, and the raw rows come back for
+  the engine to commit into its paged pool. Runs under inference mode.
+
+The numerics follow the JAX module: parameters stored in
+``param_dtype`` (f32 by default, as the JAX module's ``param_dtype``),
+cast to ``cfg.dtype`` where they are used (projections and the embedded
+rows; a server stores ``cfg.dtype`` directly, which gives the same bits
+as casting at every use), RMSNorm in f32 with an f32 scale,
+interleaved-pair rotary embeddings computed in f32 by bf16×f32
+promotion, logits in f32.
 """
 
 from __future__ import annotations
@@ -24,10 +37,12 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import register
-from tony_tpu_torch.ops import flash_decode
+from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
+                                flash_decode, reference_attention)
 
 _LATER = "ROADMAP.md, queue 1"
 
@@ -44,10 +59,11 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
-    # The fields below shape the JAX package's training forward. The
-    # serving forward ignores attention/scan_layers/remat/remat_policy
-    # (a plain layer loop, no gradients); mesh, MoE, xent_chunk and
-    # quant raise until their slices land.
+    # The fields below shape the training forward; the serving forward
+    # ignores attention/scan_layers/remat/remat_policy (a plain layer
+    # loop, no gradients). scan_layers only names the JAX param layout
+    # (convert.py reads both). attention="ring", a mesh, MoE, xent_chunk,
+    # quant and the "dots" remat policies raise until their slices land.
     attention: str = "flash"
     scan_layers: bool = True
     remat: bool = True
@@ -82,26 +98,35 @@ class TransformerConfig:
         return 6 * n_params + 12 * self.n_layers * self.dim * self.max_seq
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-         seq_axis: int = 2) -> torch.Tensor:
-    """Rotary embedding with positions [T] (shared across the batch) or
-    [B, T] (per-sequence absolute positions); the sequence dim sits at
-    ``seq_axis``. Interleaved pairs ``x[..., ::2]``/``x[..., 1::2]``,
-    re-stacked on a new last axis (not the rotate-half convention)."""
-    d = x.shape[-1]
+RopeTables = Tuple[torch.Tensor, torch.Tensor]
+
+
+def rope_tables(positions: torch.Tensor, d: int, theta: float
+                ) -> RopeTables:
+    """cos/sin of the rotary angles for positions [T] (shared across the
+    batch; tables [T, D/2]) or [B, T] (per-sequence; [B, T, D/2]), in f32.
+    A forward computes them once and every layer's q and k reuse them."""
     freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
-                                    device=x.device) / d)
-    shape = [1] * x.ndim
-    shape[-1] = d // 2
+                                    device=positions.device) / d)
     if positions.ndim == 2:
         angles = positions[..., None].float() * freqs        # [B, T, D/2]
-        shape[0] = angles.shape[0]
-        shape[seq_axis] = angles.shape[1]
     else:
         angles = positions[:, None].float() * freqs[None, :]  # [T, D/2]
-        shape[seq_axis] = angles.shape[0]
-    cos = torch.cos(angles).reshape(shape)
-    sin = torch.sin(angles).reshape(shape)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, tables: RopeTables,
+               seq_axis: int = 2) -> torch.Tensor:
+    """Rotate ``x`` (sequence dim at ``seq_axis``) by precomputed tables.
+    Interleaved pairs ``x[..., ::2]``/``x[..., 1::2]``, re-stacked on a
+    new last axis (not the rotate-half convention)."""
+    cos, sin = tables
+    shape = [1] * x.ndim
+    shape[-1] = x.shape[-1] // 2
+    if cos.ndim == 3:
+        shape[0] = cos.shape[0]
+    shape[seq_axis] = cos.shape[-2]
+    cos, sin = cos.reshape(shape), sin.reshape(shape)
     x1, x2 = x[..., ::2], x[..., 1::2]
     # bf16 × f32 promotes to f32, as in the JAX module.
     y1 = x1 * cos - x2 * sin
@@ -124,9 +149,25 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(x.dtype)
 
 
+class Dense(nn.Linear):
+    """A bias-free projection that computes in ``compute_dtype`` whatever
+    its weight is stored in (flax ``nn.Dense(dtype=..., param_dtype=...)``:
+    input and kernel cast to the compute type at use)."""
+
+    def __init__(self, n_in: int, n_out: int, compute_dtype: torch.dtype,
+                 param_dtype: torch.dtype, device: torch.device):
+        super().__init__(n_in, n_out, bias=False, dtype=param_dtype,
+                         device=device)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.compute_dtype),
+                        self.weight.to(self.compute_dtype))
+
+
 def _linear(cfg: TransformerConfig, n_in: int, n_out: int,
-            device: torch.device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, dtype=cfg.dtype, device=device)
+            device: torch.device, param_dtype: torch.dtype) -> Dense:
+    return Dense(n_in, n_out, cfg.dtype, param_dtype, device)
 
 
 # Per-layer KV buffers: (k_buf, v_buf), each [b, ctx, n_kv_heads·head_dim].
@@ -134,26 +175,51 @@ LayerKV = Tuple[torch.Tensor, torch.Tensor]
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 param_dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        self.wq = _linear(cfg, cfg.dim, nh * hd, device)
-        self.wk = _linear(cfg, cfg.dim, nkv * hd, device)
-        self.wv = _linear(cfg, cfg.dim, nkv * hd, device)
-        self.wo = _linear(cfg, nh * hd, cfg.dim, device)
+        self.wq = _linear(cfg, cfg.dim, nh * hd, device, param_dtype)
+        self.wk = _linear(cfg, cfg.dim, nkv * hd, device, param_dtype)
+        self.wv = _linear(cfg, cfg.dim, nkv * hd, device, param_dtype)
+        self.wo = _linear(cfg, nh * hd, cfg.dim, device, param_dtype)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv: LayerKV, keep: Tuple[torch.Tensor, torch.Tensor]
-                ) -> Tuple[torch.Tensor, LayerKV]:
+    def forward(self, x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
+        """Training forward: causal self-attention over the t rows, routed
+        as the JAX module routes it (transformer.py:237-287)."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        if cfg.attention == "flash" and hd % 128 == 0:
+            # Packed layout: the kernels read the heads of the natural
+            # [b, t, h·d] projections as strided views, and GQA K/V stay
+            # at [b, t, nkv·hd]; no transpose is copied.
+            q4 = apply_rope(q.view(b, t, nh, hd), tables, seq_axis=1)
+            k4 = apply_rope(k.view(b, t, nkv, hd), tables, seq_axis=1)
+            out = flash_attention_packed(q4.view(b, t, nh * hd),
+                                         k4.view(b, t, nkv * hd), v, nh,
+                                         causal=True)
+            return self.wo(out)
+        q = apply_rope(q.view(b, t, nh, hd).transpose(1, 2), tables)
+        k = apply_rope(k.view(b, t, nkv, hd).transpose(1, 2), tables)
+        v = v.view(b, t, nkv, hd).transpose(1, 2)
+        attend = (flash_attention if cfg.attention == "flash"
+                  else reference_attention)
+        out = attend(q, k, v, causal=True)
+        return self.wo(out.transpose(1, 2).reshape(b, t, nh * hd))
+
+    def serve(self, x: torch.Tensor, positions: torch.Tensor,
+              tables: RopeTables, kv: LayerKV,
+              keep: Tuple[torch.Tensor, torch.Tensor]
+              ) -> Tuple[torch.Tensor, LayerKV]:
         cfg = self.cfg
         b, t, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         k_buf, v_buf = kv
-        q4 = rope(self.wq(x).view(b, t, nh, hd), positions, cfg.rope_theta,
-                  seq_axis=1)
-        k4 = rope(self.wk(x).view(b, t, nkv, hd), positions,
-                  cfg.rope_theta, seq_axis=1)
+        q4 = apply_rope(self.wq(x).view(b, t, nh, hd), tables, seq_axis=1)
+        k4 = apply_rope(self.wk(x).view(b, t, nkv, hd), tables, seq_axis=1)
         k_rows = k4.reshape(b, t, nkv * hd).to(k_buf.dtype)
         v_rows = self.wv(x).to(v_buf.dtype)
         # Scatter the rows into the buffer in place (it is this forward's
@@ -182,26 +248,37 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 param_dtype: torch.dtype):
         super().__init__()
-        self.w_gate = _linear(cfg, cfg.dim, cfg.ffn_hidden, device)
-        self.w_up = _linear(cfg, cfg.dim, cfg.ffn_hidden, device)
-        self.w_down = _linear(cfg, cfg.ffn_hidden, cfg.dim, device)
+        self.w_gate = _linear(cfg, cfg.dim, cfg.ffn_hidden, device,
+                              param_dtype)
+        self.w_up = _linear(cfg, cfg.dim, cfg.ffn_hidden, device,
+                            param_dtype)
+        self.w_down = _linear(cfg, cfg.ffn_hidden, cfg.dim, device,
+                              param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 param_dtype: torch.dtype):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, param_dtype)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.mlp = MLP(cfg, device)
+        self.mlp = MLP(cfg, device, param_dtype)
 
-    def forward(self, x, positions, kv, keep):
-        attn_out, new_kv = self.attn(self.attn_norm(x), positions, kv, keep)
+    def forward(self, x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.attn_norm(x), (cos, sin))
+        return x + self.mlp(self.mlp_norm(x))
+
+    def serve(self, x, positions, tables, kv, keep):
+        attn_out, new_kv = self.attn.serve(self.attn_norm(x), positions,
+                                           tables, kv, keep)
         x = x + attn_out
         x = x + self.mlp(self.mlp_norm(x))
         return x, new_kv
@@ -220,9 +297,10 @@ def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
 
 class Transformer(nn.Module):
     def __init__(self, cfg: TransformerConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        for field, slice_name in (("xent_chunk", "the training slice"),
+        for field, slice_name in (("xent_chunk", "the chunked-loss slice"),
                                   ("quant", "the quantized lane"),
                                   ("moe_experts", "the MoE slice"),
                                   ("mesh", "the sharded slices")):
@@ -230,21 +308,38 @@ class Transformer(nn.Module):
                 raise NotImplementedError(
                     f"TransformerConfig.{field} is not ported yet; it lands "
                     f"with {slice_name} ({_LATER})")
+        if cfg.attention == "ring":
+            raise NotImplementedError(
+                f"attention='ring' is not ported yet; it lands with the "
+                f"sharded slices ({_LATER})")
+        if cfg.attention not in ("flash", "reference"):
+            raise ValueError(f"unknown attention {cfg.attention!r}")
+        # As the JAX module: an unknown policy, or a policy without remat,
+        # fails loudly instead of silently not applying.
+        if cfg.remat_policy not in (None, "dots", "dots_no_batch"):
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+        if cfg.remat_policy is not None and not cfg.remat:
+            raise ValueError("remat_policy set but remat=False")
+        if cfg.remat_policy is not None:
+            raise NotImplementedError(
+                f"remat_policy={cfg.remat_policy!r} is not ported yet; it "
+                f"lands with the training slice's remat variants ({_LATER})")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty(
-            cfg.vocab, cfg.dim, dtype=cfg.dtype, device=dev))
-        self.layers = nn.ModuleList(Block(cfg, dev)
+            cfg.vocab, cfg.dim, dtype=param_dtype, device=dev))
+        self.layers = nn.ModuleList(Block(cfg, dev, param_dtype)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, dev)
-        self.lm_head = _linear(cfg, cfg.dim, cfg.vocab, dev)
+        self.lm_head = _linear(cfg, cfg.dim, cfg.vocab, dev, param_dtype)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Transformer":
         """The JAX package's init laws from a seeded ``torch.Generator``
         on the model's device: lecun-normal kernels, ``normal(0.02)``
-        embedding, ones for the norms. (The same seed does not give the
-        JAX package's numbers; tests carry weights across with
+        embedding, ones for the norms, drawn in f32 and cast to the
+        storage type. (The same seed does not give the JAX package's
+        numbers; tests carry weights across with
         :func:`tony_tpu_torch.models.convert.load_jax_params`.)"""
         dev = self.embedding.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -259,12 +354,40 @@ class Transformer(nn.Module):
                 _lecun_normal_(p, gen)
         return self
 
-    @torch.inference_mode()
     def forward(self, tokens: torch.Tensor, targets=None, *,
                 positions: Optional[torch.Tensor] = None,
                 kv: Union[Tuple[torch.Tensor, torch.Tensor],
-                          Callable[[int], LayerKV], None] = None
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                          Callable[[int], LayerKV], None] = None):
+        """``kv=None``: the training forward, ``tokens`` [b, t] at
+        ``positions`` (default ``arange(t)``, shared over the batch);
+        returns f32 logits [b, t, vocab] with autograd. With ``kv``: the
+        serving forward (:meth:`serve`)."""
+        if kv is not None:
+            return self.serve(tokens, targets, positions=positions, kv=kv)
+        if targets is not None:
+            raise ValueError("targets are only taken with xent_chunk, which "
+                             "is not ported yet")
+        cfg = self.cfg
+        t = tokens.shape[1]
+        if positions is None:
+            positions = torch.arange(t, device=tokens.device)
+        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        x = F.embedding(tokens.long(), self.embedding).to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for block in self.layers:
+            if remat:
+                x = checkpoint(block, x, cos, sin, use_reentrant=False)
+            else:
+                x = block(x, cos, sin)
+        x = self.final_norm(x)
+        return self.lm_head(x).float()
+
+    @torch.inference_mode()
+    def serve(self, tokens: torch.Tensor, targets=None, *,
+              positions: Optional[torch.Tensor] = None,
+              kv: Union[Tuple[torch.Tensor, torch.Tensor],
+                        Callable[[int], LayerKV], None] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Serve-mode forward: ``tokens`` [b, t] new rows at
         ``positions`` [b, t]; ``kv`` is either the stacked buffers
         ``(k, v)`` of shape [n_layers, b, ctx, kv_dim] (as in the JAX
@@ -273,10 +396,6 @@ class Transformer(nn.Module):
         written in place (they are scratch for this forward). Returns
         ``(logits f32 [b, t, vocab], (k_rows, v_rows))`` with the fresh
         rows stacked [n_layers, b, t, kv_dim]."""
-        if kv is None:
-            raise NotImplementedError(
-                f"the training forward (kv=None) is not ported yet; it "
-                f"lands with the training slice ({_LATER})")
         if targets is not None:
             raise ValueError("serve-mode forward takes no targets")
         if positions is None:
@@ -284,6 +403,8 @@ class Transformer(nn.Module):
                              "(per-sequence absolute)")
         layer_kv = kv if callable(kv) else (lambda i: (kv[0][i], kv[1][i]))
         positions = positions.to(torch.int32)
+        tables = rope_tables(positions, self.cfg.head_dim,
+                             self.cfg.rope_theta)
         x = F.embedding(tokens.long(), self.embedding).to(self.cfg.dtype)
         keep = None
         ks: List[torch.Tensor] = []
@@ -294,7 +415,7 @@ class Transformer(nn.Module):
                 # One host sync per forward (not per layer): which rows
                 # land inside the ctx-long buffer.
                 keep = (positions < buf[0].shape[1]).nonzero(as_tuple=True)
-            x, (kr, vr) = block(x, positions, buf, keep)
+            x, (kr, vr) = block.serve(x, positions, tables, buf, keep)
             ks.append(kr)
             vs.append(vr)
         x = self.final_norm(x)
@@ -305,16 +426,18 @@ class Transformer(nn.Module):
 def _build(defaults: dict, kw: dict) -> Transformer:
     device = kw.pop("device", None)
     seed = kw.pop("seed", 0)
+    param_dtype = kw.pop("param_dtype", torch.float32)
     cfg = dict(defaults)
     cfg.update(kw)
-    return Transformer(TransformerConfig(**cfg), device=device
-                       ).init_weights(seed)
+    return Transformer(TransformerConfig(**cfg), device=device,
+                       param_dtype=param_dtype).init_weights(seed)
 
 
 @register("llama2-7b")
 def llama2_7b(**kw) -> Transformer:
-    """Full-width Llama-2-7B; ``device=`` (default: the card) and
-    ``seed=`` (random weights) besides the config fields."""
+    """Full-width Llama-2-7B; ``device=`` (default: the card), ``seed=``
+    (random weights) and ``param_dtype=`` (storage, default f32; a
+    server passes ``cfg.dtype``) besides the config fields."""
     return _build({}, kw)
 
 

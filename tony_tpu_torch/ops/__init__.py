@@ -7,7 +7,9 @@ tensor it launches its kernel (built from ``csrc/`` at first use by
 launches by wrapper name.
 """
 
-from tony_tpu_torch.ops.attention import (LAUNCHES, flash_decode,
-                                          reference_attention)
+from tony_tpu_torch.ops.attention import (LAUNCHES, flash_attention,
+                                          flash_attention_packed,
+                                          flash_decode, reference_attention)
 
-__all__ = ["LAUNCHES", "flash_decode", "reference_attention"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_packed",
+           "flash_decode", "reference_attention"]

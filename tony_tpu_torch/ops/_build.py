@@ -27,6 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Every kernel source of the port (``csrc/<name>.cu``).
+SOURCES = ("flash_decode", "flash_attention")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build wall time (0.0 when the .so was already

@@ -1,7 +1,15 @@
-"""Attention for the serving path: the counterpart of the serving part of
-:mod:`tony_tpu.ops.attention`.
+"""Attention: the counterpart of :mod:`tony_tpu.ops.attention`.
 
 * :func:`reference_attention` — the plain spec over ``[B, H, T, D]``.
+* :func:`flash_attention` (``[B, H, T, D]``) and
+  :func:`flash_attention_packed` (``[B, T, H·D]``) — fused attention for
+  training, forward and backward, through one ``torch.autograd.Function``
+  (:class:`_FlashFn`). A CUDA tensor runs the hand-written Hopper kernels
+  of ``csrc/flash_attention.cu`` (forward; backward dQ; backward dK/dV),
+  a CPU tensor their plain versions :func:`_flash_fwd_plain`,
+  :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`, which
+  follow the JAX kernels' math block by block with their rounding points.
+  Both layouts are the same [B, H, T, D] views with other strides.
 * :func:`flash_decode` — position-masked flash-decoding attention of a
   small q-block against a cached K/V buffer. A CUDA tensor runs the
   hand-written Hopper kernel ``csrc/flash_decode.cu`` (or raises on a
@@ -28,7 +36,9 @@ _NEG_INF = -1e30
 # Kernel launches by wrapper name: each wrapper adds one where it
 # launches its kernel and nowhere else (a run resets the counts to 0 and
 # reads them back to show that its path went through the kernels).
-LAUNCHES: Dict[str, int] = {"flash_decode": 0}
+LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_attention_fwd": 0,
+                             "flash_attention_bwd_dq": 0,
+                             "flash_attention_bwd_dkv": 0}
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,3 +231,322 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     return _decode_plain(q, k, v, q_positions, scale,
                          _fit_block(block_k, ctx) or ctx)
+
+
+# --------------------------------------------------------------------
+# Flash attention for training: forward and backward. The plain versions
+# follow the JAX kernels (`_flash_kernel_resident`, `_flash_bwd_dq_kernel`,
+# `_flash_bwd_dkv_kernel`) block by block with their rounding points:
+# scores (q·kᵀ)·scale in f32, p rounded to V's (dO's) type before P·V
+# (Pᵀ·dO), ds rounded to the input type before dS·K and dSᵀ·Q, and
+# l_safe = where(l > 0, l, 1). They are not autograd of
+# reference_attention. Query head h reads kv head h·hkv/h: the q side is
+# grouped [b, hkv, reps·t, d], so no repeated K/V is ever made.
+# --------------------------------------------------------------------
+
+_PLAIN_BLOCK_K = 128
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 accumulation, or f64 for f64 inputs (gradcheck)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _grouped(x: torch.Tensor, hkv: int, f: torch.dtype) -> torch.Tensor:
+    """[b, h, t, d] -> [b, hkv, reps·t, d] in the accumulation type."""
+    b, h, t, d = x.shape
+    return x.to(f).reshape(b, hkv, (h // hkv) * t, d)
+
+
+def _row_positions(t: int, reps: int, device) -> torch.Tensor:
+    return torch.arange(t, device=device).repeat(reps)[:, None]
+
+
+def _scores(qg, k_blk, k0, q_pos, causal, scale):
+    """Masked f32 scores of one key block (keys past tk are not in the
+    block; the causal mask is aligned at the top left)."""
+    s = torch.matmul(qg, k_blk.transpose(-1, -2)) * scale
+    if causal:
+        k_pos = torch.arange(k0, k0 + k_blk.shape[2], device=qg.device)
+        s = torch.where(k_pos[None, :] <= q_pos, s, _NEG_INF)
+    return s
+
+
+def _flash_fwd_plain(q, k, v, causal, scale, block_k=_PLAIN_BLOCK_K):
+    """Online-softmax forward over key blocks; returns (O in q's type,
+    LSE [b, h, t] in the accumulation type)."""
+    b, h, t, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    f = _acc_dtype(q)
+    qg = _grouped(q, hkv, f)
+    q_pos = _row_positions(t, h // hkv, q.device)
+    rows = qg.shape[2]
+    m = torch.full((b, hkv, rows, 1), _NEG_INF, dtype=f, device=q.device)
+    l = torch.zeros((b, hkv, rows, 1), dtype=f, device=q.device)
+    acc = torch.zeros((b, hkv, rows, d), dtype=f, device=q.device)
+    k_end = min(tk, t) if causal else tk      # the diagonal's last key
+    for k0 in range(0, k_end, block_k):
+        k_blk = k[:, :, k0:k0 + block_k].to(f)
+        v_blk = v[:, :, k0:k0 + block_k]
+        s = _scores(qg, k_blk, k0, q_pos, causal, scale)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).to(f), v_blk.to(f))
+        m = m_new
+    l_safe = torch.where(l > 0, l, torch.ones_like(l))
+    out = (acc / l_safe).reshape(b, h, t, d).to(q.dtype)
+    return out, (m + torch.log(l_safe)).reshape(b, h, t)
+
+
+def _flash_bwd_dq_plain(q, k, v, o, do, lse, causal, scale,
+                        block_k=_PLAIN_BLOCK_K):
+    """dQ over key blocks up to the diagonal; also returns
+    D = rowsum(dO∘O) [b, h, t], which the dK/dV pass reads."""
+    b, h, t, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    f = _acc_dtype(q)
+    dsum = (do.to(f) * o.to(f)).sum(dim=-1)
+    qg, dog = _grouped(q, hkv, f), _grouped(do, hkv, f)
+    lse_g = lse.to(f).reshape(b, hkv, -1, 1)
+    d_g = dsum.reshape(b, hkv, -1, 1)
+    q_pos = _row_positions(t, h // hkv, q.device)
+    dq = torch.zeros_like(qg)
+    k_end = min(tk, t) if causal else tk
+    for k0 in range(0, k_end, block_k):
+        k_blk = k[:, :, k0:k0 + block_k].to(f)
+        v_blk = v[:, :, k0:k0 + block_k].to(f)
+        p = torch.exp(_scores(qg, k_blk, k0, q_pos, causal, scale) - lse_g)
+        dp = torch.matmul(dog, v_blk.transpose(-1, -2))
+        ds = (p * (dp - d_g)).to(k.dtype).to(f)
+        dq = dq + torch.matmul(ds, k_blk) * scale
+    return dq.reshape(b, h, t, d).to(q.dtype), dsum
+
+
+def _flash_bwd_dkv_plain(q, k, v, do, lse, dsum, causal, scale,
+                         block_k=_PLAIN_BLOCK_K):
+    """dK and dV per key block, summed over every query row of the query
+    heads of each kv head (keys no row admits get zeros)."""
+    b, h, t, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    f = _acc_dtype(q)
+    qg, dog = _grouped(q, hkv, f), _grouped(do, hkv, f)
+    lse_g = lse.to(f).reshape(b, hkv, -1, 1)
+    d_g = dsum.to(f).reshape(b, hkv, -1, 1)
+    q_pos = _row_positions(t, h // hkv, q.device)
+    dk = torch.zeros(k.shape, dtype=f, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f, device=v.device)
+    k_end = min(tk, t) if causal else tk
+    for k0 in range(0, k_end, block_k):
+        k_blk = k[:, :, k0:k0 + block_k].to(f)
+        v_blk = v[:, :, k0:k0 + block_k].to(f)
+        p = torch.exp(_scores(qg, k_blk, k0, q_pos, causal, scale) - lse_g)
+        dv[:, :, k0:k0 + block_k] = torch.matmul(
+            p.to(do.dtype).to(f).transpose(-1, -2), dog)
+        dp = torch.matmul(dog, v_blk.transpose(-1, -2))
+        ds = (p * (dp - d_g)).to(q.dtype).to(f)
+        dk[:, :, k0:k0 + block_k] = torch.matmul(
+            ds.transpose(-1, -2), qg) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+_FLASH_FNS = ("flash_attention_fwd_launch", "flash_attention_bwd_dq_launch",
+              "flash_attention_bwd_dkv_launch")
+_STRIDES = ctypes.POINTER(ctypes.c_int64)
+
+
+def _attn_lib() -> ctypes.CDLL:
+    from tony_tpu_torch.ops import _build
+
+    lib = _build.load(["flash_attention"])["flash_attention"]
+    if lib.flash_attention_fwd_launch.argtypes is None:
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float, _STRIDES,
+                                     ctypes.c_void_p]
+        lib.flash_attention_fwd_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + tail)
+        for name in _FLASH_FNS[1:]:
+            getattr(lib, name).argtypes = (
+                [ctypes.c_int] + [ctypes.c_void_p] * 8 + tail)
+        for name in _FLASH_FNS:
+            getattr(lib, name).restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_flash_cuda(q, k, v, *more):
+    """What the kernels take: one device, float32 or bfloat16 throughout,
+    head_dim up to 128, b and h within the grid. Any strides."""
+    d = q.shape[-1]
+    for x in (k, v) + more:
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: tensors on {x.device} and "
+                             f"{q.device}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"flash_attention kernel takes one dtype, got "
+                             f"{q.dtype} and {x.dtype}")
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    if d > 128:
+        raise ValueError(f"flash_attention kernel takes head_dim up to 128, "
+                         f"got {d}")
+    if q.shape[0] > 65535 or q.shape[1] > 65535:
+        raise ValueError(f"flash_attention kernel grid takes b and h up to "
+                         f"65535, got {q.shape[0]}/{q.shape[1]}")
+
+
+def _launch(lib, fn_name, counter, args, dims, tensors):
+    strides = (ctypes.c_int64 * (4 * len(tensors)))(
+        *[s for x in tensors for s in x.stride()])
+    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
+    rc = getattr(lib, fn_name)(*args, *dims, strides, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{counter} kernel launch failed: cuda error {rc} "
+            f"({lib.flash_attention_error_string(rc).decode()})")
+    LAUNCHES[counter] += 1
+
+
+def _dims(q, k, causal, scale):
+    b, h, t, d = q.shape
+    return (b, h, k.shape[1], t, k.shape[2], d, int(causal), float(scale))
+
+
+def _flash_fwd_cuda(q, k, v, causal, scale):
+    _check_flash_cuda(q, k, v)
+    b, h, t, _ = q.shape
+    # O keeps q's memory layout: for the packed [b, t, h·d] views the
+    # caller's reshape back is then free.
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return out.zero_(), lse.zero_()
+    _launch(_attn_lib(), "flash_attention_fwd_launch", "flash_attention_fwd",
+            (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             out.data_ptr(), lse.data_ptr()), _dims(q, k, causal, scale),
+            (q, k, v, out))
+    return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
+    """dQ kernel (which also writes D = rowsum(dO∘O)), then the dK/dV
+    kernel that reads D. dO is taken with whatever strides autograd gives
+    it."""
+    _check_flash_cuda(q, k, v, o, do)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("flash_attention backward needs the forward's "
+                         "contiguous float32 LSE")
+    b, h, t, _ = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lib = _attn_lib()
+    code = _DTYPE_CODES[q.dtype]
+    dims = _dims(q, k, causal, scale)
+    _launch(lib, "flash_attention_bwd_dq_launch", "flash_attention_bwd_dq",
+            (code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dsum.data_ptr()),
+            dims, (q, k, v, o, do, dq))
+    _launch(lib, "flash_attention_bwd_dkv_launch", "flash_attention_bwd_dkv",
+            (code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+            dims, (q, k, v, do, dk, dv))
+    return dq, dk, dv
+
+
+def _on(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    return x.device.type
+
+
+def _flash_fwd(q, k, v, causal, scale):
+    if _on(q) == "cuda":
+        return _flash_fwd_cuda(q, k, v, causal, scale)
+    return _flash_fwd_plain(q, k, v, causal, scale)
+
+
+def _flash_bwd(q, k, v, o, lse, do, causal, scale):
+    if _on(q) == "cuda":
+        return _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale)
+    dq, dsum = _flash_bwd_dq_plain(q, k, v, o, do, lse, causal, scale)
+    dk, dv = _flash_bwd_dkv_plain(q, k, v, do, lse, dsum, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """The counterpart of the JAX package's ``_flash``/``_flash_packed``
+    custom VJPs, over [B, H, T, D] views of any strides: the forward
+    saves q, k, v, O and the per-row LSE [B, H, T]; the backward returns
+    dq, dk, dv in the caller's layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out, lse = _flash_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, ctx.causal,
+                                ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Fused attention over ``[batch, heads, seq, head_dim]``, with its
+    backward. K/V may carry fewer heads (GQA, zero-copy: query head h
+    reads kv head h·hkv/h) and another length (``tk``; the causal mask is
+    aligned at the top left). Ragged lengths need no padding: the kernels
+    mask keys at or past ``tk`` and never write rows at or past ``t``."""
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash_attention wants [b, h, t, d] q/k/v, got "
+                         f"{tuple(q.shape)}/{tuple(k.shape)}/"
+                         f"{tuple(v.shape)}")
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"query heads {q.shape[1]} not a multiple of kv "
+                         f"heads {k.shape[1]}")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"match")
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head_dim")
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _FlashFn.apply(q, k, v, bool(causal), float(scale))
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           heads: int, causal: bool = True,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Fused attention over the packed ``[batch, seq, heads·head_dim]``
+    layout, the projections' natural shape. The heads are read as strided
+    [B, H, T, D] views, so no transpose is copied; K/V may be packed
+    ``[B, Tk, Hkv·D]`` with ``heads % Hkv == 0``."""
+    b, t, hd = q.shape
+    if hd % heads:
+        raise ValueError(f"packed dim {hd} is not divisible by "
+                         f"heads={heads}")
+    d = hd // heads
+    if k.shape[2] % d or heads % (k.shape[2] // d):
+        raise ValueError(f"packed kv dim {k.shape[2]} is not a "
+                         f"head-multiple of head_dim {d} dividing "
+                         f"heads={heads}")
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
+                         f"match")
+
+    def heads_view(x: torch.Tensor) -> torch.Tensor:
+        return x.unflatten(2, (x.shape[2] // d, d)).transpose(1, 2)
+
+    out = flash_attention(heads_view(q), heads_view(k), heads_view(v),
+                          causal=causal, scale=scale)
+    return out.transpose(1, 2).reshape(b, t, hd)
