@@ -19,7 +19,12 @@ caught):
    non-causal t != tk; bf16 and f32; dK/dV run twice and compared with
    ``torch.equal``). Each is timed beside its plain version, the
    ``scaled_dot_product_attention`` yardstick and the bytes/operations
-   bound;
+   bound; and the fused bucket optimizer update for every rule (AdamW
+   with and without weight decay, SGD-momentum, Adafactor-style), in f32
+   and bf16, at n = 1, 1000 and one 7B ``w_gate`` bucket, with
+   ``torch.equal`` on p and every slot, timed at the ``w_gate`` and the
+   embedding bucket beside its plain version, its bound and
+   ``torch.optim.AdamW(fused=True)``;
 4. serve — full-width llama2-7b (random bf16 weights made on the card
    from a seed) behind ``ServeEngine``/``EngineFront``: 16 requests from
    16 threads; every request completes with its token count, the kernel
@@ -36,9 +41,17 @@ caught):
    grads), the loss finite and falling, the kernels' launch counts exact,
    and the step time, throughput, MFU and peak memory; then where two
    steps' device time goes (torch.profiler);
-7. report — a ``{"kernels": [...]}`` line, a ``{"serve": {...}}`` line,
-   a ``{"train": {...}}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+7. train_fused — the same model, weights and batch through
+   ``make_accum_train_step(microbatches=2, update="fused_bucket")`` with
+   ``FusedOptimizer(adamw, 3e-4)``, 8 steps: the loss finite and falling
+   and its first value within 1e-2 of the train phase's, one update
+   launch per bucket per step and the flash launches of two microbatches,
+   every parameter still in its bucket, one step's real buckets through
+   the kernel and the plain version with ``torch.equal``; step time,
+   throughput, MFU, peak memory and a profile;
+8. report — a ``{"kernels": [...]}`` line, a ``{"serve": {...}}`` line,
+   a ``{"train": {...}}`` line, a ``{"train_fused": {...}}`` line, the
+   card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -61,9 +74,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from tony_tpu_torch.models import get_model  # noqa: E402
 from tony_tpu_torch.ops import LAUNCHES, _build  # noqa: E402
 from tony_tpu_torch.ops import attention as attn  # noqa: E402
+from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.serve import EngineFront, ServeEngine  # noqa: E402
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
-                                  make_train_step, next_token_loss)
+                                  make_accum_train_step, make_train_step,
+                                  next_token_loss)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
@@ -536,6 +551,104 @@ def check_flash(shape, dtype, gen, time_it=False):
 
 
 # ---------------------------------------------------------------------
+# Fused bucket optimizer update.
+# ---------------------------------------------------------------------
+
+# (rule, weight decay): AdamW with and without decay, SGD-momentum (0.9),
+# Adafactor-style. Sizes: one element, a ragged 1000, and one w_gate
+# bucket of the 7B (4096 x 11008); timed at that bucket and at the
+# embedding bucket (32000 x 4096), f32 AdamW.
+FUSED_RULES = (("adamw", 0.0), ("adamw", 1e-2), ("sgd", 0.0),
+               ("adafactor", 0.0))
+FUSED_SIZES = (1, 1000, 4096 * 11008)
+FUSED_TIMED = (4096 * 11008, 32000 * 4096)
+# AdamW's f32 operations per element without weight decay, and its
+# bytes per element with f32 g, p and slots (4 read, 3 written).
+ADAMW_FLOPS, ADAMW_BYTES = 14, 28
+
+
+def fused_case(rule, wd, n, dtype, gen):
+    fused = fo.FusedOptimizer(rule=rule, lr=TRAIN_LR, weight_decay=wd,
+                              momentum=0.9)
+    g = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    slots = [torch.rand(n, generator=gen, device="cuda") * 1e-3
+             for _ in fused.slot_names]
+    return fused, g, p, slots, fused.scalars(3, "cuda")
+
+
+def fused_against_plain(fused, g, p, slots, scal, what):
+    """One launch on clones of ``p`` and the slots against ``_rule_math``
+    on the originals: ``torch.equal`` for p and every slot. Returns the
+    max |kernel - plain| (0.0 when equal)."""
+    kp, ks = p.clone(), [s.clone() for s in slots]
+    fo.fused_bucket_update(g, kp, ks, scal, rule=fused.rule,
+                           hyper=fused.hyper)
+    rp, rs = fo._rule_math(fused.rule, g.float(), p.float(), tuple(slots),
+                           scal[0], scal[1], scal[2], **fused.hyper)
+    torch.cuda.synchronize()
+    pairs = [(kp, rp.to(p.dtype))] + list(zip(ks, rs))
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"fused_bucket_update {what}: kernel differs "
+                             f"from the plain version (max |Δ| {err})")
+    return err
+
+
+def adamw_bound(n):
+    """f32 AdamW without decay over n elements: g, p, mu and nu read once,
+    p, mu and nu written once, over HBM bandwidth; against its f32
+    operations."""
+    t_bytes = ADAMW_BYTES * n / HBM_BYTES_PER_S
+    t_ops = ADAMW_FLOPS * n / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_fused(gen):
+    """Every rule and dtype against the plain version, then the timed
+    sizes. Returns the max error and the timings."""
+    worst = 0.0
+    for rule, wd in FUSED_RULES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in FUSED_SIZES:
+                case = fused_case(rule, wd, n, dtype, gen)
+                worst = max(worst, fused_against_plain(
+                    *case, f"{rule} wd={wd} {dtype} n={n}"))
+                del case
+    log(f"  fused_bucket_update: {len(FUSED_RULES)} rules x f32/bf16 x n "
+        f"{FUSED_SIZES}: kernel == plain (torch.equal, p and every slot)")
+    timed = {}
+    for n in FUSED_TIMED:
+        fused, g, p, slots, scal = fused_case("adamw", 0.0, n,
+                                              torch.float32, gen)
+        ms = cuda_ms(lambda: fo.fused_bucket_update(
+            g, p, slots, scal, rule="adamw", hyper=fused.hyper))
+        plain_ms = cuda_ms(lambda: fo._rule_math(
+            "adamw", g, p, tuple(slots), scal[0], scal[1], scal[2],
+            **fused.hyper), iters=5)
+        del slots
+        # The library yardstick (timed only, never called by the port):
+        # PyTorch's fused AdamW over one tensor of the same size.
+        w = p.clone().requires_grad_()
+        w.grad = g
+        opt = torch.optim.AdamW([w], lr=TRAIN_LR, weight_decay=0.0,
+                                fused=True)
+        library_ms = cuda_ms(opt.step)
+        bound_ms, bound_by = adamw_bound(n)
+        timed[n] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms,
+                    "gb_per_s": ADAMW_BYTES * n / ms / 1e6}
+        log(f"    adamw f32 n={n}: kernel {ms:.4f} ms "
+            f"({timed[n]['gb_per_s']:.0f} GB/s), plain {plain_ms:.4f} ms, "
+            f"AdamW(fused=True) {library_ms:.4f} ms, bound {bound_ms:.4f} "
+            f"ms ({bound_by})")
+        del opt, w, g, p
+        torch.cuda.empty_cache()
+    return worst, timed
+
+
+# ---------------------------------------------------------------------
 # Train phase.
 # ---------------------------------------------------------------------
 
@@ -653,10 +766,13 @@ def profile_train(step, state, batch, steps=2):
     if not by_name:
         return None
     busy = sum(by_name.values())
-    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    groups = {"flash_attention": 0.0, "fused_update": 0.0, "gemm": 0.0,
+              "other": 0.0}
     for key, ms in by_name.items():
         low = key.lower()
-        if "flash_" in low and "kernel" in low and "pytorch" not in low:
+        if "fused_bucket_update_kernel" in low:
+            groups["fused_update"] += ms
+        elif "flash_" in low and "kernel" in low and "pytorch" not in low:
             groups["flash_attention"] += ms
         elif any(w in low for w in ("gemm", "nvjet", "cutlass", "sm90_xmma",
                                     "ampere", "cublas")):
@@ -740,6 +856,113 @@ def train_phase(card: str):
     return train, launches
 
 
+# One update launch per bucket per step; under remat the attention
+# forward runs twice per layer and microbatch, the backward once.
+FUSED_MICROBATCHES, FUSED_WD = 2, 1e-4
+# The first loss is the mean of the two microbatch means of the train
+# phase's first batch, from the same weights: within 1e-2 relative.
+FUSED_FIRST_LOSS_REL = 1e-2
+
+
+def check_real_buckets(state):
+    """The last step's real buckets (its mean-scaled grads, the parameters
+    and slots) through the kernel and through the plain version with the
+    next step's scalars, bucket by bucket: ``torch.equal``."""
+    fused, res = state.tx, state.buckets
+    scal = fused.scalars(state.opt_state["count"] + 1, "cuda")
+    worst = 0.0
+    for b in range(res.plan.n_buckets):
+        slots = [state.opt_state["slots"][n][b] for n in fused.slot_names]
+        worst = max(worst, fused_against_plain(
+            fused, res.grad_bufs[b], res.param_bufs[b], slots, scal,
+            f"train bucket {b}"))
+    return worst
+
+
+def train_fused_phase(card: str, first_loss: float):
+    t0 = time.monotonic()
+    model = get_model("llama2-7b", device="cuda", seed=SEED,
+                      n_layers=TRAIN_LAYERS)
+    cfg = model.cfg
+    fused = fo.FusedOptimizer(rule="adamw", lr=TRAIN_LR,
+                              weight_decay=FUSED_WD)
+    state = create_train_state(model, fused)
+    plan = state.buckets.plan
+    torch.cuda.synchronize()
+    log(f"  llama2-7b x{TRAIN_LAYERS} in {plan.n_buckets} buckets "
+        f"(bucket_bytes {fused.bucket_bytes}) built in "
+        f"{time.monotonic() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (TRAIN_BATCH, TRAIN_SEQ)),
+                             device="cuda")
+    step = make_accum_train_step(
+        lambda logits, batch: next_token_loss(logits, batch["x"]),
+        microbatches=FUSED_MICROBATCHES, update="fused_bucket")
+    batch = {"x": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = FLASH_NAMES + ("fused_bucket_update",)
+    for name in names:
+        LAUNCHES[name] = 0
+    losses, step_ms, gnorms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.monotonic()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))      # syncs
+        step_ms.append(1e3 * (time.monotonic() - t1))
+        gnorms.append(float(metrics["grad_norm"]))
+    launches = {name: LAUNCHES[name] for name in names}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train_fused: non-finite loss or grad norm: "
+                             f"{losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_fused: loss did not fall: {losses}")
+    rel = abs(losses[0] - first_loss) / abs(first_loss)
+    if not rel <= FUSED_FIRST_LOSS_REL:
+        raise AssertionError(f"train_fused: first loss {losses[0]} vs the "
+                             f"train phase's {first_loss} (rel {rel})")
+    per_step = TRAIN_LAYERS * FUSED_MICROBATCHES * TRAIN_STEPS
+    expect = {"flash_attention_fwd": 2 * per_step,
+              "flash_attention_bwd_dq": per_step,
+              "flash_attention_bwd_dkv": per_step,
+              "fused_bucket_update": plan.n_buckets * TRAIN_STEPS}
+    if launches != expect:
+        raise AssertionError(f"train_fused: launches {launches} != {expect}")
+    state.buckets.check()
+    log(f"  launches {launches} (= expected); every parameter and grad "
+        f"still in its bucket; first loss {losses[0]:.6f} vs train "
+        f"{first_loss:.6f} (rel {rel:.2e}); peak memory "
+        f"{peak / 1e9:.1f} GB")
+    bucket_err = check_real_buckets(state)
+    log(f"  one step's {plan.n_buckets} real buckets: kernel == plain "
+        f"(torch.equal)")
+    p50 = float(np.median(step_ms))
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    flops_tok = dataclasses.replace(cfg, max_seq=TRAIN_SEQ).flops_per_token()
+    log("[train_fused profile]")
+    prof = profile_train(step, state, batch)
+    log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
+    return {
+        "model": f"llama2-7b n_layers={TRAIN_LAYERS}/32",
+        "params": sum(plan.bucket_numel), "n_buckets": plan.n_buckets,
+        "bucket_bytes": fused.bucket_bytes,
+        "microbatches": FUSED_MICROBATCHES, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+        "weight_decay": FUSED_WD, "losses": losses, "grad_norms": gnorms,
+        "first_loss_vs_train_rel": rel, "step_ms": step_ms,
+        "step_p50_ms": p50, "tokens_per_s": tokens_per_s,
+        "flops_per_token": flops_tok,
+        "mfu": tokens_per_s * flops_tok / PEAK_FLOPS[torch.bfloat16],
+        "max_memory_allocated": peak, "launches": launches,
+        "real_buckets_max_abs_err": bucket_err,
+        "profile": prof, "card": card,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False — this "
@@ -788,6 +1011,7 @@ def main() -> int:
                               time_it=shape[-1] and dtype == torch.bfloat16)
             flash[f"{shape[0]}_{str(dtype)[6:]}"] = res
         torch.cuda.empty_cache()
+    fused_err, fused_timed = check_fused(gen)
 
     # Phase 4: the main path.
     log("[serve]")
@@ -805,6 +1029,14 @@ def main() -> int:
     # Phase 6: the training path.
     log("[train]")
     train, train_launches = train_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  train phase freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"still allocated")
+
+    # Phase 7: the accumulating step with the fused bucket optimizer.
+    log("[train_fused]")
+    train_fused = train_fused_phase(card, train["losses"][0])
 
     entry = {
         "name": "flash_decode", "route": "cuda",
@@ -841,11 +1073,29 @@ def main() -> int:
                 res["max_abs_err"][e] for res in flash.values()
                 for e in outs),
         })
+    w_gate, embedding = (fused_timed[n] for n in FUSED_TIMED)
+    prof = train_fused["profile"]
+    entries.append({
+        "name": "fused_bucket_update", "route": "cuda",
+        "source": "tony_tpu_torch/ops/csrc/fused_optim.cu",
+        "replaces": "tony_tpu/ops/fused_optim.py:123",
+        "launches": train_fused["launches"]["fused_bucket_update"],
+        "max_abs_err": max(fused_err, train_fused["real_buckets_max_abs_err"]),
+        "ms": w_gate["ms"], "plain_ms": w_gate["plain_ms"],
+        "bound_ms": w_gate["bound_ms"], "bound_by": w_gate["bound_by"],
+        "library_ms": w_gate["library_ms"],
+        "shape": f"adamw f32 n={FUSED_TIMED[0]} (one w_gate bucket)",
+        "embedding_bucket": dict(embedding,
+                                 shape=f"adamw f32 n={FUSED_TIMED[1]}"),
+        "step_device_ms": prof["device_ms_by_group"]["fused_update"]
+        if prof else None,
+    })
     serve["card"] = card
     print(json.dumps({"flash_shapes": flash}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"train": train}), flush=True)
+    print(json.dumps({"train_fused": train_fused}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

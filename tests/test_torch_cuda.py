@@ -204,3 +204,95 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
     for name, g in out[0][1].items():
         rel = float((out[1][1][name] - g).norm() / g.norm())
         assert rel <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 1000, 4099, 1 << 20])
+@pytest.mark.parametrize("rule,wd", [("adamw", 0.0), ("adamw", 1e-2),
+                                     ("sgd", 0.0), ("adafactor", 1e-2)])
+def test_fused_bucket_update_kernel_vs_plain(gen, rule, wd, n, dtype):
+    """The kernel against _rule_math on the same inputs at step 3:
+    bitwise, p and every slot (both round each product, sum, quotient and
+    root once, in the same order)."""
+    from tony_tpu_torch.ops import fused_optim as fo
+
+    fused = fo.FusedOptimizer(rule=rule, lr=1e-3, weight_decay=wd)
+    g = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dtype)
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    slots = [torch.rand(n, generator=gen, device="cuda") * 1e-3
+             for _ in fused.slot_names]
+    scal = fused.scalars(3, "cuda")
+    ref_p, ref_s = fo._rule_math(rule, g.float(), p.float(), tuple(slots),
+                                 scal[0], scal[1], scal[2], **fused.hyper)
+    before = LAUNCHES["fused_bucket_update"]
+    out_p, out_s = fo.fused_bucket_update(g, p.clone(),
+                                          [s.clone() for s in slots], scal,
+                                          rule=rule, hyper=fused.hyper)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_bucket_update"] == before + 1
+    assert out_p.dtype == dtype
+    assert torch.equal(out_p, ref_p.to(dtype))
+    for a, b in zip(out_s, ref_s):
+        assert torch.equal(a, b)
+
+
+def test_fused_bucket_update_kernel_rejects_off_inputs(gen):
+    from tony_tpu_torch.ops import fused_optim as fo
+
+    fused = fo.FusedOptimizer(rule="sgd")
+    scal = fused.scalars(1, "cuda")
+    x = torch.zeros(64, device="cuda")
+    with pytest.raises(ValueError, match="both float32 or both bfloat16"):
+        fo.fused_bucket_update(x.half(), x.half(), [x], scal, rule="sgd",
+                               hyper=fused.hyper)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fo.fused_bucket_update(x[1:], x[1:], [x[1:]], scal, rule="sgd",
+                               hyper=fused.hyper)
+    with pytest.raises(ValueError, match="elements"):
+        fo.fused_bucket_update(x[:32], x, [x], scal, rule="sgd",
+                               hyper=fused.hyper)
+    with pytest.raises(ValueError, match="scalar vector"):
+        fo.fused_bucket_update(x, x, [x], scal[:3], rule="sgd",
+                               hyper=fused.hyper)
+
+
+def test_fused_accum_step_on_the_card_matches_the_cpu(gen):
+    """Two fused accumulating steps of a tiny f32 decoder on the card
+    (flash and update kernels, cuBLAS) against the CPU (plain versions):
+    one update launch per bucket per step; loss to 1e-5 relative and
+    parameters to 1e-5 of each leaf's scale. SGD-momentum, whose step is
+    linear in the grad: AdamW's normalised step would turn the grads'
+    float noise near zero into steps of up to lr."""
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.ops import FusedOptimizer
+    from tony_tpu_torch.train import (create_train_state,
+                                      make_accum_train_step, next_token_loss)
+
+    kw = dict(dim=256, n_heads=2, n_kv_heads=1, ffn_hidden=256,
+              attention="flash", remat=True, dtype=torch.float32, seed=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    models = [get_model("llama-tiny", device=d, **kw) for d in ("cpu",
+                                                                "cuda")]
+    models[1].load_state_dict(models[0].state_dict())
+    tokens = torch.randint(0, 256, (4, 128), generator=gen, device="cuda")
+    n0 = LAUNCHES["fused_bucket_update"]
+    losses = []
+    for m in models:
+        state = create_train_state(m, FusedOptimizer(
+            rule="sgd", lr=0.1, momentum=0.9, bucket_bytes=1 << 18))
+        step = make_accum_train_step(
+            lambda logits, b: next_token_loss(logits, b["x"]),
+            microbatches=2, update="fused_bucket")
+        tok = tokens.to(next(m.parameters()).device)
+        for _ in range(2):
+            state, metrics = step(state, {"x": tok})
+        losses.append(float(metrics["loss"]))
+        state.buckets.check()
+    assert LAUNCHES["fused_bucket_update"] == n0 + 2 * \
+        state.buckets.plan.n_buckets
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for (name, a), b in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        a, b = a.detach(), b.detach().cpu()
+        assert float((b - a).abs().max()) <= 1e-5 * float(a.abs().max()), \
+            name

@@ -39,7 +39,10 @@ def test_sources_found():
                  "tony_tpu_torch/models/transformer.py",
                  "tony_tpu_torch/train/__init__.py",
                  "tony_tpu_torch/serve/engine.py",
-                 "tony_tpu_torch/serve/kvcache.py", "chip_smoke.py"):
+                 "tony_tpu_torch/serve/kvcache.py",
+                 "tony_tpu_torch/ops/fused_optim.py",
+                 "tony_tpu_torch/parallel/__init__.py",
+                 "tony_tpu_torch/parallel/overlap.py", "chip_smoke.py"):
         assert must in names
     from tony_tpu_torch.ops import _build
     for name in _build.SOURCES:

@@ -22,6 +22,7 @@ from tony_tpu.models import get_model as jax_model
 from tony_tpu_torch import train as ttrain
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import load_jax_params, params_from_jax
+from tony_tpu_torch.ops import FusedOptimizer
 from tony_tpu_torch.ops import attention as tattn
 
 LAYERS = 2
@@ -295,7 +296,8 @@ class TestTrainStep:
         tm = get_model("llama-tiny", device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.create_train_state(tm, ttrain.adamw(1e-3), mesh=object())
-        with pytest.raises(NotImplementedError, match="fused"):
+        with pytest.raises(NotImplementedError,
+                           match="GradientTransformation or a FusedOptimizer"):
             ttrain.create_train_state(tm, object())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.make_train_step(mesh=object())
@@ -304,6 +306,98 @@ class TestTrainStep:
         with pytest.raises(ValueError, match="xent_chunk"):
             tm(torch.zeros((1, 8), dtype=torch.int32),
                torch.zeros((1, 8), dtype=torch.int32))
+
+
+def _next_token(logits, batch):
+    return ttrain.next_token_loss(logits, batch["x"])
+
+
+class TestAccumTrainStep:
+    def test_one_microbatch_is_bitwise_the_train_step(self):
+        """microbatches=1 through the grad buckets: the same parameters,
+        bit for bit, as make_train_step over three steps (0 + g is g, and
+        the division by 1 is exact)."""
+        _, params = _jax_model()
+        tok = torch.from_numpy(_tokens(13, b=4))
+        models = [_port(params), _port(params)]
+        states = [ttrain.create_train_state(m, ttrain.adamw(1e-3))
+                  for m in models]
+        steps = [ttrain.make_train_step(loss_of=_next_token),
+                 ttrain.make_accum_train_step(_next_token, microbatches=1,
+                                              bucket_bytes=4096)]
+        for _ in range(3):
+            ms = [step(state, {"x": tok})[1]
+                  for step, state in zip(steps, states)]
+            for key in ("loss", "grad_norm"):
+                assert float(ms[0][key]) == float(ms[1][key])
+        for (name, a), b in zip(models[0].named_parameters(),
+                                models[1].parameters()):
+            assert torch.equal(a, b), name
+        assert all(p.grad is None for p in models[1].parameters())
+
+    @pytest.mark.parametrize("update", ["optax", "fused_bucket"])
+    def test_attention_calls_scale_with_microbatches(self, monkeypatch,
+                                                     update):
+        """Per step and microbatch, with remat: the attention forward runs
+        2·L times and the backward L times."""
+        calls = {"fwd": 0, "bwd": 0}
+        fwd, bwd = tattn._flash_fwd, tattn._flash_bwd
+
+        def count(name, fn):
+            def wrapped(*a):
+                calls[name] += 1
+                return fn(*a)
+            return wrapped
+        monkeypatch.setattr(tattn, "_flash_fwd", count("fwd", fwd))
+        monkeypatch.setattr(tattn, "_flash_bwd", count("bwd", bwd))
+        _, params = _jax_model()
+        tm = _port(params, attention="flash", remat=True)
+        tx = FusedOptimizer() if update == "fused_bucket" \
+            else ttrain.adamw(1e-3)
+        state = ttrain.create_train_state(tm, tx)
+        step = ttrain.make_accum_train_step(_next_token, microbatches=4,
+                                            update=update)
+        for _ in range(2):
+            state, m = step(state, {"x": torch.from_numpy(_tokens(14,
+                                                                  b=8))})
+        assert calls == {"fwd": 2 * LAYERS * 4 * 2, "bwd": LAYERS * 4 * 2}
+        assert np.isfinite(float(m["loss"]))
+
+    def test_errors(self):
+        tm = get_model("llama-tiny", device="cpu")
+        tok = {"x": torch.zeros((4, 8), dtype=torch.int64)}
+        with pytest.raises(ValueError, match="unknown update mode"):
+            ttrain.make_accum_train_step(microbatches=2, update="sgd")
+        for kw, item in ((dict(mesh=object()), "items 2 and 8"),
+                         (dict(reduce_op="reduce_scatter"), "items 2 and 8"),
+                         (dict(hierarchy="flat"), "items 2 and 8"),
+                         (dict(gather="per_leaf"), "items 2 and 8"),
+                         (dict(prefetch=2), "items 2 and 8"),
+                         (dict(quant=True), "item 6"),
+                         (dict(aot_cache=object()), "item 12")):
+            with pytest.raises(NotImplementedError, match=item):
+                ttrain.make_accum_train_step(microbatches=2, **kw)
+        plain = ttrain.create_train_state(tm, ttrain.adamw(1e-3))
+        with pytest.raises(ValueError, match="needs a state whose tx is a "
+                                             "tony_tpu_torch"):
+            ttrain.make_accum_train_step(
+                _next_token, microbatches=2, update="fused_bucket")(plain,
+                                                                    tok)
+        with pytest.raises(ValueError, match="not divisible by sync group "
+                                             "1 x microbatches 3"):
+            ttrain.make_accum_train_step(_next_token, microbatches=3)(
+                plain, tok)
+        fused = ttrain.create_train_state(
+            get_model("llama-tiny", device="cpu"),
+            FusedOptimizer(bucket_bytes=1 << 16))
+        with pytest.raises(ValueError, match="disagrees with the "
+                                             "FusedOptimizer's 65536"):
+            ttrain.make_accum_train_step(
+                _next_token, microbatches=2, update="fused_bucket",
+                bucket_bytes=1 << 12)(fused, tok)
+        with pytest.raises(ValueError, match="GradientTransformation"):
+            ttrain.make_accum_train_step(_next_token, microbatches=2)(
+                fused, tok)
 
 
 class TestLosses:

@@ -2,7 +2,8 @@
 
 The JAX package :mod:`tony_tpu` is the reference; this package holds its
 counterparts module for module (``ops/attention.py``,
-``models/transformer.py``, ``train/__init__.py``, ``serve/kvcache.py``,
+``ops/fused_optim.py``, ``models/transformer.py``,
+``parallel/overlap.py``, ``train/__init__.py``, ``serve/kvcache.py``,
 ``serve/engine.py``) in
 PyTorch, with every Pallas kernel on a ported path rewritten by hand in
 CUDA C++ for Hopper (``ops/csrc/``). It imports torch and numpy only —

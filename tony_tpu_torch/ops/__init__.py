@@ -10,6 +10,9 @@ launches by wrapper name.
 from tony_tpu_torch.ops.attention import (LAUNCHES, flash_attention,
                                           flash_attention_packed,
                                           flash_decode, reference_attention)
+from tony_tpu_torch.ops.fused_optim import (FusedOptimizer,
+                                            fused_bucket_update)
 
-__all__ = ["LAUNCHES", "flash_attention", "flash_attention_packed",
-           "flash_decode", "reference_attention"]
+__all__ = ["LAUNCHES", "FusedOptimizer", "flash_attention",
+           "flash_attention_packed", "flash_decode", "fused_bucket_update",
+           "reference_attention"]

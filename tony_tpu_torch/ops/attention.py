@@ -33,12 +33,14 @@ import torch
 
 _NEG_INF = -1e30
 
-# Kernel launches by wrapper name: each wrapper adds one where it
-# launches its kernel and nowhere else (a run resets the counts to 0 and
-# reads them back to show that its path went through the kernels).
+# Kernel launches by wrapper name, for every kernel of ``ops``: each
+# wrapper adds one where it launches its kernel and nowhere else (a run
+# resets the counts to 0 and reads them back to show that its path went
+# through the kernels).
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
-                             "flash_attention_bwd_dkv": 0}
+                             "flash_attention_bwd_dkv": 0,
+                             "fused_bucket_update": 0}
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
