@@ -296,3 +296,109 @@ def test_fused_accum_step_on_the_card_matches_the_cpu(gen):
         a, b = a.detach(), b.detach().cpu()
         assert float((b - a).abs().max()) <= 1e-5 * float(a.abs().max()), \
             name
+
+
+INT8_CASES = [(1, 1, 1), (33, 70, 130), (17, 4099, 257), (64, 128, 128),
+              (100, 272, 40), (256, 4096, 4096), (256, 4096, 11008),
+              (512, 11008, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_CASES)
+def test_int8_matmul_kernel_vs_plain(gen, m, k, n):
+    """Ragged and 7B path shapes: the kernel is bitwise its plain version
+    (exact integer accumulation, the same two roundings after it)."""
+    from tony_tpu_torch.ops import quant as tq
+
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((), generator=gen, device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda")
+    before = LAUNCHES["int8_matmul"]
+    y = tq.int8_matmul(xq, wq, sx, sw)
+    assert LAUNCHES["int8_matmul"] == before + 1
+    ref = tq._int8_matmul_plain(xq, wq, sx, sw)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and torch.equal(y, ref)
+
+
+def test_int8_matmul_kernel_takes_row_strides(gen):
+    """Row-strided views (16-byte aligned and not) go through the kernel
+    without a copy and give the contiguous result."""
+    from tony_tpu_torch.ops import quant as tq
+
+    big = torch.randint(-127, 128, (48, 208), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    wq = torch.randint(-127, 128, (24, 160), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx, sw = torch.tensor(0.01, device="cuda"), torch.rand(24, device="cuda")
+    for xq in (big[:, :160], big[:, 3:163]):
+        y = tq.int8_matmul(xq, wq, sx, sw)
+        assert torch.equal(y, tq.int8_matmul(xq.contiguous(), wq, sx, sw))
+
+
+def test_int8_matmul_kernel_rejects_off_inputs(gen):
+    from tony_tpu_torch.ops import quant as tq
+
+    x = torch.zeros((4, 32), dtype=torch.int8, device="cuda")
+    sx, sw = torch.tensor(1.0, device="cuda"), torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="int8 xq and wq"):
+        tq.int8_matmul(x.float(), x, sx, sw[:4])
+    with pytest.raises(ValueError, match="K-contiguous"):
+        tq.int8_matmul(x, torch.zeros((32, 8), dtype=torch.int8,
+                                      device="cuda").t(), sx, sw)
+    w8 = torch.zeros((8, 32), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="f32 scalar sx"):
+        tq.int8_matmul(x, w8, sx, sw[:4])
+    with pytest.raises(ValueError, match="f32 scalar sx"):
+        tq.int8_matmul(x, w8, sx.double(), sw)
+
+
+def test_quant_lane_never_reaches_the_plain_version(gen, monkeypatch):
+    """quant_dot, its STE backward and QuantDense on CUDA tensors launch
+    the kernel; the plain version is for CPU tensors only."""
+    from tony_tpu_torch.ops import quant as tq
+
+    def refuse(*a):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(tq, "_int8_matmul_plain", refuse)
+    x = torch.randn((3, 5, 64), generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    w = torch.randn((64, 48), generator=gen, device="cuda").requires_grad_()
+    before = LAUNCHES["int8_matmul"]
+    tq.quant_dot(x, w).sum().backward()
+    dense = tq.QuantDense(64, 48, bias=True, device="cuda")
+    dense(x.detach()).sum().backward()
+    assert LAUNCHES["int8_matmul"] == before + 2
+    assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    assert dense.weight.grad is not None
+
+
+def test_quant_train_step_kernel_vs_plain_on_the_card(gen):
+    """A tiny quantized decoder on the packed flash route: one step's
+    loss and every grad through the kernel and through the plain version
+    on the card are equal (the integer product is exact either way)."""
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.ops import quant as tq
+    from tony_tpu_torch.train import next_token_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = get_model("llama-tiny", device="cuda", dim=256, n_heads=2,
+                  n_kv_heads=1, ffn_hidden=256, attention="flash", remat=True,
+                  quant=True, seed=1)
+    tok = torch.randint(0, 256, (2, 96), generator=gen, device="cuda")
+    out = []
+    for impl in (tq._int8_matmul_cuda, tq._int8_matmul_plain):
+        saved = tq._int8_matmul_cuda
+        tq._int8_matmul_cuda = impl
+        try:
+            m.zero_grad(set_to_none=True)
+            loss = next_token_loss(m(tok), tok)
+            loss.backward()
+        finally:
+            tq._int8_matmul_cuda = saved
+        out.append((loss.detach(), [p.grad.clone() for p in m.parameters()]))
+    assert torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)

@@ -373,7 +373,7 @@ class TestAccumTrainStep:
                          (dict(hierarchy="flat"), "items 2 and 8"),
                          (dict(gather="per_leaf"), "items 2 and 8"),
                          (dict(prefetch=2), "items 2 and 8"),
-                         (dict(quant=True), "item 6"),
+                         (dict(quant=True), "item 8"),
                          (dict(aot_cache=object()), "item 12")):
             with pytest.raises(NotImplementedError, match=item):
                 ttrain.make_accum_train_step(microbatches=2, **kw)

@@ -257,7 +257,8 @@ class TestConvert:
 
 class TestUnported:
     @pytest.mark.parametrize("kw", [
-        dict(xent_chunk=8), dict(quant=True), dict(moe_experts=4),
+        dict(xent_chunk=8), dict(remat=True, remat_policy="dots_no_batch"),
+        dict(moe_experts=4),
         dict(remat=True, remat_policy="dots"), dict(attention="ring"),
         dict(mesh=object())])
     def test_unported_config_raises(self, kw):

@@ -1,13 +1,18 @@
 """Model zoo of the port: the counterpart of :mod:`tony_tpu.models`.
 
-Only the Llama-style decoder is ported so far
+Ported so far: the Llama-style decoder
 (:mod:`~tony_tpu_torch.models.transformer`: its training and serving
 forwards), registered as ``llama2-7b`` and ``llama-tiny`` with the JAX
-package's defaults. Models are ``torch.nn.Module``s built on an explicit
-device (``None`` = the card).
+package's defaults, and the MNIST MLP
+(:mod:`~tony_tpu_torch.models.mnist`, ``mnist-mlp``). Models are
+``torch.nn.Module``s built on an explicit device (``None`` = the card).
 """
 
+import math
 from typing import Any, Callable, Dict
+
+import torch
+from torch import nn
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 
@@ -19,10 +24,22 @@ def register(name: str):
     return deco
 
 
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's ``lecun_normal``: truncated normal on [-2σ, 2σ] with
+    variance 1/fan_in (σ corrected for the truncation), drawn in f32 and
+    cast. ``w`` is torch's ``[out, in]``, so fan_in is ``w.shape[1]``."""
+    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std,
+                          generator=gen)
+    w.copy_(tmp)
+
+
 def get_model(name: str, **kw):
-    """Build a registered model by name (``llama2-7b``, ``llama-tiny``)."""
+    """Build a registered model by name (``llama2-7b``, ``llama-tiny``,
+    ``mnist-mlp``)."""
     # Import for registration side effects.
-    from tony_tpu_torch.models import transformer  # noqa: F401
+    from tony_tpu_torch.models import mnist, transformer  # noqa: F401
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kw)

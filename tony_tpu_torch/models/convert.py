@@ -1,4 +1,5 @@
-"""Carry the JAX package's decoder weights into the port's module.
+"""Carry the JAX package's weights into the port's modules: the decoder
+and the MNIST MLP.
 
 The input is the JAX package's param tree as a nested dict of **numpy**
 arrays (``jax.tree.map(np.asarray, params)`` on the JAX side — this
@@ -9,8 +10,13 @@ module never imports jax). Both of its layouts are read:
   shape ``[L, dim, n_heads·head_dim]``;
 * unscanned: ``layer_{i}/block/...``.
 
+The MNIST MLP's tree is ``Dense_i/kernel`` and ``Dense_i/bias`` on both
+of its lanes.
+
 flax's Dense kernels are ``[in, out]``; torch's ``nn.Linear`` weights
-are ``[out, in]``, so every kernel is transposed. bfloat16 arrays
+are ``[out, in]``, so every kernel is transposed. The quantized lanes
+keep the same paths (``QuantDense`` is ``nn.Dense``'s twin), so one
+converter serves both lanes of each model. bfloat16 arrays
 (ml_dtypes, which ``torch.from_numpy`` rejects) cross through a
 ``uint16`` view.
 """
@@ -21,8 +27,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
-
-from tony_tpu_torch.models.transformer import Transformer
+from torch import nn
 
 _BLOCK_LEAVES = {
     ("attn_norm", "scale"): "attn_norm.scale",
@@ -90,16 +95,35 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def mlp_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The MNIST MLP's ``state_dict`` names → CPU tensors from its JAX tree
+    (``Dense_i/kernel`` ``[in, out]`` → ``Dense_i.weight`` ``[out, in]``,
+    ``Dense_i/bias``)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for name in sorted(tree):
+        out[f"{name}.weight"] = _tensor(_get(tree, (name, "kernel"))).t()
+        out[f"{name}.bias"] = _tensor(_get(tree, (name, "bias")))
+    return out
+
+
 @torch.no_grad()
-def load_jax_params(model: Transformer, tree: Mapping[str, Any]
-                    ) -> Transformer:
+def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Fill ``model`` in place from a JAX param tree of numpy arrays,
-    casting to each parameter's storage dtype and device: an f32 tree
-    lands bitwise in the default f32 parameters (training), and a server
-    built with ``param_dtype=cfg.dtype`` gets the one cast that the JAX
-    module makes at every use. Every parameter must be covered and every
-    converted leaf used, with equal shapes."""
-    src = params_from_jax(tree)
+    through the tree converter the model names as its
+    ``params_from_jax`` (the decoder's :func:`params_from_jax`, the MNIST
+    MLP's :func:`mlp_params_from_jax`), casting to each parameter's
+    storage dtype and device: an f32 tree lands bitwise in the default
+    f32 parameters (training), and a server built with
+    ``param_dtype=cfg.dtype`` gets the one cast that the JAX module makes
+    at every use. Every parameter must be covered and every converted
+    leaf used, with equal shapes."""
+    convert = getattr(model, "params_from_jax", None)
+    if convert is None:
+        raise TypeError(f"{type(model).__name__} names no JAX tree "
+                        f"converter (params_from_jax)")
+    src = convert(tree)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(src))
     extra = sorted(set(src) - set(params))

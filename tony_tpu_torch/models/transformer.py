@@ -19,6 +19,12 @@ Two forwards:
   :func:`tony_tpu_torch.ops.flash_decode`, and the raw rows come back for
   the engine to commit into its paged pool. Runs under inference mode.
 
+Both forwards run the ``quant=`` lanes (:meth:`TransformerConfig.quant_lanes`):
+a projection group in the set computes through
+:class:`tony_tpu_torch.ops.quant.QuantDense` (int8 × int8 → int32 on the
+card's int8 kernel, f32 rescale) instead of :class:`Dense`, with the
+same ``*.weight`` parameter names either way.
+
 The numerics follow the JAX module: parameters stored in
 ``param_dtype`` (f32 by default, as the JAX module's ``param_dtype``),
 cast to ``cfg.dtype`` where they are used (projections and the embedded
@@ -31,7 +37,6 @@ promotion, logits in f32.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
@@ -40,9 +45,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch import resolve_device
-from tony_tpu_torch.models import register
+from tony_tpu_torch.models import lecun_normal_, register
+from tony_tpu_torch.models.convert import params_from_jax
 from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
                                 flash_decode, reference_attention)
+from tony_tpu_torch.ops.quant import QuantDense
 
 _LATER = "ROADMAP.md, queue 1"
 
@@ -62,8 +69,11 @@ class TransformerConfig:
     # The fields below shape the training forward; the serving forward
     # ignores attention/scan_layers/remat/remat_policy (a plain layer
     # loop, no gradients). scan_layers only names the JAX param layout
-    # (convert.py reads both). attention="ring", a mesh, MoE, xent_chunk,
-    # quant and the "dots" remat policies raise until their slices land.
+    # (convert.py reads both). attention="ring", a mesh, MoE, xent_chunk
+    # and the "dots" remat policies raise until their slices land.
+    # quant: which projection groups run the int8 lane — True means
+    # ("qkv", "o", "mlp"); a string or tuple selects ("lm_head" opts the
+    # unembed in).
     attention: str = "flash"
     scan_layers: bool = True
     remat: bool = True
@@ -79,6 +89,25 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def quant_lanes(self) -> frozenset:
+        """The validated set of quantized projection groups."""
+        if not self.quant:
+            return frozenset()
+        lanes = ("qkv", "o", "mlp") if self.quant is True else (
+            (self.quant,) if isinstance(self.quant, str)
+            else tuple(self.quant))
+        unknown = set(lanes) - {"qkv", "o", "mlp", "lm_head"}
+        if unknown:
+            raise ValueError(
+                f"unknown quant lane(s) {sorted(unknown)} — choose from "
+                f"('qkv', 'o', 'mlp', 'lm_head')")
+        if "lm_head" in lanes and self.xent_chunk:
+            raise ValueError(
+                "quant lane 'lm_head' is not supported with xent_chunk "
+                "(the fused head+loss consumes the kernel row-chunked; "
+                "quantize it separately or drop the lane)")
+        return frozenset(lanes)
 
     def flops_per_token(self) -> int:
         """≈6·N_matmul FLOPs per trained token (fwd+bwd), plus attention's
@@ -165,8 +194,15 @@ class Dense(nn.Linear):
                         self.weight.to(self.compute_dtype))
 
 
-def _linear(cfg: TransformerConfig, n_in: int, n_out: int,
-            device: torch.device, param_dtype: torch.dtype) -> Dense:
+def _proj_dense(cfg: TransformerConfig, lane: str, n_in: int, n_out: int,
+                device: torch.device, param_dtype: torch.dtype) -> nn.Linear:
+    """One projection on either compute lane (transformer.py:148-162):
+    :class:`Dense` or, when ``lane`` is in the config's quant set, its
+    quantized twin; the parameter is ``weight [n_out, n_in]`` either way,
+    so weights move freely between the lanes."""
+    if lane in cfg.quant_lanes():
+        return QuantDense(n_in, n_out, dtype=cfg.dtype,
+                          param_dtype=param_dtype, device=device)
     return Dense(n_in, n_out, cfg.dtype, param_dtype, device)
 
 
@@ -180,10 +216,14 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        self.wq = _linear(cfg, cfg.dim, nh * hd, device, param_dtype)
-        self.wk = _linear(cfg, cfg.dim, nkv * hd, device, param_dtype)
-        self.wv = _linear(cfg, cfg.dim, nkv * hd, device, param_dtype)
-        self.wo = _linear(cfg, nh * hd, cfg.dim, device, param_dtype)
+        self.wq = _proj_dense(cfg, "qkv", cfg.dim, nh * hd, device,
+                              param_dtype)
+        self.wk = _proj_dense(cfg, "qkv", cfg.dim, nkv * hd, device,
+                              param_dtype)
+        self.wv = _proj_dense(cfg, "qkv", cfg.dim, nkv * hd, device,
+                              param_dtype)
+        self.wo = _proj_dense(cfg, "o", nh * hd, cfg.dim, device,
+                              param_dtype)
 
     def forward(self, x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
         """Training forward: causal self-attention over the t rows, routed
@@ -251,12 +291,12 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device,
                  param_dtype: torch.dtype):
         super().__init__()
-        self.w_gate = _linear(cfg, cfg.dim, cfg.ffn_hidden, device,
-                              param_dtype)
-        self.w_up = _linear(cfg, cfg.dim, cfg.ffn_hidden, device,
-                            param_dtype)
-        self.w_down = _linear(cfg, cfg.ffn_hidden, cfg.dim, device,
-                              param_dtype)
+        self.w_gate = _proj_dense(cfg, "mlp", cfg.dim, cfg.ffn_hidden,
+                                  device, param_dtype)
+        self.w_up = _proj_dense(cfg, "mlp", cfg.dim, cfg.ffn_hidden, device,
+                                param_dtype)
+        self.w_down = _proj_dense(cfg, "mlp", cfg.ffn_hidden, cfg.dim,
+                                  device, param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
@@ -284,24 +324,16 @@ class Block(nn.Module):
         return x, new_kv
 
 
-def _lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
-    """flax's ``lecun_normal``: truncated normal on [-2σ, 2σ] with
-    variance 1/fan_in (σ corrected for the truncation), drawn in f32 and
-    cast. ``w`` is torch's ``[out, in]``, so fan_in is ``w.shape[1]``."""
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
-    tmp = torch.empty(w.shape, dtype=torch.float32, device=w.device)
-    nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std,
-                          generator=gen)
-    w.copy_(tmp)
-
-
 class Transformer(nn.Module):
+    # The JAX decoder tree's converter, read by ``load_jax_params``.
+    params_from_jax = staticmethod(params_from_jax)
+
     def __init__(self, cfg: TransformerConfig,
                  device: Optional[Union[str, torch.device]] = None,
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
+        cfg.quant_lanes()       # validates the lanes, as the JAX module
         for field, slice_name in (("xent_chunk", "the chunked-loss slice"),
-                                  ("quant", "the quantized lane"),
                                   ("moe_experts", "the MoE slice"),
                                   ("mesh", "the sharded slices")):
             if getattr(cfg, field):
@@ -331,7 +363,8 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(cfg, dev, param_dtype)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, dev)
-        self.lm_head = _linear(cfg, cfg.dim, cfg.vocab, dev, param_dtype)
+        self.lm_head = _proj_dense(cfg, "lm_head", cfg.dim, cfg.vocab, dev,
+                                   param_dtype)
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Transformer":
@@ -351,7 +384,7 @@ class Transformer(nn.Module):
             if name.endswith(".scale"):
                 p.fill_(1.0)
             elif name.endswith(".weight"):
-                _lecun_normal_(p, gen)
+                lecun_normal_(p, gen)
         return self
 
     def forward(self, tokens: torch.Tensor, targets=None, *,

@@ -234,8 +234,10 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
     ``None``: its bucketed reduction is the cross-device sync, which a
     one-device step does not have.) A mesh, or ``reduce_op``,
     ``hierarchy``, ``gather`` or ``prefetch`` away from their defaults
-    (ROADMAP.md queue 1 items 2 and 8), ``quant=True`` (item 6) and
-    ``aot_cache`` (item 12) raise ``NotImplementedError``. ``donate`` is
+    (ROADMAP.md queue 1 items 2 and 8), ``quant=True`` (the int8 ZeRO-3
+    forward gathers, item 8) and ``aot_cache`` (item 12) raise
+    ``NotImplementedError``. The quantized compute lane needs no switch
+    here: a model built with ``quant=`` carries it. ``donate`` is
     accepted and has no effect: the step updates the state in place."""
     if update not in ("optax", "fused_bucket"):
         raise ValueError(f"unknown update mode {update!r} "
@@ -247,8 +249,9 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
             "gather, prefetch) is not ported yet (ROADMAP.md, queue 1 "
             "items 2 and 8)")
     if quant:
-        raise NotImplementedError("quant=True (int8 forward gathers) is not "
-                                  "ported yet (ROADMAP.md, queue 1 item 6)")
+        raise NotImplementedError("quant=True (int8 ZeRO-3 forward gathers) "
+                                  "is not ported yet (ROADMAP.md, queue 1 "
+                                  "item 8)")
     if aot_cache is not None:
         raise NotImplementedError("aot_cache is not ported yet (ROADMAP.md, "
                                   "queue 1 item 12)")
