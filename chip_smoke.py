@@ -63,16 +63,39 @@ caught):
    falling and within 5e-2 of the train phase's first loss, exact launch
    counts (remat recomputes each quantized projection: 7 × layers × 2
    per step), step time, throughput, MFU, peak memory and a profile;
-10. report — a ``{"kernels": [...]}`` line (rows 1-9, 14 and 15), a
+10. train_resnet — ResNet-50 at full width (224², s2d stem, bf16
+   compute, f32 parameters and statistics) on the fused BN lane, batch
+   256 of seeded images, ``sgd(0.1, momentum=0.9)`` through
+   ``make_train_step``, 8 steps: exact BN launch counts (53 stats, 53
+   apply, 37 + 37 backward without the residual and 16 + 16 with it, per
+   step), the loss finite and falling, every running statistic finite
+   and moved; step time, images/s, MFU, peak memory and a profile; then
+   the plain lane (flax-style BatchNorm, no BN kernel launched) from the
+   same weights on the same batch; then one f32 step at batch 32 with
+   deterministic cuDNN, on loss, every grad and the new running
+   statistics, from flax's init (the reference test's setup) and with
+   every block's exit scale 1: the elementwise kernels bitwise their
+   plain versions in the model; the kernels against the plain versions;
+   the fused lane against the plain lane;
+11. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
-   ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, the card
+   ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, a
+   ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, the card
    line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
 version at the quant lane's decode, prefill, train and ``lm_head``
 shapes of the 7B and at ragged shapes, timed beside its bound, the plain
 version, ``torch._int_mm`` plus the rescale, and the bf16 ``F.linear``
-the lane replaces.
+the lane replaces; and the fused BatchNorm kernels (rows 10-13) against
+their plain versions at every distinct BN input of ResNet-50 at batch
+256 in bf16, at its stem, stage-1 exit and stage-4 shapes and a ragged
+shape in f32 (the ragged one in bf16 too), with and without the
+residual and the ReLU (elementwise passes ``torch.equal``,
+reductions within 1e-5 of their sums' scale, two runs of every kernel
+``torch.equal``), timed in bf16 beside their bounds, plain versions, the
+``torch.batch_norm_*`` passes and ``F.batch_norm`` + ``F.relu`` (+ the
+add) with its autograd backward.
 """
 
 from __future__ import annotations
@@ -94,14 +117,17 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tony_tpu_torch.models import get_model  # noqa: E402
+from tony_tpu_torch.models.resnet import (FusedBNAct,  # noqa: E402
+                                          resnet50_flops)
 from tony_tpu_torch.ops import LAUNCHES, _build  # noqa: E402
 from tony_tpu_torch.ops import attention as attn  # noqa: E402
+from tony_tpu_torch.ops import batchnorm as bn  # noqa: E402
 from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.ops import quant as tq  # noqa: E402
 from tony_tpu_torch.serve import EngineFront, ServeEngine  # noqa: E402
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
-                                  make_accum_train_step, make_train_step,
-                                  next_token_loss)
+                                  cross_entropy_loss, make_accum_train_step,
+                                  make_train_step, next_token_loss, sgd)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
@@ -751,10 +777,14 @@ def plain_attention_on_the_card():
 
 
 def rel_l2(a, b):
-    """Per parameter ||a - b|| / ||b||; raises on a non-finite value."""
+    """Per parameter ||a - b|| / ||b|| (0 where both are exactly zero);
+    raises on a non-finite value."""
     out = {}
     for name, gb in b.items():
-        rel = ((a[name].float() - gb.float()).norm() / gb.float().norm())
+        diff = (a[name].float() - gb.float()).norm()
+        ref = gb.float().norm()
+        rel = diff if float(ref) == 0.0 and float(diff) == 0.0 \
+            else diff / ref
         out[name] = rel.item()
         if not math.isfinite(out[name]):
             raise AssertionError(f"train grads: {name} not finite")
@@ -834,10 +864,17 @@ def profile_train(step, state, batch, steps=2):
         return None
     busy = sum(by_name.values())
     groups = {"flash_attention": 0.0, "fused_update": 0.0, "gemm": 0.0,
-              "int8_matmul": 0.0, "quantize": 0.0, "other": 0.0}
+              "int8_matmul": 0.0, "quantize": 0.0, "bn_kernels": 0.0,
+              "conv": 0.0, "other": 0.0}
     for key, ms in by_name.items():
         low = key.lower()
-        if "fused_bucket_update_kernel" in low:
+        if any(w in low for w in ("bn_reduce_kernel", "bn_finalize_kernel",
+                                  "bn_apply_kernel", "bn_dx_kernel")):
+            groups["bn_kernels"] += ms
+        elif any(w in low for w in ("fprop", "dgrad", "wgrad", "convolve",
+                                    "cudnn")):
+            groups["conv"] += ms
+        elif "fused_bucket_update_kernel" in low:
             groups["fused_update"] += ms
         elif "int8_matmul_kernel" in low:
             groups["int8_matmul"] += ms
@@ -859,17 +896,17 @@ def profile_train(step, state, batch, steps=2):
             "top_kernels_ms_per_step": [[k[:90], v] for k, v in top]}
 
 
-def drive_steps(tag, cfg, step, state, batch, names, expect):
-    """TRAIN_STEPS steps, the launch counts of ``names`` set to 0 just
+def timed_steps(tag, step, state, batch, names, expect, steps):
+    """``steps`` steps, the launch counts of ``names`` set to 0 just
     before and read just after (they must equal ``expect``), the loss
-    finite and falling; then a two-step profile. Returns the step
-    numbers of the phase's report line."""
+    finite and falling; then a two-step profile. Returns the losses,
+    grad norms, step times, p50, peak memory, launches and profile."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for name in names:
         LAUNCHES[name] = 0
     losses, step_ms, gnorms = [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t1 = time.monotonic()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))      # syncs
@@ -888,19 +925,25 @@ def drive_steps(tag, cfg, step, state, batch, names, expect):
         raise AssertionError(f"{tag}: launches {launches} != {expect}")
     log(f"  launches {launches} (= expected); peak memory "
         f"{peak / 1e9:.1f} GB")
-    p50 = float(np.median(step_ms))
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
-    flops_tok = dataclasses.replace(cfg, max_seq=TRAIN_SEQ).flops_per_token()
     log(f"[{tag} profile]")
     prof = profile_train(step, state, batch)
     log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
-    return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-            "lr": TRAIN_LR, "losses": losses, "grad_norms": gnorms,
-            "step_ms": step_ms, "step_p50_ms": p50,
-            "tokens_per_s": tokens_per_s, "flops_per_token": flops_tok,
-            "mfu": tokens_per_s * flops_tok / PEAK_FLOPS[torch.bfloat16],
+    return {"steps": steps, "losses": losses, "grad_norms": gnorms,
+            "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "max_memory_allocated": peak, "launches": launches,
             "profile": prof}
+
+
+def drive_steps(tag, cfg, step, state, batch, names, expect):
+    """TRAIN_STEPS decoder steps through :func:`timed_steps`, with
+    tokens/s and MFU. Returns the step numbers of the phase's report
+    line."""
+    run = timed_steps(tag, step, state, batch, names, expect, TRAIN_STEPS)
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (run["step_p50_ms"] / 1e3)
+    flops_tok = dataclasses.replace(cfg, max_seq=TRAIN_SEQ).flops_per_token()
+    return {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR, **run,
+            "tokens_per_s": tokens_per_s, "flops_per_token": flops_tok,
+            "mfu": tokens_per_s * flops_tok / PEAK_FLOPS[torch.bfloat16]}
 
 
 def train_phase(card: str):
@@ -1282,6 +1325,595 @@ def train_quant_phase(card: str, first_loss: float):
     }
 
 
+# ---------------------------------------------------------------------
+# Fused BatchNorm (kernel rows 10-13) and ResNet-50 training.
+# ---------------------------------------------------------------------
+
+# (name, N, H, W, C): three of ResNet-50's BN inputs at batch 256 — the
+# stem (112² x 64), stage 1's block exit (56² x 256) and stage 4 (7² x
+# 2048) — checked in f32 and timed in bf16, then a ragged M with a C that
+# is not a power of two. Every distinct BN input of the main path is
+# checked in bf16 besides (resnet_bn_inputs).
+BN_SHAPES = [("stem", 256, 112, 112, 64), ("stage1_exit", 256, 56, 56, 256),
+             ("stage4", 256, 7, 7, 2048), ("ragged", 1, 1, 1000003, 96)]
+BN_TIMED = ("stem", "stage1_exit", "stage4")
+BN_MAIN = "stage1_exit"
+BN_EPS = 1e-5
+# Reductions against their plain versions: another summation order, so
+# |Δ| within 1e-5 of each sum's scale (the sum of its terms' magnitudes,
+# which bounds f32 summation error); elementwise passes bitwise.
+BN_SUM_REL = 1e-5
+# Rows 10-13 by wrapper: (TPU kernel line, row).
+BN_NAMES = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx",
+            "bn_add_bwd_reduce", "bn_add_bwd_dx")
+BN_REPLACES = {"bn_stats": (58, 10), "bn_apply": (98, 11),
+               "bn_bwd_reduce": (114, 12), "bn_bwd_dx": (157, 12),
+               "bn_add_bwd_reduce": (135, 13), "bn_add_bwd_dx": (168, 13)}
+# Elements of [M, C] each timed variant reads and writes (relu=True; the
+# residual variants read the residual and, in dx, write dres), and its
+# f32 operations per element.
+BN_TRAFFIC = {"bn_stats": (1, 3), "bn_apply": (2, 6),
+              "bn_bwd_reduce": (2, 10), "bn_bwd_dx": (3, 12),
+              "bn_add_bwd_reduce": (3, 11), "bn_add_bwd_dx": (5, 13)}
+
+
+def bn_case(n, h, w, c, dtype, gen):
+    m = n * h * w
+    x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).to(
+        dtype)
+    res = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+    mean, var = bn._batch_stats(bn._stats_plain(x), m)
+    return x, res, dy, mean, var, gamma, beta
+
+
+def sum_rel(got, ref, scale):
+    return float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+
+
+def equal_twice(fn, what):
+    """Two runs of a kernel give the same bits (one tensor or a tuple)."""
+    a, b = fn(), fn()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    for u, v in zip(a, b):
+        if u is not None and not torch.equal(u, v):
+            raise AssertionError(f"{what}: two runs differ")
+
+
+def check_bn_case(name, shape, dtype, gen):
+    """Rows 10-13 against their plain versions at one shape: the
+    reductions within BN_SUM_REL of their sums' scale, the elementwise
+    passes torch.equal, with and without the residual and the ReLU; two
+    runs of every kernel torch.equal. Returns the worst errors."""
+    x, res, dy, mean, var, gamma, beta = bn_case(*shape, dtype, gen)
+    m = x.shape[0]
+    chans = (mean, var, gamma, beta)
+    out = {"max_abs_err": {}, "sum_rel": {}}
+
+    def note(kernel, err, rel=None):
+        out["max_abs_err"][kernel] = max(out["max_abs_err"].get(kernel, 0.0),
+                                         err)
+        if rel is not None:
+            out["sum_rel"][kernel] = max(out["sum_rel"].get(kernel, 0.0), rel)
+
+    sums = bn._stats_cuda(x)
+    ref = bn._stats_plain(x)
+    xd = x.double()
+    scale = torch.stack([xd.abs().sum(0), (xd * xd).sum(0)]).float()
+    del xd
+    rel = sum_rel(sums, ref, scale)
+    note("bn_stats", (sums - ref).abs().max().item(), rel)
+    if rel > BN_SUM_REL:
+        raise AssertionError(f"bn_stats {name} {dtype}: {rel} > {BN_SUM_REL}")
+    equal_twice(lambda: bn._stats_cuda(x), f"bn_stats {name}")
+    for r in (None, res):
+        red_name = "bn_bwd_reduce" if r is None else "bn_add_bwd_reduce"
+        dx_name = "bn_bwd_dx" if r is None else "bn_add_bwd_dx"
+        for relu in (True, False):
+            what = f"{name} {str(dtype)[6:]} residual={r is not None} " \
+                   f"relu={relu}"
+            o = bn._apply_cuda(x, *chans, r, BN_EPS, relu)
+            o_p = bn._apply_plain(x, *chans, r, BN_EPS, relu)
+            note("bn_apply", (o.float() - o_p.float()).abs().max().item())
+            if not torch.equal(o, o_p):
+                raise AssertionError(f"bn_apply {what}: differs from plain")
+            equal_twice(lambda: bn._apply_cuda(x, *chans, r, BN_EPS, relu),
+                        f"bn_apply {what}")
+            del o, o_p
+            red = bn._bwd_reduce_cuda(dy, x, *chans, r, BN_EPS, relu)
+            red_p = bn._bwd_reduce_plain(dy, x, *chans, r, BN_EPS, relu)
+            pre, xhat, _ = bn._pre_act(x, *chans, BN_EPS)
+            g = bn._masked_grad(dy, pre, r, relu)
+            del pre
+            scale = torch.stack([g.abs().sum(0, dtype=torch.float64),
+                                 (g * xhat).abs().sum(0, dtype=torch.float64)
+                                 ]).float()
+            del g, xhat
+            rel = sum_rel(red, red_p, scale)
+            note(red_name, (red - red_p).abs().max().item(), rel)
+            if rel > BN_SUM_REL:
+                raise AssertionError(f"{red_name} {what}: {rel} > "
+                                     f"{BN_SUM_REL}")
+            equal_twice(lambda: bn._bwd_reduce_cuda(dy, x, *chans, r, BN_EPS,
+                                                    relu), f"{red_name} {what}")
+            dx, dres = bn._bwd_dx_cuda(dy, x, *chans, red_p, r, BN_EPS, relu,
+                                       1.0 / m)
+            dx_p, dres_p = bn._bwd_dx_plain(dy, x, *chans, red_p, r, BN_EPS,
+                                            relu, 1.0 / m)
+            err = (dx.float() - dx_p.float()).abs().max().item()
+            same = torch.equal(dx, dx_p)
+            if r is not None:
+                err = max(err, (dres.float() - dres_p.float()).abs().max()
+                          .item())
+                same = same and torch.equal(dres, dres_p)
+            note(dx_name, err)
+            if not same:
+                raise AssertionError(f"{dx_name} {what}: differs from plain "
+                                     f"(max |Δ| {err})")
+            equal_twice(lambda: bn._bwd_dx_cuda(dy, x, *chans, red_p, r,
+                                                BN_EPS, relu, 1.0 / m),
+                        f"{dx_name} {what}")
+            del dx, dres, dx_p, dres_p, red, red_p
+    torch.cuda.synchronize()
+    return out
+
+
+def bn_bound(name, m, c, itemsize):
+    """Bytes each input is read once and each output written once (the
+    [M, C] tensors plus the [C] and [2, C] vectors), over HBM bandwidth;
+    against the pass's f32 operations at the f32 peak."""
+    elems, ops = BN_TRAFFIC[name]
+    nbytes = elems * m * c * itemsize + 8 * 4 * c
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops * m * c / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_bn(shape, gen):
+    """bf16, relu=True, at one ResNet-50 shape: each kernel beside its
+    plain version, its bound and a library yardstick (timed here only;
+    the port never calls them): ``torch.batch_norm_stats`` for row 10,
+    ``torch.batch_norm_elemt`` for row 11, ``batch_norm_backward_reduce``
+    and ``batch_norm_backward_elemt`` for rows 12/13 (the same passes
+    without the ReLU mask and the residual); and both directions against
+    ``F.batch_norm(training=True)`` + ``F.relu`` (+ the add) and its
+    autograd backward."""
+    n, h, w, c = shape
+    x, res, dy, mean, var, gamma, beta = bn_case(*shape, torch.bfloat16, gen)
+    m = x.shape[0]
+    chans = (mean, var, gamma, beta)
+    red = bn._bwd_reduce_plain(dy, x, *chans, None, BN_EPS, True)
+    kernels = {
+        "bn_stats": (lambda: bn._stats_cuda(x),
+                     lambda: bn._stats_plain(x)),
+        "bn_apply": (lambda: bn._apply_cuda(x, *chans, None, BN_EPS, True),
+                     lambda: bn._apply_plain(x, *chans, None, BN_EPS, True)),
+        "bn_bwd_reduce": (
+            lambda: bn._bwd_reduce_cuda(dy, x, *chans, None, BN_EPS, True),
+            lambda: bn._bwd_reduce_plain(dy, x, *chans, None, BN_EPS, True)),
+        "bn_bwd_dx": (
+            lambda: bn._bwd_dx_cuda(dy, x, *chans, red, None, BN_EPS, True,
+                                    1 / m),
+            lambda: bn._bwd_dx_plain(dy, x, *chans, red, None, BN_EPS, True,
+                                     1 / m)),
+        "bn_add_bwd_reduce": (
+            lambda: bn._bwd_reduce_cuda(dy, x, *chans, res, BN_EPS, True),
+            lambda: bn._bwd_reduce_plain(dy, x, *chans, res, BN_EPS, True)),
+        "bn_add_bwd_dx": (
+            lambda: bn._bwd_dx_cuda(dy, x, *chans, red, res, BN_EPS, True,
+                                    1 / m),
+            lambda: bn._bwd_dx_plain(dy, x, *chans, red, res, BN_EPS, True,
+                                     1 / m)),
+    }
+    # NCHW views in channels_last layout for the library calls.
+    nchw = lambda t: t.view(n, h, w, c).permute(0, 3, 1, 2)
+    xn, dyn, resn = nchw(x), nchw(dy), nchw(res)
+    invstd = torch.rsqrt(var + BN_EPS)
+    count = torch.full((1,), m, dtype=torch.int32, device="cuda")
+    sum_dy, sum_dy_xmu = red[0], red[1]
+    library = {
+        "bn_stats": lambda: torch.batch_norm_stats(xn, BN_EPS),
+        "bn_apply": lambda: torch.batch_norm_elemt(xn, gamma, beta, mean,
+                                                   invstd, BN_EPS),
+        "bn_bwd_reduce": lambda: torch.batch_norm_backward_reduce(
+            dyn, xn, mean, invstd, gamma, True, True, True),
+        "bn_bwd_dx": lambda: torch.batch_norm_backward_elemt(
+            dyn, xn, mean, invstd, gamma, sum_dy, sum_dy_xmu, count),
+    }
+    library["bn_add_bwd_reduce"] = library["bn_bwd_reduce"]
+    library["bn_add_bwd_dx"] = library["bn_bwd_dx"]
+    out = {}
+    for name, (kern, plain) in kernels.items():
+        res_ms = {"ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, iters=5,
+                                                            warmup=1)}
+        res_ms["bound_ms"], res_ms["bound_by"] = bn_bound(name, m, c, 2)
+        try:
+            res_ms["library_ms"] = cuda_ms(library[name])
+        except (RuntimeError, TypeError) as exc:   # yardstick only
+            res_ms["library_ms"] = None
+            res_ms["library_refused"] = str(exc).splitlines()[0][:160]
+        res_ms["gb_per_s"] = (BN_TRAFFIC[name][0] * m * c * 2
+                              / res_ms["ms"] / 1e6)
+        out[name] = res_ms
+    # Both directions against F.batch_norm + relu (+ add) and autograd.
+    torch.cuda.empty_cache()
+    for tag, r in (("plain", None), ("residual", resn)):
+        xg = xn.detach().requires_grad_()
+        wg = gamma.detach().requires_grad_()
+        bg = beta.detach().requires_grad_()
+        rg = None if r is None else r.detach().requires_grad_()
+
+        def fwd():
+            y = torch.nn.functional.batch_norm(xg, None, None, wg, bg,
+                                               training=True, eps=BN_EPS)
+            if rg is not None:
+                y = y + rg
+            return torch.relu(y)
+        y = fwd()
+        inputs = (xg, wg, bg) + (() if rg is None else (rg,))
+        with torch.no_grad():
+            fwd_ms = cuda_ms(fwd)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            y, inputs, dyn, retain_graph=True))
+        ours_fwd = out["bn_stats"]["ms"] + out["bn_apply"]["ms"]
+        pre = "bn_bwd" if r is None else "bn_add_bwd"
+        ours_bwd = out[f"{pre}_reduce"]["ms"] + out[f"{pre}_dx"]["ms"]
+        out[f"vs_f_batch_norm_{tag}"] = {
+            "fwd_library_ms": fwd_ms, "fwd_kernels_ms": ours_fwd,
+            "bwd_library_ms": bwd_ms, "bwd_kernels_ms": ours_bwd}
+        del y, xg, rg
+        torch.cuda.empty_cache()
+    return out
+
+
+def resnet_bn_inputs(batch):
+    """The distinct ``(M, C)`` BN inputs of the main path's ResNet-50
+    (fused lane, s2d stem, 224²) at ``batch``, largest first: read by
+    forward pre-hooks on every FusedBNAct in one batch-1 forward on the
+    card (M = N·H·W scales with the batch)."""
+    model = get_model("resnet50", device="cuda", fused_bn=True,
+                      s2d_stem=True, seed=SEED)
+    seen = []
+    for mod in model.modules():
+        if isinstance(mod, FusedBNAct):
+            mod.register_forward_pre_hook(lambda _mod, args: seen.append(
+                (batch * args[0].shape[2] * args[0].shape[3],
+                 args[0].shape[1])))
+    with torch.no_grad():
+        model(torch.zeros((1, RESNET_IMAGE, RESNET_IMAGE, 3), device="cuda"),
+              train=True)
+    if len(seen) != RESNET_BN_PER_STEP["bn_stats"]:
+        raise AssertionError(f"resnet50: {len(seen)} BN layers seen, not "
+                             f"{RESNET_BN_PER_STEP['bn_stats']}")
+    return sorted(set(seen), reverse=True)
+
+
+def check_bn(gen):
+    """Against the plain versions: every distinct BN input of the main
+    path in bf16 (its dtype), the named shapes in f32 and the ragged one
+    in both; then the named ResNet-50 shapes timed (bf16)."""
+    path = resnet_bn_inputs(RESNET_BATCH)
+    named = {name: (n * h * w, c) for name, n, h, w, c in BN_SHAPES}
+    off_path = [name for name in BN_TIMED if named[name] not in path]
+    if off_path:
+        raise AssertionError(f"BN shapes {off_path} are not ResNet-50's at "
+                             f"batch {RESNET_BATCH}: {path}")
+    cases = [(f"m{m}_c{c}", (1, 1, m, c), torch.bfloat16) for m, c in path]
+    cases += [(name, shape, torch.float32) for name, *shape in BN_SHAPES]
+    cases += [(name, shape, torch.bfloat16) for name, *shape in BN_SHAPES
+              if name not in BN_TIMED]
+    checked = {}
+    for name, shape, dtype in cases:
+        checked[f"{name}_{str(dtype)[6:]}"] = check_bn_case(name, shape,
+                                                            dtype, gen)
+        torch.cuda.empty_cache()
+    worst = {k: max(c["max_abs_err"].get(k, 0.0) for c in checked.values())
+             for k in BN_NAMES}
+    worst_rel = {k: max(c["sum_rel"].get(k, 0.0) for c in checked.values())
+                 for k in BN_NAMES if "dx" not in k and k != "bn_apply"}
+    log(f"  batchnorm rows 10-13: all {len(path)} distinct BN inputs of "
+        f"ResNet-50 at batch {RESNET_BATCH} in bf16 ({path}), "
+        f"{len(BN_SHAPES)} shapes in f32, ragged in bf16; x residual x "
+        f"relu: elementwise == plain (torch.equal), reductions within "
+        f"{worst_rel} of their sums' scale (limit {BN_SUM_REL}); two runs "
+        f"of each kernel torch.equal")
+    timed = {}
+    for name, *shape in BN_SHAPES:
+        if name not in BN_TIMED:
+            continue
+        timed[name] = time_bn(shape, gen)
+        for k in BN_NAMES:
+            t = timed[name][k]
+            log(f"    {k} {name} bf16: kernel {t['ms']:.4f} ms "
+                f"({t['gb_per_s']:.0f} GB/s), plain {t['plain_ms']:.4f}, "
+                f"library {t['library_ms']}, bound {t['bound_ms']:.4f} "
+                f"({t['bound_by']})")
+        for tag in ("plain", "residual"):
+            log(f"    {name} vs F.batch_norm ({tag}): "
+                f"{timed[name][f'vs_f_batch_norm_{tag}']}")
+        torch.cuda.empty_cache()
+    return {"path_inputs": path, "checked": checked, "max_abs_err": worst,
+            "sum_rel": worst_rel, "timed": timed}
+
+
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 256, 224, 8
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+# One step's comparisons run in f32 compute at RESNET_CHECK_BATCH with
+# deterministic cuDNN, from two states made from the seeded weights, never
+# from the (non-deterministic) timed steps: flax's init, where each block's
+# exit BN scale is 0 (the reference test's setup; the residual branches
+# then get no grad), and the same weights with every exit scale 1 (every
+# parameter gets a grad). Any two valid f32 summation orders of the BN
+# sums flip ReLU masks where a pre-activation is within rounding of 0; a
+# per-parameter relative L2 turns that into up to 4e-2 wherever a BN
+# scale's or bias's own grad cancels (Σg over normalised features). So
+# grads are held per parameter as ||Δ|| over the norm of the whole grad
+# (grad_err). exp/port_resnet_grad_noise.py measured on one H100 (NVIDIA
+# H100 80GB HBM3, 700 W; 4 seeds, batch 32): sound pairs (kernels, plain
+# versions, f64-accumulated sums, plain lane) read at most 7.0e-4 from
+# init and 1.72e-2 with unit exit scales (16 blocks that all pass grads
+# carry the mask flips into every parameter); faulty controls (the sums
+# rounded to bf16; the residual left out of the backward's ReLU mask) at
+# least 3.88e-2 from init and 6.06e-1 with unit exit scales. Each limit
+# lies about midway between, on a log scale. The statistics (sound at most
+# 3.4e-6, the bf16 control at least 6.4e-3) and the loss (1.0e-6 vs
+# 3.6e-5) likewise. The checks: (1) the elementwise kernels (apply, dx)
+# against their plain versions in the model: loss, every grad and every
+# new statistic bitwise; (2) the kernels against the plain versions and
+# (3) the fused lane against the plain lane: grads within
+# RESNET_GRAD_TOL[state], new statistics within RESNET_STATS_REL of
+# max(|ref|, 1), loss within RESNET_LOSS_REL.
+RESNET_CHECK_BATCH = 32
+RESNET_GRAD_TOL = {"init": 5e-3, "unit_exit_scale": 1e-1}
+RESNET_STATS_REL, RESNET_LOSS_REL = 1e-4, 1e-5
+# BN layers of ResNet-50 by kernel: 53 = stem + 16 blocks x 3 + 4
+# projections; 16 block exits carry the residual.
+RESNET_BN_PER_STEP = {"bn_stats": 53, "bn_apply": 53, "bn_bwd_reduce": 37,
+                      "bn_bwd_dx": 37, "bn_add_bwd_reduce": 16,
+                      "bn_add_bwd_dx": 16}
+
+
+def lane_name(name: str) -> str:
+    """A fused-lane state name as the plain lane's."""
+    return name.replace("FusedBottleneck", "Bottleneck").replace(
+        "FusedBNAct", "BatchNorm")
+
+
+def plain_bn_on_the_card():
+    """The BN wrappers on CUDA tensors swapped for the plain versions."""
+    return swapped(bn, _stats_cuda=bn._stats_plain,
+                   _apply_cuda=bn._apply_plain,
+                   _bwd_reduce_cuda=bn._bwd_reduce_plain,
+                   _bwd_dx_cuda=bn._bwd_dx_plain)
+
+
+def resnet_step_outputs(model, init, x, y):
+    """One train forward and backward from the ``init`` state: loss,
+    grads and the new running statistics, by the fused lane's names."""
+    own = model.state_dict()
+    model.load_state_dict({(n if n in own else lane_name(n)): t
+                           for n, t in init.items()})
+    model.zero_grad(set_to_none=True)
+    loss = cross_entropy_loss(model(x, train=True), y)
+    loss.backward()
+    plain = not model.fused_bn
+    rename = (lambda n: next(f for f in init if lane_name(f) == n)) \
+        if plain else (lambda n: n)
+    grads = {rename(n): p.grad.detach().clone()
+             for n, p in model.named_parameters()}
+    stats = {rename(n): b.detach().clone() for n, b in model.named_buffers()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, stats
+
+
+def stats_rel(a, b):
+    return max(float((a[n] - t).abs().max() / max(float(t.abs().max()), 1.0))
+               for n, t in b.items())
+
+
+def grad_err(a, b):
+    """Per parameter ||a − b|| / ||b||_all, with ||b||_all the norm of
+    every parameter's grad together: a parameter whose own grad cancels
+    weighs by its share of the whole. Raises on a non-finite value."""
+    total = math.sqrt(sum(float(g.float().norm()) ** 2 for g in b.values()))
+    out = {}
+    for name, gb in b.items():
+        out[name] = float((a[name].float() - gb.float()).norm()) / total
+        if not math.isfinite(out[name]):
+            raise AssertionError(f"resnet grads: {name} not finite")
+    return out
+
+
+def compare_runs(tag, a, b, g_tol, s_tol, loss_tol):
+    """Loss, grads (grad_err) and new running statistics (per buffer
+    |Δ| / max(|ref|, 1)) of run ``a`` against run ``b``; raises past a
+    tolerance."""
+    err = grad_err(a[1], b[1])
+    worst = max(err, key=err.get)
+    srel = stats_rel(a[2], b[2])
+    lrel = abs(a[0] - b[0]) / abs(b[0])
+    log(f"  {tag}: grads max ||Δ||/||g||_all {err[worst]:.3e} ({worst}; tol "
+        f"{g_tol}), new running stats {srel:.3e} (tol {s_tol}), loss "
+        f"{lrel:.2e} (tol {loss_tol})")
+    for what, got, tol in (("grads", err[worst], g_tol),
+                           ("stats", srel, s_tol), ("loss", lrel, loss_tol)):
+        if not got <= tol:
+            raise AssertionError(f"resnet {tag}: {what} {got} > {tol}")
+    return {"grads_max_err": err[worst], "worst_param": worst,
+            "stats_max_rel": srel, "loss_rel": lrel, "grads_tol": g_tol,
+            "stats_tol": s_tol, "loss_tol": loss_tol}
+
+
+def elementwise_plain_on_the_card():
+    """Only the elementwise wrappers (apply, dx) swapped for the plain
+    versions; the reductions stay the kernels'."""
+    return swapped(bn, _apply_cuda=bn._apply_plain,
+                   _bwd_dx_cuda=bn._bwd_dx_plain)
+
+
+def bitwise_equal(a, b):
+    return a[0] == b[0] and all(torch.equal(a[i][n], b[i][n])
+                                for i in (1, 2) for n in b[i])
+
+
+def unit_exit_scale(state):
+    """``state`` with every block's exit BN scale 1 instead of flax's 0."""
+    return {n: torch.ones_like(t) if n.endswith("FusedBNAct_2.scale") else t
+            for n, t in state.items()}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Deterministic cuDNN algorithms (benchmark off) for the block."""
+    flags = torch.backends.cudnn
+    saved = (flags.deterministic, flags.benchmark)
+    flags.deterministic, flags.benchmark = True, False
+    try:
+        yield
+    finally:
+        flags.deterministic, flags.benchmark = saved
+
+
+def check_models(batch, seed=SEED):
+    """ResNet-50 in f32 compute on both lanes, and a batch of
+    ``batch`` images from ``seed``, for the one-step comparisons."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal(
+        (batch, RESNET_IMAGE, RESNET_IMAGE, 3), dtype=np.float32),
+        device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, (batch,)), device="cuda")
+    return [get_model("resnet50", device="cuda", fused_bn=f, s2d_stem=True,
+                      dtype=torch.float32) for f in (True, False)], x, y
+
+
+def resnet_comparisons(init):
+    """One step's loss, grads and new running statistics in f32 compute
+    at RESNET_CHECK_BATCH (deterministic cuDNN, TF32 off), from flax's
+    init and with unit exit scales: see the note above
+    RESNET_CHECK_BATCH for the three checks."""
+    (fused, plain), x, y = check_models(RESNET_CHECK_BATCH)
+    out = {"batch": RESNET_CHECK_BATCH, "dtype": "float32",
+           "cudnn_deterministic": True}
+    with deterministic_cudnn():
+        for label, state in (("init", init),
+                             ("unit_exit_scale", unit_exit_scale(init))):
+            for name in BN_NAMES:
+                LAUNCHES[name] = 0
+            k = resnet_step_outputs(fused, state, x, y)
+            launches = {name: LAUNCHES[name] for name in BN_NAMES}
+            if launches != RESNET_BN_PER_STEP:
+                raise AssertionError(f"resnet f32 step ({label}): launches "
+                                     f"{launches} != {RESNET_BN_PER_STEP}")
+            with elementwise_plain_on_the_card():
+                e = resnet_step_outputs(fused, state, x, y)
+            if not bitwise_equal(k, e):
+                raise AssertionError(f"resnet {label}: the elementwise "
+                                     f"kernels in the model differ from "
+                                     f"their plain versions")
+            log(f"  {label}: elementwise kernels bitwise in the model")
+            with plain_bn_on_the_card():
+                p = resnet_step_outputs(fused, state, x, y)
+            lane = resnet_step_outputs(plain, state, x, y)
+            out[label] = {
+                "loss": k[0], "launches": launches,
+                "elementwise_kernels_bitwise": True,
+                "kernels_vs_plain_versions": compare_runs(
+                    f"{label}, kernels vs plain versions", k, p,
+                    RESNET_GRAD_TOL[label], RESNET_STATS_REL,
+                    RESNET_LOSS_REL),
+                "fused_vs_plain_lane": compare_runs(
+                    f"{label}, fused lane vs plain lane", k, lane,
+                    RESNET_GRAD_TOL[label], RESNET_STATS_REL,
+                    RESNET_LOSS_REL)}
+            del k, e, p, lane
+    return out
+
+
+def resnet_run(tag, model, batch, expect):
+    """RESNET_STEPS steps of sgd(0.1, momentum=0.9) through
+    ``make_train_step``, with images/s and MFU."""
+    state = create_train_state(model, sgd(RESNET_LR,
+                                          momentum=RESNET_MOMENTUM))
+    step = make_train_step(apply_kwargs_of=lambda b: {"train": True})
+    run = timed_steps(tag, step, state, batch, BN_NAMES, expect,
+                      RESNET_STEPS)
+    flops = 3 * resnet50_flops(RESNET_BATCH, RESNET_IMAGE)
+    run["images_per_s"] = RESNET_BATCH / (run["step_p50_ms"] / 1e3)
+    run["mfu"] = flops / (run["step_p50_ms"] / 1e3) / PEAK_FLOPS[
+        torch.bfloat16]
+    return run
+
+
+def train_resnet_phase(card: str):
+    """ResNet-50 at full width (224², s2d stem, bf16 compute, f32 params
+    and statistics), fused BN lane, batch 256: launches, loss, running
+    statistics, step time, images/s, MFU, memory, profile; then the plain
+    lane on the same weights and batch; then the f32 comparisons."""
+    t0 = time.monotonic()
+    model = get_model("resnet50", device="cuda", fused_bn=True,
+                      s2d_stem=True, seed=SEED)
+    init = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    rng = np.random.default_rng(SEED)
+    x_np = rng.standard_normal((RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3),
+                               dtype=np.float32)
+    y_np = rng.integers(0, 1000, (RESNET_BATCH,))
+    batch = {"x": torch.as_tensor(x_np, device="cuda").to(torch.bfloat16),
+             "y": torch.as_tensor(y_np, device="cuda")}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  resnet50 (fused_bn, s2d stem) built, batch made in "
+        f"{time.monotonic() - t0:.1f} s ({n_params / 1e6:.2f} M params); "
+        f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
+        f"deterministic={torch.backends.cudnn.deterministic}")
+    expect = {k: v * RESNET_STEPS for k, v in RESNET_BN_PER_STEP.items()}
+    fused = resnet_run("train_resnet", model, batch, expect)
+    moved = {n: float((model.get_buffer(n) - init[n]).abs().max())
+             for n, _ in model.named_buffers()}
+    finite = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    if not finite or min(moved.values()) <= 0.0:
+        raise AssertionError(f"train_resnet: running statistics finite "
+                             f"{finite}, least move {min(moved.values())}")
+    log(f"  all {len(moved)} running statistics finite and moved (least "
+        f"max|Δ| {min(moved.values()):.3e})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[train_resnet plain lane]")
+    plain = get_model("resnet50", device="cuda", fused_bn=False,
+                      s2d_stem=True)
+    plain.load_state_dict({lane_name(n): t for n, t in init.items()})
+    plain_run = resnet_run("train_resnet_plain", plain, batch,
+                           {k: 0 for k in BN_NAMES})
+    rel = abs(plain_run["losses"][0] - fused["losses"][0]) / abs(
+        plain_run["losses"][0])
+    log(f"  first loss fused {fused['losses'][0]:.6f} vs plain lane "
+        f"{plain_run['losses'][0]:.6f} (rel {rel:.2e}); step p50 fused "
+        f"{fused['step_p50_ms']:.1f} ms vs plain {plain_run['step_p50_ms']:.1f}"
+        f" ms; peak {fused['max_memory_allocated'] / 1e9:.1f} vs "
+        f"{plain_run['max_memory_allocated'] / 1e9:.1f} GB")
+    del plain, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("[train_resnet checks]")
+    checks = resnet_comparisons(init)
+    return {"model": "resnet50 fused_bn=True s2d_stem=True bf16 compute",
+            "params": n_params, "batch": RESNET_BATCH, "image": RESNET_IMAGE,
+            "lr": RESNET_LR, "momentum": RESNET_MOMENTUM,
+            "cudnn": {"benchmark": torch.backends.cudnn.benchmark,
+                      "deterministic": torch.backends.cudnn.deterministic,
+                      "allow_tf32": torch.backends.cudnn.allow_tf32},
+            "flops_per_step": 3 * resnet50_flops(RESNET_BATCH, RESNET_IMAGE),
+            **fused, "running_stats_least_move": min(moved.values()),
+            "plain_lane": plain_run, "first_loss_fused_vs_plain_rel": rel,
+            "checks": checks, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1332,6 +1964,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     fused_err, fused_timed = check_fused(gen)
     int8 = check_int8(gen)
+    bn_kernels = check_bn(gen)
 
     # Phase 4: the main path.
     log("[serve]")
@@ -1373,6 +2006,13 @@ def main() -> int:
     # Phase 9: the quantized lane, training.
     log("[train_quant]")
     train_quant = train_quant_phase(card, train["losses"][0])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 10: ResNet-50 training on the fused BN lane, then the plain
+    # lane, then one f32 step's comparisons.
+    log("[train_resnet]")
+    train_resnet = train_resnet_phase(card)
 
     entry = {
         "name": "flash_decode", "route": "cuda",
@@ -1445,6 +2085,29 @@ def main() -> int:
         "train": {k: int8["train_gate_up"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     })
+    bn_main = bn_kernels["timed"][BN_MAIN]
+    rn_prof = train_resnet["profile"]
+    for name in BN_NAMES:
+        line, row = BN_REPLACES[name]
+        t = bn_main[name]
+        entries.append({
+            "name": name, "route": "cuda", "row": row,
+            "source": "tony_tpu_torch/ops/csrc/batchnorm.cu",
+            "replaces": f"tony_tpu/ops/batchnorm.py:{line}",
+            "launches": train_resnet["launches"][name],
+            "max_abs_err": bn_kernels["max_abs_err"][name],
+            "sum_rel_err": bn_kernels["sum_rel"].get(name),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": f"bf16 relu M={256 * 56 * 56} C=256 (stage 1, batch "
+                     f"256)",
+            "by_shape": {k: {f: v[name][f] for f in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
+                for k, v in bn_kernels["timed"].items()},
+        })
+    train_resnet["step_device_ms_bn"] = (
+        rn_prof["device_ms_by_group"]["bn_kernels"] if rn_prof else None)
     serve["card"] = card
     serve_quant["card"] = card
     print(json.dumps({"flash_shapes": flash}), flush=True)
@@ -1455,6 +2118,8 @@ def main() -> int:
     print(json.dumps({"quant": {"int8_shapes": int8,
                                 "serve_quant": serve_quant,
                                 "train_quant": train_quant}}), flush=True)
+    print(json.dumps({"bn_shapes": bn_kernels}), flush=True)
+    print(json.dumps({"resnet": train_resnet}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

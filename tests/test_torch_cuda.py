@@ -402,3 +402,237 @@ def test_quant_train_step_kernel_vs_plain_on_the_card(gen):
     assert torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
+
+
+# Fused BatchNorm (kernel rows 10-13): (M, C) cases — ragged M, C that
+# takes no 16-byte vector (3, 9), the ResNet widths.
+BN_CASES = [(1, 8), (17, 3), (1000, 64), (4099, 9), (100003, 96),
+            (4096, 2048), (12544, 256)]
+
+
+def _bn_case(gen, m, c, dtype):
+    x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).to(
+        dtype)
+    res = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    dy = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
+    gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+    xf = x.float()
+    mean = xf.mean(0)
+    var = xf.var(0, unbiased=False)
+    return x, res, dy, mean, var, gamma, beta
+
+
+def _sum_rel(got, ref, scale):
+    """Max |got − ref| over the [2, C] sums, relative to each sum's scale
+    (the sum of its terms' magnitudes, which bounds f32 summation
+    error)."""
+    return float(((got - ref).abs() / scale.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", BN_CASES)
+def test_bn_kernels_vs_plain(gen, dtype, m, c):
+    """Rows 10-13 against their plain versions on the same inputs: the
+    reductions within 1e-5 of their sums' scale (another summation
+    order), the elementwise passes bitwise, with and without the residual
+    and the ReLU; each launch counted once."""
+    from tony_tpu_torch.ops import batchnorm as bn
+
+    x, res, dy, mean, var, gamma, beta = _bn_case(gen, m, c, dtype)
+    eps, minv = 1e-5, 1.0 / m
+    before = dict(LAUNCHES)
+    sums = bn._stats_cuda(x)
+    ref = bn._stats_plain(x)
+    xf = x.double()
+    scale = torch.stack([xf.abs().sum(0), (xf * xf).sum(0)]).float()
+    assert _sum_rel(sums, ref, scale) <= 1e-5
+    for r in (None, res):
+        for relu in (True, False):
+            out = bn._apply_cuda(x, mean, var, gamma, beta, r, eps, relu)
+            assert out.dtype == dtype and torch.equal(
+                out, bn._apply_plain(x, mean, var, gamma, beta, r, eps,
+                                     relu))
+            red = bn._bwd_reduce_cuda(dy, x, mean, var, gamma, beta, r, eps,
+                                      relu)
+            red_p = bn._bwd_reduce_plain(dy, x, mean, var, gamma, beta, r,
+                                         eps, relu)
+            pre, xhat, _ = bn._pre_act(x, mean, var, gamma, beta, eps)
+            g = bn._masked_grad(dy, pre, r, relu).double()
+            scale = torch.stack([g.abs().sum(0),
+                                 (g * xhat.double()).abs().sum(0)]).float()
+            assert _sum_rel(red, red_p, scale) <= 1e-5
+            dx, dres = bn._bwd_dx_cuda(dy, x, mean, var, gamma, beta, red_p,
+                                       r, eps, relu, minv)
+            dx_p, dres_p = bn._bwd_dx_plain(dy, x, mean, var, gamma, beta,
+                                            red_p, r, eps, relu, minv)
+            assert torch.equal(dx, dx_p)
+            assert (dres is None) == (r is None)
+            if r is not None:
+                assert torch.equal(dres, dres_p)
+    torch.cuda.synchronize()
+    grew = {k: LAUNCHES[k] - before[k] for k in before
+            if LAUNCHES[k] != before[k]}
+    assert grew == {"bn_stats": 1, "bn_apply": 4, "bn_bwd_reduce": 2,
+                    "bn_bwd_dx": 2, "bn_add_bwd_reduce": 2,
+                    "bn_add_bwd_dx": 2}
+
+
+def test_bn_kernels_are_deterministic(gen):
+    """Two runs of every kernel are bitwise equal (no float atomics; the
+    partial sums fold in a fixed order)."""
+    from tony_tpu_torch.ops import batchnorm as bn
+
+    x, res, dy, mean, var, gamma, beta = _bn_case(gen, 200003, 64,
+                                                  torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        red = bn._bwd_reduce_cuda(dy, x, mean, var, gamma, beta, res, 1e-5,
+                                  True)
+        runs.append([bn._stats_cuda(x), red,
+                     bn._apply_cuda(x, mean, var, gamma, beta, res, 1e-5,
+                                    True),
+                     *bn._bwd_dx_cuda(dy, x, mean, var, gamma, beta, red,
+                                      res, 1e-5, True, 1 / 200003)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_fused_bn_act_autograd_on_the_card_matches_the_cpu(gen,
+                                                           with_residual):
+    """fused_bn_act forward and grads on the card (kernels) against the
+    CPU (plain versions), f32, at the reference op test's tolerances."""
+    from tony_tpu_torch.ops.batchnorm import fused_bn_act
+
+    shape = (4, 8, 8, 16)
+    ins = [torch.randn(shape, generator=gen, device="cuda"),
+           torch.randn(16, generator=gen, device="cuda") * 0.5 + 1.0,
+           torch.randn(16, generator=gen, device="cuda") * 0.1,
+           torch.randn(shape, generator=gen, device="cuda")]
+    wgt = torch.randn(shape, generator=gen, device="cuda")
+    out = []
+    for dev in ("cuda", "cpu"):
+        args = [t.detach().to(dev).requires_grad_() for t in ins]
+        res = args[3] if with_residual else None
+        y, mean, var = fused_bn_act(args[0], args[1], args[2], res)
+        (y * wgt.to(dev)).sum().backward()
+        out.append([y, mean, var] + [a.grad for a in args[:3]]
+                   + ([args[3].grad] if with_residual else []))
+    for a, b in zip(*out):
+        assert torch.allclose(a.detach().cpu(), b, atol=2e-4, rtol=2e-4)
+
+
+def test_bn_kernels_reject_off_inputs(gen):
+    from tony_tpu_torch.ops import batchnorm as bn
+
+    x = torch.zeros((64, 32), device="cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bn._stats_cuda(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        bn._stats_cuda(x.t())
+    with pytest.raises(ValueError, match="channel vectors"):
+        bn._apply_cuda(x, x[0].double(), x[0], x[0], x[0], None, 1e-5, True)
+    with pytest.raises(ValueError, match="copy"):
+        bn.fused_bn_act(torch.zeros((2, 32, 4, 4), device="cuda").permute(
+            0, 2, 3, 1), x[0], x[0])
+
+
+def test_fused_bn_act_launches_where_the_tiling_rule_declines(gen):
+    """17 rows: the JAX package's tiling rule finds no tiling, so a CPU
+    tensor gets None (the reference's fallback), but a CUDA tensor runs
+    the kernels, which mask the ragged rows."""
+    from tony_tpu_torch.ops import batchnorm as bn
+
+    x = torch.randn((17, 64), generator=gen, device="cuda")
+    gamma, beta = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    assert bn.pick_block_rows(17, 64, 4, 3) is None
+    before = dict(LAUNCHES)
+    out, mean, var = bn.fused_bn_act(x, gamma, beta)
+    assert LAUNCHES["bn_stats"] == before["bn_stats"] + 1
+    assert LAUNCHES["bn_apply"] == before["bn_apply"] + 1
+    assert torch.equal(out, bn._apply_plain(x, mean, var, gamma, beta, None,
+                                            1e-5, True))
+
+
+@pytest.fixture()
+def deterministic_cudnn():
+    """f32 convolutions without TF32 and with deterministic algorithms
+    for the test, the process's settings restored after."""
+    flags = torch.backends.cudnn
+    saved = (flags.allow_tf32, flags.deterministic, flags.benchmark)
+    flags.allow_tf32, flags.deterministic, flags.benchmark = False, True, \
+        False
+    yield
+    flags.allow_tf32, flags.deterministic, flags.benchmark = saved
+
+
+def _resnet_step_card_vs_cpu(gen, batch, image):
+    """One SGD step of resnet18-thin (fused lane, f32 compute) on the card
+    (BN kernels, cuDNN) and on the CPU: the BN launches of the card's
+    step, the two losses and the two models."""
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.train import (create_train_state, make_train_step,
+                                      sgd)
+
+    models = [get_model("resnet18-thin", device=d, fused_bn=True,
+                        s2d_stem=True, dtype=torch.float32, seed=3)
+              for d in ("cpu", "cuda")]
+    models[1].load_state_dict(models[0].state_dict())
+    x = torch.randn((batch, image, image, 3), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (batch,), generator=gen, device="cuda")
+    before = dict(LAUNCHES)
+    out = []
+    for m in models:
+        dev = next(m.parameters()).device
+        state = create_train_state(m, sgd(0.1, momentum=0.9))
+        step = make_train_step(apply_kwargs_of=lambda b: {"train": True})
+        _, metrics = step(state, {"x": x.to(dev), "y": y.to(dev)})
+        out.append(float(metrics["loss"]))
+    grew = {k: LAUNCHES[k] - before[k] for k in before
+            if LAUNCHES[k] != before[k]}
+    return grew, out, models
+
+
+def _assert_step_matches(losses, models):
+    """The loss to 1e-4 relative, every updated parameter and running
+    statistic to 1e-3 of its norm."""
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+    for (name, a), b in zip(models[0].state_dict().items(),
+                            models[1].state_dict().values()):
+        b = b.cpu()
+        assert float((b - a).norm()) <= 1e-3 * float(a.norm()) + 1e-6, name
+
+
+# One resnet18-thin step's BN launches: 9 BN layers, 2 with the residual.
+RESNET18_THIN_LAUNCHES = {"bn_stats": 9, "bn_apply": 9, "bn_bwd_reduce": 7,
+                          "bn_bwd_dx": 7, "bn_add_bwd_reduce": 2,
+                          "bn_add_bwd_dx": 2}
+
+
+def test_resnet_train_step_on_the_card_matches_the_cpu(gen,
+                                                       deterministic_cudnn):
+    """resnet18-thin, fused lane, f32 compute, deterministic cuDNN: one
+    SGD step on the card (BN kernels, cuDNN) against the CPU (plain
+    versions): the loss to 1e-4 relative, every updated parameter and
+    running statistic to 1e-3 of its norm, and the launch counts of one
+    step (9 BN layers, 2 with the residual)."""
+    grew, out, models = _resnet_step_card_vs_cpu(gen, 8, 32)
+    assert grew == RESNET18_THIN_LAUNCHES
+    _assert_step_matches(out, models)
+
+
+def test_resnet_runs_the_kernels_where_the_tiling_rule_declines(
+        gen, deterministic_cudnn):
+    """resnet18-thin at 28² and batch 2: the stem's M = 392 and stage 1's
+    M = 98 are not multiples of 16, so the reference's tiling rule
+    declines them (the CPU takes the plain f32 fallback there). The card
+    still launches the kernels at every BN layer, and its step matches
+    the CPU's as at a shape the rule accepts."""
+    from tony_tpu_torch.ops import batchnorm as bn
+
+    assert bn.pick_block_rows(392, 8, 4, 3) is None
+    assert bn.pick_block_rows(98, 32, 4, 5) is None
+    grew, out, models = _resnet_step_card_vs_cpu(gen, 2, 28)
+    assert grew == RESNET18_THIN_LAUNCHES
+    _assert_step_matches(out, models)

@@ -276,4 +276,4 @@ class TestUnported:
 
     def test_unknown_model(self):
         with pytest.raises(ValueError, match="unknown model"):
-            get_model("resnet50", device="cpu")
+            get_model("no-such-model", device="cpu")

@@ -1,5 +1,5 @@
-"""Carry the JAX package's weights into the port's modules: the decoder
-and the MNIST MLP.
+"""Carry the JAX package's weights into the port's modules: the decoder,
+the MNIST MLP, and the convolutional nets (ResNet, the MNIST CNN).
 
 The input is the JAX package's param tree as a nested dict of **numpy**
 arrays (``jax.tree.map(np.asarray, params)`` on the JAX side — this
@@ -11,7 +11,13 @@ module never imports jax). Both of its layouts are read:
 * unscanned: ``layer_{i}/block/...``.
 
 The MNIST MLP's tree is ``Dense_i/kernel`` and ``Dense_i/bias`` on both
-of its lanes.
+of its lanes. The convolutional nets take the whole variables dict,
+``{"params": ..., "batch_stats": ...}`` (or a params tree alone): every
+path keeps its flax module names (``Bottleneck_0/Conv_1/kernel`` →
+``Bottleneck_0.Conv_1.weight``), conv kernels go from flax's HWIO to
+torch's OIHW, and ``batch_stats`` leaves (``mean``, ``var``) land in the
+BatchNorm buffers of the same name. The names are the model's own, so
+one converter serves the plain and the fused BatchNorm lanes.
 
 flax's Dense kernels are ``[in, out]``; torch's ``nn.Linear`` weights
 are ``[out, in]``, so every kernel is transposed. The quantized lanes
@@ -108,30 +114,63 @@ def mlp_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def conv_params_from_jax(tree: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """A convolutional net's ``state_dict`` names → CPU tensors from its
+    JAX variables (``{"params", "batch_stats"}``, or params alone): the
+    flax path joined by dots, ``kernel`` → ``weight`` (4-D HWIO → OIHW,
+    2-D ``[in, out]`` → ``[out, in]``), ``bias``/``scale`` and the
+    ``mean``/``var`` statistics as they are."""
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        trees = [tree["params"], tree.get("batch_stats", {})]
+    else:
+        trees = [tree]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            val = node[key]
+            if isinstance(val, Mapping):
+                walk(val, f"{prefix}{key}.")
+                continue
+            t = _tensor(val)
+            if key == "kernel":
+                t = t.permute(3, 2, 0, 1) if t.dim() == 4 else t.t()
+                key = "weight"
+            out[f"{prefix}{key}"] = t
+
+    for sub in trees:
+        walk(sub, "")
+    return out
+
+
 @torch.no_grad()
 def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Fill ``model`` in place from a JAX param tree of numpy arrays,
     through the tree converter the model names as its
     ``params_from_jax`` (the decoder's :func:`params_from_jax`, the MNIST
-    MLP's :func:`mlp_params_from_jax`), casting to each parameter's
-    storage dtype and device: an f32 tree lands bitwise in the default
-    f32 parameters (training), and a server built with
+    MLP's :func:`mlp_params_from_jax`, the conv nets'
+    :func:`conv_params_from_jax`), casting to each parameter's storage
+    dtype and device: an f32 tree lands bitwise in the default f32
+    parameters (training), and a server built with
     ``param_dtype=cfg.dtype`` gets the one cast that the JAX module makes
     at every use. Every parameter must be covered and every converted
-    leaf used, with equal shapes."""
+    leaf used, with equal shapes; converted leaves that name a buffer
+    (BatchNorm running statistics) fill it."""
     convert = getattr(model, "params_from_jax", None)
     if convert is None:
         raise TypeError(f"{type(model).__name__} names no JAX tree "
                         f"converter (params_from_jax)")
     src = convert(tree)
     params = dict(model.named_parameters())
+    targets = {**dict(model.named_buffers()), **params}
     missing = sorted(set(params) - set(src))
-    extra = sorted(set(src) - set(params))
+    extra = sorted(set(src) - set(targets))
     if missing or extra:
         raise ValueError(f"JAX params do not match the model: missing "
                          f"{missing[:4]}, unexpected {extra[:4]}")
-    for name, p in params.items():
-        t = src[name]
+    for name, t in src.items():
+        p = targets[name]
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: JAX shape {tuple(t.shape)} vs "
                              f"model {tuple(p.shape)}")

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Every kernel source of the port (``csrc/<name>.cu``).
-SOURCES = ("flash_decode", "flash_attention", "fused_optim", "int8_matmul")
+SOURCES = ("flash_decode", "flash_attention", "fused_optim", "int8_matmul",
+           "batchnorm")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -40,7 +40,10 @@ _NEG_INF = -1e30
 LAUNCHES: Dict[str, int] = {"flash_decode": 0, "flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
                              "flash_attention_bwd_dkv": 0,
-                             "fused_bucket_update": 0, "int8_matmul": 0}
+                             "fused_bucket_update": 0, "int8_matmul": 0,
+                             "bn_stats": 0, "bn_apply": 0,
+                             "bn_bwd_reduce": 0, "bn_bwd_dx": 0,
+                             "bn_add_bwd_reduce": 0, "bn_add_bwd_dx": 0}
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,6 +5,8 @@
 * :func:`adamw` — AdamW in optax's order of operations
   (``scale_by_adam`` → ``add_decayed_weights`` → ``scale_by_learning_rate``,
   then ``apply_updates`` as ``p + u``), with optax's defaults;
+* :func:`sgd` — optax's SGD (``trace`` momentum, then
+  ``scale_by_learning_rate``, then ``p + u``);
 * :func:`create_train_state` and :func:`make_train_step` — one step is
   loss → grad → update, returning ``{"loss", "grad_norm", "aux_loss"}``;
 * :func:`make_accum_train_step` — the same step over microbatches, with
@@ -97,6 +99,42 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
             u = (mu / bc1).div_(torch.sqrt(nu / bc2 + eps_root).add_(eps))
             p.add_(u.add_(p * weight_decay).mul_(-learning_rate))
         return AdamState(count, state.mu, state.nu)
+
+    return GradientTransformation(init, update)
+
+
+@dataclasses.dataclass
+class TraceState:
+    """optax's ``TraceState``: the momentum trace per leaf (None without
+    momentum)."""
+    trace: Optional[List[torch.Tensor]]
+
+
+def sgd(learning_rate: float, momentum: Optional[float] = None,
+        nesterov: bool = False) -> GradientTransformation:
+    """optax.sgd, leaf by leaf and in place, in optax's order: ``trace``
+    (t = g + momentum·t; the update is t, or g + momentum·t with
+    Nesterov), then the update scaled by −lr, then p = p + u. Without
+    momentum the update is −lr·g. Each product is rounded on its own
+    before its sum, as optax's separate ops."""
+
+    def init(params: List[torch.Tensor]) -> TraceState:
+        if momentum is None:
+            return TraceState(None)
+        return TraceState([torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update(grads: List[torch.Tensor], state: TraceState,
+               params: List[torch.Tensor]) -> TraceState:
+        if momentum is None:
+            for g, p in zip(grads, params):
+                p.add_(g * -learning_rate)
+            return state
+        for g, t, p in zip(grads, state.trace, params):
+            t.mul_(momentum).add_(g)
+            u = g + t * momentum if nesterov else t
+            p.add_(u * -learning_rate)
+        return state
 
     return GradientTransformation(init, update)
 
