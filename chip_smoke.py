@@ -16,8 +16,10 @@ caught):
    positions, GQA; row independence with ``torch.equal``), and the flash
    attention forward, backward dQ and backward dK/dV at one shape per TPU
    launcher family (packed and classic layouts, GQA, t=8192, ragged t,
-   non-causal t != tk; bf16 and f32; dK/dV run twice and compared with
-   ``torch.equal``). Each is timed beside its plain version, the
+   non-causal t != tk; bf16 and f32; dQ/dK/dV run twice and compared
+   with ``torch.equal``; the bf16 backward is the tensor-core pair
+   ``flash_bwd_dq_mma_kernel``/``flash_bwd_dkv_mma_kernel``, the f32 one
+   the CUDA-core pair). Each is timed beside its plain version, the
    ``scaled_dot_product_attention`` yardstick and the bytes/operations
    bound; and the fused bucket optimizer update for every rule (AdamW
    with and without weight decay, SGD-momentum, Adafactor-style), in f32
@@ -40,7 +42,9 @@ caught):
    card (in bf16 and in f32 compute, and both bf16 paths against the f32
    grads), the loss finite and falling, the kernels' launch counts exact,
    and the step time, throughput, MFU and peak memory; then where two
-   steps' device time goes (torch.profiler);
+   steps' device time goes (torch.profiler), whose kernel names must
+   show the backward in the two tensor-core kernels only (as must the
+   train_fused and train_quant profiles);
 7. train_fused — the same model, weights and batch through
    ``make_accum_train_step(microbatches=2, update="fused_bucket")`` with
    ``FusedOptimizer(adamw, 3e-4)``, 8 steps: the loss finite and falling
@@ -466,6 +470,28 @@ FLASH_SHAPES = [
 ]
 FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
+# The kernels behind each wrapper in bf16 (the timed type) and f32, how
+# their products run, and (text, not measured here) the bf16 time of the
+# kernel each replaced at the row-7 shape, from PERF.md.
+FLASH_KERNELS = {
+    "flash_attention_fwd": {
+        "kernel": "flash_fwd_kernel (bf16 and f32)",
+        "products": "CUDA-core f32 FMAs"},
+    "flash_attention_bwd_dq": {
+        "kernel": "flash_bwd_dq_mma_kernel (bf16); flash_bwd_dq_kernel "
+                  "(f32)",
+        "products": "bf16: mma.sync.m16n8k16 tensor cores, ldmatrix, "
+                    "cp.async two-stage ring; f32: CUDA-core FMAs",
+        "replaced": "CUDA-core flash_bwd_dq_kernel, 8.180 ms bf16 at the "
+                    "row-7 shape (PERF.md kernel table)"},
+    "flash_attention_bwd_dkv": {
+        "kernel": "flash_bwd_dkv_mma_kernel (bf16); flash_bwd_dkv_kernel "
+                  "(f32)",
+        "products": "bf16: mma.sync.m16n8k16 tensor cores, ldmatrix, "
+                    "cp.async two-stage ring; f32: CUDA-core FMAs",
+        "replaced": "CUDA-core flash_bwd_dkv_kernel, 10.207 ms bf16 at the "
+                    "row-7 shape (PERF.md kernel table)"},
+}
 
 
 def flash_inputs(b, h, hkv, t, tk, d, packed, dtype, gen):
@@ -568,9 +594,10 @@ def check_flash(shape, dtype, gen, time_it=False):
     ref_dq, ref_dk, ref_dv = plain_bwd(q, k, v, ref_o, ref_lse, do, causal,
                                        scale)
     torch.cuda.synchronize()
-    if not (torch.equal(again[1], dk) and torch.equal(again[2], dv)):
-        raise AssertionError(f"flash {name} {dtype}: dK/dV differ between "
-                             f"two identical launches")
+    if not (torch.equal(again[0], dq) and torch.equal(again[1], dk)
+            and torch.equal(again[2], dv)):
+        raise AssertionError(f"flash {name} {dtype}: dQ/dK/dV differ "
+                             f"between two identical launches")
     errs = {}
     for key, got, ref in (("o", out, ref_o), ("dq", dq, ref_dq),
                           ("dk", dk, ref_dk), ("dv", dv, ref_dv)):
@@ -588,7 +615,7 @@ def check_flash(shape, dtype, gen, time_it=False):
     errs["lse"] = lse_err
     log(f"  flash {name} ({rows}) {str(dtype)[6:]}: max|kernel - plain| o "
         f"{errs['o']:.2e} lse {lse_err:.2e} dq {errs['dq']:.2e} dk "
-        f"{errs['dk']:.2e} dv {errs['dv']:.2e}; dK/dV deterministic")
+        f"{errs['dk']:.2e} dv {errs['dv']:.2e}; dQ/dK/dV deterministic")
     res = {"shape": dict(b=b, h=h, hkv=hkv, t=t, tk=tk, d=d, causal=causal,
                          layout="packed" if packed else "classic",
                          dtype=str(dtype)[6:], rows=rows),
@@ -853,16 +880,19 @@ def profile_train(step, state, batch, steps=2):
             step(state, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0) / steps
-    by_name = {}
+    by_name, counts = {}, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / steps
+        counts[e.key] = counts.get(e.key, 0) + e.count
     if not by_name:
         return None
     busy = sum(by_name.values())
+    flash_launches = {key[:120]: n // steps for key, n in counts.items()
+                      if "flash_" in key and "kernel" in key}
     groups = {"flash_attention": 0.0, "fused_update": 0.0, "gemm": 0.0,
               "int8_matmul": 0.0, "quantize": 0.0, "bn_kernels": 0.0,
               "conv": 0.0, "other": 0.0}
@@ -893,7 +923,37 @@ def profile_train(step, state, batch, steps=2):
     return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "device_ms_by_group": groups,
+            "flash_kernel_launches_per_step": flash_launches,
             "top_kernels_ms_per_step": [[k[:90], v] for k, v in top]}
+
+
+# The bf16 backward's kernels by the names the profiler gives them: the
+# tensor-core pair, and the CUDA-core pair it replaced in bf16 (f32 only
+# since).
+MMA_BWD_KERNELS = ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
+CORE_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
+def check_bwd_kernels(tag, prof, per_step):
+    """The profiled steps ran the attention backward in the two
+    tensor-core kernels, ``per_step`` launches of each per step, and never
+    in a CUDA-core backward kernel."""
+    if prof is None:
+        raise AssertionError(f"{tag}: the profiler traced no device event, "
+                             f"so the backward kernels cannot be named")
+    launches = prof["flash_kernel_launches_per_step"]
+    for name in MMA_BWD_KERNELS:
+        got = sum(n for key, n in launches.items() if name in key)
+        if got != per_step:
+            raise AssertionError(f"{tag}: {name} ran {got} times a step, "
+                                 f"not {per_step}: {launches}")
+    ran = [key for key in launches
+           if any(name in key for name in CORE_BWD_KERNELS)]
+    if ran:
+        raise AssertionError(f"{tag}: a CUDA-core backward kernel ran: "
+                             f"{ran}")
+    log(f"  profile: the backward ran {', '.join(MMA_BWD_KERNELS)} "
+        f"({per_step} each a step) and no CUDA-core backward kernel")
 
 
 def timed_steps(tag, step, state, batch, names, expect, steps):
@@ -928,6 +988,8 @@ def timed_steps(tag, step, state, batch, names, expect, steps):
     log(f"[{tag} profile]")
     prof = profile_train(step, state, batch)
     log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
+    if "flash_attention_bwd_dq" in names:
+        check_bwd_kernels(tag, prof, expect["flash_attention_bwd_dq"] // steps)
     return {"steps": steps, "losses": losses, "grad_norms": gnorms,
             "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "max_memory_allocated": peak, "launches": launches,
@@ -2049,6 +2111,11 @@ def main() -> int:
             "max_abs_err_all_cases": max(
                 res["max_abs_err"][e] for res in flash.values()
                 for e in outs),
+            **FLASH_KERNELS[name],
+            "by_shape": {res["shape"]["rows"]: {
+                k: res["kernels"][name][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for res in flash.values() if "kernels" in res},
         })
     w_gate, embedding = (fused_timed[n] for n in FUSED_TIMED)
     prof = train_fused["profile"]

@@ -130,6 +130,100 @@ def test_flash_attention_dkv_is_deterministic(gen):
         assert torch.equal(x, y)
 
 
+# The bf16 backward on the tensor cores: every HEAD_DIM instantiation
+# (16: d = 8, 12, 16; 32; 64; 128), both loaders (d = 12 and the
+# zero-stride and transposed dO take the strided one), ragged t and tk,
+# t != tk either way, GQA with hkv = 1, 2 and 8.
+MMA_CASES = [  # b, h, hkv, t, tk, d, causal, packed, dO layout, loader
+    (1, 2, 1, 100, 100, 8, True, False, "as_q", True),
+    (1, 2, 2, 70, 40, 12, True, False, "as_q", False),
+    (2, 4, 2, 130, 130, 16, True, True, "as_q", True),
+    (1, 8, 8, 65, 200, 32, False, False, "as_q", True),
+    (1, 4, 4, 200, 70, 32, True, False, "as_q", True),
+    (1, 8, 1, 127, 127, 64, True, True, "as_q", True),
+    (2, 8, 8, 192, 192, 128, True, True, "as_q", True),
+    (1, 16, 2, 96, 160, 128, True, False, "as_q", True),
+    (1, 4, 2, 96, 96, 128, True, True, "expanded", False),
+    (1, 4, 2, 96, 96, 64, True, False, "transposed", False),
+    (1, 8, 2, 64, 64, 128, False, True, "transposed", False)]
+
+
+def _do_layout(do, layout):
+    """dO as autograd may hand it over: as made, a zero-stride expand of
+    one value (the grad of ``out.sum()``), or a transposed view."""
+    if layout == "expanded":
+        return do[:1, :1, :1, :1].reshape(()).expand(do.shape)
+    if layout == "transposed":
+        return do.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return do
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,t,tk,d,causal,packed,layout,vec", MMA_CASES)
+def test_flash_backward_mma_vs_plain(gen, b, h, hkv, t, tk, d, causal,
+                                     packed, layout, vec):
+    q, k, v, do = _flash_inputs(gen, b, h, hkv, t, tk, d, torch.bfloat16,
+                                packed)
+    do = _do_layout(do, layout)
+    assert attn._bwd_vec(q, k, v, do) is vec
+    scale = d ** -0.5
+    out, lse = attn._flash_fwd_cuda(q, k, v, causal, scale)
+    dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+    ref_dq, dsum = attn._flash_bwd_dq_plain(q, k, v, out, do, lse, causal,
+                                            scale)
+    ref_dk, ref_dv = attn._flash_bwd_dkv_plain(q, k, v, do, lse, dsum,
+                                               causal, scale)
+    torch.cuda.synchronize()
+    for name, got, ref in (("dq", dq, ref_dq), ("dk", dk, ref_dk),
+                           ("dv", dv, ref_dv)):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= _tol(ref, torch.bfloat16), (name, err)
+
+
+def test_flash_attention_dq_is_deterministic(gen):
+    q, k, v, do = _flash_inputs(gen, 2, 8, 2, 300, 300, 64, torch.bfloat16,
+                                False)
+    out, lse = attn._flash_fwd_cuda(q, k, v, True, 64 ** -0.5)
+    runs = [attn._flash_bwd_cuda(q, k, v, out, lse, do, True, 64 ** -0.5)[0]
+            for _ in range(3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+def _device_kernel_counts(fn):
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_runs_the_tensor_core_kernels_in_bf16(gen, dtype):
+    """A bf16 backward through the public entry launches the two mma
+    kernels (the 16-byte loader for packed d = 128) and no CUDA-core
+    backward kernel; f32 launches the CUDA-core ones and no mma kernel."""
+    q, k, v, do = (x.transpose(1, 2).reshape(2, 128, -1) for x in
+                   _flash_inputs(gen, 2, 4, 2, 128, 128, 128, dtype, True))
+    qp, kp, vp = (x.detach().requires_grad_() for x in (q, k, v))
+    counts = _device_kernel_counts(
+        lambda: attn.flash_attention_packed(qp, kp, vp, 4).backward(do))
+    names = " ".join(counts)
+    mma = ("flash_bwd_dq_mma_kernel<128, true>",
+           "flash_bwd_dkv_mma_kernel<128, true>")
+    cores = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+    want, never = (mma, cores) if dtype == torch.bfloat16 else (cores, mma)
+    for name in want:
+        assert sum(n for key, n in counts.items() if name in key) == 1, \
+            (name, counts)
+    for name in never:
+        assert name.split("<")[0] not in names, (name, counts)
+
+
 def test_flash_attention_autograd_on_the_card(gen):
     """The public entry on CUDA tensors goes through the kernels, forward
     and backward, and never through the plain version."""

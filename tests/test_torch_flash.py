@@ -198,3 +198,59 @@ class TestValidation:
         k = torch.zeros((1, 2, 16, 16), dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="one dtype"):
             tattn._flash_bwd_cuda(q, k, k, q, q[..., 0], q, True, 1.0)
+
+
+def _packed_view(b, t, h, d, device="cpu"):
+    x = torch.zeros((b, t, h * d), dtype=torch.bfloat16, device=device)
+    return x.unflatten(2, (h, d)).transpose(1, 2)
+
+
+def _strided(size, stride, offset=0):
+    n = offset + 1 + sum((s - 1) * st for s, st in zip(size, stride))
+    return torch.zeros(n, dtype=torch.bfloat16)[offset:].as_strided(
+        size, stride)
+
+
+class TestBackwardLoader:
+    """The host rule that picks the bf16 backward kernels' loader
+    (``_vec_ok``): 16-byte ``cp.async`` copies for the layouts the model
+    hands over, scalar loads through the strides otherwise."""
+
+    @pytest.mark.parametrize("make,vec", [
+        (lambda: _packed_view(2, 64, 4, 128), True),
+        (lambda: _packed_view(2, 2048, 32, 128, device="meta"), True),
+        (lambda: _packed_view(1, 40, 3, 8), True),
+        (lambda: torch.zeros((2, 4, 40, 64), dtype=torch.bfloat16), True),
+        (lambda: torch.zeros((1, 2, 33, 16), dtype=torch.bfloat16), True),
+        (lambda: _strided((1, 1, 16, 8), (3, 5, 8, 1)), True),
+        (lambda: torch.zeros((2, 4, 64, 32), dtype=torch.bfloat16)
+         .transpose(-1, -2).transpose(-1, -2).contiguous(), True),
+        # transposed: the feature stride is not 1
+        (lambda: torch.zeros((2, 4, 32, 64), dtype=torch.bfloat16)
+         .transpose(-1, -2), False),
+        # zero-stride expand (dO of out.sum() from autograd)
+        (lambda: torch.ones((), dtype=torch.bfloat16).expand(2, 4, 64, 32),
+         False),
+        # one row broadcast over b, h and t: 16-byte copies of that row
+        (lambda: torch.ones((1, 1, 1, 32), dtype=torch.bfloat16)
+         .expand(2, 4, 64, 32), True),
+        # d % 8 != 0
+        (lambda: torch.zeros((1, 2, 70, 12), dtype=torch.bfloat16), False),
+        (lambda: _packed_view(1, 16, 4, 12), False),
+        # a row stride that is not 16 bytes
+        (lambda: _strided((1, 2, 16, 8), (640, 320, 20, 1)), False),
+        # a head stride that is not 16 bytes
+        (lambda: _strided((1, 2, 16, 8), (640, 300, 8, 1)), False),
+        # a base that is not 16-byte aligned
+        (lambda: _strided((1, 2, 16, 8), (256, 128, 8, 1), offset=1),
+         False),
+    ])
+    def test_vec_ok(self, make, vec):
+        assert tattn._vec_ok(make()) is vec
+
+    def test_all_four_operands_decide(self):
+        q, k, v, do = (_packed_view(1, 64, 4, 64) for _ in range(4))
+        assert tattn._bwd_vec(q, k, v, do)
+        assert not tattn._bwd_vec(q, k, v, do.transpose(-1, -2))
+        assert not tattn._bwd_vec(q, k, v, torch.ones(
+            (), dtype=torch.bfloat16).expand(do.shape))

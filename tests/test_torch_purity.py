@@ -97,3 +97,13 @@ class TestDefaultsToTheCard:
             get_model("llama2-7b")       # raises before any allocation
         with pytest.raises(RuntimeError, match="is_available"):
             PagedKVCache(2, 8, n_blocks=4, block_size=4)
+
+    def test_quant_dense_device_none_raises(self):
+        """The int8 lane's public layer resolves ``device=None`` to the
+        card like every other constructor, so without a GPU it raises
+        instead of building its weight on the CPU."""
+        from tony_tpu_torch.ops import QuantDense
+
+        with pytest.raises(RuntimeError, match="is_available"):
+            QuantDense(16, 8)
+        assert QuantDense(16, 8, device="cpu").weight.device.type == "cpu"

@@ -5,7 +5,8 @@
   :func:`flash_attention_packed` (``[B, T, H·D]``) — fused attention for
   training, forward and backward, through one ``torch.autograd.Function``
   (:class:`_FlashFn`). A CUDA tensor runs the hand-written Hopper kernels
-  of ``csrc/flash_attention.cu`` (forward; backward dQ; backward dK/dV),
+  of ``csrc/flash_attention.cu`` (forward; backward dQ; backward dK/dV;
+  the bf16 backward on the tensor cores, f32 on the CUDA cores),
   a CPU tensor their plain versions :func:`_flash_fwd_plain`,
   :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`, which
   follow the JAX kernels' math block by block with their rounding points.
@@ -402,6 +403,28 @@ def _check_flash_cuda(q, k, v, *more):
                          f"65535, got {q.shape[0]}/{q.shape[1]}")
 
 
+def _vec_ok(x: torch.Tensor) -> bool:
+    """Whether the bf16 backward kernels fill their tiles of ``x`` (a
+    [B, H, T, D] view) by 16-byte ``cp.async`` copies: feature stride 1,
+    the stride of every other dimension longer than 1 a multiple of 8
+    elements (16 bytes of bf16), a 16-byte aligned base, and D % 8 == 0.
+    The packed [B, T, H·D] views and contiguous [B, H, T, D] qualify. The
+    launcher in ``csrc/flash_attention.cu`` (``vec_ok``) applies the same
+    rule to the pointers and strides it is given; where an operand fails
+    it, the kernels load through the strides one element at a time."""
+    return (x.shape[-1] % 8 == 0 and x.stride(-1) == 1
+            and x.data_ptr() % 16 == 0
+            and all(n == 1 or s % 8 == 0
+                    for n, s in zip(x.shape[:-1], x.stride()[:-1])))
+
+
+def _bwd_vec(q, k, v, do) -> bool:
+    """The loader the bf16 backward kernels take for these operands:
+    ``True`` for the ``cp.async`` ring (``VEC``), ``False`` for the
+    strided scalar loads."""
+    return all(_vec_ok(x) for x in (q, k, v, do))
+
+
 def _launch(lib, fn_name, counter, args, dims, tensors):
     strides = (ctypes.c_int64 * (4 * len(tensors)))(
         *[s for x in tensors for s in x.stride()])
@@ -438,7 +461,9 @@ def _flash_fwd_cuda(q, k, v, causal, scale):
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (which also writes D = rowsum(dO∘O)), then the dK/dV
     kernel that reads D. dO is taken with whatever strides autograd gives
-    it."""
+    it. bf16 runs the tensor-core kernels (``flash_bwd_dq_mma_kernel``,
+    ``flash_bwd_dkv_mma_kernel``; loader as :func:`_bwd_vec`), f32 the
+    CUDA-core ones."""
     _check_flash_cuda(q, k, v, o, do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention backward needs the forward's "

@@ -36,19 +36,70 @@
 // Bound: operations. At the training shape (b=2, h=32, t=2048, d=128,
 // causal, bf16) the forward does 4*d flops per admitted (row, key) pair,
 // ~68.7 GFLOP, against ~67 MB of q/k/v/o: ~1000 flop/byte, far above the
-// H100's ~295 flop/byte ridge, so the floor is the tensor-core rate.
+// H100's ~295 flop/byte ridge, so the floor is the tensor-core rate. The
+// backward does 7 products of 2*d flops per admitted pair: S and dP twice
+// (once in the dQ kernel, once in the dK/dV kernel), dS K, P^T dO and
+// dS^T Q. FlashAttention-2 does 5, summing dQ with atomics; recomputing S
+// and dP is the price of a deterministic dQ.
 //
-// Design (simple and right first; mma/wgmma, TMA and a persistent
-// schedule come later): CUDA-core f32 FMAs from shared memory in 64x64
-// tiles, 256 threads, each thread a 2x8 micro-tile of the score tile
-// (8 threads span a row, so row max/sum are 3 shuffles) and 2 rows x d/8
-// columns of the output. The work does what it can about the bound by
-// doing no work it need not do: the forward and dQ key loops stop at the
-// causal diagonal (the streamed TPU kernel still schedules the blocks
-// above it), the dK/dV q loop starts there, and D is computed once by the
-// dQ kernel (written to a [B, H, T] buffer) instead of again per k tile.
-// dK/dV accumulate in registers over all query heads of a kv head and all
-// q tiles inside one block, so the sum is deterministic, with no atomics.
+// Two designs live here.
+//
+// bf16 backward (the training path): flash_bwd_dq_mma_kernel and
+// flash_bwd_dkv_mma_kernel, on the tensor cores.
+//  * Tiles stay bf16 in shared memory, rows padded by 16 bytes (row
+//    stride 2*HEAD_DIM + 16 bytes), so the 8 row addresses of each
+//    ldmatrix phase land in 8 distinct 4-bank groups: no bank conflicts.
+//    A head_dim d below the instantiated HEAD_DIM (16, 32, 64 or 128) is
+//    zero-padded in shared memory.
+//  * Products are mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with A and
+//    B fragments from ldmatrix.x4 (.trans where the operand is needed
+//    transposed: K in dS K, dO in P^T dO, Q in dS^T Q). Each warp owns 16
+//    rows (dQ: query rows; dK/dV: keys). The f32 accumulator fragments of
+//    S and dP become bf16 A fragments in registers (the m16n8 C layout of
+//    two adjacent n-tiles is the m16n8k16 A layout), so P and dS never
+//    touch shared memory. The rounding points are the JAX kernels': P is
+//    rounded to dO's type before P^T dO and dS to the input type before
+//    dS K and dS^T Q; in bf16 those rounded values are the mma operands,
+//    so only the order of the f32 sums differs from the plain versions.
+//  * Loads (VEC = true): when every input's feature stride is 1 and its
+//    other strides and base pointer are 16-byte aligned (the packed
+//    [B, T, H*D] views and contiguous [B, H, T, D]), tiles are filled by
+//    16-byte cp.async.cg copies into a two-stage ring, so the next tile's
+//    copy overlaps this tile's products (commit_group / wait_group 1).
+//    VEC = false fills the same tiles with scalar loads through all four
+//    strides (a zero-stride or transposed dO from autograd, d % 8 != 0).
+//    The launcher picks the loader from the pointers and strides it is
+//    given (vec_ok below); `_vec_ok` in ops/attention.py states the same
+//    rule in Python.
+//  * Schedule: blocks are numbered tile-major over (tile, head, batch),
+//    the longest tiles first under causal masking (dQ: the last q tiles,
+//    which see the most keys; dK/dV: the first k tiles, which see the most
+//    q tiles), so the short ones fill the tail. Only tiles on the
+//    diagonal or on a ragged edge evaluate the mask.
+//  * Deterministic, with no atomics: a dQ row block sums its key tiles in
+//    order, and a dK/dV key block sums all q tiles of all query heads of
+//    its kv head in order, in registers (128 f32 a thread at d = 128;
+//    ptxas: 242-245 registers a thread at HEAD_DIM 128, no spills, so two
+//    blocks of 4 warps share an SM).
+//  * What bounds it: at the 7B train shape the kernels reach about a
+//    quarter of the bf16 tensor-core peak. Each warp re-reads the whole
+//    streamed tile from shared memory for its B fragments (about 0.6
+//    ldmatrix.x4 per mma), and mma.sync itself cannot reach the peak;
+//    wgmma (B read by the tensor cores from shared memory, 64-row
+//    warpgroup tiles) is the next step.
+//
+// f32 (flash_fwd_kernel and the f32 backward, flash_bwd_dq_kernel and
+// flash_bwd_dkv_kernel): CUDA-core f32 FMAs from shared memory in 64x64
+// tiles, 256 threads, each thread a 2x8 micro-tile of the score tile (8
+// threads span a row, so row max/sum are 3 shuffles) and 2 rows x d/8
+// columns of the output. f32 is off the main path, and TF32 tensor cores
+// would not hold the f32 limits (1e-5 of scale against the plain
+// versions), so the f32 backward stays on the CUDA cores; bf16 never
+// falls back to it. The forward (both types) is the same CUDA-core design
+// and is next for the tensor-core machinery. In both designs the loops
+// stop at the causal diagonal, D = rowsum(dO o O) is computed once by the
+// dQ kernel (written to a [B, H, T] buffer) for the dK/dV kernel, and
+// every sum runs in a fixed order in one block, with no atomics.
 //
 // Plain C interface (built by nvcc into a shared library, called through
 // ctypes): each *_launch returns cudaGetLastError() after its launch; the
@@ -56,7 +107,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -496,6 +550,500 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// bf16 backward on the tensor cores.
+// ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MT = 64;            // rows of every tile (q rows or keys)
+constexpr int MTHREADS = 128;     // 4 warps, 16 tile rows each
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy global -> shared; bytes past `src_bytes` are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 4-byte async copy (an f32 of LSE or D); zero when `src_bytes` is 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Every group of this thread but the newest has landed.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (to nearest even), packed low | high.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragment addresses inside a bf16 tile with row stride LD (elements),
+// for lane l (the PTX fragment tables' g = l / 4 and t = l % 4):
+//  A, the 16x16 block at rows r0 (M), columns c0 (K):
+//    row r0 + l % 16, column c0 + (l / 16) * 8;
+//  B, two n8 tiles from a tile whose rows are N and columns K (no
+//    .trans): row n0 + l % 8 + (l / 16) * 8, column k0 + (l / 8 % 2) * 8,
+//    giving {b0, b1} of n-tile n0, then {b0, b1} of n-tile n0 + 8;
+//  B, two n8 tiles from a tile whose rows are K and columns N (.trans):
+//    row k0 + l % 8 + (l / 8 % 2) * 8, column n0 + (l / 16) * 8.
+template <int LD>
+__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int r0,
+                                              int c0, int lane) {
+  return tile + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+template <int LD>
+__device__ __forceinline__ const bf16* b_addr(const bf16* tile, int n0,
+                                              int k0, int lane) {
+  return tile + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + k0 +
+         ((lane >> 3) & 1) * 8;
+}
+template <int LD>
+__device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int k0,
+                                               int n0, int lane) {
+  return tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
+         (lane >> 4) * 8;
+}
+
+// Rows [row0, row0 + MT) of one (batch, head) slice (`src` points at its
+// row 0) into a bf16 tile with row stride HD + 8; rows at or past n_rows
+// and features at or past d are zeros. VEC: 16-byte cp.async copies
+// (feature stride 1, 16-byte aligned rows, d % 8 == 0, so a chunk lies
+// wholly inside or outside d), committed by the caller. Otherwise scalar
+// loads through the strides.
+template <int HD, bool VEC>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst,
+                                               const bf16* __restrict__ src,
+                                               Strides4 s, int row0,
+                                               int n_rows, int d) {
+  constexpr int LD = HD + 8;
+  if (VEC) {
+    constexpr int CPR = HD / 8;             // 16-byte chunks per row
+#pragma unroll
+    for (int i = threadIdx.x; i < MT * CPR; i += MTHREADS) {
+      const int r = i / CPR, c = (i % CPR) * 8, row = row0 + r;
+      const bool ok = row < n_rows && c < d;
+      cp_async16(dst + r * LD + c, ok ? src + row * s.st + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < MT * HD; i += MTHREADS) {
+      const int r = i / HD, c = i % HD, row = row0 + r;
+      dst[r * LD + c] = (row < n_rows && c < d)
+                            ? src[row * s.st + c * s.sc]
+                            : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// A warp's 16 output rows, held as f32 C fragments acc[HD / 8][4], times
+// `mul`, rounded to bf16 and stored to rows [row0, row0 + 16) of `dst`
+// (rows at or past n_rows and features at or past d are not written).
+// The warp stages them through `stage`, its own 16 rows of a tile with
+// row stride HD + 8 that no other warp reads any more, then stores 16
+// bytes a lane where `vec`, else one element at a time through the
+// strides.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
+                                           float mul, bf16* stage,
+                                           bf16* __restrict__ dst,
+                                           Strides4 s, int row0, int n_rows,
+                                           int d, bool vec) {
+  constexpr int LD = HD + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + j * 8 + 2 * t) =
+        pack_bf16(acc[j][0] * mul, acc[j][1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + j * 8 + 2 * t) =
+        pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
+  }
+  __syncwarp();
+  if (vec) {
+    constexpr int CPR = HD / 8;
+    for (int i = lane; i < 16 * CPR; i += 32) {
+      const int r = i / CPR, c = (i % CPR) * 8, row = row0 + r;
+      if (row < n_rows && c < d)
+        *reinterpret_cast<uint4*>(dst + row * s.st + c) =
+            *reinterpret_cast<const uint4*>(stage + r * LD + c);
+    }
+  } else {
+    for (int i = lane; i < 16 * HD; i += 32) {
+      const int r = i / HD, c = i % HD, row = row0 + r;
+      if (row < n_rows && c < d)
+        dst[row * s.st + c * s.sc] = stage[r * LD + c];
+    }
+  }
+}
+
+// Block index -> (tile, head, batch), tile-major: every head's first
+// tile before any head's second. `reverse` starts from the last tile.
+__device__ __forceinline__ void block_coords(int n_tiles, int heads,
+                                             bool reverse, int& tile,
+                                             int& head, int& batch) {
+  const int per_tile = gridDim.x / n_tiles;   // heads * batch
+  tile = blockIdx.x / per_tile;
+  if (reverse) tile = n_tiles - 1 - tile;
+  const int rest = blockIdx.x % per_tile;
+  head = rest % heads;
+  batch = rest / heads;
+}
+
+// dQ for one (q tile, query head, batch) on the tensor cores; also
+// writes D = rowsum(dO o O) of its rows for the dK/dV kernel. Warp w owns
+// query rows q0 + 16w .. q0 + 16w + 15; K/V tiles of 64 keys stream
+// through a two-stage ring.
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(MTHREADS, 2)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, bf16* __restrict__ dq,
+                        float* __restrict__ dsum, Dims p, Strides4 sq,
+                        Strides4 sk, Strides4 sv, Strides4 so, Strides4 sdo,
+                        Strides4 sdq, int out_vec) {
+  constexpr int LD = HD + 8, TILE = MT * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [MT][LD]
+  bf16* dos = qs + TILE;                          // [MT][LD]
+  bf16* ks = dos + TILE;                          // [2][MT][LD]
+  bf16* vs = ks + 2 * TILE;                       // [2][MT][LD]
+  const int n_qt = (p.t + MT - 1) / MT;
+  int qt, hq, bi;
+  block_coords(n_qt, p.h, p.causal != 0, qt, hq, bi);
+  const int q0 = qt * MT, hk = hq / (p.h / p.hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* qb = q + bi * sq.sb + hq * sq.sh;
+  const bf16* dob = dout + bi * sdo.sb + hq * sdo.sh;
+  const bf16* kb = k + bi * sk.sb + hk * sk.sh;
+  const bf16* vb = v + bi * sv.sb + hk * sv.sh;
+  const int last_row = min(p.t, q0 + MT) - 1;
+  const int k_end = p.causal ? min(p.tk, last_row + 1) : p.tk;
+  const int n_kt = (k_end + MT - 1) / MT;
+
+  load_tile_bf16<HD, VEC>(qs, qb, sq, q0, p.t, p.d);
+  load_tile_bf16<HD, VEC>(dos, dob, sdo, q0, p.t, p.d);
+  load_tile_bf16<HD, VEC>(ks, kb, sk, 0, p.tk, p.d);
+  load_tile_bf16<HD, VEC>(vs, vb, sv, 0, p.tk, p.d);
+  cp_async_commit();
+
+  // D of the warp's 16 rows from global dO and O while the copies fly;
+  // the thread keeps rows g and g + 8 (its C-fragment rows), with LSE.
+  const int64_t rbase = (static_cast<int64_t>(bi) * p.h + hq) * p.t;
+  const bf16* ob = o + bi * so.sb + hq * so.sh;
+  float d_r[2] = {0.f, 0.f}, lse2[2];
+  for (int r = 0; r < 16; ++r) {
+    const int row = q0 + warp * 16 + r;
+    float part = 0.f;
+    if (row < p.t)
+      for (int c = lane; c < p.d; c += 32)
+        part += __bfloat162float(dob[row * sdo.st + c * sdo.sc]) *
+                __bfloat162float(ob[row * so.st + c * so.sc]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      part += __shfl_xor_sync(FULL, part, off);
+    if (row < p.t && lane == 0) dsum[rbase + row] = part;
+    if (r == g) d_r[0] = part;
+    if (r == g + 8) d_r[1] = part;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    lse2[i] = row < p.t ? lse[rbase + row] * LOG2E : 0.f;
+  }
+  const float scale2 = p.scale * LOG2E;
+
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * MT;
+    if (it + 1 < n_kt) {
+      const int nxt = (it + 1) & 1;
+      load_tile_bf16<HD, VEC>(ks + nxt * TILE, kb, sk, k0 + MT, p.tk, p.d);
+      load_tile_bf16<HD, VEC>(vs + nxt * TILE, vb, sv, k0 + MT, p.tk, p.d);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* kt = ks + (it & 1) * TILE;
+    const bf16* vt = vs + (it & 1) * TILE;
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t aq[4], ado[4];
+      ldsm_x4(aq, a_addr<LD>(qs, warp * 16, kk * 16, lane));
+      ldsm_x4(ado, a_addr<LD>(dos, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, b_addr<LD>(kt, np * 16, kk * 16, lane));
+        ldsm_x4(bv, b_addr<LD>(vt, np * 16, kk * 16, lane));
+        mma_bf16(s[2 * np], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * np], ado, bv[0], bv[1]);
+        mma_bf16(dp[2 * np + 1], ado, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(S * scale - LSE), 0 where masked; dS = P o (dP - D)
+    // rounded to bf16 and packed as the A fragments of dS K.
+    const bool edge = k0 + MT > p.tk || (p.causal && k0 + MT - 1 > q0);
+    uint32_t ads[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = exp2f(s[j][e] * scale2 - lse2[e >> 1]);
+        if (edge) {
+          const int row = q0 + warp * 16 + g + 8 * (e >> 1);
+          const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+          if (!admitted(key, row, p)) pv = 0.f;
+        }
+        ds[e] = pv * (dp[j][e] - d_r[e >> 1]);
+      }
+      ads[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      ads[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += dS K: the keys are the contraction, so K comes .trans.
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+      for (int np = 0; np < HD / 16; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, bt_addr<LD>(kt, kc * 16, np * 16, lane));
+        mma_bf16(acc[2 * np], ads[kc], bk[0], bk[1]);
+        mma_bf16(acc[2 * np + 1], ads[kc], bk[2], bk[3]);
+      }
+    __syncthreads();   // the stage is consumed before it is refilled
+  }
+
+  cp_async_wait_all();
+  __syncthreads();
+  store_rows<HD>(acc, p.scale, qs + warp * 16 * LD,
+                 dq + bi * sdq.sb + hq * sdq.sh, sdq, q0 + warp * 16, p.t,
+                 p.d, out_vec != 0);
+}
+
+// dK and dV for one (k tile, kv head, batch) on the tensor cores: loops
+// over the query heads of the kv head and over the q tiles from the
+// causal diagonal down, with Q, dO, LSE and D streaming through a
+// two-stage ring. Warp w owns keys k0 + 16w .. k0 + 16w + 15 and walks
+// each q tile in two halves of 32 rows, which keeps S^T and dP^T at 32
+// registers beside the 128 of the dK/dV accumulators (d = 128).
+template <int HD, bool VEC>
+__global__ void __launch_bounds__(MTHREADS, 2)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dsum,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         Dims p, Strides4 sq, Strides4 sk, Strides4 sv,
+                         Strides4 sdo, Strides4 sdk, Strides4 sdv,
+                         int out_vec) {
+  constexpr int LD = HD + 8, TILE = MT * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [MT][LD]
+  bf16* vs = ks + TILE;                           // [MT][LD]
+  bf16* qs = vs + TILE;                           // [2][MT][LD]
+  bf16* dos = qs + 2 * TILE;                      // [2][MT][LD]
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * TILE);   // [2][MT]
+  float* d_s = lse_s + 2 * MT;                               // [2][MT]
+  const int n_kt = (p.tk + MT - 1) / MT;
+  int kt, hk, bi;
+  block_coords(n_kt, p.hkv, false, kt, hk, bi);
+  const int k0 = kt * MT, reps = p.h / p.hkv;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_qt = (p.t + MT - 1) / MT;
+  const int qt0 = p.causal ? k0 / MT : 0;
+  const int per_head = max(0, n_qt - qt0);
+  const int n_it = reps * per_head;
+
+  // Iteration i reads query head hk * reps + i / per_head, q tile
+  // qt0 + i % per_head; its Q, dO, LSE and D go to stage i & 1.
+  auto load_q_side = [&](int i) {
+    const int hq = hk * reps + i / per_head;
+    const int q0 = (qt0 + i % per_head) * MT, st = i & 1;
+    load_tile_bf16<HD, VEC>(qs + st * TILE, q + bi * sq.sb + hq * sq.sh, sq,
+                            q0, p.t, p.d);
+    load_tile_bf16<HD, VEC>(dos + st * TILE,
+                            dout + bi * sdo.sb + hq * sdo.sh, sdo, q0, p.t,
+                            p.d);
+    const int64_t rbase = (static_cast<int64_t>(bi) * p.h + hq) * p.t;
+    for (int r = threadIdx.x; r < MT; r += MTHREADS) {
+      const int row = q0 + r;
+      const int64_t at = row < p.t ? rbase + row : rbase;
+      cp_async4(lse_s + st * MT + r, lse + at, row < p.t ? 4 : 0);
+      cp_async4(d_s + st * MT + r, dsum + at, row < p.t ? 4 : 0);
+    }
+  };
+
+  load_tile_bf16<HD, VEC>(ks, k + bi * sk.sb + hk * sk.sh, sk, k0, p.tk,
+                          p.d);
+  load_tile_bf16<HD, VEC>(vs, v + bi * sv.sb + hk * sv.sh, sv, k0, p.tk,
+                          p.d);
+  if (n_it > 0) load_q_side(0);
+  cp_async_commit();
+
+  float dka[HD / 8][4], dva[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  const float scale2 = p.scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    if (it + 1 < n_it) load_q_side(it + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const int st = it & 1;
+    const int q0 = (qt0 + it % per_head) * MT;
+    const bf16* qt = qs + st * TILE;
+    const bf16* dot = dos + st * TILE;
+    const float* lse_t = lse_s + st * MT;
+    const float* d_t = d_s + st * MT;
+    const bool edge = q0 + MT > p.t || (p.causal && k0 + MT - 1 > q0);
+
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = half * 32;     // the half's first q row in the tile
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 q rows per warp.
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, a_addr<LD>(ks, warp * 16, kk * 16, lane));
+        ldsm_x4(av, a_addr<LD>(vs, warp * 16, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bq[4], bdo[4];
+          ldsm_x4(bq, b_addr<LD>(qt, c0 + np * 16, kk * 16, lane));
+          ldsm_x4(bdo, b_addr<LD>(dot, c0 + np * 16, kk * 16, lane));
+          mma_bf16(s[2 * np], ak, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ak, bq[2], bq[3]);
+          mma_bf16(dp[2 * np], av, bdo[0], bdo[1]);
+          mma_bf16(dp[2 * np + 1], av, bdo[2], bdo[3]);
+        }
+      }
+      // P^T, rounded to bf16 for P^T dO, and dS^T = P^T o (dP^T - D),
+      // rounded to bf16 for dS^T Q: A fragments over the q rows.
+      uint32_t ap[2][4], ads[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float pv[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int lr = c0 + j * 8 + 2 * t4 + (e & 1);   // q row in tile
+          pv[e] = exp2f(s[j][e] * scale2 - lse_t[lr] * LOG2E);
+          if (edge) {
+            const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+            const int row = q0 + lr;
+            if (!(row < p.t && (!p.causal || key <= row))) pv[e] = 0.f;
+          }
+          ds[e] = pv[e] * (dp[j][e] - d_t[lr]);
+        }
+        ap[j >> 1][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
+        ap[j >> 1][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        ads[j >> 1][(j & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        ads[j >> 1][(j & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      // dV += P^T dO and dK += dS^T Q: the q rows are the contraction,
+      // so dO and Q come .trans.
+#pragma unroll
+      for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t bdo[4], bq[4];
+          ldsm_x4_t(bdo, bt_addr<LD>(dot, c0 + kc * 16, np * 16, lane));
+          ldsm_x4_t(bq, bt_addr<LD>(qt, c0 + kc * 16, np * 16, lane));
+          mma_bf16(dva[2 * np], ap[kc], bdo[0], bdo[1]);
+          mma_bf16(dva[2 * np + 1], ap[kc], bdo[2], bdo[3]);
+          mma_bf16(dka[2 * np], ads[kc], bq[0], bq[1]);
+          mma_bf16(dka[2 * np + 1], ads[kc], bq[2], bq[3]);
+        }
+    }
+    __syncthreads();   // the stage is consumed before it is refilled
+  }
+
+  cp_async_wait_all();
+  __syncthreads();
+  store_rows<HD>(dka, p.scale, ks + warp * 16 * LD,
+                 dk + bi * sdk.sb + hk * sdk.sh, sdk, k0 + warp * 16, p.tk,
+                 p.d, out_vec != 0);
+  store_rows<HD>(dva, 1.f, vs + warp * 16 * LD,
+                 dv + bi * sdv.sb + hk * sdv.sh, sdv, k0 + warp * 16, p.tk,
+                 p.d, out_vec != 0);
+}
+
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -565,6 +1113,95 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether the 16-byte loader takes a bf16 tensor of n_b x n_h x n_t rows
+// of d features: feature stride 1, the stride of every other dimension
+// longer than 1 a multiple of 8 elements (16 bytes), a 16-byte aligned
+// base, and d % 8 == 0. `_vec_ok` in ops/attention.py is the same rule.
+bool vec_ok(const void* ptr, Strides4 s, int n_b, int n_h, int n_t, int d) {
+  auto ok = [](int64_t stride, int n) { return n == 1 || stride % 8 == 0; };
+  return d % 8 == 0 && s.sc == 1 && ok(s.sb, n_b) && ok(s.sh, n_h) &&
+         ok(s.st, n_t) && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// f(HEAD_DIM, VEC) as std::integral_constant tags: the instantiation of
+// the mma kernels for head_dim d and the loader.
+template <typename F>
+int by_head_dim(int d, bool vec, F&& f) {
+  using std::integral_constant;
+  if (vec) {
+    if (d <= 16) return f(integral_constant<int, 16>(), std::true_type());
+    if (d <= 32) return f(integral_constant<int, 32>(), std::true_type());
+    if (d <= 64) return f(integral_constant<int, 64>(), std::true_type());
+    return f(integral_constant<int, 128>(), std::true_type());
+  }
+  if (d <= 16) return f(integral_constant<int, 16>(), std::false_type());
+  if (d <= 32) return f(integral_constant<int, 32>(), std::false_type());
+  if (d <= 64) return f(integral_constant<int, 64>(), std::false_type());
+  return f(integral_constant<int, 128>(), std::false_type());
+}
+
+int bwd_dq_mma(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* dq, void* dsum,
+               Dims p, const int64_t* s, cudaStream_t stream) {
+  const Strides4 sq = st4(s), sk = st4(s + 4), sv = st4(s + 8),
+                 so = st4(s + 12), sdo = st4(s + 16), sdq = st4(s + 20);
+  const bool vec = vec_ok(q, sq, p.b, p.h, p.t, p.d) &&
+                   vec_ok(k, sk, p.b, p.hkv, p.tk, p.d) &&
+                   vec_ok(v, sv, p.b, p.hkv, p.tk, p.d) &&
+                   vec_ok(dout, sdo, p.b, p.h, p.t, p.d);
+  const int out_vec = vec_ok(dq, sdq, p.b, p.h, p.t, p.d);
+  const int64_t blocks =
+      static_cast<int64_t>((p.t + MT - 1) / MT) * p.h * p.b;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(p.d, vec, [&](auto hd, auto vc) {
+    constexpr int HD = decltype(hd)::value;
+    constexpr bool VEC = decltype(vc)::value;
+    constexpr size_t smem = sizeof(bf16) * 6 * MT * (HD + 8);
+    auto kernel = flash_bwd_dq_mma_kernel<HD, VEC>;
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<static_cast<unsigned>(blocks), MTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(o),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<bf16*>(dq), static_cast<float*>(dsum), p, sq, sk, sv, so,
+        sdo, sdq, out_vec);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+int bwd_dkv_mma(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* dsum, void* dk,
+                void* dv, Dims p, const int64_t* s, cudaStream_t stream) {
+  const Strides4 sq = st4(s), sk = st4(s + 4), sv = st4(s + 8),
+                 sdo = st4(s + 12), sdk = st4(s + 16), sdv = st4(s + 20);
+  const bool vec = vec_ok(q, sq, p.b, p.h, p.t, p.d) &&
+                   vec_ok(k, sk, p.b, p.hkv, p.tk, p.d) &&
+                   vec_ok(v, sv, p.b, p.hkv, p.tk, p.d) &&
+                   vec_ok(dout, sdo, p.b, p.h, p.t, p.d);
+  const int out_vec = vec_ok(dk, sdk, p.b, p.hkv, p.tk, p.d) &&
+                      vec_ok(dv, sdv, p.b, p.hkv, p.tk, p.d);
+  const int64_t blocks =
+      static_cast<int64_t>((p.tk + MT - 1) / MT) * p.hkv * p.b;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(p.d, vec, [&](auto hd, auto vc) {
+    constexpr int HD = decltype(hd)::value;
+    constexpr bool VEC = decltype(vc)::value;
+    constexpr size_t smem =
+        sizeof(bf16) * 6 * MT * (HD + 8) + sizeof(float) * 4 * MT;
+    auto kernel = flash_bwd_dkv_mma_kernel<HD, VEC>;
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<static_cast<unsigned>(blocks), MTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(dsum),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), p, sq, sk, sv, sdo,
+        sdk, sdv, out_vec);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
 bool dims_ok(const Dims& p) {
   return p.d >= 1 && p.d <= DMAX && p.hkv >= 1 && p.h % p.hkv == 0 &&
          p.h <= 65535 && p.b <= 65535 && p.t >= 1 && p.tk >= 1;
@@ -594,6 +1231,8 @@ int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
 }
 
 // strides: q, k, v, o, dout, dq. Writes dq and dsum = rowsum(dout o o).
+// float32 runs flash_bwd_dq_kernel (CUDA cores), bfloat16
+// flash_bwd_dq_mma_kernel (tensor cores).
 int flash_attention_bwd_dq_launch(int dtype, const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* dout, const void* lse,
@@ -607,12 +1246,12 @@ int flash_attention_bwd_dq_launch(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return bwd_dq<float>(q, k, v, o, dout, lse, dq, dsum, p, strides, st);
   if (dtype == 1)
-    return bwd_dq<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dsum, p,
-                                 strides, st);
+    return bwd_dq_mma(q, k, v, o, dout, lse, dq, dsum, p, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // strides: q, k, v, dout, dk, dv. Reads the dsum the dq launch wrote.
+// float32 runs flash_bwd_dkv_kernel, bfloat16 flash_bwd_dkv_mma_kernel.
 int flash_attention_bwd_dkv_launch(int dtype, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dsum,
@@ -626,8 +1265,7 @@ int flash_attention_bwd_dkv_launch(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return bwd_dkv<float>(q, k, v, dout, lse, dsum, dk, dv, p, strides, st);
   if (dtype == 1)
-    return bwd_dkv<__nv_bfloat16>(q, k, v, dout, lse, dsum, dk, dv, p,
-                                  strides, st);
+    return bwd_dkv_mma(q, k, v, dout, lse, dsum, dk, dv, p, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

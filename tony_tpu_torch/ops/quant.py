@@ -51,6 +51,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from tony_tpu_torch import resolve_device
 from tony_tpu_torch.ops.attention import LAUNCHES
 from tony_tpu_torch.parallel.overlap import DEFAULT_BUCKET_BYTES
 
@@ -277,14 +278,15 @@ class QuantDense(nn.Linear):
     ``weight [N, K]`` stored in ``param_dtype`` and quantized per output
     channel as stored (never cast to ``dtype`` first), optional ``bias``;
     returns ``(y + bias)`` cast to ``dtype``, with ``y`` the f32 rescaled
-    product of :func:`quant_dot`'s core."""
+    product of :func:`quant_dot`'s core. ``device=None`` means the card
+    (:func:`tony_tpu_torch.resolve_device`)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = False, *, dtype: torch.dtype = torch.float32,
                  param_dtype: torch.dtype = torch.float32,
                  device: Optional[torch.device] = None):
         super().__init__(in_features, out_features, bias=bias,
-                         dtype=param_dtype, device=device)
+                         dtype=param_dtype, device=resolve_device(device))
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
