@@ -471,8 +471,8 @@ FLASH_SHAPES = [
 FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
 # The kernels behind each wrapper in bf16 (the timed type) and f32, how
-# their products run, and (text, not measured here) the bf16 time of the
-# kernel each replaced at the row-7 shape, from PERF.md.
+# their products run, and the kernel each replaced in bf16 (its times are
+# in PERF.md's kernel table, with the chip run that took them).
 FLASH_KERNELS = {
     "flash_attention_fwd": {
         "kernel": "flash_fwd_kernel (bf16 and f32)",
@@ -482,15 +482,15 @@ FLASH_KERNELS = {
                   "(f32)",
         "products": "bf16: mma.sync.m16n8k16 tensor cores, ldmatrix, "
                     "cp.async two-stage ring; f32: CUDA-core FMAs",
-        "replaced": "CUDA-core flash_bwd_dq_kernel, 8.180 ms bf16 at the "
-                    "row-7 shape (PERF.md kernel table)"},
+        "replaced": "flash_bwd_dq_kernel in bf16 (CUDA-core FMAs; f32 "
+                    "only now)"},
     "flash_attention_bwd_dkv": {
         "kernel": "flash_bwd_dkv_mma_kernel (bf16); flash_bwd_dkv_kernel "
                   "(f32)",
         "products": "bf16: mma.sync.m16n8k16 tensor cores, ldmatrix, "
                     "cp.async two-stage ring; f32: CUDA-core FMAs",
-        "replaced": "CUDA-core flash_bwd_dkv_kernel, 10.207 ms bf16 at the "
-                    "row-7 shape (PERF.md kernel table)"},
+        "replaced": "flash_bwd_dkv_kernel in bf16 (CUDA-core FMAs; f32 "
+                    "only now)"},
 }
 
 

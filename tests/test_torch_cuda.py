@@ -131,21 +131,22 @@ def test_flash_attention_dkv_is_deterministic(gen):
 
 
 # The bf16 backward on the tensor cores: every HEAD_DIM instantiation
-# (16: d = 8, 12, 16; 32; 64; 128), both loaders (d = 12 and the
-# zero-stride and transposed dO take the strided one), ragged t and tk,
-# t != tk either way, GQA with hkv = 1, 2 and 8.
-MMA_CASES = [  # b, h, hkv, t, tk, d, causal, packed, dO layout, loader
-    (1, 2, 1, 100, 100, 8, True, False, "as_q", True),
-    (1, 2, 2, 70, 40, 12, True, False, "as_q", False),
-    (2, 4, 2, 130, 130, 16, True, True, "as_q", True),
-    (1, 8, 8, 65, 200, 32, False, False, "as_q", True),
-    (1, 4, 4, 200, 70, 32, True, False, "as_q", True),
-    (1, 8, 1, 127, 127, 64, True, True, "as_q", True),
-    (2, 8, 8, 192, 192, 128, True, True, "as_q", True),
-    (1, 16, 2, 96, 160, 128, True, False, "as_q", True),
-    (1, 4, 2, 96, 96, 128, True, True, "expanded", False),
-    (1, 4, 2, 96, 96, 64, True, False, "transposed", False),
-    (1, 8, 2, 64, 64, 128, False, True, "transposed", False)]
+# (16: d = 8, 12, 16; 32; 64; 128), ragged t and tk, t != tk either way,
+# GQA with hkv = 1, 2 and 8, and the operands the host makes fit before
+# the launch (d = 12 zero-padded to 16, a zero-stride or transposed dO
+# copied).
+MMA_CASES = [  # b, h, hkv, t, tk, d, causal, packed, dO layout, made fit
+    (1, 2, 1, 100, 100, 8, True, False, "as_q", False),
+    (1, 2, 2, 70, 40, 12, True, False, "as_q", True),
+    (2, 4, 2, 130, 130, 16, True, True, "as_q", False),
+    (1, 8, 8, 65, 200, 32, False, False, "as_q", False),
+    (1, 4, 4, 200, 70, 32, True, False, "as_q", False),
+    (1, 8, 1, 127, 127, 64, True, True, "as_q", False),
+    (2, 8, 8, 192, 192, 128, True, True, "as_q", False),
+    (1, 16, 2, 96, 160, 128, True, False, "as_q", False),
+    (1, 4, 2, 96, 96, 128, True, True, "expanded", True),
+    (1, 4, 2, 96, 96, 64, True, False, "transposed", True),
+    (1, 8, 2, 64, 64, 128, False, True, "transposed", True)]
 
 
 def _do_layout(do, layout):
@@ -159,13 +160,13 @@ def _do_layout(do, layout):
 
 
 @pytest.mark.parametrize(
-    "b,h,hkv,t,tk,d,causal,packed,layout,vec", MMA_CASES)
+    "b,h,hkv,t,tk,d,causal,packed,layout,made_fit", MMA_CASES)
 def test_flash_backward_mma_vs_plain(gen, b, h, hkv, t, tk, d, causal,
-                                     packed, layout, vec):
+                                     packed, layout, made_fit):
     q, k, v, do = _flash_inputs(gen, b, h, hkv, t, tk, d, torch.bfloat16,
                                 packed)
     do = _do_layout(do, layout)
-    assert attn._bwd_vec(q, k, v, do) is vec
+    assert all(attn._vec_ok(x) for x in (q, k, v, do)) is not made_fit
     scale = d ** -0.5
     out, lse = attn._flash_fwd_cuda(q, k, v, causal, scale)
     dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
@@ -205,7 +206,7 @@ def _device_kernel_counts(fn):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_backward_runs_the_tensor_core_kernels_in_bf16(gen, dtype):
     """A bf16 backward through the public entry launches the two mma
-    kernels (the 16-byte loader for packed d = 128) and no CUDA-core
+    kernels (the d = 128 instantiation for packed d = 128) and no CUDA-core
     backward kernel; f32 launches the CUDA-core ones and no mma kernel."""
     q, k, v, do = (x.transpose(1, 2).reshape(2, 128, -1) for x in
                    _flash_inputs(gen, 2, 4, 2, 128, 128, 128, dtype, True))
@@ -213,8 +214,7 @@ def test_flash_backward_runs_the_tensor_core_kernels_in_bf16(gen, dtype):
     counts = _device_kernel_counts(
         lambda: attn.flash_attention_packed(qp, kp, vp, 4).backward(do))
     names = " ".join(counts)
-    mma = ("flash_bwd_dq_mma_kernel<128, true>",
-           "flash_bwd_dkv_mma_kernel<128, true>")
+    mma = ("flash_bwd_dq_mma_kernel<128>", "flash_bwd_dkv_mma_kernel<128>")
     cores = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     want, never = (mma, cores) if dtype == torch.bfloat16 else (cores, mma)
     for name in want:
@@ -222,6 +222,26 @@ def test_flash_backward_runs_the_tensor_core_kernels_in_bf16(gen, dtype):
             (name, counts)
     for name in never:
         assert name.split("<")[0] not in names, (name, counts)
+
+
+def test_flash_backward_launcher_refuses_a_layout_it_cannot_copy(gen):
+    """The bf16 launcher returns an error, not a misaligned 16-byte copy,
+    when handed an operand the wrapper would have made fit (here a
+    transposed dO), and the wrapper raises it."""
+    q, k, v, do = _flash_inputs(gen, 1, 4, 2, 64, 64, 64, torch.bfloat16,
+                                False)
+    out, lse = attn._flash_fwd_cuda(q, k, v, True, 0.125)
+    do = _do_layout(do, "transposed")
+    dq = torch.empty_like(q)
+    dsum = torch.empty(lse.shape, dtype=torch.float32, device="cuda")
+    with pytest.raises(RuntimeError, match="flash_attention_bwd_dq kernel "
+                       "launch failed"):
+        attn._launch(attn._attn_lib(), "flash_attention_bwd_dq_launch",
+                     "flash_attention_bwd_dq",
+                     (1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                      dq.data_ptr(), dsum.data_ptr()),
+                     attn._dims(q, k, True, 0.125), (q, k, v, out, do, dq))
 
 
 def test_flash_attention_autograd_on_the_card(gen):

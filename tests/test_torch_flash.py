@@ -212,9 +212,10 @@ def _strided(size, stride, offset=0):
 
 
 class TestBackwardLoader:
-    """The host rule that picks the bf16 backward kernels' loader
-    (``_vec_ok``): 16-byte ``cp.async`` copies for the layouts the model
-    hands over, scalar loads through the strides otherwise."""
+    """The host rule for the bf16 backward kernels' 16-byte ``cp.async``
+    loader (``_vec_ok``), and ``_for_mma``, which hands the kernels the
+    layouts the model gives as they are and copies or zero-pads any other
+    once, before the launch."""
 
     @pytest.mark.parametrize("make,vec", [
         (lambda: _packed_view(2, 64, 4, 128), True),
@@ -249,8 +250,75 @@ class TestBackwardLoader:
         assert tattn._vec_ok(make()) is vec
 
     def test_all_four_operands_decide(self):
-        q, k, v, do = (_packed_view(1, 64, 4, 64) for _ in range(4))
-        assert tattn._bwd_vec(q, k, v, do)
-        assert not tattn._bwd_vec(q, k, v, do.transpose(-1, -2))
-        assert not tattn._bwd_vec(q, k, v, torch.ones(
-            (), dtype=torch.bfloat16).expand(do.shape))
+        """Each operand is judged on its own: a conforming one is passed
+        through untouched, a transposed or zero-stride one is copied to a
+        contiguous tensor with the same values, which then conforms."""
+        gen = torch.Generator().manual_seed(0)
+        x = torch.randn((1, 64, 4 * 64), generator=gen).to(torch.bfloat16)
+        q = x.unflatten(2, (4, 64)).transpose(1, 2)
+        assert tattn._for_mma(q, 64) is q
+        for odd in (q.transpose(-1, -2).contiguous().transpose(-1, -2),
+                    torch.ones((), dtype=torch.bfloat16).expand(q.shape)):
+            assert not tattn._vec_ok(odd)
+            got = tattn._for_mma(odd, 64)
+            assert got.is_contiguous() and tattn._vec_ok(got)
+            assert torch.equal(got, odd)
+
+    def test_for_mma_copies_an_unaligned_contiguous_operand(self):
+        """A contiguous view whose base is off a 16-byte boundary is
+        copied too (``.contiguous()`` alone would hand it back as is)."""
+        x = torch.arange(1 + 2 * 16 * 8, dtype=torch.float32).to(
+            torch.bfloat16)[1:].view(1, 2, 16, 8)
+        assert x.is_contiguous() and not tattn._vec_ok(x)
+        got = tattn._for_mma(x, 8)
+        assert tattn._vec_ok(got) and torch.equal(got, x)
+
+    @pytest.mark.parametrize("d,d8", [(8, 8), (12, 16), (5, 8), (20, 24)])
+    def test_for_mma_pads_d_to_a_multiple_of_8(self, d, d8):
+        """d % 8 != 0 (the tests' odd widths) is zero-padded on the host:
+        the kernels see d8 features, of which the last d8 - d are zero,
+        so every product (S, dP, D, dS K, P^T dO, dS^T Q) is unchanged."""
+        gen = torch.Generator().manual_seed(d)
+        x = torch.randn((1, 2, 10, d), generator=gen).to(torch.bfloat16)
+        for view in (x, x.transpose(-1, -2).contiguous().transpose(-1, -2)):
+            got = tattn._for_mma(view, d8)
+            assert got.shape == (1, 2, 10, d8) and tattn._vec_ok(got)
+            assert torch.equal(got[..., :d], x)
+            assert not torch.any(got[..., d:])
+
+    @pytest.mark.parametrize("d,layout", [
+        (64, "packed"), (64, "transposed_do"), (12, "contiguous"),
+        (12, "transposed_q")])
+    def test_bf16_wrapper_hands_the_kernels_fitting_operands(
+            self, monkeypatch, d, layout):
+        """``_flash_bwd_cuda`` with the launches stubbed on CPU tensors:
+        each bf16 launch sees d rounded up to a multiple of 8 and only
+        operands ``_vec_ok`` takes, and the grads come back at width d in
+        q's, k's and v's own layouts."""
+        d8 = -(-d // 8) * 8
+        seen = []
+
+        def launch(lib, fn_name, counter, args, dims, tensors):
+            assert dims[5] == d8 and all(tattn._vec_ok(x) for x in tensors)
+            for out in tensors[-2 if counter.endswith("dkv") else -1:]:
+                out.copy_(torch.arange(1, d8 + 1).expand(out.shape))
+            seen.append(counter)
+
+        monkeypatch.setattr(tattn, "_attn_lib", lambda: None)
+        monkeypatch.setattr(tattn, "_launch", launch)
+        if layout == "packed":
+            q, k, v, o, do = (_packed_view(1, 16, 2, d) for _ in range(5))
+        else:
+            q, k, v, o, do = (torch.zeros((1, 2, 16, d), dtype=torch.bfloat16)
+                              for _ in range(5))
+        if layout == "transposed_do":
+            do = do.transpose(-1, -2).contiguous().transpose(-1, -2)
+        if layout == "transposed_q":
+            q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+        lse = torch.zeros((1, 2, 16))
+        grads = tattn._flash_bwd_cuda(q, k, v, o, lse, do, True, 1.0)
+        assert seen == ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
+        for grad, x in zip(grads, (q, k, v)):
+            assert grad.shape == x.shape and grad.stride() == x.stride()
+            assert torch.equal(grad, torch.arange(1, d + 1).to(
+                torch.bfloat16).expand(x.shape))

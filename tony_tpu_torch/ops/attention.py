@@ -404,25 +404,27 @@ def _check_flash_cuda(q, k, v, *more):
 
 
 def _vec_ok(x: torch.Tensor) -> bool:
-    """Whether the bf16 backward kernels fill their tiles of ``x`` (a
-    [B, H, T, D] view) by 16-byte ``cp.async`` copies: feature stride 1,
-    the stride of every other dimension longer than 1 a multiple of 8
-    elements (16 bytes of bf16), a 16-byte aligned base, and D % 8 == 0.
-    The packed [B, T, H·D] views and contiguous [B, H, T, D] qualify. The
-    launcher in ``csrc/flash_attention.cu`` (``vec_ok``) applies the same
-    rule to the pointers and strides it is given; where an operand fails
-    it, the kernels load through the strides one element at a time."""
+    """Whether the bf16 backward kernels can take ``x`` (a [B, H, T, D]
+    view) as it is: their 16-byte ``cp.async`` copies and stores need
+    feature stride 1, the stride of every other dimension longer than 1 a
+    multiple of 8 elements (16 bytes of bf16), a 16-byte aligned base, and
+    D % 8 == 0. The packed [B, T, H·D] views and contiguous [B, H, T, D]
+    qualify. The launcher in ``csrc/flash_attention.cu`` (``rows16``)
+    refuses a layout that breaks the rule."""
     return (x.shape[-1] % 8 == 0 and x.stride(-1) == 1
             and x.data_ptr() % 16 == 0
             and all(n == 1 or s % 8 == 0
                     for n, s in zip(x.shape[:-1], x.stride()[:-1])))
 
 
-def _bwd_vec(q, k, v, do) -> bool:
-    """The loader the bf16 backward kernels take for these operands:
-    ``True`` for the ``cp.async`` ring (``VEC``), ``False`` for the
-    strided scalar loads."""
-    return all(_vec_ok(x) for x in (q, k, v, do))
+def _for_mma(x: torch.Tensor, d8: int) -> torch.Tensor:
+    """``x`` as the bf16 backward kernels take it: zero-padded to ``d8``
+    features (a multiple of 8; the zeros add nothing to any product), or
+    copied to a fresh contiguous tensor where :func:`_vec_ok` fails (a
+    zero-stride or transposed dO from autograd), else ``x`` itself."""
+    if x.shape[-1] != d8:
+        return torch.nn.functional.pad(x, (0, d8 - x.shape[-1]))
+    return x if _vec_ok(x) else x.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(lib, fn_name, counter, args, dims, tensors):
@@ -462,17 +464,25 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
     """dQ kernel (which also writes D = rowsum(dO∘O)), then the dK/dV
     kernel that reads D. dO is taken with whatever strides autograd gives
     it. bf16 runs the tensor-core kernels (``flash_bwd_dq_mma_kernel``,
-    ``flash_bwd_dkv_mma_kernel``; loader as :func:`_bwd_vec`), f32 the
-    CUDA-core ones."""
+    ``flash_bwd_dkv_mma_kernel``) on operands made fit by
+    :func:`_for_mma`, f32 the CUDA-core ones on the operands as given."""
     _check_flash_cuda(q, k, v, o, do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention backward needs the forward's "
                          "contiguous float32 LSE")
-    b, h, t, _ = q.shape
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return tuple(torch.zeros_like(x) for x in (q, k, v))
+    b, h, t, d = q.shape
+    # The grads keep q's, k's and v's layouts. Where one does not fit the
+    # bf16 kernels, they write a fitting buffer that is copied over.
+    outs = runs = [torch.empty_like(x) for x in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        d8 = -(-d // 8) * 8
+        q, k, v, o, do = (_for_mma(x, d8) for x in (q, k, v, o, do))
+        runs = [y if _vec_ok(y) else torch.empty_like(x)
+                for y, x in zip(outs, (q, k, v))]
+    dq, dk, dv = runs
+    dsum = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _attn_lib()
     code = _DTYPE_CODES[q.dtype]
     dims = _dims(q, k, causal, scale)
@@ -484,7 +494,10 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, scale):
             (code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr()),
             dims, (q, k, v, do, dk, dv))
-    return dq, dk, dv
+    for y, run in zip(outs, runs):
+        if run is not y:
+            y.copy_(run[..., :d])
+    return tuple(outs)
 
 
 def _on(x: torch.Tensor) -> str:

@@ -61,16 +61,17 @@
 //    rounded to dO's type before P^T dO and dS to the input type before
 //    dS K and dS^T Q; in bf16 those rounded values are the mma operands,
 //    so only the order of the f32 sums differs from the plain versions.
-//  * Loads (VEC = true): when every input's feature stride is 1 and its
-//    other strides and base pointer are 16-byte aligned (the packed
-//    [B, T, H*D] views and contiguous [B, H, T, D]), tiles are filled by
-//    16-byte cp.async.cg copies into a two-stage ring, so the next tile's
-//    copy overlaps this tile's products (commit_group / wait_group 1).
-//    VEC = false fills the same tiles with scalar loads through all four
-//    strides (a zero-stride or transposed dO from autograd, d % 8 != 0).
-//    The launcher picks the loader from the pointers and strides it is
-//    given (vec_ok below); `_vec_ok` in ops/attention.py states the same
-//    rule in Python.
+//  * Loads: tiles are filled by 16-byte cp.async.cg copies into a
+//    two-stage ring, so the next tile's copy overlaps this tile's
+//    products (commit_group / wait_group 1), and dQ, dK and dV leave in
+//    16-byte stores. That needs every bf16 operand's feature stride 1,
+//    d % 8 == 0, and its other strides and base pointer 16-byte aligned:
+//    the packed [B, T, H*D] views and contiguous [B, H, T, D] are. The
+//    Python wrapper (`_for_mma` in ops/attention.py) copies any other
+//    operand (a zero-stride or transposed dO from autograd) and zero-pads
+//    d to a multiple of 8; the launcher only refuses a layout that breaks
+//    the rule (rows16 below), so a direct caller gets an error, not a
+//    misaligned copy.
 //  * Schedule: blocks are numbered tile-major over (tile, head, batch),
 //    the longest tiles first under causal masking (dQ: the last q tiles,
 //    which see the most keys; dK/dV: the first k tiles, which see the most
@@ -289,14 +290,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dQ for one (q tile, query head, batch); also writes D = rowsum(dO o O)
-// of its rows for the dK/dV kernel.
-template <typename T>
+// f32 dQ for one (q tile, query head, batch) on the CUDA cores; also
+// writes D = rowsum(dO o O) of its rows for the dK/dV kernel.
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout,
-                    const float* __restrict__ lse, T* __restrict__ dq,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ o,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ dq,
                     float* __restrict__ dsum, Dims p, Strides4 sq,
                     Strides4 sk, Strides4 sv, Strides4 so, Strides4 sdo,
                     Strides4 sdq) {
@@ -310,8 +312,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ, hq = blockIdx.y, bi = blockIdx.z;
   const int hk = hq / (p.h / p.hkv);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const T* kb = k + bi * sk.sb + hk * sk.sh;
-  const T* vb = v + bi * sv.sb + hk * sv.sh;
+  const float* kb = k + bi * sk.sb + hk * sk.sh;
+  const float* vb = v + bi * sv.sb + hk * sv.sh;
   load_tile(qs, ld, q + bi * sq.sb + hq * sq.sh, sq, q0, p.t, p.d);
   load_tile(dos, ld, dout + bi * sdo.sb + hq * sdo.sh, sdo, q0, p.t, p.d);
   __syncthreads();
@@ -323,9 +325,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int lr = ty * RPT + i, row = q0 + lr;
     float part = 0.f;
     if (row < p.t) {
-      const T* orow = o + bi * so.sb + hq * so.sh + row * so.st;
+      const float* orow = o + bi * so.sb + hq * so.sh + row * so.st;
       for (int c = tx; c < p.d; c += TX)
-        part += dos[lr * ld + c] * to_f(orow[c * so.sc]);
+        part += dos[lr * ld + c] * orow[c * so.sc];
     }
     d_r[i] = row_sum(part);
     lse_r[i] = row < p.t ? lse[rbase + row] : 0.f;
@@ -373,8 +375,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const float pj = row < p.t && admitted(k0 + tx + TX * j, row, p)
                              ? expf(s[i][j] * p.scale - lse_r[i]) : 0.f;
-        dss[(ty * RPT + i) * PS + tx + TX * j] =
-            round_to<T>(pj * (dp[i][j] - d_r[i]));
+        dss[(ty * RPT + i) * PS + tx + TX * j] = pj * (dp[i][j] - d_r[i]);
       }
     }
     __syncthreads();
@@ -398,24 +399,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int row = q0 + ty * RPT + i;
     if (row >= p.t) continue;
-    T* drow = dq + bi * sdq.sb + hq * sdq.sh + row * sdq.st;
+    float* drow = dq + bi * sdq.sb + hq * sdq.sh + row * sdq.st;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int c = tx + TX * cc;
-      if (c < p.d) drow[c * sdq.sc] = from_f<T>(acc[i][cc] * p.scale);
+      if (c < p.d) drow[c * sdq.sc] = acc[i][cc] * p.scale;
     }
   }
 }
 
-// dK and dV for one (k tile, kv head, batch): loops over the query heads
-// of the kv head and over the q tiles from the causal diagonal down.
-template <typename T>
+// f32 dK and dV for one (k tile, kv head, batch) on the CUDA cores: loops
+// over the query heads of the kv head and over the q tiles from the causal
+// diagonal down.
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ dsum, T* __restrict__ dk,
-                     T* __restrict__ dv, Dims p, Strides4 sq, Strides4 sk,
+                     const float* __restrict__ dsum, float* __restrict__ dk,
+                     float* __restrict__ dv, Dims p, Strides4 sq, Strides4 sk,
                      Strides4 sv, Strides4 sdo, Strides4 sdk,
                      Strides4 sdv) {
   extern __shared__ float smem[];
@@ -490,8 +493,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int lr = tx + TX * j, row = q0 + lr;
           const float pj = row < p.t && admitted(key, row, p)
                                ? expf(s[i][j] * p.scale - lse_s[lr]) : 0.f;
-          ts[(ty * RPT + i) * PS + lr] = round_to<T>(pj);
-          s[i][j] = round_to<T>(pj * (dp[i][j] - d_s[lr]));   // dS
+          ts[(ty * RPT + i) * PS + lr] = pj;
+          s[i][j] = pj * (dp[i][j] - d_s[lr]);   // dS
         }
       }
       __syncthreads();
@@ -537,14 +540,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RPT; ++i) {
     const int key = k0 + ty * RPT + i;
     if (key >= p.tk) continue;
-    T* krow = dk + bi * sdk.sb + hk * sdk.sh + key * sdk.st;
-    T* vrow = dv + bi * sdv.sb + hk * sdv.sh + key * sdv.st;
+    float* krow = dk + bi * sdk.sb + hk * sdk.sh + key * sdk.st;
+    float* vrow = dv + bi * sdv.sb + hk * sdv.sh + key * sdv.st;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int c = tx + TX * cc;
       if (c < p.d) {
-        krow[c * sdk.sc] = from_f<T>(dka[i][cc] * p.scale);
-        vrow[c * sdv.sc] = from_f<T>(dva[i][cc]);
+        krow[c * sdk.sc] = dka[i][cc] * p.scale;
+        vrow[c * sdv.sc] = dva[i][cc];
       }
     }
   }
@@ -653,33 +656,22 @@ __device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int k0,
 }
 
 // Rows [row0, row0 + MT) of one (batch, head) slice (`src` points at its
-// row 0) into a bf16 tile with row stride HD + 8; rows at or past n_rows
-// and features at or past d are zeros. VEC: 16-byte cp.async copies
-// (feature stride 1, 16-byte aligned rows, d % 8 == 0, so a chunk lies
-// wholly inside or outside d), committed by the caller. Otherwise scalar
-// loads through the strides.
-template <int HD, bool VEC>
+// row 0) into a bf16 tile with row stride HD + 8 by 16-byte cp.async
+// copies (feature stride 1, 16-byte aligned rows, d % 8 == 0, so a chunk
+// lies wholly inside or outside d), committed by the caller; rows at or
+// past n_rows and features at or past d are zeros.
+template <int HD>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst,
                                                const bf16* __restrict__ src,
                                                Strides4 s, int row0,
                                                int n_rows, int d) {
-  constexpr int LD = HD + 8;
-  if (VEC) {
-    constexpr int CPR = HD / 8;             // 16-byte chunks per row
+  constexpr int LD = HD + 8, CPR = HD / 8;   // 16-byte chunks per row
 #pragma unroll
-    for (int i = threadIdx.x; i < MT * CPR; i += MTHREADS) {
-      const int r = i / CPR, c = (i % CPR) * 8, row = row0 + r;
-      const bool ok = row < n_rows && c < d;
-      cp_async16(dst + r * LD + c, ok ? src + row * s.st + c : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int i = threadIdx.x; i < MT * HD; i += MTHREADS) {
-      const int r = i / HD, c = i % HD, row = row0 + r;
-      dst[r * LD + c] = (row < n_rows && c < d)
-                            ? src[row * s.st + c * s.sc]
-                            : __float2bfloat16(0.f);
-    }
+  for (int i = threadIdx.x; i < MT * CPR; i += MTHREADS) {
+    const int r = i / CPR, c = (i % CPR) * 8, row = row0 + r;
+    const bool ok = row < n_rows && c < d;
+    cp_async16(dst + r * LD + c, ok ? src + row * s.st + c : src,
+               ok ? 16 : 0);
   }
 }
 
@@ -688,15 +680,14 @@ __device__ __forceinline__ void load_tile_bf16(bf16* dst,
 // (rows at or past n_rows and features at or past d are not written).
 // The warp stages them through `stage`, its own 16 rows of a tile with
 // row stride HD + 8 that no other warp reads any more, then stores 16
-// bytes a lane where `vec`, else one element at a time through the
-// strides.
+// bytes a lane.
 template <int HD>
 __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
                                            float mul, bf16* stage,
                                            bf16* __restrict__ dst,
                                            Strides4 s, int row0, int n_rows,
-                                           int d, bool vec) {
-  constexpr int LD = HD + 8;
+                                           int d) {
+  constexpr int LD = HD + 8, CPR = HD / 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) {
@@ -706,20 +697,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
         pack_bf16(acc[j][2] * mul, acc[j][3] * mul);
   }
   __syncwarp();
-  if (vec) {
-    constexpr int CPR = HD / 8;
-    for (int i = lane; i < 16 * CPR; i += 32) {
-      const int r = i / CPR, c = (i % CPR) * 8, row = row0 + r;
-      if (row < n_rows && c < d)
-        *reinterpret_cast<uint4*>(dst + row * s.st + c) =
-            *reinterpret_cast<const uint4*>(stage + r * LD + c);
-    }
-  } else {
-    for (int i = lane; i < 16 * HD; i += 32) {
-      const int r = i / HD, c = i % HD, row = row0 + r;
-      if (row < n_rows && c < d)
-        dst[row * s.st + c * s.sc] = stage[r * LD + c];
-    }
+  for (int i = lane; i < 16 * CPR; i += 32) {
+    const int r = i / CPR, c = (i % CPR) * 8, row = row0 + r;
+    if (row < n_rows && c < d)
+      *reinterpret_cast<uint4*>(dst + row * s.st + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
   }
 }
 
@@ -740,7 +722,7 @@ __device__ __forceinline__ void block_coords(int n_tiles, int heads,
 // writes D = rowsum(dO o O) of its rows for the dK/dV kernel. Warp w owns
 // query rows q0 + 16w .. q0 + 16w + 15; K/V tiles of 64 keys stream
 // through a two-stage ring.
-template <int HD, bool VEC>
+template <int HD>
 __global__ void __launch_bounds__(MTHREADS, 2)
 flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const bf16* __restrict__ k,
@@ -750,7 +732,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
                         const float* __restrict__ lse, bf16* __restrict__ dq,
                         float* __restrict__ dsum, Dims p, Strides4 sq,
                         Strides4 sk, Strides4 sv, Strides4 so, Strides4 sdo,
-                        Strides4 sdq, int out_vec) {
+                        Strides4 sdq) {
   constexpr int LD = HD + 8, TILE = MT * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [MT][LD]
@@ -771,10 +753,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   const int k_end = p.causal ? min(p.tk, last_row + 1) : p.tk;
   const int n_kt = (k_end + MT - 1) / MT;
 
-  load_tile_bf16<HD, VEC>(qs, qb, sq, q0, p.t, p.d);
-  load_tile_bf16<HD, VEC>(dos, dob, sdo, q0, p.t, p.d);
-  load_tile_bf16<HD, VEC>(ks, kb, sk, 0, p.tk, p.d);
-  load_tile_bf16<HD, VEC>(vs, vb, sv, 0, p.tk, p.d);
+  load_tile_bf16<HD>(qs, qb, sq, q0, p.t, p.d);
+  load_tile_bf16<HD>(dos, dob, sdo, q0, p.t, p.d);
+  load_tile_bf16<HD>(ks, kb, sk, 0, p.tk, p.d);
+  load_tile_bf16<HD>(vs, vb, sv, 0, p.tk, p.d);
   cp_async_commit();
 
   // D of the warp's 16 rows from global dO and O while the copies fly;
@@ -813,8 +795,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
     const int k0 = it * MT;
     if (it + 1 < n_kt) {
       const int nxt = (it + 1) & 1;
-      load_tile_bf16<HD, VEC>(ks + nxt * TILE, kb, sk, k0 + MT, p.tk, p.d);
-      load_tile_bf16<HD, VEC>(vs + nxt * TILE, vb, sv, k0 + MT, p.tk, p.d);
+      load_tile_bf16<HD>(ks + nxt * TILE, kb, sk, k0 + MT, p.tk, p.d);
+      load_tile_bf16<HD>(vs + nxt * TILE, vb, sv, k0 + MT, p.tk, p.d);
     }
     cp_async_commit();
     cp_async_wait_one();
@@ -883,7 +865,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
   __syncthreads();
   store_rows<HD>(acc, p.scale, qs + warp * 16 * LD,
                  dq + bi * sdq.sb + hq * sdq.sh, sdq, q0 + warp * 16, p.t,
-                 p.d, out_vec != 0);
+                 p.d);
 }
 
 // dK and dV for one (k tile, kv head, batch) on the tensor cores: loops
@@ -892,7 +874,7 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 // two-stage ring. Warp w owns keys k0 + 16w .. k0 + 16w + 15 and walks
 // each q tile in two halves of 32 rows, which keeps S^T and dP^T at 32
 // registers beside the 128 of the dK/dV accumulators (d = 128).
-template <int HD, bool VEC>
+template <int HD>
 __global__ void __launch_bounds__(MTHREADS, 2)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
@@ -902,8 +884,7 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ dsum,
                          bf16* __restrict__ dk, bf16* __restrict__ dv,
                          Dims p, Strides4 sq, Strides4 sk, Strides4 sv,
-                         Strides4 sdo, Strides4 sdk, Strides4 sdv,
-                         int out_vec) {
+                         Strides4 sdo, Strides4 sdk, Strides4 sdv) {
   constexpr int LD = HD + 8, TILE = MT * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [MT][LD]
@@ -928,9 +909,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   auto load_q_side = [&](int i) {
     const int hq = hk * reps + i / per_head;
     const int q0 = (qt0 + i % per_head) * MT, st = i & 1;
-    load_tile_bf16<HD, VEC>(qs + st * TILE, q + bi * sq.sb + hq * sq.sh, sq,
+    load_tile_bf16<HD>(qs + st * TILE, q + bi * sq.sb + hq * sq.sh, sq,
                             q0, p.t, p.d);
-    load_tile_bf16<HD, VEC>(dos + st * TILE,
+    load_tile_bf16<HD>(dos + st * TILE,
                             dout + bi * sdo.sb + hq * sdo.sh, sdo, q0, p.t,
                             p.d);
     const int64_t rbase = (static_cast<int64_t>(bi) * p.h + hq) * p.t;
@@ -942,9 +923,9 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
     }
   };
 
-  load_tile_bf16<HD, VEC>(ks, k + bi * sk.sb + hk * sk.sh, sk, k0, p.tk,
+  load_tile_bf16<HD>(ks, k + bi * sk.sb + hk * sk.sh, sk, k0, p.tk,
                           p.d);
-  load_tile_bf16<HD, VEC>(vs, v + bi * sv.sb + hk * sv.sh, sv, k0, p.tk,
+  load_tile_bf16<HD>(vs, v + bi * sv.sb + hk * sv.sh, sv, k0, p.tk,
                           p.d);
   if (n_it > 0) load_q_side(0);
   cp_async_commit();
@@ -1038,10 +1019,10 @@ flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
   __syncthreads();
   store_rows<HD>(dka, p.scale, ks + warp * 16 * LD,
                  dk + bi * sdk.sb + hk * sdk.sh, sdk, k0 + warp * 16, p.tk,
-                 p.d, out_vec != 0);
+                 p.d);
   store_rows<HD>(dva, 1.f, vs + warp * 16 * LD,
                  dv + bi * sdv.sb + hk * sdv.sh, sdv, k0 + warp * 16, p.tk,
-                 p.d, out_vec != 0);
+                 p.d);
 }
 
 template <typename K>
@@ -1076,68 +1057,60 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd_dq(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const void* lse, void* dq, void* dsum, Dims p,
-           const int64_t* s, cudaStream_t stream) {
+int bwd_dq_f32(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const void* lse, void* dq, void* dsum, Dims p,
+               const int64_t* s, cudaStream_t stream) {
   const int ld = p.d + 1;
   const size_t smem = sizeof(float) * ((2 * BQ + 2 * BK) * ld + BQ * PS);
-  int err = set_smem(flash_bwd_dq_kernel<T>, smem);
+  int err = set_smem(flash_bwd_dq_kernel, smem);
   if (err) return err;
   const dim3 grid((p.t + BQ - 1) / BQ, p.h, p.b);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<T*>(dq), static_cast<float*>(dsum), p, st4(s), st4(s + 4),
-      st4(s + 8), st4(s + 12), st4(s + 16), st4(s + 20));
+  flash_bwd_dq_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(o),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(dq), static_cast<float*>(dsum), p, st4(s),
+      st4(s + 4), st4(s + 8), st4(s + 12), st4(s + 16), st4(s + 20));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* dsum, void* dk, void* dv, Dims p,
-            const int64_t* s, cudaStream_t stream) {
+int bwd_dkv_f32(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* dsum, void* dk,
+                void* dv, Dims p, const int64_t* s, cudaStream_t stream) {
   const int ld = p.d + 1;
   const size_t smem =
       sizeof(float) * ((2 * BQ + 2 * BK) * ld + BK * PS + 2 * BQ);
-  int err = set_smem(flash_bwd_dkv_kernel<T>, smem);
+  int err = set_smem(flash_bwd_dkv_kernel, smem);
   if (err) return err;
   const dim3 grid((p.tk + BK - 1) / BK, p.hkv, p.b);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_bwd_dkv_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<T*>(dk), static_cast<T*>(dv), p, st4(s), st4(s + 4),
-      st4(s + 8), st4(s + 12), st4(s + 16), st4(s + 20));
+      static_cast<float*>(dk), static_cast<float*>(dv), p, st4(s),
+      st4(s + 4), st4(s + 8), st4(s + 12), st4(s + 16), st4(s + 20));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether the 16-byte loader takes a bf16 tensor of n_b x n_h x n_t rows
-// of d features: feature stride 1, the stride of every other dimension
-// longer than 1 a multiple of 8 elements (16 bytes), a 16-byte aligned
-// base, and d % 8 == 0. `_vec_ok` in ops/attention.py is the same rule.
-bool vec_ok(const void* ptr, Strides4 s, int n_b, int n_h, int n_t, int d) {
+// Whether a bf16 tensor of n_b x n_h x n_t rows of d features has the
+// layout the mma kernels' 16-byte copies and stores need: feature stride
+// 1, the stride of every other dimension longer than 1 a multiple of 8
+// elements (16 bytes), a 16-byte aligned base, and d % 8 == 0.
+bool rows16(const void* ptr, Strides4 s, int n_b, int n_h, int n_t, int d) {
   auto ok = [](int64_t stride, int n) { return n == 1 || stride % 8 == 0; };
   return d % 8 == 0 && s.sc == 1 && ok(s.sb, n_b) && ok(s.sh, n_h) &&
          ok(s.st, n_t) && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-// f(HEAD_DIM, VEC) as std::integral_constant tags: the instantiation of
-// the mma kernels for head_dim d and the loader.
+// f(HEAD_DIM) as a std::integral_constant tag: the instantiation of the
+// mma kernels for head_dim d.
 template <typename F>
-int by_head_dim(int d, bool vec, F&& f) {
+int by_head_dim(int d, F&& f) {
   using std::integral_constant;
-  if (vec) {
-    if (d <= 16) return f(integral_constant<int, 16>(), std::true_type());
-    if (d <= 32) return f(integral_constant<int, 32>(), std::true_type());
-    if (d <= 64) return f(integral_constant<int, 64>(), std::true_type());
-    return f(integral_constant<int, 128>(), std::true_type());
-  }
-  if (d <= 16) return f(integral_constant<int, 16>(), std::false_type());
-  if (d <= 32) return f(integral_constant<int, 32>(), std::false_type());
-  if (d <= 64) return f(integral_constant<int, 64>(), std::false_type());
-  return f(integral_constant<int, 128>(), std::false_type());
+  if (d <= 16) return f(integral_constant<int, 16>());
+  if (d <= 32) return f(integral_constant<int, 32>());
+  if (d <= 64) return f(integral_constant<int, 64>());
+  return f(integral_constant<int, 128>());
 }
 
 int bwd_dq_mma(const void* q, const void* k, const void* v, const void* o,
@@ -1145,19 +1118,19 @@ int bwd_dq_mma(const void* q, const void* k, const void* v, const void* o,
                Dims p, const int64_t* s, cudaStream_t stream) {
   const Strides4 sq = st4(s), sk = st4(s + 4), sv = st4(s + 8),
                  so = st4(s + 12), sdo = st4(s + 16), sdq = st4(s + 20);
-  const bool vec = vec_ok(q, sq, p.b, p.h, p.t, p.d) &&
-                   vec_ok(k, sk, p.b, p.hkv, p.tk, p.d) &&
-                   vec_ok(v, sv, p.b, p.hkv, p.tk, p.d) &&
-                   vec_ok(dout, sdo, p.b, p.h, p.t, p.d);
-  const int out_vec = vec_ok(dq, sdq, p.b, p.h, p.t, p.d);
+  if (!(rows16(q, sq, p.b, p.h, p.t, p.d) &&
+        rows16(k, sk, p.b, p.hkv, p.tk, p.d) &&
+        rows16(v, sv, p.b, p.hkv, p.tk, p.d) &&
+        rows16(dout, sdo, p.b, p.h, p.t, p.d) &&
+        rows16(dq, sdq, p.b, p.h, p.t, p.d)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks =
       static_cast<int64_t>((p.t + MT - 1) / MT) * p.h * p.b;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return by_head_dim(p.d, vec, [&](auto hd, auto vc) {
+  return by_head_dim(p.d, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    constexpr bool VEC = decltype(vc)::value;
     constexpr size_t smem = sizeof(bf16) * 6 * MT * (HD + 8);
-    auto kernel = flash_bwd_dq_mma_kernel<HD, VEC>;
+    auto kernel = flash_bwd_dq_mma_kernel<HD>;
     int err = set_smem(kernel, smem);
     if (err) return err;
     kernel<<<static_cast<unsigned>(blocks), MTHREADS, smem, stream>>>(
@@ -1165,7 +1138,7 @@ int bwd_dq_mma(const void* q, const void* k, const void* v, const void* o,
         static_cast<const bf16*>(v), static_cast<const bf16*>(o),
         static_cast<const bf16*>(dout), static_cast<const float*>(lse),
         static_cast<bf16*>(dq), static_cast<float*>(dsum), p, sq, sk, sv, so,
-        sdo, sdq, out_vec);
+        sdo, sdq);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -1175,21 +1148,21 @@ int bwd_dkv_mma(const void* q, const void* k, const void* v,
                 void* dv, Dims p, const int64_t* s, cudaStream_t stream) {
   const Strides4 sq = st4(s), sk = st4(s + 4), sv = st4(s + 8),
                  sdo = st4(s + 12), sdk = st4(s + 16), sdv = st4(s + 20);
-  const bool vec = vec_ok(q, sq, p.b, p.h, p.t, p.d) &&
-                   vec_ok(k, sk, p.b, p.hkv, p.tk, p.d) &&
-                   vec_ok(v, sv, p.b, p.hkv, p.tk, p.d) &&
-                   vec_ok(dout, sdo, p.b, p.h, p.t, p.d);
-  const int out_vec = vec_ok(dk, sdk, p.b, p.hkv, p.tk, p.d) &&
-                      vec_ok(dv, sdv, p.b, p.hkv, p.tk, p.d);
+  if (!(rows16(q, sq, p.b, p.h, p.t, p.d) &&
+        rows16(k, sk, p.b, p.hkv, p.tk, p.d) &&
+        rows16(v, sv, p.b, p.hkv, p.tk, p.d) &&
+        rows16(dout, sdo, p.b, p.h, p.t, p.d) &&
+        rows16(dk, sdk, p.b, p.hkv, p.tk, p.d) &&
+        rows16(dv, sdv, p.b, p.hkv, p.tk, p.d)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t blocks =
       static_cast<int64_t>((p.tk + MT - 1) / MT) * p.hkv * p.b;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  return by_head_dim(p.d, vec, [&](auto hd, auto vc) {
+  return by_head_dim(p.d, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
-    constexpr bool VEC = decltype(vc)::value;
     constexpr size_t smem =
         sizeof(bf16) * 6 * MT * (HD + 8) + sizeof(float) * 4 * MT;
-    auto kernel = flash_bwd_dkv_mma_kernel<HD, VEC>;
+    auto kernel = flash_bwd_dkv_mma_kernel<HD>;
     int err = set_smem(kernel, smem);
     if (err) return err;
     kernel<<<static_cast<unsigned>(blocks), MTHREADS, smem, stream>>>(
@@ -1197,7 +1170,7 @@ int bwd_dkv_mma(const void* q, const void* k, const void* v,
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(dsum),
         static_cast<bf16*>(dk), static_cast<bf16*>(dv), p, sq, sk, sv, sdo,
-        sdk, sdv, out_vec);
+        sdk, sdv);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -1213,7 +1186,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, four per
 // tensor in the order (batch, head, seq, feature) of its [B, H, T, D]
-// view; any strides are taken. lse (and D below) are contiguous
+// view; any strides are taken, except by the bf16 backward, whose bf16
+// operands need 16-byte rows (rows16). lse (and D below) are contiguous
 // [B, H, T] float32.
 //
 // strides: q, k, v, o.
@@ -1232,7 +1206,8 @@ int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
 
 // strides: q, k, v, o, dout, dq. Writes dq and dsum = rowsum(dout o o).
 // float32 runs flash_bwd_dq_kernel (CUDA cores), bfloat16
-// flash_bwd_dq_mma_kernel (tensor cores).
+// flash_bwd_dq_mma_kernel (tensor cores), which returns
+// cudaErrorInvalidValue where q, k, v, dout or dq breaks rows16.
 int flash_attention_bwd_dq_launch(int dtype, const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* dout, const void* lse,
@@ -1244,14 +1219,15 @@ int flash_attention_bwd_dq_launch(int dtype, const void* q, const void* k,
   if (!dims_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd_dq<float>(q, k, v, o, dout, lse, dq, dsum, p, strides, st);
+    return bwd_dq_f32(q, k, v, o, dout, lse, dq, dsum, p, strides, st);
   if (dtype == 1)
     return bwd_dq_mma(q, k, v, o, dout, lse, dq, dsum, p, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // strides: q, k, v, dout, dk, dv. Reads the dsum the dq launch wrote.
-// float32 runs flash_bwd_dkv_kernel, bfloat16 flash_bwd_dkv_mma_kernel.
+// float32 runs flash_bwd_dkv_kernel, bfloat16 flash_bwd_dkv_mma_kernel
+// (the same rows16 rule for q, k, v, dout, dk and dv).
 int flash_attention_bwd_dkv_launch(int dtype, const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dsum,
@@ -1263,7 +1239,7 @@ int flash_attention_bwd_dkv_launch(int dtype, const void* q, const void* k,
   if (!dims_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd_dkv<float>(q, k, v, dout, lse, dsum, dk, dv, p, strides, st);
+    return bwd_dkv_f32(q, k, v, dout, lse, dsum, dk, dv, p, strides, st);
   if (dtype == 1)
     return bwd_dkv_mma(q, k, v, dout, lse, dsum, dk, dv, p, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
