@@ -16,10 +16,11 @@ caught):
    positions, GQA; row independence with ``torch.equal``), and the flash
    attention forward, backward dQ and backward dK/dV at one shape per TPU
    launcher family (packed and classic layouts, GQA, t=8192, ragged t,
-   non-causal t != tk; bf16 and f32; dQ/dK/dV run twice and compared
-   with ``torch.equal``; the bf16 backward is the tensor-core pair
-   ``flash_bwd_dq_mma_kernel``/``flash_bwd_dkv_mma_kernel``, the f32 one
-   the CUDA-core pair). Each is timed beside its plain version, the
+   non-causal t != tk; bf16 and f32; O, LSE, dQ, dK and dV run twice and
+   compared with ``torch.equal``; the bf16 forward is the tensor-core
+   ``flash_fwd_mma_kernel`` and the bf16 backward the tensor-core pair
+   ``flash_bwd_dq_mma_kernel``/``flash_bwd_dkv_mma_kernel``, f32 runs the
+   CUDA-core kernels). Each is timed beside its plain version, the
    ``scaled_dot_product_attention`` yardstick and the bytes/operations
    bound; and the fused bucket optimizer update for every rule (AdamW
    with and without weight decay, SGD-momentum, Adafactor-style), in f32
@@ -43,8 +44,9 @@ caught):
    grads), the loss finite and falling, the kernels' launch counts exact,
    and the step time, throughput, MFU and peak memory; then where two
    steps' device time goes (torch.profiler), whose kernel names must
-   show the backward in the two tensor-core kernels only (as must the
-   train_fused and train_quant profiles);
+   show the forward in the tensor-core forward only and the backward in
+   the two tensor-core kernels only, each launched exactly as often as
+   the step needs (as must the train_fused and train_quant profiles);
 7. train_fused — the same model, weights and batch through
    ``make_accum_train_step(microbatches=2, update="fused_bucket")`` with
    ``FusedOptimizer(adamw, 3e-4)``, 8 steps: the loss finite and falling
@@ -475,8 +477,12 @@ FLASH_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # in PERF.md's kernel table, with the chip run that took them).
 FLASH_KERNELS = {
     "flash_attention_fwd": {
-        "kernel": "flash_fwd_kernel (bf16 and f32)",
-        "products": "CUDA-core f32 FMAs"},
+        "kernel": "flash_fwd_mma_kernel (bf16); flash_fwd_kernel (f32)",
+        "products": "bf16: mma.sync.m16n8k16 tensor cores, 32 query rows "
+                    "a warp, ldmatrix, cp.async two-stage ring; f32: "
+                    "CUDA-core FMAs",
+        "replaced": "flash_fwd_kernel in bf16 (CUDA-core FMAs; f32 only "
+                    "now)"},
     "flash_attention_bwd_dq": {
         "kernel": "flash_bwd_dq_mma_kernel (bf16); flash_bwd_dq_kernel "
                   "(f32)",
@@ -588,12 +594,17 @@ def check_flash(shape, dtype, gen, time_it=False):
     q, k, v, do = flash_inputs(b, h, hkv, t, tk, d, packed, dtype, gen)
     scale = d ** -0.5
     out, lse = attn._flash_fwd_cuda(q, k, v, causal, scale)
+    out2, lse2 = attn._flash_fwd_cuda(q, k, v, causal, scale)
     dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
     again = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
     ref_o, ref_lse = attn._flash_fwd_plain(q, k, v, causal, scale)
     ref_dq, ref_dk, ref_dv = plain_bwd(q, k, v, ref_o, ref_lse, do, causal,
                                        scale)
     torch.cuda.synchronize()
+    if not (torch.equal(out2, out) and torch.equal(lse2, lse)):
+        raise AssertionError(f"flash {name} {dtype}: O/LSE differ between "
+                             f"two identical launches")
+    del out2, lse2
     if not (torch.equal(again[0], dq) and torch.equal(again[1], dk)
             and torch.equal(again[2], dv)):
         raise AssertionError(f"flash {name} {dtype}: dQ/dK/dV differ "
@@ -615,7 +626,8 @@ def check_flash(shape, dtype, gen, time_it=False):
     errs["lse"] = lse_err
     log(f"  flash {name} ({rows}) {str(dtype)[6:]}: max|kernel - plain| o "
         f"{errs['o']:.2e} lse {lse_err:.2e} dq {errs['dq']:.2e} dk "
-        f"{errs['dk']:.2e} dv {errs['dv']:.2e}; dQ/dK/dV deterministic")
+        f"{errs['dk']:.2e} dv {errs['dv']:.2e}; O/LSE/dQ/dK/dV "
+        f"deterministic")
     res = {"shape": dict(b=b, h=h, hkv=hkv, t=t, tk=tk, d=d, causal=causal,
                          layout="packed" if packed else "classic",
                          dtype=str(dtype)[6:], rows=rows),
@@ -927,33 +939,43 @@ def profile_train(step, state, batch, steps=2):
             "top_kernels_ms_per_step": [[k[:90], v] for k, v in top]}
 
 
-# The bf16 backward's kernels by the names the profiler gives them: the
-# tensor-core pair, and the CUDA-core pair it replaced in bf16 (f32 only
-# since).
+# The bf16 kernels by the names the profiler gives them: the tensor-core
+# forward and backward pair, and the CUDA-core kernels they replaced in
+# bf16 (f32 only since).
+MMA_FWD_KERNELS = ("flash_fwd_mma_kernel",)
+CORE_FWD_KERNELS = ("flash_fwd_kernel",)
 MMA_BWD_KERNELS = ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
 CORE_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
-def check_bwd_kernels(tag, prof, per_step):
-    """The profiled steps ran the attention backward in the two
-    tensor-core kernels, ``per_step`` launches of each per step, and never
-    in a CUDA-core backward kernel."""
+def check_profiled(tag, prof, what, mma, core, per_step):
+    """The profiled steps ran ``what`` in the tensor-core kernels ``mma``,
+    ``per_step`` launches of each per step, and never in one of the
+    CUDA-core kernels ``core``."""
     if prof is None:
         raise AssertionError(f"{tag}: the profiler traced no device event, "
-                             f"so the backward kernels cannot be named")
+                             f"so the {what} kernels cannot be named")
     launches = prof["flash_kernel_launches_per_step"]
-    for name in MMA_BWD_KERNELS:
+    for name in mma:
         got = sum(n for key, n in launches.items() if name in key)
         if got != per_step:
             raise AssertionError(f"{tag}: {name} ran {got} times a step, "
                                  f"not {per_step}: {launches}")
-    ran = [key for key in launches
-           if any(name in key for name in CORE_BWD_KERNELS)]
+    ran = [key for key in launches if any(name in key for name in core)]
     if ran:
-        raise AssertionError(f"{tag}: a CUDA-core backward kernel ran: "
-                             f"{ran}")
-    log(f"  profile: the backward ran {', '.join(MMA_BWD_KERNELS)} "
-        f"({per_step} each a step) and no CUDA-core backward kernel")
+        raise AssertionError(f"{tag}: a CUDA-core {what} kernel ran: {ran}")
+    log(f"  profile: the {what} ran {', '.join(mma)} ({per_step} each a "
+        f"step) and no CUDA-core {what} kernel")
+
+
+def check_fwd_kernels(tag, prof, per_step):
+    check_profiled(tag, prof, "forward", MMA_FWD_KERNELS, CORE_FWD_KERNELS,
+                   per_step)
+
+
+def check_bwd_kernels(tag, prof, per_step):
+    check_profiled(tag, prof, "backward", MMA_BWD_KERNELS, CORE_BWD_KERNELS,
+                   per_step)
 
 
 def timed_steps(tag, step, state, batch, names, expect, steps):
@@ -988,7 +1010,8 @@ def timed_steps(tag, step, state, batch, names, expect, steps):
     log(f"[{tag} profile]")
     prof = profile_train(step, state, batch)
     log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
-    if "flash_attention_bwd_dq" in names:
+    if "flash_attention_fwd" in names:
+        check_fwd_kernels(tag, prof, expect["flash_attention_fwd"] // steps)
         check_bwd_kernels(tag, prof, expect["flash_attention_bwd_dq"] // steps)
     return {"steps": steps, "losses": losses, "grad_norms": gnorms,
             "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),

@@ -1,12 +1,13 @@
-"""Time the flash-attention backward kernels of the PyTorch port on the card.
+"""Time the bf16 flash-attention kernels of the PyTorch port on the card.
 
-Builds ``flash_attention.cu``, prints what ``ptxas`` reports for each
-backward kernel (registers, shared memory, spills), then, at the timed
-shapes of ``chip_smoke.py``'s ``FLASH_SHAPES`` (rows 7, 8, 6 and 5 of
-the kernel table), runs the bf16 backward once against its plain version
-(max|kernel - plain| for dQ, dK and dV), and times the dQ kernel and the
-dK/dV kernel alone beside their bounds and SDPA's backward. One JSON line
-per shape, then the card's name and power limit::
+Rebuilds ``flash_attention.cu`` and prints what ``ptxas`` reports for each
+tensor-core kernel (registers, shared memory, spills). Then, at the timed
+shapes of ``chip_smoke.py``'s ``FLASH_SHAPES`` (rows 1-8 of the kernel
+table), it runs the bf16 forward and backward once against their plain
+versions (max|kernel - plain| for O, LSE, dQ, dK and dV), and times the
+forward, the dQ kernel and the dK/dV kernel alone beside their bounds and
+SDPA's forward and backward. One JSON line per shape, then the card's name
+and power limit::
 
     python exp/port_flash_bwd_bench.py                 # all timed shapes
     python exp/port_flash_bwd_bench.py --shapes packed
@@ -29,35 +30,55 @@ from tony_tpu_torch.ops import _build  # noqa: E402
 from tony_tpu_torch.ops import attention as attn  # noqa: E402
 
 
+def ptxas_report(log):
+    """The ptxas lines of the tensor-core kernels: each entry function's
+    name, then its registers, shared memory and spills."""
+    keep, out = False, []
+    for line in str(log).splitlines():
+        if "Compiling entry function" in line:
+            keep = "mma_kernel" in line
+        if keep and any(w in line for w in ("entry function", "registers",
+                                            "spill")):
+            out.append(line.strip())
+    return out
+
+
 def bench(shape, gen, iters):
     name, b, h, hkv, t, tk, d, causal, packed, rows, _ = shape
     dtype = torch.bfloat16
     q, k, v, do = cs.flash_inputs(b, h, hkv, t, tk, d, packed, dtype, gen)
     scale = d ** -0.5
-    out, lse = attn._flash_fwd_cuda(q, k, v, causal, scale)
+    fwd = lambda: attn._flash_fwd_cuda(q, k, v, causal, scale)
+    out, lse = fwd()
+    ref_o, ref_lse = attn._flash_fwd_plain(q, k, v, causal, scale)
     dq, dk, dv = attn._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
     ref = cs.plain_bwd(q, k, v, out, lse, do, causal, scale)
     torch.cuda.synchronize()
     errs = {key: float((got.float() - r.float()).abs().max())
-            for key, got, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref)}
+            for key, got, r in zip(("o", "dq", "dk", "dv"),
+                                   (out, dq, dk, dv), (ref_o,) + ref)}
     tols = {key: cs.output_tol(r, dtype)
-            for key, r in zip(("dq", "dk", "dv"), ref)}
-    del ref
+            for key, r in zip(("o", "dq", "dk", "dv"), (ref_o,) + ref)}
+    errs["lse"] = float((lse - ref_lse).abs().max())
+    tols["lse"] = cs.F32_TOL * max(1.0, float(ref_lse.abs().max()))
+    del ref, ref_o, ref_lse
     run_dq, run_dkv = cs.bwd_launchers(q, k, v, out, lse, do, causal, scale)
     bounds = cs.flash_bounds(b, h, hkv, t, tk, d, causal, dtype)
     qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
-    kept = torch.nn.functional.scaled_dot_product_attention(
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, is_causal=causal, enable_gqa=hkv != h)
+    kept = sdpa()
+    sdpa_fwd = cs.cuda_ms(lambda: sdpa().detach(), iters=iters, warmup=2)
     sdpa_bwd = cs.cuda_ms(lambda: torch.autograd.grad(
         kept, (qs, ks, vs), do, retain_graph=True), iters=iters, warmup=2)
     res = {"shape": name, "rows": rows, "max_abs_err": errs, "tol": tols,
            "within_tol": all(errs[key] <= tols[key] for key in errs),
-           "sdpa_bwd_ms": sdpa_bwd}
-    for key, fn in (("flash_attention_bwd_dq", run_dq),
-                    ("flash_attention_bwd_dkv", run_dkv)):
+           "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
+    for key, fn, products in (("flash_attention_fwd", fwd, 2),
+                              ("flash_attention_bwd_dq", run_dq, 3),
+                              ("flash_attention_bwd_dkv", run_dkv, 4)):
         ms = cs.cuda_ms(fn, iters=iters, warmup=2)
-        work = 2.0 * d * (3 if key.endswith("dq") else 4) * b * h \
-            * cs.admitted_pairs(t, tk, causal)
+        work = 2.0 * d * products * b * h * cs.admitted_pairs(t, tk, causal)
         res[key] = {"ms": ms, "bound_ms": bounds[key][0],
                     "bound_by": bounds[key][1], "tflops": work / ms / 1e9}
     return res
@@ -72,10 +93,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    _build._target("flash_attention").unlink(missing_ok=True)
     _build.load(["flash_attention"])
-    for line in str(_build.build_info["flash_attention"]["log"]).splitlines():
-        if any(w in line for w in ("mma_kernel", "registers", "spill")):
-            print(line.strip(), file=sys.stderr)
+    for line in ptxas_report(_build.build_info["flash_attention"]["log"]):
+        print(line, file=sys.stderr)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     for shape in cs.FLASH_SHAPES:
         if (shape[0] in args.shapes) if args.shapes else shape[-1]:

@@ -244,6 +244,91 @@ def test_flash_backward_launcher_refuses_a_layout_it_cannot_copy(gen):
                      attn._dims(q, k, True, 0.125), (q, k, v, out, do, dq))
 
 
+# The bf16 forward on the tensor cores: every HEAD_DIM instantiation
+# (16: d = 8, 12, 16; 32; 64; 128), MHA and GQA (hkv = 1, 2), causal
+# ragged t = 1000 in both layouts, and non-causal t != tk either way.
+FWD_CASES = [  # b, h, hkv, t, tk, d, causal, packed
+    (1, 2, 1, 100, 100, 8, True, False),
+    (1, 2, 2, 70, 40, 12, True, False),
+    (2, 4, 2, 130, 130, 16, True, True),
+    (1, 8, 8, 65, 200, 32, False, False),
+    (1, 4, 4, 200, 70, 32, False, False),
+    (1, 8, 1, 127, 127, 64, True, True),
+    (1, 4, 4, 517, 300, 64, False, False),
+    (2, 4, 4, 1000, 1000, 128, True, True),
+    (1, 8, 2, 1000, 1000, 128, True, False),
+    (1, 4, 2, 300, 517, 128, False, True)]
+
+
+@pytest.mark.parametrize("b,h,hkv,t,tk,d,causal,packed", FWD_CASES)
+def test_flash_forward_mma_vs_plain(gen, b, h, hkv, t, tk, d, causal,
+                                    packed):
+    """O within one bf16 ulp of its scale and LSE within 1e-5 of its
+    scale of the plain version; O in q's layout, LSE contiguous f32."""
+    q, k, v, _ = _flash_inputs(gen, b, h, hkv, t, tk, d, torch.bfloat16,
+                               packed)
+    scale = d ** -0.5
+    n0 = LAUNCHES["flash_attention_fwd"]
+    out, lse = attn._flash_fwd_cuda(q, k, v, causal, scale)
+    assert LAUNCHES["flash_attention_fwd"] == n0 + 1
+    ref_o, ref_lse = attn._flash_fwd_plain(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.stride() == q.stride()
+    assert lse.shape == (b, h, t) and lse.dtype == torch.float32
+    assert lse.is_contiguous()
+    err = float((out.float() - ref_o.float()).abs().max())
+    assert err <= _tol(ref_o, torch.bfloat16), err
+    lse_err = float((lse - ref_lse).abs().max())
+    assert lse_err <= 1e-5 * max(1.0, float(ref_lse.abs().max())), lse_err
+
+
+def test_flash_forward_is_deterministic(gen):
+    q, k, v, _ = _flash_inputs(gen, 2, 8, 2, 300, 300, 128, torch.bfloat16,
+                               True)
+    a = attn._flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    b = attn._flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_forward_runs_the_tensor_core_kernel_in_bf16(gen, dtype):
+    """A bf16 forward through the public entry launches the tensor-core
+    forward (its HEAD_DIM 128 instantiation for packed d = 128) and no
+    CUDA-core forward; f32 launches the CUDA-core one and no mma kernel."""
+    q, k, v, _ = (x.transpose(1, 2).reshape(2, 128, -1) for x in
+                  _flash_inputs(gen, 2, 4, 2, 128, 128, 128, dtype, True))
+    counts = _device_kernel_counts(
+        lambda: attn.flash_attention_packed(q, k, v, 4))
+    names = " ".join(counts)
+    mma, core = "flash_fwd_mma_kernel<128>", "flash_fwd_kernel"
+    want, never = (mma, core) if dtype == torch.bfloat16 else (core, mma)
+    assert sum(n for key, n in counts.items() if want in key) == 1, counts
+    assert never.split("<")[0] not in names, counts
+
+
+@pytest.mark.parametrize("operand", ["q", "o"])
+def test_flash_forward_launcher_refuses_a_layout_it_cannot_copy(gen,
+                                                                operand):
+    """The bf16 forward launcher returns an error, not a misaligned
+    16-byte copy or store, when q or O breaks the 16-byte row rule (here
+    a transposed view), and the wrapper raises it."""
+    q, k, v, _ = _flash_inputs(gen, 1, 4, 2, 64, 64, 64, torch.bfloat16,
+                               False)
+    out = torch.empty_like(q)
+    lse = torch.empty((1, 4, 64), dtype=torch.float32, device="cuda")
+    if operand == "q":
+        q = _do_layout(q, "transposed")
+    else:
+        out = _do_layout(out, "transposed")
+    with pytest.raises(RuntimeError, match="flash_attention_fwd kernel "
+                       "launch failed"):
+        attn._launch(attn._attn_lib(), "flash_attention_fwd_launch",
+                     "flash_attention_fwd",
+                     (1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), lse.data_ptr()),
+                     attn._dims(q, k, True, 0.125), (q, k, v, out))
+
+
 def test_flash_attention_autograd_on_the_card(gen):
     """The public entry on CUDA tensors goes through the kernels, forward
     and backward, and never through the plain version."""

@@ -212,10 +212,10 @@ def _strided(size, stride, offset=0):
 
 
 class TestBackwardLoader:
-    """The host rule for the bf16 backward kernels' 16-byte ``cp.async``
-    loader (``_vec_ok``), and ``_for_mma``, which hands the kernels the
-    layouts the model gives as they are and copies or zero-pads any other
-    once, before the launch."""
+    """The host rule for the bf16 kernels' 16-byte ``cp.async`` loader
+    (``_vec_ok``; the forward and the backward pair), and ``_for_mma``,
+    which hands the kernels the layouts the model gives as they are and
+    copies or zero-pads any other once, before the launch."""
 
     @pytest.mark.parametrize("make,vec", [
         (lambda: _packed_view(2, 64, 4, 128), True),
@@ -322,3 +322,61 @@ class TestBackwardLoader:
             assert grad.shape == x.shape and grad.stride() == x.stride()
             assert torch.equal(grad, torch.arange(1, d + 1).to(
                 torch.bfloat16).expand(x.shape))
+
+    @pytest.mark.parametrize("d,layout", [
+        (64, "packed"), (128, "packed"), (12, "contiguous"),
+        (16, "transposed_q"), (12, "transposed_q"), (16, "unaligned_q")])
+    def test_bf16_forward_hands_the_kernel_fitting_operands(
+            self, monkeypatch, d, layout):
+        """``_flash_fwd_cuda`` with the launch stubbed on CPU tensors: the
+        bf16 launch sees d rounded up to a multiple of 8 and only operands
+        ``_vec_ok`` takes; O comes back at width d in q's own layout, LSE
+        as contiguous f32 [B, H, T]. The packed views the model hands over
+        are launched as they are, O written in place: nothing copied."""
+        d8 = -(-d // 8) * 8
+        launched = []
+
+        def launch(lib, fn_name, counter, args, dims, tensors):
+            assert counter == "flash_attention_fwd" and dims[5] == d8
+            assert all(tattn._vec_ok(x) for x in tensors)
+            tensors[-1].copy_(torch.arange(1, d8 + 1).expand(
+                tensors[-1].shape))
+            launched.append(tensors)
+
+        monkeypatch.setattr(tattn, "_attn_lib", lambda: None)
+        monkeypatch.setattr(tattn, "_launch", launch)
+        if layout == "packed":
+            q, k, v = (_packed_view(1, 16, 2, d) for _ in range(3))
+        else:
+            q, k, v = (torch.zeros((1, 2, 16, d), dtype=torch.bfloat16)
+                       for _ in range(3))
+        if layout == "transposed_q":
+            q = q.transpose(-1, -2).contiguous().transpose(-1, -2)
+        if layout == "unaligned_q":
+            q = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(
+                q.shape)
+        assert tattn._vec_ok(q) is (layout == "packed")
+        out, lse = tattn._flash_fwd_cuda(q, k, v, True, 1.0)
+        assert len(launched) == 1
+        assert out.shape == q.shape and out.stride() == q.stride()
+        assert torch.equal(out, torch.arange(1, d + 1).to(
+            torch.bfloat16).expand(q.shape))
+        assert lse.shape == (1, 2, 16) and lse.dtype == torch.float32
+        assert lse.is_contiguous()
+        if layout == "packed":
+            assert all(x is y for x, y in zip(launched[0], (q, k, v)))
+            assert launched[0][3].data_ptr() == out.data_ptr()
+
+    def test_f32_forward_launches_the_operands_as_given(self, monkeypatch):
+        """The f32 forward (CUDA cores) takes any strides and d: q, k and v
+        reach the launch as they are, and O is written in q's layout."""
+        launched = []
+        monkeypatch.setattr(tattn, "_attn_lib", lambda: None)
+        monkeypatch.setattr(tattn, "_launch", lambda *a: launched.append(
+            a[-1]))
+        q = torch.zeros((1, 2, 16, 12)).transpose(-1, -2).contiguous() \
+            .transpose(-1, -2)
+        k = v = torch.zeros((1, 1, 16, 12))
+        out, _ = tattn._flash_fwd_cuda(q, k, v, True, 1.0)
+        assert all(x is y for x, y in zip(launched[0], (q, k, v)))
+        assert launched[0][3] is out and out.stride() == q.stride()

@@ -6,7 +6,7 @@
   training, forward and backward, through one ``torch.autograd.Function``
   (:class:`_FlashFn`). A CUDA tensor runs the hand-written Hopper kernels
   of ``csrc/flash_attention.cu`` (forward; backward dQ; backward dK/dV;
-  the bf16 backward on the tensor cores, f32 on the CUDA cores),
+  bf16 on the tensor cores, f32 on the CUDA cores),
   a CPU tensor their plain versions :func:`_flash_fwd_plain`,
   :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`, which
   follow the JAX kernels' math block by block with their rounding points.
@@ -404,13 +404,14 @@ def _check_flash_cuda(q, k, v, *more):
 
 
 def _vec_ok(x: torch.Tensor) -> bool:
-    """Whether the bf16 backward kernels can take ``x`` (a [B, H, T, D]
-    view) as it is: their 16-byte ``cp.async`` copies and stores need
-    feature stride 1, the stride of every other dimension longer than 1 a
-    multiple of 8 elements (16 bytes of bf16), a 16-byte aligned base, and
-    D % 8 == 0. The packed [B, T, H·D] views and contiguous [B, H, T, D]
-    qualify. The launcher in ``csrc/flash_attention.cu`` (``rows16``)
-    refuses a layout that breaks the rule."""
+    """Whether the bf16 kernels (the forward and the backward pair) can
+    take ``x`` (a [B, H, T, D] view) as it is: their 16-byte ``cp.async``
+    copies and stores need feature stride 1, the stride of every other
+    dimension longer than 1 a multiple of 8 elements (16 bytes of bf16), a
+    16-byte aligned base, and D % 8 == 0. The packed [B, T, H·D] views and
+    contiguous [B, H, T, D] qualify. The launchers in
+    ``csrc/flash_attention.cu`` (``rows16``) refuse a layout that breaks
+    the rule."""
     return (x.shape[-1] % 8 == 0 and x.stride(-1) == 1
             and x.data_ptr() % 16 == 0
             and all(n == 1 or s % 8 == 0
@@ -418,10 +419,11 @@ def _vec_ok(x: torch.Tensor) -> bool:
 
 
 def _for_mma(x: torch.Tensor, d8: int) -> torch.Tensor:
-    """``x`` as the bf16 backward kernels take it: zero-padded to ``d8``
-    features (a multiple of 8; the zeros add nothing to any product), or
-    copied to a fresh contiguous tensor where :func:`_vec_ok` fails (a
-    zero-stride or transposed dO from autograd), else ``x`` itself."""
+    """``x`` as the bf16 kernels take it: zero-padded to ``d8`` features
+    (a multiple of 8; the zeros add nothing to any product), or copied to
+    a fresh contiguous tensor where :func:`_vec_ok` fails (a transposed q
+    or an unaligned view; a zero-stride or transposed dO from autograd),
+    else ``x`` itself."""
     if x.shape[-1] != d8:
         return torch.nn.functional.pad(x, (0, d8 - x.shape[-1]))
     return x if _vec_ok(x) else x.clone(memory_format=torch.contiguous_format)
@@ -445,18 +447,31 @@ def _dims(q, k, causal, scale):
 
 
 def _flash_fwd_cuda(q, k, v, causal, scale):
+    """The forward kernel: O in q's layout and LSE, contiguous f32
+    [B, H, T]. bf16 runs the tensor-core kernel (``flash_fwd_mma_kernel``)
+    on operands made fit by :func:`_for_mma`, f32 the CUDA-core one on the
+    operands as given."""
     _check_flash_cuda(q, k, v)
-    b, h, t, _ = q.shape
+    b, h, t, d = q.shape
     # O keeps q's memory layout: for the packed [b, t, h·d] views the
-    # caller's reshape back is then free.
-    out = torch.empty_like(q)
+    # caller's reshape back is then free. Where that layout (or d) does
+    # not fit the bf16 kernel, it writes a fitting buffer that is copied
+    # over.
+    out = run = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if q.numel() == 0 or k.numel() == 0:
         return out.zero_(), lse.zero_()
+    if q.dtype == torch.bfloat16:
+        d8 = -(-d // 8) * 8
+        q, k, v = (_for_mma(x, d8) for x in (q, k, v))
+        if not _vec_ok(out):
+            run = torch.empty_like(q)
     _launch(_attn_lib(), "flash_attention_fwd_launch", "flash_attention_fwd",
             (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             out.data_ptr(), lse.data_ptr()), _dims(q, k, causal, scale),
-            (q, k, v, out))
+             run.data_ptr(), lse.data_ptr()), _dims(q, k, causal, scale),
+            (q, k, v, run))
+    if run is not out:
+        out.copy_(run[..., :d])
     return out, lse
 
 

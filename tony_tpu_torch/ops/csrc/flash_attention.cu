@@ -44,8 +44,9 @@
 //
 // Two designs live here.
 //
-// bf16 backward (the training path): flash_bwd_dq_mma_kernel and
-// flash_bwd_dkv_mma_kernel, on the tensor cores.
+// bf16 (the training path), on the tensor cores: the forward
+// flash_fwd_mma_kernel and the backward pair flash_bwd_dq_mma_kernel and
+// flash_bwd_dkv_mma_kernel.
 //  * Tiles stay bf16 in shared memory, rows padded by 16 bytes (row
 //    stride 2*HEAD_DIM + 16 bytes), so the 8 row addresses of each
 //    ldmatrix phase land in 8 distinct 4-bank groups: no bank conflicts.
@@ -53,41 +54,64 @@
 //    zero-padded in shared memory.
 //  * Products are mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with A and
 //    B fragments from ldmatrix.x4 (.trans where the operand is needed
-//    transposed: K in dS K, dO in P^T dO, Q in dS^T Q). Each warp owns 16
-//    rows (dQ: query rows; dK/dV: keys). The f32 accumulator fragments of
-//    S and dP become bf16 A fragments in registers (the m16n8 C layout of
-//    two adjacent n-tiles is the m16n8k16 A layout), so P and dS never
-//    touch shared memory. The rounding points are the JAX kernels': P is
-//    rounded to dO's type before P^T dO and dS to the input type before
-//    dS K and dS^T Q; in bf16 those rounded values are the mma operands,
-//    so only the order of the f32 sums differs from the plain versions.
+//    transposed: V in P V, K in dS K, dO in P^T dO, Q in dS^T Q). Each
+//    warp owns 16 rows (forward and dQ: query rows; dK/dV: keys). The f32
+//    accumulator fragments of S and dP become bf16 A fragments in
+//    registers (the m16n8 C layout of two adjacent n-tiles is the
+//    m16n8k16 A layout), so P and dS never touch shared memory. The
+//    rounding points are the JAX kernels': P is rounded to V's type before
+//    P V (the forward's normaliser l sums the unrounded P) and to dO's type
+//    before P^T dO, dS to the input type before dS K and dS^T Q; in bf16
+//    those rounded values are the mma operands, so only the order of the
+//    f32 sums differs from the plain versions.
+//  * The forward is FlashAttention-2's loop over 128-row q tiles: each of
+//    the 4 warps owns 32 query rows (two m16 tiles) and uses every K and V
+//    B fragment for both, so S = Q K^T takes 0.375 ldmatrix.x4 per mma (Q's
+//    A fragments come from shared memory at each tile) and P V 0.25. The
+//    online softmax runs in the C-fragment layout, each thread holding rows
+//    g and g + 8 of each m-tile (row max over the 4 lanes of a quad: two
+//    shuffles), in base 2 (exp2f, log2(e) folded into the scale; LSE is
+//    written in base e). O leaves as acc / l_safe. A variant with 16 rows a
+//    warp and Q's A fragments held in registers (0.5 ldmatrix.x4 per mma,
+//    211 registers, no spills) was slower at every timed shape and was
+//    dropped: 0.353 ms against 0.328 at the 7B train shape, 2.54 against
+//    2.25 at t = 8192 (one H100 at 700 W, in turns; PERF.md). The kernel
+//    needs acc (128 f32) and S (64 f32) at HEAD_DIM 128: ptxas gives it 255 registers and spills 132
+//    bytes; two blocks of 4 warps share an SM. It reaches 210-245 TFLOP/s
+//    over 4 * d flops per admitted pair, a quarter of the peak. The spill
+//    is not what holds it back: running the softmax and P V over 32-key
+//    halves of each tile spilled nothing (254 registers) and moved the
+//    time by under 2% at d = 128 (8% slower at d = 64). The 4 warps of a
+//    block run S, the softmax and P V between the same two barriers a
+//    tile, so the tensor cores wait through each softmax unless the SM's
+//    other block fills them; see also the backward's reasons below.
 //  * Loads: tiles are filled by 16-byte cp.async.cg copies into a
 //    two-stage ring, so the next tile's copy overlaps this tile's
-//    products (commit_group / wait_group 1), and dQ, dK and dV leave in
+//    products (commit_group / wait_group 1), and O, dQ, dK and dV leave in
 //    16-byte stores. That needs every bf16 operand's feature stride 1,
 //    d % 8 == 0, and its other strides and base pointer 16-byte aligned:
 //    the packed [B, T, H*D] views and contiguous [B, H, T, D] are. The
 //    Python wrapper (`_for_mma` in ops/attention.py) copies any other
 //    operand (a zero-stride or transposed dO from autograd) and zero-pads
-//    d to a multiple of 8; the launcher only refuses a layout that breaks
+//    d to a multiple of 8; the launchers only refuse a layout that breaks
 //    the rule (rows16 below), so a direct caller gets an error, not a
 //    misaligned copy.
 //  * Schedule: blocks are numbered tile-major over (tile, head, batch),
-//    the longest tiles first under causal masking (dQ: the last q tiles,
-//    which see the most keys; dK/dV: the first k tiles, which see the most
-//    q tiles), so the short ones fill the tail. Only tiles on the
-//    diagonal or on a ragged edge evaluate the mask.
-//  * Deterministic, with no atomics: a dQ row block sums its key tiles in
-//    order, and a dK/dV key block sums all q tiles of all query heads of
-//    its kv head in order, in registers (128 f32 a thread at d = 128;
-//    ptxas: 242-245 registers a thread at HEAD_DIM 128, no spills, so two
-//    blocks of 4 warps share an SM).
-//  * What bounds it: at the 7B train shape the kernels reach about a
+//    the longest tiles first under causal masking (forward and dQ: the
+//    last q tiles, which see the most keys; dK/dV: the first k tiles,
+//    which see the most q tiles), so the short ones fill the tail. Only
+//    tiles on the diagonal or on a ragged edge evaluate the mask.
+//  * Deterministic, with no atomics: a forward or dQ row block sums its
+//    key tiles in order, and a dK/dV key block sums all q tiles of all
+//    query heads of its kv head in order, in registers (128 f32 a thread
+//    at d = 128; ptxas: 242-245 registers a thread at HEAD_DIM 128, no
+//    spills, so two blocks of 4 warps share an SM).
+//  * What bounds them: at the 7B train shape the kernels reach about a
 //    quarter of the bf16 tensor-core peak. Each warp re-reads the whole
 //    streamed tile from shared memory for its B fragments (about 0.6
-//    ldmatrix.x4 per mma), and mma.sync itself cannot reach the peak;
-//    wgmma (B read by the tensor cores from shared memory, 64-row
-//    warpgroup tiles) is the next step.
+//    ldmatrix.x4 per mma in the backward), and mma.sync itself cannot
+//    reach the peak; wgmma (B read by the tensor cores from shared memory,
+//    64-row warpgroup tiles) is the next step for both directions.
 //
 // f32 (flash_fwd_kernel and the f32 backward, flash_bwd_dq_kernel and
 // flash_bwd_dkv_kernel): CUDA-core f32 FMAs from shared memory in 64x64
@@ -95,12 +119,11 @@
 // threads span a row, so row max/sum are 3 shuffles) and 2 rows x d/8
 // columns of the output. f32 is off the main path, and TF32 tensor cores
 // would not hold the f32 limits (1e-5 of scale against the plain
-// versions), so the f32 backward stays on the CUDA cores; bf16 never
-// falls back to it. The forward (both types) is the same CUDA-core design
-// and is next for the tensor-core machinery. In both designs the loops
-// stop at the causal diagonal, D = rowsum(dO o O) is computed once by the
-// dQ kernel (written to a [B, H, T] buffer) for the dK/dV kernel, and
-// every sum runs in a fixed order in one block, with no atomics.
+// versions), so f32 stays on the CUDA cores; bf16 never falls back to
+// it. In both designs the loops stop at the causal diagonal,
+// D = rowsum(dO o O) is computed once by the dQ kernel (written to a
+// [B, H, T] buffer) for the dK/dV kernel, and every sum runs in a fixed
+// order in one block, with no atomics.
 //
 // Plain C interface (built by nvcc into a shared library, called through
 // ctypes): each *_launch returns cudaGetLastError() after its launch; the
@@ -127,23 +150,6 @@ constexpr int PS = BK + 1;        // row stride of a 64x64 tile in smem
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and back: the JAX kernels' `.astype(dtype)` before a dot.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 // Reductions over the 8 consecutive lanes that share a tile row.
 __device__ __forceinline__ float row_max(float x) {
   for (int o = 1; o < TX; o <<= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
@@ -163,16 +169,15 @@ struct Dims {
   float scale;
 };
 
-// rows [row0, row0 + 64) of one (batch, head) slice into smem as f32 with
-// row stride ld; rows at or past n_rows are zeros. Consecutive threads read
+// rows [row0, row0 + 64) of one (batch, head) slice into smem with row
+// stride ld; rows at or past n_rows are zeros. Consecutive threads read
 // consecutive columns (coalesced when sc == 1).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          Strides4 s, int row0, int n_rows,
-                                          int d) {
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const float* src, Strides4 s,
+                                          int row0, int n_rows, int d) {
   for (int i = threadIdx.x; i < 64 * d; i += THREADS) {
     const int r = i / d, c = i % d, row = row0 + r;
-    dst[r * ld + c] = row < n_rows ? to_f(src[row * s.st + c * s.sc]) : 0.f;
+    dst[r * ld + c] = row < n_rows ? src[row * s.st + c * s.sc] : 0.f;
   }
 }
 
@@ -180,10 +185,10 @@ __device__ __forceinline__ bool admitted(int key, int row, const Dims& p) {
   return key < p.tk && (!p.causal || key <= row);
 }
 
-template <typename T>
+// f32 forward for one (q tile, query head, batch) on the CUDA cores.
 __global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, Dims p, Strides4 sq, Strides4 sk,
                  Strides4 sv, Strides4 so) {
   extern __shared__ float smem[];
@@ -195,8 +200,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ, hq = blockIdx.y, bi = blockIdx.z;
   const int hk = hq / (p.h / p.hkv);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const T* kb = k + bi * sk.sb + hk * sk.sh;
-  const T* vb = v + bi * sv.sb + hk * sv.sh;
+  const float* kb = k + bi * sk.sb + hk * sk.sh;
+  const float* vb = v + bi * sv.sb + hk * sv.sh;
   load_tile(qs, ld, q + bi * sq.sb + hq * sq.sh, sq, q0, p.t, p.d);
 
   float m[RPT], l[RPT], acc[RPT][NC];
@@ -248,7 +253,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < CPT; ++j) {
         const float pj = expf(s[i][j] - m_new);
         sum += pj;
-        ps[(ty * RPT + i) * PS + tx + TX * j] = round_to<T>(pj);
+        ps[(ty * RPT + i) * PS + tx + TX * j] = pj;
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = l[i] * alpha + row_sum(sum);
@@ -278,11 +283,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * RPT + i;
     if (row >= p.t) continue;
     const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-    T* orow = o + bi * so.sb + hq * so.sh + row * so.st;
+    float* orow = o + bi * so.sb + hq * so.sh + row * so.st;
 #pragma unroll
     for (int cc = 0; cc < NC; ++cc) {
       const int c = tx + TX * cc;
-      if (c < p.d) orow[c * so.sc] = from_f<T>(acc[i][cc] / l_safe);
+      if (c < p.d) orow[c * so.sc] = acc[i][cc] / l_safe;
     }
     if (tx == 0)
       lse[(static_cast<int64_t>(bi) * p.h + hq) * p.t + row] =
@@ -562,6 +567,7 @@ using bf16 = __nv_bfloat16;
 constexpr int MT = 64;            // rows of every tile (q rows or keys)
 constexpr int MTHREADS = 128;     // 4 warps, 16 tile rows each
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -716,6 +722,199 @@ __device__ __forceinline__ void block_coords(int n_tiles, int heads,
   const int rest = blockIdx.x % per_tile;
   head = rest % heads;
   batch = rest / heads;
+}
+
+// The bf16 forward for one (q tile, query head, batch) on the tensor
+// cores: MW = 2 m16 tiles a warp, so a block of 4 warps owns BM = 128
+// query rows (warp w rows q0 + 32w onwards); K/V tiles of 64 keys stream
+// through a two-stage ring. A warp reads Q's A fragments from shared
+// memory at each tile and uses every K and V B fragment for both of its
+// m-tiles.
+constexpr int MW = 2;
+
+template <int HD>
+__global__ void __launch_bounds__(MTHREADS, 2)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Dims p, Strides4 sq,
+                     Strides4 sk, Strides4 sv, Strides4 so) {
+  constexpr int LD = HD + 8, TILE = MT * LD, BM = MT * MW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [BM][LD]
+  bf16* ks = qs + MW * TILE;                      // [2][MT][LD]
+  bf16* vs = ks + 2 * TILE;                       // [2][MT][LD]
+  const int n_qt = (p.t + BM - 1) / BM;
+  int qt, hq, bi;
+  block_coords(n_qt, p.h, p.causal != 0, qt, hq, bi);
+  const int q0 = qt * BM, hk = hq / (p.h / p.hkv);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = warp * 16 * MW;              // the warp's first row in BM
+  const bf16* kb = k + bi * sk.sb + hk * sk.sh;
+  const bf16* vb = v + bi * sv.sb + hk * sv.sh;
+  const int last_row = min(p.t, q0 + BM) - 1;
+  const int k_end = p.causal ? min(p.tk, last_row + 1) : p.tk;
+  const int n_kt = (k_end + MT - 1) / MT;
+
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi)
+    load_tile_bf16<HD>(qs + mi * TILE, q + bi * sq.sb + hq * sq.sh, sq,
+                       q0 + mi * MT, p.t, p.d);
+  load_tile_bf16<HD>(ks, kb, sk, 0, p.tk, p.d);
+  load_tile_bf16<HD>(vs, vb, sv, 0, p.tk, p.d);
+  cp_async_commit();
+
+  // Rows g and g + 8 of each m-tile (the thread's C-fragment rows): the
+  // running max m (base 2: scores are taken times scale * log2(e)), the
+  // thread's part of the normaliser l over its columns, and acc.
+  const float scale2 = p.scale * LOG2E;
+  float m[MW][2], l[MW][2], acc[MW][HD / 8][4];
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m[mi][i] = NEG_INF;
+      l[mi][i] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  }
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int k0 = it * MT;
+    if (it + 1 < n_kt) {
+      const int nxt = (it + 1) & 1;
+      load_tile_bf16<HD>(ks + nxt * TILE, kb, sk, k0 + MT, p.tk, p.d);
+      load_tile_bf16<HD>(vs + nxt * TILE, vb, sv, k0 + MT, p.tk, p.d);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* kt = ks + (it & 1) * TILE;
+    const bf16* vt = vs + (it & 1) * TILE;
+    // Under causal masking a warp whose rows all lie before the tile's
+    // first key has nothing to add; no barrier lies inside.
+    if (!(p.causal && k0 > q0 + wr + 16 * MW - 1)) {
+      // S = Q K^T: 16 * MW rows x 64 keys per warp.
+      float s[MW][8][4];
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mi][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[MW][4];
+#pragma unroll
+        for (int mi = 0; mi < MW; ++mi)
+          ldsm_x4(a[mi], a_addr<LD>(qs, wr + mi * 16, kk * 16, lane));
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, b_addr<LD>(kt, np * 16, kk * 16, lane));
+#pragma unroll
+          for (int mi = 0; mi < MW; ++mi) {
+            mma_bf16(s[mi][2 * np], a[mi], bk[0], bk[1]);
+            mma_bf16(s[mi][2 * np + 1], a[mi], bk[2], bk[3]);
+          }
+        }
+      }
+
+      // Online softmax over the tile, rows g and g + 8 (a row's 64 keys
+      // are spread over the 4 lanes of a quad); P is rounded to bf16 and
+      // packed as the A fragments of P V, while l sums the unrounded P.
+      const bool edge =
+          k0 + MT > p.tk || (p.causal && k0 + MT - 1 > q0 + wr);
+      uint32_t ap[MW][4][4];
+#pragma unroll
+      for (int mi = 0; mi < MW; ++mi) {
+        float mx[2] = {m[mi][0], m[mi][1]};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[mi][j][e] * scale2;
+            if (edge) {
+              const int row = q0 + wr + mi * 16 + g + 8 * (e >> 1);
+              const int key = k0 + j * 8 + 2 * t4 + (e & 1);
+              if (!admitted(key, row, p)) x = NEG_INF;
+            }
+            s[mi][j][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+        float alpha[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+          alpha[i] = exp2f(m[mi][i] - mx[i]);
+          m[mi][i] = mx[i];
+          l[mi][i] *= alpha[i];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float pv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pv[e] = exp2f(s[mi][j][e] - mx[e >> 1]);
+            l[mi][e >> 1] += pv[e];
+          }
+          ap[mi][j >> 1][(j & 1) * 2] = pack_bf16(pv[0], pv[1]);
+          ap[mi][j >> 1][(j & 1) * 2 + 1] = pack_bf16(pv[2], pv[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] *= alpha[e >> 1];
+      }
+
+      // acc += P V: the keys are the contraction, so V comes .trans.
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, bt_addr<LD>(vt, kc * 16, np * 16, lane));
+#pragma unroll
+          for (int mi = 0; mi < MW; ++mi) {
+            mma_bf16(acc[mi][2 * np], ap[mi][kc], bv[0], bv[1]);
+            mma_bf16(acc[mi][2 * np + 1], ap[mi][kc], bv[2], bv[3]);
+          }
+        }
+    }
+    __syncthreads();   // the stage is consumed before it is refilled
+  }
+
+  // O = acc / l_safe and LSE = m + log(l_safe) (m back in base e), with l
+  // summed over the quad; O leaves through the warp's own rows of Q's
+  // tile, which no other warp reads.
+  cp_async_wait_all();
+  __syncthreads();
+  const int64_t rbase = (static_cast<int64_t>(bi) * p.h + hq) * p.t;
+#pragma unroll
+  for (int mi = 0; mi < MW; ++mi) {
+    float l_safe[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = l[mi][i];
+      sum += __shfl_xor_sync(FULL, sum, 1);
+      sum += __shfl_xor_sync(FULL, sum, 2);
+      l_safe[i] = sum > 0.f ? sum : 1.f;
+      const int row = q0 + wr + mi * 16 + g + 8 * i;
+      if (t4 == 0 && row < p.t)
+        lse[rbase + row] = m[mi][i] * LN2 + logf(l_safe[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] /= l_safe[e >> 1];
+    const int r0 = wr + mi * 16;
+    store_rows<HD>(acc[mi], 1.f, qs + r0 * LD,
+                   o + bi * so.sb + hq * so.sh, so, q0 + r0, p.t, p.d);
+  }
 }
 
 // dQ for one (q tile, query head, batch) on the tensor cores; also
@@ -1040,18 +1239,17 @@ Dims make_dims(int b, int h, int hkv, int t, int tk, int d, int causal,
 
 Strides4 st4(const int64_t* s) { return Strides4{s[0], s[1], s[2], s[3]}; }
 
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        Dims p, const int64_t* s, cudaStream_t stream) {
+int fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+            Dims p, const int64_t* s, cudaStream_t stream) {
   const int ld = p.d + 1;
   const size_t smem =
       sizeof(float) * ((BQ + BK) * ld + BK * p.d + BQ * PS);
-  int err = set_smem(flash_fwd_kernel<T>, smem);
+  int err = set_smem(flash_fwd_kernel, smem);
   if (err) return err;
   const dim3 grid((p.t + BQ - 1) / BQ, p.h, p.b);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
+  flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), p, st4(s), st4(s + 4), st4(s + 8),
       st4(s + 12));
   return static_cast<int>(cudaGetLastError());
@@ -1111,6 +1309,32 @@ int by_head_dim(int d, F&& f) {
   if (d <= 32) return f(integral_constant<int, 32>());
   if (d <= 64) return f(integral_constant<int, 64>());
   return f(integral_constant<int, 128>());
+}
+
+int fwd_mma(const void* q, const void* k, const void* v, void* o, void* lse,
+            Dims p, const int64_t* s, cudaStream_t stream) {
+  const Strides4 sq = st4(s), sk = st4(s + 4), sv = st4(s + 8),
+                 so = st4(s + 12);
+  if (!(rows16(q, sq, p.b, p.h, p.t, p.d) &&
+        rows16(k, sk, p.b, p.hkv, p.tk, p.d) &&
+        rows16(v, sv, p.b, p.hkv, p.tk, p.d) &&
+        rows16(o, so, p.b, p.h, p.t, p.d)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks =
+      static_cast<int64_t>((p.t + MW * MT - 1) / (MW * MT)) * p.h * p.b;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return by_head_dim(p.d, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    constexpr size_t smem = sizeof(bf16) * (MW + 4) * MT * (HD + 8);
+    auto kernel = flash_fwd_mma_kernel<HD>;
+    int err = set_smem(kernel, smem);
+    if (err) return err;
+    kernel<<<static_cast<unsigned>(blocks), MTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+        static_cast<float*>(lse), p, sq, sk, sv, so);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int bwd_dq_mma(const void* q, const void* k, const void* v, const void* o,
@@ -1186,11 +1410,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, four per
 // tensor in the order (batch, head, seq, feature) of its [B, H, T, D]
-// view; any strides are taken, except by the bf16 backward, whose bf16
-// operands need 16-byte rows (rows16). lse (and D below) are contiguous
-// [B, H, T] float32.
+// view. float32 takes any strides; every bfloat16 kernel (the forward and
+// the backward pair, on the tensor cores) returns cudaErrorInvalidValue
+// where one of its bf16 operands breaks rows16 (16-byte rows). lse (and
+// D below) are contiguous [B, H, T] float32.
 //
-// strides: q, k, v, o.
+// strides: q, k, v, o. Writes o and lse. float32 runs flash_fwd_kernel
+// (CUDA cores), bfloat16 flash_fwd_mma_kernel (tensor cores, two m16
+// tiles a warp; rows16 for q, k, v and o).
 int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
                                const void* v, void* o, void* lse, int b,
                                int h, int hkv, int t, int tk, int d,
@@ -1199,8 +1426,8 @@ int flash_attention_fwd_launch(int dtype, const void* q, const void* k,
   const Dims p = make_dims(b, h, hkv, t, tk, d, causal, scale);
   if (!dims_ok(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd<float>(q, k, v, o, lse, p, strides, st);
-  if (dtype == 1) return fwd<__nv_bfloat16>(q, k, v, o, lse, p, strides, st);
+  if (dtype == 0) return fwd_f32(q, k, v, o, lse, p, strides, st);
+  if (dtype == 1) return fwd_mma(q, k, v, o, lse, p, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
