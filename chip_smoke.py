@@ -12,8 +12,12 @@ caught):
    ``tony_tpu_torch/ops/csrc`` with nvcc (sm_90a), one nvcc per source,
    all started together, and print the build time;
 3. kernels — hold each kernel against its plain PyTorch version on the
-   card: flash-decode at the serving path's shapes (bf16 and f32, ragged
-   positions, GQA; row independence with ``torch.equal``), and the flash
+   card: flash-decode at the serving path's shapes (the b=16 and b=4
+   decode buckets, one sequence, GQA and a 512-token prefill at ctx
+   2048; bf16 on the tensor-core ``flash_decode_mma_kernel``, timed
+   beside its bound, plain version and SDPA, and f32 on the CUDA-core
+   kernel; ragged positions; row independence and, in bf16, the same
+   bits at every split of the cache, with ``torch.equal``), and the flash
    attention forward, backward dQ and backward dK/dV at one shape per TPU
    launcher family (packed and classic layouts, GQA, t=8192, ragged t,
    non-causal t != tk; bf16 and f32; O, LSE, dQ, dK and dV run twice and
@@ -35,7 +39,8 @@ caught):
    match the engine's own full-prefill logits within the stated
    tolerance with greedy tokens equal;
 5. profile — device time by kernel over three b=16 decode steps
-   (torch.profiler), and the device's idle share of the step;
+   (torch.profiler), grouped (flash_decode, the per-layer KV gather,
+   GEMMs, ...), and the device's idle share of the step;
 6. train — llama2-7b at full width cut to 8 layers (f32 parameters,
    bf16 compute, flash attention, remat), AdamW(3e-4), 8 steps on one
    fixed batch of 2 x 2048 seeded tokens: one step's grads through the
@@ -177,6 +182,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn, reps: int = 10, iters: int = 20) -> float:
+    """Device ms of one ``fn()`` alone: ``reps`` calls captured in a CUDA
+    graph and replayed ``iters`` times between two events, so no host
+    time is in it (``cuda_ms`` reads host time too where the host enqueues
+    a call more slowly than the card runs it)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters=iters, warmup=1) / reps
+
+
 def decode_inputs(b, h, hkv, t, d, ctx, dtype, gen, prefill=False):
     """q/k/v laid out as the serving forward passes them: q a transposed
     view of [b, t, h, d], k/v [b, hkv, ctx, d] views of the gathered
@@ -229,6 +248,17 @@ def sdpa_fn(q, k, v, pos):
         q, k, v, attn_mask=mask, enable_gqa=gqa)
 
 
+# The serving shapes of flash-decode (row 9), llama2-7b's d=128 at ctx
+# 2048: (name, (b, h, hkv, t, d, ctx), prefill). decode is the serve
+# phase's b=16 bucket, b4 the engine's other bucket, b1 one sequence, gqa
+# eight kv heads, prefill a 512-token prompt.
+DECODE_SHAPES = [("decode", (16, 32, 32, 16, 128, 2048), False),
+                 ("b4", (4, 32, 32, 16, 128, 2048), False),
+                 ("b1", (1, 32, 32, 16, 128, 2048), False),
+                 ("gqa", (16, 32, 8, 16, 128, 2048), False),
+                 ("prefill", (1, 32, 32, 512, 128, 2048), True)]
+
+
 def check_kernel(name, shape, dtype, gen, prefill=False, time_it=False):
     q, k, v, pos = decode_inputs(*shape, dtype, gen, prefill=prefill)
     scale = q.shape[-1] ** -0.5
@@ -247,21 +277,32 @@ def check_kernel(name, shape, dtype, gen, prefill=False, time_it=False):
         raise AssertionError(f"{name} {dtype}: kernel disagrees with the "
                              f"plain version: {err} > {tol}")
     res = {"max_abs_err": err}
+    if dtype == torch.bfloat16:
+        b, h, t, d = q.shape
+        dev = torch.cuda.current_device()
+        res["plan"] = attn._decode_plan_on(
+            dev, b, h, k.shape[1], t, d, k.shape[2])._asdict()
     if time_it:
         res["ms"] = cuda_ms(lambda: attn.flash_decode(q, k, v, pos))
         res["plain_ms"] = cuda_ms(
             lambda: attn._decode_plain(q, k, v, pos, scale, 128), iters=5)
         res["library_ms"] = cuda_ms(sdpa_fn(q, k, v, pos))
         res["bound_ms"], res["bound_by"] = bound(q, k, pos)
-        log(f"    kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
-            f"ms, sdpa {res['library_ms']:.4f} ms, bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        res["device_ms"] = cuda_graph_ms(
+            lambda: attn.flash_decode(q, k, v, pos))
+        res["library_device_ms"] = cuda_graph_ms(sdpa_fn(q, k, v, pos))
+        log(f"    kernel {res['ms']:.4f} ms ({res['device_ms']:.4f} on the "
+            f"card alone), plain {res['plain_ms']:.4f} ms, sdpa "
+            f"{res['library_ms']:.4f} ms ({res['library_device_ms']:.4f}), "
+            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
 
 
 def check_row_independence(dtype, gen):
     """The same rows in a t=16 launch and inside a t=64 launch must be
-    bit-equal (another tile, other neighbours, another key-loop end)."""
+    bit-equal (another tile, other neighbours, another key-loop end); in
+    bf16 also one sequence alone (b=1, the cache split over blocks) and
+    inside the b=4 launch, and the launch at forced split counts."""
     b, h, hkv, d, ctx = 4, 32, 8, 128, 2048
     q16, k, v, pos16 = decode_inputs(b, h, hkv, 16, d, ctx, dtype, gen)
     q64 = torch.randn((b, 64, h, d), generator=gen,
@@ -277,6 +318,18 @@ def check_row_independence(dtype, gen):
         raise AssertionError(f"row independence broken ({dtype})")
     log(f"  row independence {dtype}: t=16 rows == the same rows in a "
         f"t=64 launch (torch.equal)")
+    if dtype != torch.bfloat16:
+        return
+    scale = d ** -0.5
+    o1 = attn.flash_decode(q16[2:3], k[2:3], v[2:3], pos16[2:3].clone())
+    forced = {s: attn._decode_cuda(q16, k, v, pos16, scale, splits=s)
+              for s in (1, 2, 4, 8)}
+    torch.cuda.synchronize()
+    if not torch.equal(o1, o16[2:3]) or not all(
+            torch.equal(o, o16) for o in forced.values()):
+        raise AssertionError("the split over the cache changed a bit")
+    log("  split invariance bf16: b=1 rows == the same rows in the b=4 "
+        "launch; splits 1, 2, 4, 8 == the planned launch (torch.equal)")
 
 
 def serve_phase(gen_seed: int, quant=None, tol: float = SERVE_REL_TOL):
@@ -442,6 +495,8 @@ def decode_group(name: str) -> str:
         return "int8_matmul"
     if "flash_decode" in low:
         return "flash_decode"
+    if "indexselect" in low or "gather" in low:
+        return "kv_gather"
     if any(w in low for w in ("gemm", "nvjet", "cutlass", "sm90_xmma",
                               "ampere", "cublas")):
         return "gemm"
@@ -2020,24 +2075,23 @@ def main() -> int:
     for name, info in _build.build_info.items():
         log(f"  {name}: nvcc {info['seconds']:.1f} s")
         for line in str(info["log"]).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    name == "flash_decode" and "entry function" in line):
                 log(f"    {line.strip()}")
 
     # Phase 3: kernels against their plain versions.
     log("[kernels]")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    decode = (16, 32, 32, 16, 128, 2048)
-    gqa = (16, 32, 8, 16, 128, 2048)
-    prefill = (1, 32, 32, 512, 128, 2048)
-    dec = check_kernel("decode", decode, torch.bfloat16, gen, time_it=True)
-    pre = check_kernel("prefill", prefill, torch.bfloat16, gen,
-                       prefill=True, time_it=True)
-    errs = [dec["max_abs_err"], pre["max_abs_err"]]
-    for name, shape, pf in (("decode", decode, False), ("gqa", gqa, False),
-                            ("prefill", prefill, True)):
-        errs.append(check_kernel(name, shape, torch.float32, gen,
-                                 prefill=pf)["max_abs_err"])
-    errs.append(check_kernel("gqa", gqa, torch.bfloat16, gen)["max_abs_err"])
+    decode_timed = {}
+    for name, shape, pf in DECODE_SHAPES:
+        decode_timed[name] = check_kernel(name, shape, torch.bfloat16, gen,
+                                          prefill=pf, time_it=True)
+    dec, pre = decode_timed["decode"], decode_timed["prefill"]
+    errs = [r["max_abs_err"] for r in decode_timed.values()]
+    for name, shape, pf in DECODE_SHAPES:
+        if name in ("decode", "gqa", "prefill"):
+            errs.append(check_kernel(name, shape, torch.float32, gen,
+                                     prefill=pf)["max_abs_err"])
     check_row_independence(torch.bfloat16, gen)
     check_row_independence(torch.float32, gen)
     flash = {}
@@ -2112,7 +2166,20 @@ def main() -> int:
         "kernel_ms": dec["ms"], "max_abs_diff": dec["max_abs_err"],
         "shape": "decode bf16 b=16 h=32 hkv=32 t=16 d=128 ctx=2048",
         "prefill": dict(pre, shape="bf16 b=1 h=32 t=512 d=128 ctx=2048"),
+        "by_shape": {name: {k: r[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "max_abs_err", "plan")}
+            for name, r in decode_timed.items()},
         "max_abs_err_all_cases": max(errs),
+        "kernel": "flash_decode_mma_kernel<HEAD_DIM, RT> + "
+                  "flash_decode_combine_kernel (bf16); flash_decode_kernel "
+                  "(f32)",
+        "products": "bf16: mma.sync.m16n8k16 tensor cores, P as bf16 hi + "
+                    "lo, ldmatrix, cp.async two-stage ring of 32-key tiles, "
+                    "256-key chunks folded in order, split over blocks; "
+                    "f32: CUDA-core FMAs",
+        "replaced": "flash_decode_kernel in bf16 (CUDA-core FMAs; f32 only "
+                    "now)",
     }
     main_shape = flash["packed_bfloat16"]
     entries = [entry]

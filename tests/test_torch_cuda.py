@@ -9,6 +9,7 @@ the card with::
 from __future__ import annotations
 
 import math
+import time
 
 import pytest
 import torch
@@ -66,6 +67,58 @@ def test_flash_decode_kernel_rejects_off_shapes(gen):
     q, k, v, pos = _inputs(gen, 1, 4, 2, 16, 16, 32, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         attn.flash_decode(q, k, v, pos)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_runs_the_tensor_core_kernel_in_bf16(gen, dtype):
+    """bf16 launches the tensor-core kernel (and its combine kernel where
+    the plan splits the cache) and never the CUDA-core one; f32 the
+    CUDA-core one and no mma kernel."""
+    q, k, v, pos = _inputs(gen, 1, 4, 4, 16, 128, 600, dtype)
+    counts = _device_kernel_counts(lambda: attn.flash_decode(q, k, v, pos))
+    names = " ".join(counts)
+    mma, core = "flash_decode_mma_kernel<128, 1>", "flash_decode_kernel"
+    want, never = (mma, core) if dtype == torch.bfloat16 else (core, mma)
+    assert sum(n for key, n in counts.items() if want in key) == 1, counts
+    assert never.split("<")[0] not in names, counts
+    combine = sum(n for key, n in counts.items()
+                  if "flash_decode_combine_kernel" in key)
+    assert combine == (dtype == torch.bfloat16), counts
+
+
+def test_flash_decode_rows_do_not_depend_on_the_split(gen):
+    """One sequence's rows alone (b=1: the cache split over many blocks)
+    and inside a b=16 launch (unsplit), and at forced split counts, give
+    the same bits; so do two launches."""
+    q, k, v, pos = _inputs(gen, 16, 32, 32, 16, 128, 1100, torch.bfloat16)
+    dev = torch.cuda.current_device()
+    plans = [attn._decode_plan_on(dev, b, 32, 32, 16, 128, 1100)
+             for b in (1, 16)]
+    assert plans[0].splits > 1 and plans[1].splits == 1, plans
+    whole = attn.flash_decode(q, k, v, pos)
+    assert torch.equal(whole, attn.flash_decode(q, k, v, pos))
+    one = attn.flash_decode(q[5:6], k[5:6], v[5:6], pos[5:6].clone())
+    assert torch.equal(one, whole[5:6])
+    for splits in (2, 3, 5):
+        assert torch.equal(attn._decode_cuda(q, k, v, pos, 128 ** -0.5,
+                                             splits=splits), whole)
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_flash_decode_row_with_a_negative_position_is_zero(gen, splits):
+    """A row that admits no key gives 0, as the chunked fold's plain
+    model (``_decode_chunked_plain``) defines it, also where every row of
+    a block is such a row; the other rows match the model."""
+    q, k, v, pos = _inputs(gen, 2, 4, 4, 16, 64, 600, torch.bfloat16)
+    pos[0, 3] = -1
+    pos[1] = -1
+    out = attn._decode_cuda(q, k, v, pos, 64 ** -0.5, splits=splits)
+    ref = attn._decode_chunked_plain(q, k, v, pos, 64 ** -0.5,
+                                     attn._DECODE_CHUNK)
+    torch.cuda.synchronize()
+    assert not out[0, :, 3].any() and not out[1].any()
+    assert float((out.float() - ref.float()).abs().max()) <= 2 ** -7 * float(
+        ref.float().abs().max())
 
 
 def _flash_inputs(gen, b, h, hkv, t, tk, d, dtype, packed):
@@ -198,6 +251,10 @@ def _device_kernel_counts(fn):
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+        # CUPTI hands the kernel records over asynchronously; a window this
+        # short can lose some or all of them when the profiler stops at
+        # once (seen on the H100 machine), so give it time to deliver.
+        time.sleep(0.1)
     return {e.key: e.count for e in prof.key_averages()
             if getattr(e, "device_type", None)
             == torch.autograd.DeviceType.CUDA}

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so``
 under the repository root (``.gitignore`` lists ``build/``), keyed by a
-hash of the source and the flags, then loaded with :mod:`ctypes`. Builds
+hash of the source, the shared headers ``csrc/*.cuh`` and the flags,
+then loaded with :mod:`ctypes`. Builds
 happen at first use, never at import: this module imports on machines
 without ``nvcc`` (the CPU tests import every module). Several sources
 build in parallel, one ``nvcc`` each. Any failure raises — there is no
@@ -50,10 +51,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path, keyed by its source, every header of ``csrc``
+    (a source may include any of them) and the flags."""
+    digest = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def load(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:

@@ -13,22 +13,28 @@
   Both layouts are the same [B, H, T, D] views with other strides.
 * :func:`flash_decode` — position-masked flash-decoding attention of a
   small q-block against a cached K/V buffer. A CUDA tensor runs the
-  hand-written Hopper kernel ``csrc/flash_decode.cu`` (or raises on a
-  shape it does not take); a CPU tensor runs :func:`_decode_plain`, the
-  counterpart of the JAX package's ``_decode_xla``, with the same
-  ``[b, hkv, g·t, d]`` grouping and the same k-block order, all in f32.
+  hand-written Hopper kernels of ``csrc/flash_decode.cu`` (bf16 on the
+  tensor cores, the cache cut into 256-key chunks folded in order and
+  split over blocks by :func:`_decode_plan`; f32 on the CUDA cores), or
+  raises on a shape they do not take; a CPU tensor runs
+  :func:`_decode_plain`, the counterpart of the JAX package's
+  ``_decode_xla``, with the same ``[b, hkv, g·t, d]`` grouping and the
+  same k-block order, all in f32. :func:`_decode_chunked_plain` models
+  the bf16 kernel's fold for the tests and ``chip_smoke.py``.
 
-Numerics: the kernel and the plain version compute the same function
+Numerics: the kernels and the plain version compute the same function
 with the same online-softmax recurrence (:func:`_decode_mask_update`)
 but in another summation order, so they agree to a tolerance, not
 bitwise. Each is row-independent on its own: a row's bits do not depend
-on t, on its row tile, or on the other rows of the call.
+on t, on its row tile, on the other rows of the call or, in bf16, on how
+the launch splits the cache.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -126,7 +132,125 @@ def _decode_plain(q, k, v, q_positions, scale, block_k):
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_I64 = ctypes.c_int64
+
+# The bf16 kernel's fold unit: the key axis is cut at multiples of this
+# many positions (``CHUNK`` of csrc/flash_decode.cu, which refuses any
+# other value).
+_DECODE_CHUNK = 256
+
+
+def _merge_state(m, l, acc, mc, lc, accc, take):
+    """Fold a chunk's softmax state ``(mc, lc, accc)`` into the running
+    ``(m, l, acc)`` where ``take`` (rows the chunk belongs to), else keep
+    the running one. ``merge(fresh, x) == x`` exactly: exp(-1e30 - m) is
+    0 and x·1 is x."""
+    m_new = torch.maximum(m, mc)
+    a = torch.exp(m - m_new)
+    ac = torch.exp(mc - m_new)
+    return (torch.where(take, m_new, m),
+            torch.where(take, l * a + lc * ac, l),
+            torch.where(take, acc * a + accc * ac, acc))
+
+
+def _decode_chunked_plain(q, k, v, q_positions, scale, chunk, splits=1):
+    """Plain model of the bf16 kernel's fold (tests and chip_smoke only):
+    each ``chunk``-key chunk's softmax state is computed from a fresh
+    state, and a row folds the states of the chunks that start at or
+    below its position, left to right. With ``splits`` > 1 the chunks are
+    cut into that many ranges as the kernel's launch would be: range 0
+    folds its chunks itself, every other range hands each chunk's state
+    over, and a combine step folds range 0's state and then those, in
+    order. The result is the same bits at every ``splits``. A row with a
+    negative position admits no key and gives 0."""
+    b, h, t, d = q.shape
+    hkv, ctx = k.shape[1], k.shape[2]
+    g = h // hkv
+    qf = q.float().reshape(b, hkv, g * t, d)
+    kf, vf = k.float(), v.float()
+    q_pos = q_positions.to(torch.int32)[:, None, None, :].expand(
+        b, hkv, g, t).reshape(b, hkv, g * t, 1)
+    n_chunks = -(-ctx // chunk)
+    cps = -(-n_chunks // max(1, min(splits, n_chunks)))
+
+    def fresh():
+        return (torch.full((b, hkv, g * t, 1), _NEG_INF, device=q.device),
+                torch.zeros((b, hkv, g * t, 1), device=q.device),
+                torch.zeros((b, hkv, g * t, d), device=q.device))
+
+    def chunk_state(c):
+        lo, hi = c * chunk, min(ctx, (c + 1) * chunk)
+        s = torch.matmul(qf, kf[:, :, lo:hi].transpose(-1, -2)) * scale
+        k_pos = torch.arange(lo, hi, dtype=torch.int32, device=q.device)
+        m0, l0, _ = fresh()
+        p, _, m, l = _decode_mask_update(s, q_pos, k_pos, m0, l0)
+        return m, l, torch.matmul(p, vf[:, :, lo:hi])
+
+    def fold(state, chunks):
+        for c in chunks:
+            state = _merge_state(*state, *chunk_state(c),
+                                 c * chunk <= q_pos)
+        return state
+
+    prefix = fold(fresh(), range(min(cps, n_chunks)))
+    m, l, acc = fold(_merge_state(*fresh(), *prefix, q_pos >= 0),
+                     range(cps, n_chunks))
+    out = acc / torch.where(l > 0, l, torch.ones_like(l))
+    return out.reshape(b, h, t, d).to(q.dtype)
+
+
+class DecodePlan(NamedTuple):
+    """How the bf16 kernel cuts one launch: ``rt`` m16 row tiles a
+    block, the cache's ``n_chunks`` chunks in ``splits`` ranges of
+    ``cps`` chunks, one block each, and the f32 workspace's shape (rows,
+    chunk slots, d + 2) when ``splits`` > 1, else None."""
+    rt: int
+    splits: int
+    cps: int
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def _decode_plan(b, h, hkv, t, d, ctx, slots, splits=None):
+    """The launch plan of the bf16 kernel. Its rows of one kv head (g·t)
+    take one row-tile block when they fit one m16 tile, else blocks of 4
+    tiles. ``slots(rt)`` is how many such blocks the card holds at once.
+    The row blocks alone run unsplit when they fill half of that; fewer
+    split the cache to fill two waves' worth, never into more ranges than
+    it has chunks (``splits`` forces a count: tests and tuning). No
+    choice here changes a bit of the output."""
+    gt = (h // hkv) * t
+    n_mt = -(-gt // 16)
+    rt = 1 if n_mt == 1 else 4
+    blocks = -(-n_mt // rt) * hkv * b
+    n_chunks = -(-ctx // _DECODE_CHUNK)
+    if splits is None:
+        full = slots(rt)
+        splits = 1 if 2 * blocks >= full else -(-2 * full // blocks)
+    splits = max(1, min(splits, n_chunks, 65535 // b))
+    cps = -(-n_chunks // splits)
+    splits = -(-n_chunks // cps)
+    ws = (b * hkv * gt, n_chunks, d + 2) if splits > 1 else None
+    return DecodePlan(rt, splits, cps, ws)
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_plan_on(index: int, b, h, hkv, t, d, ctx,
+                    splits=None) -> DecodePlan:
+    """The plan of a launch on card ``index`` (cached: the serving path
+    launches a handful of shapes many times)."""
+    return _decode_plan(b, h, hkv, t, d, ctx,
+                        lambda rt: _decode_slots(index, d, rt), splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_slots(index: int, d: int, rt: int) -> int:
+    """Blocks of the bf16 kernel (head_dim ``d``, ``rt`` row tiles) that
+    card ``index`` holds at once: its SMs times the kernel's occupancy."""
+    per_sm = _lib().flash_decode_blocks_per_sm(d, rt)
+    if per_sm <= 0:
+        raise RuntimeError(f"flash_decode occupancy query failed: cuda "
+                           f"error {-per_sm}")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * per_sm
 
 
 def _lib() -> ctypes.CDLL:
@@ -135,19 +259,26 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(["flash_decode"])["flash_decode"]
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                        + [ctypes.c_int] * 6 + [ctypes.c_float]
-                       + [_I64] * 18 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 4 + [_STRIDES, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
+        lib.flash_decode_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+        lib.flash_decode_blocks_per_sm.restype = ctypes.c_int
     return lib
 
 
-def _decode_cuda(q, k, v, q_positions, scale):
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream. Raises ``ValueError`` on a shape, type or layout the
-    kernel does not take and ``RuntimeError`` when the launch fails."""
+def _decode_cuda(q, k, v, q_positions, scale, splits=None):
+    """Check what the kernel takes, allocate the output (and the split's
+    workspace), launch on the current stream. bf16 runs the tensor-core
+    ``flash_decode_mma_kernel`` (plus its combine kernel when the plan
+    splits the cache; ``splits`` forces a split count), on q copied where
+    its layout does not fit the kernel's 16-byte copies; f32 the CUDA-core
+    ``flash_decode_kernel`` on q as given. Raises ``ValueError`` on a
+    shape, type or layout the kernels do not take and ``RuntimeError``
+    when a launch fails."""
     b, h, t, d = q.shape
     hkv, ctx = k.shape[1], k.shape[2]
     dev = q.device
@@ -182,13 +313,25 @@ def _decode_cuda(q, k, v, q_positions, scale):
                       device=dev).permute(0, 2, 1, 3)
     if out.numel() == 0:
         return out
+    plan, ws = DecodePlan(1, 1, 1, None), None
+    if q.dtype == torch.bfloat16:
+        q = _for_mma(q, d)
+        index = torch.cuda.current_device() if dev.index is None \
+            else dev.index
+        plan = _decode_plan_on(index, b, h, hkv, t, d, ctx, splits)
+        if plan.workspace is not None:
+            ws = torch.empty(plan.workspace, dtype=torch.float32,
+                             device=dev)
+    strides = (ctypes.c_int64 * 18)(*q.stride(), *k.stride(), *v.stride(),
+                                    *pos.stride(), *out.stride())
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.flash_decode_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), b, h, hkv, t, d, ctx, float(scale),
-        *q.stride(), *k.stride(), *v.stride(), *pos.stride(), *out.stride(),
-        stream)
+        pos.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), b, h, hkv, t, d, ctx,
+        float(scale), _DECODE_CHUNK, plan.rt, plan.splits, plan.cps,
+        strides, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: cuda error {rc} "
@@ -208,9 +351,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     excluded because they sit above every live row's position).
 
     q, k and v may be strided views (the serving forward passes the
-    ``[b, ctx, hkv·d]`` buffer viewed as ``[b, hkv, ctx, d]``; nothing
-    is copied for the kernel). A CUDA tensor runs the kernel, which
-    streams 32-key tiles; a CPU tensor runs the plain version in
+    ``[b, ctx, hkv·d]`` buffer viewed as ``[b, hkv, ctx, d]``; the K/V
+    buffer is never copied). A CUDA tensor runs the kernel (bf16 on the
+    tensor cores, which streams 32-key tiles and folds 256-key chunks;
+    f32 on the CUDA cores); a CPU tensor runs the plain version in
     ``block_k``-key blocks. GQA is zero-copy (query head h reads kv
     head ``h·hkv/h``). Forward only.
     """
