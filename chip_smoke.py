@@ -95,10 +95,14 @@ caught):
    line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
-version at the quant lane's decode, prefill, train and ``lm_head``
-shapes of the 7B and at ragged shapes, timed beside its bound, the plain
-version, ``torch._int_mm`` plus the rescale, and the bf16 ``F.linear``
-the lane replaces; and the fused BatchNorm kernels (rows 10-13) against
+version at the quant lane's decode (b=16 and b=4), prefill, train and
+``lm_head`` shapes of the 7B and at ragged shapes, as planned and at
+forced split counts over K, every shape but the ragged ones on the
+``wgmma`` path (which the serve_quant and train_quant comparisons assert
+for every call too); each is timed back to back, on the card alone (a
+CUDA graph) and, up to 512 rows, with a cold L2, with the host's µs a
+call, beside its bound, the plain version, ``torch._int_mm`` plus the
+rescale, and the bf16 ``F.linear`` the lane replaces; and the fused BatchNorm kernels (rows 10-13) against
 their plain versions at every distinct BN input of ResNet-50 at batch
 256 in bf16, at its stem, stage-1 exit and stage-4 shapes and a ragged
 shape in f32 (the ragged one in bf16 too), with and without the
@@ -491,7 +495,7 @@ QUANTIZE_NAMES = ("abs", "maxnan", "max_values", "div", "round", "clamp")
 
 def decode_group(name: str) -> str:
     low = name.lower()
-    if "int8_matmul_kernel" in low:
+    if "int8_matmul" in low:
         return "int8_matmul"
     if "flash_decode" in low:
         return "flash_decode"
@@ -973,7 +977,7 @@ def profile_train(step, state, batch, steps=2):
             groups["conv"] += ms
         elif "fused_bucket_update_kernel" in low:
             groups["fused_update"] += ms
-        elif "int8_matmul_kernel" in low:
+        elif "int8_matmul" in low:
             groups["int8_matmul"] += ms
         elif any(w in low for w in ("round", "clamp", "abs", "maxnan",
                                     "max_values")):
@@ -1196,7 +1200,8 @@ def train_fused_phase(card: str, first_loss: float):
 
 # (name, M, K, N): the quant lane's projections of the 7B on each path
 # (decode: the b=16 bucket x q_block 16 rows; prefill: 16 and 512 rows;
-# train: 2 x 2048 rows; the lm_head lane at decode), then ragged edges.
+# train: 2 x 2048 rows; the lm_head lane at decode; the engine's b=4
+# decode bucket), then ragged edges (the mma.sync path).
 INT8_SHAPES = [
     ("decode_qkvo", 256, 4096, 4096), ("decode_gate_up", 256, 4096, 11008),
     ("decode_down", 256, 11008, 4096), ("prefill16_qkvo", 16, 4096, 4096),
@@ -1204,7 +1209,8 @@ INT8_SHAPES = [
     ("prefill512_gate_up", 512, 4096, 11008),
     ("prefill512_down", 512, 11008, 4096), ("train_qkvo", 4096, 4096, 4096),
     ("train_gate_up", 4096, 4096, 11008), ("train_down", 4096, 11008, 4096),
-    ("lm_head", 256, 4096, 32000), ("ragged_1x1x1", 1, 1, 1),
+    ("lm_head", 256, 4096, 32000), ("decode_b4_qkvo", 64, 4096, 4096),
+    ("decode_b4_down", 64, 11008, 4096), ("ragged_1x1x1", 1, 1, 1),
     ("ragged_33x70x130", 33, 70, 130), ("ragged_17x4099x257", 17, 4099, 257),
 ]
 # Decode against the engine's own full prefill on the quant lane: the
@@ -1246,11 +1252,84 @@ def int_mm_rescale(xq, wq, sx, sw):
     return tq._rescale(torch._int_mm(xq, wq.t()), sx, sw)
 
 
+# Forced split counts held torch.equal at every int8 shape.
+INT8_SPLITS = (1, 2, 4, 8)
+# Calls with a cold L2 rotate over weight copies that together hold
+# twice the H100's 50 MB L2: a decode layer's weights are never hot in
+# the real step.
+COLD_L2_BYTES = 100e6
+
+
+def host_us(fn, calls: int = 200, rounds: int = 5) -> float:
+    """Host µs a call: the median over ``rounds`` of ``calls`` calls
+    enqueued back to back with no synchronize between them (fewer
+    launches than the card's queue holds), so the host's own time
+    whatever the card's."""
+    fn()
+    per_round = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_round.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * sorted(per_round)[rounds // 2] / calls
+
+
+def weight_copies(wq, gen):
+    """``wq`` and random copies of its shape, ``COLD_L2_BYTES`` or more
+    together."""
+    n, k = wq.shape
+    return [wq] + [torch.randint(-127, 128, (n, k), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+                   for _ in range(max(2, math.ceil(COLD_L2_BYTES
+                                                   / (n * k))) - 1)]
+
+
+def rotating(fn, xq, copies, sx, sw):
+    """A call of ``fn(xq, wq, sx, sw)`` that reads the next of the weight
+    ``copies`` each time, so its weight is cold in L2."""
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return fn(xq, copies[turn[0] % len(copies)], sx, sw)
+    return call
+
+
+def cold_int8_ms(xq, wq, sx, sw, gen):
+    """(ms back to back, ms on the card alone, copies) of
+    ``int8_matmul`` with the weight cold in L2 (:func:`rotating`)."""
+    copies = weight_copies(wq, gen)
+    call = rotating(tq.int8_matmul, xq, copies, sx, sw)
+    ms = cuda_ms(call, iters=10 * len(copies))
+    device = cuda_graph_ms(call, reps=2 * len(copies))
+    return ms, device, len(copies)
+
+
+def record_int8_paths():
+    """``tq._int8_plan`` wrapped for the block: the paths it chose, to
+    hold the lane's shapes to the wgmma path."""
+    paths = []
+    plan = tq._int8_plan
+
+    def recording(*args):
+        out = plan(*args)
+        paths.append(out.path)
+        return out
+    return paths, swapped(tq, _int8_plan=recording)
+
+
 def check_int8(gen):
-    """Every shape against the plain version with ``torch.equal``; the
-    path shapes timed beside their bound, the plain version, the library
-    yardstick and the bf16 ``F.linear`` the lane replaces."""
+    """Every shape against the plain version with ``torch.equal``, as
+    planned and at forced split counts; every shape but the ragged ones
+    on the wgmma path. The path shapes timed beside their bound, the
+    plain version, the library yardstick and the bf16 ``F.linear`` the
+    lane replaces: back to back, on the card alone (a CUDA graph) and,
+    where M <= 512, with a cold L2; the host µs a call."""
     out = {}
+    dev = torch.cuda.current_device()
     for name, m, k, n in INT8_SHAPES:
         xq, wq, sx, sw = int8_inputs(m, k, n, gen)
         y = tq.int8_matmul(xq, wq, sx, sw)
@@ -1261,15 +1340,38 @@ def check_int8(gen):
             raise AssertionError(f"int8_matmul {name} ({m}x{k}x{n}): kernel "
                                  f"differs from the plain version (max "
                                  f"|Δ| {err})")
-        res = {"m": m, "k": k, "n": n, "max_abs_err": err}
+        plan = tq._int8_plan(m, n, k, tq._sms(dev), k, k, True)
+        want = "mma_sync" if name.startswith("ragged") else "wgmma"
+        if plan.path != want:
+            raise AssertionError(f"int8_matmul {name}: planned on the "
+                                 f"{plan.path} path, not {want}")
+        forced = {}
+        for s in INT8_SPLITS:
+            ys = tq._int8_matmul_cuda(xq, wq, sx, sw, splits=s)
+            torch.cuda.synchronize()
+            if not torch.equal(ys, ref):
+                raise AssertionError(f"int8_matmul {name}: {s} forced "
+                                     f"splits differ from the plain version")
+            forced[s] = tq._int8_plan(m, n, k, tq._sms(dev), k, k, True,
+                                      s).splits
+        res = {"m": m, "k": k, "n": n, "max_abs_err": err,
+               "plan": plan._asdict(), "forced_splits_equal": forced}
         if not name.startswith("ragged"):
             iters = 10 if m * n * k > 1e11 else 50
-            res["ms"] = cuda_ms(lambda: tq.int8_matmul(xq, wq, sx, sw),
-                                iters=iters)
+            call = lambda: tq.int8_matmul(xq, wq, sx, sw)  # noqa: E731
+            res["ms"] = cuda_ms(call, iters=iters)
+            res["device_ms"] = cuda_graph_ms(call)
+            res["host_us"] = host_us(call)
             res["plain_ms"] = cuda_ms(
                 lambda: tq._int8_matmul_plain(xq, wq, sx, sw), iters=3,
                 warmup=1)
             res["bound_ms"], res["bound_by"] = int8_bound(m, k, n)
+            if m <= tq._SMALL_M:
+                (res["cold_ms"], res["cold_device_ms"],
+                 res["cold_copies"]) = cold_int8_ms(xq, wq, sx, sw, gen)
+                res["bound_share_cold"] = (res["bound_ms"]
+                                           / res["cold_device_ms"])
+            res["bound_share"] = res["bound_ms"] / res["device_ms"]
             try:
                 lib = int_mm_rescale(xq, wq, sx, sw)
             except RuntimeError as exc:     # shape rules of _int_mm
@@ -1279,24 +1381,36 @@ def check_int8(gen):
                 res["library_equal"] = bool(torch.equal(lib, y))
                 res["library_ms"] = cuda_ms(
                     lambda: int_mm_rescale(xq, wq, sx, sw), iters=iters)
+                res["library_device_ms"] = cuda_graph_ms(
+                    lambda: int_mm_rescale(xq, wq, sx, sw))
             xb = torch.randn((m, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             wb = torch.randn((n, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
             res["bf16_linear_ms"] = cuda_ms(
                 lambda: torch.nn.functional.linear(xb, wb), iters=iters)
-            res["tops"] = 2.0 * m * n * k / res["ms"] / 1e9
-            log(f"  int8_matmul {name} {m}x{k}x{n}: kernel {res['ms']:.4f} ms "
-                f"({res['tops']:.0f} TOP/s), plain {res['plain_ms']:.3f} ms, "
-                f"_int_mm+rescale {res['library_ms']}, bf16 linear "
-                f"{res['bf16_linear_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
-                f"ms ({res['bound_by']})")
+            res["tops"] = 2.0 * m * n * k / res["device_ms"] / 1e9
+            cold = (f", cold L2 {res['cold_ms']:.4f} ms "
+                    f"({res['cold_device_ms']:.4f} alone, "
+                    f"{100 * res['bound_share_cold']:.0f}% of bound)"
+                    if "cold_ms" in res else "")
+            log(f"  int8_matmul {name} {m}x{k}x{n} [{plan.path} "
+                f"{plan.tile[0]}x{plan.tile[1]}, {plan.splits} splits]: "
+                f"kernel {res['ms']:.4f} ms "
+                f"({res['device_ms']:.4f} alone, {res['tops']:.0f} TOP/s, "
+                f"{100 * res['bound_share']:.0f}% of bound){cold}, host "
+                f"{res['host_us']:.1f} µs a call, plain "
+                f"{res['plain_ms']:.3f} ms, _int_mm+rescale "
+                f"{res['library_ms']}, bf16 linear "
+                f"{res['bf16_linear_ms']:.4f} ms, bound "
+                f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
             del xb, wb
         out[name] = res
         del xq, wq, sx, sw, y, ref
     torch.cuda.empty_cache()
     log(f"  int8_matmul: {len(INT8_SHAPES)} shapes, kernel == plain "
-        f"(torch.equal)")
+        f"(torch.equal) as planned and at {INT8_SPLITS} forced splits; the "
+        f"ragged ones on mma.sync, the rest on wgmma")
     return out
 
 
@@ -1362,7 +1476,11 @@ def serve_kernel_vs_plain(model):
     for name, shape in (("prefill", (1, 512, 512, True)),
                         ("decode", (16, 16, 2048, False))):
         b, t, ctx, prefill = shape
-        kernel = serve_forward(model, b, t, ctx, SEED + 7, prefill)
+        paths, recording = record_int8_paths()
+        with recording:
+            kernel = serve_forward(model, b, t, ctx, SEED + 7, prefill)
+        if not paths or set(paths) != {"wgmma"}:
+            raise AssertionError(f"serve_quant {name}: int8 paths {paths}")
         with plain_int8_on_the_card():
             plain = serve_forward(model, b, t, ctx, SEED + 7, prefill)
         torch.cuda.synchronize()
@@ -1373,7 +1491,7 @@ def serve_kernel_vs_plain(model):
                 f"{(kernel - plain).abs().max().item()})")
         out[name] = {"b": b, "t": t, "ctx": ctx, "equal": True}
     log("  one prefill and one decode forward: kernel == plain logits "
-        "(torch.equal)")
+        "(torch.equal), every int8 call on the wgmma path")
     return out
 
 
@@ -1426,7 +1544,11 @@ def train_quant_phase(card: str, first_loss: float):
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (TRAIN_BATCH, TRAIN_SEQ)),
                              device="cuda")
-    loss_k, g_k = one_step_grads(model, tokens)
+    paths, recording = record_int8_paths()
+    with recording:
+        loss_k, g_k = one_step_grads(model, tokens)
+    if not paths or set(paths) != {"wgmma"}:
+        raise AssertionError(f"train_quant: int8 paths {sorted(set(paths))}")
     with plain_int8_on_the_card():
         loss_p, g_p = one_step_grads(model, tokens)
     unequal = [n for n in g_k if not torch.equal(g_k[n], g_p[n])]
@@ -1434,7 +1556,7 @@ def train_quant_phase(card: str, first_loss: float):
         raise AssertionError(f"train_quant: kernel vs plain loss {loss_k} / "
                              f"{loss_p}, grads differ in {unequal[:4]}")
     log(f"  one step's loss ({loss_k:.6f}) and all {len(g_k)} grads: kernel "
-        f"== plain (torch.equal)")
+        f"== plain (torch.equal); {len(paths)} int8 calls, all on wgmma")
     del g_k, g_p
     gc.collect()
     torch.cuda.empty_cache()
@@ -2239,8 +2361,21 @@ def main() -> int:
         "bound_by": decode_int8["bound_by"],
         "library_ms": decode_int8["library_ms"],
         "shape": "decode w_gate/w_up: M=256 K=4096 N=11008",
-        "train": {k: int8["train_gate_up"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "kernel": "int8_matmul_wgmma_kernel<BM, BN> (+ "
+                  "int8_matmul_combine_kernel when a split is asked for); "
+                  "int8_matmul_kernel (mma.sync) for operands TMA cannot "
+                  "address",
+        "products": "wgmma m64nBNk32 s8 from 128-byte-swizzled TMA tiles, "
+                    "one producer warp, an mbarrier ring, persistent grid, "
+                    "exact int32 split over K on request",
+        "replaced": "int8_matmul_kernel on every path (mma.sync m16n8k32, "
+                    "two-stage cp.async ring; ragged operands only now)",
+        "by_shape": {name: {k: r.get(k) for k in (
+            "ms", "device_ms", "cold_ms", "cold_device_ms", "host_us",
+            "plain_ms", "bound_ms", "bound_by", "bound_share",
+            "bound_share_cold", "library_ms", "library_device_ms",
+            "bf16_linear_ms", "plan")}
+            for name, r in int8.items() if "ms" in r},
     })
     bn_main = bn_kernels["timed"][BN_MAIN]
     rn_prof = train_resnet["profile"]

@@ -556,7 +556,28 @@ def test_fused_accum_step_on_the_card_matches_the_cpu(gen):
 
 INT8_CASES = [(1, 1, 1), (33, 70, 130), (17, 4099, 257), (64, 128, 128),
               (100, 272, 40), (256, 4096, 4096), (256, 4096, 11008),
-              (512, 11008, 4096)]
+              (512, 11008, 4096), (16, 4096, 4096), (64, 4080, 4096),
+              (4096, 4112, 520), (4096, 4096, 11008)]
+
+
+def _int8_case(gen, m, k, n):
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sx = torch.rand((), generator=gen, device="cuda")
+    sw = torch.rand((n,), generator=gen, device="cuda")
+    return xq, wq, sx, sw
+
+
+def _int8_path(xq, wq):
+    from tony_tpu_torch.ops import quant as tq
+
+    return tq._int8_plan(xq.shape[0], wq.shape[0], xq.shape[1],
+                         tq._sms(torch.cuda.current_device()),
+                         xq.stride(0), wq.stride(0),
+                         xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+                         ).path
 
 
 @pytest.mark.parametrize("m,k,n", INT8_CASES)
@@ -565,23 +586,68 @@ def test_int8_matmul_kernel_vs_plain(gen, m, k, n):
     (exact integer accumulation, the same two roundings after it)."""
     from tony_tpu_torch.ops import quant as tq
 
-    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
-                       dtype=torch.int8)
-    sx = torch.rand((), generator=gen, device="cuda")
-    sw = torch.rand((n,), generator=gen, device="cuda")
+    xq, wq, sx, sw = _int8_case(gen, m, k, n)
     before = LAUNCHES["int8_matmul"]
     y = tq.int8_matmul(xq, wq, sx, sw)
     assert LAUNCHES["int8_matmul"] == before + 1
     ref = tq._int8_matmul_plain(xq, wq, sx, sw)
     torch.cuda.synchronize()
     assert y.dtype == torch.float32 and torch.equal(y, ref)
+    assert _int8_path(xq, wq) == ("wgmma" if k % 16 == 0 else "mma_sync")
+
+
+@pytest.mark.parametrize("k", [4080, 4096, 4112])
+@pytest.mark.parametrize("m", [1, 16, 64, 256, 4096])
+def test_int8_matmul_forced_splits_are_bitwise(gen, m, k):
+    """The wgmma path at K on both sides of a 128-byte tile's edge and a
+    ragged N: every split count gives the plain version's bits, one
+    launch a call however many kernels the split runs."""
+    from tony_tpu_torch.ops import quant as tq
+
+    xq, wq, sx, sw = _int8_case(gen, m, k, 264)
+    assert _int8_path(xq, wq) == "wgmma"
+    ref = tq._int8_matmul_plain(xq, wq, sx, sw)
+    for splits in (1, 2, 3, 8):
+        before = LAUNCHES["int8_matmul"]
+        y = tq._int8_matmul_cuda(xq, wq, sx, sw, splits=splits)
+        assert LAUNCHES["int8_matmul"] == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), splits
+
+
+@pytest.mark.parametrize("tile", [(64, 128), (128, 128), (128, 176),
+                                  (128, 256)])
+def test_int8_matmul_every_tile_is_bitwise(gen, tile):
+    """Each compiled tile of the wgmma kernel at a ragged M and N, with
+    and without a split."""
+    from tony_tpu_torch.ops import quant as tq
+
+    xq, wq, sx, sw = _int8_case(gen, 300, 4112, 200)
+    ref = tq._int8_matmul_plain(xq, wq, sx, sw)
+    for splits in (1, 3):
+        y = tq._int8_matmul_cuda(xq, wq, sx, sw, splits=splits, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref), splits
+
+
+def test_int8_matmul_mma_sync_path_ignores_splits(gen):
+    """Operands TMA cannot address (K = 4099) run the mma.sync kernel,
+    unsplit, at any split count asked."""
+    from tony_tpu_torch.ops import quant as tq
+
+    xq, wq, sx, sw = _int8_case(gen, 64, 4099, 264)
+    assert _int8_path(xq, wq) == "mma_sync"
+    ref = tq._int8_matmul_plain(xq, wq, sx, sw)
+    for splits in (1, 4):
+        y = tq._int8_matmul_cuda(xq, wq, sx, sw, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ref)
 
 
 def test_int8_matmul_kernel_takes_row_strides(gen):
-    """Row-strided views (16-byte aligned and not) go through the kernel
-    without a copy and give the contiguous result."""
+    """Row-strided views go through the kernels without a copy and give
+    the contiguous result: 16-byte rows on the wgmma path (at every
+    split count), unaligned ones on mma.sync."""
     from tony_tpu_torch.ops import quant as tq
 
     big = torch.randint(-127, 128, (48, 208), generator=gen, device="cuda",
@@ -589,9 +655,14 @@ def test_int8_matmul_kernel_takes_row_strides(gen):
     wq = torch.randint(-127, 128, (24, 160), generator=gen, device="cuda",
                        dtype=torch.int8)
     sx, sw = torch.tensor(0.01, device="cuda"), torch.rand(24, device="cuda")
-    for xq in (big[:, :160], big[:, 3:163]):
+    for xq, path in ((big[:, :160], "wgmma"), (big[:, 3:163], "mma_sync")):
+        assert _int8_path(xq, wq) == path
         y = tq.int8_matmul(xq, wq, sx, sw)
         assert torch.equal(y, tq.int8_matmul(xq.contiguous(), wq, sx, sw))
+        assert torch.equal(y, tq._int8_matmul_plain(xq, wq, sx, sw))
+        for splits in (2, 3):
+            assert torch.equal(
+                tq._int8_matmul_cuda(xq, wq, sx, sw, splits=splits), y)
 
 
 def test_int8_matmul_kernel_rejects_off_inputs(gen):
@@ -619,6 +690,13 @@ def test_quant_lane_never_reaches_the_plain_version(gen, monkeypatch):
     def refuse(*a):
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(tq, "_int8_matmul_plain", refuse)
+    plan, paths = tq._int8_plan, []
+
+    def recording(*args):
+        out = plan(*args)
+        paths.append(out.path)
+        return out
+    monkeypatch.setattr(tq, "_int8_plan", recording)
     x = torch.randn((3, 5, 64), generator=gen, device="cuda",
                     dtype=torch.bfloat16).requires_grad_()
     w = torch.randn((64, 48), generator=gen, device="cuda").requires_grad_()
@@ -627,6 +705,7 @@ def test_quant_lane_never_reaches_the_plain_version(gen, monkeypatch):
     dense = tq.QuantDense(64, 48, bias=True, device="cuda")
     dense(x.detach()).sum().backward()
     assert LAUNCHES["int8_matmul"] == before + 2
+    assert paths == ["wgmma", "wgmma"]
     assert x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
     assert dense.weight.grad is not None
 

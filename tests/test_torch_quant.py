@@ -268,6 +268,98 @@ class TestInt8Matmul:
             assert rel <= 1e-5
 
 
+# The card's launch plans at the quant lane's 7B shapes on an H100's 132
+# SMs: (M, K, N, tile, splits). Decode and prefill (M <= 512) take the
+# tile whose units fill the persistent grid's waves best; training takes
+# 128 x 256. None of them splits K unless asked.
+H100_SMS = 132
+LANE_PLANS = [
+    (256, 4096, 4096, (64, 128), 1), (256, 4096, 11008, (128, 176), 1),
+    (256, 11008, 4096, (64, 128), 1), (16, 4096, 4096, (64, 128), 1),
+    (512, 4096, 4096, (128, 128), 1), (512, 4096, 11008, (128, 176), 1),
+    (512, 11008, 4096, (128, 128), 1), (4096, 4096, 4096, (128, 256), 1),
+    (4096, 4096, 11008, (128, 256), 1), (4096, 11008, 4096, (128, 256), 1),
+    (256, 4096, 32000, (128, 256), 1), (64, 4096, 4096, (64, 128), 1),
+    (64, 11008, 4096, (64, 128), 1),
+]
+
+
+class TestInt8Plan:
+    @pytest.mark.parametrize("m,k,n,tile,splits", LANE_PLANS)
+    def test_lane_shapes_take_wgmma(self, m, k, n, tile, splits):
+        plan = tq._int8_plan(m, n, k, H100_SMS)
+        assert plan.path == "wgmma" and plan.tile == tile
+        assert plan.splits == splits
+        units = -(-m // tile[0]) * -(-n // tile[1]) * splits
+        assert plan.units == units and plan.grid == min(units, H100_SMS)
+        assert plan.workspace == ((splits, m, n) if splits > 1 else None)
+
+    @pytest.mark.parametrize("m,k,n,splits", [
+        (64, 11008, 512, 8), (16, 4096, 1024, 4), (256, 11008, 512, 2),
+        (64, 256, 512, 2)])
+    def test_few_tiles_split_k_only_when_asked(self, m, k, n, splits):
+        """Even a call of a few tiles runs unsplit, with no workspace, as
+        planned; a forced split cuts K into that many ranges of whole
+        tiles, the units growing with them."""
+        plan = tq._int8_plan(m, n, k, H100_SMS)
+        assert plan.path == "wgmma" and plan.splits == 1
+        assert plan.workspace is None
+        forced = tq._int8_plan(m, n, k, H100_SMS, splits=splits)
+        assert forced.tile == plan.tile and forced.splits == splits
+        assert forced.units == plan.units * splits
+        assert forced.workspace == (splits, m, n)
+
+    @pytest.mark.parametrize("m,k,n,lda,ldb,aligned", [
+        (1, 1, 1, 1, 1, True), (33, 70, 130, 70, 70, True),
+        (17, 4099, 257, 4099, 4099, True), (8, 4096, 64, 4100, 4096, True),
+        (8, 4096, 64, 4096, 4104, True), (8, 4096, 64, 4096, 4096, False),
+        (8, 4096, 64, 0, 4096, True), (8, 0, 64, 0, 0, True)])
+    def test_operands_tma_cannot_take_use_mma_sync(self, m, k, n, lda, ldb,
+                                                   aligned):
+        plan = tq._int8_plan(m, n, k, H100_SMS, lda, ldb, aligned)
+        assert plan == tq.Int8Plan("mma_sync")
+        assert plan.splits == 1 and plan.workspace is None
+        # The mma.sync kernel tiles itself and never splits.
+        assert tq._int8_plan(m, n, k, H100_SMS, lda, ldb, aligned,
+                             splits=4) == plan
+
+    def test_wide_aligned_row_stride_takes_wgmma(self):
+        """A row-strided view with 16-byte rows wider than K is TMA's."""
+        plan = tq._int8_plan(8, 64, 4096, H100_SMS, 4112, 4096, True)
+        assert plan.path == "wgmma"
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, 8, 100])
+    def test_forced_splits_cut_k_into_whole_tiles(self, splits):
+        k = 4096 + 16
+        nk = -(-k // tq._KTILE)
+        plan = tq._int8_plan(256, 4096, k, H100_SMS, splits=splits)
+        # Ranges of equal whole tiles, none empty: 33 tiles asked into 8
+        # ranges make 7 of 5 tiles.
+        assert plan.splits <= min(splits, nk)
+        assert plan.cps == -(-nk // min(splits, nk))
+        assert plan.cps * plan.splits >= nk > plan.cps * (plan.splits - 1)
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, 8])
+    @pytest.mark.parametrize("m,k,n,ktile", [
+        (9, 70, 20, 16), (8, 4099, 24, 128), (8, 4099, 24, 16)])
+    def test_split_plain_bitwise_vs_plain_and_jax(self, m, k, n, ktile,
+                                                  splits):
+        """The split's model (int32 partials over whole K tiles, added,
+        rescaled once) against the whole-K plain version and both JAX
+        paths: integer sums are exact in any order."""
+        xq, wq, sx, sw = _jax_quantized(m, k, n, True, seed=k + splits)
+        ref_xla = np.asarray(jq._int8_matmul(xq, wq, sx, sw, impl="xla",
+                                             interpret=False))
+        ref_pl = np.asarray(jq._int8_matmul(xq, wq, sx, sw, impl=None,
+                                            interpret=True))
+        args = (_to_torch(xq), _to_torch(np.asarray(wq).T.copy()),
+                _to_torch(sx), _to_torch(sw))
+        got = tq._int8_matmul_split_plain(*args, splits, ktile)
+        assert torch.equal(got, tq._int8_matmul_plain(*args))
+        np.testing.assert_array_equal(got.numpy(), ref_xla)
+        np.testing.assert_array_equal(got.numpy(), ref_pl)
+
+
 # ---------------------------------------------------------------------
 # Scales and the delayed-scaling helpers
 # ---------------------------------------------------------------------

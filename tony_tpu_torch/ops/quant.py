@@ -6,10 +6,13 @@
   round-half-even, scales ``max(amax, 1e-12) / 127``.
 * :func:`int8_matmul` — ``[M, K] int8 @ [N, K]ᵀ int8 → int32`` over the
   whole K, then ``f32(acc) · (sx · sw[n])``. A CUDA tensor launches the
-  hand-written Hopper kernel ``csrc/int8_matmul.cu`` (or raises); a CPU
-  tensor runs :func:`_int8_matmul_plain`. Integer accumulation is exact
-  in any order and both round the epilogue the same way, so the two are
-  bitwise equal, and bitwise the JAX package's XLA and Pallas paths.
+  hand-written Hopper kernels of ``csrc/int8_matmul.cu`` as
+  :func:`_int8_plan` says (``wgmma`` with TMA; the ``mma.sync`` kernel
+  for operands TMA cannot address), or raises; a CPU tensor runs
+  :func:`_int8_matmul_plain`. Integer accumulation is exact in any order
+  and every path rounds the epilogue the same way, so all are bitwise
+  equal (:func:`_int8_matmul_split_plain` models the split on the CPU),
+  and bitwise the JAX package's XLA and Pallas paths.
 * :func:`quant_dot` / :func:`quant_dot_general` — quantize (per-tensor
   activations, per-channel or per-tensor weights), matmul, rescale, with
   straight-through gradients (:class:`_QuantDot`): the backward is two f32
@@ -46,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -105,6 +108,109 @@ def _int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     return _rescale(acc.to(torch.int32), sx, sw)
 
 
+# The wgmma kernel's output tiles (BM, BN), in the order of the C
+# launcher's tile codes.
+_TILES = ((64, 128), (128, 128), (128, 176), (128, 256))
+_TILE_CODE = {t: i for i, t in enumerate(_TILES)}
+_KTILE = 128            # bytes of K in one stage of the TMA ring
+# M up to this (decode, prefill) picks its tile by how its units fill
+# the card; larger M takes 128 x 256.
+_SMALL_M = 512
+
+
+class Int8Plan(NamedTuple):
+    """How one ``int8_matmul`` call runs on the card. ``path`` is
+    ``"wgmma"`` (TMA + ``wgmma``) or ``"mma_sync"`` (the first kernel, for
+    operands TMA cannot address, which tiles itself: the rest stay at
+    their defaults). On ``wgmma``: ``tile`` the (BM, BN) output tile of a
+    block; the ``ceil(K / 128)`` K tiles go to ``splits`` ranges of
+    ``cps`` tiles; ``units`` = tiles × splits, walked by ``grid`` blocks;
+    ``workspace`` the int32 partials' shape ``(splits, M, N)`` when
+    split, else None."""
+    path: str
+    tile: Optional[Tuple[int, int]] = None
+    splits: int = 1
+    cps: Optional[int] = None
+    units: Optional[int] = None
+    grid: Optional[int] = None
+    workspace: Optional[Tuple[int, int, int]] = None
+
+
+def _k_ranges(nk: int, splits: int) -> Tuple[int, int]:
+    """``nk`` K tiles cut into at most ``splits`` ranges of ``cps`` tiles,
+    none empty: returns ``(splits, cps)``."""
+    splits = max(1, min(splits, nk))
+    cps = -(-nk // splits)
+    return -(-nk // cps), cps
+
+
+@functools.lru_cache(maxsize=512)
+def _int8_plan(m: int, n: int, k: int, sms: int, lda: Optional[int] = None,
+               ldb: Optional[int] = None, aligned: bool = True,
+               splits: int = 1,
+               tile: Optional[Tuple[int, int]] = None) -> Int8Plan:
+    """The launch plan of one call on a card with ``sms`` SMs: pure
+    arithmetic on the shape, the row strides (``lda``/``ldb``, default K)
+    and whether both base pointers are 16-byte aligned. TMA needs K, both
+    row strides (at least K) and both pointers in 16-byte steps; anything
+    else takes the ``mma_sync`` path. M > 512 is bound by its operations
+    and takes 128 × 256 tiles. M ≤ 512 takes, of the tiles of ``_TILES``
+    no taller than M needs, the one whose units fill the persistent
+    grid's waves best (ties to the larger tile). Blocks of neighbouring
+    units share a weight tile, so it crosses DRAM once and the other m
+    tiles read it from L2. K is split over blocks only where ``splits``
+    asks for it (tests, the bench): a split adds an int32 partial's
+    round trip and the combine kernel's launch, and on an H100 it saved
+    card time only at some 16- and 64-row shapes, less than the host
+    time the second launch adds to their host-paced step
+    (``exp/port_int8_bench.py --sweep``). ``tile`` forces the tile; no
+    choice here changes a bit of the output."""
+    lda = k if lda is None else lda
+    ldb = k if ldb is None else ldb
+    if not (aligned and k > 0 and k % 16 == 0 and lda % 16 == 0
+            and ldb % 16 == 0 and lda >= k and ldb >= k):
+        return Int8Plan("mma_sync")
+
+    def tiles(t):
+        return -(-m // t[0]) * -(-n // t[1])
+
+    def fill(t):
+        return tiles(t) / (-(-tiles(t) // sms) * sms)
+    if tile is None:
+        if m > _SMALL_M:
+            tile = (128, 256)
+        else:
+            fits = [t for t in _TILES if t[0] <= -(-m // 64) * 64]
+            tile = max(fits, key=lambda t: (fill(t), t[0] * t[1]))
+    splits, cps = _k_ranges(-(-k // _KTILE), splits)
+    units = tiles(tile) * splits
+    return Int8Plan("wgmma", tuple(tile), splits, cps, units,
+                    min(units, sms), (splits, m, n) if splits > 1 else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _int8_matmul_split_plain(xq: torch.Tensor, wq: torch.Tensor,
+                             sx: torch.Tensor, sw: torch.Tensor,
+                             splits: int, ktile: int = _KTILE) -> torch.Tensor:
+    """Plain model of the split over K: int32 partial sums over the plan's
+    K ranges (``splits`` ranges of whole ``ktile``-wide tiles, as
+    :func:`_k_ranges` cuts them), added, then :func:`_rescale` once.
+    Bitwise :func:`_int8_matmul_plain` at every split count."""
+    k = xq.shape[1]
+    splits, cps = _k_ranges(max(1, -(-k // ktile)), splits)
+    acc = torch.zeros((xq.shape[0], wq.shape[0]), dtype=torch.int32,
+                      device=xq.device)
+    for s in range(splits):
+        lo, hi = s * cps * ktile, min(k, (s + 1) * cps * ktile)
+        acc += torch.matmul(xq[:, lo:hi].to(torch.float64),
+                            wq[:, lo:hi].to(torch.float64).t()).to(torch.int32)
+    return _rescale(acc, sx, sw)
+
+
 def _lib() -> ctypes.CDLL:
     from tony_tpu_torch.ops import _build
 
@@ -114,16 +220,25 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                        + [ctypes.c_int64] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        fn = lib.int8_matmul_wgmma_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
         lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
-                      sw: torch.Tensor) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream. Raises ``ValueError`` on an input the kernel does not
-    take and ``RuntimeError`` when the launch fails."""
+                      sw: torch.Tensor, splits: int = 1,
+                      tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Check what the kernels take, plan the call (:func:`_int8_plan`;
+    ``splits`` and ``tile`` force its choices on the ``wgmma`` path:
+    tests and tuning), allocate the
+    output (and the split's workspace), launch on the current stream.
+    Raises ``ValueError`` on an input the kernels do not take and
+    ``RuntimeError`` when a launch fails."""
     dev = xq.device
     m, k = xq.shape
     n = wq.shape[0]
@@ -145,15 +260,34 @@ def _int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
         raise ValueError(f"int8_matmul kernel needs K-contiguous rows and "
                          f"dims below 2^31 (strides {xq.stride()}/"
                          f"{wq.stride()})")
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
+    if m == 0 or n == 0:
+        return torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.int8_matmul_launch(
-        xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-        out.data_ptr(), m, n, k, xq.stride(0), wq.stride(0), out.stride(0),
-        stream)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    # The raw handle: a Stream object costs the host ~6 µs a call.
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    pa, pb = xq.data_ptr(), wq.data_ptr()
+    lda, ldb = xq.stride(0), wq.stride(0)
+    plan = _int8_plan(m, n, k, _sms(index), lda, ldb,
+                      pa % 16 == 0 and pb % 16 == 0, splits, tile)
+    if plan.workspace is not None:
+        # The combine kernel writes each output over its own split-0
+        # partial, read first: one allocation holds both.
+        ws = torch.empty(plan.workspace, dtype=torch.int32, device=dev)
+        out = ws[0].view(torch.float32)
+    else:
+        ws = None
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if plan.path == "wgmma":
+        rc = lib.int8_matmul_wgmma_launch(
+            pa, pb, sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), m, n, k, lda, ldb,
+            _TILE_CODE[plan.tile], plan.splits, plan.cps, plan.grid,
+            stream)
+    else:
+        rc = lib.int8_matmul_launch(pa, pb, sx.data_ptr(), sw.data_ptr(),
+                                    out.data_ptr(), m, n, k, lda, ldb, n,
+                                    stream)
     if rc != 0:
         raise RuntimeError(
             f"int8_matmul kernel launch failed: cuda error {rc} "
