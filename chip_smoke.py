@@ -88,11 +88,27 @@ caught):
    every block's exit scale 1: the elementwise kernels bitwise their
    plain versions in the model; the kernels against the plain versions;
    the fused lane against the plain lane;
-11. report — a ``{"kernels": [...]}`` line (rows 1-15), a
+11. train_loop — the train phase's model, weights and batch as a TonY
+   job steps them: ``xent_chunk=1024`` (the chunked LM-head loss),
+   ``remat_policy="dots"``, AdamW(3e-4) and
+   ``make_train_step(mesh=MeshSpec(dp=1).build())`` on a one-rank NCCL
+   group, 8 steps through ``train_loop`` with ``train_stats_writer`` as
+   ``on_step``: one backward under each remat policy from the same
+   weights ``torch.equal`` in loss and grads, the chunked loss within
+   1e-3 of the train phase's first loss and its grads within the train
+   phase's bf16 limit of the plain head's, the loss finite and falling,
+   exact flash launches (forward 2 × 8 a step under remat, backward 8 +
+   8), the stats file's five keys with MFU > 0 and the grad bytes a step
+   reduces, a profile; step time, tokens/s, MFU and peak memory for
+   each remat policy and for ``xent_chunk`` 0; then one step with the
+   mesh against one without from fresh copies of the same weights at 2
+   layers, ``torch.equal`` in loss and parameters;
+12. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, a
-   ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
+   ``{"train_loop": {...}}`` line, the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
 version at the quant lane's decode (b=16 and b=4), prefill, train and
@@ -121,6 +137,7 @@ import gc
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -128,6 +145,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as td
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -139,10 +157,13 @@ from tony_tpu_torch.ops import attention as attn  # noqa: E402
 from tony_tpu_torch.ops import batchnorm as bn  # noqa: E402
 from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.ops import quant as tq  # noqa: E402
+from tony_tpu_torch.parallel import MeshSpec  # noqa: E402
 from tony_tpu_torch.serve import EngineFront, ServeEngine  # noqa: E402
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
-                                  cross_entropy_loss, make_accum_train_step,
-                                  make_train_step, next_token_loss, sgd)
+                                  cross_entropy_loss, global_batch,
+                                  make_accum_train_step, make_train_step,
+                                  next_token_loss, sgd, train_loop,
+                                  train_stats_writer)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
@@ -2176,6 +2197,321 @@ def train_resnet_phase(card: str):
             "checks": checks, "card": card}
 
 
+# ---------------------------------------------------------------------
+# Train loop phase: the step of a TonY job (data-parallel mesh, the
+# chunked LM-head loss, selective remat) through train_loop.
+# ---------------------------------------------------------------------
+
+# The JAX package's 7B training bench runs xent_chunk=1024 with remat.
+LOOP_XENT_CHUNK, LOOP_POLICY = 1024, "dots"
+# The chunked loss against the plain head's first loss on the same
+# weights and batch: one bf16 GEMM per chunk of rows instead of one over
+# all rows, the same f32 softmax: 1e-3 relative.
+LOOP_FIRST_LOSS_REL = 1e-3
+LOOP_MESH_LAYERS = 2      # two 8-layer AdamW states do not fit together
+LOOP_VARIANT_STEPS = 4
+STATS_KEYS = {"step", "step_time_s", "collective_bytes", "mfu", "loss"}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def with_config(model, **fields):
+    """The same module and weights under other training-forward fields
+    (``remat_policy``, ``xent_chunk``: read only by the forward)."""
+    model.cfg = dataclasses.replace(model.cfg, **fields)
+    return model
+
+
+def loop_loss(model, tokens):
+    """The model's training loss: chunked with ``targets`` when the
+    config has ``xent_chunk``, else the plain head's next-token loss."""
+    if model.cfg.xent_chunk:
+        return model(tokens, targets=tokens)
+    return next_token_loss(model(tokens), tokens)
+
+
+def loop_grads(model, tokens):
+    """Loss and grads of one backward, and memory above what was allocated
+    before it: ``saved``, what the forward leaves for the backward (the
+    remat inputs, the kept products, the loss head's saved tensors), and
+    ``peak``, the most the forward and backward held (grads included)."""
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = loop_loss(model, tokens)
+    memory = {"saved": torch.cuda.memory_allocated() - base}
+    loss.backward()
+    memory["peak"] = torch.cuda.max_memory_allocated() - base
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, memory
+
+
+def loop_step_fn(model, mesh):
+    if model.cfg.xent_chunk:
+        return make_train_step(
+            loss_of=lambda out, batch: out, mesh=mesh,
+            apply_kwargs_of=lambda batch: {"targets": batch["x"]})
+    return make_train_step(
+        loss_of=lambda logits, batch: next_token_loss(logits, batch["x"]),
+        mesh=mesh)
+
+
+def check_remat_policies(model, tokens):
+    """One backward under each remat policy from the same weights, no
+    update between: ``torch.equal`` loss and grads (the kept products and
+    the recomputed ones come from the same kernels on the same inputs)."""
+    ref_loss, ref, memory = loop_grads(with_config(model, remat_policy=None),
+                                      tokens)
+    peaks = {"None": memory}
+    for policy in ("dots", "dots_no_batch"):
+        loss, grads, peaks[policy] = loop_grads(
+            with_config(model, remat_policy=policy), tokens)
+        bad = [n for n, g in grads.items() if not torch.equal(g, ref[n])]
+        if not torch.equal(loss, ref_loss) or bad:
+            raise AssertionError(f"train_loop: remat_policy={policy!r} "
+                                 f"differs from None: loss {float(loss)} vs "
+                                 f"{float(ref_loss)}, grads {bad[:4]}")
+        del grads
+    log(f"  remat None / dots / dots_no_batch: loss and every grad "
+        f"torch.equal (loss {float(ref_loss):.6f}); saved by the forward / "
+        f"peak of forward + backward above the model: " + ", ".join(
+            f"{k} {v['saved'] / 1e9:.2f} / {v['peak'] / 1e9:.2f} GB"
+            for k, v in peaks.items()))
+    return ref_loss, ref, peaks
+
+
+def check_chunked_vs_plain(model, tokens, chunked_loss, chunked,
+                           train_first_loss):
+    """The chunked loss against the plain head from the same weights:
+    the first loss within LOOP_FIRST_LOSS_REL of the train phase's and of
+    this model's plain head, the grads within the train phase's bf16
+    limit."""
+    plain_loss, plain, plain_memory = loop_grads(
+        with_config(model, xent_chunk=0), tokens)
+    with_config(model, xent_chunk=LOOP_XENT_CHUNK)
+    rel = rel_l2(chunked, plain)
+    worst = max(rel, key=rel.get)
+    vs_train = abs(float(chunked_loss) - train_first_loss) \
+        / abs(train_first_loss)
+    vs_plain = abs(float(chunked_loss - plain_loss)) / abs(float(plain_loss))
+    log(f"  chunked loss {float(chunked_loss):.6f} vs the train phase's "
+        f"first {train_first_loss:.6f} (rel {vs_train:.3e}) and this "
+        f"plain head's {float(plain_loss):.6f} (rel {vs_plain:.3e}; limit "
+        f"{LOOP_FIRST_LOSS_REL}); grads vs plain head: max rel L2 "
+        f"{rel[worst]:.3e} ({worst}; limit "
+        f"{TRAIN_GRAD_REL_L2[torch.bfloat16]}); the plain head: saved "
+        f"{plain_memory['saved'] / 1e9:.2f} GB, peak "
+        f"{plain_memory['peak'] / 1e9:.2f} GB above the model")
+    if not max(vs_train, vs_plain) <= LOOP_FIRST_LOSS_REL:
+        raise AssertionError(f"train_loop: chunked loss {float(chunked_loss)}"
+                             f" vs plain {float(plain_loss)} / train "
+                             f"{train_first_loss}")
+    if rel[worst] > TRAIN_GRAD_REL_L2[torch.bfloat16]:
+        raise AssertionError(f"train_loop: chunked grads vs plain head: "
+                             f"{worst} {rel[worst]}")
+    return {"chunked_loss": float(chunked_loss),
+            "plain_loss": float(plain_loss),
+            "first_loss_vs_train_rel": vs_train,
+            "first_loss_vs_plain_rel": vs_plain,
+            "grads_vs_plain_max_rel_l2": rel[worst],
+            "grads_vs_plain_worst_param": worst,
+            "plain_head_memory": plain_memory}
+
+
+def timed_variant(tag, model, state, mesh, tokens, steps):
+    """``steps`` steps of the current config through ``train_loop``;
+    step time p50, tokens/s, MFU and peak memory."""
+    step = loop_step_fn(model, mesh)
+    batch = {"x": tokens}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.monotonic()]
+    losses = []
+
+    def on_step(i, metrics):
+        losses.append(float(metrics["loss"]))        # syncs
+        stamps.append(time.monotonic())
+
+    train_loop(state, step, [batch] * steps, on_step=on_step)
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    p50 = float(np.median(step_ms))
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    flops_tok = dataclasses.replace(model.cfg,
+                                    max_seq=TRAIN_SEQ).flops_per_token()
+    out = {"remat_policy": model.cfg.remat_policy,
+           "xent_chunk": model.cfg.xent_chunk, "steps": steps,
+           "losses": losses, "step_ms": step_ms, "step_p50_ms": p50,
+           "tokens_per_s": tokens_per_s,
+           "mfu": tokens_per_s * flops_tok / PEAK_FLOPS[torch.bfloat16],
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  {tag}: remat_policy={out['remat_policy']} xent_chunk="
+        f"{out['xent_chunk']}: p50 {p50:.1f} ms, {tokens_per_s:.0f} "
+        f"tokens/s, MFU {out['mfu']:.4f}, peak "
+        f"{out['max_memory_allocated'] / 1e9:.2f} GB")
+    return out
+
+
+def check_mesh_step(tokens):
+    """One step with the one-rank mesh against the same step without it,
+    each from a fresh copy of the same weights at LOOP_MESH_LAYERS
+    layers: ``torch.equal`` loss, metrics and every parameter."""
+    mesh = MeshSpec(dp=1).build()
+    runs = []
+    for m in (mesh, None):
+        model = get_model("llama2-7b", device="cuda", seed=SEED,
+                          n_layers=LOOP_MESH_LAYERS,
+                          xent_chunk=LOOP_XENT_CHUNK,
+                          remat_policy=LOOP_POLICY)
+        state = create_train_state(model, adamw(TRAIN_LR), mesh=m)
+        _, metrics = loop_step_fn(model, m)(state, {"x": tokens})
+        runs.append((metrics, model.state_dict()))
+        del state, model
+        gc.collect()
+    (m_mesh, p_mesh), (m_plain, p_plain) = runs
+    bad = [k for k in ("loss", "grad_norm", "aux_loss")
+           if not torch.equal(m_mesh[k], m_plain[k])]
+    bad += [n for n in p_plain if not torch.equal(p_mesh[n], p_plain[n])]
+    if bad:
+        raise AssertionError(f"train_loop: the one-rank mesh step differs "
+                             f"from the step without a mesh: {bad[:4]}")
+    log(f"  {LOOP_MESH_LAYERS}-layer step with the one-rank mesh == without "
+        f"(torch.equal loss {float(m_mesh['loss']):.6f}, grad norm and "
+        f"{len(p_plain)} parameters)")
+    return float(m_mesh["loss"])
+
+
+def train_loop_phase(card: str, train_first_loss: float):
+    """llama2-7b x TRAIN_LAYERS through ``train_loop`` on a one-rank NCCL
+    group: make_train_step(mesh=MeshSpec(dp=1).build()), xent_chunk=1024,
+    remat_policy="dots", AdamW(3e-4), the train phase's batch and weights,
+    train_stats_writer as on_step."""
+    td.init_process_group("nccl", rank=0, world_size=1,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        return train_loop_run(card, train_first_loss)
+    finally:
+        td.destroy_process_group()
+
+
+def train_loop_run(card: str, train_first_loss: float):
+    t0 = time.monotonic()
+    model = get_model("llama2-7b", device="cuda", seed=SEED,
+                      n_layers=TRAIN_LAYERS, xent_chunk=LOOP_XENT_CHUNK,
+                      remat_policy=LOOP_POLICY)
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (TRAIN_BATCH, TRAIN_SEQ)),
+                             device="cuda")
+    torch.cuda.synchronize()
+    log(f"  llama2-7b x{TRAIN_LAYERS} built in {time.monotonic() - t0:.1f} s "
+        f"(xent_chunk={cfg.xent_chunk}, remat_policy={cfg.remat_policy})")
+    chunked_loss, chunked, policy_memory = check_remat_policies(model,
+                                                                 tokens)
+    with_config(model, remat_policy=LOOP_POLICY)
+    vs_plain = check_chunked_vs_plain(model, tokens, chunked_loss, chunked,
+                                      train_first_loss)
+    del chunked
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = MeshSpec(dp=1).build()
+    state = create_train_state(model, adamw(TRAIN_LR), mesh=mesh)
+    step = loop_step_fn(model, mesh)
+    batch = global_batch(mesh, {"x": tokens})
+    grad_bytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters())
+    flops_tok = dataclasses.replace(cfg, max_seq=TRAIN_SEQ).flops_per_token()
+    stats_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "train_loop_stats.json")
+    os.makedirs(os.path.dirname(stats_path), exist_ok=True)
+    writer = train_stats_writer(
+        stats_path, flops_per_step=flops_tok * TRAIN_BATCH * TRAIN_SEQ,
+        peak_flops=PEAK_FLOPS[torch.bfloat16])
+    stamps, losses, gnorms, stats = [], [], [], []
+
+    def on_step(i, metrics):
+        writer(i, metrics)                           # float(loss) syncs
+        stamps.append(time.monotonic())
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        with open(stats_path) as fh:
+            stats.append(json.load(fh))
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name in FLASH_NAMES:
+        LAUNCHES[name] = 0
+    stamps.append(time.monotonic())
+    state, _ = train_loop(state, step, [batch] * TRAIN_STEPS,
+                          on_step=on_step)
+    launches = {name: LAUNCHES[name] for name in FLASH_NAMES}
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    log(f"  losses {[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        raise AssertionError(f"train_loop: non-finite loss or grad norm: "
+                             f"{losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_loop: loss did not fall: {losses}")
+    # remat: each layer's flash forward runs again in the backward (no
+    # policy keeps a kernel's output), the backward once.
+    expect = {"flash_attention_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+              "flash_attention_bwd_dq": TRAIN_LAYERS * TRAIN_STEPS,
+              "flash_attention_bwd_dkv": TRAIN_LAYERS * TRAIN_STEPS}
+    if launches != expect:
+        raise AssertionError(f"train_loop: launches {launches} != {expect}")
+    last = stats[-1]
+    if set(last) != STATS_KEYS or not last["mfu"] > 0 \
+            or last["collective_bytes"] != grad_bytes \
+            or last["step"] != TRAIN_STEPS or last["loss"] != losses[-1]:
+        raise AssertionError(f"train_loop: stats file {last}; grad bytes "
+                             f"{grad_bytes}")
+    log(f"  launches {launches} (= expected); stats file {last} "
+        f"(collective bytes = the {grad_bytes} grad bytes a step reduces)")
+    p50 = float(np.median(step_ms))
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    main = {"remat_policy": LOOP_POLICY, "xent_chunk": LOOP_XENT_CHUNK,
+            "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+            "step_ms": step_ms, "step_p50_ms": p50,
+            "tokens_per_s": tokens_per_s,
+            "mfu": tokens_per_s * flops_tok / PEAK_FLOPS[torch.bfloat16],
+            "stats_mfu_by_step": [s["mfu"] for s in stats],
+            "max_memory_allocated": peak}
+    log(f"  main: p50 {p50:.1f} ms, {tokens_per_s:.0f} tokens/s, MFU "
+        f"{main['mfu']:.4f}, peak {peak / 1e9:.2f} GB")
+    log("[train_loop profile]")
+    prof = main["profile"] = profile_train(step, state, batch)
+    log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
+    variants = [main]
+    for fields in ({"remat_policy": None}, {"remat_policy": "dots_no_batch"},
+                   {"remat_policy": LOOP_POLICY, "xent_chunk": 0}):
+        with_config(model, **fields)
+        variants.append(timed_variant("variant", model, state, mesh, tokens,
+                                      LOOP_VARIANT_STEPS))
+    del state, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_loss = check_mesh_step(tokens)
+    return {"model": f"llama2-7b n_layers={TRAIN_LAYERS}/32", "batch":
+            TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR, "mesh": "dp=1 "
+            "(one-rank NCCL group)", "launches": launches,
+            "stats_last": last, "grad_bytes_reduced": grad_bytes,
+            "flops_per_token": flops_tok, **vs_plain,
+            "memory_by_policy": policy_memory,
+            "mesh_check_layers": LOOP_MESH_LAYERS,
+            "mesh_check_loss": mesh_loss, "runs": variants, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2274,6 +2610,13 @@ def main() -> int:
     # lane, then one f32 step's comparisons.
     log("[train_resnet]")
     train_resnet = train_resnet_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 11: the decoder through train_loop on a one-rank NCCL mesh,
+    # with the chunked LM-head loss and the "dots" remat policy.
+    log("[train_loop]")
+    train_loop_res = train_loop_phase(card, train["losses"][0])
 
     entry = {
         "name": "flash_decode", "route": "cuda",
@@ -2314,7 +2657,11 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "tony_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"tony_tpu/ops/attention.py:{kernel_line}",
-            "launches": train_launches[name],
+            "launches": train_launches[name]
+            + train_loop_res["launches"][name],
+            "launches_by_path": {
+                "train": train_launches[name],
+                "train_loop": train_loop_res["launches"][name]},
             "max_abs_err": max(main_shape["max_abs_err"][e] for e in outs),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -2412,6 +2759,7 @@ def main() -> int:
                                 "train_quant": train_quant}}), flush=True)
     print(json.dumps({"bn_shapes": bn_kernels}), flush=True)
     print(json.dumps({"resnet": train_resnet}), flush=True)
+    print(json.dumps({"train_loop": train_loop_res}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

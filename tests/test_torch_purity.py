@@ -19,7 +19,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tony_tpu"}
 
 def _port_sources():
     files = sorted((ROOT / "tony_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    workloads = sorted((ROOT / "tests" / "workloads").glob("torch_*.py"))
+    return files + [ROOT / "chip_smoke.py"] + workloads
 
 
 def _imported_roots(path: Path):
@@ -42,7 +43,12 @@ def test_sources_found():
                  "tony_tpu_torch/serve/kvcache.py",
                  "tony_tpu_torch/ops/fused_optim.py",
                  "tony_tpu_torch/parallel/__init__.py",
-                 "tony_tpu_torch/parallel/overlap.py", "chip_smoke.py"):
+                 "tony_tpu_torch/parallel/overlap.py", "chip_smoke.py",
+                 "tony_tpu_torch/distributed.py",
+                 "tony_tpu_torch/constants.py", "tony_tpu_torch/chaos.py",
+                 "tony_tpu_torch/profiler.py",
+                 "tests/workloads/torch_dp_train.py",
+                 "tests/workloads/torch_dp_steps.py"):
         assert must in names
     from tony_tpu_torch.ops import _build
     for name in _build.SOURCES:

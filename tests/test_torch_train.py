@@ -24,6 +24,7 @@ from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import load_jax_params, params_from_jax
 from tony_tpu_torch.ops import FusedOptimizer
 from tony_tpu_torch.ops import attention as tattn
+from tony_tpu_torch.parallel import MeshSpec
 
 LAYERS = 2
 TINY_PACKED = dict(dim=256, n_heads=2, n_kv_heads=1, ffn_hidden=256)
@@ -295,12 +296,12 @@ class TestTrainStep:
     def test_unported_arguments_raise(self):
         tm = get_model("llama-tiny", device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.create_train_state(tm, ttrain.adamw(1e-3), mesh=object())
+            MeshSpec(fsdp=2).build(device="cpu")
         with pytest.raises(NotImplementedError,
                            match="GradientTransformation or a FusedOptimizer"):
             ttrain.create_train_state(tm, object())
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.make_train_step(mesh=object())
+            ttrain.make_accum_train_step(mesh=object(), microbatches=1)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.make_train_step(seq_axis=True)
         with pytest.raises(ValueError, match="xent_chunk"):
@@ -368,11 +369,11 @@ class TestAccumTrainStep:
         tok = {"x": torch.zeros((4, 8), dtype=torch.int64)}
         with pytest.raises(ValueError, match="unknown update mode"):
             ttrain.make_accum_train_step(microbatches=2, update="sgd")
-        for kw, item in ((dict(mesh=object()), "items 2 and 8"),
-                         (dict(reduce_op="reduce_scatter"), "items 2 and 8"),
-                         (dict(hierarchy="flat"), "items 2 and 8"),
-                         (dict(gather="per_leaf"), "items 2 and 8"),
-                         (dict(prefetch=2), "items 2 and 8"),
+        for kw, item in ((dict(mesh=object()), "item 8"),
+                         (dict(reduce_op="reduce_scatter"), "item 8"),
+                         (dict(hierarchy="flat"), "item 8"),
+                         (dict(gather="per_leaf"), "item 8"),
+                         (dict(prefetch=2), "item 8"),
                          (dict(quant=True), "item 8"),
                          (dict(aot_cache=object()), "item 12")):
             with pytest.raises(NotImplementedError, match=item):

@@ -257,10 +257,7 @@ class TestConvert:
 
 class TestUnported:
     @pytest.mark.parametrize("kw", [
-        dict(xent_chunk=8), dict(remat=True, remat_policy="dots_no_batch"),
-        dict(moe_experts=4),
-        dict(remat=True, remat_policy="dots"), dict(attention="ring"),
-        dict(mesh=object())])
+        dict(moe_experts=4), dict(attention="ring"), dict(mesh=object())])
     def test_unported_config_raises(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model("llama-tiny", device="cpu", **kw)

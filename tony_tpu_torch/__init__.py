@@ -4,8 +4,10 @@ The JAX package :mod:`tony_tpu` is the reference; this package holds its
 counterparts module for module (``ops/attention.py``,
 ``ops/batchnorm.py``, ``ops/fused_optim.py``, ``ops/quant.py``,
 ``models/transformer.py``, ``models/resnet.py``, ``models/mnist.py``,
-``parallel/overlap.py``, ``train/__init__.py``, ``serve/kvcache.py``,
-``serve/engine.py``) in
+``parallel/__init__.py``, ``parallel/overlap.py``, ``train/__init__.py``,
+``serve/kvcache.py``, ``serve/engine.py``, ``distributed.py``,
+``profiler.py``, and copies of the parts of ``constants.py`` and
+``chaos.py`` the train loop reads) in
 PyTorch, with every Pallas kernel on a ported path rewritten by hand in
 CUDA C++ for Hopper (``ops/csrc/``). It imports torch and numpy only —
 never jax, flax, optax or anything of :mod:`tony_tpu`.

@@ -78,13 +78,19 @@ def _block_params(block: Mapping[str, Any], index=None
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` names → CPU tensors (kernels transposed
-    to ``[out, in]``) from a JAX decoder param tree of numpy arrays."""
+    to ``[out, in]``) from a JAX decoder param tree of numpy arrays, with
+    the head at ``lm_head/kernel`` or, from an ``xent_chunk`` model, at
+    ``lm_head_kernel``."""
     if set(tree) == {"params"}:
         tree = tree["params"]
+    # A model with xent_chunk hoists the head kernel to "lm_head_kernel"
+    # ([dim, vocab], as lm_head/kernel); the port keeps one lm_head.
+    head = ("lm_head_kernel",) if "lm_head_kernel" in tree \
+        else ("lm_head", "kernel")
     out: Dict[str, torch.Tensor] = {
         "embedding": _tensor(_get(tree, ("embedding",))),
         "final_norm.scale": _tensor(_get(tree, ("final_norm", "scale"))),
-        "lm_head.weight": _tensor(_get(tree, ("lm_head", "kernel"))).t(),
+        "lm_head.weight": _tensor(_get(tree, head)).t(),
     }
     if "layers" in tree:
         block = _get(tree, ("layers", "block"))

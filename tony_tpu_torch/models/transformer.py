@@ -10,7 +10,13 @@ Two forwards:
   :func:`~tony_tpu_torch.ops.flash_attention` (any other head_dim) or
   :func:`~tony_tpu_torch.ops.reference_attention`; with ``remat`` each
   block runs under ``torch.utils.checkpoint`` (the counterpart of
-  ``nn.remat``). Returns f32 logits and runs with autograd.
+  ``nn.remat``), and ``remat_policy`` keeps the matmul outputs
+  (``"dots"``: ``mm``/``addmm``/``bmm``; ``"dots_no_batch"``: the
+  batch-free ``mm``/``addmm``) through selective checkpointing. Returns
+  f32 logits and runs with autograd; with ``xent_chunk`` and
+  ``targets`` it returns the fused LM-head loss instead
+  (:func:`tony_tpu_torch.train.chunked_next_token_xent`), which never
+  builds the ``[b, t, vocab]`` logits.
 * serving (``kv=``): the t rows are NEW tokens at per-sequence absolute
   ``positions`` ``[b, t]``, the context lives in a per-layer KV buffer
   ``[b, ctx, n_kv_heads·head_dim]``, the rows' post-rope k/v are written
@@ -37,12 +43,14 @@ promotion, logits in f32.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import lecun_normal_, register
@@ -50,8 +58,22 @@ from tony_tpu_torch.models.convert import params_from_jax
 from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
                                 flash_decode, reference_attention)
 from tony_tpu_torch.ops.quant import QuantDense
+from tony_tpu_torch.train import chunked_next_token_xent
 
 _LATER = "ROADMAP.md, queue 1"
+
+_aten = torch.ops.aten
+# remat_policy → the aten products whose outputs a remat block keeps for
+# the backward (JAX's checkpoint_dots and
+# dots_with_no_batch_dims_saveable: the attention einsums of
+# attention="reference" are bmm). Everything else is recomputed, the
+# flash kernels too: their launches write buffers the dispatcher never
+# sees, so no policy may keep one (a Pallas call is no dot_general in
+# JAX either).
+REMAT_SAVED = {
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,10 +89,10 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16
     # The fields below shape the training forward; the serving forward
-    # ignores attention/scan_layers/remat/remat_policy (a plain layer
-    # loop, no gradients). scan_layers only names the JAX param layout
-    # (convert.py reads both). attention="ring", a mesh, MoE, xent_chunk
-    # and the "dots" remat policies raise until their slices land.
+    # ignores attention/scan_layers/remat/remat_policy/xent_chunk (a plain
+    # layer loop, no gradients, the plain head). scan_layers only names
+    # the JAX param layout (convert.py reads both). attention="ring", a
+    # mesh and MoE raise until their slices land.
     # quant: which projection groups run the int8 lane — True means
     # ("qkv", "o", "mlp"); a string or tuple selects ("lm_head" opts the
     # unembed in).
@@ -333,8 +355,7 @@ class Transformer(nn.Module):
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg.quant_lanes()       # validates the lanes, as the JAX module
-        for field, slice_name in (("xent_chunk", "the chunked-loss slice"),
-                                  ("moe_experts", "the MoE slice"),
+        for field, slice_name in (("moe_experts", "the MoE slice"),
                                   ("mesh", "the sharded slices")):
             if getattr(cfg, field):
                 raise NotImplementedError(
@@ -348,14 +369,11 @@ class Transformer(nn.Module):
             raise ValueError(f"unknown attention {cfg.attention!r}")
         # As the JAX module: an unknown policy, or a policy without remat,
         # fails loudly instead of silently not applying.
-        if cfg.remat_policy not in (None, "dots", "dots_no_batch"):
+        if cfg.remat_policy is not None \
+                and cfg.remat_policy not in REMAT_SAVED:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
         if cfg.remat_policy is not None and not cfg.remat:
             raise ValueError("remat_policy set but remat=False")
-        if cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not ported yet; it "
-                f"lands with the training slice's remat variants ({_LATER})")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty(
@@ -393,26 +411,37 @@ class Transformer(nn.Module):
                           Callable[[int], LayerKV], None] = None):
         """``kv=None``: the training forward, ``tokens`` [b, t] at
         ``positions`` (default ``arange(t)``, shared over the batch);
-        returns f32 logits [b, t, vocab] with autograd. With ``kv``: the
-        serving forward (:meth:`serve`)."""
+        returns f32 logits [b, t, vocab] with autograd, or, with
+        ``xent_chunk`` and ``targets`` (the tokens [b, t]), the scalar
+        chunked next-token loss. With ``kv``: the serving forward
+        (:meth:`serve`)."""
         if kv is not None:
             return self.serve(tokens, targets, positions=positions, kv=kv)
-        if targets is not None:
-            raise ValueError("targets are only taken with xent_chunk, which "
-                             "is not ported yet")
         cfg = self.cfg
+        if targets is not None and not cfg.xent_chunk:
+            raise ValueError("targets are only taken with xent_chunk (the "
+                             "fused LM-head loss)")
         t = tokens.shape[1]
         if positions is None:
             positions = torch.arange(t, device=tokens.device)
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         x = F.embedding(tokens.long(), self.embedding).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
+        policy = {}
+        if cfg.remat_policy is not None:
+            policy["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts,
+                list(REMAT_SAVED[cfg.remat_policy]))
         for block in self.layers:
             if remat:
-                x = checkpoint(block, x, cos, sin, use_reentrant=False)
+                x = checkpoint(block, x, cos, sin, use_reentrant=False,
+                               **policy)
             else:
                 x = block(x, cos, sin)
         x = self.final_norm(x)
+        if targets is not None:
+            return chunked_next_token_xent(x, self.lm_head.weight, targets,
+                                           cfg.xent_chunk, cfg.dtype)
         return self.lm_head(x).float()
 
     @torch.inference_mode()

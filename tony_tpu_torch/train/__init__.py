@@ -1,7 +1,10 @@
-"""Training step: the counterpart of :mod:`tony_tpu.train` for one device.
+"""Training: the counterpart of :mod:`tony_tpu.train`.
 
 * :func:`cross_entropy_loss`, :func:`next_token_loss` — mean softmax
   cross entropy on f32 logits, and its causal-LM shift;
+* :func:`chunked_next_token_xent` — the fused LM head and causal cross
+  entropy over row chunks, which never builds the ``[B, T, V]`` logits
+  (a decoder with ``xent_chunk`` returns it for ``targets=``);
 * :func:`adamw` — AdamW in optax's order of operations
   (``scale_by_adam`` → ``add_decayed_weights`` → ``scale_by_learning_rate``,
   then ``apply_updates`` as ``p + u``), with optax's defaults;
@@ -9,33 +12,53 @@
   ``scale_by_learning_rate``, then ``p + u``);
 * :func:`create_train_state` and :func:`make_train_step` — one step is
   loss → grad → update, returning ``{"loss", "grad_norm", "aux_loss"}``;
+  with a data-parallel :class:`~tony_tpu_torch.parallel.Mesh` the state
+  is broadcast from rank 0 and the step averages the grads over the
+  ranks, one ``all_reduce`` per bucket of the
+  :class:`~tony_tpu_torch.parallel.overlap.GradBuckets` plan;
 * :func:`make_accum_train_step` — the same step over microbatches, with
   the grads accumulated in flat per-bucket buffers
   (:func:`tony_tpu_torch.parallel.overlap.microbatch_grads`) and either
   the optimizer applied to the leaf grads (``update="optax"``) or the
   fused bucket optimizer applied in place, one kernel launch per bucket
   (``update="fused_bucket"``, with a
-  :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer` state).
+  :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer` state);
+* :func:`global_batch` — this rank's local shard of the global batch,
+  checked against the mesh's batch contract, on the rank's device;
+* :func:`train_loop` and :func:`train_stats_writer` — the step fold of a
+  TonY job, with the chaos kill point, the drain flag and per-step
+  telemetry for the executor's heartbeat.
 
 The module holds its parameters (an ``nn.Module``), so the train state
 wraps the model, and a step updates parameters and optimizer slots in
-place — the counterpart of the JAX step's donated state. Meshes, the
-sequence axis and cross-device accumulation are later slices
+place — the counterpart of the JAX step's donated state. The sequence
+axis, cross-device accumulation and checkpointed resume are later slices
 (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, NamedTuple, Optional
+import itertools
+import json
+import math
+import os
+import time
+import weakref
+from typing import (Any, Callable, Dict, Iterable, List, Mapping,
+                    NamedTuple, Optional, Tuple)
 
+import numpy as np
 import torch
+import torch.distributed as td
 import torch.nn.functional as F
 from torch import nn
 
+from tony_tpu_torch import chaos, constants, profiler
 from tony_tpu_torch.ops.fused_optim import FusedOptimizer, bias_correction
+from tony_tpu_torch.parallel import BATCH_AXES, DATA, SEQ, Mesh
 from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
-                                             ResidentBuckets,
+                                             GradBuckets, ResidentBuckets,
                                              microbatch_grads)
 
 _LATER = "ROADMAP.md, queue 1"
@@ -53,6 +76,79 @@ def next_token_loss(logits: torch.Tensor,
                     tokens: torch.Tensor) -> torch.Tensor:
     """Causal-LM loss: predict token t+1 from position t."""
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+
+
+def _chunk_logits(hc: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """One chunk's logits [c, V] in f32 from the compute-dtype product."""
+    return (hc @ wb.t()).float()
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Forward: Σ over chunks of (logsumexp − label logit) / rows, no
+    chunk's logits kept. Backward: each chunk's logits recomputed,
+    softmax − onehot scaled by g / rows, ``dh`` written per chunk and
+    ``dW += dlogitsᵀ·h`` accumulated in f32. The extra memory is one
+    chunk × vocab in f32 at a time, never ``[B, T, V]``."""
+
+    @staticmethod
+    def forward(ctx, hidden, weight, tokens, chunk: int, dtype):
+        d = hidden.shape[-1]
+        rows = hidden[:, :-1].reshape(-1, d).to(dtype)
+        labels = tokens[:, 1:].reshape(-1).long()
+        wb = weight.to(dtype)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        # The last chunk is short where JAX pads it with rows of weight 0:
+        # the same terms, and the mean divides by the real rows.
+        for lo in range(0, rows.shape[0], chunk):
+            logits = _chunk_logits(rows[lo:lo + chunk], wb)
+            lab = labels[lo:lo + chunk, None]
+            total = total + (torch.logsumexp(logits, dim=-1)
+                             - logits.gather(1, lab)[:, 0]).sum()
+        ctx.save_for_backward(rows, labels, wb)
+        ctx.chunk = chunk
+        ctx.hidden_meta = (hidden.shape, hidden.dtype)
+        ctx.weight_dtype = weight.dtype
+        return total / rows.shape[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, labels, wb = ctx.saved_tensors
+        shape, h_dtype = ctx.hidden_meta
+        scale = g.float() / rows.shape[0]
+        drows = torch.empty_like(rows)
+        dw = torch.zeros(wb.shape, dtype=torch.float32, device=wb.device)
+        for lo in range(0, rows.shape[0], ctx.chunk):
+            hc = rows[lo:lo + ctx.chunk]
+            logits = _chunk_logits(hc, wb)
+            lab = labels[lo:lo + ctx.chunk, None]
+            p = logits.sub_(torch.logsumexp(logits, dim=-1,
+                                            keepdim=True)).exp_()
+            p.scatter_(1, lab, p.gather(1, lab) - 1.0)
+            dlog = p.mul_(scale).to(rows.dtype)
+            drows[lo:lo + ctx.chunk] = dlog @ wb
+            dw.add_(dlog.t() @ hc)
+        dhidden = torch.zeros(shape, dtype=h_dtype, device=rows.device)
+        dhidden[:, :-1] = drows.view(shape[0], shape[1] - 1, shape[2])
+        return dhidden, dw.to(ctx.weight_dtype), None, None, None
+
+
+def chunked_next_token_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
+                            tokens: torch.Tensor, chunk: int,
+                            dtype: torch.dtype = torch.bfloat16
+                            ) -> torch.Tensor:
+    """Fused LM head + causal cross entropy without the ``[B, T, V]``
+    logits: the mean over the ``B·(T−1)`` rows of ``logsumexp(h·Wᵀ) −
+    (h·Wᵀ)[label]``, predicting token t+1 from position t, in chunks of
+    ``chunk`` rows (the JAX package's ``chunked_next_token_xent``).
+
+    ``hidden`` is ``[B, T, D]`` (the final norm's output), ``lm_head``
+    the head's weight in torch's layout ``[V, D]`` (the JAX kernel
+    transposed) and ``tokens`` ``[B, T]``. Each chunk's product runs in
+    ``dtype`` and its softmax in f32; the backward recomputes the chunk's
+    logits instead of keeping them."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    return _ChunkedXent.apply(hidden, lm_head, tokens, int(chunk), dtype)
 
 
 class GradientTransformation(NamedTuple):
@@ -153,9 +249,12 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, tx: Any,
-                       mesh: Optional[Any] = None) -> TrainState:
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """A train state over ``model``'s own (already initialised or loaded)
-    parameters.
+    parameters. With a data-parallel ``mesh`` every parameter and buffer
+    is first broadcast from rank 0, so the replicas start equal (the
+    reference creates them replicated); the model must lie on the mesh's
+    device.
 
     ``tx`` is a :class:`GradientTransformation` (leaf-major state) or a
     :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer`: then every
@@ -165,12 +264,19 @@ def create_train_state(model: nn.Module, tx: Any,
     f32 slots, consumed in place by
     ``make_accum_train_step(update="fused_bucket")``. The parameters stay
     ordinary ``nn.Parameter``s, so loading weights, ``state_dict()`` and
-    remat work on the views. One device only: a mesh raises
-    ``NotImplementedError``, and so does any other optimizer object."""
-    if mesh is not None:
-        raise NotImplementedError(f"sharded training states are not ported "
-                                  f"yet ({_LATER})")
+    remat work on the views. Any other optimizer object raises
+    ``NotImplementedError``."""
     params = [p for p in model.parameters()]
+    if mesh is not None:
+        tensors = list(itertools.chain(params, model.buffers()))
+        off = sorted({str(t.device) for t in tensors
+                      if t.device != mesh.device})
+        if off:
+            raise ValueError(f"the model lies on {off}, the mesh's device is "
+                             f"{mesh.device}")
+        with torch.no_grad():
+            for t in tensors:
+                td.broadcast(t, src=0)
     if isinstance(tx, FusedOptimizer):
         resident = ResidentBuckets.adopt(tx.plan_for(params), params)
         return TrainState(step=0, model=model, tx=tx,
@@ -190,26 +296,57 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((x.float() * x.float()).sum() for x in tensors))
 
 
+# The data-parallel step's record in the collective registry.
+GRAD_REDUCE_TAG = "train_step.grad.data.all_reduce"
+
+
 def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
                                                torch.Tensor]] = None,
-                    mesh: Optional[Any] = None, seq_axis: bool = False,
+                    mesh: Optional[Mesh] = None, seq_axis: bool = False,
                     apply_kwargs_of: Optional[Callable[
                         [Dict[str, Any]], Dict[str, Any]]] = None):
     """The train step ``(state, batch) -> (state, metrics)``.
 
     ``loss_of(logits, batch)`` defaults to cross entropy on
     ``batch={'x', 'y'}``; ``apply_kwargs_of(batch)`` feeds extra kwargs to
-    the model. Metrics are 0-d tensors on the model's device: ``loss``
-    (with the auxiliary loss), ``grad_norm`` (optax.global_norm of the
-    f32 grads) and ``aux_loss`` (0 for dense models). The state updates
-    in place, which takes the place of the JAX step's donation; the
-    grads are freed after the update."""
-    if mesh is not None or seq_axis:
-        raise NotImplementedError(f"sharded train steps are not ported yet "
-                                  f"({_LATER})")
+    the model (``{"targets": batch["x"]}`` for a decoder with
+    ``xent_chunk``, whose scalar loss ``loss_of`` then receives in place
+    of the logits). Metrics are 0-d tensors on the model's device:
+    ``loss`` (with the auxiliary loss), ``grad_norm`` (optax.global_norm
+    of the f32 grads) and ``aux_loss`` (0 for dense models). The state
+    updates in place, which takes the place of the JAX step's donation;
+    the grads are freed after the update.
+
+    With a data-parallel ``mesh`` (:meth:`MeshSpec.build
+    <tony_tpu_torch.parallel.MeshSpec.build>`) the batch is this rank's
+    local shard (:func:`global_batch`) and its loss the local mean. The
+    backward runs on that loss divided by the rank count, so the sum
+    over the ranks is the mean: the grads are packed into the flat
+    buckets of a :class:`~tony_tpu_torch.parallel.overlap.GradBuckets`
+    plan (``DEFAULT_BUCKET_BYTES``; a one-leaf bucket is a view of its
+    grad, so only small leaves are copied), each bucket is summed over
+    the ranks by one ``all_reduce``, recorded in
+    :func:`tony_tpu_torch.profiler.collective_report` under
+    :data:`GRAD_REDUCE_TAG`, and ``grad_norm`` is taken over the
+    averaged grads; ``loss`` and ``aux_loss`` are averaged the same way,
+    so the metrics are the global batch's, as GSPMD's are in the
+    reference. On one rank every bit is the step's without a mesh. Every
+    rank applies the same update to the same replica.
+    ``seq_axis=True`` raises ``NotImplementedError``."""
+    if seq_axis:
+        raise NotImplementedError(
+            "seq_axis=True (the ring-attention sequence axis) is not ported "
+            "yet (ROADMAP.md, queue 1 item 11)")
     if loss_of is None:
         loss_of = lambda logits, batch: cross_entropy_loss(logits,
                                                            batch["y"])
+    plans: Dict[Tuple, GradBuckets] = {}
+
+    def reduce_plan(params: List[torch.Tensor]) -> GradBuckets:
+        key = tuple((tuple(p.shape), p.dtype) for p in params)
+        if key not in plans:
+            plans[key] = GradBuckets.plan(params, DEFAULT_BUCKET_BYTES)
+        return plans[key]
 
     def step(state: TrainState, batch: Dict[str, Any]):
         model = state.model
@@ -220,16 +357,30 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
         logits = model(batch["x"], **extra)
         aux = torch.zeros((), dtype=torch.float32, device=logits.device)
         loss = loss_of(logits, batch) + aux
+        if mesh is not None:
+            ranks = mesh.shape[DATA]
+            loss, aux = loss / ranks, aux / ranks
         loss.backward()
+        loss = loss.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        if mesh is not None:
+            plan = reduce_plan(params)
+            profiler.record_collective(
+                GRAD_REDUCE_TAG, kind="all_reduce", plane="grad_reduce",
+                axes=[DATA], nbytes=list(plan.bucket_nbytes))
+            scalars = torch.stack([loss, aux])
+            bufs = plan.pack(grads) + [scalars]
+            for buf in bufs:
+                td.all_reduce(buf)
+            grads = plan.unpack(bufs[:-1])
+            loss, aux = scalars[0], scalars[1]
         gnorm = global_norm(grads)
         state.opt_state = state.tx.update(grads, state.opt_state, params)
         state.step += 1
         for p in params:
             p.grad = None
-        return state, {"loss": loss.detach(), "grad_norm": gnorm,
-                       "aux_loss": aux}
+        return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
 
     return step
 
@@ -272,7 +423,7 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
     ``None``: its bucketed reduction is the cross-device sync, which a
     one-device step does not have.) A mesh, or ``reduce_op``,
     ``hierarchy``, ``gather`` or ``prefetch`` away from their defaults
-    (ROADMAP.md queue 1 items 2 and 8), ``quant=True`` (the int8 ZeRO-3
+    (ROADMAP.md queue 1 item 8), ``quant=True`` (the int8 ZeRO-3
     forward gathers, item 8) and ``aot_cache`` (item 12) raise
     ``NotImplementedError``. The quantized compute lane needs no switch
     here: a model built with ``quant=`` carries it. ``donate`` is
@@ -285,7 +436,7 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
         raise NotImplementedError(
             "cross-device accumulation (mesh, reduce_op, hierarchy, "
             "gather, prefetch) is not ported yet (ROADMAP.md, queue 1 "
-            "items 2 and 8)")
+            "item 8)")
     if quant:
         raise NotImplementedError("quant=True (int8 ZeRO-3 forward gathers) "
                                   "is not ported yet (ROADMAP.md, queue 1 "
@@ -343,3 +494,221 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
         return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
 
     return stepper
+
+
+def train_loop(state: TrainState, step_fn: Callable[[TrainState, Any],
+                                                    Tuple[TrainState, Any]],
+               batches: Optional[Iterable[Any]] = None, *,
+               data: Optional[Any] = None,
+               ckpt_dir: Optional[str] = None,
+               save_every: Optional[int] = None,
+               keep: Optional[int] = None,
+               restore_on_start: bool = True,
+               on_step: Optional[Callable[[int, Dict[str, Any]],
+                                          None]] = None,
+               drain_file: Optional[str] = None,
+               publish_every: Optional[int] = None):
+    """Drive ``step_fn`` over ``batches`` (or the ``data=`` iterable,
+    exactly one of them): the fold a TonY job trains in. Returns
+    ``(state, last_metrics)``.
+
+    After each step: :func:`tony_tpu_torch.chaos.kill_point` (the
+    scripted preemption ``TONY_CHAOS_KILL_STEP``), then ``on_step(step,
+    metrics)``, then the drain poll: when ``drain_file`` (default: the
+    ``TONY_DRAIN_FILE`` the executor gives every task) exists, the loop
+    exits with ``SystemExit(EXIT_DRAINED)``, as the reference does with
+    no checkpoint directory. ``data.close()`` runs in ``finally``.
+
+    Checkpointed resume (``ckpt_dir``, ``save_every``, ``keep``,
+    ``publish_every``, and ``restore_on_start`` against a committed step)
+    lands with the checkpoint slice (ROADMAP.md, queue 1 item 3): a
+    directory, save interval, retention or publication interval set here
+    or through ``TONY_CKPT_DIR`` / ``TONY_CKPT_EVERY`` /
+    ``TONY_PUBLISH_EVERY`` raises ``NotImplementedError``, so a job is
+    never trained without the resume it asked for."""
+    if (batches is None) == (data is None):
+        raise ValueError("train_loop needs exactly one of batches= or "
+                         "data=")
+    if ckpt_dir is None:
+        ckpt_dir = os.environ.get(constants.ENV_CKPT_DIR) or None
+    if save_every is None:
+        save_every = int(os.environ.get(constants.ENV_CKPT_EVERY, "0") or 0)
+    if publish_every is None:
+        publish_every = int(os.environ.get(constants.ENV_PUBLISH_EVERY,
+                                           "0") or 0)
+    asked = {name: value for name, value in (
+        ("ckpt_dir", ckpt_dir), ("save_every", save_every), ("keep", keep),
+        ("publish_every", publish_every)) if value}
+    if asked:
+        raise NotImplementedError(
+            f"train_loop checkpointing ({asked}) is not ported yet "
+            f"(ROADMAP.md, queue 1 item 3)")
+    if drain_file is None:
+        drain_file = os.environ.get(constants.ENV_DRAIN_FILE) or None
+    metrics: Dict[str, Any] = {}
+    done = 0
+    try:
+        for batch in (batches if data is None else data):
+            state, metrics = step_fn(state, batch)
+            done += 1
+            chaos.kill_point(done)
+            if on_step is not None:
+                on_step(done, metrics)
+            if drain_file is not None and os.path.exists(drain_file):
+                raise SystemExit(constants.EXIT_DRAINED)
+    finally:
+        if data is not None and hasattr(data, "close"):
+            data.close()
+    return state, metrics
+
+
+def train_stats_writer(path: Optional[str] = None, *,
+                       flops_per_step: float = 0.0,
+                       peak_flops: float = 0.0
+                       ) -> Callable[[int, Dict[str, Any]], None]:
+    """An ``on_step`` callback for :func:`train_loop` that publishes each
+    step's telemetry — ``step``, ``step_time_s`` (host time since the
+    previous call, or since the writer was made), ``collective_bytes``
+    (the planned per-issue payloads of
+    :func:`tony_tpu_torch.profiler.collective_report`), ``mfu``
+    (``flops_per_step / (step_time_s · peak_flops)`` when both are
+    given) and ``loss`` — as one JSON object, staged and renamed into
+    place, the reference's schema. ``path`` defaults to the
+    ``TONY_SERVE_STATS`` file the executor's heartbeat carries to the AM;
+    without one the callback is a no-op. Writing is advisory: an
+    ``OSError`` never fails the step."""
+    target = path or os.environ.get(constants.ENV_SERVE_STATS)
+    last = {"t": time.monotonic()}
+
+    def on_step(step: int, metrics: Dict[str, Any]) -> None:
+        now = time.monotonic()
+        dt = now - last["t"]
+        last["t"] = now
+        if not target:
+            return
+        nbytes = float(sum(sum(rec.get("nbytes") or ())
+                           for rec in profiler.collective_report().values()))
+        mfu = (flops_per_step / (dt * peak_flops)
+               if flops_per_step > 0 and peak_flops > 0 and dt > 0
+               else 0.0)
+        payload = {"step": float(step), "step_time_s": float(dt),
+                   "collective_bytes": nbytes, "mfu": float(mfu)}
+        loss = metrics.get("loss") if isinstance(metrics, dict) else None
+        if loss is not None:
+            payload["loss"] = float(loss)
+        tmp = f"{target}.tmp.{os.getpid()}"
+        try:
+            with open(tmp, "w") as fh:
+                json.dump(payload, fh)
+            os.replace(tmp, target)
+        except OSError:
+            pass
+
+    return on_step
+
+
+def _flatten(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs, paths spelled as ``jax.tree_util.keystr``
+    spells them (``['x']``, ``[0]``), dict keys sorted."""
+    if isinstance(tree, Mapping):
+        return [pair for k in sorted(tree)
+                for pair in _flatten(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, v in enumerate(tree)
+                for pair in _flatten(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _unflatten(tree: Any, leaves: Iterable[Any]) -> Any:
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, Mapping):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(tree)
+
+
+def _validate_local_batch(mesh: Mesh, local_batch: Any,
+                          seq_axis: bool = False) -> None:
+    """The reference's pre-flight of the local-batch contract, raising a
+    ``ValueError`` that names the offending leaf: every leaf an array with
+    a leading batch dim, all leaves agreeing on it, the global batch dim
+    (local × processes) divisible by the mesh's batch sharding and the
+    local dim by this process's share of it, and with ``seq_axis`` the
+    sequence dim divisible by the ring axis."""
+    flat = _flatten(local_batch)
+    if not flat:
+        return
+    nproc = mesh.processes
+    n_shards = math.prod(mesh.shape[a] for a in BATCH_AXES)
+    ref_path = ref_dim = None
+    for name, leaf in flat:
+        if not hasattr(leaf, "shape") or np.ndim(leaf) == 0:
+            raise ValueError(
+                f"global_batch leaf {name}: expected an array with a "
+                f"leading batch dim, got {type(leaf).__name__} of rank "
+                f"{np.ndim(leaf)}")
+        dim = int(leaf.shape[0])
+        if ref_dim is None:
+            ref_path, ref_dim = name, dim
+        elif dim != ref_dim:
+            raise ValueError(
+                f"global_batch leaf {name}: local batch dim {dim} != "
+                f"{ref_dim} (leaf {ref_path}) — every leaf of every "
+                f"process must contribute the same local batch count")
+        if seq_axis and np.ndim(leaf) >= 2:
+            seq = int(leaf.shape[1])
+            seq_shards = mesh.shape[SEQ]
+            if seq % seq_shards:
+                raise ValueError(
+                    f"global_batch leaf {name}: sequence dim {seq} not "
+                    f"divisible by the {seq_shards}-way ring axis "
+                    f"({SEQ!r}) of the mesh")
+    global_dim = ref_dim * nproc
+    if global_dim % n_shards:
+        raise ValueError(
+            f"global_batch leaf {ref_path}: local batch dim {ref_dim} x "
+            f"{nproc} process(es) = global {global_dim}, not divisible by "
+            f"the {n_shards}-way batch sharding {BATCH_AXES} of the "
+            f"mesh — pad or resize the per-process batch")
+    if n_shards % nproc == 0:
+        per_proc = n_shards // nproc
+        if per_proc and ref_dim % per_proc:
+            raise ValueError(
+                f"global_batch leaf {ref_path}: local batch dim {ref_dim} "
+                f"not divisible by this process's {per_proc} addressable "
+                f"batch shard(s) ({n_shards}-way sharding over {nproc} "
+                f"process(es))")
+
+
+# Contracts already validated, mesh → {(seq_axis, paths, leaf shapes)}:
+# per-step callers pay the pre-flight once per contract. Only successes
+# are kept, so a bad contract raises on every call; weakly keyed, and
+# bounded per mesh (when full, validation just runs).
+_VALIDATED_CONTRACTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_VALIDATED_CONTRACTS_MAX = 256
+
+
+def global_batch(mesh: Mesh, local_batch: Any, seq_axis: bool = False,
+                 check: bool = True) -> Any:
+    """This rank's part of the global batch — every rank calls it with its
+    own local shard (multi-host feeding) — as tensors on the mesh's
+    device, in the local batch's dict/list structure. Under data
+    parallelism each rank holds its own rows, so nothing crosses ranks.
+    ``check`` pre-flights the reference's shape contract with a
+    leaf-naming ``ValueError`` (memoized per contract)."""
+    flat = _flatten(local_batch)
+    if check:
+        key = (seq_axis, tuple(p for p, _ in flat),
+               tuple(np.shape(leaf) for _, leaf in flat))
+        seen = _VALIDATED_CONTRACTS.setdefault(mesh, set())
+        if key not in seen:
+            _validate_local_batch(mesh, local_batch, seq_axis=seq_axis)
+            if len(seen) < _VALIDATED_CONTRACTS_MAX:
+                seen.add(key)
+    return _unflatten(local_batch, (torch.as_tensor(leaf,
+                                                    device=mesh.device)
+                                    for _, leaf in flat))
