@@ -103,11 +103,35 @@ caught):
    each remat policy and for ``xent_chunk`` 0; then one step with the
    mesh against one without from fresh copies of the same weights at 2
    layers, ``torch.equal`` in loss and parameters;
-12. report — a ``{"kernels": [...]}`` line (rows 1-15), a
+12. train_ckpt — the train_loop cell with the checkpoint and data plane
+   armed: 64 x 2048 seeded tokens in a memmapped ``.npy`` through
+   ``Dataset.from_memmap(...).shuffle().repeat().batch(2).with_ids()`` and
+   a ``DeviceIterator`` (pinned memory, side stream); run A 8 steps
+   uninterrupted; run B from the same weights with an async save at step
+   4, killed after step 6, then resumed by ``train_loop`` from other
+   weights and a fresh iterator (the step-4 state and data cursor
+   restored from disk, in place); B's state and cursor at step 8 equal
+   A's chunk for chunk (extents, CRC32, bytes, through the snapshot
+   engine), the ids of steps 5-8 and the first loss after the restore
+   equal, the flash launches of 4 steps; then at 2 layers a fused run
+   with ``save_every=2``, ``publish_every=1`` and the drain file after
+   step 2: ``EXIT_DRAINED`` over a committed model + cursor,
+   ``published.json`` on it, and a fresh ``FusedOptimizer`` state that
+   restores it and takes step 3 ``torch.equal`` to the drained state's
+   own step 3 (parameters, every slot; one update launch per bucket).
+   The save's stall, staging, device→host and write times, the
+   restore's, the input stall, peak memory and the memory allocated
+   after each step (the save's device staging buffer lives until its
+   device→host copy has read it); the host's free memory
+   and disk are printed first, and too little disk raises. The phase
+   writes two checkpoints (22.57 and 8.07 GB), so that the whole script
+   stays under 45 GiB of disk writes, where some hosts end a run;
+13. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, a
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
-   ``{"train_loop": {...}}`` line, the card line, and last
+   ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, the
+   card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
@@ -137,11 +161,13 @@ import gc
 import json
 import math
 import os
+import shutil
 import socket
 import subprocess
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -149,6 +175,10 @@ import torch.distributed as td
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from tony_tpu_torch import ckpt, profiler, publish  # noqa: E402
+from tony_tpu_torch.ckpt import snapshot as ckpt_snapshot  # noqa: E402
+from tony_tpu_torch.constants import EXIT_DRAINED  # noqa: E402
+from tony_tpu_torch.data import Dataset, ShardSpec, ckptio  # noqa: E402
 from tony_tpu_torch.models import get_model  # noqa: E402
 from tony_tpu_torch.models.resnet import (FusedBNAct,  # noqa: E402
                                           resnet50_flops)
@@ -2512,6 +2542,431 @@ def train_loop_run(card: str, train_first_loss: float):
             "mesh_check_loss": mesh_loss, "runs": variants, "card": card}
 
 
+# ---------------------------------------------------------------------
+# train_ckpt: the checkpoint and data plane on the train_loop cell.
+# ---------------------------------------------------------------------
+
+CKPT_EVERY, CKPT_KILL_AFTER = 4, 6
+CKPT_EXAMPLES = 64        # seeded 2048-token sequences in the .npy
+CKPT_VOCAB = 32000
+CKPT_SMALL_LAYERS = 2     # fused codec, drain, publish: full width
+CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "ckpt_smoke")
+# Hosts that meter a run's disk writes (deleted files included) end it
+# past 45 GiB: the phase writes one 8-layer step (22.57 GB) and one
+# 2-layer step (8.07 GB), and compares the 8-layer step 8 of its two
+# runs in host memory through the same snapshot engine instead of
+# writing both.
+CKPT_WRITE_LIMIT = 45 << 30
+
+
+class _Killed(Exception):
+    """The scripted preemption of run B."""
+
+
+class FirstSteps:
+    """The first ``n`` batches of a DeviceIterator, with its cursor:
+    what bounds a ``repeat()``-forever stream to a run's steps."""
+
+    def __init__(self, it, n):
+        self.it, self.n = it, n
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.n <= 0:
+            raise StopIteration
+        self.n -= 1
+        return next(self.it)
+
+    def state(self):
+        return self.it.state()
+
+    def restore(self, state):
+        self.it.restore(state)
+
+    def close(self):
+        self.it.close()
+
+
+def meminfo_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def ckpt_model(layers, seed):
+    return get_model("llama2-7b", device="cuda", seed=seed, n_layers=layers,
+                     xent_chunk=LOOP_XENT_CHUNK, remat_policy=LOOP_POLICY)
+
+
+def token_stream(mesh, data_path, steps):
+    ds = (Dataset.from_memmap({"x": data_path}, seed=SEED).shuffle()
+          .repeat().batch(TRAIN_BATCH).with_ids())
+    return FirstSteps(ds.device_iterator(mesh, shard=ShardSpec(0, 1)),
+                      steps)
+
+
+def recorded_save():
+    """The run's one save as its writer thread recorded it (profiler
+    record ``async_save``: stall, allocation, staging, device-to-host and
+    write times), or none."""
+    r = profiler.ckpt_report().get("async_save")
+    if r is None:
+        return []
+    return [{"step": r["step"], "stall_ms": 1e3 * r["stall_s"],
+             "alloc_ms": 1e3 * r["alloc_s"], "stage_ms": 1e3 * r["stage_s"],
+             "d2h_ms": 1e3 * r["d2h_s"], "write_s": r["write_s"],
+             "nbytes": r["nbytes"]}]
+
+
+def ckpt_run(tag, mesh, seed, data_path, ckpt_dir=None, save_every=0,
+             kill=None, reference=None):
+    """One run of the 8-layer job through train_loop on the memmapped
+    tokens, on a DeviceIterator: a ``ckpt_dir`` arms the restore and, with
+    ``save_every``, the async saves (no final save). Returns the run's
+    numbers and, after its last step, its state and data cursor as the
+    manifest would hold them: a host snapshot (the snapshot engine's
+    synchronous copy, nothing written), or, given a ``reference``
+    snapshot, their comparison with it (:func:`same_state`)."""
+    model = ckpt_model(TRAIN_LAYERS, seed)
+    state = create_train_state(model, adamw(TRAIN_LR), mesh=mesh)
+    step = loop_step_fn(model, mesh)
+    start = (ckpt.latest_step(ckpt_dir) or 0) if ckpt_dir else 0
+    data = token_stream(mesh, data_path, TRAIN_STEPS - start)
+    ids, losses, stamps, allocated = [], [], [], []
+
+    def rec_step(st, batch):
+        ids.append(batch["id"].tolist())
+        return step(st, batch)
+
+    def on_step(i, metrics):
+        losses.append(float(metrics["loss"]))     # syncs
+        stamps.append(time.monotonic())
+        allocated.append(torch.cuda.memory_allocated())
+        if kill is not None and i == kill:
+            raise _Killed(i)
+
+    for name in FLASH_NAMES:
+        LAUNCHES[name] = 0
+    profiler.reset_input_records()
+    profiler.reset_ckpt_records()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps.append(time.monotonic())
+    t0 = time.monotonic()
+    try:
+        state, _ = train_loop(state, rec_step, data=data, ckpt_dir=ckpt_dir,
+                              save_every=save_every, save_final=False,
+                              on_step=on_step)
+    except _Killed:
+        pass
+    run = {"tag": tag, "start_step": start, "steps": len(losses),
+           "losses": losses, "ids": ids, "seconds": time.monotonic() - t0,
+           "step_ms": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])],
+           "launches": {n: LAUNCHES[n] for n in FLASH_NAMES},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "allocated_after_step": allocated,
+           "memory_reserved": torch.cuda.memory_reserved(),
+           "alloc_retries": torch.cuda.memory_stats().get(
+               "num_alloc_retries", 0),
+           "input": profiler.input_report().get("input"),
+           "restore": profiler.ckpt_report().get("restore"),
+           "saves": recorded_save(),
+           "final_step": state.step}
+    t0 = time.monotonic()
+    tree = ckptio.wrap_for_save(ckpt.encode_portable(state), data.state())
+    if reference is None:
+        out = ckpt_snapshot.extract_snapshot(tree, state.step)
+    else:
+        out = same_state(reference, tree)
+    run["host_copy_s"] = time.monotonic() - t0
+    del tree
+    log(f"  {tag}: steps {start + 1}..{start + len(losses)} in "
+        f"{run['seconds']:.1f} s, losses "
+        f"{[round(x, 4) for x in losses]}, peak "
+        f"{run['max_memory_allocated'] / 1e9:.2f} GB, allocated after each "
+        f"step {[round(x / 1e9, 2) for x in allocated]} GB"
+        + "".join(f"; save at step {v['step']}: stall {v['stall_ms']:.1f} "
+                  f"ms (allocation {v['alloc_ms']:.1f}, staging "
+                  f"{v['stage_ms']:.1f}),"
+                  f" d2h {v['d2h_ms']:.1f} ms, write {v['write_s']:.1f} s"
+                  for v in run["saves"]))
+    del state, model, step, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run, out
+
+
+def rate(nbytes, seconds):
+    """GB/s, or None where nothing was timed (a copy on the CPU)."""
+    return nbytes / seconds / 1e9 if seconds else None
+
+
+def same_state(snap, tree):
+    """``tree`` holds the checkpoint ``snap`` holds: the same leaves, and
+    per chunk the same extent, CRC32 and bytes; ``tree``'s chunks are
+    copied to the host one at a time (never a second whole state)."""
+    leaves, parts = ckpt_snapshot._owned_parts(tree)
+    if leaves != snap.leaves or len(parts) != len(snap.chunks):
+        raise AssertionError("train_ckpt: A and B hold other leaves")
+    nbytes = 0
+    for (li, start, value, tr, region), (la, sa, xa) in zip(parts,
+                                                           snap.chunks):
+        xb = ckpt_snapshot._copy_to_host(value, tr, region)
+        ba, bb = (x.reshape(-1).view(np.uint8) for x in (xa, xb))
+        if (li, list(start), tuple(region)) != (la, sa, xa.shape) \
+                or zlib.crc32(ba) != zlib.crc32(bb) \
+                or not np.array_equal(ba, bb):
+            raise AssertionError(f"train_ckpt: step {snap.step} differs at "
+                                 f"{leaves[li]['path']} chunk {start}")
+        nbytes += ba.nbytes
+    return {"leaves": len(leaves), "chunks": len(parts),
+            "bytes_compared": nbytes}
+
+
+def warm_pinned(state):
+    """Pin and free one host slot of ``state``'s checkpoint, arena for
+    arena as the checkpointer plans it, so the timed save finds its slot
+    in the caching host allocator as every save after a job's first
+    does; returns the pinning time."""
+    parts = ckpt_snapshot._owned_parts(ckpt.encode_portable(state))[1]
+    caps = ckpt_snapshot.plan_arenas(
+        [t.numel() * t.element_size() for _, _, t, _, _ in parts
+         if isinstance(t, torch.Tensor) and t.is_cuda])[0]
+    t0 = time.monotonic()
+    arenas = [torch.empty(c, dtype=torch.uint8, pin_memory=True)
+              for c in caps]
+    del arenas
+    return time.monotonic() - t0
+
+
+def small_run_check(mesh, data_path):
+    """2-layer fused run on the memmapped stream with save_every=2,
+    publish_every=1 and the drain file created after step 2: the loop
+    exits EXIT_DRAINED over a committed manifest holding model + cursor
+    and published.json names it. Then a fresh FusedOptimizer state from
+    other weights restores it and takes step 3: torch.equal to the
+    drained state's own step 3 in parameters and every slot, one update
+    launch per bucket, every parameter still a view of its bucket."""
+    root = os.path.join(CKPT_ROOT, "small")
+    drain = os.path.join(CKPT_ROOT, "drain_flag")
+    step = make_accum_train_step(
+        lambda out, b: out, microbatches=FUSED_MICROBATCHES,
+        update="fused_bucket",
+        apply_kwargs_of=lambda b: {"targets": b["x"]})
+
+    def fresh(seed):
+        return create_train_state(ckpt_model(CKPT_SMALL_LAYERS, seed),
+                                  fo.FusedOptimizer(rule="adamw",
+                                                    lr=TRAIN_LR))
+
+    def on_step(i, metrics):
+        if i == 2:
+            open(drain, "w").close()
+
+    ref = fresh(SEED)
+    code = None
+    profiler.reset_ckpt_records()
+    try:
+        train_loop(ref, step, data=token_stream(mesh, data_path, 8),
+                   ckpt_dir=root, save_every=2, publish_every=1,
+                   on_step=on_step, drain_file=drain)
+    except SystemExit as e:
+        code = e.code
+    saves = recorded_save()
+    os.remove(drain)
+    committed = ckpt.committed_steps(root)
+    pointer = publish.latest_publication(root)
+    cursor = ckptio.load_iter_state(root, 2) \
+        if committed == [2] and ckptio.has_iter_state(root, 2) else None
+    if code != EXIT_DRAINED or cursor is None or cursor["batches"] != 2 \
+            or ref.step != 2:
+        raise AssertionError(f"train_ckpt: drain exit {code}, committed "
+                             f"{committed}, cursor {cursor}")
+    if pointer is None or pointer["step"] != 2:
+        raise AssertionError(f"train_ckpt: published {pointer}, committed "
+                             f"{committed}")
+    log(f"  drain after step 2 ({CKPT_SMALL_LAYERS} layers, fused): "
+        f"SystemExit({code}) over committed {committed} with model + "
+        f"cursor (batches {cursor['batches']}); published.json version "
+        f"{pointer['version']} -> step {pointer['step']}")
+    third = token_stream(mesh, data_path, 1)
+    third.restore(cursor)
+    ref, m_ref = step(ref, next(third))
+    third.close()
+    got = fresh(SEED + 1)
+    n_buckets = got.buckets.plan.n_buckets
+    LAUNCHES["fused_bucket_update"] = 0
+    got, m_got = train_loop(got, step,
+                            data=token_stream(mesh, data_path, 1),
+                            ckpt_dir=root, save_final=False)
+    launches = LAUNCHES["fused_bucket_update"]
+    got.buckets.check()
+    bad = [n for (n, a), (_, b) in zip(got.model.named_parameters(),
+                                       ref.model.named_parameters())
+           if not torch.equal(a, b)]
+    for slot in got.tx.slot_names:
+        bad += [f"{slot}[{i}]" for i, (a, b) in enumerate(zip(
+            got.opt_state["slots"][slot], ref.opt_state["slots"][slot]))
+            if not torch.equal(a, b)]
+    if bad or got.step != 3 or ref.step != 3 or not torch.equal(
+            m_got["loss"], m_ref["loss"]):
+        raise AssertionError(f"train_ckpt: restored fused step != the "
+                             f"uninterrupted step 3: {bad[:4]}")
+    if launches != n_buckets:
+        raise AssertionError(f"train_ckpt: fused step after restore "
+                             f"launched {launches} updates, {n_buckets} "
+                             f"buckets")
+    log(f"  fused codec: restored step 3 torch.equal to the uninterrupted "
+        f"one in parameters, mu and nu; {launches} update launches for "
+        f"{n_buckets} buckets; every parameter in its bucket")
+    out = {"layers": CKPT_SMALL_LAYERS, "n_buckets": n_buckets,
+           "launches": launches, "loss": float(m_got["loss"]),
+           "exit_code": code, "committed": committed,
+           "cursor_batches": cursor["batches"],
+           "published": {"version": pointer["version"],
+                         "step": pointer["step"]},
+           "saves": saves,
+           "restore": profiler.ckpt_report().get("restore")}
+    del ref, got
+    shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_ckpt_phase(card: str, loop_p50_ms):
+    """The train_loop cell with the checkpoint and data plane armed, on a
+    one-rank NCCL group: run A uninterrupted, run B killed and resumed
+    from other weights, their step 8 compared chunk for chunk; then the
+    fused codec, the drain commit and the publication at 2 layers."""
+    td.init_process_group("nccl", rank=0, world_size=1,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    os.makedirs(CKPT_ROOT)
+    try:
+        return train_ckpt_run(card, loop_p50_ms)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+        td.destroy_process_group()
+
+
+def train_ckpt_run(card: str, loop_p50_ms):
+    mesh = MeshSpec(dp=1).build()
+    probe = create_train_state(ckpt_model(TRAIN_LAYERS, SEED),
+                               adamw(TRAIN_LR))
+    cfg = probe.model.cfg
+    n_params = sum(p.numel() for p in probe.model.parameters())
+    shared = 2 * cfg.vocab * cfg.dim                # embedding + lm_head
+    pin_s = warm_pinned(probe)
+    del probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_bytes = 3 * 4 * n_params                  # params, mu, nu in f32
+    free = shutil.disk_usage(CKPT_ROOT).free
+    avail = meminfo_available()
+    log(f"  state {n_params} parameters = {state_bytes / 1e9:.2f} GB a "
+        f"checkpoint; host MemAvailable {avail / 1e9:.1f} GB; free disk at "
+        f"{CKPT_ROOT} {free / 1e9:.1f} GB")
+    if free < 3 * state_bytes:
+        raise RuntimeError(f"train_ckpt: {free / 1e9:.1f} GB free cannot "
+                           f"hold two committed steps and one staging step "
+                           f"({3 * state_bytes / 1e9:.1f} GB)")
+    per_layer = (n_params - shared) // cfg.n_layers
+    writes = state_bytes + 12 * (shared + CKPT_SMALL_LAYERS * per_layer)
+    if writes > CKPT_WRITE_LIMIT:
+        raise RuntimeError(f"train_ckpt: the phase would write "
+                           f"{writes / 2**30:.1f} GiB, more than the "
+                           f"machine allows a command")
+    rng = np.random.default_rng(SEED)
+    data_path = os.path.join(CKPT_ROOT, "tokens.npy")
+    np.save(data_path, rng.integers(0, CKPT_VOCAB,
+                                    (CKPT_EXAMPLES, TRAIN_SEQ),
+                                    dtype=np.int32))
+    b_root = os.path.join(CKPT_ROOT, "B")
+    log(f"  pinned one {state_bytes / 1e9:.2f} GB host slot in "
+        f"{pin_s:.2f} s (a job's first save pays this once)")
+    run_a, snap_a = ckpt_run("A (uninterrupted)", mesh, SEED, data_path)
+    run_b1, _ = ckpt_run("B (killed after step 6)", mesh, SEED, data_path,
+                         b_root, save_every=CKPT_EVERY, kill=CKPT_KILL_AFTER)
+    run_b2, compared = ckpt_run("B (resumed, other weights)", mesh,
+                                SEED + 1, data_path, b_root,
+                                reference=snap_a)
+    del snap_a
+    gc.collect()
+    if ckpt.committed_steps(b_root) != [CKPT_EVERY]:
+        raise AssertionError(f"train_ckpt: B committed "
+                             f"{ckpt.committed_steps(b_root)}")
+    if run_b2["start_step"] != CKPT_EVERY or run_b2["final_step"] != \
+            TRAIN_STEPS or run_b1["steps"] != CKPT_KILL_AFTER \
+            or run_a["final_step"] != TRAIN_STEPS:
+        raise AssertionError(f"train_ckpt: B resumed at "
+                             f"{run_b2['start_step']}, ended at "
+                             f"{run_b2['final_step']}")
+    log(f"  B's step {TRAIN_STEPS} == A's: {compared['leaves']} leaves, "
+        f"{compared['chunks']} chunks (extents, CRC32 and "
+        f"{compared['bytes_compared']} bytes)")
+    if run_b2["ids"] != run_a["ids"][CKPT_EVERY:]:
+        raise AssertionError(f"train_ckpt: ids after the restore "
+                             f"{run_b2['ids']} != A's "
+                             f"{run_a['ids'][CKPT_EVERY:]}")
+    after = TRAIN_STEPS - CKPT_EVERY
+    expect = {"flash_attention_fwd": 2 * TRAIN_LAYERS * after,
+              "flash_attention_bwd_dq": TRAIN_LAYERS * after,
+              "flash_attention_bwd_dkv": TRAIN_LAYERS * after}
+    if run_b2["launches"] != expect:
+        raise AssertionError(f"train_ckpt: launches after the restore "
+                             f"{run_b2['launches']} != {expect}")
+    first = run_b2["losses"][0]
+    if not math.isfinite(first) or first != run_a["losses"][CKPT_EVERY]:
+        raise AssertionError(f"train_ckpt: first loss after the restore "
+                             f"{first} != A's step-{CKPT_EVERY + 1} loss "
+                             f"{run_a['losses'][CKPT_EVERY]}")
+    log(f"  ids of steps {CKPT_EVERY + 1}-{TRAIN_STEPS} equal; first loss "
+        f"after the restore {first!r} == A's; launches {run_b2['launches']}")
+    shutil.rmtree(b_root, ignore_errors=True)
+    small = small_run_check(mesh, data_path)
+
+    p50 = float(np.median(run_a["step_ms"]))
+    saves = run_b1["saves"] + small["saves"]
+    for v in saves:
+        v["stall_x_step_p50"] = v["stall_ms"] / p50
+        v["d2h_GBps"] = rate(v["nbytes"], v["d2h_ms"] / 1e3)
+        v["write_GBps"] = rate(v["nbytes"], v["write_s"])
+    restore = run_b2["restore"]
+    restore["h2d_GBps"] = rate(restore["h2d_nbytes"], restore["h2d_s"])
+    restore["GBps"] = rate(restore["h2d_nbytes"], restore["seconds"])
+    b_step_ms = run_b1["step_ms"]
+    log(f"  run A step p50 {p50:.1f} ms (train_loop phase {loop_p50_ms}); "
+        f"B's steps {[round(x, 1) for x in b_step_ms]} ms; restore "
+        f"{restore['seconds']:.1f} s ({restore['GBps']} GB/s), "
+        f"host-to-device {restore['h2d_GBps']} GB/s; input stall "
+        f"{run_a['input']['wait_ms_mean']:.3f} ms a step (A), "
+        f"{run_b1['input']['wait_ms_mean']:.3f} (B); peak "
+        f"{run_b1['max_memory_allocated'] / 1e9:.2f} GB with a save (A: "
+        f"{run_a['max_memory_allocated'] / 1e9:.2f})")
+    return {"model": f"llama2-7b n_layers={TRAIN_LAYERS}/32", "batch":
+            TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+            "xent_chunk": LOOP_XENT_CHUNK, "remat_policy": LOOP_POLICY,
+            "mesh": "dp=1 (one-rank NCCL group)", "save_every": CKPT_EVERY,
+            "state_bytes": state_bytes, "host_mem_available": avail,
+            "disk_free": free, "pin_slot_s": pin_s, "step_p50_ms": p50,
+            "train_loop_step_p50_ms": loop_p50_ms,
+            "saves": saves, "restore": restore, "compared": compared,
+            "runs": [{k: v for k, v in r.items() if k != "ids"}
+                     for r in (run_a, run_b1, run_b2)],
+            "ids_after_restore": run_b2["ids"],
+            "launches_after_restore": run_b2["launches"],
+            "max_memory_allocated_with_save":
+                run_b1["max_memory_allocated"],
+            "small": small, "card": card}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2617,6 +3072,13 @@ def main() -> int:
     # with the chunked LM-head loss and the "dots" remat policy.
     log("[train_loop]")
     train_loop_res = train_loop_phase(card, train["losses"][0])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 12: the same cell with the checkpoint and data plane armed.
+    log("[train_ckpt]")
+    train_ckpt = train_ckpt_phase(card,
+                                  train_loop_res["runs"][0]["step_p50_ms"])
 
     entry = {
         "name": "flash_decode", "route": "cuda",
@@ -2658,10 +3120,13 @@ def main() -> int:
             "source": "tony_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"tony_tpu/ops/attention.py:{kernel_line}",
             "launches": train_launches[name]
-            + train_loop_res["launches"][name],
+            + train_loop_res["launches"][name]
+            + train_ckpt["launches_after_restore"][name],
             "launches_by_path": {
                 "train": train_launches[name],
-                "train_loop": train_loop_res["launches"][name]},
+                "train_loop": train_loop_res["launches"][name],
+                "train_ckpt_after_restore":
+                    train_ckpt["launches_after_restore"][name]},
             "max_abs_err": max(main_shape["max_abs_err"][e] for e in outs),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -2682,7 +3147,11 @@ def main() -> int:
         "name": "fused_bucket_update", "route": "cuda",
         "source": "tony_tpu_torch/ops/csrc/fused_optim.cu",
         "replaces": "tony_tpu/ops/fused_optim.py:123",
-        "launches": train_fused["launches"]["fused_bucket_update"],
+        "launches": train_fused["launches"]["fused_bucket_update"]
+        + train_ckpt["small"]["launches"],
+        "launches_by_path": {
+            "train_fused": train_fused["launches"]["fused_bucket_update"],
+            "train_ckpt_after_restore": train_ckpt["small"]["launches"]},
         "max_abs_err": max(fused_err, train_fused["real_buckets_max_abs_err"]),
         "ms": w_gate["ms"], "plain_ms": w_gate["plain_ms"],
         "bound_ms": w_gate["bound_ms"], "bound_by": w_gate["bound_by"],
@@ -2760,6 +3229,7 @@ def main() -> int:
     print(json.dumps({"bn_shapes": bn_kernels}), flush=True)
     print(json.dumps({"resnet": train_resnet}), flush=True)
     print(json.dumps({"train_loop": train_loop_res}), flush=True)
+    print(json.dumps({"train_ckpt": train_ckpt}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1072,3 +1072,110 @@ def test_one_rank_nccl_step_is_the_plain_step(gen):
         assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     finally:
         td.destroy_process_group()
+
+
+def test_async_checkpointer_stages_on_the_card(gen, tmp_path):
+    """The card path of the snapshot engine: a save stages the state into
+    the device buffer, returns before the in-place step overwrites it,
+    copies it into pinned host arenas on the side stream, and restores
+    back onto the card bit for bit (host → device from pinned memory)."""
+    from tony_tpu_torch import ckpt, profiler
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.train import (adamw, create_train_state,
+                                      make_train_step, next_token_loss)
+
+    def state(seed):
+        model = get_model("llama-tiny", device="cuda", dtype=torch.float32,
+                          seed=seed)
+        return create_train_state(model, adamw(1e-3))
+
+    tokens = torch.randint(0, 256, (2, 17), generator=gen, device="cuda")
+    step = make_train_step(loss_of=lambda lg, b: next_token_loss(lg, b["x"]))
+    live, _ = step(state(0), {"x": tokens})
+    saved = {n: p.detach().clone() for n, p in live.model.named_parameters()}
+    moments = [t.clone() for t in live.opt_state.mu + live.opt_state.nu]
+    profiler.reset_ckpt_records()
+    c = ckpt.AsyncCheckpointer(tmp_path, keep=2)
+    snap = c.save(ckpt.encode_portable(live))
+    live, _ = step(live, {"x": tokens})          # overwrites in place
+    c.wait()
+    c.close()
+    rec = profiler.ckpt_report()["async_save"]
+    assert rec["stage_s"] > 0 and rec["d2h_s"] > 0 and snap.slot == 0
+    got = ckpt.decode_portable(ckpt.restore_pytree(
+        tmp_path, ckpt.encode_portable(state(1))))
+    assert got.step == 1 and got.opt_state.count == 1
+    for n, p in got.model.named_parameters():
+        assert torch.equal(p, saved[n]), n
+    for a, b in zip(got.opt_state.mu + got.opt_state.nu, moments):
+        assert torch.equal(a, b)
+    assert profiler.ckpt_report()["restore"]["h2d_s"] > 0
+
+
+def test_async_checkpointer_releases_its_staging_buffer(gen, tmp_path):
+    """The device staging buffer lives from a save's staging copy to the
+    end of its copy-out only: after ``wait`` the card holds no second
+    copy of the state, and the next save stages into a new buffer and
+    reuses its pinned host slot, restoring bit for bit."""
+    from tony_tpu_torch import ckpt
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.train import (adamw, create_train_state,
+                                      make_train_step, next_token_loss)
+
+    def state(seed):
+        model = get_model("llama-tiny", device="cuda", dtype=torch.float32,
+                          seed=seed)
+        return create_train_state(model, adamw(1e-3))
+
+    tokens = torch.randint(0, 256, (2, 17), generator=gen, device="cuda")
+    step = make_train_step(loss_of=lambda lg, b: next_token_loss(lg, b["x"]))
+    live, _ = step(state(0), {"x": tokens})
+    c = ckpt.AsyncCheckpointer(tmp_path, keep=2, buffers=1)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        c.save(ckpt.encode_portable(live))
+        c.wait()
+        staged = torch.cuda.max_memory_allocated() - before
+        assert c._staging.dev is None
+        assert staged >= 3 * 4 * sum(p.numel()
+                                     for p in live.model.parameters())
+        assert torch.cuda.memory_allocated() - before < staged // 2
+        host = c._staging.host[0]
+        live, _ = step(live, {"x": tokens})
+        saved = {n: p.detach().clone()
+                 for n, p in live.model.named_parameters()}
+        c.save(ckpt.encode_portable(live))
+        c.wait()
+        assert c._staging.dev is None and c._staging.host[0] is host
+    finally:
+        c.close()
+    got = ckpt.decode_portable(ckpt.restore_pytree(
+        tmp_path, ckpt.encode_portable(state(1))))
+    assert got.step == 2
+    for n, p in got.model.named_parameters():
+        assert torch.equal(p, saved[n]), n
+
+
+def test_device_iterator_stages_through_pinned_memory(gen):
+    """On a card mesh each batch is copied from pinned memory on the
+    iterator's side stream; the stream and values equal the host's."""
+    import numpy as np
+
+    from tony_tpu_torch.data import Dataset, ShardSpec
+    from tony_tpu_torch.parallel import AXES, Mesh
+
+    mesh = Mesh(shape=dict.fromkeys(AXES, 1), processes=1,
+                device=torch.device("cuda", torch.cuda.current_device()))
+    x = np.arange(48 * 5, dtype=np.int32).reshape(48, 5)
+    ds = Dataset.from_arrays({"x": x}, seed=7).shuffle().batch(8).with_ids()
+    host = list(ds.iterator(ShardSpec(0, 1)))
+    with ds.device_iterator(mesh, shard=ShardSpec(0, 1)) as it:
+        placed = list(it)
+    assert it._side is not None
+    assert len(placed) == len(host) == 6
+    for a, b in zip(placed, host):
+        assert a["x"].device.type == "cuda"
+        assert torch.equal(a["x"].cpu(), torch.from_numpy(b["x"]))
+        assert a["id"].tolist() == b["id"].tolist()

@@ -1,0 +1,765 @@
+"""Port parity for the input-data plane (tony_tpu_torch.data): the
+reference's tests/test_data.py pins (deterministic sharding across host
+counts, counter-based shuffle RNG, iterator state, prefetch) on the
+port's copies, the port's example-id stream held EQUAL to the
+reference's, and checkpointed kill → resume through the port's train_loop
+on llama-tiny. Everything runs on the CPU: without a mesh the iterator's
+batches stay host numpy, and nothing is pinned."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from tony_tpu import data as jdata
+from tony_tpu_torch import constants, data, profiler
+from tony_tpu_torch import train as ttrain
+from tony_tpu_torch.ckpt import format as fmt
+from tony_tpu_torch.models import get_model
+
+N = 48
+GB = 8   # global batch
+
+
+def _arrays(n=N):
+    # x encodes the example id so batches are self-identifying even
+    # without with_ids().
+    return {"x": np.arange(n, dtype=np.float32)[:, None]
+            * np.ones((1, 4), np.float32),
+            "y": (np.arange(n) % 10).astype(np.int64)}
+
+
+def _ds(n=N, seed=7, buffer_size=None, epochs=2, gb=GB):
+    ds = data.Dataset.from_arrays(_arrays(n), seed=seed)
+    ds = ds.shuffle(buffer_size) if buffer_size else ds.shuffle()
+    return ds.repeat(epochs).batch(gb).with_ids()
+
+
+def _ids(it, k=None):
+    """Per-batch id lists from an iterator ([k] batches, or all)."""
+    out = []
+    for batch in it:
+        out.append(batch["id"].tolist())
+        if k is not None and len(out) >= k:
+            break
+    return out
+
+
+class TestShardSpec:
+    def test_standalone_default(self, monkeypatch):
+        for k in (constants.ENV_PROCESS_ID, constants.ENV_NUM_PROCESSES,
+                  constants.ENV_TASK_INDEX, constants.ENV_TASK_NUM):
+            monkeypatch.delenv(k, raising=False)
+        assert data.ShardSpec.from_env() == data.ShardSpec(0, 1)
+
+    def test_rendezvous_pair_wins_over_task_pair(self, monkeypatch):
+        """TONY_PROCESS_ID is the GLOBAL rank; the per-jobtype task index
+        only coincides with it in single-jobtype gangs."""
+        monkeypatch.setenv(constants.ENV_TASK_INDEX, "0")
+        monkeypatch.setenv(constants.ENV_TASK_NUM, "2")
+        monkeypatch.setenv(constants.ENV_PROCESS_ID, "3")
+        monkeypatch.setenv(constants.ENV_NUM_PROCESSES, "4")
+        assert data.ShardSpec.from_env() == data.ShardSpec(3, 4)
+
+    def test_executor_pair_fallback(self, monkeypatch):
+        for k in (constants.ENV_PROCESS_ID, constants.ENV_NUM_PROCESSES):
+            monkeypatch.delenv(k, raising=False)
+        monkeypatch.setenv(constants.ENV_TASK_INDEX, "1")
+        monkeypatch.setenv(constants.ENV_TASK_NUM, "2")
+        assert data.ShardSpec.from_env() == data.ShardSpec(1, 2)
+
+    def test_validation(self):
+        with pytest.raises(ValueError, match="out of range"):
+            data.ShardSpec(2, 2)
+        with pytest.raises(ValueError, match="world_size"):
+            data.ShardSpec(0, 0)
+        with pytest.raises(ValueError, match="not divisible"):
+            data.ShardSpec(0, 3).local_slice(8)
+
+    def test_local_slices_partition_the_batch(self):
+        slices = [data.ShardSpec(i, 4).local_slice(8) for i in range(4)]
+        ids = np.arange(8)
+        np.testing.assert_array_equal(
+            np.concatenate([ids[s] for s in slices]), ids)
+
+    def test_shard_files_round_robin(self):
+        files = [f"f{i}" for i in range(6)]
+        a = data.ShardSpec(0, 2).shard_files(files)
+        b = data.ShardSpec(1, 2).shard_files(files)
+        assert a == ["f0", "f2", "f4"] and b == ["f1", "f3", "f5"]
+        assert sorted(a + b) == files
+
+    def test_shard_files_uneven_rejected_unless_padded(self):
+        """An uneven file split gives hosts different source lengths —
+        gang desync at epoch end and a cursor no other host can restore —
+        so it must fail loudly at assignment time, with wrap-padding as
+        the explicit opt-in."""
+        files = [f"f{i}" for i in range(5)]
+        with pytest.raises(ValueError, match="not divisible by world_size"):
+            data.ShardSpec(0, 2).shard_files(files)
+        a = data.ShardSpec(0, 2).shard_files(files, pad=True)
+        b = data.ShardSpec(1, 2).shard_files(files, pad=True)
+        assert len(a) == len(b) == 3          # equal per-host counts
+        assert a == ["f0", "f2", "f4"] and b == ["f1", "f3", "f0"]
+
+
+class TestDeterminism:
+    """The tentpole invariant: the GLOBAL example order is a pure function
+    of (seed, state) — independent of host count and shard."""
+
+    @pytest.mark.parametrize("buffer_size", [None, 16])
+    def test_global_stream_invariant_across_host_counts(self, buffer_size):
+        one = _ids(_ds(buffer_size=buffer_size).iterator(
+            data.ShardSpec(0, 1)))
+        its = [_ds(buffer_size=buffer_size).iterator(data.ShardSpec(i, 2))
+               for i in range(2)]
+        two = [sum((next(it)["id"].tolist() for it in its), [])
+               for _ in range(len(one))]
+        assert one == two
+        its4 = [_ds(buffer_size=buffer_size).iterator(
+            data.ShardSpec(i, 4)) for i in range(4)]
+        four = [sum((next(it)["id"].tolist() for it in its4), [])
+                for _ in range(len(one))]
+        assert one == four
+
+    def test_epoch_orders_are_distinct_permutations(self):
+        ids = _ids(_ds(epochs=2).iterator(data.ShardSpec(0, 1)))
+        flat = sum(ids, [])
+        e0, e1 = flat[:N], flat[N:2 * N]
+        assert sorted(e0) == sorted(e1) == list(range(N))
+        assert e0 != e1                       # per-epoch Philox key
+        assert e0 != list(range(N))           # actually shuffled
+
+    def test_same_seed_same_stream_different_seed_differs(self):
+        a = _ids(_ds(seed=7).iterator(data.ShardSpec(0, 1)))
+        b = _ids(_ds(seed=7).iterator(data.ShardSpec(0, 1)))
+        c = _ids(_ds(seed=8).iterator(data.ShardSpec(0, 1)))
+        assert a == b
+        assert a != c
+
+    def test_seed_env_default(self, monkeypatch):
+        monkeypatch.setenv(constants.ENV_DATA_SEED, "11")
+        assert data.Dataset.from_arrays(_arrays()).seed == 11
+        monkeypatch.delenv(constants.ENV_DATA_SEED)
+        assert data.Dataset.from_arrays(_arrays()).seed == 0
+
+    def test_unshuffled_is_sequential(self):
+        ds = (data.Dataset.from_arrays(_arrays(16), seed=0)
+              .batch(8).with_ids())
+        assert _ids(ds.iterator(data.ShardSpec(0, 1))) == \
+            [list(range(8)), list(range(8, 16))]
+
+    def test_partial_final_batch_dropped(self):
+        ds = (data.Dataset.from_arrays(_arrays(20), seed=0)
+              .batch(8).with_ids())
+        assert len(_ids(ds.iterator(data.ShardSpec(0, 1)))) == 2
+
+    def test_shuffle_buffer_emits_each_id_once_per_epoch(self):
+        ids = sum(_ids(_ds(buffer_size=12, epochs=2).iterator(
+            data.ShardSpec(0, 1))), [])
+        assert sorted(ids) == sorted(list(range(N)) * 2)
+
+
+class TestSources:
+    def test_array_source_leaf_length_mismatch(self):
+        with pytest.raises(ValueError, match="leading example dim"):
+            data.ArraySource({"x": np.zeros((4, 2)), "y": np.zeros((5,))})
+
+    def test_memmap_source_streams_npy(self, tmp_path):
+        arrays = _arrays(16)
+        paths = {}
+        for k, v in arrays.items():
+            paths[k] = tmp_path / f"{k}.npy"
+            np.save(paths[k], v)
+        src = data.MemmapSource(paths)
+        assert len(src) == 16
+        got = src.fetch(np.array([3, 1, 9]))
+        np.testing.assert_array_equal(got["x"], arrays["x"][[3, 1, 9]])
+        # The fetched batch must not alias the mapped file.
+        assert isinstance(got["x"], np.ndarray)
+        assert not isinstance(got["x"], np.memmap)
+
+    def test_file_list_source_one_example_per_file(self, tmp_path):
+        files = []
+        for i in range(6):
+            p = tmp_path / f"ex{i}.npy"
+            np.save(p, np.full((3,), i, np.float32))
+            files.append(p)
+
+        def loader(p):
+            return {"x": np.load(p)}
+
+        ds = (data.Dataset.from_files(files, loader, seed=0)
+              .batch(2).with_ids())
+        batches = list(ds.iterator(data.ShardSpec(0, 1)))
+        assert [b["id"].tolist() for b in batches] == \
+            [[0, 1], [2, 3], [4, 5]]
+        np.testing.assert_array_equal(
+            batches[1]["x"], [[2, 2, 2], [3, 3, 3]])
+
+
+class TestIteratorState:
+    @pytest.mark.parametrize("buffer_size", [None, 16])
+    def test_resume_mid_stream_is_element_identical(self, buffer_size):
+        full = _ids(_ds(buffer_size=buffer_size).iterator(
+            data.ShardSpec(0, 1)))
+        it = _ds(buffer_size=buffer_size).iterator(data.ShardSpec(0, 1))
+        _ids(it, k=3)
+        # JSON round-trip: the state must survive the manifest encoding.
+        state = json.loads(json.dumps(it.state()))
+        it2 = _ds(buffer_size=buffer_size).iterator(data.ShardSpec(0, 1))
+        it2.restore(state)
+        assert _ids(it2) == full[3:]
+
+    def test_restore_across_host_count_change(self):
+        """2-host stream, checkpoint mid-epoch, resume on 1 host: the
+        global stream continues element-identically (the acceptance pin's
+        data-plane half)."""
+        full = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        its = [_ds().iterator(data.ShardSpec(i, 2)) for i in range(2)]
+        for _ in range(3):
+            for it in its:
+                next(it)
+        states = [it.state() for it in its]
+        assert states[0] == states[1]         # cursor is global
+        it1 = _ds().iterator(data.ShardSpec(0, 1))
+        it1.restore(states[0])
+        assert _ids(it1) == full[3:]
+
+    def test_restore_rejects_forked_spec(self):
+        it = _ds(seed=7).iterator(data.ShardSpec(0, 1))
+        state = it.state()
+        other_seed = _ds(seed=8).iterator(data.ShardSpec(0, 1))
+        with pytest.raises(ValueError, match="seed"):
+            other_seed.restore(state)
+        other_batch = _ds(seed=7, gb=4).iterator(data.ShardSpec(0, 1))
+        with pytest.raises(ValueError, match="global_batch"):
+            other_batch.restore(state)
+        with pytest.raises(ValueError, match="version"):
+            it.restore(dict(state, version=99))
+
+    def test_transient_fetch_error_rolls_cursor_back(self):
+        """A failed fetch/map must not advance the cursor: a retry reads
+        the SAME global batch, and a state() taken after the failure
+        resumes at it — no silent skip."""
+        full = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        calls = {"n": 0}
+
+        def flaky(batch):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise OSError("transient read error")
+            return batch
+
+        ds = (data.Dataset.from_arrays(_arrays(), seed=7).shuffle()
+              .repeat(2).batch(GB).map(flaky).with_ids())
+        it = ds.iterator(data.ShardSpec(0, 1))
+        out, mid_state = [], None
+        while True:
+            try:
+                out.append(next(it)["id"].tolist())
+            except OSError:
+                mid_state = it.state()       # taken right after the failure
+            except StopIteration:
+                break
+        assert out == full                   # retry re-read, nothing skipped
+        it2 = ds.iterator(data.ShardSpec(0, 1))
+        it2.restore(mid_state)
+        assert next(it2)["id"].tolist() == full[2]
+
+    def test_map_fn_stopiteration_surfaces_as_error(self):
+        """PEP-479 hazard: a StopIteration leaking out of a user map_fn
+        must surface as a RuntimeError, not read as clean end-of-stream
+        and silently truncate the run — and the cursor must roll back so
+        a retry re-reads the same batch."""
+        full = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        side = iter(range(2))                # exhausts before the stream
+
+        def leaky(batch):
+            next(side)
+            return batch
+
+        ds = (data.Dataset.from_arrays(_arrays(), seed=7).shuffle()
+              .repeat(2).batch(GB).map(leaky).with_ids())
+        it = ds.iterator(data.ShardSpec(0, 1))
+        out = [next(it)["id"].tolist() for _ in range(2)]
+        with pytest.raises(RuntimeError, match="StopIteration"):
+            next(it)
+        # Rolled back: a state() taken after the error resumes at the
+        # batch the leaky map_fn failed on.
+        it2 = _ds().iterator(data.ShardSpec(0, 1))
+        it2.restore(it.state())
+        assert out + _ids(it2) == full
+
+    def test_with_ids_rejects_existing_leaf(self):
+        ds = (data.Dataset.from_arrays({"id": np.arange(N, dtype=np.int64),
+                                        "x": _arrays()["x"]}, seed=7)
+              .batch(GB).with_ids())
+        it = ds.iterator(data.ShardSpec(0, 1))
+        with pytest.raises(ValueError, match="already exists"):
+            next(it)
+        renamed = (data.Dataset.from_arrays(
+            {"id": np.arange(N, dtype=np.int64), "x": _arrays()["x"]},
+            seed=7).batch(GB).with_ids("stream_id"))
+        batch = next(renamed.iterator(data.ShardSpec(0, 1)))
+        assert batch["stream_id"].tolist() == batch["id"].tolist()
+
+    def test_exhaustion_rolls_back_dropped_partial_batch(self):
+        """StopIteration consumes (and drops) the final partial batch's
+        ids internally; the cursor must roll back past them, so a state()
+        taken after exhaustion — restored into a pipeline with MORE
+        epochs — replays the boundary-spanning batch instead of silently
+        skipping the dropped tail."""
+        short = _ds(n=10, epochs=3, gb=4).iterator(data.ShardSpec(0, 1))
+        emitted = _ids(short)            # 30 ids -> 7 full batches, 2 dropped
+        assert len(emitted) == 7
+        end_state = short.state()
+        longer = _ds(n=10, epochs=5, gb=4)
+        resumed = longer.iterator(data.ShardSpec(0, 1))
+        resumed.restore(end_state)
+        full = _ids(longer.iterator(data.ShardSpec(0, 1)))
+        assert emitted + _ids(resumed) == full
+
+    def test_empty_source_rejected_at_construction(self):
+        """repeat() over a zero-length source would spin the index stream
+        forever — it must fail at iterator construction instead."""
+        ds = (data.Dataset.from_arrays({"x": np.empty((0, 4))})
+              .shuffle().repeat().batch(1))
+        with pytest.raises(ValueError, match="empty"):
+            ds.iterator(data.ShardSpec(0, 1))
+
+    def test_restore_rejects_resized_source(self):
+        """A source that grew (or shrank) since the save invalidates the
+        saved epoch permutation — restore must fail loudly, not silently
+        fork the stream."""
+        state = _ds().iterator(data.ShardSpec(0, 1)).state()
+        grown = _ds(n=N + 8).iterator(data.ShardSpec(0, 1))
+        with pytest.raises(ValueError, match="source_len"):
+            grown.restore(state)
+
+    def test_restore_rejects_changed_shuffle_config(self):
+        state = _ds(buffer_size=16).iterator(data.ShardSpec(0, 1)).state()
+        other_buf = _ds(buffer_size=8).iterator(data.ShardSpec(0, 1))
+        with pytest.raises(ValueError, match="buffer_size"):
+            other_buf.restore(state)
+        permuted = _ds().iterator(data.ShardSpec(0, 1))
+        with pytest.raises(ValueError, match="shuffle"):
+            permuted.restore(state)
+
+
+class TestPrefetch:
+    def test_prefetched_stream_equals_sync(self):
+        sync = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        with data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                 None, depth=2) as dit:
+            assert [b["id"].tolist() for b in dit] == sync
+
+    def test_depth0_is_synchronous(self):
+        sync = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        with data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                 None, depth=0) as dit:
+            assert [b["id"].tolist() for b in dit] == sync
+
+    def test_state_tracks_delivered_not_prefetched(self):
+        """With depth=2 the producer runs ahead; a checkpoint between
+        steps must resume at the next UNDELIVERED batch."""
+        full = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        dit = data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                  None, depth=2)
+        for _ in range(3):
+            next(dit)
+        time.sleep(0.05)            # let the producer run ahead
+        state = dit.state()
+        dit.close()
+        dit2 = data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                   None, depth=2)
+        dit2.restore(state)
+        assert [b["id"].tolist() for b in dit2] == full[3:]
+        dit2.close()
+
+    def test_restore_after_start_raises(self):
+        dit = data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                  None, depth=1)
+        state = dit.state()
+        next(dit)
+        with pytest.raises(RuntimeError, match="after iteration"):
+            dit.restore(state)
+        dit.close()
+
+    def test_map_error_propagates(self):
+        def boom(batch):
+            raise RuntimeError("decode failed")
+
+        ds = (data.Dataset.from_arrays(_arrays(16), seed=0)
+              .batch(8).map(boom))
+        with data.DeviceIterator(ds.iterator(data.ShardSpec(0, 1)),
+                                 None, depth=1) as dit:
+            with pytest.raises(RuntimeError, match="prefetch thread"):
+                next(dit)
+            # The error stays latched: a caller that caught it and reads
+            # again must NOT see a clean StopIteration (that would make a
+            # failed feed look like a completed epoch).
+            with pytest.raises(RuntimeError, match="prefetch thread"):
+                next(dit)
+
+    def test_depth0_place_failure_does_not_skip(self, monkeypatch):
+        """Transient device-transfer failure at depth 0: a retried next()
+        must re-place the SAME batch — the synchronous twin of the
+        pipeline's cursor rollback."""
+        sync = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        orig = data.DeviceIterator._place
+        calls = {"n": 0}
+
+        def flaky(self, batch):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("transient transfer error")
+            return orig(self, batch)
+
+        monkeypatch.setattr(data.DeviceIterator, "_place", flaky)
+        dit = data.DeviceIterator(
+            _ds().iterator(data.ShardSpec(0, 1)), None, depth=0)
+        out = []
+        while True:
+            try:
+                out.append(next(dit)["id"].tolist())
+            except RuntimeError:
+                continue
+            except StopIteration:
+                break
+        assert out == sync
+
+    def test_depth0_state_in_pending_retry_window(self, monkeypatch):
+        """state() taken between a depth-0 place failure and its retry
+        must return the cursor of the last DELIVERED batch: the pending
+        batch was never delivered, so a resume from that state replays
+        it (depth 0 reads the pipeline lazily — this is the one window
+        where the raw cursor is a batch ahead)."""
+        sync = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        orig = data.DeviceIterator._place
+        calls = {"n": 0}
+
+        def flaky(self, batch):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("transient transfer error")
+            return orig(self, batch)
+
+        monkeypatch.setattr(data.DeviceIterator, "_place", flaky)
+        dit = data.DeviceIterator(
+            _ds().iterator(data.ShardSpec(0, 1)), None, depth=0)
+        first = next(dit)["id"].tolist()
+        with pytest.raises(RuntimeError, match="transient"):
+            next(dit)                    # batch 1 pulled, left pending
+        mid = dit.state()                # cursor must say "after batch 0"
+        it2 = _ds().iterator(data.ShardSpec(0, 1))
+        it2.restore(mid)
+        assert [first] + _ids(it2) == sync
+
+    def test_depth0_restore_discards_pending_batch(self, monkeypatch):
+        """A depth-0 place failure on the FIRST next() leaves its batch
+        pending for retry; restore() must discard it — the pending batch
+        predates the restored cursor and delivering it would pair a stale
+        example with the new stream position."""
+        ref = _ds().iterator(data.ShardSpec(0, 1))
+        next(ref)
+        mid_state = ref.state()          # cursor after batch 1
+        expect = next(ref)["id"].tolist()
+
+        orig = data.DeviceIterator._place
+
+        def failing(self, batch):
+            raise RuntimeError("transient transfer error")
+
+        monkeypatch.setattr(data.DeviceIterator, "_place", failing)
+        dit = data.DeviceIterator(
+            _ds().iterator(data.ShardSpec(0, 1)), None, depth=0)
+        with pytest.raises(RuntimeError):
+            next(dit)                    # batch 0 pulled, left pending
+        monkeypatch.setattr(data.DeviceIterator, "_place", orig)
+        dit.restore(mid_state)
+        assert next(dit)["id"].tolist() == expect
+
+    def test_dropped_iterator_producer_thread_exits(self):
+        """A DeviceIterator dropped WITHOUT close() must not leak its
+        producer: the thread holds the iterator only weakly, observes the
+        drop, and exits."""
+        import gc
+
+        dit = data.DeviceIterator(
+            _ds().iterator(data.ShardSpec(0, 1)), None, depth=1)
+        next(dit)                      # start the producer; queue fills
+        thread = dit._thread
+        del dit
+        gc.collect()
+        thread.join(timeout=10.0)
+        assert not thread.is_alive()
+
+    def test_input_stall_recorded_in_profiler(self):
+        profiler.reset_input_records()
+        with data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                 None, depth=1, tag="t_input") as dit:
+            next(dit)
+            next(dit)
+        report = profiler.input_report()
+        assert "t_input" in report
+        rec = report["t_input"]
+        assert rec["depth"] == 1 and rec["steps"] == 2
+        assert rec["wait_s_last"] >= 0.0
+        assert rec["wait_s_total"] >= rec["wait_s_last"]
+        # Deep-copied snapshot: mutating it must not alias the registry.
+        rec["steps"] = -1
+        assert profiler.input_report()["t_input"]["steps"] == 2
+
+
+
+def _jds(n=N, seed=7, buffer_size=None, epochs=2, gb=GB):
+    ds = jdata.Dataset.from_arrays(_arrays(n), seed=seed)
+    ds = ds.shuffle(buffer_size) if buffer_size else ds.shuffle()
+    return ds.repeat(epochs).batch(gb).with_ids()
+
+
+class TestEqualsTheReference:
+    """The port's pipeline is a copy: for the same seed, shuffle
+    configuration and ShardSpec its example-id stream, its batches and
+    its cursor EQUAL the reference's (numpy's Philox streams on both
+    sides)."""
+
+    @pytest.mark.parametrize("buffer_size", [None, 16])
+    @pytest.mark.parametrize("shard", [(0, 1), (1, 2), (3, 4)])
+    def test_id_stream_and_state_equal(self, buffer_size, shard):
+        ours = _ds(buffer_size=buffer_size).iterator(data.ShardSpec(*shard))
+        ref = _jds(buffer_size=buffer_size).iterator(
+            jdata.ShardSpec(*shard))
+        n = 0
+        for a, b in zip(ours, ref):
+            assert a["id"].tolist() == b["id"].tolist()
+            np.testing.assert_array_equal(a["x"], b["x"])
+            n += 1
+            if n == 3:
+                assert ours.state() == ref.state()
+        assert n == 2 * N // GB
+        assert ours.state() == ref.state()
+
+    def test_reference_cursor_restores_into_the_port(self):
+        ref = _jds(buffer_size=16).iterator(jdata.ShardSpec(0, 1))
+        for _ in range(4):
+            next(ref)
+        ours = _ds(buffer_size=16).iterator(data.ShardSpec(0, 1))
+        ours.restore(json.loads(json.dumps(ref.state())))
+        assert _ids(ours) == _ids(ref)
+
+    def test_copied_constants_equal_the_reference(self):
+        from tony_tpu import constants as jconstants
+        from tony_tpu.data import ckptio as jckptio
+        from tony_tpu.data import pipeline as jpipeline
+        from tony_tpu_torch.data import ckptio, pipeline
+
+        for name in ("ENV_DATA_SEED", "ENV_PROCESS_ID", "ENV_NUM_PROCESSES",
+                     "ENV_TASK_INDEX", "ENV_TASK_NUM"):
+            assert getattr(constants, name) == getattr(jconstants, name)
+        for name in ("STATE_VERSION", "_BUFFER_SALT", "_DRAW_BLOCK"):
+            assert getattr(pipeline, name) == getattr(jpipeline, name)
+        for name in ("MODEL_KEY", "DATA_ITER_KEY", "DATA_ITER_PATH"):
+            assert getattr(ckptio, name) == getattr(jckptio, name)
+        state = {"b": [1, 2], "a": 3}
+        np.testing.assert_array_equal(data.encode_state(state),
+                                      jdata.encode_state(state))
+
+
+class TestPlacement:
+    def test_cpu_mesh_places_tensors_without_pinning(self):
+        """With a CPU mesh each batch becomes torch tensors on the CPU
+        through global_batch, none pinned; the stream is the host one."""
+        from tony_tpu_torch.parallel import AXES, Mesh
+
+        mesh = Mesh(shape=dict.fromkeys(AXES, 1), processes=1,
+                    device=torch.device("cpu"))
+        sync = _ids(_ds().iterator(data.ShardSpec(0, 1)))
+        with data.DeviceIterator(_ds().iterator(data.ShardSpec(0, 1)),
+                                 mesh, depth=2) as dit:
+            batches = list(dit)
+        assert [b["id"].tolist() for b in batches] == sync
+        assert all(isinstance(b["x"], torch.Tensor)
+                   and b["x"].device.type == "cpu"
+                   and not b["x"].is_pinned() for b in batches)
+
+    def test_device_iterator_is_built_by_the_dataset(self):
+        dit = _ds().device_iterator(shard=data.ShardSpec(0, 1), prefetch=0)
+        assert isinstance(dit, data.DeviceIterator) and dit.depth == 0
+        assert _ids(dit) == _ids(_ds().iterator(data.ShardSpec(0, 1)))
+
+
+VOCAB, SEQ, TRAIN_N, TRAIN_GB = 256, 9, 32, 4
+
+
+def _tokens(n=TRAIN_N, seed=3):
+    return np.random.RandomState(seed).randint(0, VOCAB, (n, SEQ)).astype(
+        np.int32)
+
+
+def _train_ds(seed=5, epochs=1):
+    return (data.Dataset.from_arrays({"x": _tokens()}, seed=seed)
+            .shuffle().repeat(epochs).batch(TRAIN_GB).with_ids())
+
+
+def _llama_state(seed=0):
+    model = get_model("llama-tiny", device="cpu", dtype=torch.float32,
+                      seed=seed)
+    return ttrain.create_train_state(model, ttrain.adamw(1e-3))
+
+
+def _params(state):
+    return {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+
+_BASE = ttrain.make_train_step(
+    loss_of=lambda logits, b: ttrain.next_token_loss(logits, b["x"]))
+
+
+def _step_recording(ids):
+    def step_fn(state, batch):
+        ids.append(batch["id"].tolist())
+        return _BASE(state, {"x": torch.from_numpy(batch["x"])})
+    return step_fn
+
+
+class TestCkptIntegration:
+    """The reference's acceptance pin through the port: a
+    checkpoint-interrupted run's example stream — and the trajectory it
+    drives — is identical to an uninterrupted run's, bit for bit, via the
+    port's manifest and atomic commit (llama-tiny, AdamW, on the CPU)."""
+
+    def _run(self, ids, ckpt_dir=None, save_every=0, bomb_at=None, seed=0):
+        def on_step(done, _metrics):
+            if bomb_at is not None and done == bomb_at:
+                raise KeyboardInterrupt   # the "kill"
+
+        dit = data.DeviceIterator(
+            _train_ds().iterator(data.ShardSpec(0, 1)), None, depth=2)
+        try:
+            return ttrain.train_loop(
+                _llama_state(seed), _step_recording(ids), data=dit,
+                ckpt_dir=str(ckpt_dir) if ckpt_dir else None,
+                save_every=save_every, on_step=on_step)
+        finally:
+            dit.close()
+
+    def test_interrupted_resume_is_element_identical(self, tmp_path):
+        full_ids = []
+        s_full, _ = self._run(full_ids)
+        assert len(full_ids) == TRAIN_N // TRAIN_GB == 8
+
+        part_ids = []
+        with pytest.raises(KeyboardInterrupt):
+            self._run(part_ids, ckpt_dir=tmp_path, save_every=2, bomb_at=5)
+        assert fmt.committed_steps(tmp_path) == [2, 4]
+
+        resumed_ids = []
+        # Fresh weights from another seed: only the restore makes them
+        # right.
+        s_res, _ = self._run(resumed_ids, ckpt_dir=tmp_path, save_every=2,
+                             seed=1)
+        assert resumed_ids == full_ids[4:]
+        assert s_res.step == s_full.step == 8
+        assert s_res.opt_state.count == 8
+        a, b = _params(s_full), _params(s_res)
+        assert all(torch.equal(a[n], b[n]) for n in a)
+        for x, y in zip(s_full.opt_state.mu + s_full.opt_state.nu,
+                        s_res.opt_state.mu + s_res.opt_state.nu):
+            assert torch.equal(x, y)
+
+    def test_two_host_to_one_host_resume_via_manifest(self, tmp_path):
+        from tony_tpu_torch import ckpt as ckpt_mod
+
+        full = _ids(_train_ds().iterator(data.ShardSpec(0, 1)))
+        its = [_train_ds().iterator(data.ShardSpec(i, 2)) for i in range(2)]
+        two_host = [sum((next(it)["id"].tolist() for it in its), [])
+                    for _ in range(3)]
+        assert two_host == full[:3]
+        c = ckpt_mod.AsyncCheckpointer(tmp_path, keep=2)
+        c.save(data.wrap_for_save({"w": np.ones((2,), np.float32)},
+                                  its[0].state()), step=3, block=True)
+        c.close()
+        assert data.has_iter_state(tmp_path, 3)
+        one = _train_ds().iterator(data.ShardSpec(0, 1))
+        one.restore(data.load_iter_state(tmp_path))
+        assert _ids(one) == full[3:]
+
+    def test_cursor_written_by_the_port_reads_in_the_reference(
+            self, tmp_path):
+        from tony_tpu.data import ckptio as jckptio
+        from tony_tpu_torch import ckpt as ckpt_mod
+
+        it = _train_ds().iterator(data.ShardSpec(0, 1))
+        next(it)
+        c = ckpt_mod.AsyncCheckpointer(tmp_path, keep=2)
+        c.save(data.wrap_for_save({"w": np.ones((2,), np.float32)},
+                                  it.state()), step=1, block=True)
+        c.close()
+        assert jckptio.load_iter_state(tmp_path, 1) == it.state()
+
+    def test_train_loop_closes_data_iterator_on_step_failure(self):
+        dit = data.DeviceIterator(
+            _train_ds().iterator(data.ShardSpec(0, 1)), None, depth=2)
+
+        def boom(_s, _b):
+            raise RuntimeError("nan guard")
+
+        with pytest.raises(RuntimeError, match="nan guard"):
+            ttrain.train_loop(_llama_state(), boom, data=dit)
+        assert dit._closed
+        if dit._started:
+            dit._thread.join(timeout=5.0)
+            assert not dit._thread.is_alive()
+
+    def test_wrapped_checkpoint_restores_into_batches_run(self, tmp_path,
+                                                          caplog):
+        from tony_tpu_torch import ckpt as ckpt_mod
+
+        saved = _llama_state(seed=4)
+        it = _train_ds().iterator(data.ShardSpec(0, 1))
+        next(it)
+        c = ckpt_mod.AsyncCheckpointer(tmp_path, keep=2)
+        c.save(data.wrap_for_save(ckpt_mod.encode_portable(saved),
+                                  it.state()), step=1, block=True)
+        c.close()
+        assert data.has_iter_state(tmp_path, 1)
+        with caplog.at_level("WARNING", logger="tony_tpu_torch.train"):
+            s_res, _ = ttrain.train_loop(
+                _llama_state(), lambda s, b: (s, {}), batches=[],
+                ckpt_dir=str(tmp_path), save_every=0, save_final=False)
+        assert "data-iterator state" in caplog.text
+        a, b = _params(saved), _params(s_res)
+        assert all(torch.equal(a[n], b[n]) for n in a)
+
+    def test_bare_checkpoint_still_restores_model(self, tmp_path):
+        from tony_tpu_torch import ckpt as ckpt_mod
+
+        state = _llama_state(seed=9)
+        c = ckpt_mod.AsyncCheckpointer(tmp_path, keep=2)
+        c.save(ckpt_mod.encode_portable(state), step=1, block=True)
+        c.close()
+        assert not data.has_iter_state(tmp_path, 1)
+        with pytest.raises(KeyError, match="no.*data_iter"):
+            data.load_iter_state(tmp_path)
+        ids = []
+        dit = data.DeviceIterator(
+            _train_ds().iterator(data.ShardSpec(0, 1)), None, depth=1)
+        s_res, _ = ttrain.train_loop(_llama_state(), _step_recording(ids),
+                                     data=dit, ckpt_dir=str(tmp_path),
+                                     save_every=0, save_final=False)
+        assert ids == _ids(_train_ds().iterator(data.ShardSpec(0, 1)))
+        expect = _llama_state(seed=9)
+        for b in _train_ds().iterator(data.ShardSpec(0, 1)):
+            expect, _ = _BASE(expect, {"x": torch.from_numpy(b["x"])})
+        a, b = _params(expect), _params(s_res)
+        assert all(torch.equal(a[n], b[n]) for n in a)
+
+    def test_state_roundtrip_through_encode_decode(self):
+        it = _train_ds().iterator(data.ShardSpec(0, 1))
+        next(it)
+        state = it.state()
+        assert data.decode_state(data.encode_state(state)) == state

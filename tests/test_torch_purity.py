@@ -14,7 +14,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tony_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes", "tony_tpu"}
 
 
 def _port_sources():
@@ -47,8 +47,20 @@ def test_sources_found():
                  "tony_tpu_torch/distributed.py",
                  "tony_tpu_torch/constants.py", "tony_tpu_torch/chaos.py",
                  "tony_tpu_torch/profiler.py",
+                 "tony_tpu_torch/ckpt/__init__.py",
+                 "tony_tpu_torch/ckpt/format.py",
+                 "tony_tpu_torch/ckpt/snapshot.py",
+                 "tony_tpu_torch/ckpt/restore.py",
+                 "tony_tpu_torch/data/__init__.py",
+                 "tony_tpu_torch/data/sharding.py",
+                 "tony_tpu_torch/data/pipeline.py",
+                 "tony_tpu_torch/data/ckptio.py",
+                 "tony_tpu_torch/data/prefetch.py",
+                 "tony_tpu_torch/publish.py",
+                 "tony_tpu_torch/checkpoint.py",
                  "tests/workloads/torch_dp_train.py",
-                 "tests/workloads/torch_dp_steps.py"):
+                 "tests/workloads/torch_dp_steps.py",
+                 "tests/workloads/torch_ckpt_ranks.py"):
         assert must in names
     from tony_tpu_torch.ops import _build
     for name in _build.SOURCES:

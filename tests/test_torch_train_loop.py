@@ -26,8 +26,9 @@ from tony_tpu import constants as jconstants
 from tony_tpu import profiler as jprofiler
 from tony_tpu import train as jtrain
 from tony_tpu.models import get_model as jax_model
-from tony_tpu_torch import chaos, constants, profiler
+from tony_tpu_torch import chaos, ckpt, constants, profiler, publish
 from tony_tpu_torch import train as ttrain
+from tony_tpu_torch.ckpt import format as fmt
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import load_jax_params, params_from_jax
 from tony_tpu_torch.parallel import AXES, Mesh
@@ -168,6 +169,51 @@ class TestChunkedLoss:
         assert abs(float(loss) - jl) <= 2e-2 * abs(jl)
         assert all(g.dtype == torch.float32 and bool(torch.isfinite(g).all())
                    for g in grads.values())
+
+    @pytest.mark.parametrize("chunk", [8, 7])
+    def test_bf16_grads_vs_jax(self, chunk):
+        """bf16 compute over 4 chunks (8 rows each) and 5 (the last one
+        padded in JAX): the value and both grads against JAX's bf16
+        function, each grad held to its own size — relative L2 ≤ 2e-2 and
+        max |Δ| ≤ 5e-2·max |ref| (measured: dh 3.3e-3 / 6.9e-3, dW 4.8e-3
+        / 8.5e-3); the loss to 1e-3 relative (measured 2e-4). The port
+        sums the head's dW over chunks in f32 where JAX's scan carries it
+        in bf16 (a stated deviation, ROADMAP.md queue 3). Controls: a
+        zeroed dh or dW, and the dW of every chunk but the last (rows of
+        the last chunk zeroed: relative L2 0.37-0.50), fail the limit."""
+        rng = np.random.RandomState(chunk)
+        h = rng.standard_normal((2, 17, 64)).astype(np.float32)
+        w = (0.3 * rng.standard_normal((64, 256))).astype(np.float32)
+        tok = rng.randint(0, 256, (2, 17)).astype(np.int32)
+        jl, (jdh, jdw) = jax.value_and_grad(
+            lambda a, b: jtrain.chunked_next_token_xent(
+                a, b, jnp.asarray(tok), chunk, jnp.bfloat16),
+            argnums=(0, 1))(jnp.asarray(h), jnp.asarray(w))
+        jdh, jdw = np.asarray(jdh), np.asarray(jdw).T
+
+        def port(hidden):
+            th = torch.from_numpy(hidden).requires_grad_()
+            tw = torch.from_numpy(w.T.copy()).requires_grad_()
+            loss = ttrain.chunked_next_token_xent(
+                th, tw, torch.from_numpy(tok), chunk, torch.bfloat16)
+            loss.backward()
+            return float(loss.detach()), th.grad.numpy(), tw.grad.numpy()
+
+        def near(got, ref):
+            d = got - ref
+            return (np.linalg.norm(d) <= 2e-2 * np.linalg.norm(ref)
+                    and np.abs(d).max() <= 5e-2 * np.abs(ref).max())
+
+        loss, dh, dw = port(h)
+        assert -(-32 // chunk) >= 2
+        assert abs(loss - float(jl)) <= 1e-3 * abs(float(jl))
+        assert near(dh, jdh) and near(dw, jdw)
+        short = h.copy()
+        for row in range(31 // chunk * chunk, 32):   # the last chunk's rows
+            short[row // 16, row % 16] = 0.0
+        assert not near(port(short)[2], jdw)
+        assert not near(np.zeros_like(dw), jdw)
+        assert not near(np.zeros_like(dh), jdh)
 
     def test_without_targets_the_plain_head(self, setup):
         """No targets: the same logits as the plain-head model, bitwise,
@@ -422,8 +468,9 @@ class TestGlobalBatch:
 @pytest.fixture
 def clean_train_env(monkeypatch):
     for name in (constants.ENV_CKPT_DIR, constants.ENV_CKPT_EVERY,
-                 constants.ENV_PUBLISH_EVERY, constants.ENV_DRAIN_FILE,
-                 constants.ENV_SERVE_STATS, chaos.ENV_KILL_STEP):
+                 constants.ENV_CKPT_KEEP, constants.ENV_PUBLISH_EVERY,
+                 constants.ENV_DRAIN_FILE, constants.ENV_SERVE_STATS,
+                 chaos.ENV_KILL_STEP):
         monkeypatch.delenv(name, raising=False)
     yield
     chaos.reset()
@@ -510,14 +557,53 @@ class TestTrainLoop:
         ({"keep": 3}, None), ({"publish_every": 1}, None),
         ({}, ("TONY_CKPT_DIR", "ckpt")), ({}, ("TONY_CKPT_EVERY", "2")),
         ({}, ("TONY_PUBLISH_EVERY", "1"))])
-    def test_checkpoint_arguments_raise(self, monkeypatch, arg, env):
+    def test_checkpoint_settings_take_effect(self, tmp_path, monkeypatch,
+                                             arg, env):
+        """Each checkpoint argument and env takes effect, where it raised
+        before the checkpoint plane was ported: a directory commits the
+        final step, a save interval commits every k-th step, a retention
+        prunes, a publication interval advances published.json. Five
+        steps on a tensor state; the directory comes from the case or,
+        for the other settings, is passed beside them."""
+        root = tmp_path / "ckpt"
+        arg = {k: (str(root) if k == "ckpt_dir" else v)
+               for k, v in arg.items()}
         if env is not None:
-            monkeypatch.setenv(*env)
+            monkeypatch.setenv(env[0], str(root) if env[1] == "ckpt"
+                               else env[1])
+        kw = dict(arg)
+        if "ckpt_dir" not in kw and (env is None or env[0] !=
+                                     constants.ENV_CKPT_DIR):
+            kw["ckpt_dir"] = str(root)
+        if "keep" in kw:
+            kw["save_every"] = 1
         calls = []
-        with pytest.raises(NotImplementedError, match="item 3"):
-            ttrain.train_loop({}, lambda s, b: calls.append(b) or (s, {}),
-                              [{}], **arg)
-        assert calls == []               # raised before any step
+
+        def step(state, batch):
+            calls.append(batch)
+            state["w"] += 1.0
+            return state, {}
+
+        state, _ = ttrain.train_loop({"w": torch.zeros(2)}, step,
+                                     [{}] * 5, **kw)
+        assert len(calls) == 5 and torch.equal(state["w"],
+                                               torch.full((2,), 5.0))
+        steps = fmt.committed_steps(root)
+        name = next(iter(arg)) if arg else env[0]
+        if name in ("save_every", constants.ENV_CKPT_EVERY):
+            assert steps == [2, 4, 5]           # every 2nd step + final
+        elif name == "keep":
+            assert steps == [3, 4, 5]           # 5 saves, 3 kept
+        else:
+            assert steps == [5]
+        published = publish.latest_publication(root)
+        if name in ("publish_every", constants.ENV_PUBLISH_EVERY):
+            assert (published["version"], published["step"]) == (1, 5)
+        else:
+            assert published is None
+        target = {"w": torch.zeros(2)}
+        ckpt.restore_pytree(root, target)
+        assert torch.equal(target["w"], torch.full((2,), 5.0))
 
     def test_unset_checkpoint_env_trains(self, monkeypatch):
         """Empty or zero checkpoint env values mean "not set", as in the
@@ -578,13 +664,16 @@ class TestStatsWriter:
 
 
 def test_constants_equal_the_reference():
-    names = ("ENV_CKPT_DIR", "ENV_CKPT_EVERY", "ENV_SERVE_STATS",
+    names = ("ENV_CKPT_DIR", "ENV_CKPT_EVERY", "ENV_CKPT_KEEP",
+             "ENV_DATA_SEED", "ENV_PROCESS_ID", "ENV_NUM_PROCESSES",
+             "ENV_TASK_INDEX", "ENV_TASK_NUM", "ENV_SERVE_STATS",
              "ENV_DRAIN_FILE", "ENV_PUBLISH_EVERY", "ENV_MASTER_ADDR",
              "ENV_MASTER_PORT", "ENV_RANK", "ENV_WORLD_SIZE",
              "ENV_LOCAL_RANK", "ENV_INIT_METHOD", "EXIT_DRAINED")
     for name in names:
         assert getattr(constants, name) == getattr(jconstants, name), name
     assert chaos.ENV_KILL_STEP == jchaos.ENV_KILL_STEP
+    assert chaos.ENV_CRASH == jchaos.ENV_CRASH
     ours = {k for k in vars(constants) if k.isupper()}
     assert ours == set(names)
 

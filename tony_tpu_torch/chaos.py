@@ -1,13 +1,15 @@
-"""Scripted preemption for the port's train loop: a copy of the part of
-:mod:`tony_tpu.chaos` that :func:`tony_tpu_torch.train.train_loop`
-consults.
+"""Scripted faults for the port's train loop and publication: a copy of
+the part of :mod:`tony_tpu.chaos` that
+:func:`tony_tpu_torch.train.train_loop` and
+:mod:`tony_tpu_torch.publish` consult.
 
 ``TONY_CHAOS_KILL_STEP=k`` SIGKILLs this process as training step ``k``
 completes, the same env the control plane's chaos harness arms for the
-JAX package's loop. A malformed value raises ``ValueError``: a typoed
-fault schedule must not turn a chaos test into a vacuous pass.
-In-process tests set ``KILL_HOOK`` to observe the fault instead of
-receiving SIGKILL, and call :func:`reset` after.
+JAX package's loop; ``TONY_CHAOS_CRASH=<site>`` SIGKILLs it at the named
+crash site (:func:`crash_point`). A malformed step raises
+``ValueError``: a typoed fault schedule must not turn a chaos test into a
+vacuous pass. In-process tests set ``KILL_HOOK``/``CRASH_HOOK`` to observe
+the fault instead of receiving SIGKILL, and call :func:`reset` after.
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ import signal
 from typing import Callable, Optional
 
 ENV_KILL_STEP = "TONY_CHAOS_KILL_STEP"
+ENV_CRASH = "TONY_CHAOS_CRASH"
 
-# When set, called with the step INSTEAD of delivering SIGKILL.
+# When set, called with the step (the site) INSTEAD of delivering SIGKILL.
 KILL_HOOK: Optional[Callable[[int], None]] = None
+CRASH_HOOK: Optional[Callable[[str], None]] = None
 
 
 def reset() -> None:
-    """Disarm the test hook (test epilogue)."""
-    global KILL_HOOK
+    """Disarm the test hooks (test epilogue)."""
+    global KILL_HOOK, CRASH_HOOK
     KILL_HOOK = None
+    CRASH_HOOK = None
 
 
 def _int_env(name: str) -> Optional[int]:
@@ -47,5 +52,17 @@ def kill_point(step: int) -> None:
         return
     if KILL_HOOK is not None:
         KILL_HOOK(step)
+        return
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def crash_point(site: str) -> None:
+    """SIGKILL at a named crash site when ``TONY_CHAOS_CRASH`` names it:
+    production code declares the site, a test arms exactly one, and the
+    invariant is whatever must survive a kill -9 there."""
+    if os.environ.get(ENV_CRASH, "") != site:
+        return
+    if CRASH_HOOK is not None:
+        CRASH_HOOK(site)
         return
     os.kill(os.getpid(), signal.SIGKILL)

@@ -25,15 +25,26 @@ keep the same paths (``QuantDense`` is ``nn.Dense``'s twin), so one
 converter serves both lanes of each model. bfloat16 arrays
 (ml_dtypes, which ``torch.from_numpy`` rejects) cross through a
 ``uint16`` view.
+
+The other way, :func:`jax_param_tree` views the port's tensors as the
+JAX package's param tree — its paths, shapes and layout, without a copy
+(:class:`~tony_tpu_torch.ckpt.snapshot.LeafView`): the decoder's
+scanned leaves stacked over layers (``layer_{i}`` without
+``scan_layers``), kernels ``[in, out]``, the head at ``lm_head_kernel``
+with ``xent_chunk``. :func:`portable_state` wraps a train state's views
+as the reference's ``TrainState`` (``.step``, ``.params``,
+``.opt_state``): the form its checkpoints carry.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from tony_tpu_torch.ckpt.snapshot import Attrs, LeafView
 
 _BLOCK_LEAVES = {
     ("attn_norm", "scale"): "attn_norm.scale",
@@ -150,8 +161,120 @@ def conv_params_from_jax(tree: Mapping[str, Any]
     return out
 
 
+def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: the JAX decoder's param
+    tree over ``tensors`` (``state_dict`` names → tensors: the parameters,
+    or one optimizer moment per parameter), as leaf views
+    (:class:`LeafView`) and tensors that alias them."""
+    head = LeafView.of(tensors["lm_head.weight"], transpose=True)
+    tree: Dict[str, Any] = {
+        "embedding": tensors["embedding"],
+        "final_norm": {"scale": tensors["final_norm.scale"]}}
+    if cfg.xent_chunk:
+        tree["lm_head_kernel"] = head
+    else:
+        tree["lm_head"] = {"kernel": head}
+
+    def put(block, path, leaf):
+        node = block
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    if cfg.scan_layers:
+        block: Dict[str, Any] = {}
+        for path, name in _BLOCK_LEAVES.items():
+            put(block, path, LeafView.stacked(
+                [tensors[f"layers.{i}.{name}"] for i in range(cfg.n_layers)],
+                transpose=path[-1] == "kernel"))
+        tree["layers"] = {"block": block}
+        return tree
+    for i in range(cfg.n_layers):
+        block = {}
+        for path, name in _BLOCK_LEAVES.items():
+            t = tensors[f"layers.{i}.{name}"]
+            put(block, path, LeafView.of(t, transpose=True)
+                if path[-1] == "kernel" else t)
+        tree[f"layer_{i}"] = {"block": block}
+    return tree
+
+
+def jax_param_tree(model: nn.Module,
+                   tensors: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Dict[str, Any]:
+    """``model``'s parameters (or ``tensors``, one per parameter name) as
+    the JAX package's param tree of the same model, through the layout the
+    model names as its ``params_to_jax``. A model that names none raises
+    ``NotImplementedError``: its portable form is not ported yet."""
+    layout = getattr(model, "params_to_jax", None)
+    if layout is None:
+        raise NotImplementedError(
+            f"{type(model).__name__} names no JAX param layout "
+            f"(params_to_jax): its checkpoint form is not ported yet "
+            f"(ROADMAP.md, queue 1 item 3)")
+    if tensors is None:
+        tensors = dict(model.named_parameters())
+    return layout(model.cfg, tensors)
+
+
+class PortableState(Attrs):
+    """The portable form of a port train state: the reference
+    ``TrainState``'s ``.step`` (an int64 scalar), ``.params`` and
+    ``.opt_state`` over views of the live tensors; ``live`` is the state
+    it views, which a codec's decode writes the restored scalars back
+    into."""
+    live: Any
+
+
+def portable_state(state: Any, opt_state: Any) -> PortableState:
+    """``state`` as the reference's ``TrainState`` tree, with the
+    optimizer's portable tree ``opt_state``."""
+    tree = PortableState(
+        step=torch.tensor(state.step, dtype=torch.int64),
+        params=jax_param_tree(state.model), opt_state=opt_state)
+    tree.live = state
+    return tree
+
+
+def _field(tree: Any, name: str) -> Any:
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _load_opt_state(model: nn.Module, state: Any, tree: Any) -> None:
+    """Moments, count and step of a JAX train state's numpy tree into the
+    port's ``state``: optax adamw's ``(ScaleByAdamState, ...)`` into an
+    ``AdamState``, or the fused optimizer's portable ``{"count", "leaf"}``
+    into its bucket-resident slots, in place."""
+    names = [n for n, _ in model.named_parameters()]
+    opt = _field(tree, "opt_state")
+    live = state.opt_state
+    if isinstance(live, dict) and "slots" in live:
+        leaf = _field(opt, "leaf")
+        plan = state.buckets.plan
+        for slot, bufs in live["slots"].items():
+            src = model.params_from_jax(_field(leaf, slot))
+            for name, view in zip(names, plan.unpack(bufs)):
+                view.copy_(src[name].to(view.device, view.dtype))
+        live["count"] = int(np.asarray(_field(opt, "count")))
+    elif hasattr(live, "mu") and hasattr(live, "nu"):
+        adam = opt[0]
+        for slot in ("mu", "nu"):
+            src = model.params_from_jax(_field(adam, slot))
+            for name, t in zip(names, getattr(live, slot)):
+                t.copy_(src[name].to(t.device, t.dtype))
+        live.count = int(np.asarray(_field(adam, "count")))
+    else:
+        raise NotImplementedError(
+            f"loading a JAX optimizer state into "
+            f"{type(live).__name__} is not ported (ROADMAP.md, queue 1 "
+            f"item 3)")
+    state.step = int(np.asarray(_field(tree, "step")))
+
+
 @torch.no_grad()
-def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+def load_jax_params(model: nn.Module, tree: Any,
+                    state: Optional[Any] = None) -> nn.Module:
     """Fill ``model`` in place from a JAX param tree of numpy arrays,
     through the tree converter the model names as its
     ``params_from_jax`` (the decoder's :func:`params_from_jax`, the MNIST
@@ -162,11 +285,20 @@ def load_jax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     ``param_dtype=cfg.dtype`` gets the one cast that the JAX module makes
     at every use. Every parameter must be covered and every converted
     leaf used, with equal shapes; converted leaves that name a buffer
-    (BatchNorm running statistics) fill it."""
+    (BatchNorm running statistics) fill it.
+
+    With ``state`` (a port train state over ``model``), ``tree`` is a JAX
+    train state's numpy tree (``.step``, ``.params``, ``.opt_state``) and
+    its moments, count and step fill ``state`` too: optax adamw's into an
+    ``AdamState``, the fused optimizer's portable form into the bucket
+    slots."""
     convert = getattr(model, "params_from_jax", None)
     if convert is None:
         raise TypeError(f"{type(model).__name__} names no JAX tree "
                         f"converter (params_from_jax)")
+    if state is not None:
+        _load_opt_state(model, state, tree)
+        tree = _field(tree, "params")
     src = convert(tree)
     params = dict(model.named_parameters())
     targets = {**dict(model.named_buffers()), **params}

@@ -54,7 +54,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import lecun_normal_, register
-from tony_tpu_torch.models.convert import params_from_jax
+from tony_tpu_torch.models.convert import params_from_jax, params_to_jax
 from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
                                 flash_decode, reference_attention)
 from tony_tpu_torch.ops.quant import QuantDense
@@ -347,8 +347,10 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    # The JAX decoder tree's converter, read by ``load_jax_params``.
+    # The JAX decoder tree's converter, read by ``load_jax_params``, and
+    # its inverse, read by ``jax_param_tree`` (checkpoints).
     params_from_jax = staticmethod(params_from_jax)
+    params_to_jax = staticmethod(params_to_jax)
 
     def __init__(self, cfg: TransformerConfig,
                  device: Optional[Union[str, torch.device]] = None,

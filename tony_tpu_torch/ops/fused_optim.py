@@ -17,12 +17,16 @@ on one device.
 * :func:`fused_update_step` — the standalone leaf-major entry.
 * :func:`slots_to_leaf_major` / :func:`leaf_major_to_slots` — host-numpy
   converters between bucket-resident slots and param-shaped leaves.
+* :func:`encode_state` / :func:`decode_state` — the checkpoint codec
+  (registered with :mod:`tony_tpu_torch.ckpt`): a fused train state as the
+  reference's portable form, ``.opt_state['count']`` and
+  ``.opt_state['leaf'][slot][...]`` over views of the bucket buffers, so
+  a restore copies into the buckets the parameters are views of.
 
 Unlike the JAX package, updates happen in place: parameters (or their
 bucket buffers) and slots are overwritten, and the functions return the
 same tensors. One device only: ZeRO-3 scatter buckets wait for ROADMAP.md
-queue 1 item 8, and the checkpoint codec (``encode_state`` /
-``decode_state``) for the checkpoint plane, item 3.
+queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -430,3 +434,58 @@ def is_fused_state(state: Any) -> bool:
     return isinstance(getattr(state, "tx", None), FusedOptimizer) \
         and isinstance(getattr(state, "opt_state", None), dict) \
         and "count" in state.opt_state
+
+
+def _is_fused_tree(tree: Any) -> bool:
+    """A fused train state, or its portable form (the codec's trees)."""
+    from tony_tpu_torch.models.convert import PortableState
+
+    if isinstance(tree, PortableState):
+        tree = tree.live
+    return is_fused_state(tree)
+
+
+def encode_state(state: Any) -> Any:
+    """Ckpt codec, encode half: a fused train state → its portable form,
+    the reference's ``{"count", "leaf": {slot: param-shaped tree}}``
+    (count an int32 scalar) beside ``.step`` and ``.params``, every leaf a
+    view of the live buffers (no copy). Anything else passes through."""
+    from tony_tpu_torch.models.convert import jax_param_tree, portable_state
+
+    if not is_fused_state(state) or "slots" not in state.opt_state:
+        return state
+    plan = state.buckets.plan
+    state.tx.check_slots(plan, state.opt_state["slots"])
+    names = [n for n, _ in state.model.named_parameters()]
+    leaf = {slot: jax_param_tree(state.model,
+                                 dict(zip(names, plan.unpack(bufs))))
+            for slot, bufs in state.opt_state["slots"].items()}
+    count = torch.tensor(state.opt_state["count"], dtype=torch.int32)
+    return portable_state(state, {"count": count, "leaf": leaf})
+
+
+def decode_state(tree: Any, mesh: Optional[Any] = None) -> Any:
+    """Ckpt codec, decode half: the restored portable form → the live
+    fused state. The restore has already copied the moments into the
+    bucket buffers the views alias; this writes back the count and the
+    step. ``mesh`` has nothing to re-plan on one device."""
+    del mesh
+    from tony_tpu_torch.models.convert import PortableState
+
+    if not isinstance(tree, PortableState):
+        return tree
+    state = tree.live
+    state.step = int(tree.step)
+    state.opt_state = {"count": int(tree.opt_state["count"]),
+                       "slots": state.opt_state["slots"]}
+    return state
+
+
+def _register_codec() -> None:
+    from tony_tpu_torch import ckpt
+
+    ckpt.register_portable_codec("fused_optim", _is_fused_tree,
+                                 encode_state, decode_state)
+
+
+_register_codec()

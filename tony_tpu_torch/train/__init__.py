@@ -26,13 +26,19 @@
 * :func:`global_batch` — this rank's local shard of the global batch,
   checked against the mesh's batch contract, on the rank's device;
 * :func:`train_loop` and :func:`train_stats_writer` — the step fold of a
-  TonY job, with the chaos kill point, the drain flag and per-step
-  telemetry for the executor's heartbeat.
+  TonY job, with checkpointed resume, the drain commit, continuous
+  publication, the chaos kill point and per-step telemetry for the
+  executor's heartbeat;
+* :func:`encode_state` / :func:`decode_state` — the checkpoint codec of
+  a train state with a per-leaf optimizer state (registered with
+  :mod:`tony_tpu_torch.ckpt`; the fused optimizer registers its own).
 
 The module holds its parameters (an ``nn.Module``), so the train state
 wraps the model, and a step updates parameters and optimizer slots in
-place — the counterpart of the JAX step's donated state. The sequence
-axis, cross-device accumulation and checkpointed resume are later slices
+place — the counterpart of the JAX step's donated state. Checkpoints
+carry the reference's ``TrainState`` (``.step``, ``.params``,
+``.opt_state``) in the JAX package's paths, shapes and layout. The
+sequence axis and cross-device accumulation are later slices
 (ROADMAP.md, queue 1).
 """
 
@@ -41,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import logging
 import math
 import os
 import time
@@ -54,7 +61,10 @@ import torch.distributed as td
 import torch.nn.functional as F
 from torch import nn
 
-from tony_tpu_torch import chaos, constants, profiler
+from tony_tpu_torch import chaos, ckpt, constants, profiler
+from tony_tpu_torch.ckpt.snapshot import Attrs
+from tony_tpu_torch.models.convert import (PortableState, jax_param_tree,
+                                           portable_state)
 from tony_tpu_torch.ops.fused_optim import FusedOptimizer, bias_correction
 from tony_tpu_torch.parallel import BATCH_AXES, DATA, SEQ, Mesh
 from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
@@ -62,6 +72,7 @@ from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
                                              microbatch_grads)
 
 _LATER = "ROADMAP.md, queue 1"
+_log = logging.getLogger(__name__)
 
 
 def cross_entropy_loss(logits: torch.Tensor,
@@ -291,6 +302,50 @@ def create_train_state(model: nn.Module, tx: Any,
     return TrainState(step=0, model=model, tx=tx, opt_state=tx.init(params))
 
 
+def _is_leaf_state(tree: Any) -> bool:
+    """A train state with a per-leaf optimizer state, or its portable
+    form (the codec's trees)."""
+    if isinstance(tree, PortableState):
+        tree = tree.live
+    return isinstance(tree, TrainState) \
+        and not isinstance(tree.tx, FusedOptimizer)
+
+
+def encode_state(state: TrainState) -> PortableState:
+    """Ckpt codec, encode half: a train state with per-leaf AdamW state →
+    the reference's ``TrainState`` tree with optax adamw's
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``,
+    count an int32 scalar, every leaf a view of the live tensors. Other
+    optimizer states raise ``NotImplementedError``."""
+    opt = state.opt_state
+    if not isinstance(opt, AdamState):
+        raise NotImplementedError(
+            f"the checkpoint form of {type(opt).__name__} is not ported yet "
+            f"(ROADMAP.md, queue 1 item 3)")
+    names = [n for n, _ in state.model.named_parameters()]
+    adam = Attrs(count=torch.tensor(opt.count, dtype=torch.int32),
+                 mu=jax_param_tree(state.model, dict(zip(names, opt.mu))),
+                 nu=jax_param_tree(state.model, dict(zip(names, opt.nu))))
+    return portable_state(state, (adam, Attrs(), Attrs()))
+
+
+def decode_state(tree: PortableState, mesh: Optional[Mesh] = None
+                 ) -> TrainState:
+    """Ckpt codec, decode half: the restore has filled the live tensors
+    through the views; this writes back the step and the count."""
+    del mesh
+    state = tree.live
+    adam = tree.opt_state[0]
+    state.step = int(tree.step)
+    state.opt_state = AdamState(int(adam.count), state.opt_state.mu,
+                                state.opt_state.nu)
+    return state
+
+
+ckpt.register_portable_codec("train_state", _is_leaf_state, encode_state,
+                             decode_state)
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """optax.global_norm: sqrt of the sum over leaves of sum(x²), in f32."""
     return torch.sqrt(sum((x.float() * x.float()).sum() for x in tensors))
@@ -504,59 +559,159 @@ def train_loop(state: TrainState, step_fn: Callable[[TrainState, Any],
                save_every: Optional[int] = None,
                keep: Optional[int] = None,
                restore_on_start: bool = True,
+               mesh: Optional[Mesh] = None,
+               save_final: bool = True,
                on_step: Optional[Callable[[int, Dict[str, Any]],
                                           None]] = None,
                drain_file: Optional[str] = None,
                publish_every: Optional[int] = None):
     """Drive ``step_fn`` over ``batches`` (or the ``data=`` iterable,
-    exactly one of them): the fold a TonY job trains in. Returns
-    ``(state, last_metrics)``.
+    exactly one of them) with checkpointed resume: the fold a TonY job
+    trains in, which attempt N+1 calls exactly as attempt N did and which
+    resumes from the newest committed step. Returns ``(state,
+    last_metrics)``.
 
-    After each step: :func:`tony_tpu_torch.chaos.kill_point` (the
-    scripted preemption ``TONY_CHAOS_KILL_STEP``), then ``on_step(step,
-    metrics)``, then the drain poll: when ``drain_file`` (default: the
-    ``TONY_DRAIN_FILE`` the executor gives every task) exists, the loop
-    exits with ``SystemExit(EXIT_DRAINED)``, as the reference does with
-    no checkpoint directory. ``data.close()`` runs in ``finally``.
+    ``ckpt_dir``/``save_every``/``keep`` default from ``TONY_CKPT_DIR`` /
+    ``TONY_CKPT_EVERY`` / ``TONY_CKPT_KEEP`` (keep 3); with no directory
+    the loop is a plain fold.
 
-    Checkpointed resume (``ckpt_dir``, ``save_every``, ``keep``,
-    ``publish_every``, and ``restore_on_start`` against a committed step)
-    lands with the checkpoint slice (ROADMAP.md, queue 1 item 3): a
-    directory, save interval, retention or publication interval set here
-    or through ``TONY_CKPT_DIR`` / ``TONY_CKPT_EVERY`` /
-    ``TONY_PUBLISH_EVERY`` raises ``NotImplementedError``, so a job is
-    never trained without the resume it asked for."""
+    * ``restore_on_start``: restore the newest committed step into
+      ``state`` in place before the first step (a no-op on the first
+      attempt); a step saved with a data cursor restores it into
+      ``data``. Under data parallelism every rank restores every leaf, so
+      a changed world size restores too; ``mesh`` is the reference's
+      elastic target and is passed to the codecs.
+    * ``save_every=k``: an async save
+      (:class:`tony_tpu_torch.ckpt.AsyncCheckpointer`) after every k-th
+      step — the loop stalls for the device-side staging copy only — and,
+      with ``save_final``, a save after the last step.
+    * ``data=`` (:class:`tony_tpu_torch.data.DeviceIterator` or any
+      iterable with ``state()``/``restore()``): the pipeline cursor is
+      saved inside the same committed step as the train state
+      (:mod:`tony_tpu_torch.data.ckptio`), so a resumed run's example
+      stream is element-identical to an uninterrupted one.
+
+    Every payload goes through :func:`tony_tpu_torch.ckpt.encode_portable`
+    and every restore through ``decode_portable``: the manifest carries the
+    reference's ``TrainState`` paths and layout.
+
+    After each step: :func:`tony_tpu_torch.chaos.kill_point` (the scripted
+    preemption ``TONY_CHAOS_KILL_STEP``), then ``on_step(step, metrics)``,
+    then the periodic save, then the drain poll: when ``drain_file``
+    (default: ``TONY_DRAIN_FILE``) exists, model and cursor are committed
+    SYNCHRONOUSLY and the loop exits with ``SystemExit(EXIT_DRAINED)``.
+
+    ``publish_every=n`` (default: ``TONY_PUBLISH_EVERY``): after every
+    n-th periodic save, and the final save, rank 0 waits out the commit
+    and advances the checkpoint root's ``published.json``
+    (:mod:`tony_tpu_torch.publish`) over the committed step.
+    ``data.close()`` runs in ``finally``."""
+    from tony_tpu_torch.data import ckptio
+
     if (batches is None) == (data is None):
         raise ValueError("train_loop needs exactly one of batches= or "
                          "data=")
+    if data is not None:
+        batches = data
+    stateful_data = (data is not None and hasattr(data, "state")
+                     and hasattr(data, "restore"))
     if ckpt_dir is None:
         ckpt_dir = os.environ.get(constants.ENV_CKPT_DIR) or None
     if save_every is None:
-        save_every = int(os.environ.get(constants.ENV_CKPT_EVERY, "0") or 0)
+        save_every = int(os.environ.get(constants.ENV_CKPT_EVERY, "0")
+                         or 0)
+    if keep is None:
+        keep = int(os.environ.get(constants.ENV_CKPT_KEEP, "3") or 3)
+    if drain_file is None:
+        drain_file = os.environ.get(constants.ENV_DRAIN_FILE) or None
     if publish_every is None:
         publish_every = int(os.environ.get(constants.ENV_PUBLISH_EVERY,
                                            "0") or 0)
-    asked = {name: value for name, value in (
-        ("ckpt_dir", ckpt_dir), ("save_every", save_every), ("keep", keep),
-        ("publish_every", publish_every)) if value}
-    if asked:
-        raise NotImplementedError(
-            f"train_loop checkpointing ({asked}) is not ported yet "
-            f"(ROADMAP.md, queue 1 item 3)")
-    if drain_file is None:
-        drain_file = os.environ.get(constants.ENV_DRAIN_FILE) or None
-    metrics: Dict[str, Any] = {}
-    done = 0
+    mgr = None
     try:
-        for batch in (batches if data is None else data):
+        if ckpt_dir:
+            mgr = ckpt.AsyncCheckpointer(ckpt_dir, keep=keep)
+            latest = ckpt.latest_step(ckpt_dir) if restore_on_start \
+                else None
+            if latest is not None and ckptio.has_iter_state(ckpt_dir,
+                                                           latest):
+                # A wrapped {model, data_iter} step: unwrap keyed on what
+                # the manifest holds, not on what this caller passed.
+                state = ckpt.decode_portable(ckpt.restore_pytree(
+                    ckpt_dir, {ckptio.MODEL_KEY: ckpt.encode_portable(state)},
+                    step=latest, mesh=mesh)[ckptio.MODEL_KEY], mesh)
+                if stateful_data:
+                    data.restore(ckptio.load_iter_state(ckpt_dir, latest))
+                else:
+                    _log.warning(
+                        "checkpoint step %d carries data-iterator state "
+                        "but this train_loop has no stateful data=; the "
+                        "model resumes, the input stream starts from the "
+                        "beginning", latest)
+            elif latest is not None:
+                state = ckpt.decode_portable(ckpt.restore_pytree(
+                    ckpt_dir, ckpt.encode_portable(state), step=latest,
+                    mesh=mesh), mesh)
+
+        def payload():
+            st = ckpt.encode_portable(state)
+            if stateful_data:
+                return ckptio.wrap_for_save(st, data.state())
+            return st
+
+        def step_of(done: int) -> int:
+            return int(state.step) if hasattr(state, "step") else done
+
+        metrics: Dict[str, Any] = {}
+        done = 0
+        saved_at: Optional[int] = None
+        saves = 0
+        published_step: Optional[int] = None
+
+        def maybe_publish(step: int) -> None:
+            # The pointer may only advance over a COMMITTED manifest:
+            # wait() drains the queue and re-raises a writer failure.
+            nonlocal published_step
+            if not publish_every or mgr is None or step == published_step:
+                return
+            from tony_tpu_torch import publish as publish_mod
+
+            mgr.wait()
+            if mgr.process_index == 0:
+                publish_mod.publish_step(ckpt_dir, step)
+            published_step = step
+
+        for batch in batches:
             state, metrics = step_fn(state, batch)
             done += 1
             chaos.kill_point(done)
             if on_step is not None:
                 on_step(done, metrics)
+            if mgr is not None and save_every and done % save_every == 0:
+                saved_at = step_of(done)
+                mgr.save(payload(), step=saved_at)
+                saves += 1
+                if publish_every and saves % publish_every == 0:
+                    maybe_publish(saved_at)
             if drain_file is not None and os.path.exists(drain_file):
+                # Drain: commit model + cursor SYNCHRONOUSLY, so
+                # EXIT_DRAINED is only reported over a durable manifest.
+                if mgr is not None:
+                    here = step_of(done)
+                    if here != saved_at:
+                        mgr.save(payload(), step=here)
+                    mgr.wait()
                 raise SystemExit(constants.EXIT_DRAINED)
+        if mgr is not None and save_final and done:
+            final = step_of(done)
+            if final != saved_at:
+                mgr.save(payload(), step=final)
+            maybe_publish(final)
+        if mgr is not None:
+            mgr.wait()
     finally:
+        if mgr is not None:
+            mgr.close()
         if data is not None and hasattr(data, "close"):
             data.close()
     return state, metrics
@@ -696,8 +851,10 @@ def global_batch(mesh: Mesh, local_batch: Any, seq_axis: bool = False,
                  check: bool = True) -> Any:
     """This rank's part of the global batch — every rank calls it with its
     own local shard (multi-host feeding) — as tensors on the mesh's
-    device, in the local batch's dict/list structure. Under data
-    parallelism each rank holds its own rows, so nothing crosses ranks.
+    device, in the local batch's dict/list structure (a pinned host
+    tensor is copied without a host wait, on the current stream). Under
+    data parallelism each rank holds its own rows, so nothing crosses
+    ranks.
     ``check`` pre-flights the reference's shape contract with a
     leaf-naming ``ValueError`` (memoized per contract)."""
     flat = _flatten(local_batch)
@@ -709,6 +866,14 @@ def global_batch(mesh: Mesh, local_batch: Any, seq_axis: bool = False,
             _validate_local_batch(mesh, local_batch, seq_axis=seq_axis)
             if len(seen) < _VALIDATED_CONTRACTS_MAX:
                 seen.add(key)
-    return _unflatten(local_batch, (torch.as_tensor(leaf,
-                                                    device=mesh.device)
+    return _unflatten(local_batch, (_to_device(leaf, mesh.device)
                                     for _, leaf in flat))
+
+
+def _to_device(leaf: Any, device: torch.device) -> torch.Tensor:
+    """A leaf on ``device``; from pinned memory without a host wait, on
+    the current stream."""
+    if isinstance(leaf, torch.Tensor) and leaf.device.type == "cpu" \
+            and device.type == "cuda" and leaf.is_pinned():
+        return leaf.to(device, non_blocking=True)
+    return torch.as_tensor(leaf, device=device)
