@@ -126,12 +126,33 @@ caught):
    and disk are printed first, and too little disk raises. The phase
    writes two checkpoints (22.57 and 8.07 GB), so that the whole script
    stays under 45 GiB of disk writes, where some hosts end a run;
-13. report — a ``{"kernels": [...]}`` line (rows 1-15), a
+13. serve_replica — inside train_ckpt, on B's committed step 4 before it
+   is deleted, with the training state freed (it writes no checkpoint:
+   only ``published.json`` and the stats file): ``publish_step`` and a
+   ``Replica`` of the 8-layer model (``xent_chunk=1024``, bf16 storage,
+   ctx 2048, 16 running) restoring the params subtree with the bf16
+   policy; the step and version are the pointer's, every served
+   parameter is bitwise the bf16 cast of the step's f32 leaf (read back
+   through the port's restore into host memory); ``serve_forever`` on
+   127.0.0.1 in a thread; the 16-request mix in-process (decode against
+   the full prefill within 5e-2, greedy tokens equal) and then over the
+   port's ``RpcClient`` from 16 threads (every request completes, row 9
+   launched 8 times a forward); one prompt alone over RPC and in-process
+   gives the same tokens; the stats file holds the RPC port, the step
+   and the control plane's keys; ``publish_step`` again, then the
+   ``swap`` verb while 16 RPC clients keep requests in flight (none
+   dropped, version 2, one swap, the alone prompt's tokens unchanged);
+   a swap to an uncommitted step is refused with the weights kept. It
+   reports the restore, the time to the first token, RPC and in-process
+   decode numbers, the swap's restore, the decode step p50 during it,
+   the quiesce and the flip, and peak memory. At full depth:
+   ``python3 exp/port_replica_phase.py``;
+14. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, a
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
-   ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, the
-   card line, and last
+   ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
+   ``{"serve_replica": {...}}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
@@ -180,6 +201,7 @@ from tony_tpu_torch.ckpt import snapshot as ckpt_snapshot  # noqa: E402
 from tony_tpu_torch.constants import EXIT_DRAINED  # noqa: E402
 from tony_tpu_torch.data import Dataset, ShardSpec, ckptio  # noqa: E402
 from tony_tpu_torch.models import get_model  # noqa: E402
+from tony_tpu_torch.models.convert import jax_param_tree  # noqa: E402
 from tony_tpu_torch.models.resnet import (FusedBNAct,  # noqa: E402
                                           resnet50_flops)
 from tony_tpu_torch.ops import LAUNCHES, _build  # noqa: E402
@@ -188,7 +210,9 @@ from tony_tpu_torch.ops import batchnorm as bn  # noqa: E402
 from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.ops import quant as tq  # noqa: E402
 from tony_tpu_torch.parallel import MeshSpec  # noqa: E402
-from tony_tpu_torch.serve import EngineFront, ServeEngine  # noqa: E402
+from tony_tpu_torch.rpc import RpcClient, RpcError  # noqa: E402
+from tony_tpu_torch.serve import (EngineFront, Replica,  # noqa: E402
+                                  ServeEngine)
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
                                   cross_entropy_loss, global_batch,
                                   make_accum_train_step, make_train_step,
@@ -409,9 +433,7 @@ def serve_phase(gen_seed: int, quant=None, tol: float = SERVE_REL_TOL):
     # Warm-up (cuBLAS handles, allocator): one short request, outside
     # the counted window.
     front.generate([1, 2, 3, 4], 2)
-    rng = np.random.default_rng(gen_seed)
-    reqs = [(rng.integers(0, cfg.vocab, int(rng.integers(16, 513))).tolist(),
-             int(rng.integers(16, 65))) for _ in range(16)]
+    reqs = serve_mix(gen_seed, cfg.vocab)
     results = [None] * len(reqs)
 
     def worker(i):
@@ -448,8 +470,39 @@ def serve_phase(gen_seed: int, quant=None, tol: float = SERVE_REL_TOL):
         f"launches {launches}")
     stats = engine.stats()
     peak = torch.cuda.max_memory_allocated()
-    # Decode vs the engine's own full prefill, for the shortest and the
-    # longest prompt.
+    worst, near_ties, rows = decode_vs_prefill(engine, reqs, results, tol)
+    gen_tokens = sum(len(c.tokens) for c in results)
+    serve = {
+        "model": "llama2-7b", "quant": quant, "requests": len(reqs),
+        "prompt_tokens": sum(len(t) for t, _ in reqs),
+        "generated_tokens": gen_tokens, "wall_s": wall,
+        "decode_tokens_per_s": gen_tokens / wall,
+        "ttft_p50_ms": stats["ttft_p50_ms"],
+        "step_p50_ms": stats["step_p50_ms"],
+        "forwards": forwards, "flash_decode_launches":
+            launches["flash_decode"],
+        "int8_matmul_launches": launches["int8_matmul"],
+        "decode_vs_prefill_max_rel": worst, "decode_vs_prefill_tol": tol,
+        "decode_vs_prefill_rows": rows, "near_tie_flips": near_ties,
+        "max_memory_allocated": peak,
+    }
+    return serve, launches, engine, results
+
+
+def serve_mix(seed: int, vocab: int):
+    """The serve phases' 16 seeded requests: prompts of 16-512 tokens,
+    16-64 new tokens each."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(16, 513))).tolist(),
+             int(rng.integers(16, 65))) for _ in range(16)]
+
+
+def decode_vs_prefill(engine, reqs, results, tol):
+    """Decode vs the engine's own full prefill, for the shortest and the
+    longest prompt: per row max|Δ| within ``tol``·max|ref|, and the
+    greedy token the reference's argmax wherever the reference's top-two
+    gap exceeds that tolerance. Returns the worst relative difference,
+    the near-tie flips and the rows compared."""
     order = sorted(range(len(reqs)), key=lambda i: len(reqs[i][0]))
     worst, near_ties, rows = 0.0, 0, 0
     for i in (order[0], order[-1]):
@@ -475,22 +528,7 @@ def serve_phase(gen_seed: int, quant=None, tol: float = SERVE_REL_TOL):
                     f"the full prefill by {diff} > {tol}·{scale}")
     log(f"  decode vs full prefill: {rows} rows, max|Δ|/max|ref| = "
         f"{worst:.3e} (tol {tol}), near-tie token flips {near_ties}")
-    gen_tokens = sum(len(c.tokens) for c in results)
-    serve = {
-        "model": "llama2-7b", "quant": quant, "requests": len(reqs),
-        "prompt_tokens": sum(len(t) for t, _ in reqs),
-        "generated_tokens": gen_tokens, "wall_s": wall,
-        "decode_tokens_per_s": gen_tokens / wall,
-        "ttft_p50_ms": stats["ttft_p50_ms"],
-        "step_p50_ms": stats["step_p50_ms"],
-        "forwards": forwards, "flash_decode_launches":
-            launches["flash_decode"],
-        "int8_matmul_launches": launches["int8_matmul"],
-        "decode_vs_prefill_max_rel": worst, "decode_vs_prefill_tol": tol,
-        "decode_vs_prefill_rows": rows, "near_tie_flips": near_ties,
-        "max_memory_allocated": peak,
-    }
-    return serve, launches, engine, results
+    return worst, near_ties, rows
 
 
 def profile_decode(engine: ServeEngine, vocab: int, steps: int = 3):
@@ -2929,6 +2967,10 @@ def train_ckpt_run(card: str, loop_p50_ms):
                              f"{run_a['losses'][CKPT_EVERY]}")
     log(f"  ids of steps {CKPT_EVERY + 1}-{TRAIN_STEPS} equal; first loss "
         f"after the restore {first!r} == A's; launches {run_b2['launches']}")
+    # The serving end of the loop, on B's committed step before it goes
+    # (a second 8-layer step would pass the machine's write limit).
+    log("[serve_replica]")
+    replica = serve_replica_phase(card, b_root, TRAIN_LAYERS, CKPT_EVERY)
     shutil.rmtree(b_root, ignore_errors=True)
     small = small_run_check(mesh, data_path)
 
@@ -2964,7 +3006,305 @@ def train_ckpt_run(card: str, loop_p50_ms):
             "launches_after_restore": run_b2["launches"],
             "max_memory_allocated_with_save":
                 run_b1["max_memory_allocated"],
-            "small": small, "card": card}
+            "small": small, "card": card, "serve_replica": replica}
+
+
+# ---------------------------------------------------------------------
+# Serve-replica phase.
+# ---------------------------------------------------------------------
+
+REPLICA_ENGINE = dict(ctx_max=2048, block_size=16, q_block=16,
+                      max_running=16)
+# The keys of a replica's stats file that the reference's AM, session,
+# router and autoscaler read.
+REPLICA_STATS_KEYS = {"qps", "p99_ms", "queue_depth", "running", "completed",
+                      "acceptance_rate", "role", "warm_standby",
+                      "weight_version", "weight_step", "weight_swaps",
+                      "swapping", "rpc_port"}
+REPLICA_STATS_EVERY_S = 0.5
+REPLICA_UNCOMMITTED_STEP = 7
+
+
+class LongCallRpcClient(RpcClient):
+    """The port's RPC client with a per-operation socket timeout long
+    enough for a 32-layer generate under load or a swap's restore: past
+    ``SOCKET_TIMEOUT_S`` the client re-sends the call as a transport
+    fault."""
+    SOCKET_TIMEOUT_S = 600.0
+
+
+def replica_model_kwargs(layers):
+    """The train_loop cell's model as a replica serves it: its depth and
+    ``xent_chunk`` (which put the head at ``lm_head_kernel``); the bf16
+    policy gives it bf16 storage."""
+    return {"n_layers": layers, "xent_chunk": LOOP_XENT_CHUNK}
+
+
+def rpc_generate(port, tokens, max_new):
+    with LongCallRpcClient(f"127.0.0.1:{port}", timeout=600.0) as client:
+        return client.call("generate", tokens=tokens,
+                           max_new_tokens=max_new)
+
+
+def run_threads(fn, n, timeout=900):
+    """``fn(i)`` on ``n`` threads at once; their results in order. A
+    thread's exception fails the phase."""
+    out, errors = [None] * n, []
+
+    def worker(i):
+        try:
+            out[i] = fn(i)
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("serve_replica: requests did not finish")
+    if errors:
+        raise AssertionError(f"serve_replica: {len(errors)} request(s) "
+                             f"failed") from errors[0]
+    return out
+
+
+def window_numbers(engine, t0, t1):
+    """TTFT p50, engine step p50 (ms), requests/s and tokens/s of what the
+    engine finished between ``t0`` and ``t1`` (``time.monotonic``), from
+    its windowed stats."""
+    st = engine.stats(t0, t1)
+    return {k: st[k] for k in ("ttft_p50_ms", "step_p50_ms", "qps",
+                               "tokens_per_s")}
+
+
+def check_served_params(replica, root, step):
+    """Every served parameter is bitwise the bf16 cast of the step's f32
+    leaf: the f32 leaves read from the manifest into a host template
+    through the port's restore, cast on the host. Returns the parameter
+    count."""
+    params = dict(replica.model.named_parameters())
+    masters = {n: torch.empty(p.shape, dtype=torch.float32)
+               for n, p in params.items()}
+    template = jax_param_tree(replica.model, masters)
+    ckpt.restore_pytree(root, template, step=step,
+                        path_prefix=ckpt.find_path_prefix(root, template,
+                                                          step=step))
+    for name, p in params.items():
+        got = p.detach().cpu()
+        want = masters[name].to(torch.bfloat16)
+        # f32-stored leaves (the norm scales) hold the bf16 value.
+        if not torch.equal(got.to(torch.bfloat16).view(torch.int16),
+                           want.view(torch.int16)) \
+                or not torch.equal(got, want.to(got.dtype)):
+            raise AssertionError(f"serve_replica: served {name} is not the "
+                                 f"bf16 cast of step {step}'s f32 leaf")
+    return sum(p.numel() for p in params.values())
+
+
+def wait_for_stats(path, done, timeout=60.0):
+    """The stats file's payload once ``done(payload)`` holds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.exists(path):
+            with open(path) as f:
+                payload = json.load(f)
+            if done(payload):
+                return payload
+        time.sleep(0.05)
+    raise AssertionError(f"serve_replica: stats file {path} never showed "
+                         f"what the phase waits for")
+
+
+def swap_under_load(replica, reqs, version):
+    """The ``swap`` RPC verb while 16 RPC clients keep requests in
+    flight (each sends mix requests until the swap has returned).
+    Returns the swap's answer and the completions."""
+    engine, port = replica.engine, replica.port
+    swapped = threading.Event()
+
+    def traffic(i):
+        done = []
+        while not swapped.is_set() or not done:
+            toks, n = reqs[(i + len(done)) % len(reqs)]
+            out = rpc_generate(port, toks, n)
+            if len(out["tokens"]) != n:
+                raise AssertionError(f"serve_replica: request under swap "
+                                     f"gave {len(out['tokens'])} of {n}")
+            done.append(len(out["tokens"]))
+        return done
+
+    answer = {}
+
+    def swap():
+        deadline = time.monotonic() + 60
+        while engine.running < len(reqs) and time.monotonic() < deadline:
+            time.sleep(0.005)
+        answer["in_flight"] = engine.running + engine.queue_depth
+        with LongCallRpcClient(f"127.0.0.1:{port}", timeout=600.0) as cl:
+            answer["swap"] = cl.call("swap", version=version)
+        swapped.set()
+
+    swapper = threading.Thread(target=swap, daemon=True)
+    swapper.start()
+    completed = run_threads(traffic, len(reqs))
+    swapper.join(timeout=600)
+    if swapper.is_alive() or "swap" not in answer:
+        raise AssertionError("serve_replica: the swap did not return")
+    return answer, completed
+
+
+def serve_replica_phase(card, root, layers, step):
+    """The train -> serve loop's serving end on one card: publish the
+    committed step ``step`` under ``root``, restore it through
+    ``Replica`` (bf16 policy) into ``layers``-deep llama2-7b, check every
+    served parameter bitwise, serve the 16-request mix over the RPC wire
+    (and in-process), check the stats file the heartbeat would carry,
+    then hot-swap onto a republication under load and refuse a swap to
+    an uncommitted step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = publish.publish_step(root, step)
+    profiler.reset_ckpt_records()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    replica = Replica(model_name="llama2-7b",
+                      model_kwargs=replica_model_kwargs(layers),
+                      ckpt_dir=root, dtype_policy="bf16", keep_logits=True,
+                      **REPLICA_ENGINE)
+    replica.generate([1, 2, 3, 4], 1)
+    to_first_token = time.monotonic() - t0
+    restore = profiler.ckpt_report()["restore"]
+    restore["GBps"] = rate(restore["h2d_nbytes"], restore["seconds"])
+    engine = replica.engine
+    cfg = replica.model.cfg
+    if replica.restored_step != step or \
+            engine.weight_version != rec["version"]:
+        raise AssertionError(f"serve_replica: serving step "
+                             f"{replica.restored_step} version "
+                             f"{engine.weight_version}, published {rec}")
+    log(f"  Replica up in {to_first_token:.2f} s to its first token "
+        f"({replica.timings}); restore {restore['seconds']:.2f} s "
+        f"({restore['GBps']} GB/s) of step {step}, version "
+        f"{rec['version']}")
+    n_params = check_served_params(replica, root, step)
+    log(f"  all {n_params} served parameters == bf16 cast of the f32 "
+        f"leaves")
+    stats_path = os.path.join(root, "serve-stats.json")
+    stop = threading.Event()
+    server = threading.Thread(
+        target=replica.serve_forever, daemon=True,
+        kwargs=dict(host="127.0.0.1", port=0, stats_path=stats_path,
+                    stats_every_s=REPLICA_STATS_EVERY_S, stop=stop))
+    server.start()
+    try:
+        first = wait_for_stats(stats_path, lambda s: "rpc_port" in s)
+        port = replica.port
+        if first["rpc_port"] != port:
+            raise AssertionError(f"serve_replica: stats rpc_port "
+                                 f"{first['rpc_port']} != {port}")
+        reqs = serve_mix(SEED, cfg.vocab)
+        gen = sum(n for _, n in reqs)
+        # The mix in-process first: it warms the shapes (cuBLAS, the
+        # allocator) and its logits are held against the full prefill.
+        local = run_threads(lambda i: replica.generate(*reqs[i]), len(reqs))
+        worst, near_ties, rows = decode_vs_prefill(engine, reqs, local,
+                                                   SERVE_REL_TOL)
+        LAUNCHES["flash_decode"] = 0
+        forwards0 = engine.forwards
+        t_a = time.monotonic()
+        outs = run_threads(lambda i: rpc_generate(port, *reqs[i]), len(reqs))
+        t_b = time.monotonic()
+        launches = LAUNCHES["flash_decode"]
+        forwards = engine.forwards - forwards0
+        for (toks, n), out in zip(reqs, outs):
+            if len(out["tokens"]) != n:
+                raise AssertionError(f"serve_replica: RPC request gave "
+                                     f"{len(out['tokens'])} of {n} tokens")
+        if forwards == 0 or launches != cfg.n_layers * forwards:
+            raise AssertionError(f"serve_replica: flash_decode launches "
+                                 f"{launches} != {cfg.n_layers} x "
+                                 f"{forwards} forwards")
+        rpc = dict(window_numbers(engine, t_a, t_b), wall_s=t_b - t_a,
+                   decode_tokens_per_s=gen / (t_b - t_a),
+                   forwards=forwards, flash_decode_launches=launches)
+        forwards0 = engine.forwards
+        t_c = time.monotonic()
+        run_threads(lambda i: replica.generate(*reqs[i]), len(reqs))
+        t_d = time.monotonic()
+        in_process = dict(window_numbers(engine, t_c, t_d), wall_s=t_d - t_c,
+                          decode_tokens_per_s=gen / (t_d - t_c),
+                          forwards=engine.forwards - forwards0)
+        log(f"  16 requests over RPC: {rpc}; in-process: {in_process}")
+        prompt, n = reqs[0]
+        alone = replica.generate(prompt, n).tokens
+        if rpc_generate(port, prompt, n)["tokens"] != alone:
+            raise AssertionError("serve_replica: a prompt alone over RPC "
+                                 "gave other tokens than in-process")
+        stats = wait_for_stats(stats_path,
+                               lambda s: s["completed"] >= 3 * 16 + 3)
+        missing = REPLICA_STATS_KEYS - set(stats)
+        if missing or stats["weight_step"] != step or \
+                stats["rpc_port"] != port:
+            raise AssertionError(f"serve_replica: stats file {stats} "
+                                 f"(missing {missing})")
+        rec2 = publish.publish_step(root, step)
+        if rec2["version"] != rec["version"] + 1:
+            raise AssertionError(f"serve_replica: republication {rec2}")
+        answer, completed = swap_under_load(replica, reqs, rec2["version"])
+        swap = answer["swap"]
+        if engine.weight_version != rec2["version"] or \
+                engine.weight_swaps != 1 or swap["to_version"] != \
+                rec2["version"] or answer["in_flight"] < len(reqs):
+            raise AssertionError(f"serve_replica: swap {answer}, engine "
+                                 f"version {engine.weight_version}, swaps "
+                                 f"{engine.weight_swaps}")
+        during = window_numbers(engine, *swap["restore_window"])
+        if replica.generate(prompt, n).tokens != alone:
+            raise AssertionError("serve_replica: the flip changed a token")
+        try:
+            with LongCallRpcClient(f"127.0.0.1:{port}") as client:
+                client.call("swap", step=REPLICA_UNCOMMITTED_STEP)
+        except RpcError as exc:
+            refused = str(exc)
+        else:
+            refused = None
+        if refused is None or not refused.startswith("SwapError") or \
+                engine.weight_version != rec2["version"] or \
+                replica.generate(prompt, n).tokens != alone:
+            raise AssertionError(f"serve_replica: swap to an uncommitted "
+                                 f"step: {refused}")
+        log(f"  swap under load ({answer['in_flight']} requests in "
+            f"flight, {sum(len(c) for c in completed)} completed, none "
+            f"dropped): restore {swap['restore_s']:.2f} s, decode step p50 "
+            f"during it {during['step_p50_ms']} ms at "
+            f"{during['tokens_per_s']:.1f} tokens/s, quiesce "
+            f"{swap['quiesce_ms']:.1f} ms, flip "
+            f"{swap['flip_ms']:.2f} ms; refused: {refused}")
+    finally:
+        stop.set()
+        server.join(timeout=30)
+    if server.is_alive():
+        raise AssertionError("serve_replica: serve_forever did not stop")
+    peak = torch.cuda.max_memory_allocated()
+    del replica, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": f"llama2-7b n_layers={layers}/32 xent_chunk="
+                     f"{LOOP_XENT_CHUNK}", "dtype_policy": "bf16",
+            "ckpt_step": step, "version": rec["version"],
+            "engine": REPLICA_ENGINE, "parameters": n_params,
+            "restore": restore, "to_first_token_s": to_first_token,
+            "rpc": rpc, "in_process": in_process,
+            "decode_vs_prefill_max_rel": worst,
+            "decode_vs_prefill_rows": rows, "near_tie_flips": near_ties,
+            "swap": dict(swap, in_flight=answer["in_flight"],
+                         completed_during=sum(len(c) for c in completed),
+                         decode_during_restore=during),
+            "swap_refused": refused, "stats_file_keys": sorted(stats),
+            "max_memory_allocated": peak, "card": card}
 
 
 def main() -> int:
@@ -3079,12 +3419,17 @@ def main() -> int:
     log("[train_ckpt]")
     train_ckpt = train_ckpt_phase(card,
                                   train_loop_res["runs"][0]["step_p50_ms"])
+    serve_replica = train_ckpt.pop("serve_replica")
 
     entry = {
         "name": "flash_decode", "route": "cuda",
         "source": "tony_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "tony_tpu/ops/attention.py:1231",
-        "launches": serve_launches["flash_decode"],
+        "launches": serve_launches["flash_decode"]
+        + serve_replica["rpc"]["flash_decode_launches"],
+        "launches_by_path": {
+            "serve": serve_launches["flash_decode"],
+            "serve_replica": serve_replica["rpc"]["flash_decode_launches"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -3230,6 +3575,7 @@ def main() -> int:
     print(json.dumps({"resnet": train_resnet}), flush=True)
     print(json.dumps({"train_loop": train_loop_res}), flush=True)
     print(json.dumps({"train_ckpt": train_ckpt}), flush=True)
+    print(json.dumps({"serve_replica": serve_replica}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

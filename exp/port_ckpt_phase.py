@@ -6,9 +6,11 @@ async save), killed after step 6 and resumed through the port's
 checkpointer and DeviceIterator, its step 8 compared with the
 uninterrupted run's chunk for chunk in host memory (extents, CRC32,
 bytes), then the fused codec, the drain commit and the publication at 2
-layers. It writes two checkpoints, 22.57 GB (8 layers) and 8.07 GB (2
-layers), and raises before writing unless the disk has room for three
-times the 8-layer state. The train_loop phase's step p50, which the
+layers; and inside it the ``serve_replica`` phase, which serves the
+8-layer step 4 through the port's replica before it is deleted. It
+writes two checkpoints, 22.57 GB (8 layers) and 8.07 GB (2 layers), and
+raises before writing unless the disk has room for three times the
+8-layer state. The train_loop phase's step p50, which the
 whole script reports beside this phase's, is not measured here. Builds
 only the kernels the phase launches. Run from the repository root on a
 machine with one GPU::
@@ -41,7 +43,7 @@ def main() -> int:
     card = cs.card_line()
     cs.log(f"[device] {card}")
     t0 = time.monotonic()
-    _build.load(("flash_attention", "fused_optim"))
+    _build.load(("flash_attention", "fused_optim", "flash_decode"))
     cs.log(f"[build] {time.monotonic() - t0:.1f} s")
     cs.log("[train_ckpt]")
     t0 = time.monotonic()

@@ -1179,3 +1179,73 @@ def test_device_iterator_stages_through_pinned_memory(gen):
         assert a["x"].device.type == "cuda"
         assert torch.equal(a["x"].cpu(), torch.from_numpy(b["x"]))
         assert a["id"].tolist() == b["id"].tolist()
+
+
+def _tiny_steps(root, seeds):
+    """llama-tiny train states (f32 masters) committed at steps 1, 2, ...
+    from ``seeds``, written on the CPU."""
+    from tony_tpu_torch import ckpt
+    from tony_tpu_torch import train as ttrain
+    from tony_tpu_torch.models import get_model
+
+    masters = []
+    for step, seed in enumerate(seeds, 1):
+        model = get_model("llama-tiny", device="cpu", seed=seed)
+        state = ttrain.create_train_state(model, ttrain.adamw(1e-3))
+        saver = ckpt.AsyncCheckpointer(root)
+        saver.save(ckpt.encode_portable(state), step=step, block=True)
+        saver.close()
+        masters.append({n: p.detach().clone()
+                        for n, p in model.named_parameters()})
+    return masters
+
+
+def _card_replica(root):
+    from tony_tpu_torch.serve import Replica
+
+    return Replica(model_name="llama-tiny", model_kwargs={"n_layers": 2},
+                   ckpt_dir=str(root), dtype_policy="bf16", ctx_max=64,
+                   block_size=8, q_block=16, max_running=4)
+
+
+def _bits16(t):
+    return t.detach().cpu().to(torch.bfloat16).view(torch.int16)
+
+
+def test_replica_bf16_restore_on_the_card_is_bitwise(gen, tmp_path):
+    """A replica on the card (``device=None``) restores the f32 masters
+    through pinned memory and casts on the card: every parameter is
+    bitwise the host's bf16 cast."""
+    (master,) = _tiny_steps(tmp_path, [0])
+    replica = _card_replica(tmp_path)
+    assert replica.device.type == "cuda"
+    for name, p in replica.model.named_parameters():
+        assert p.device.type == "cuda"
+        assert torch.equal(_bits16(p), _bits16(master[name])), name
+        assert torch.equal(p.cpu(), master[name].to(torch.bfloat16)
+                           .to(p.dtype)), name
+
+
+def test_replica_in_place_swap_on_the_card(gen, tmp_path):
+    """A hot swap on the card copies the new step into the live
+    parameters: the same addresses, the new step's bits, and the tokens
+    of a fresh replica on that step."""
+    from tony_tpu_torch import publish
+
+    _tiny_steps(tmp_path, [0, 7])
+    publish.publish_step(tmp_path, 1)
+    replica = _card_replica(tmp_path)
+    prompt = [3, 1, 4, 1, 5, 9, 2, 6]
+    replica.generate(prompt, 4)
+    ptrs = {n: p.data_ptr() for n, p in replica.model.named_parameters()}
+    publish.publish_step(tmp_path, 2)
+    out = replica.hot_swap()
+    assert out["ok"] and out["step"] == 2 and out["flip_ms"] > 0
+    fresh = _card_replica(tmp_path)
+    assert fresh.restored_step == 2
+    got = dict(replica.model.named_parameters())
+    assert {n: p.data_ptr() for n, p in got.items()} == ptrs
+    for name, p in fresh.model.named_parameters():
+        assert torch.equal(_bits16(got[name]), _bits16(p)), name
+    assert replica.generate(prompt, 4).tokens == \
+        fresh.generate(prompt, 4).tokens

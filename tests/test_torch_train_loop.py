@@ -669,11 +669,13 @@ def test_constants_equal_the_reference():
              "ENV_TASK_INDEX", "ENV_TASK_NUM", "ENV_SERVE_STATS",
              "ENV_DRAIN_FILE", "ENV_PUBLISH_EVERY", "ENV_MASTER_ADDR",
              "ENV_MASTER_PORT", "ENV_RANK", "ENV_WORLD_SIZE",
-             "ENV_LOCAL_RANK", "ENV_INIT_METHOD", "EXIT_DRAINED")
+             "ENV_LOCAL_RANK", "ENV_INIT_METHOD", "EXIT_DRAINED",
+             "ENV_JOB_NAME", "ENV_CONF_PATH")
     for name in names:
         assert getattr(constants, name) == getattr(jconstants, name), name
-    assert chaos.ENV_KILL_STEP == jchaos.ENV_KILL_STEP
-    assert chaos.ENV_CRASH == jchaos.ENV_CRASH
+    for name in ("ENV_KILL_STEP", "ENV_CRASH", "ENV_RPC_DELAY_S",
+                 "ENV_RPC_DELAY_CALLS"):
+        assert getattr(chaos, name) == getattr(jchaos, name), name
     ours = {k for k in vars(constants) if k.isupper()}
     assert ours == set(names)
 

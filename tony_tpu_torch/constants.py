@@ -1,7 +1,14 @@
-"""The names the port's training plane shares with the TonY control plane:
-a copy of the entries of :mod:`tony_tpu.constants` it reads (the port
-imports nothing of the JAX package). ``tests/test_torch_train_loop.py``
-holds every value equal to the original."""
+"""The names the port's training and serving planes share with the TonY
+control plane: a copy of the entries of :mod:`tony_tpu.constants` they
+read (the port imports nothing of the JAX package).
+``tests/test_torch_train_loop.py`` and ``tests/test_torch_purity.py``
+hold every value equal to the original."""
+
+# The executor's env contract with a task: its jobtype and the job conf
+# the AM serialized (the serve replica reads the conf, and its role and
+# warm-standby keys by jobtype).
+ENV_JOB_NAME = "TONY_JOB_NAME"
+ENV_CONF_PATH = "TONY_CONF_PATH"
 
 # Checkpoint plane (tony_tpu_torch.ckpt): train_loop reads these as the
 # defaults of its checkpoint directory, save interval and retention.

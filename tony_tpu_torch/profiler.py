@@ -18,17 +18,23 @@ Checkpoints (:func:`record_ckpt`): the async checkpointer records each
 save — the stall the train loop paid, the device→host extract, the
 background write and commit, payload bytes and chunk count. Input
 (:func:`record_input`): the prefetching device iterator records, per
-delivered batch, the time the loop blocked on the feed.
+delivered batch, the time the loop blocked on the feed. Serving
+(:func:`record_serve`): the engine banks its geometry under its tag and
+each :meth:`~tony_tpu_torch.serve.engine.ServeEngine.stats` reading
+under ``"<tag>_stats"``, the latter through :func:`safe_record`, which
+never sinks a request.
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 from typing import Dict
 
 COLLECTIVE_RECORDS: Dict[str, Dict[str, object]] = {}
 CKPT_RECORDS: Dict[str, Dict[str, object]] = {}
 INPUT_RECORDS: Dict[str, Dict[str, object]] = {}
+SERVE_RECORDS: Dict[str, Dict[str, object]] = {}
 
 
 def _snapshot(store: Dict[str, Dict[str, object]]
@@ -77,3 +83,30 @@ def input_report() -> Dict[str, Dict[str, object]]:
 
 def reset_input_records() -> None:
     INPUT_RECORDS.clear()
+
+
+def record_serve(tag: str, /, **fields) -> None:
+    """Bank one serving-plane record (engine geometry, qps/p50/p99/
+    queue-depth telemetry, replica restore geometry...)."""
+    SERVE_RECORDS[tag] = dict(fields)
+
+
+def serve_report() -> Dict[str, Dict[str, object]]:
+    return _snapshot(SERVE_RECORDS)
+
+
+def reset_serve_records() -> None:
+    SERVE_RECORDS.clear()
+
+
+_log = logging.getLogger(__name__)
+
+
+def safe_record(tag: str, /, **fields) -> None:
+    """:func:`record_serve`, swallowing any failure: bookkeeping must
+    never sink a request. The engine's heartbeat reading records through
+    it; a failure is logged at DEBUG."""
+    try:
+        record_serve(tag, **fields)
+    except Exception:  # noqa: BLE001
+        _log.debug("serve profiler record %r failed", tag, exc_info=True)

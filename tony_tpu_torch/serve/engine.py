@@ -23,22 +23,37 @@ batch-invariant (CPU or cuBLAS), so the port holds decode against
 greedy tokens equal. The attention kernel itself is row-independent.
 Greedy sampling is ``np.argmax`` on the host f32 row, so ties resolve
 as in the JAX package. Everything runs under ``torch.inference_mode``.
+
+Hot swap (:meth:`PagedModelRunner.swap_params`,
+:meth:`EngineFront.quiesce_and_swap`): new weights are copied INTO the
+live parameters at a drained iteration boundary. The cached step
+functions close over the model, so rebinding it would leave them on the
+old weights; copying in place keeps every step function and every
+parameter's address.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
 import uuid
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
 
-from tony_tpu_torch import resolve_device
+from tony_tpu_torch import profiler, resolve_device
 from tony_tpu_torch.serve.kvcache import AdmissionError, PagedKVCache
+from tony_tpu_torch.serve.swap import SwapError
+
+# Where the lanes of the reference's engine that the port has not ported
+# yet are tracked.
+_LANES_LATER = "ROADMAP.md, queue 1 item 9"
 
 
 @dataclasses.dataclass
@@ -63,9 +78,9 @@ class Completion:
     latency_s: float
 
     def wire(self) -> Dict[str, Any]:
-        """The serving wire form."""
-        return {"rid": self.rid, "tokens": list(self.tokens),
-                "latency_ms": round(1e3 * self.latency_s, 3)}
+        """The serving wire form, in plain Python numbers (JSON)."""
+        return {"rid": self.rid, "tokens": [int(t) for t in self.tokens],
+                "latency_ms": round(1e3 * float(self.latency_s), 3)}
 
 
 class _Seq:
@@ -185,6 +200,14 @@ class PagedModelRunner:
         self._fns: Dict[tuple, Callable] = {}
         # Forward-launch counter (prefills + decode steps).
         self.forwards = 0
+        # Weight publication: the published pointer version and the
+        # checkpoint step the live weights came from (0/0 until known),
+        # the lifetime swap count, and the quiesce gate that holds
+        # admission while a hot swap drains the batch.
+        self.weight_version = 0
+        self.weight_step = 0
+        self.weight_swaps = 0
+        self.swapping = False
 
     def _fn(self, b: int, t: int, n_blocks: Optional[int] = None
             ) -> Callable:
@@ -203,6 +226,43 @@ class PagedModelRunner:
         self.forwards += 1
         return logits
 
+    @torch.no_grad()
+    def swap_params(self, new: Mapping[str, torch.Tensor], *, version: int,
+                    step: int) -> None:
+        """Copy ``new`` (parameter name → tensor) into the live
+        parameters in place: the hot swap's commit point. The CALLER
+        owns the iteration-boundary contract (no forward in flight; the
+        replica runs this under the front's drive lock after a
+        quiesce), and the copies are ordered on the device before the
+        next forward's kernels, so no forward sees a mix.
+
+        Every name, shape, dtype and device is checked before any
+        parameter is touched: any drift raises :class:`SwapError` with
+        the old weights whole (a manifest of another geometry needs a
+        restart, not a swap). The step functions and every parameter's
+        address survive: a swap rebuilds nothing."""
+        live = dict(self.model.named_parameters())
+        if set(new) != set(live):
+            missing = sorted(set(live) - set(new))[:4]
+            extra = sorted(set(new) - set(live))[:4]
+            raise SwapError(
+                f"parameter set changed (missing {missing}, unexpected "
+                f"{extra}) — the published manifest is not this engine's "
+                f"geometry; old weights kept")
+        for name, p in live.items():
+            n = new[name]
+            if tuple(n.shape) != tuple(p.shape) or n.dtype != p.dtype \
+                    or n.device != p.device:
+                raise SwapError(
+                    f"parameter {name} changed: {tuple(p.shape)}/{p.dtype}"
+                    f"/{p.device} -> {tuple(n.shape)}/{n.dtype}/{n.device}"
+                    f"; old weights kept")
+        for name, p in live.items():
+            p.copy_(new[name])
+        self.weight_version = int(version)
+        self.weight_step = int(step)
+        self.weight_swaps += 1
+
 
 class ServeEngine(PagedModelRunner):
     """Continuous-batching loop for one replica.
@@ -218,7 +278,7 @@ class ServeEngine(PagedModelRunner):
                  decode_buckets: Sequence[int] = (4, 16),
                  max_running: int = 16, keep_logits: bool = False,
                  join_policy: str = "continuous",
-                 stats_window_s: float = 60.0,
+                 stats_window_s: float = 60.0, tag: str = "serve",
                  device: Optional[Union[str, torch.device]] = None):
         if join_policy not in ("continuous", "static"):
             raise ValueError(f"unknown join_policy {join_policy!r} "
@@ -241,6 +301,17 @@ class ServeEngine(PagedModelRunner):
         self._emitted = 0
         self._t0 = time.monotonic()
         self._steps = 0
+        # Padded prefill length -> count: the histogram the reference's
+        # warm() pad tuner reads from the heartbeat.
+        self._prompt_hist: Dict[int, int] = {}
+        self.tag = tag
+        profiler.record_serve(tag, ctx_pad=self.ctx_pad,
+                              block_size=self.block_size, nb_max=self.nb_max,
+                              n_blocks=self.cache.n_blocks,
+                              q_block=self.q_block,
+                              decode_buckets=list(self.decode_buckets),
+                              max_running=self.max_running,
+                              join_policy=join_policy)
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -278,6 +349,8 @@ class ServeEngine(PagedModelRunner):
         ``q_block`` multiple; emits the first token."""
         n = len(seq.tokens)
         t_pad = -(-n // self.q_block) * self.q_block
+        with self._lock:
+            self._prompt_hist[t_pad] = self._prompt_hist.get(t_pad, 0) + 1
         tokens = np.zeros((1, t_pad), np.int32)
         tokens[0, :n] = seq.tokens
         positions = np.arange(t_pad, dtype=np.int32)[None].copy()
@@ -319,6 +392,11 @@ class ServeEngine(PagedModelRunner):
 
     # -- scheduling --------------------------------------------------------
     def _join(self, results: List[Completion]) -> None:
+        # Hot-swap quiesce: admission pauses while a swap drains the
+        # batch, so in-flight sequences finish under the old weights and
+        # the queue admits after the flip under the new ones.
+        if self.swapping:
+            return
         if self.join_policy == "static" and self._running:
             return
         while len(self._running) < self.max_running:
@@ -415,27 +493,35 @@ class ServeEngine(PagedModelRunner):
         return logits[0, :t_real].cpu().numpy()
 
     # -- telemetry ---------------------------------------------------------
-    def stats(self) -> Dict[str, float]:
+    def stats(self, t0: Optional[float] = None,
+              t1: Optional[float] = None) -> Dict[str, Any]:
         """The serve heartbeat numbers: qps, token rate, p50/p99 request
         latency, time-to-first-token and step-time p50 over the last
-        ``stats_window_s``; queue depth; ``completed``/``steps``/
-        ``forwards`` as lifetime counters."""
-        now = time.monotonic()
+        ``stats_window_s`` (or, given ``t0`` and ``t1`` on the
+        ``time.monotonic`` clock, over the requests and steps that
+        finished between them, as far back as the engine keeps them);
+        queue depth; ``completed``/``steps``/``forwards`` as lifetime
+        counters; the weight version, step and swap count and the swap
+        gate. Every key the control plane reads of the reference's engine
+        is here, at its idle value where the lane is not ported (the
+        uniform-schema rule). Recorded under ``"<tag>_stats"``."""
+        if t0 is None or t1 is None:
+            t1 = time.monotonic()
+            t0 = max(self._t0, t1 - self.stats_window_s)
         with self._lock:
-            events = [e for e in self._events
-                      if now - e[0] <= self.stats_window_s]
-            steps = sorted(s for t, s in self._step_times
-                           if now - t <= self.stats_window_s)
+            events = [e for e in self._events if t0 <= e[0] <= t1]
+            steps = sorted(s for t, s in self._step_times if t0 <= t <= t1)
+            prompt_hist = dict(self._prompt_hist)
         lat = sorted(e[1] for e in events)
         ttft = sorted(e[3] for e in events)
-        dt = max(1e-9, min(self.stats_window_s, now - self._t0))
+        dt = max(1e-9, t1 - t0)
 
         def pct(vals: List[float], p: float) -> float:
             if not vals:
                 return 0.0
             return vals[min(len(vals) - 1, int(p * (len(vals) - 1) + 0.5))]
 
-        return {
+        stats: Dict[str, Any] = {
             "qps": len(events) / dt,
             "tokens_per_s": sum(e[2] for e in events) / dt,
             "p50_ms": 1e3 * pct(lat, 0.50),
@@ -449,7 +535,35 @@ class ServeEngine(PagedModelRunner):
             "forwards": float(self.forwards),
             "tokens_per_forward": (self._emitted / self.forwards
                                    if self.forwards else 0.0),
+            # Lanes not ported (speculation, disaggregation, the warm
+            # pool): their idle values.
+            "acceptance_rate": 0.0,
+            "role": "colocated",
+            "warm_standby": 0.0,
+            "weight_version": float(self.weight_version),
+            "weight_step": float(self.weight_step),
+            "weight_swaps": float(self.weight_swaps),
+            "swapping": 1.0 if self.swapping else 0.0,
+            "prompt_hist": {str(k): float(v)
+                            for k, v in sorted(prompt_hist.items())},
         }
+        profiler.safe_record(f"{self.tag}_stats", **stats)
+        return stats
+
+    def write_stats(self, path: str,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
+        """Atomically publish :meth:`stats` (+ ``extra``: the replica adds
+        its RPC port) as JSON: the file the executor's heartbeat carries
+        to the AM."""
+        payload: Dict[str, Any] = dict(self.stats())
+        if extra:
+            payload.update(extra)
+        # One temp file per writer: the replica's publisher thread and a
+        # hot swap's republish may write at once.
+        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+        with open(tmp, "w") as fh:
+            json.dump(payload, fh)
+        os.replace(tmp, path)
 
 
 class EngineFront:
@@ -471,9 +585,17 @@ class EngineFront:
             return f"req-{self._rid_ns}-{self._rid}"
 
     def generate(self, tokens: Sequence[int], max_new_tokens: int,
-                 rid: Optional[Any] = None) -> Completion:
+                 rid: Optional[Any] = None, conv: Optional[Any] = None,
+                 tenant: Optional[str] = None) -> Completion:
         """Submit one request and drive the shared engine until it
-        completes."""
+        completes. ``conv`` (the host tier's conversation handle) and
+        ``tenant`` (the QoS class) belong to lanes not ported yet: a
+        value other than ``None`` raises."""
+        for name, value in (("conv", conv), ("tenant", tenant)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"generate({name}=...) needs a serving lane that is "
+                    f"not ported yet ({_LANES_LATER})")
         if rid is None:
             rid = self.fresh_rid()
         self.engine.submit(Request(rid=rid, tokens=list(tokens),
@@ -492,3 +614,23 @@ class EngineFront:
             # Another thread may own the completion we need next round;
             # yield so it can collect.
             time.sleep(0)
+
+    def quiesce_and_swap(self, fn: Callable[[], None]) -> None:
+        """Drain the engine to an iteration boundary and run ``fn`` (the
+        weight flip) there, without dropping a request. Under the drive
+        lock: set ``engine.swapping`` (the ``_join`` gate: queued
+        requests stay queued), step the engine until every in-flight
+        sequence completes under the OLD weights (completions stash into
+        ``_done`` as a caller's own drive turn would), call ``fn`` at the
+        drained boundary, then clear the gate: the queued backlog admits
+        on the next step under the NEW weights. A failed flip propagates
+        after the gate clears, the old weights serving."""
+        with self._drive:
+            self.engine.swapping = True
+            try:
+                while self.engine._running:
+                    for c in self.engine.step():
+                        self._done[c.rid] = c
+                fn()
+            finally:
+                self.engine.swapping = False
