@@ -411,6 +411,65 @@ def check_row_independence(dtype, gen):
         "launch; splits 1, 2, 4, 8 == the planned launch (torch.equal)")
 
 
+# Row 9 at the shapes the routed lanes launch it, llama2-7b's d=128 at ctx
+# 2048: (name, (b, h, hkv, t, d, ctx), first position, real rows a
+# sequence). chunk is one 256-row prefill chunk at positions 1024-1279
+# (the serve_prefix phase's prefill_chunk past its 1024-token system
+# prompt); verify the b=16 verify block of spec_k=4 (5 real rows of 16,
+# ragged first positions).
+LANE_SHAPES = [("chunk", (1, 32, 32, 256, 128, 2048), 1024, 256),
+               ("verify", (16, 32, 32, 16, 128, 2048), None, 5)]
+
+
+def check_lane_shape(name, shape, p0, real, gen):
+    """Row 9 at a lane's shape in bf16: against its plain version on the
+    real rows (one bf16 ulp of the output's scale, as check_kernel), the
+    same bits at forced cache splits 1, 2, 4, 8 and in a second launch
+    (``torch.equal``), timed beside its bound, plain version and SDPA."""
+    b, h, hkv, t, d, ctx = shape
+    q, k, v, pos = decode_inputs(b, h, hkv, t, d, ctx, torch.bfloat16, gen)
+    if p0 is not None:
+        pos = (p0 + torch.arange(t, dtype=torch.int32,
+                                 device="cuda"))[None].repeat(b, 1)
+    scale = d ** -0.5
+    out = attn.flash_decode(q, k, v, pos)
+    ref = attn._decode_plain(q, k, v, pos, scale, 128)
+    forced = {s: attn._decode_cuda(q, k, v, pos, scale, splits=s)
+              for s in (1, 2, 4, 8)}
+    again = attn.flash_decode(q, k, v, pos)
+    torch.cuda.synchronize()
+    err = (out[:, :, :real].float()
+           - ref[:, :, :real].float()).abs().max().item()
+    tol = 2.0 ** (math.floor(math.log2(
+        ref[:, :, :real].float().abs().max().item())) - 7)
+    log(f"  {name} bf16 b={b} t={t} ({real} real rows) positions "
+        f"{int(pos.min())}-{int(pos.max())}: max|kernel - plain| = "
+        f"{err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with the plain "
+                             f"version: {err} > {tol}")
+    if not torch.equal(again, out) or not all(
+            torch.equal(o, out) for o in forced.values()):
+        raise AssertionError(f"{name}: the split over the cache or a "
+                             f"second launch changed a bit")
+    log(f"  {name}: splits 1, 2, 4, 8 and a second launch == the planned "
+        f"launch (torch.equal)")
+    res = {"shape": f"bf16 b={b} h={h} hkv={hkv} t={t} d={d} ctx={ctx}",
+           "positions": [int(pos.min()), int(pos.max())],
+           "real_rows": real, "max_abs_err": err, "tol": tol,
+           "plan": attn._decode_plan_on(torch.cuda.current_device(), b, h,
+                                        hkv, t, d, ctx)._asdict()}
+    res["ms"] = cuda_ms(lambda: attn.flash_decode(q, k, v, pos))
+    res["plain_ms"] = cuda_ms(
+        lambda: attn._decode_plain(q, k, v, pos, scale, 128), iters=5)
+    res["library_ms"] = cuda_ms(sdpa_fn(q, k, v, pos))
+    res["bound_ms"], res["bound_by"] = bound(q, k, pos)
+    log(f"    kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"sdpa {res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})")
+    return res
+
+
 def serve_phase(gen_seed: int, quant=None, tol: float = SERVE_REL_TOL):
     """The 16-request serve drive of full-width llama2-7b (bf16 storage)
     on the model's ``quant`` lanes. Returns the serve numbers, the
@@ -598,6 +657,369 @@ def decode_group(name: str) -> str:
     if "copy" in low:
         return "casts"
     return "other"
+
+
+# ---------------------------------------------------------------------
+# The routed serving lanes: prefix cache, chunked prefill, speculation.
+# ---------------------------------------------------------------------
+
+SERVE_ENGINE = dict(ctx_max=2048, block_size=16, q_block=16,
+                    max_running=16, decode_buckets=(4, 16),
+                    keep_logits=True)
+PREFIX_SYSTEM = 1024       # tokens of the shared, seeded system prompt
+PREFIX_CHUNK = 256
+PREFIX_NEW = 32
+PREFIX_TURN2 = 4           # requests that come back for a second turn
+LONG_PROMPT = 2040         # + 8 new tokens = the 2048 context
+
+
+def prefix_mix(seed: int, vocab: int):
+    """The serve_prefix mix: one seeded 1024-token system prompt, 16
+    requests of it + their own 16-256-token suffix, 32 new tokens each;
+    the second-turn suffixes (16-64 tokens) of 4 of them."""
+    rng = np.random.default_rng(seed + 2)
+    system = rng.integers(0, vocab, PREFIX_SYSTEM).tolist()
+    turn1 = [system + rng.integers(0, vocab, int(rng.integers(16, 257)))
+             .tolist() for _ in range(16)]
+    more = [rng.integers(0, vocab, int(rng.integers(16, 65))).tolist()
+            for _ in range(PREFIX_TURN2)]
+    return turn1, more
+
+
+def drive(engine, reqs, warm_first=False):
+    """Submit ``reqs`` ((rid, tokens, max_new)) and run the engine dry.
+    ``warm_first``: the first request alone until its prompt is in the
+    pool (published), then the rest at once. Returns the completions by
+    rid, the wall seconds and the ``time.monotonic`` window."""
+    from tony_tpu_torch.serve import Request
+    done = {}
+    t0 = time.monotonic()
+    rest = list(reqs)
+    if warm_first:
+        rid, toks, n = rest.pop(0)
+        engine.submit(Request(rid=rid, tokens=toks, max_new_tokens=n))
+        while engine.queue_depth or engine._prefilling:
+            done.update({c.rid: c for c in engine.step()})
+    for rid, toks, n in rest:
+        engine.submit(Request(rid=rid, tokens=toks, max_new_tokens=n))
+    done.update({c.rid: c for c in engine.run()})
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    return done, t1 - t0, (t0, t1)
+
+
+def compare_streams(got, ref, tol, what):
+    """Tokens and logits of ``got`` against ``ref`` (completions by rid,
+    same prompts): rows within ``tol``·max|ref| and tokens equal up to
+    each request's first divergence, which must sit at a near-tie of the
+    reference row (top-two gap within ``tol``·max|ref|); the rest of
+    that request is not compared. Returns the worst relative difference,
+    the divergences and the rows compared."""
+    worst, diverged, rows = 0.0, 0, 0
+    for rid, r in ref.items():
+        c = got[rid]
+        if list(c.prompt) != list(r.prompt):
+            raise AssertionError(f"{what}: request {rid} got another "
+                                 f"prompt than the reference's")
+        for j, (a, b) in enumerate(zip(c.logits, r.logits)):
+            scale = float(np.abs(b).max())
+            diff = float(np.abs(a - b).max())
+            worst = max(worst, diff / scale)
+            rows += 1
+            if diff > tol * scale:
+                raise AssertionError(f"{what}: request {rid} row {j} off "
+                                     f"the reference by {diff} > "
+                                     f"{tol}·{scale}")
+            if c.tokens[j] != r.tokens[j]:
+                top2 = np.sort(b)[-2:]
+                if top2[1] - top2[0] > tol * scale:
+                    raise AssertionError(f"{what}: request {rid} token {j} "
+                                         f"differs outside a near-tie")
+                diverged += 1
+                break
+    return worst, diverged, rows
+
+
+def prefix_expected(turn1, turn2, chunk, cache):
+    """The lane counters the serve_prefix mix implies, from its token
+    counts alone (bs = q_block = 16): request 0 warms the pool alone, so
+    each of the other 15 adopts the 64 system-prompt blocks; a second
+    turn adopts every full block below its first turn's last token
+    (the rows written by that turn: prompt + 31 decoded). Prefill rows
+    are the rest of each prompt padded to 16 (a 256-row chunk is a
+    multiple of 16, so chunking adds none); chunks are the rest over
+    256, rounded up."""
+    bs = 16
+    hits, rows, chunks, arith = 0, 0, 0, []
+    for i, toks in enumerate(turn1):
+        m = PREFIX_SYSTEM // bs if (cache and i) else 0
+        hits += m
+        rest = len(toks) - m * bs
+        rows += -(-rest // bs) * bs
+        chunks += -(-rest // chunk) if chunk else 0
+    arith.append(f"turn 1: 15 x {PREFIX_SYSTEM // bs} hit blocks")
+    for first, toks in turn2:
+        m = (first - 1) // bs if cache else 0
+        hits += m
+        rest = len(toks) - m * bs
+        rows += -(-rest // bs) * bs
+        chunks += -(-rest // chunk) if chunk else 0
+        arith.append(f"turn 2: ({first} - 1) // 16 = {m}")
+    return {"prefix_hit_blocks": hits, "prefill_rows": rows,
+            "prefill_chunks": chunks}, "; ".join(arith)
+
+
+def long_prompt_steps(model, chunk, seed):
+    """The decode step while one 2040-token prompt prefills beside 15
+    running sequences (128-token prompts, 64 new tokens): the host wall
+    of every engine step from the long prompt's submission to its first
+    token. Returns their p50, max and count (ms)."""
+    from tony_tpu_torch.serve import Request
+    rng = np.random.default_rng(seed + 3)
+    engine = ServeEngine(model, prefill_chunk=chunk,
+                         **dict(SERVE_ENGINE, keep_logits=False))
+    vocab = model.cfg.vocab
+    for i in range(15):
+        engine.submit(Request(rid=f"bg-{i}",
+                              tokens=rng.integers(0, vocab, 128).tolist(),
+                              max_new_tokens=64))
+    while engine.queue_depth or engine._prefilling:
+        engine.step()
+    for _ in range(3):
+        engine.step()
+    engine.submit(Request(rid="long",
+                          tokens=rng.integers(0, vocab, LONG_PROMPT)
+                          .tolist(), max_new_tokens=8))
+    steps = []
+    while True:
+        t0 = time.monotonic()
+        engine.step()
+        steps.append(1e3 * (time.monotonic() - t0))
+        if any(s.rid == "long" for s in engine._running):
+            break
+    engine.run()
+    steps.sort()
+    del engine
+    return {"step_p50_ms": steps[(len(steps) - 1) // 2],
+            "step_max_ms": steps[-1], "steps": len(steps)}
+
+
+def serve_prefix_phase(model):
+    """The prefix-cache and chunked-prefill lanes at full width: the
+    prefix mix with the cache off, on, and on with 256-row chunks; lane
+    counters against the mix's arithmetic, every way's tokens and logits
+    against the cache-off run's; then the decode step while a 2040-token
+    prompt prefills chunked and monolithic beside 15 running
+    sequences."""
+    vocab = model.cfg.vocab
+    turn1, more = prefix_mix(SEED, vocab)
+    ways = {"off": {}, "on": {"prefix_cache": True},
+            "on_chunk": {"prefix_cache": True,
+                         "prefill_chunk": PREFIX_CHUNK}}
+    res, ref1, ref2 = {}, None, None
+    for way, lanes in ways.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ServeEngine(model, **SERVE_ENGINE, **lanes)
+        EngineFront(engine).generate([1, 2, 3, 4], 2)       # warm-up
+        c0 = {k: getattr(engine, k) for k in (
+            "prefix_hit_blocks", "prefill_rows", "prefill_chunks",
+            "prefix_lookup_blocks")}
+        LAUNCHES["flash_decode"] = 0
+        forwards0 = engine.forwards
+        done1, wall1, win1 = drive(
+            engine, [(f"t1-{i}", t, PREFIX_NEW)
+                     for i, t in enumerate(turn1)], warm_first=True)
+        turn2 = [(len(turn1[i]) + PREFIX_NEW,
+                  turn1[i] + list(done1[f"t1-{i}"].tokens) + more[i])
+                 for i in range(PREFIX_TURN2)]
+        done2, wall2, win2 = drive(
+            engine, [(f"t2-{i}", t, PREFIX_NEW)
+                     for i, (_, t) in enumerate(turn2)])
+        launches = LAUNCHES["flash_decode"]
+        forwards = engine.forwards - forwards0
+        peak = torch.cuda.max_memory_allocated()
+        for d in (done1, done2):
+            for c in d.values():
+                if len(c.tokens) != PREFIX_NEW:
+                    raise AssertionError(f"serve_prefix {way}: request "
+                                         f"{c.rid} gave {len(c.tokens)}")
+        if launches != model.cfg.n_layers * forwards or forwards == 0:
+            raise AssertionError(f"serve_prefix {way}: flash_decode "
+                                 f"launches {launches} over {forwards} "
+                                 f"forwards")
+        got = {k: getattr(engine, k) - c0[k] for k in c0}
+        want, arith = prefix_expected(
+            turn1, turn2, lanes.get("prefill_chunk"),
+            lanes.get("prefix_cache", False))
+        log(f"  {way}: counters {got}; the mix implies {want} ({arith})")
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"serve_prefix {way}: lane counters "
+                                 f"{got} != {want}")
+        if way == "off":
+            ref1, ref2 = done1, done2
+            cmp = (0.0, 0, 0)
+        else:
+            w1, d1, r1 = compare_streams(done1, ref1, SERVE_REL_TOL,
+                                         f"serve_prefix {way}")
+            same = {k: c for k, c in done2.items()
+                    if list(c.prompt) == list(ref2[k].prompt)}
+            w2, d2, r2 = compare_streams(same, {k: ref2[k] for k in same},
+                                         SERVE_REL_TOL,
+                                         f"serve_prefix {way}")
+            cmp = (max(w1, w2), d1 + d2 + len(done2) - len(same), r1 + r2)
+        gen = PREFIX_NEW * (len(turn1) + len(turn2))
+        res[way] = {
+            "lanes": lanes, "counters": got, "expected": want,
+            "arithmetic": arith,
+            "prefix_cache_hit_rate": (
+                got["prefix_hit_blocks"] / got["prefix_lookup_blocks"]
+                if got["prefix_lookup_blocks"] else 0.0),
+            "cow_total": engine.cache.cow_total,
+            "turn1": dict(window_numbers(engine, *win1), wall_s=wall1),
+            "turn2": dict(window_numbers(engine, *win2), wall_s=wall2),
+            "decode_tokens_per_s": gen / (wall1 + wall2),
+            "forwards": forwards, "flash_decode_launches": launches,
+            "vs_cache_off_max_rel": cmp[0], "near_tie_divergences": cmp[1],
+            "rows_compared": cmp[2], "max_memory_allocated": peak}
+        log(f"  {way}: TTFT p50 turn 1 {res[way]['turn1']['ttft_p50_ms']:.1f}"
+            f" ms, turn 2 {res[way]['turn2']['ttft_p50_ms']:.1f} ms, "
+            f"{res[way]['decode_tokens_per_s']:.1f} tokens/s, vs cache off "
+            f"{cmp[0]:.3e} over {cmp[2]} rows, {cmp[1]} near-tie "
+            f"divergences, peak {peak / 1e9:.2f} GB")
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    long = {"monolithic": long_prompt_steps(model, None, SEED),
+            "chunked": long_prompt_steps(model, PREFIX_CHUNK, SEED)}
+    log(f"  decode step while a {LONG_PROMPT}-token prompt prefills beside "
+        f"15 running sequences: {long}")
+    return {"model": "llama2-7b", "engine": {
+        k: v for k, v in SERVE_ENGINE.items() if k != "keep_logits"},
+        "mix": f"16 x ({PREFIX_SYSTEM} shared + 16-256) tokens, "
+               f"{PREFIX_NEW} new; {PREFIX_TURN2} second turns (+16-64)",
+        "ways": res, "long_prompt": long,
+        "flash_decode_launches": sum(r["flash_decode_launches"]
+                                     for r in res.values())}
+
+
+class RejectionWatch:
+    """Watches a SpecEngine's verify rounds: each draft row the target
+    rejects must be a near-tie of the verify row (the gap between the
+    target's argmax and the draft token within ``tol``·max|row|)."""
+
+    def __init__(self, engine, tol):
+        self.engine, self.tol = engine, tol
+        self.rejected, self.worst_gap = 0, 0.0
+        self._drafts, self._pos = {}, {}
+        propose, emit = engine.draft.propose, engine._emit_token
+
+        def watched_propose(seqs, ks):
+            out = propose(seqs, ks)
+            for s, d in zip(seqs, out):
+                self._drafts[s.rid], self._pos[s.rid] = list(d), 0
+            return out
+
+        def watched_emit(seq, row):
+            d = self._drafts.get(seq.rid)
+            if d is not None:
+                i = self._pos[seq.rid]
+                self._pos[seq.rid] = i + 1
+                if i < len(d) and int(np.argmax(row)) != d[i]:
+                    self.rejected += 1
+                    gap = float(row.max() - row[d[i]]) / float(
+                        np.abs(row).max())
+                    self.worst_gap = max(self.worst_gap, gap)
+                    if gap > tol:
+                        raise AssertionError(
+                            f"serve_spec: the target rejected a draft "
+                            f"token {gap:.3e} below its argmax (> {tol})")
+            emit(seq, row)
+
+        engine.draft.propose = watched_propose
+        engine._emit_token = watched_emit
+
+
+def serve_spec_phase(model):
+    """The speculative lane at full width: the serve phase's 16-request
+    mix through the plain engine, SpecEngine(spec_k=4) with the n-gram
+    draft, and SpecEngine(spec_k=4) with a ModelDraft of the target
+    itself (a second 32-layer KV pool); streams against the plain run's,
+    row 9 launched 32 times a forward (target and draft)."""
+    from tony_tpu_torch.serve import SpecEngine
+    reqs = [(f"s-{i}", toks, n) for i, (toks, n) in
+            enumerate(serve_mix(SEED, model.cfg.vocab))]
+    gen = sum(n for _, _, n in reqs)
+    res, ref = {}, None
+    for way in ("plain", "ngram", "self_draft"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if way == "plain":
+            engine = ServeEngine(model, **SERVE_ENGINE)
+        else:
+            engine = SpecEngine(
+                model, spec_k=4, **SERVE_ENGINE,
+                **({"draft_model": model} if way == "self_draft" else {}))
+        EngineFront(engine).generate([1, 2, 3, 4], 6)       # warm-up
+        watch = RejectionWatch(engine, SERVE_REL_TOL) \
+            if way == "self_draft" else None
+        draft = getattr(engine, "draft", None)
+        forwards0 = engine.forwards + getattr(draft, "forwards", 0)
+        LAUNCHES["flash_decode"] = 0
+        done, wall, win = drive(engine, reqs)
+        launches = LAUNCHES["flash_decode"]
+        forwards = (engine.forwards + getattr(draft, "forwards", 0)
+                    - forwards0)
+        peak = torch.cuda.max_memory_allocated()
+        for rid, _, n in reqs:
+            if len(done[rid].tokens) != n:
+                raise AssertionError(f"serve_spec {way}: {rid} gave "
+                                     f"{len(done[rid].tokens)} of {n}")
+        if launches != model.cfg.n_layers * forwards or forwards == 0:
+            raise AssertionError(f"serve_spec {way}: flash_decode launches "
+                                 f"{launches} != {model.cfg.n_layers} x "
+                                 f"{forwards} forwards")
+        out = {"decode_tokens_per_s": gen / wall, "wall_s": wall,
+               **window_numbers(engine, *win), "forwards": forwards,
+               "flash_decode_launches": launches,
+               "max_memory_allocated": peak}
+        if way == "plain":
+            ref = done
+        else:
+            worst, div, rows = compare_streams(done, ref, SERVE_REL_TOL,
+                                               f"serve_spec {way}")
+            st = engine.stats()
+            out.update({k: st[k] for k in (
+                "acceptance_rate", "tokens_per_verify",
+                "tokens_per_seq_round", "spec_proposed", "spec_accepted",
+                "verify_launches", "draft_forwards")})
+            out.update(vs_plain_max_rel=worst, near_tie_divergences=div,
+                       rows_compared=rows)
+            if watch is not None:
+                out.update(rejected=watch.rejected,
+                           rejected_worst_gap=watch.worst_gap)
+                # A round's first rejection ends it, so the rejections
+                # seen are the rounds that lost proposals.
+                lost = st["spec_proposed"] - st["spec_accepted"]
+                if (lost > 0) != (watch.rejected > 0) \
+                        or watch.rejected > lost:
+                    raise AssertionError(
+                        f"serve_spec: {watch.rejected} rejections seen, "
+                        f"{lost} proposals lost")
+        log(f"  {way}: {json.dumps(out)}")
+        res[way] = out
+        del engine, draft, watch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": "llama2-7b", "spec_k": 4, "engine": {
+        k: v for k, v in SERVE_ENGINE.items() if k != "keep_logits"},
+        "mix": "serve_mix(SEED): 16 prompts of 16-512 tokens, 16-64 new",
+        "ways": res,
+        "flash_decode_launches": sum(r["flash_decode_launches"]
+                                     for w, r in res.items()
+                                     if w != "plain")}
 
 
 # ---------------------------------------------------------------------
@@ -3014,13 +3436,16 @@ def train_ckpt_run(card: str, loop_p50_ms):
 # ---------------------------------------------------------------------
 
 REPLICA_ENGINE = dict(ctx_max=2048, block_size=16, q_block=16,
-                      max_running=16)
+                      max_running=16, prefix_cache=True,
+                      prefill_chunk=PREFIX_CHUNK)
 # The keys of a replica's stats file that the reference's AM, session,
 # router and autoscaler read.
 REPLICA_STATS_KEYS = {"qps", "p99_ms", "queue_depth", "running", "completed",
                       "acceptance_rate", "role", "warm_standby",
                       "weight_version", "weight_step", "weight_swaps",
-                      "swapping", "rpc_port"}
+                      "swapping", "rpc_port", "prefix_digest",
+                      "prefix_cache_hit_rate", "blocks_shared",
+                      "prefill_chunks"}
 REPLICA_STATS_EVERY_S = 0.5
 REPLICA_UNCOMMITTED_STEP = 7
 
@@ -3031,6 +3456,12 @@ class LongCallRpcClient(RpcClient):
     ``SOCKET_TIMEOUT_S`` the client re-sends the call as a transport
     fault."""
     SOCKET_TIMEOUT_S = 600.0
+
+
+def chain_keys_of(tokens):
+    """The chain keys of ``tokens``' full 16-token blocks."""
+    from tony_tpu_torch.serve import prefix
+    return prefix.chain_keys(tokens, REPLICA_ENGINE["block_size"])
 
 
 def replica_model_kwargs(layers):
@@ -3243,6 +3674,13 @@ def serve_replica_phase(card, root, layers, step):
         if rpc_generate(port, prompt, n)["tokens"] != alone:
             raise AssertionError("serve_replica: a prompt alone over RPC "
                                  "gave other tokens than in-process")
+        # A prompt served only before the swap: its blocks are published.
+        before = np.random.default_rng(SEED + 4).integers(
+            0, cfg.vocab, 300).tolist()
+        replica.generate(before, 8)
+        if not set(chain_keys_of(before)) <= set(engine.prefix_digest()):
+            raise AssertionError("serve_replica: a served prompt's blocks "
+                                 "are not in the prefix digest")
         stats = wait_for_stats(stats_path,
                                lambda s: s["completed"] >= 3 * 16 + 3)
         missing = REPLICA_STATS_KEYS - set(stats)
@@ -3262,6 +3700,17 @@ def serve_replica_phase(card, root, layers, step):
                                  f"version {engine.weight_version}, swaps "
                                  f"{engine.weight_swaps}")
         during = window_numbers(engine, *swap["restore_window"])
+        # The flip flushed the prefix tier: the prompt served only before
+        # it adopts nothing. The mix's prompt is served once to publish
+        # its blocks again, so the next call takes the launches ``alone``
+        # took before the swap.
+        hits = engine.prefix_hit_blocks
+        after_swap = replica.generate(before, 8).tokens
+        if engine.prefix_hit_blocks != hits:
+            raise AssertionError(
+                f"serve_replica: {engine.prefix_hit_blocks - hits} hit "
+                f"blocks after the swap")
+        replica.generate(prompt, n)
         if replica.generate(prompt, n).tokens != alone:
             raise AssertionError("serve_replica: the flip changed a token")
         try:
@@ -3289,7 +3738,24 @@ def serve_replica_phase(card, root, layers, step):
     if server.is_alive():
         raise AssertionError("serve_replica: serve_forever did not stop")
     peak = torch.cuda.max_memory_allocated()
+    digest = len(engine.prefix_digest())
+    lanes = {k: float(stats[k]) for k in (
+        "prefix_cache_hit_rate", "blocks_shared", "prefill_chunks")}
     del replica, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A fresh replica on the step the swap published gives the prompt
+    # served before the swap the tokens the swapped replica gave it.
+    fresh = Replica(model_name="llama2-7b",
+                    model_kwargs=replica_model_kwargs(layers),
+                    ckpt_dir=root, dtype_policy="bf16", **REPLICA_ENGINE)
+    fresh_tokens = fresh.generate(before, 8).tokens
+    if fresh.restored_step != step or fresh_tokens != after_swap:
+        raise AssertionError("serve_replica: the swapped replica's tokens "
+                             "differ from a fresh replica's")
+    log(f"  after the swap: 0 hit blocks for the prompt served before it; "
+        f"its tokens == a fresh Replica's ({digest} keys in the digest)")
+    del fresh
     gc.collect()
     torch.cuda.empty_cache()
     return {"model": f"llama2-7b n_layers={layers}/32 xent_chunk="
@@ -3304,6 +3770,9 @@ def serve_replica_phase(card, root, layers, step):
                          completed_during=sum(len(c) for c in completed),
                          decode_during_restore=during),
             "swap_refused": refused, "stats_file_keys": sorted(stats),
+            "prefix_lanes": dict(lanes, digest_keys=digest,
+                                 hit_blocks_after_swap=0,
+                                 fresh_replica_tokens_equal=True),
             "max_memory_allocated": peak, "card": card}
 
 
@@ -3347,6 +3816,8 @@ def main() -> int:
                                      prefill=pf)["max_abs_err"])
     check_row_independence(torch.bfloat16, gen)
     check_row_independence(torch.float32, gen)
+    lane_timed = {name: check_lane_shape(name, shape, p0, real, gen)
+                  for name, shape, p0, real in LANE_SHAPES}
     flash = {}
     for shape in FLASH_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -3365,10 +3836,20 @@ def main() -> int:
     prof = profile_decode(engine, engine.model.cfg.vocab)
     log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
     serve["decode_profile"] = prof
+    model = engine.model
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"  serve phase freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+
+    # Phase 5b: the routed lanes on the serve phase's model.
+    log("[serve_prefix]")
+    serve_prefix = serve_prefix_phase(model)
+    log("[serve_spec]")
+    serve_spec = serve_spec_phase(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  serve phases freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"still allocated")
 
     # Phase 6: the training path.
@@ -3426,9 +3907,13 @@ def main() -> int:
         "source": "tony_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "tony_tpu/ops/attention.py:1231",
         "launches": serve_launches["flash_decode"]
+        + serve_prefix["flash_decode_launches"]
+        + serve_spec["flash_decode_launches"]
         + serve_replica["rpc"]["flash_decode_launches"],
         "launches_by_path": {
             "serve": serve_launches["flash_decode"],
+            "serve_prefix": serve_prefix["flash_decode_launches"],
+            "serve_spec": serve_spec["flash_decode_launches"],
             "serve_replica": serve_replica["rpc"]["flash_decode_launches"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
@@ -3442,7 +3927,9 @@ def main() -> int:
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "library_device_ms", "max_abs_err", "plan")}
             for name, r in decode_timed.items()},
-        "max_abs_err_all_cases": max(errs),
+        "lane_shapes": lane_timed,
+        "max_abs_err_all_cases": max(errs + [
+            r["max_abs_err"] for r in lane_timed.values()]),
         "kernel": "flash_decode_mma_kernel<HEAD_DIM, RT> + "
                   "flash_decode_combine_kernel (bf16); flash_decode_kernel "
                   "(f32)",
@@ -3576,6 +4063,10 @@ def main() -> int:
     print(json.dumps({"train_loop": train_loop_res}), flush=True)
     print(json.dumps({"train_ckpt": train_ckpt}), flush=True)
     print(json.dumps({"serve_replica": serve_replica}), flush=True)
+    serve_prefix["card"] = card
+    serve_spec["card"] = card
+    print(json.dumps({"serve_prefix": serve_prefix}), flush=True)
+    print(json.dumps({"serve_spec": serve_spec}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

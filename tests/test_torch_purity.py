@@ -56,6 +56,8 @@ def test_sources_found():
                  "tony_tpu_torch/train/__init__.py",
                  "tony_tpu_torch/serve/engine.py",
                  "tony_tpu_torch/serve/kvcache.py",
+                 "tony_tpu_torch/serve/prefix.py",
+                 "tony_tpu_torch/serve/spec.py",
                  "tony_tpu_torch/ops/fused_optim.py",
                  "tony_tpu_torch/parallel/__init__.py",
                  "tony_tpu_torch/parallel/overlap.py", "chip_smoke.py",

@@ -9,8 +9,12 @@ TestHotSwap (tests/test_publish.py) pins on the port; the RPC wire in
 both directions through the JAX ProxyServer; the JAX executor's
 heartbeat, session and RequestRouter routing a request to the port
 replica; ``python -m tony_tpu_torch.serve.replica`` launched with the
-executor's environment; and every lane the port has not ported raising
-with its ROADMAP item. llama-tiny, 2 layers, on the CPU."""
+executor's environment; the routed lanes (prefix cache, chunked
+prefill, speculation) armed through ``main()`` serving the plain
+replica's tokens, the prefix digest through the JAX executor's reader
+and router, and a hot swap flushing the prefix tier; and every lane the
+port has not ported raising with its ROADMAP item. llama-tiny, 2
+layers, on the CPU."""
 
 from __future__ import annotations
 
@@ -50,7 +54,8 @@ from tony_tpu_torch import train as ttrain
 from tony_tpu_torch.ckpt import format as fmt
 from tony_tpu_torch.conf import (SERVE_AOT_CACHE, SERVE_CKPT_DIR,
                                  SERVE_DEMOTE_BATCH, SERVE_DEMOTE_WATERMARK,
-                                 SERVE_DRAFT_MODEL, SERVE_HOST_BLOCKS,
+                                 SERVE_DRAFT_MODEL, SERVE_DRAFT_MODEL_KWARGS,
+                                 SERVE_HOST_BLOCKS,
                                  SERVE_MESH, SERVE_MODEL, SERVE_MODEL_KWARGS,
                                  SERVE_PREFILL_CHUNK, SERVE_PREFIX_CACHE,
                                  SERVE_PREFIX_STORE, SERVE_QOS_TENANTS,
@@ -59,8 +64,8 @@ from tony_tpu_torch.conf import (SERVE_AOT_CACHE, SERVE_CKPT_DIR,
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import jax_param_tree, params_from_jax
 from tony_tpu_torch.rpc import RpcClient, RpcError, RpcServer
-from tony_tpu_torch.serve import (Replica, Request, ServeEngine, SwapError,
-                                  replica as replica_mod)
+from tony_tpu_torch.serve import (Replica, Request, ServeEngine, SpecEngine,
+                                  SwapError, replica as replica_mod)
 
 ROOT = Path(__file__).resolve().parent.parent
 ENGINE_KW = dict(ctx_max=64, block_size=8, q_block=16, max_running=4,
@@ -526,6 +531,40 @@ class TestHotSwap:
             assert len(toks) == 4 and toks in (ref1[pi], ref2[pi]), (
                 pi, toks)
 
+    def test_prefix_lanes_digest_and_swap_flush(self, port_ckpt, tmp_path):
+        """A replica with the prefix cache and chunked prefill armed: its
+        stats file, read by the JAX executor's reader, carries the
+        prefix digest the JAX router scores; after a hot swap the
+        prompt served before it gets zero hit blocks, and its tokens
+        equal a fresh replica's on the new step."""
+        from tony_tpu.executor import read_serve_stats
+        from tony_tpu.serve import prefix as jprefix
+
+        publish.publish_step(port_ckpt, 1)
+        replica = _replica(port_ckpt, prefix_cache=True, prefill_chunk=16)
+        prompt = PROMPTS[2] + PROMPTS[1]
+        first = replica.generate(prompt, 4)
+        assert replica.generate(prompt, 4).tokens == first.tokens
+        engine = replica.engine
+        assert engine.prefix_hit_blocks > 0 and engine.prefill_chunks > 0
+        path = tmp_path / "stats.json"
+        engine.write_stats(str(path), extra={"rpc_port": 1})
+        read = read_serve_stats(path)
+        keys = jprefix.chain_keys(prompt, engine.block_size)
+        assert set(keys) <= set(read["prefix_digest"])
+        router = RequestRouter(block_size=engine.block_size)
+        router.upsert_replica("warm", address="127.0.0.1:1", stats=read)
+        router.upsert_replica("cold", address="127.0.0.1:2",
+                              stats={"queue_depth": 0.0})
+        assert router.route(prompt) == "warm"
+        publish.publish_step(port_ckpt, 2)
+        replica.hot_swap()
+        assert engine.prefix_digest() == []
+        hits = engine.prefix_hit_blocks
+        after = replica.generate(prompt, 4).tokens
+        assert engine.prefix_hit_blocks == hits
+        assert after == _replica(port_ckpt).generate(prompt, 4).tokens
+
     @pytest.mark.parametrize("site", ["swap_before_restore",
                                       "swap_after_restore",
                                       "swap_before_flip",
@@ -817,8 +856,6 @@ class TestLaunch:
 # ---------------------------------------------------------------------------
 
 UNPORTED = [
-    (SERVE_SPEC_K, "4", 9), (SERVE_DRAFT_MODEL, "llama-tiny", 9),
-    (SERVE_PREFIX_CACHE, "true", 9), (SERVE_PREFILL_CHUNK, "16", 9),
     (serve_role_key("serve"), "decode", 9), (SERVE_HOST_BLOCKS, "8", 9),
     (SERVE_PREFIX_STORE, "/tmp/stems", 9),
     (SERVE_QOS_TENANTS, "gold:3,silver:1", 9),
@@ -826,6 +863,16 @@ UNPORTED = [
     (serve_warm_standby_key("serve"), "2", 12),
     (SERVE_DEMOTE_WATERMARK, "0.5", 12), (SERVE_DEMOTE_BATCH, "4", 12),
     (SERVE_MESH, '{"fsdp": 2}', 8)]
+
+
+# The lanes ported from the refused list, each armed through main().
+PORTED = [
+    {SERVE_SPEC_K: "4"},
+    {SERVE_SPEC_K: "3", SERVE_DRAFT_MODEL: "llama-tiny",
+     SERVE_DRAFT_MODEL_KWARGS: json.dumps({"n_layers": 2, "device": "cpu",
+                                           "dtype": "float32"})},
+    {SERVE_PREFIX_CACHE: "true"},
+    {SERVE_PREFILL_CHUNK: "16", SERVE_PREFIX_CACHE: "true"}]
 
 
 class TestUnported:
@@ -844,6 +891,37 @@ class TestUnported:
                            str(_conf_file(tmp_path, tmp_path, **{key: value})))
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             replica_mod.main()
+
+    @pytest.mark.parametrize("lanes", PORTED,
+                             ids=["-".join(k.split(".")[-1] for k in lanes)
+                                  for lanes in PORTED])
+    def test_ported_conf_lane_serves(self, lanes, port_ckpt, tmp_path,
+                                     monkeypatch):
+        """A lane this port serves: ``main()`` builds the replica with
+        it armed, and the replica's tokens equal a plain replica's."""
+        publish.publish_step(port_ckpt, 2)
+        monkeypatch.setenv(constants.ENV_CONF_PATH, str(_conf_file(
+            tmp_path, port_ckpt, **lanes)))
+        built = []
+        monkeypatch.setattr(Replica, "serve_forever",
+                            lambda self, **kw: built.append(self))
+        assert replica_mod.main() == 0
+        (rep,) = built
+        engine = rep.engine
+        if SERVE_SPEC_K in lanes:
+            assert isinstance(engine, SpecEngine)
+            assert engine.spec_k == int(lanes[SERVE_SPEC_K])
+            kind = "model" if SERVE_DRAFT_MODEL in lanes else "ngram"
+            assert engine.draft.kind == kind
+        assert engine.prefix_cache == (SERVE_PREFIX_CACHE in lanes)
+        assert engine.prefill_chunk == (
+            int(lanes[SERVE_PREFILL_CHUNK])
+            if SERVE_PREFILL_CHUNK in lanes else None)
+        plain = _replica(port_ckpt, dtype_policy="bf16",
+                         model_kwargs={"dtype": torch.float32})
+        for prompt in PROMPTS:
+            assert rep.generate(prompt, 5).tokens == \
+                plain.generate(prompt, 5).tokens
 
     def test_idle_conf_values_are_not_lanes(self, tmp_path, monkeypatch):
         """The values the JAX CLI writes for lanes that are off arm

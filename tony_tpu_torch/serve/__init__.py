@@ -3,10 +3,14 @@
 
 * :mod:`~tony_tpu_torch.serve.kvcache` — the paged KV cache: a block
   pool with per-sequence block tables and typed admission errors;
+* :mod:`~tony_tpu_torch.serve.prefix` — the chain keys of the prefix
+  cache, byte-identical to the control plane's router's;
 * :mod:`~tony_tpu_torch.serve.engine` — the continuous-batching loop and
   its thread-safe :class:`EngineFront`, with attention in the
-  hand-written flash-decode kernel, the stats heartbeat and the in-place
-  weight swap;
+  hand-written flash-decode kernel, the prefix-cache and chunked-prefill
+  lanes, the stats heartbeat and the in-place weight swap;
+* :mod:`~tony_tpu_torch.serve.spec` — speculative decoding: the n-gram
+  and model drafts and :class:`SpecEngine`'s one-launch verify;
 * :mod:`~tony_tpu_torch.serve.replica` — the serve job's process
   (``python -m tony_tpu_torch.serve.replica``): the published training
   step restored into the engine, served behind the RPC wire, its stats
@@ -15,9 +19,8 @@
 * :mod:`~tony_tpu_torch.serve.swap` — :class:`SwapError` and
   :func:`resolve_target`, the replica's half of the hot swap.
 
-Still to port (ROADMAP.md): the speculative, prefix-cache,
-chunked-prefill, disaggregated (handoff verbs), host-tier, prefix-store
-and QoS lanes (item 9); the AOT cache, ``warm()``, the warm-standby pool
+Still to port (ROADMAP.md): the disaggregated (handoff verbs),
+host-tier, prefix-store and QoS lanes (item 9); the AOT cache, ``warm()``, the warm-standby pool
 with its ``promote`` verb, demotion and ``tune_warm_pads`` (item 12); a
 serve mesh (item 8); the router, autoscaler and fleet swap controller,
 which stay in the control plane.
@@ -28,8 +31,10 @@ from tony_tpu_torch.serve.engine import (Completion, EngineFront,
                                          ServeEngine, build_step_fn)
 from tony_tpu_torch.serve.kvcache import AdmissionError, PagedKVCache
 from tony_tpu_torch.serve.replica import Replica
+from tony_tpu_torch.serve.spec import ModelDraft, NgramDraft, SpecEngine
 from tony_tpu_torch.serve.swap import SwapError, resolve_target
 
-__all__ = ["AdmissionError", "Completion", "EngineFront",
-           "PagedKVCache", "PagedModelRunner", "Replica", "Request",
-           "ServeEngine", "SwapError", "build_step_fn", "resolve_target"]
+__all__ = ["AdmissionError", "Completion", "EngineFront", "ModelDraft",
+           "NgramDraft", "PagedKVCache", "PagedModelRunner", "Replica",
+           "Request", "ServeEngine", "SpecEngine", "SwapError",
+           "build_step_fn", "resolve_target"]

@@ -16,6 +16,19 @@ JAX engine so the same schedule runs:
   ``ctx_pad = nb_max · block_size`` positions; masking by absolute
   position does the rest.
 
+Two admission lanes ride those shapes, both off by default (the engine
+is then the plain one):
+
+* ``prefix_cache=True`` — prompts chain-hash per full KV block and adopt
+  published pool blocks (the prefix tier of
+  :mod:`tony_tpu_torch.serve.kvcache`) instead of recomputing them;
+  every KV write goes through the cache's copy-on-write ``write_index``;
+* ``prefill_chunk=N`` — prompts prefill in ``N``-row chunks (a
+  ``q_block`` multiple), one chunk per engine iteration, interleaved
+  with decode.
+
+The speculative lane is :class:`tony_tpu_torch.serve.spec.SpecEngine`.
+
 Numerics: the JAX engine pins decode logits BITWISE against a
 sequential full prefill. PyTorch's matmuls are not guaranteed
 batch-invariant (CPU or cuBLAS), so the port holds decode against
@@ -42,12 +55,13 @@ import time
 import uuid
 from collections import deque
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
-                    Union)
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from tony_tpu_torch import profiler, resolve_device
+from tony_tpu_torch.serve import prefix as prefix_mod
 from tony_tpu_torch.serve.kvcache import AdmissionError, PagedKVCache
 from tony_tpu_torch.serve.swap import SwapError
 
@@ -85,7 +99,7 @@ class Completion:
 
 class _Seq:
     __slots__ = ("rid", "tokens", "n_prompt", "remaining", "logits",
-                 "t_submit", "t_first")
+                 "t_submit", "t_first", "pf_pos", "published", "hkey")
 
     def __init__(self, req: Request, t_submit: float):
         self.rid = req.rid
@@ -95,6 +109,13 @@ class _Seq:
         self.logits: List[np.ndarray] = []
         self.t_submit = t_submit
         self.t_first: Optional[float] = None
+        # Prefill cursor: the next prompt position whose row is not yet
+        # in the pool (past an adopted prefix at admission).
+        self.pf_pos = 0
+        # Prefix publication: full blocks already indexed, and the chain
+        # key of the last one (the next block's chain prior).
+        self.published = 0
+        self.hkey = ""
 
 
 def _bucket_of(buckets: Sequence[int], n: int) -> int:
@@ -270,7 +291,8 @@ class ServeEngine(PagedModelRunner):
     ``model`` is a serve-capable module holding its weights (today:
     :class:`tony_tpu_torch.models.transformer.Transformer` — its ``kv=``
     forward). ``device=None`` means the card; the model must live on
-    the engine's device.
+    the engine's device. ``prefix_cache`` and ``prefill_chunk`` arm the
+    admission lanes (module docstring).
     """
 
     def __init__(self, model: Any, *, ctx_max: int, block_size: int = 16,
@@ -279,6 +301,8 @@ class ServeEngine(PagedModelRunner):
                  max_running: int = 16, keep_logits: bool = False,
                  join_policy: str = "continuous",
                  stats_window_s: float = 60.0, tag: str = "serve",
+                 prefix_cache: bool = False,
+                 prefill_chunk: Optional[int] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if join_policy not in ("continuous", "static"):
             raise ValueError(f"unknown join_policy {join_policy!r} "
@@ -287,11 +311,27 @@ class ServeEngine(PagedModelRunner):
                          q_block=q_block, decode_buckets=decode_buckets,
                          max_running=max_running, n_blocks=n_blocks,
                          device=device)
+        self.prefix_cache = bool(prefix_cache)
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk <= 0 or prefill_chunk % self.q_block:
+                raise ValueError(
+                    f"prefill_chunk must be a positive q_block="
+                    f"{self.q_block} multiple, got {prefill_chunk}")
+        self.prefill_chunk = prefill_chunk
         self.keep_logits = keep_logits
         self.join_policy = join_policy
         self._queue: deque = deque()
         self._lock = threading.Lock()
         self._running: List[_Seq] = []
+        # Chunk-prefilling sequences, oldest first.
+        self._prefilling: List[_Seq] = []
+        # Prefix and prefill counters (lifetime; zero with the lanes off).
+        self.prefix_lookup_blocks = 0
+        self.prefix_hit_blocks = 0
+        self.prefill_launches = 0
+        self.prefill_rows = 0
+        self.prefill_chunks = 0
         # Telemetry over a time window: (t_done, latency_s, n_tokens,
         # ttft_s) per completion and (t_end, step_s) per step.
         self._events: deque = deque(maxlen=512)
@@ -311,7 +351,9 @@ class ServeEngine(PagedModelRunner):
                               q_block=self.q_block,
                               decode_buckets=list(self.decode_buckets),
                               max_running=self.max_running,
-                              join_policy=join_policy)
+                              join_policy=join_policy,
+                              prefix_cache=self.prefix_cache,
+                              prefill_chunk=self.prefill_chunk)
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -341,25 +383,79 @@ class ServeEngine(PagedModelRunner):
 
     @property
     def running(self) -> int:
-        return len(self._running)
+        # Chunk-prefilling sequences hold pool blocks and engine work.
+        return len(self._running) + len(self._prefilling)
 
-    # -- prefill / decode --------------------------------------------------
-    def _prefill(self, seq: _Seq) -> None:
-        """One monolithic prefill launch over the prompt, padded to a
-        ``q_block`` multiple; emits the first token."""
+    # -- prefill -----------------------------------------------------------
+    def _prefill_span(self, seq: _Seq, c1: int, t_pad: int) -> None:
+        """One prefill launch over positions ``[seq.pf_pos, c1)`` padded
+        to ``t_pad`` rows: the whole remaining prompt (monolithic), one
+        chunk, or the tail after a prefix hit. The rows attend to earlier
+        positions through the pool gather. Emits the first token when
+        ``c1`` completes the prompt, else publishes what is written."""
+        c0 = seq.pf_pos
+        t_real = c1 - c0
         n = len(seq.tokens)
-        t_pad = -(-n // self.q_block) * self.q_block
-        with self._lock:
-            self._prompt_hist[t_pad] = self._prompt_hist.get(t_pad, 0) + 1
         tokens = np.zeros((1, t_pad), np.int32)
-        tokens[0, :n] = seq.tokens
-        positions = np.arange(t_pad, dtype=np.int32)[None].copy()
+        tokens[0, :t_real] = seq.tokens[c0:c1]
+        positions = (c0 + np.arange(t_pad, dtype=np.int32))[None].copy()
         flat = np.full((1, t_pad), self.cache.oob_index, np.int32)
-        for j in range(n):
-            flat[0, j] = self.cache.write_index(seq.rid, j)
+        for j in range(t_real):
+            # write_index: after a full-cover hit the tail row lands in
+            # an adopted block, which must be copied first (taken at
+            # admission).
+            flat[0, j] = self.cache.write_index(seq.rid, c0 + j)
         tables = self.cache.table_array([seq.rid], self.nb_max)
         logits = self._run_fn(1, t_pad, tokens, positions, tables, flat)
-        self._emit_token(seq, logits[0, n - 1].cpu().numpy())
+        self.prefill_launches += 1
+        self.prefill_rows += t_pad
+        seq.pf_pos = c1
+        if c1 >= n:
+            self._emit_token(seq, logits[0, n - 1 - c0].cpu().numpy())
+        else:
+            self._publish(seq)
+
+    def _prefill(self, seq: _Seq) -> None:
+        """Monolithic prefill of everything past the prefill cursor."""
+        t_real = len(seq.tokens) - seq.pf_pos
+        t_pad = -(-t_real // self.q_block) * self.q_block
+        self._prefill_span(seq, len(seq.tokens), t_pad)
+
+    def _prefill_chunk_step(self, seq: _Seq) -> bool:
+        """Advance one chunk; True when the prompt completed (and the
+        first token was emitted). Non-final chunks launch at
+        ``(1, prefill_chunk)``; the final one pads its remainder to a
+        ``q_block`` multiple."""
+        n = len(seq.tokens)
+        c1 = min(n, seq.pf_pos + self.prefill_chunk)
+        t_real = c1 - seq.pf_pos
+        t_pad = (self.prefill_chunk if c1 < n
+                 else -(-t_real // self.q_block) * self.q_block)
+        self._prefill_span(seq, c1, t_pad)
+        self.prefill_chunks += 1
+        return seq.pf_pos >= n
+
+    def _publish(self, seq: _Seq) -> None:
+        """Index every newly completed block under its chain key. The
+        publishable extent is the prefill cursor until the prompt is
+        done, then ``len(tokens) - 1``: every row below the newest token
+        is verified-written (a verify round's accepted rows were computed
+        from true tokens), so a published block never holds a draft
+        row."""
+        if not self.prefix_cache:
+            return
+        bs = self.block_size
+        limit = (len(seq.tokens) - 1 if seq.pf_pos >= seq.n_prompt
+                 else seq.pf_pos)
+        while (seq.published + 1) * bs <= limit:
+            i = seq.published
+            key = prefix_mod.chain_keys(
+                seq.tokens[i * bs:(i + 1) * bs], bs, prior=seq.hkey)[0]
+            self.cache.publish_block(seq.rid, i, key)
+            seq.hkey = key
+            seq.published += 1
+
+    # -- decode ------------------------------------------------------------
 
     def _decode(self) -> None:
         seqs = list(self._running)
@@ -374,6 +470,8 @@ class ServeEngine(PagedModelRunner):
             tokens[i, 0] = s.tokens[-1]
             positions[i] = p0 + np.arange(t, dtype=np.int32)
             flat[i, 0] = self.cache.write_index(s.rid, p0)
+        # Tables after the write indices: write_index may repoint a slot
+        # (copy-on-write), and the gather must read the new table.
         tables[:len(seqs)] = self.cache.table_array(
             [s.rid for s in seqs], self.nb_max)
         logits = self._run_fn(b, t, tokens, positions, tables, flat)
@@ -389,30 +487,89 @@ class ServeEngine(PagedModelRunner):
         seq.tokens.append(int(np.argmax(row)))   # greedy: deterministic
         seq.remaining -= 1
         self._emitted += 1
+        self._publish(seq)
 
     # -- scheduling --------------------------------------------------------
+    def _admit(self, req: Request) -> Tuple[int, Sequence[str]]:
+        """Reserve the request's full extent, adopting published prefix
+        blocks first; returns the blocks adopted and the prompt's chain
+        keys (so publication never rehashes them). Raises :class:`AdmissionError` with the cache unchanged on pool
+        pressure, so a queued request retries whole."""
+        total = len(req.tokens) + req.max_new_tokens
+        if not self.prefix_cache:
+            self.cache.reserve(req.rid, total)
+            return 0, ()
+        keys = prefix_mod.chain_keys(req.tokens, self.block_size)
+        matched = self.cache.admit_shared(req.rid, total, keys)
+        if matched * self.block_size >= len(req.tokens):
+            # Full cover: the last prompt row still recomputes (its
+            # logits seed generation) and its write lands in an adopted
+            # block. Take that copy NOW, inside the admission; if even
+            # one block cannot be supplied, drop the tail block from the
+            # match (its rows compute fresh into the reservation).
+            try:
+                self.cache.cow_block(
+                    req.rid, (len(req.tokens) - 1) // self.block_size)
+            except AdmissionError:
+                self.cache.free_seq(req.rid)
+                matched = self.cache.admit_shared(req.rid, total,
+                                                  keys[:-1])
+        # Counted only once the admission succeeded: a retried request
+        # must not skew the hit rate.
+        self.prefix_lookup_blocks += len(keys)
+        self.prefix_hit_blocks += matched
+        return matched, keys
+
     def _join(self, results: List[Completion]) -> None:
         # Hot-swap quiesce: admission pauses while a swap drains the
         # batch, so in-flight sequences finish under the old weights and
         # the queue admits after the flip under the new ones.
         if self.swapping:
             return
-        if self.join_policy == "static" and self._running:
+        if self.join_policy == "static" and (self._running
+                                             or self._prefilling):
             return
-        while len(self._running) < self.max_running:
+        while len(self._running) + len(self._prefilling) \
+                < self.max_running:
             with self._lock:
                 if not self._queue:
                     return
                 req, t_submit = self._queue[0]
             try:
-                self.cache.reserve(req.rid,
-                                   len(req.tokens) + req.max_new_tokens)
+                matched, keys = self._admit(req)
             except AdmissionError:
                 return                      # pool pressure: stay queued
+            t_pad = -(-len(req.tokens) // self.q_block) * self.q_block
             with self._lock:
                 self._queue.popleft()
+                self._prompt_hist[t_pad] = \
+                    self._prompt_hist.get(t_pad, 0) + 1
             seq = _Seq(req, t_submit)
+            if matched:
+                # The adopted blocks are indexed already: prefill and
+                # publish from past them.
+                seq.pf_pos = min(matched * self.block_size,
+                                 len(req.tokens) - 1)
+                seq.published = matched
+                seq.hkey = keys[matched - 1]
+            if self.prefill_chunk is not None:
+                self._prefilling.append(seq)
+                continue
             self._prefill(seq)
+            if seq.remaining <= 0:          # max_new_tokens == 1
+                self._evict(seq, results)
+            else:
+                self._running.append(seq)
+
+    def _advance_prefill(self, results: List[Completion]) -> None:
+        """One chunk for the oldest prefilling sequence (first in, first
+        out): a long prompt costs the running batch one extra launch a
+        token step, not a whole-prompt stall."""
+        if not self._prefilling:
+            return
+        seq = self._prefilling[0]
+        if self._prefill_chunk_step(seq):
+            self._prefilling.pop(0)
             if seq.remaining <= 0:          # max_new_tokens == 1
                 self._evict(seq, results)
             else:
@@ -433,12 +590,14 @@ class ServeEngine(PagedModelRunner):
             latency_s=now - seq.t_submit))
 
     def step(self) -> List[Completion]:
-        """One engine iteration: join what fits (prefilling each
-        joiner), decode one token for every running sequence, evict what
-        finished. Returns the completions this step produced."""
+        """One engine iteration: join what fits (prefilling each joiner,
+        or queueing it for chunks), advance one prefill chunk, decode one
+        token for every running sequence, evict what finished. Returns
+        the completions this step produced."""
         t0 = time.monotonic()
         results: List[Completion] = []
         self._join(results)
+        self._advance_prefill(results)
         if self._running:
             self._decode()
             still = []
@@ -458,7 +617,7 @@ class ServeEngine(PagedModelRunner):
         """Drive :meth:`step` until queue and batch drain (or
         ``max_steps``)."""
         out: List[Completion] = []
-        while (self.queue_depth or self._running) \
+        while (self.queue_depth or self._running or self._prefilling) \
                 and (max_steps is None or self._steps < max_steps):
             out.extend(self.step())
         return out
@@ -535,8 +694,15 @@ class ServeEngine(PagedModelRunner):
             "forwards": float(self.forwards),
             "tokens_per_forward": (self._emitted / self.forwards
                                    if self.forwards else 0.0),
-            # Lanes not ported (speculation, disaggregation, the warm
-            # pool): their idle values.
+            # Prefix cache and chunked prefill: zeros with the lanes off.
+            "prefix_cache_hit_rate": (
+                self.prefix_hit_blocks / self.prefix_lookup_blocks
+                if self.prefix_lookup_blocks else 0.0),
+            "blocks_shared": float(self.cache.adopted_total),
+            "prefill_chunks": float(self.prefill_chunks),
+            # Lanes not ported (disaggregation, the warm pool) and the
+            # speculative lane's rate (SpecEngine overrides it): their
+            # idle values.
             "acceptance_rate": 0.0,
             "role": "colocated",
             "warm_standby": 0.0,
@@ -547,15 +713,32 @@ class ServeEngine(PagedModelRunner):
             "prompt_hist": {str(k): float(v)
                             for k, v in sorted(prompt_hist.items())},
         }
+        stats.update(self._extra_stats())
         profiler.safe_record(f"{self.tag}_stats", **stats)
         return stats
 
+    def _extra_stats(self) -> Dict[str, float]:
+        """Subclass hook (the speculative engine's counters), merged
+        into :meth:`stats`."""
+        return {}
+
+    def prefix_digest(self, limit: int = 256) -> List[str]:
+        """The most recently used published chain keys: the replica's
+        content advertisement the router scores overlap against; empty
+        with the prefix cache off."""
+        if not self.prefix_cache:
+            return []
+        return self.cache.digest(limit)
+
     def write_stats(self, path: str,
                     extra: Optional[Dict[str, Any]] = None) -> None:
-        """Atomically publish :meth:`stats` (+ ``extra``: the replica adds
-        its RPC port) as JSON: the file the executor's heartbeat carries
-        to the AM."""
+        """Atomically publish :meth:`stats` (+ the prefix digest when it
+        is non-empty, + ``extra``: the replica adds its RPC port) as
+        JSON: the file the executor's heartbeat carries to the AM."""
         payload: Dict[str, Any] = dict(self.stats())
+        digest = self.prefix_digest()
+        if digest:
+            payload["prefix_digest"] = digest
         if extra:
             payload.update(extra)
         # One temp file per writer: the replica's publisher thread and a
@@ -564,6 +747,15 @@ class ServeEngine(PagedModelRunner):
         with open(tmp, "w") as fh:
             json.dump(payload, fh)
         os.replace(tmp, path)
+
+
+    def swap_params(self, new: Mapping[str, torch.Tensor], *, version: int,
+                    step: int) -> None:
+        """The base flip, then the prefix tier flushed: every published
+        block holds rows computed under the old weights, so a post-swap
+        hit would serve a mixed-version answer."""
+        super().swap_params(new, version=version, step=step)
+        self.cache.flush_prefix()
 
 
 class EngineFront:
@@ -628,7 +820,7 @@ class EngineFront:
         with self._drive:
             self.engine.swapping = True
             try:
-                while self.engine._running:
+                while self.engine._running or self.engine._prefilling:
                     for c in self.engine.step():
                         self._done[c.rid] = c
                 fn()

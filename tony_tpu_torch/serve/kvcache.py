@@ -12,10 +12,28 @@ every position is written before any query can attend it (the
 flash-decode mask admits key ``j`` only for rows at position ``>= j``),
 so stale bytes are never read.
 
+Prefix tier (the engine's ``prefix_cache=True``): blocks are
+refcounted, and a full block whose rows are all verified-written can be
+*published* under its chain key (:mod:`tony_tpu_torch.serve.prefix`).
+An admission whose prompt chain-matches published blocks *adopts* them
+(refcount + 1) instead of recomputing them. Writes go through
+:meth:`PagedKVCache.write_index`, which copies on write: a block with
+refcount > 1 is never mutated, the writer gets a private copy first.
+Freed blocks that carry a key retire to an LRU *cached tier* instead of
+the LIFO free list: still adoptable, reclaimed least recently freed
+first once the LIFO tier runs dry.
+
+Speculative tier (:mod:`tony_tpu_torch.serve.spec`):
+:meth:`~PagedKVCache.spec_reserve` grows a table over drafted positions
+as a revocable extension, :meth:`~PagedKVCache.commit` advances the
+write cursor to the accepted length, and :meth:`~PagedKVCache.rollback`
+returns the rest of the extension in reverse allocation order.
+
 Capacity failures are a typed :class:`AdmissionError` carrying the
 needed/free block counts — back-pressure the engine acts on, not an
-allocator OOM. The prefix, speculative, host-offload and wire tiers of
-the JAX package come with later slices.
+allocator OOM. The host-offload tier (parking, demotion) and the wire
+tier (``export_blocks``/``import_blocks``) of the JAX package come with
+a later slice (ROADMAP.md, queue 1 item 9).
 
 Threading contract: the allocator is not internally locked; the
 engine's single drive thread (``EngineFront`` serializes callers)
@@ -24,6 +42,7 @@ performs every mutation.
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -68,22 +87,62 @@ class PagedKVCache:
         # the reuse invariants get exercised constantly.
         self._free: List[int] = list(range(self.n_blocks - 1, -1, -1))
         self._tables: Dict[Any, List[int]] = {}
+        # Prefix tier: per-block refcount (present iff allocated), the
+        # key -> block and block -> key index, and the LRU cached tier
+        # (refcount-0 blocks that still hold published content, most
+        # recently freed last).
         self._refs: Dict[int, int] = {}
+        self._index: Dict[str, int] = {}
+        self._key_of: Dict[int, str] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        # Lifetime counters (the engine's stats read them).
+        self.adopted_total = 0
+        self.cow_total = 0
+        self.lru_evicted_total = 0
+        self.revived_total = 0
+        # Speculative tier: per-sequence blocks added by spec_reserve
+        # and not yet promoted by a commit, and the write cursor (the
+        # positions below it hold verified rows).
+        self._spec: Dict[Any, List[int]] = {}
+        self._committed: Dict[Any, int] = {}
 
     # -- capacity ----------------------------------------------------------
     @property
     def free_blocks(self) -> int:
-        """Blocks available to a new reservation."""
-        return len(self._free)
+        """Blocks available to a new reservation: the LIFO free tier
+        plus the reclaimable LRU cached tier."""
+        return len(self._free) + len(self._lru)
 
     def blocks_for(self, length: int) -> int:
         """Blocks covering ``length`` positions."""
         return -(-max(0, int(length)) // self.block_size)
 
+    def _alloc_block(self) -> int:
+        """One fresh block: the LIFO free list first; when it is dry,
+        the least recently freed cached block, unindexed. Callers check
+        capacity first."""
+        if self._free:
+            b = self._free.pop()
+        else:
+            b, _ = self._lru.popitem(last=False)
+            key = self._key_of.pop(b, None)
+            if key is not None:
+                self._index.pop(key, None)
+            self.lru_evicted_total += 1
+        self._refs[b] = 1
+        return b
+
     def _release_block(self, b: int) -> None:
+        """Drop one reference; at zero the block retires to the cached
+        tier when published (still adoptable), else to the free list."""
         self._refs[b] -= 1
-        if self._refs[b] == 0:
-            del self._refs[b]
+        if self._refs[b] > 0:
+            return
+        del self._refs[b]
+        if b in self._key_of:
+            self._lru[b] = None
+            self._lru.move_to_end(b)
+        else:
             self._free.append(b)
 
     # -- allocation --------------------------------------------------------
@@ -93,30 +152,231 @@ class PagedKVCache:
         supply the growth. The engine reserves a request's FULL extent
         (prompt + max new tokens) at admission, so decode can never hit
         pool exhaustion mid-flight."""
+        if self._spec.get(seq_id):
+            # A permanent grow would interleave with the revocable tail,
+            # and rollback could no longer truncate by suffix.
+            raise ValueError(
+                f"sequence {seq_id!r} holds an uncommitted speculative "
+                f"extension — commit() or rollback() it before a "
+                f"permanent reserve")
         table = self._tables.setdefault(seq_id, [])
         needed = self.blocks_for(length) - len(table)
         if needed > self.free_blocks:
             raise AdmissionError(
                 f"KV pool exhausted: sequence {seq_id!r} needs {needed} "
                 f"more block(s) for {length} positions, "
-                f"{self.free_blocks} free of {self.n_blocks}",
+                f"{self.free_blocks} free of {self.n_blocks} "
+                f"({len(self._lru)} cached-reclaimable)",
                 needed_blocks=needed, free_blocks=self.free_blocks)
         for _ in range(max(0, needed)):
-            b = self._free.pop()
-            self._refs[b] = 1
-            table.append(b)
+            table.append(self._alloc_block())
         return list(table)
+
+    # -- prefix sharing ----------------------------------------------------
+    def match_prefix(self, keys: Sequence[str]) -> List[int]:
+        """Block ids of the longest indexed chain-key prefix of
+        ``keys`` (live or cached-tier blocks). Moves no refcount."""
+        out: List[int] = []
+        for key in keys:
+            b = self._index.get(key)
+            if b is None:
+                break
+            out.append(b)
+        return out
+
+    def admit_shared(self, seq_id: Any, length: int,
+                     keys: Sequence[str] = ()) -> int:
+        """Fresh-admission reserve with prefix adoption, atomically:
+        adopt the matched chain of ``keys`` (refcount + 1, reviving
+        cached-tier blocks) and allocate the rest of the
+        ``length``-covering blocks fresh. Returns the blocks adopted.
+        Raises :class:`AdmissionError` with NOTHING changed when the
+        fresh growth cannot be supplied."""
+        if self._tables.get(seq_id):
+            raise ValueError(f"sequence {seq_id!r} already holds blocks "
+                             f"— admit_shared is a fresh-admission path")
+        matched = self.match_prefix(keys)
+        needed = self.blocks_for(length) - len(matched)
+        # Reviving a cached-tier block consumes reclaimable capacity.
+        revive = sum(1 for b in matched if b in self._lru)
+        if needed > self.free_blocks - revive:
+            raise AdmissionError(
+                f"KV pool exhausted: sequence {seq_id!r} needs {needed} "
+                f"fresh block(s) beyond {len(matched)} shared for "
+                f"{length} positions, {self.free_blocks - revive} "
+                f"available of {self.n_blocks}",
+                needed_blocks=needed,
+                free_blocks=self.free_blocks - revive)
+        for b in matched:
+            if b in self._lru:
+                del self._lru[b]
+                self._refs[b] = 1
+                self.revived_total += 1
+            else:
+                self._refs[b] += 1
+            self._touch_key(b)
+        self.adopted_total += len(matched)
+        table = matched + [self._alloc_block()
+                           for _ in range(max(0, needed))]
+        self._tables[seq_id] = table
+        return len(matched)
 
     def write_index(self, seq_id: Any, pos: int) -> int:
         """Flat index of position ``pos`` FOR WRITING. Every KV scatter
-        target goes through here; without the prefix tier no block is
-        shared, so it is the read address (the prefix tier adds
-        copy-on-write for shared blocks here)."""
-        return self.flat_index(seq_id, pos)
+        target goes through here: when the covering block is shared
+        (refcount > 1) the writer first gets a private copy (device rows
+        copied, table repointed, donor untouched). Reads (the gather
+        tables) stay on :meth:`flat_index`."""
+        table = self._tables[seq_id]
+        bi, r = divmod(int(pos), self.block_size)
+        if bi >= len(table):
+            raise IndexError(
+                f"position {pos} beyond sequence {seq_id!r}'s "
+                f"{len(table)}-block reservation")
+        if self._refs[table[bi]] > 1:
+            self.cow_block(seq_id, bi)
+        return table[bi] * self.block_size + r
+
+    def cow_block(self, seq_id: Any, block_i: int) -> int:
+        """Copy-on-write of table slot ``block_i``: a private block, the
+        shared block's rows copied into it across every layer on the
+        device, one reference dropped on the donor. Raises
+        :class:`AdmissionError` when no block can be supplied."""
+        table = self._tables[seq_id]
+        src = table[block_i]
+        if self._refs[src] <= 1:
+            return src
+        if self.free_blocks < 1:
+            raise AdmissionError(
+                f"KV pool exhausted: sequence {seq_id!r} needs 1 block "
+                f"for a copy-on-write of shared block {src}, 0 free",
+                needed_blocks=1, free_blocks=0)
+        dst = self._alloc_block()
+        self.k[:, dst] = self.k[:, src]
+        self.v[:, dst] = self.v[:, src]
+        self._refs[src] -= 1
+        table[block_i] = dst
+        self.cow_total += 1
+        return dst
+
+    def _touch_key(self, block: int) -> None:
+        """Move ``block``'s index entry to the recent end: the digest
+        advertises the last keys, so recency means most recently USED
+        (a shared system-prompt stem stays advertised)."""
+        key = self._key_of.get(block)
+        if key is not None:
+            del self._index[key]
+            self._index[key] = block
+
+    def publish_block(self, seq_id: Any, block_i: int, key: str) -> bool:
+        """Index table slot ``block_i`` under chain ``key`` so later
+        admissions can adopt it. First publisher wins; a
+        re-publication of an indexed key refreshes its recency. The
+        CALLER guarantees every row of the block is verified-written."""
+        b = self._tables[seq_id][block_i]
+        if key in self._index:
+            self._touch_key(self._index[key])
+            return False
+        if b in self._key_of:
+            return False
+        self._index[key] = b
+        self._key_of[b] = key
+        return True
+
+    def digest(self, limit: int = 256) -> List[str]:
+        """Up to ``limit`` most recently used chain keys: what a
+        replica advertises on its heartbeat for the router's overlap
+        score."""
+        return list(self._index)[-limit:]
+
+    def shared_blocks(self) -> int:
+        """Blocks currently referenced by more than one table."""
+        return sum(1 for r in self._refs.values() if r > 1)
+
+    def ref(self, block: int) -> int:
+        """Current refcount of ``block`` (0 = free or cached tier)."""
+        return self._refs.get(block, 0)
+
+    def cached_blocks(self) -> List[int]:
+        """The LRU cached tier, least recently freed first."""
+        return list(self._lru)
+
+    def flush_prefix(self) -> int:
+        """Unindex every published block (the hot swap's hygiene: their
+        rows were computed under the old weights). Cached-tier blocks
+        move to the free list; a block still referenced keeps its rows
+        for its sequence but can no longer be adopted. Returns the
+        entries invalidated."""
+        n = len(self._index)
+        for b in list(self._lru):
+            del self._lru[b]
+            self._free.append(b)
+        self._index.clear()
+        self._key_of.clear()
+        return n
+
+    # -- speculative tier --------------------------------------------------
+    def committed_len(self, seq_id: Any) -> int:
+        """The write cursor: positions ``[0, committed_len)`` hold
+        verified rows; anything above is a revocable draft."""
+        return self._committed.get(seq_id, 0)
+
+    def spec_reserve(self, seq_id: Any, length: int) -> List[int]:
+        """Grow ``seq_id``'s table to cover ``length`` positions as a
+        REVOCABLE extension that :meth:`rollback` returns. Raises
+        :class:`AdmissionError` (state unchanged) on pool pressure. A
+        table that already covers ``length`` grows nothing."""
+        table = self._tables.setdefault(seq_id, [])
+        needed = self.blocks_for(length) - len(table)
+        if needed > self.free_blocks:
+            raise AdmissionError(
+                f"KV pool exhausted: sequence {seq_id!r} needs {needed} "
+                f"more block(s) for a {length}-position speculative "
+                f"extension, {self.free_blocks} free of {self.n_blocks}",
+                needed_blocks=needed, free_blocks=self.free_blocks)
+        if needed > 0:
+            added = [self._alloc_block() for _ in range(needed)]
+            table.extend(added)
+            self._spec.setdefault(seq_id, []).extend(added)
+        return list(table)
+
+    def commit(self, seq_id: Any, length: int) -> None:
+        """Advance the write cursor to ``length`` (never backwards),
+        promoting the speculative blocks that cover it to permanent."""
+        table = self._tables.get(seq_id, [])
+        need = self.blocks_for(length)
+        if need > len(table):
+            raise ValueError(
+                f"cannot commit {length} positions for {seq_id!r}: only "
+                f"{len(table)} block(s) reserved "
+                f"({len(table) * self.block_size} positions)")
+        spec = self._spec.get(seq_id, [])
+        promote = max(0, need - (len(table) - len(spec)))
+        if promote:
+            self._spec[seq_id] = spec[promote:]
+        self._committed[seq_id] = max(self._committed.get(seq_id, 0),
+                                      int(length))
+
+    def rollback(self, seq_id: Any) -> int:
+        """Truncate ``seq_id``'s table to its committed extent: every
+        still-speculative block returns in reverse allocation order.
+        Speculative blocks are fresh and never published, so a rollback
+        never strands a shared block. Returns the blocks freed."""
+        spec = self._spec.pop(seq_id, [])
+        if spec:
+            table = self._tables[seq_id]
+            del table[len(table) - len(spec):]
+            for b in reversed(spec):
+                self._release_block(b)
+        return len(spec)
 
     def free_seq(self, seq_id: Any) -> int:
-        """Drop all of ``seq_id``'s references; returns the table length
-        (0 for an unknown id — idempotent eviction)."""
+        """Drop all of ``seq_id``'s references, the speculative tail
+        included; returns the table length (0 for an unknown id —
+        idempotent eviction). Published blocks whose last holder this
+        was retire to the cached tier."""
+        self._spec.pop(seq_id, None)
+        self._committed.pop(seq_id, None)
         table = self._tables.pop(seq_id, [])
         for b in reversed(table):
             self._release_block(b)
@@ -127,7 +387,7 @@ class PagedKVCache:
 
     def owned_blocks(self) -> Dict[Any, List[int]]:
         """Live ownership snapshot (test surface for the alloc/free/reuse
-        invariants)."""
+        invariants; tables intersect exactly on shared prefix blocks)."""
         return {sid: list(t) for sid, t in self._tables.items()}
 
     # -- device-side addressing --------------------------------------------

@@ -26,11 +26,14 @@ Concurrent ``generate`` RPCs drive ONE shared engine through
 join the continuous batch. :meth:`Replica.hot_swap` moves the replica
 onto a newer publication without a restart or a dropped request.
 
-Lanes of the reference's replica that are not ported (speculation,
-prefix cache, chunked prefill, disaggregation, host tier, prefix store,
-AOT cache, warm standby, demotion, QoS, a serve mesh) raise
-``NotImplementedError`` naming their ROADMAP item when the job conf asks
-for them.
+The speculative lane (``spec_k`` > 0: a
+:class:`~tony_tpu_torch.serve.spec.SpecEngine` drafting with a named
+draft model restored through the same params-only path, else with
+n-grams), the prefix cache and chunked prefill are armed as in the
+reference's replica. Lanes that are not ported (disaggregation, host
+tier, prefix store, QoS, AOT cache, warm standby, demotion, a serve
+mesh) raise ``NotImplementedError`` naming their ROADMAP item when the
+job conf asks for them.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ from tony_tpu_torch.ckpt.restore import _apply_dtype_policy
 from tony_tpu_torch.conf import (CKPT_DIR, SERVE_AOT_CACHE, SERVE_BLOCK_SIZE,
                                  SERVE_CKPT_DIR, SERVE_CTX_MAX,
                                  SERVE_DEMOTE_BATCH, SERVE_DEMOTE_WATERMARK,
-                                 SERVE_DRAFT_MODEL, SERVE_DTYPE_POLICY,
+                                 SERVE_DRAFT_CKPT_DIR, SERVE_DRAFT_MODEL,
+                                 SERVE_DRAFT_MODEL_KWARGS,
+                                 SERVE_DRAFT_NGRAM_MAX, SERVE_DTYPE_POLICY,
                                  SERVE_HOST_BLOCKS, SERVE_MAX_RUNNING,
                                  SERVE_MESH, SERVE_MODEL, SERVE_MODEL_KWARGS,
                                  SERVE_PORT, SERVE_PREFILL_CHUNK,
@@ -61,6 +66,7 @@ from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import jax_param_tree
 from tony_tpu_torch.publish import latest_publication
 from tony_tpu_torch.serve.engine import Completion, EngineFront, ServeEngine
+from tony_tpu_torch.serve.spec import SpecEngine
 from tony_tpu_torch.serve.swap import SwapError, resolve_target
 
 _ITEM = "ROADMAP.md, queue 1 item {}"
@@ -84,7 +90,14 @@ class Replica:
     training job's ``xent_chunk`` and ``scan_layers``, which decide the
     checkpoint's param paths. Their ``"device"`` (absent: the card) is
     the replica's device, and ``"param_dtype"`` defaults to
-    :func:`_storage_dtype` of the policy."""
+    :func:`_storage_dtype` of the policy.
+
+    ``spec_k`` > 0 arms the speculative lane: ``draft_model_name`` (with
+    ``draft_model_kwargs``, on the replica's device) restores from
+    ``draft_ckpt_dir`` (default: ``ckpt_dir``) through the same
+    params-only path, else the lane drafts n-grams up to ``ngram_max``.
+    ``prefix_cache`` and ``prefill_chunk`` arm the engine's admission
+    lanes."""
 
     def __init__(self, *, model_name: str,
                  model_kwargs: Optional[Dict[str, Any]] = None,
@@ -92,7 +105,12 @@ class Replica:
                  ctx_max: int = 2048, block_size: int = 16,
                  q_block: int = 16, n_blocks: Optional[int] = None,
                  max_running: int = 16, keep_logits: bool = False,
-                 tag: str = "serve"):
+                 tag: str = "serve", spec_k: int = 0,
+                 draft_model_name: Optional[str] = None,
+                 draft_model_kwargs: Optional[Dict[str, Any]] = None,
+                 draft_ckpt_dir: Optional[str] = None, ngram_max: int = 3,
+                 prefix_cache: bool = False,
+                 prefill_chunk: Optional[int] = None):
         t0 = time.perf_counter()
         kw = dict(model_kwargs or {})
         self.device = resolve_device(kw.pop("device", None))
@@ -106,14 +124,38 @@ class Replica:
         # train gang's statement of which step the fleet should serve.
         pub = latest_publication(ckpt_dir)
         step = self._restore_params(
-            dict(self.model.named_parameters()),
-            step=pub["step"] if pub else None)
+            self.model, dict(self.model.named_parameters()),
+            ckpt_dir, step=pub["step"] if pub else None)
         self.restored_step = step
         t2 = time.perf_counter()
-        self.engine = ServeEngine(
-            self.model, ctx_max=ctx_max, block_size=block_size,
-            q_block=q_block, n_blocks=n_blocks, max_running=max_running,
-            keep_logits=keep_logits, tag=tag, device=self.device)
+        engine_kw = dict(ctx_max=ctx_max, block_size=block_size,
+                         q_block=q_block, n_blocks=n_blocks,
+                         max_running=max_running, keep_logits=keep_logits,
+                         tag=tag, prefix_cache=prefix_cache,
+                         prefill_chunk=prefill_chunk, device=self.device)
+        if spec_k:
+            draft_kw: Dict[str, Any] = {"ngram_max": ngram_max}
+            if draft_model_name:
+                # A named draft restores through the same params-only
+                # path as the target, from its own directory or the
+                # target's; the hot swap leaves it alone (another
+                # checkpoint lineage: roll the replica to change it).
+                # The draft's pool lives beside the target's, so its
+                # device defaults to the replica's (another one raises).
+                dkw = dict(draft_model_kwargs or {})
+                dkw.setdefault("param_dtype", _storage_dtype(dtype_policy))
+                draft = get_model(
+                    draft_model_name,
+                    device=resolve_device(dkw.pop("device", self.device)),
+                    **dkw)
+                self.draft_restored_step = self._restore_params(
+                    draft, dict(draft.named_parameters()),
+                    draft_ckpt_dir or ckpt_dir)
+                draft_kw["draft_model"] = draft
+            self.engine: ServeEngine = SpecEngine(
+                self.model, spec_k=spec_k, **draft_kw, **engine_kw)
+        else:
+            self.engine = ServeEngine(self.model, **engine_kw)
         # Seed the serving version: a replica restored from a published
         # step advertises it on its first heartbeat, so a rolling swap
         # never re-swaps a replica that came up on the target.
@@ -126,30 +168,30 @@ class Replica:
         self._publish: Optional[Any] = None
         self.port: Optional[int] = None
 
-    def _restore_params(self, tensors: Mapping[str, torch.Tensor], *,
+    def _restore_params(self, model: Any,
+                        tensors: Mapping[str, torch.Tensor], root: str, *,
                         step: Optional[int] = None):
         """Restore the params subtree of committed step ``step`` (default:
-        the newest) in place into ``tensors`` (the model's parameters, or
-        a second set of the same names, shapes and dtypes) through the
-        model's JAX param layout. Returns the step."""
-        template = jax_param_tree(self.model, tensors)
+        the newest) under ``root`` in place into ``tensors`` (``model``'s
+        parameters, or a second set of the same names, shapes and
+        dtypes) through the model's JAX param layout. Returns the
+        step."""
+        template = jax_param_tree(model, tensors)
         if step is None:
-            step = ckpt.latest_step(self.ckpt_dir)
+            step = ckpt.latest_step(root)
         if step is None:
             raise FileNotFoundError(
-                f"no committed checkpoint under {self.ckpt_dir} — a "
-                f"replica serves a trained model, it does not initialize "
-                f"one")
+                f"no committed checkpoint under {root} — a replica "
+                f"serves a trained model, it does not initialize one")
         try:
-            prefix = ckpt.find_path_prefix(self.ckpt_dir, template,
-                                           step=step)
+            prefix = ckpt.find_path_prefix(root, template, step=step)
         except KeyError as exc:
             raise KeyError(
                 f"{exc.args[0]} Check the served model's kwargs against "
                 f"the training job's: xent_chunk puts the head at "
                 f"lm_head_kernel (else lm_head.kernel), and scan_layers "
                 f"decides layers.block.* against layer_{{i}}.") from exc
-        ckpt.restore_pytree(self.ckpt_dir, template, step=step,
+        ckpt.restore_pytree(root, template, step=step,
                             dtype_policy=self.dtype_policy,
                             path_prefix=prefix)
         return step
@@ -169,7 +211,9 @@ class Replica:
     def hot_swap(self, *, version: Optional[int] = None,
                  step: Optional[int] = None) -> Dict[str, Any]:
         """Swap this replica onto a published step IN PLACE: no restart,
-        no dropped request, no step function rebuilt.
+        no dropped request, no step function rebuilt. The prefix tier is
+        flushed at the flip; the speculative lane's draft model is not
+        swapped (another checkpoint lineage: roll the replica).
 
         1. resolve the target (the published pointer, or an explicit
            ``step`` pin);
@@ -193,7 +237,8 @@ class Replica:
         try:
             staged = {name: torch.empty_like(p)
                       for name, p in self.model.named_parameters()}
-            rstep = self._restore_params(staged, step=to_step)
+            rstep = self._restore_params(self.model, staged, self.ckpt_dir,
+                                         step=to_step)
         except SwapError:
             raise
         except Exception as exc:   # noqa: BLE001 — typed rollback contract
@@ -342,10 +387,6 @@ def _refuse_unported(conf: TonyConfig, job_type: str) -> None:
         warm = conf.get(SERVE_WARM_STANDBY)
     role = conf.get(serve_role_key(job_type)) or "colocated"
     lanes = (
-        (SERVE_SPEC_K, conf.get_int(SERVE_SPEC_K, 0) > 0, 9),
-        (SERVE_DRAFT_MODEL, bool(conf.get(SERVE_DRAFT_MODEL)), 9),
-        (SERVE_PREFIX_CACHE, conf.get_bool(SERVE_PREFIX_CACHE, False), 9),
-        (SERVE_PREFILL_CHUNK, conf.get_int(SERVE_PREFILL_CHUNK, 0) > 0, 9),
         (serve_role_key(job_type), role != "colocated", 9),
         (SERVE_HOST_BLOCKS, conf.get_int(SERVE_HOST_BLOCKS, 0) > 0, 9),
         (SERVE_PREFIX_STORE, bool(conf.get(SERVE_PREFIX_STORE)), 9),
@@ -389,7 +430,15 @@ def main() -> int:
         dtype_policy=conf.get(SERVE_DTYPE_POLICY, "bf16"),
         ctx_max=conf.get_int(SERVE_CTX_MAX, 2048),
         block_size=conf.get_int(SERVE_BLOCK_SIZE, 16),
-        max_running=conf.get_int(SERVE_MAX_RUNNING, 16))
+        max_running=conf.get_int(SERVE_MAX_RUNNING, 16),
+        spec_k=conf.get_int(SERVE_SPEC_K, 0),
+        draft_model_name=conf.get(SERVE_DRAFT_MODEL) or None,
+        draft_model_kwargs=_model_kwargs_from_json(
+            conf.get(SERVE_DRAFT_MODEL_KWARGS)),
+        draft_ckpt_dir=conf.get(SERVE_DRAFT_CKPT_DIR) or None,
+        ngram_max=conf.get_int(SERVE_DRAFT_NGRAM_MAX, 3),
+        prefix_cache=conf.get_bool(SERVE_PREFIX_CACHE, False),
+        prefill_chunk=conf.get_int(SERVE_PREFILL_CHUNK, 0) or None)
     replica.serve_forever(
         port=conf.get_int(SERVE_PORT, 0),
         stats_path=os.environ.get(constants.ENV_SERVE_STATS))
