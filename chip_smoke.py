@@ -41,6 +41,22 @@ caught):
 5. profile — device time by kernel over three b=16 decode steps
    (torch.profiler), grouped (flash_decode, the per-layer KV gather,
    GEMMs, ...), and the device's idle share of the step;
+5a. serve_coldstart — the cold-start plane on the serve phase's model,
+   one engine (and one 17 GB pool) at a time, every engine driven the
+   same way on the serve mix (request 0 alone to its first token, then
+   the other 15): an eager engine; then three starts of an engine with
+   an AOT cache: *cold* (an empty cache and an empty kernel directory:
+   nvcc builds flash-decode, ``warm()`` captures the decode buckets in
+   CUDA graphs, the prefill pads are captured at their first launch),
+   *hit* (the populated cache and a second empty kernel directory: no
+   nvcc, no miss) and a *standby* (warmed with the mix's pads while
+   idle, then ``promote()``); each start's tokens and every logit row
+   equal to the eager engine's, every forward a replay, flash-decode
+   replayed 32 times a forward; the seconds from construction (from
+   ``promote()`` for the standby) to the first token; the decode step
+   replayed against eager (tokens/s, step p50, idle share over three
+   b=16 steps); ``swap_params`` onto other weights then a replay, equal
+   to an eager engine on those weights;
 6. train — llama2-7b at full width cut to 8 layers (f32 parameters,
    bf16 compute, flash attention, remat), AdamW(3e-4), 8 steps on one
    fixed batch of 2 x 2048 seeded tokens: one step's grads through the
@@ -67,7 +83,10 @@ caught):
    logits through the kernel and through its plain version, decode
    against the engine's own full prefill within the stated quantization
    limit, the distance to the unquantized serve phase's logits, the
-   serve numbers, the quantize passes timed apart, and a decode profile;
+   serve numbers, the quantize passes timed apart, a decode profile, and
+   one request's prefill and decode steps replayed from captured steps
+   ``torch.equal`` to the eager engine's (int8 replayed 7 × 32 a
+   forward);
 9. train_quant — the train phase's model, batch and AdamW(3e-4) with
    ``quant=True``, 8 steps: one step's loss and grads ``torch.equal``
    through the kernel and through its plain version, the loss finite,
@@ -145,15 +164,18 @@ caught):
    a swap to an uncommitted step is refused with the weights kept. It
    reports the restore, the time to the first token, RPC and in-process
    decode numbers, the swap's restore, the decode step p50 during it,
-   the quiesce and the flip, and peak memory. At full depth:
-   ``python3 exp/port_replica_phase.py``;
+   the quiesce and the flip, and peak memory; then a replica started as
+   a warm standby: its stats file says ``warm_standby`` 1, ``promote``
+   over RPC flips it to 0 as the call returns, a second ``promote``
+   returns False. At full depth: ``python3 exp/port_replica_phase.py``;
 14. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, a
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
    ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
-   ``{"serve_replica": {...}}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   ``{"serve_replica": {...}}`` line, the ``{"serve_prefix": ...}``,
+   ``{"serve_spec": ...}`` and ``{"serve_coldstart": ...}`` lines, the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
 version at the quant lane's decode (b=16 and b=4), prefill, train and
@@ -213,6 +235,7 @@ from tony_tpu_torch.parallel import MeshSpec  # noqa: E402
 from tony_tpu_torch.rpc import RpcClient, RpcError  # noqa: E402
 from tony_tpu_torch.serve import (EngineFront, Replica,  # noqa: E402
                                   ServeEngine)
+from tony_tpu_torch.serve.swap import derive_prefill_pads  # noqa: E402
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
                                   cross_entropy_loss, global_batch,
                                   make_accum_train_step, make_train_step,
@@ -595,8 +618,8 @@ def profile_decode(engine: ServeEngine, vocab: int, steps: int = 3):
     prompts join (not traced), then ``steps`` pure decode steps at the
     b=16 bucket run under torch.profiler. Returns device time by kernel
     name (ms per step, largest first), the step wall time and the
-    device's idle share of it, or None when the trace holds no device
-    events."""
+    device's idle share of it (None when the trace holds no device
+    events), and the steps' wall times, p50 and decode tokens/s."""
     rng = np.random.default_rng(SEED + 1)
     from tony_tpu_torch.serve import Request
     for i in range(16):
@@ -607,10 +630,13 @@ def profile_decode(engine: ServeEngine, vocab: int, steps: int = 3):
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    step_ms = []
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.monotonic()
         for _ in range(steps):
+            t1 = time.monotonic()
             engine.step()
+            step_ms.append(1e3 * (time.monotonic() - t1))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.monotonic() - t0) / steps
     engine.run()
@@ -621,15 +647,19 @@ def profile_decode(engine: ServeEngine, vocab: int, steps: int = 3):
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3 / steps
+    timing = {"step_wall_ms": wall_ms, "step_ms": step_ms,
+              "step_p50_ms": float(np.median(step_ms)),
+              "decode_tokens_per_s": 16e3 / wall_ms}
     if not by_name:
-        return None
+        return dict(timing, device_busy_ms=None, idle_share=None,
+                    device_ms_by_group=None, top_kernels_ms_per_step=None)
     busy = sum(by_name.values())
     groups = {}
     for key, ms in by_name.items():
         group = decode_group(key)
         groups[group] = groups.get(group, 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+    return {**timing, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "device_ms_by_group": groups,
             "top_kernels_ms_per_step": [[k[:80], v] for k, v in top]}
@@ -1020,6 +1050,327 @@ def serve_spec_phase(model):
         "flash_decode_launches": sum(r["flash_decode_launches"]
                                      for w, r in res.items()
                                      if w != "plain")}
+
+
+# ---------------------------------------------------------------------
+# The cold-start plane: the AOT cache, warm() into CUDA graphs, a warm
+# standby promoted.
+# ---------------------------------------------------------------------
+
+COLDSTART_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "coldstart_smoke")
+
+
+def coldstart_drive(engine, reqs):
+    """The serve_coldstart drive, the same for every engine so that
+    their batches are the same: request 0 alone until its first token,
+    then the rest at once, run dry on this thread. Returns the
+    completions by rid and the ``time.monotonic`` stamps of request 0's
+    first token and of the end."""
+    from tony_tpu_torch.serve import Request
+    (toks, n), rest = reqs[0], reqs[1:]
+    engine.submit(Request(rid=0, tokens=toks, max_new_tokens=n))
+    done = {c.rid: c for c in engine.step()}   # join, prefill: 1st token
+    torch.cuda.synchronize()
+    t_first = time.monotonic()
+    for i, (toks, n) in enumerate(rest, 1):
+        engine.submit(Request(rid=i, tokens=toks, max_new_tokens=n))
+    done.update({c.rid: c for c in engine.run()})
+    torch.cuda.synchronize()
+    return done, t_first, time.monotonic()
+
+
+def same_streams(got, ref, what):
+    """Every token and every logit row of ``got`` equal to ``ref``'s
+    (the rows are the host's f32 copies of the device rows, so equal
+    arrays are ``torch.equal`` rows). Returns the rows compared."""
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{what}: requests {sorted(got)} != "
+                             f"{sorted(ref)}")
+    rows = 0
+    for rid, r in ref.items():
+        c = got[rid]
+        if c.tokens != r.tokens or len(c.logits) != len(r.logits):
+            raise AssertionError(f"{what}: request {rid} tokens differ "
+                                 f"from the eager engine's")
+        for j, (a, b) in enumerate(zip(c.logits, r.logits)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{what}: request {rid} logits row "
+                                     f"{j} differs from the eager "
+                                     f"engine's")
+            rows += 1
+    return rows
+
+
+def check_replayed(engine, what, quantized=0):
+    """Every forward of an armed engine on the card is a replay, and the
+    replays ran each captured kernel once a layer a forward: flash-decode
+    ``n_layers`` × forwards (the wrappers count a captured launch once,
+    at capture) and, on the int8 lane, ``quantized`` × forwards."""
+    n_layers = engine.model.cfg.n_layers
+    replays, launches = engine.graph_replays(), engine.graph_launches()
+    expect = {"flash_decode": n_layers * engine.forwards}
+    if quantized:
+        expect["int8_matmul"] = quantized * engine.forwards
+    if replays != engine.forwards or launches != expect:
+        raise AssertionError(f"{what}: {replays} replays of "
+                             f"{engine.forwards} forwards, launches "
+                             f"{launches} != {expect}")
+    return launches
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_steps(engine, vocab, steps=8):
+    """Wall ms of ``steps`` pure b=16 decode steps with no profiler (its
+    host overhead weighs on the eager step's ~1000 launches): 16
+    sequences of 256-token prompts join first, untimed. Returns the
+    step times, their p50 and the decode tokens/s at the p50."""
+    from tony_tpu_torch.serve import Request
+    rng = np.random.default_rng(SEED + 1)
+    for i in range(16):
+        engine.submit(Request(rid=f"steps-{i}",
+                              tokens=rng.integers(0, vocab, 256).tolist(),
+                              max_new_tokens=steps + 2))
+    engine.step()
+    torch.cuda.synchronize()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        engine.step()
+        step_ms.append(1e3 * (time.monotonic() - t0))
+    engine.run()
+    p50 = float(np.median(step_ms))
+    return {"step_ms": step_ms, "step_p50_ms": p50,
+            "decode_tokens_per_s": 16e3 / p50}
+
+
+def coldstart_start(model, reqs, ref, name, kernel_dir, **kw):
+    """One start of an armed engine: construct, ``warm()``, drive the
+    mix; its streams held bitwise to the eager engine's, every forward a
+    replay. Returns the engine (its caller frees it) and its numbers."""
+    from tony_tpu_torch.ckpt import AOTCache
+    builds0 = _build.builds
+    l0 = LAUNCHES["flash_decode"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = ServeEngine(model, aot_cache=AOTCache(
+        os.path.join(COLDSTART_ROOT, "aot")), kernel_dir=kernel_dir,
+        **SERVE_ENGINE, **kw)
+    warmed = engine.warm()
+    torch.cuda.synchronize()
+    t_warm = time.monotonic()
+    got, t_first, t_end = coldstart_drive(engine, reqs)
+    rows = same_streams(got, ref, f"serve_coldstart {name}")
+    launches = check_replayed(engine, f"serve_coldstart {name}")
+    # The wrappers launched only for the warm-up and the capture of a
+    # program resolved at its first launch: 2 x n_layers each.
+    captured = len(engine._aot_fns) - warmed
+    wrapper = LAUNCHES["flash_decode"] - l0
+    if wrapper != 2 * model.cfg.n_layers * len(engine._aot_fns):
+        raise AssertionError(f"serve_coldstart {name}: {wrapper} wrapper "
+                             f"launches for {len(engine._aot_fns)} captures")
+    gen_tokens = sum(len(c.tokens) for c in got.values())
+    res = {"engine_to_first_token_s": t_first - t0,
+           "warm_s": t_warm - t0, "programs_warmed": warmed,
+           "programs_at_first_launch": captured,
+           "nvcc_builds": _build.builds - builds0,
+           "fresh_compiles": engine.fresh_compiles,
+           "aot_hits": engine.aot_hits, "aot_misses": engine.aot_misses,
+           "compile_ms": engine.compile_ms,
+           "deserialize_ms": engine.deserialize_ms,
+           "forwards": engine.forwards, "replays": engine.graph_replays(),
+           "replayed_launches": launches,
+           "wrapper_launches_at_capture": wrapper,
+           "drive_s": t_end - t_first,
+           "decode_tokens_per_s": gen_tokens / (t_end - t_warm),
+           "rows_equal": rows,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  {name}: first token {res['engine_to_first_token_s']:.2f} s "
+        f"after construction (warm {res['warm_s']:.2f} s, {warmed} "
+        f"programs; {captured} more at first launch), nvcc builds "
+        f"{res['nvcc_builds']}, aot hits {engine.aot_hits} misses "
+        f"{engine.aot_misses}; {rows} logit rows == eager")
+    return engine, res
+
+
+def swap_then_replay(model, engine, reqs):
+    """``swap_params`` onto other weights (a second seeded model), then
+    the captured steps: the streams of an eager engine on the new
+    weights, bitwise. The old weights are copied back afterwards."""
+    other = get_model("llama2-7b", device="cuda", seed=SEED + 1,
+                      param_dtype=torch.bfloat16)
+    old = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    engine.swap_params(dict(other.named_parameters()), version=1, step=1)
+    del other
+    free_cuda()
+    got, _, _ = coldstart_drive(engine, reqs)
+    return got, old
+
+
+def serve_coldstart_phase(model):
+    """The cold-start plane on the serve phase's llama2-7b (bf16,
+    SERVE_ENGINE geometry), one engine at a time: an eager engine's
+    streams and decode step; three starts of an armed engine on the
+    same mix — cold (an empty cache and an empty kernel directory: nvcc
+    runs, then capture), hit (the populated cache, a second empty kernel
+    directory: no nvcc) and a warm standby promoted — each bitwise the
+    eager engine's; the decode step replayed against eager; a swap then
+    a replay against an eager engine on the new weights."""
+    shutil.rmtree(COLDSTART_ROOT, ignore_errors=True)
+    os.makedirs(COLDSTART_ROOT)
+    vocab = model.cfg.vocab
+    reqs = serve_mix(SEED, vocab)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = ServeEngine(model, **SERVE_ENGINE)
+    t_drive = time.monotonic()
+    ref, t_first, t_end = coldstart_drive(engine, reqs)
+    gen_tokens = sum(len(c.tokens) for c in ref.values())
+    eager = {"engine_to_first_token_s": t_first - t0,
+             "drive_s": t_end - t_first, "forwards": engine.forwards,
+             "decode_tokens_per_s": gen_tokens / (t_end - t_drive),
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    eager["decode_steps"] = decode_steps(engine, vocab)
+    eager["decode_profile"] = profile_decode(engine, vocab)
+    log(f"  eager: {json.dumps(eager)}")
+    del engine
+    free_cuda()
+    starts = {}
+    engine, starts["cold"] = coldstart_start(
+        model, reqs, ref, "cold", os.path.join(COLDSTART_ROOT, "k_cold"))
+    # One cache entry, the engine's library set: its first resolution
+    # misses and builds, every later one hits.
+    if starts["cold"]["nvcc_builds"] < 1 or \
+            starts["cold"]["aot_misses"] != 1:
+        raise AssertionError(f"serve_coldstart cold: {starts['cold']}")
+    pads = derive_prefill_pads([{"stats": engine.stats()}], q_block=16,
+                               ctx_max=engine.ctx_pad, limit=64)
+    replay_steps = decode_steps(engine, vocab)
+    replay_profile = profile_decode(engine, vocab)
+    log(f"  replay: {json.dumps(replay_steps)}; "
+        f"{json.dumps(replay_profile)}")
+    swap_reqs = reqs[:2]
+    swapped, old = swap_then_replay(model, engine, swap_reqs)
+    del engine
+    free_cuda()
+    engine = ServeEngine(model, **SERVE_ENGINE)
+    swap_ref, _, _ = coldstart_drive(engine, swap_reqs)
+    del engine
+    free_cuda()
+    swap_rows = same_streams(swapped, swap_ref, "serve_coldstart swap")
+    if all(swap_ref[r].tokens == ref[r].tokens for r in swap_ref):
+        raise AssertionError("serve_coldstart swap: the new weights gave "
+                             "the old tokens")
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(old[n])
+    del old
+    log(f"  swap then replay: {swap_rows} rows == an eager engine on the "
+        f"new weights")
+    engine, starts["hit"] = coldstart_start(
+        model, reqs, ref, "hit", os.path.join(COLDSTART_ROOT, "k_hit"))
+    if starts["hit"]["nvcc_builds"] or starts["hit"]["aot_misses"] or \
+            not starts["hit"]["aot_hits"] or \
+            starts["hit"]["fresh_compiles"]:
+        raise AssertionError(f"serve_coldstart hit: {starts['hit']}")
+    del engine
+    free_cuda()
+    # The standby: warmed (the mix's prompt pads, as the pad tuner would
+    # derive them from the cold engine's histogram) while it idles, then
+    # promoted; its clock starts at promote().
+    from tony_tpu_torch.ckpt import AOTCache
+    standby = ServeEngine(model, aot_cache=AOTCache(
+        os.path.join(COLDSTART_ROOT, "aot")),
+        kernel_dir=os.path.join(COLDSTART_ROOT, "k_standby"),
+        warm_standby=True, **SERVE_ENGINE)
+    torch.cuda.synchronize()
+    pinned0 = torch.cuda.memory_allocated()
+    warmed = standby.warm(prefill_pads=pads)
+    torch.cuda.synchronize()
+    # What the warmed graphs keep alive: their outputs (a prefill pad
+    # past q_block returns one row of logits), static inputs and cuBLAS
+    # workspaces.
+    pinned = torch.cuda.memory_allocated() - pinned0
+    for (b, t), fn in standby._aot_fns.items():
+        if t > standby.q_block and fn.out.shape != (b, 1, vocab):
+            raise AssertionError(f"serve_coldstart standby: the ({b}, {t}) "
+                                 f"graph keeps {tuple(fn.out.shape)} logits")
+    if standby.stats()["warm_standby"] != 1.0:
+        raise AssertionError("serve_coldstart standby: not a standby")
+    t0 = time.monotonic()
+    if standby.promote() is not True:
+        raise AssertionError("serve_coldstart standby: promote() False")
+    got, t_first, _ = coldstart_drive(standby, reqs)
+    rows = same_streams(got, ref, "serve_coldstart standby")
+    check_replayed(standby, "serve_coldstart standby")
+    if standby.promote() is not False or \
+            standby.stats()["warm_standby"] != 0.0 or \
+            standby.aot_misses or standby.fresh_compiles:
+        raise AssertionError(f"serve_coldstart standby: after promote "
+                             f"{standby.stats()}")
+    starts["standby"] = {
+        "promote_to_first_token_s": t_first - t0,
+        "programs_warmed": warmed, "prefill_pads": pads,
+        "warm_pinned_bytes": pinned,
+        "programs_at_first_launch": len(standby._aot_fns) - warmed,
+        "aot_hits": standby.aot_hits, "aot_misses": standby.aot_misses,
+        "deserialize_ms": standby.deserialize_ms, "rows_equal": rows,
+        "forwards": standby.forwards}
+    log(f"  standby: first token {t_first - t0:.3f} s after promote() "
+        f"({warmed} programs warmed idle, pinning {pinned / 2**20:.1f} "
+        f"MiB, "
+        f"{starts['standby']['programs_at_first_launch']} at first "
+        f"launch); {rows} rows == eager")
+    replayed = {
+        name: starts[name]["replayed_launches"]["flash_decode"]
+        for name in ("cold", "hit")}
+    replayed["standby"] = standby.graph_launches()["flash_decode"]
+    del standby
+    free_cuda()
+    shutil.rmtree(COLDSTART_ROOT, ignore_errors=True)
+    return {"model": "llama2-7b", "engine": {
+        k: v for k, v in SERVE_ENGINE.items() if k != "keep_logits"},
+        "mix": "serve_mix(SEED) driven the same way for every engine: "
+               "request 0 alone to its first token, then the other 15",
+        "eager": eager, "starts": starts,
+        "replay_decode_steps": replay_steps,
+        "replay_decode_profile": replay_profile,
+        "swap_then_replay_rows_equal": swap_rows,
+        "flash_decode_launches": sum(replayed.values()),
+        "flash_decode_launches_by_start": replayed}
+
+
+def quant_replay_vs_eager(model):
+    """The int8 lane under capture: one request (a prefill and decode
+    steps) through an armed engine's captured steps and through the
+    eager engine, its logits ``torch.equal``; the replays ran the int8
+    kernel 7 × n_layers times a forward."""
+    from tony_tpu_torch.ckpt import AOTCache
+    reqs = serve_mix(SEED, model.cfg.vocab)[:1]
+    reqs = [(reqs[0][0], 3)]
+    engine = ServeEngine(model, **SERVE_ENGINE)
+    ref, _, _ = coldstart_drive(engine, reqs)
+    del engine
+    free_cuda()
+    root = os.path.join(COLDSTART_ROOT, "quant")
+    shutil.rmtree(root, ignore_errors=True)
+    engine = ServeEngine(model, aot_cache=AOTCache(root), **SERVE_ENGINE)
+    engine.warm()
+    got, _, _ = coldstart_drive(engine, reqs)
+    rows = same_streams(got, ref, "serve_quant replay")
+    launches = check_replayed(engine, "serve_quant replay",
+                              quantized=7 * model.cfg.n_layers)
+    del engine
+    free_cuda()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"  replayed prefill + decode == eager: {rows} rows, launches "
+        f"{launches}")
+    return {"rows_equal": rows, "replayed_launches": launches}
 
 
 # ---------------------------------------------------------------------
@@ -1973,10 +2324,12 @@ def serve_forward(model, b, t, ctx, seed, prefill):
     kvd = cfg.n_kv_heads * cfg.head_dim
 
     def layer_kv(i):
+        # ctx columns of context and the sink column after them.
         g = torch.Generator(device="cuda").manual_seed(seed * 1000 + i)
-        return tuple(torch.randn((b, ctx, kvd), generator=g, device="cuda")
-                     .to(cfg.dtype) for _ in range(2))
-    logits, _ = model(tokens, positions=positions, kv=layer_kv)
+        return tuple(torch.nn.functional.pad(
+            torch.randn((b, ctx, kvd), generator=g, device="cuda")
+            .to(cfg.dtype), (0, 0, 0, 1)) for _ in range(2))
+    logits, _ = model(tokens, positions=positions, kv=layer_kv, ctx=ctx)
     return logits
 
 
@@ -2036,6 +2389,9 @@ def serve_quant_phase(reference):
     prof = profile_decode(engine, model.cfg.vocab)
     log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
     serve["decode_profile"] = prof
+    del engine
+    log("[serve_quant replay]")
+    serve["replay_vs_eager"] = quant_replay_vs_eager(model)
     return serve, launches
 
 
@@ -3758,6 +4114,7 @@ def serve_replica_phase(card, root, layers, step):
     del fresh
     gc.collect()
     torch.cuda.empty_cache()
+    standby = standby_replica(root, layers)
     return {"model": f"llama2-7b n_layers={layers}/32 xent_chunk="
                      f"{LOOP_XENT_CHUNK}", "dtype_policy": "bf16",
             "ckpt_step": step, "version": rec["version"],
@@ -3773,7 +4130,58 @@ def serve_replica_phase(card, root, layers, step):
             "prefix_lanes": dict(lanes, digest_keys=digest,
                                  hit_blocks_after_swap=0,
                                  fresh_replica_tokens_equal=True),
-            "max_memory_allocated": peak, "card": card}
+            "max_memory_allocated": peak, "standby": standby, "card": card}
+
+
+def standby_replica(root, layers):
+    """A replica started as a warm standby: its stats file says
+    ``warm_standby`` 1; ``promote`` over RPC returns True and the file
+    says 0 as the call returns (the publisher's own tick is an hour
+    away); a second ``promote`` returns False."""
+    t0 = time.monotonic()
+    replica = Replica(model_name="llama2-7b",
+                      model_kwargs=replica_model_kwargs(layers),
+                      ckpt_dir=root, dtype_policy="bf16", warm_standby=True,
+                      **REPLICA_ENGINE)
+    up_s = time.monotonic() - t0
+    path = os.path.join(root, "standby-stats.json")
+    stop = threading.Event()
+    server = threading.Thread(
+        target=replica.serve_forever, daemon=True,
+        kwargs=dict(host="127.0.0.1", port=0, stats_path=path,
+                    stats_every_s=3600.0, stop=stop))
+    server.start()
+    try:
+        first = wait_for_stats(path, lambda s: "rpc_port" in s)
+        with LongCallRpcClient(f"127.0.0.1:{replica.port}") as client:
+            promoted = client.call("promote")
+            with open(path) as f:
+                after = json.load(f)
+            again = client.call("promote")
+    finally:
+        stop.set()
+        server.join(timeout=30)
+    if server.is_alive():
+        raise AssertionError("serve_replica standby: serve_forever did not "
+                             "stop")
+    if first["warm_standby"] != 1.0 or promoted is not True or \
+            after["warm_standby"] != 0.0 or again is not False:
+        raise AssertionError(f"serve_replica standby: stats "
+                             f"{first['warm_standby']} -> promote "
+                             f"{promoted} -> {after['warm_standby']}, "
+                             f"second promote {again}")
+    res = {"up_s": up_s, "warmed_programs": replica.warmed,
+           "timings": replica.timings,
+           "warm_standby_before_after": [first["warm_standby"],
+                                         after["warm_standby"]],
+           "second_promote": again}
+    log(f"  standby replica: up in {up_s:.2f} s ({replica.warmed} programs "
+        f"warmed), warm_standby 1 -> promote over RPC -> 0 at once, "
+        f"second promote False")
+    del replica
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -3841,6 +4249,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # Phase 5a: the cold-start plane on the serve phase's model.
+    log("[serve_coldstart]")
+    serve_coldstart = serve_coldstart_phase(model)
+
     # Phase 5b: the routed lanes on the serve phase's model.
     log("[serve_prefix]")
     serve_prefix = serve_prefix_phase(model)
@@ -3907,11 +4319,16 @@ def main() -> int:
         "source": "tony_tpu_torch/ops/csrc/flash_decode.cu",
         "replaces": "tony_tpu/ops/attention.py:1231",
         "launches": serve_launches["flash_decode"]
+        + serve_coldstart["flash_decode_launches"]
         + serve_prefix["flash_decode_launches"]
         + serve_spec["flash_decode_launches"]
         + serve_replica["rpc"]["flash_decode_launches"],
+        # serve_coldstart's launches are the replays' (each captured
+        # launch times its graph's replays).
         "launches_by_path": {
             "serve": serve_launches["flash_decode"],
+            "serve_coldstart_replayed":
+                serve_coldstart["flash_decode_launches"],
             "serve_prefix": serve_prefix["flash_decode_launches"],
             "serve_spec": serve_spec["flash_decode_launches"],
             "serve_replica": serve_replica["rpc"]["flash_decode_launches"]},
@@ -3995,8 +4412,11 @@ def main() -> int:
         if prof else None,
     })
     decode_int8 = int8["decode_gate_up"]
-    int8_launches = {"serve_quant": quant_launches["int8_matmul"],
-                     "train_quant": train_quant["launches"]["int8_matmul"]}
+    int8_launches = {
+        "serve_quant": quant_launches["int8_matmul"],
+        "serve_quant_replayed":
+            serve_quant["replay_vs_eager"]["replayed_launches"]["int8_matmul"],
+        "train_quant": train_quant["launches"]["int8_matmul"]}
     entries.append({
         "name": "int8_matmul", "route": "cuda",
         "source": "tony_tpu_torch/ops/csrc/int8_matmul.cu",
@@ -4067,6 +4487,8 @@ def main() -> int:
     serve_spec["card"] = card
     print(json.dumps({"serve_prefix": serve_prefix}), flush=True)
     print(json.dumps({"serve_spec": serve_spec}), flush=True)
+    serve_coldstart["card"] = card
+    print(json.dumps({"serve_coldstart": serve_coldstart}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 import time
 import warnings
 
@@ -1249,3 +1250,195 @@ def test_replica_in_place_swap_on_the_card(gen, tmp_path):
         assert torch.equal(_bits16(got[name]), _bits16(p)), name
     assert replica.generate(prompt, 4).tokens == \
         fresh.generate(prompt, 4).tokens
+
+
+# ---------------------------------------------------------------------------
+# The cold-start plane: captured steps against the eager engine
+# ---------------------------------------------------------------------------
+
+_GRAPH_KW = dict(ctx_max=128, block_size=16, q_block=16, max_running=16,
+                 decode_buckets=(4, 16), keep_logits=True)
+
+
+def _graph_mix(n, vocab=256, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, int(rng.integers(8, 90))).tolist(),
+             int(rng.integers(3, 20))) for _ in range(n)]
+
+
+def _graph_drive(engine, reqs):
+    from tony_tpu_torch.serve import Request
+
+    for i, (p, n) in enumerate(reqs):
+        engine.submit(Request(rid=i, tokens=p, max_new_tokens=n))
+    return {c.rid: c for c in engine.run()}
+
+
+def _assert_same_streams(got, ref):
+    import numpy as np
+
+    assert sorted(got) == sorted(ref)
+    for rid in ref:
+        assert got[rid].tokens == ref[rid].tokens, rid
+        for a, b in zip(got[rid].logits, ref[rid].logits):
+            assert np.array_equal(a, b), rid
+
+
+@pytest.mark.parametrize("n_req,lanes", [
+    (3, {}), (16, {}), (5, {"prefix_cache": True, "prefill_chunk": 32})],
+    ids=["b4", "b16", "chunk"])
+def test_replayed_steps_equal_the_eager_engine(gen, tmp_path, n_req, lanes):
+    """Captured steps replayed (decode buckets 4 and 16, the chunk
+    program) give the eager engine's tokens and logits bitwise; each
+    graph holds one flash-decode launch a layer, replayed once a
+    forward."""
+    from tony_tpu_torch.ckpt import AOTCache
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.serve import ServeEngine
+
+    model = get_model("llama-tiny", device="cuda", seed=0,
+                      param_dtype=torch.bfloat16)
+    reqs = _graph_mix(n_req)
+    ref = _graph_drive(ServeEngine(model, **lanes, **_GRAPH_KW), reqs)
+    eng = ServeEngine(model, aot_cache=AOTCache(str(tmp_path / "aot")),
+                      kernel_dir=str(tmp_path / "k"), **lanes, **_GRAPH_KW)
+    eng.warm()
+    _assert_same_streams(_graph_drive(eng, reqs), ref)
+    assert eng.graph_replays() == eng.forwards > 0
+    assert eng.graph_launches() == {
+        "flash_decode": model.cfg.n_layers * eng.forwards}
+    if "prefill_chunk" in lanes:
+        assert eng._aot_fns[(1, 32)].replays > 0
+
+
+def test_cache_hit_engine_runs_no_build(gen, tmp_path):
+    """A second engine on the populated cache, in an empty kernel
+    directory: the cached library bytes are installed and loaded, no
+    nvcc runs, and the streams are the first engine's."""
+    from tony_tpu_torch.ckpt import AOTCache
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.ops import _build
+    from tony_tpu_torch.serve import ServeEngine
+
+    model = get_model("llama-tiny", device="cuda", seed=0,
+                      param_dtype=torch.bfloat16)
+    reqs = _graph_mix(6, seed=1)
+    root = str(tmp_path / "aot")
+    first = ServeEngine(model, aot_cache=AOTCache(root),
+                        kernel_dir=str(tmp_path / "k1"), **_GRAPH_KW)
+    first.warm()
+    ref = _graph_drive(first, reqs)
+    builds = _build.builds
+    second = ServeEngine(model, aot_cache=AOTCache(root),
+                         kernel_dir=str(tmp_path / "k2"), **_GRAPH_KW)
+    second.warm()
+    _assert_same_streams(_graph_drive(second, reqs), ref)
+    assert _build.builds == builds and second.fresh_compiles == 0
+    assert second.aot_misses == 0 and second.aot_hits > 0
+    lib = _build.library_file("flash_decode")
+    assert (tmp_path / "k2" / lib).read_bytes() == \
+        (tmp_path / "k1" / lib).read_bytes()
+
+
+def test_swap_then_replay_sees_the_new_weights(gen, tmp_path):
+    """swap_params copies in place, so a replayed step reads the new
+    weights: its streams are the eager engine's on the new weights."""
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.serve import ServeEngine
+
+    model = get_model("llama-tiny", device="cuda", seed=0,
+                      param_dtype=torch.bfloat16)
+    other = get_model("llama-tiny", device="cuda", seed=3,
+                      param_dtype=torch.bfloat16)
+    reqs = _graph_mix(4, seed=2)
+    eng = ServeEngine(model, **_GRAPH_KW)
+    eng.warm(prefill_pads=(16, 32, 48, 64, 80, 96))
+    before = _graph_drive(eng, reqs)
+    eng.swap_params(dict(other.named_parameters()), version=1, step=1)
+    after = _graph_drive(eng, reqs)
+    ref = _graph_drive(ServeEngine(other, **_GRAPH_KW), reqs)
+    _assert_same_streams(after, ref)
+    assert any(before[r].tokens != after[r].tokens for r in before)
+
+
+def test_warmed_prefill_pads_pin_one_row_each(gen):
+    """A captured step, and its output, live as long as the engine. A
+    prefill pad past q_block returns one row of logits a sequence, so
+    warming many pads pins one vocab-wide row and the static inputs of
+    each, not t rows of logits (at least 32 × 32000 × 4 bytes a pad
+    here)."""
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.serve import ServeEngine
+
+    model = get_model("llama-tiny", device="cuda", seed=0, vocab=32000,
+                      param_dtype=torch.bfloat16)
+    eng = ServeEngine(model, **dict(_GRAPH_KW, ctx_max=1024))
+    eng.warm()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    pads = list(range(32, 1025, 16))
+    assert eng.warm(prefill_pads=pads) == len(pads)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    vocab = model.cfg.vocab
+    for t in pads:
+        assert eng._aot_fns[(1, t)].out.shape == (1, 1, vocab), t
+    assert grown <= len(pads) * (4 * vocab + (64 << 10)), grown
+
+
+def test_accum_step_through_the_cache_builds_once(gen, tmp_path,
+                                                  monkeypatch):
+    """make_accum_train_step(aot_cache=) on the card: a first worker in
+    an empty kernel directory builds flash attention and the fused
+    optimizer and puts them; a second state on the same cache, in
+    another empty directory, installs the cached bytes and runs no nvcc;
+    both step to the bits of a step with no cache."""
+    from tony_tpu_torch.ckpt import AOTCache
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.ops import FusedOptimizer, _build
+    from tony_tpu_torch.train import (create_train_state,
+                                      make_accum_train_step, next_token_loss)
+
+    kw = dict(dim=256, n_heads=2, n_kv_heads=1, ffn_hidden=256,
+              attention="flash", remat=True, dtype=torch.float32, seed=1)
+    tokens = torch.randint(0, 256, (4, 128), generator=gen, device="cuda")
+    root = str(tmp_path / "aot")
+    names = ("flash_attention", "fused_optim")
+
+    def run(cache, kernel_dir):
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / kernel_dir)
+        state = create_train_state(
+            get_model("llama-tiny", device="cuda", **kw),
+            FusedOptimizer(rule="adamw", lr=1e-3, bucket_bytes=1 << 18))
+        step = make_accum_train_step(
+            lambda logits, b: next_token_loss(logits, b["x"]),
+            microbatches=2, update="fused_bucket", aot_cache=cache)
+        losses = []
+        for _ in range(2):
+            state, metrics = step(state, {"x": tokens})
+            losses.append(float(metrics["loss"]))
+        return state, losses
+
+    builds = _build.builds
+    first = AOTCache(root)
+    a, losses_a = run(first, "k1")
+    assert _build.builds - builds == len(names)
+    assert (first.misses, first.puts, first.hits) == (1, 1, 0)
+    builds = _build.builds
+    second = AOTCache(root)
+    b, losses_b = run(second, "k2")
+    assert _build.builds == builds
+    assert (second.hits, second.misses) == (1, 0)
+    for n in names:
+        f = _build.library_file(n)
+        assert (tmp_path / "k2" / f).read_bytes() == \
+            (tmp_path / "k1" / f).read_bytes()
+    assert sorted(os.listdir(tmp_path / "k2")) == sorted(
+        _build.library_file(n) for n in names)
+    ref, losses_ref = run(None, "k2")
+    assert losses_a == losses_b == losses_ref
+    for (n, p), q, r in zip(ref.model.named_parameters(),
+                            a.model.parameters(), b.model.parameters()):
+        assert torch.equal(p, q) and torch.equal(p, r), n

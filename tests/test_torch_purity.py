@@ -5,8 +5,10 @@ Import purity is checked statically (``ast``): the test process already
 holds jax — other test files in the same worker, and the parity tests'
 JAX side, load it — so ``sys.modules`` cannot tell whether the port
 imported it. The copies held here: the job conf (every serve key, the
-serve helpers, loading and the getters), the serve replica's constants, the chaos
-``rpc_delay``, ``resolve_target``'s rules and the RPC wire's bytes."""
+history and train AOT keys, the serve helpers, loading and the
+getters), the serve replica's constants, the chaos ``rpc_delay``,
+``resolve_target``'s rules, the RPC wire's bytes, the AOT cache's
+constants, format tag and ``fingerprint_key``, and the events reader."""
 
 from __future__ import annotations
 
@@ -22,10 +24,13 @@ import torch
 from tony_tpu import chaos as jchaos
 from tony_tpu import conf as jconf
 from tony_tpu import constants as jconstants
+from tony_tpu import events as jevents
 from tony_tpu import publish as jpublish
 from tony_tpu import rpc as jrpc
+from tony_tpu.ckpt import aot as jaot
 from tony_tpu.serve import swap as jswap
-from tony_tpu_torch import chaos, conf, constants, publish, rpc
+from tony_tpu_torch import chaos, conf, constants, events, publish, rpc
+from tony_tpu_torch.ckpt import aot
 from tony_tpu_torch.serve import swap
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -79,6 +84,8 @@ def test_sources_found():
                  "tony_tpu_torch/rpc/__init__.py",
                  "tony_tpu_torch/serve/replica.py",
                  "tony_tpu_torch/serve/swap.py",
+                 "tony_tpu_torch/ckpt/aot.py",
+                 "tony_tpu_torch/events/__init__.py",
                  "tests/workloads/torch_dp_train.py",
                  "tests/workloads/torch_dp_steps.py",
                  "tests/workloads/torch_ckpt_ranks.py"):
@@ -153,7 +160,8 @@ class TestDefaultsToTheCard:
 # ---------------------------------------------------------------------------
 
 _JOB_TYPES = ("serve", "worker", "prefill", "chief")
-_CONF_HELPERS = ("serve_role_key", "serve_warm_standby_key")
+_CONF_HELPERS = ("serve_role_key", "serve_warm_standby_key",
+                 "instances_key")
 
 
 class TestCopiesEqualTheReference:
@@ -162,7 +170,8 @@ class TestCopiesEqualTheReference:
         for name in names:
             assert getattr(conf, name) == getattr(jconf, name), name
         serve_keys = {n for n in vars(jconf) if n.startswith("SERVE_")}
-        assert set(names) == serve_keys | {"CKPT_DIR"}
+        assert set(names) == serve_keys | {"CKPT_DIR", "HISTORY_LOCATION",
+                                           "TRAIN_AOT_CACHE"}
         for helper in _CONF_HELPERS:
             for jt in _JOB_TYPES:
                 assert getattr(conf, helper)(jt) == \
@@ -203,10 +212,14 @@ class TestCopiesEqualTheReference:
         assert ours.get_int("tony.serve.instances") == 2
         assert ours.get_float("tony.serve.demote-watermark") == 0.25
         assert conf.TonyConfig(props).get("tony.chief.instances") == "1"
+        for jt in _JOB_TYPES:
+            assert ours.instances(jt) == ref.instances(jt), jt
 
     def test_replica_constants(self):
         for name in ("ENV_CONF_PATH", "ENV_JOB_NAME", "ENV_SERVE_STATS",
-                     "ENV_TASK_INDEX"):
+                     "ENV_TASK_INDEX", "ENV_TRAIN_AOT_CACHE",
+                     "EVENTS_DIR_INTERMEDIATE", "EVENTS_DIR_FINISHED",
+                     "JHIST_SUFFIX", "JHIST_INPROGRESS_SUFFIX"):
             assert getattr(constants, name) == getattr(jconstants, name), \
                 name
 
@@ -324,3 +337,45 @@ class TestCopiesEqualTheReference:
                 server.stop()
         assert replies[0] == replies[1]
         assert replies[0][1] == b'{"ok": false, "error": "ValueError: no"}\n'
+
+    def test_aot_constants_and_fingerprint_key(self):
+        """The store's layout and addressing are the reference's: the
+        entry prefix, the format tag, the chunk size, and the key a
+        fingerprint dict addresses (the port's fingerprints carry other
+        fields, so no entry of one package ever hits in the other)."""
+        assert (aot._PREFIX, aot.FORMAT, aot.CHUNK_BYTES) == \
+            (jaot._PREFIX, jaot.FORMAT, jaot.CHUNK_BYTES)
+        for fp in ({}, {"format": aot.FORMAT, "kind": "serve_step",
+                        "geometry": {"b": 4, "t": 16}, "model": "x",
+                        "extra": {"libraries": ["a.so"]}},
+                   aot.make_fingerprint("train_step", device="cpu",
+                                        geometry={"microbatches": 2})):
+            assert aot.fingerprint_key(fp) == jaot.fingerprint_key(fp)
+        assert {"jax", "jaxlib"}.isdisjoint(
+            aot.make_fingerprint("unit", device="cpu"))
+
+    def test_events_reader(self, tmp_path):
+        """The JAX writer's history, read through the copy and the
+        original: the same jobs, metadata and records."""
+        done = jevents.EventHandler(tmp_path, "app_done",
+                                    conf_snapshot={"a": "1"})
+        done.serve_window("serve", 0, {"qps": 1.0,
+                                       "prompt_hist": {"16": 2.0}})
+        done.close()
+        live = jevents.EventHandler(tmp_path, "app_live")
+        live.serve_window("serve", 1, {"prompt_hist": {"32": 1.0}})
+        live.emit(jevents.TASK_STARTED, job_type="serve", index=1)
+        try:
+            ours = list(events.list_jobs(tmp_path))
+            ref = list(jevents.list_jobs(tmp_path))
+            assert ours == ref and [j["state"] for j in ours] == \
+                ["finished", "running"]
+            for job in ours:
+                assert events.read_events(job["path"]) == \
+                    jevents.read_events(job["path"])
+                assert events.job_metadata(job["path"]) == \
+                    jevents.job_metadata(job["path"])
+            assert list(events.list_jobs(tmp_path / "none")) == []
+        finally:
+            live.close()
+        assert events.SERVE_WINDOW == jevents.SERVE_WINDOW

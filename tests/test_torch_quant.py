@@ -553,10 +553,13 @@ class TestDecoderLanes:
             {"params": params}, jnp.asarray(tokens),
             positions=jnp.asarray(positions),
             kv=(jnp.asarray(kbuf, jdtype), jnp.asarray(vbuf, jdtype)))
+        # The port's buffers hold a sink column after the ctx columns.
+        sink = ((0, 0),) * 2 + ((0, 1), (0, 0))
         got, _ = tm(torch.from_numpy(tokens),
                     positions=torch.from_numpy(positions),
-                    kv=(torch.from_numpy(kbuf).to(tdtype),
-                        torch.from_numpy(vbuf).to(tdtype)))
+                    kv=(torch.from_numpy(np.pad(kbuf, sink)).to(tdtype),
+                        torch.from_numpy(np.pad(vbuf, sink)).to(tdtype)),
+                    ctx=ctx)
         assert _rel(got.numpy(), np.asarray(ref)) <= LOGITS_TOL[tdtype]
 
     @pytest.mark.parametrize("quant", [None, True, "mlp",

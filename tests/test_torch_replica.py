@@ -859,20 +859,21 @@ UNPORTED = [
     (serve_role_key("serve"), "decode", 9), (SERVE_HOST_BLOCKS, "8", 9),
     (SERVE_PREFIX_STORE, "/tmp/stems", 9),
     (SERVE_QOS_TENANTS, "gold:3,silver:1", 9),
-    (SERVE_AOT_CACHE, "/tmp/aot", 12), (SERVE_WARM_STANDBY, "1", 12),
-    (serve_warm_standby_key("serve"), "2", 12),
-    (SERVE_DEMOTE_WATERMARK, "0.5", 12), (SERVE_DEMOTE_BATCH, "4", 12),
+    (SERVE_DEMOTE_WATERMARK, "0.5", 9), (SERVE_DEMOTE_BATCH, "4", 9),
     (SERVE_MESH, '{"fsdp": 2}', 8)]
 
 
 # The lanes ported from the refused list, each armed through main().
+# "{tmp}" is the test's own directory.
 PORTED = [
     {SERVE_SPEC_K: "4"},
     {SERVE_SPEC_K: "3", SERVE_DRAFT_MODEL: "llama-tiny",
      SERVE_DRAFT_MODEL_KWARGS: json.dumps({"n_layers": 2, "device": "cpu",
                                            "dtype": "float32"})},
     {SERVE_PREFIX_CACHE: "true"},
-    {SERVE_PREFILL_CHUNK: "16", SERVE_PREFIX_CACHE: "true"}]
+    {SERVE_PREFILL_CHUNK: "16", SERVE_PREFIX_CACHE: "true"},
+    {SERVE_AOT_CACHE: "{tmp}/aot"}, {SERVE_WARM_STANDBY: "1"},
+    {serve_warm_standby_key("serve"): "2"}]
 
 
 class TestUnported:
@@ -898,8 +899,13 @@ class TestUnported:
     def test_ported_conf_lane_serves(self, lanes, port_ckpt, tmp_path,
                                      monkeypatch):
         """A lane this port serves: ``main()`` builds the replica with
-        it armed, and the replica's tokens equal a plain replica's."""
+        it armed, and the replica's tokens equal a plain replica's. The
+        cold-start lanes warm the step family at startup; a warm pool
+        makes task 0 of a jobtype with no configured instances a
+        standby."""
         publish.publish_step(port_ckpt, 2)
+        lanes = {k: v.replace("{tmp}", str(tmp_path))
+                 for k, v in lanes.items()}
         monkeypatch.setenv(constants.ENV_CONF_PATH, str(_conf_file(
             tmp_path, port_ckpt, **lanes)))
         built = []
@@ -917,11 +923,64 @@ class TestUnported:
         assert engine.prefill_chunk == (
             int(lanes[SERVE_PREFILL_CHUNK])
             if SERVE_PREFILL_CHUNK in lanes else None)
+        standby = bool({SERVE_WARM_STANDBY,
+                        serve_warm_standby_key("serve")} & set(lanes))
+        armed = SERVE_AOT_CACHE in lanes
+        assert engine.warm_standby is standby
+        assert (engine.aot_cache is not None) is armed
+        if armed:
+            assert engine.aot_cache.root == tmp_path / "aot"
+            # One entry, the engine's library set: put by the first
+            # program warmed, hit by the others.
+            assert engine.aot_misses == 1 and rep.warmed > 1
+            assert engine.aot_hits == rep.warmed - 1
+        assert rep.warmed == (len(engine.decode_buckets)
+                              if standby or armed else 0)
         plain = _replica(port_ckpt, dtype_policy="bf16",
                          model_kwargs={"dtype": torch.float32})
         for prompt in PROMPTS:
             assert rep.generate(prompt, 5).tokens == \
                 plain.generate(prompt, 5).tokens
+
+    def test_promote_verb(self, served, port_ckpt):
+        """``promote`` left the unported verbs: on an active replica it
+        is a no-op that returns False; a standby flips once, over the
+        JAX client too."""
+        assert served.rpc_handler().rpc_promote() is False
+        standby = _replica(port_ckpt, warm_standby=True)
+        server = RpcServer(standby.rpc_handler(), host="127.0.0.1").start()
+        try:
+            with JRpcClient(f"127.0.0.1:{server.port}",
+                            timeout=60.0) as client:
+                assert client.call("serve_stats")["warm_standby"] == 1.0
+                assert client.call("promote") is True
+                assert client.call("promote") is False
+                assert client.call("serve_stats")["warm_standby"] == 0.0
+        finally:
+            server.stop()
+
+    def test_standby_needs_a_pool_and_an_index_past_the_instances(
+            self, port_ckpt, tmp_path, monkeypatch):
+        """The position rule of ``main()``: a pool configured and the
+        task index at or past the jobtype's instance count."""
+        publish.publish_step(port_ckpt, 2)
+        built = []
+        monkeypatch.setattr(Replica, "serve_forever",
+                            lambda self, **kw: built.append(self))
+        for index, conf, standby in (
+                ("0", {SERVE_WARM_STANDBY: "1",
+                       "tony.serve.instances": "1"}, False),
+                ("1", {SERVE_WARM_STANDBY: "1",
+                       "tony.serve.instances": "1"}, True),
+                ("3", {"tony.serve.instances": "1"}, False),
+                ("1", {SERVE_WARM_STANDBY: "2",
+                       serve_warm_standby_key("serve"): "0",
+                       "tony.serve.instances": "1"}, False)):
+            monkeypatch.setenv(constants.ENV_TASK_INDEX, index)
+            monkeypatch.setenv(constants.ENV_CONF_PATH, str(_conf_file(
+                tmp_path, port_ckpt, **conf)))
+            assert replica_mod.main() == 0
+            assert built[-1].engine.warm_standby is standby, (index, conf)
 
     def test_idle_conf_values_are_not_lanes(self, tmp_path, monkeypatch):
         """The values the JAX CLI writes for lanes that are off arm
@@ -939,7 +998,7 @@ class TestUnported:
     def test_unported_verbs_and_request_tags(self, served):
         handler = served.rpc_handler()
         for verb, item in (("prefill_handoff", 9), ("kv_offer", 9),
-                           ("kv_import", 9), ("promote", 12)):
+                           ("kv_import", 9)):
             with pytest.raises(NotImplementedError, match=f"item {item}"):
                 getattr(handler, f"rpc_{verb}")()
         for kw in ({"conv": "c-1"}, {"tenant": "gold"}):

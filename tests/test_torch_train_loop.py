@@ -222,10 +222,11 @@ class TestChunkedLoss:
         plain = _port(setup["fparams"])
         fused = _port(setup["fparams"], xent_chunk=8)
         assert torch.equal(fused(tok), plain(tok))
-        kv = (torch.zeros(2, 2, 32, 32), torch.zeros(2, 2, 32, 32))
+        kv = (torch.zeros(2, 2, 33, 32), torch.zeros(2, 2, 33, 32))
         pos = torch.arange(17).repeat(2, 1)
-        got, _ = fused(tok, positions=pos, kv=kv)
-        ref, _ = plain(tok, positions=pos, kv=tuple(t.clone() for t in kv))
+        got, _ = fused(tok, positions=pos, kv=kv, ctx=32)
+        ref, _ = plain(tok, positions=pos, kv=tuple(t.clone() for t in kv),
+                       ctx=32)
         assert torch.equal(got, ref)
 
     def test_argument_errors(self):
@@ -670,7 +671,9 @@ def test_constants_equal_the_reference():
              "ENV_DRAIN_FILE", "ENV_PUBLISH_EVERY", "ENV_MASTER_ADDR",
              "ENV_MASTER_PORT", "ENV_RANK", "ENV_WORLD_SIZE",
              "ENV_LOCAL_RANK", "ENV_INIT_METHOD", "EXIT_DRAINED",
-             "ENV_JOB_NAME", "ENV_CONF_PATH")
+             "ENV_JOB_NAME", "ENV_CONF_PATH", "ENV_TRAIN_AOT_CACHE",
+             "EVENTS_DIR_INTERMEDIATE", "EVENTS_DIR_FINISHED",
+             "JHIST_SUFFIX", "JHIST_INPROGRESS_SUFFIX")
     for name in names:
         assert getattr(constants, name) == getattr(jconstants, name), name
     for name in ("ENV_KILL_STEP", "ENV_CRASH", "ENV_RPC_DELAY_S",

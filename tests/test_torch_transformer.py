@@ -53,6 +53,12 @@ def _serve_inputs(seed, cfg, b=3, t=16, ctx=32):
     return tokens, positions, kbuf, vbuf
 
 
+def _with_sink(buf):
+    """The port's serve buffers: the JAX package's ``ctx`` columns and
+    a zero sink column after them."""
+    return torch.from_numpy(np.pad(buf, ((0, 0),) * 2 + ((0, 1), (0, 0))))
+
+
 def _both_forwards(scan, jdtype, tdtype, seed=0):
     jm, params = _jax_tiny(scan, jdtype)
     tm = _port_tiny(params, tdtype)
@@ -63,8 +69,8 @@ def _both_forwards(scan, jdtype, tdtype, seed=0):
         kv=(jnp.asarray(kbuf, jdtype), jnp.asarray(vbuf, jdtype)))
     tlog, (tk, tv) = tm(
         torch.from_numpy(tokens), positions=torch.from_numpy(positions),
-        kv=(torch.from_numpy(kbuf).to(tdtype),
-            torch.from_numpy(vbuf).to(tdtype)))
+        kv=(_with_sink(kbuf).to(tdtype), _with_sink(vbuf).to(tdtype)),
+        ctx=kbuf.shape[2])
     return ((np.asarray(jlog), np.asarray(jk.astype(jnp.float32)),
              np.asarray(jv.astype(jnp.float32))),
             (tlog.numpy(), tk.float().numpy(), tv.float().numpy()))
@@ -93,13 +99,14 @@ class TestForwardVsJax:
         _, params = _jax_tiny(True, jnp.float32)
         tm = _port_tiny(params, torch.float32)
         tokens, positions, kbuf, vbuf = _serve_inputs(2, tm.cfg)
-        kb, vb = torch.from_numpy(kbuf), torch.from_numpy(vbuf)
+        kb, vb, ctx = _with_sink(kbuf), _with_sink(vbuf), kbuf.shape[2]
         a, (ak, av) = tm(torch.from_numpy(tokens),
                          positions=torch.from_numpy(positions),
-                         kv=(kb.clone(), vb.clone()))
+                         kv=(kb.clone(), vb.clone()), ctx=ctx)
         b, (bk, bv) = tm(torch.from_numpy(tokens),
                          positions=torch.from_numpy(positions),
-                         kv=lambda i: (kb[i].clone(), vb[i].clone()))
+                         kv=lambda i: (kb[i].clone(), vb[i].clone()),
+                         ctx=ctx)
         assert torch.equal(a, b) and torch.equal(ak, bk) \
             and torch.equal(av, bv)
 
@@ -107,11 +114,10 @@ class TestForwardVsJax:
         _, params = _jax_tiny(True, jnp.float32)
         tm = _port_tiny(params, torch.float32)
         tokens, positions, kbuf, vbuf = _serve_inputs(3, tm.cfg)
-        kb = torch.from_numpy(kbuf)
+        kb, vb, ctx = _with_sink(kbuf), _with_sink(vbuf), kbuf.shape[2]
         bufs = [kb[i].clone() for i in range(LAYERS)]
         tm(torch.from_numpy(tokens), positions=torch.from_numpy(positions),
-           kv=lambda i: (bufs[i], torch.from_numpy(vbuf[i]).clone()))
-        ctx = kb.shape[2]
+           kv=lambda i: (bufs[i], vb[i].clone()), ctx=ctx)
         for i in range(LAYERS):
             for s in range(tokens.shape[0]):
                 written = set(int(p) for p in positions[s] if p < ctx)
@@ -270,6 +276,10 @@ class TestUnported:
             tm(tok, kv=kv)
         with pytest.raises(ValueError, match="targets"):
             tm(tok, tok, positions=tok, kv=kv)
+        # No sink column: ctx missing, or as wide as the buffers.
+        for ctx in (None, 16):
+            with pytest.raises(ValueError, match="sink"):
+                tm(tok, positions=tok, kv=kv, ctx=ctx)
 
     def test_unknown_model(self):
         with pytest.raises(ValueError, match="unknown model"):

@@ -8,6 +8,9 @@
 * the crash-consistent on-disk format (:mod:`~tony_tpu_torch.ckpt.format`,
   a copy of the reference's) — per-process shard files and ONE manifest,
   committed by an atomic directory rename;
+* the cold-start plane's AOT cache (:mod:`~tony_tpu_torch.ckpt.aot`) —
+  the kernel libraries a step family launches, persisted under a
+  fingerprint of the toolchain, card and geometry;
 * restore (:mod:`~tony_tpu_torch.ckpt.restore`) — into the target's
   tensors in place, host → device from pinned memory, from a checkpoint
   written by the port or by the JAX package, on any world size (under
@@ -25,6 +28,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Tuple
 
+from tony_tpu_torch.ckpt.aot import (AOTCache, fingerprint_key,
+                                     make_fingerprint, tree_digest)
 from tony_tpu_torch.ckpt.format import (FORMAT_VERSION, ChunkReader,
                                         committed_steps, latest_step, prune,
                                         read_manifest, step_dir)
@@ -74,9 +79,10 @@ def decode_portable(tree: Any, mesh: Optional[Any] = None) -> Any:
 
 
 __all__ = [
-    "FORMAT_VERSION", "AsyncCheckpointer", "ChunkReader", "Snapshot",
+    "AOTCache", "FORMAT_VERSION", "AsyncCheckpointer", "ChunkReader", "Snapshot",
     "committed_steps", "decode_portable", "encode_portable",
-    "extract_snapshot", "find_path_prefix", "latest_step", "prune",
+    "extract_snapshot", "find_path_prefix", "fingerprint_key",
+    "latest_step", "make_fingerprint", "prune",
     "read_manifest", "register_portable_codec", "restore_latest",
-    "restore_pytree", "step_dir", "write_snapshot",
+    "restore_pytree", "step_dir", "tree_digest", "write_snapshot",
 ]

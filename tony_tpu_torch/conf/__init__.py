@@ -6,8 +6,9 @@ The conf file the executor hands a task (``TONY_CONF_PATH``) is the
 control plane's serialized :class:`TonyConfig`, a JSON object of every
 effective key (the AM writes it as ``tony-job.json``). This copy loads
 it and reads it with the same typed getters, and names every
-``tony.serve.*`` key and the two per-jobtype serve keys the replica
-reads. ``tests/test_torch_purity.py`` holds each name, helper and getter
+``tony.serve.*`` key, the two per-jobtype serve keys and the instance
+count the replica reads, the history root its ``warm()`` pad tuner
+reads and the train plane's AOT cache key. ``tests/test_torch_purity.py`` holds each name, helper and getter
 equal to the original. Defaults, overrides, job-type discovery,
 serialization and validation stay in the control plane.
 """
@@ -21,6 +22,12 @@ from typing import Dict, Optional
 # Checkpoint plane: the durable directory the train gang commits steps
 # into; a replica with no tony.serve.ckpt-dir serves from it.
 CKPT_DIR = "tony.ckpt.dir"
+# The history plane's event-log root: a replica with the cold-start
+# plane armed tunes its warm() prefill pads from the serve windows there.
+HISTORY_LOCATION = "tony.history.location"
+# Shared per-gang train-side AOT cache dir (the cold-start plane's train
+# half); exported to tasks as TONY_TRAIN_AOT_CACHE.
+TRAIN_AOT_CACHE = "tony.train.aot-cache"
 
 # -- serving plane (the `tony serve` CLI writes these, the replica process
 # and the AM's replica autoscaler read them) -------------------------------
@@ -77,6 +84,10 @@ def serve_role_key(job_type: str) -> str:
     return f"{SERVE_ROLE_PREFIX}{job_type}"
 
 
+def instances_key(job_type: str) -> str:
+    return f"tony.{job_type}.instances"
+
+
 def serve_warm_standby_key(job_type: str) -> str:
     """Per-jobtype warm-standby pool override for a split fleet:
     ``tony.serve.warm-standby.<jobtype>``."""
@@ -115,3 +126,6 @@ class TonyConfig:
         if v is None or v == "":
             return default
         return v.strip().lower() in ("true", "1", "yes", "on")
+
+    def instances(self, job_type: str) -> int:
+        return self.get_int(instances_key(job_type), 0)

@@ -32,6 +32,17 @@ ENV_DRAIN_FILE = "TONY_DRAIN_FILE"
 # Continuous publication: train_loop advances the checkpoint root's
 # published.json pointer every N committed periodic saves.
 ENV_PUBLISH_EVERY = "TONY_PUBLISH_EVERY"
+# Shared per-gang train AOT cache dir (tony_tpu_torch.ckpt.aot), from
+# tony.train.aot-cache: train.shared_aot_cache reads it.
+ENV_TRAIN_AOT_CACHE = "TONY_TRAIN_AOT_CACHE"
+
+# The history plane's event-log layout (tony_tpu_torch.events reads it):
+# <history>/intermediate/<appId>.jhist.inprogress while a job runs,
+# <history>/finished/<appId>.jhist after.
+EVENTS_DIR_INTERMEDIATE = "intermediate"
+EVENTS_DIR_FINISHED = "finished"
+JHIST_SUFFIX = ".jhist"
+JHIST_INPROGRESS_SUFFIX = ".jhist.inprogress"
 
 # The PyTorchRuntime's rendezvous env (runtime/pytorch_runtime.py).
 ENV_MASTER_ADDR = "MASTER_ADDR"

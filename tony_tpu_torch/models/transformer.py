@@ -19,11 +19,13 @@ Two forwards:
   builds the ``[b, t, vocab]`` logits.
 * serving (``kv=``): the t rows are NEW tokens at per-sequence absolute
   ``positions`` ``[b, t]``, the context lives in a per-layer KV buffer
-  ``[b, ctx, n_kv_heads·head_dim]``, the rows' post-rope k/v are written
-  into that buffer before attention (so a row attends itself and
-  everything the cache holds below its position), attention runs through
-  :func:`tony_tpu_torch.ops.flash_decode`, and the raw rows come back for
-  the engine to commit into its paged pool. Runs under inference mode.
+  ``[b, width, n_kv_heads·head_dim]`` of which attention reads the first
+  ``ctx`` columns (column ``ctx`` is a sink), the rows' post-rope k/v
+  are written into that buffer before attention (so a row attends
+  itself and everything the cache holds below its position), attention
+  runs through :func:`tony_tpu_torch.ops.flash_decode`, and the raw rows
+  come back for the engine to commit into its paged pool. Runs under
+  inference mode.
 
 Both forwards run the ``quant=`` lanes (:meth:`TransformerConfig.quant_lanes`):
 a projection group in the set computes through
@@ -44,7 +46,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, List, Optional, Tuple, Union
+from typing import (Any, Callable, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -228,8 +231,31 @@ def _proj_dense(cfg: TransformerConfig, lane: str, n_in: int, n_out: int,
     return Dense(n_in, n_out, cfg.dtype, param_dtype, device)
 
 
-# Per-layer KV buffers: (k_buf, v_buf), each [b, ctx, n_kv_heads·head_dim].
+# Per-layer KV buffers: (k_buf, v_buf), each [b, width, n_kv_heads·head_dim]
+# with width > ctx, the attended extent: column ctx is the sink.
 LayerKV = Tuple[torch.Tensor, torch.Tensor]
+
+
+class _Keep(NamedTuple):
+    """Where one serve forward's rows land in the per-layer buffers,
+    decided once a forward: ``ctx`` is the attended extent, and row
+    (i, j) lands at column ``sink[i, j] = min(positions[i, j], ctx)`` of
+    batch ``batch[i, j]`` (device tensors, no host sync)."""
+    ctx: int
+    batch: torch.Tensor
+    sink: torch.Tensor
+
+
+def _keep_of(positions: torch.Tensor, width: int,
+             ctx: Optional[int]) -> _Keep:
+    if ctx is None or not 0 < ctx < width:
+        raise ValueError(
+            f"the serve forward needs ctx, the attended extent, below the "
+            f"KV buffers' width (column ctx is the sink for rows past "
+            f"it): got ctx={ctx} for a {width}-column buffer")
+    b, t = positions.shape
+    batch = torch.arange(b, device=positions.device)[:, None].expand(b, t)
+    return _Keep(ctx, batch, positions.long().clamp(0, ctx))
 
 
 class Attention(nn.Module):
@@ -273,8 +299,7 @@ class Attention(nn.Module):
         return self.wo(out.transpose(1, 2).reshape(b, t, nh * hd))
 
     def serve(self, x: torch.Tensor, positions: torch.Tensor,
-              tables: RopeTables, kv: LayerKV,
-              keep: Tuple[torch.Tensor, torch.Tensor]
+              tables: RopeTables, kv: LayerKV, keep: _Keep
               ) -> Tuple[torch.Tensor, LayerKV]:
         cfg = self.cfg
         b, t, _ = x.shape
@@ -285,25 +310,24 @@ class Attention(nn.Module):
         k_rows = k4.reshape(b, t, nkv * hd).to(k_buf.dtype)
         v_rows = self.wv(x).to(v_buf.dtype)
         # Scatter the rows into the buffer in place (it is this forward's
-        # private scratch). ``keep`` lists the (batch, row) pairs whose
-        # position lies inside the buffer: rows past its end (padding
-        # rows near ctx_max) write nothing, like the JAX package's
+        # private scratch). Rows past the attended extent (padding rows
+        # near ctx_max) must write nothing there, like the JAX package's
         # mode="drop" — an out-of-range CUDA index would be a device
-        # assert, not a no-op. Dummy batch slots write every row to
-        # position 0 (duplicate indices, an unspecified winner): harmless
-        # only because their buffer rows and outputs are private and
+        # assert, not a no-op. They land in the sink column
+        # (``keep.sink``), past what attention reads, with no host sync.
+        # Dummy batch slots write every row to position 0
+        # (duplicate indices, an unspecified winner): harmless only
+        # because their buffer rows and outputs are private and
         # discarded.
-        bsel, tsel = keep
-        psel = positions[bsel, tsel].long()
-        k_buf[bsel, psel] = k_rows[bsel, tsel]
-        v_buf[bsel, psel] = v_rows[bsel, tsel]
-        ctx = k_buf.shape[1]
-        # [b, ctx, nkv·hd] -> [b, nkv, ctx, hd] views: no copy; the
-        # kernel takes the strides.
+        k_buf[keep.batch, keep.sink] = k_rows
+        v_buf[keep.batch, keep.sink] = v_rows
+        ctx = keep.ctx
+        # [b, ctx, nkv·hd] -> [b, nkv, ctx, hd] views of the attended
+        # extent: no copy; the kernel takes the strides.
         out = flash_decode(
             q4.transpose(1, 2),
-            k_buf.view(b, ctx, nkv, hd).transpose(1, 2),
-            v_buf.view(b, ctx, nkv, hd).transpose(1, 2),
+            k_buf[:, :ctx].view(b, ctx, nkv, hd).transpose(1, 2),
+            v_buf[:, :ctx].view(b, ctx, nkv, hd).transpose(1, 2),
             positions)
         out = out.transpose(1, 2).reshape(b, t, nh * hd)
         return self.wo(out), (k_rows, v_rows)
@@ -410,7 +434,8 @@ class Transformer(nn.Module):
     def forward(self, tokens: torch.Tensor, targets=None, *,
                 positions: Optional[torch.Tensor] = None,
                 kv: Union[Tuple[torch.Tensor, torch.Tensor],
-                          Callable[[int], LayerKV], None] = None):
+                          Callable[[int], LayerKV], None] = None,
+                ctx: Optional[int] = None):
         """``kv=None``: the training forward, ``tokens`` [b, t] at
         ``positions`` (default ``arange(t)``, shared over the batch);
         returns f32 logits [b, t, vocab] with autograd, or, with
@@ -418,7 +443,11 @@ class Transformer(nn.Module):
         chunked next-token loss. With ``kv``: the serving forward
         (:meth:`serve`)."""
         if kv is not None:
-            return self.serve(tokens, targets, positions=positions, kv=kv)
+            return self.serve(tokens, targets, positions=positions, kv=kv,
+                              ctx=ctx)
+        if ctx is not None:
+            raise ValueError("ctx is the serve forward's attended extent; "
+                             "pass it with kv=")
         cfg = self.cfg
         if targets is not None and not cfg.xent_chunk:
             raise ValueError("targets are only taken with xent_chunk (the "
@@ -450,16 +479,24 @@ class Transformer(nn.Module):
     def serve(self, tokens: torch.Tensor, targets=None, *,
               positions: Optional[torch.Tensor] = None,
               kv: Union[Tuple[torch.Tensor, torch.Tensor],
-                        Callable[[int], LayerKV], None] = None
+                        Callable[[int], LayerKV], None] = None,
+              ctx: Optional[int] = None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Serve-mode forward: ``tokens`` [b, t] new rows at
         ``positions`` [b, t]; ``kv`` is either the stacked buffers
-        ``(k, v)`` of shape [n_layers, b, ctx, kv_dim] (as in the JAX
-        package) or a callable ``layer -> (k_buf, v_buf)`` that gathers
-        layer i's buffers just before layer i runs. The buffers are
-        written in place (they are scratch for this forward). Returns
+        ``(k, v)`` of shape [n_layers, b, width, kv_dim] or a callable
+        ``layer -> (k_buf, v_buf)`` that gathers layer i's buffers just
+        before layer i runs. The buffers are written in place (they are
+        scratch for this forward). Returns
         ``(logits f32 [b, t, vocab], (k_rows, v_rows))`` with the fresh
-        rows stacked [n_layers, b, t, kv_dim]."""
+        rows stacked [n_layers, b, t, kv_dim].
+
+        ``ctx`` is the extent attention reads, below the buffers' width
+        (the JAX package's buffers are ``ctx`` wide; these hold one more
+        column at least). Rows at a position at or past ``ctx`` write
+        nothing the attention reads, as the JAX package's
+        ``mode="drop"``: they land in column ``ctx``, a sink, with no
+        host sync (what a CUDA graph needs)."""
         if targets is not None:
             raise ValueError("serve-mode forward takes no targets")
         if positions is None:
@@ -476,9 +513,8 @@ class Transformer(nn.Module):
         for i, block in enumerate(self.layers):
             buf = layer_kv(i)
             if keep is None:
-                # One host sync per forward (not per layer): which rows
-                # land inside the ctx-long buffer.
-                keep = (positions < buf[0].shape[1]).nonzero(as_tuple=True)
+                # Once a forward (not a layer): where the rows land.
+                keep = _keep_of(positions, buf[0].shape[1], ctx)
             x, (kr, vr) = block.serve(x, positions, tables, buf, keep)
             ks.append(kr)
             vs.append(vr)

@@ -40,9 +40,16 @@ as in the JAX package. Everything runs under ``torch.inference_mode``.
 Hot swap (:meth:`PagedModelRunner.swap_params`,
 :meth:`EngineFront.quiesce_and_swap`): new weights are copied INTO the
 live parameters at a drained iteration boundary. The cached step
-functions close over the model, so rebinding it would leave them on the
-old weights; copying in place keeps every step function and every
-parameter's address.
+functions close over the model, and a captured step reads the
+parameters' addresses, so rebinding it would leave them on the old
+weights; copying in place keeps every step function, every captured
+graph and every parameter's address.
+
+Cold start (:meth:`PagedModelRunner.warm`, ``aot_cache=``): the step is a
+function of device tensors with no host sync, so it can be captured in
+a CUDA graph and replayed; the kernel libraries it launches resolve
+through the persisted cache of :mod:`tony_tpu_torch.ckpt.aot`. The
+default engine runs it eagerly.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tony_tpu_torch import profiler, resolve_device
 from tony_tpu_torch.serve import prefix as prefix_mod
@@ -128,62 +136,172 @@ def _bucket_of(buckets: Sequence[int], n: int) -> int:
 
 def build_step_fn(model: Any, *, n_layers: int, n_blocks: int,
                   block_size: int, kv_dim: int, ctx_pad: int, b: int,
-                  t: int) -> Callable:
-    """The (b, t)-shaped serve step over a paged pool: gather each
-    sequence's blocks into the fixed-extent KV buffer layer by layer,
-    run the serve forward, commit the fresh rows back to the pool
-    through the host-computed flat indices (rows at ``oob_index``
-    drop). Host inputs are numpy arrays; the pools are updated IN PLACE
-    (the counterpart of the JAX step's donated pools)."""
+                  t: int, last_row: bool = False) -> Callable:
+    """The (b, t)-shaped serve step over a paged pool, a function of
+    device tensors only, with no host sync (what a CUDA graph captures):
+    gather each sequence's blocks, and the pool's sink block after them,
+    into a KV buffer one block wider than ``ctx_pad``, layer by layer;
+    run the serve forward over the first ``ctx_pad`` columns (rows past
+    them land in the sink column); commit every fresh row to the pool
+    through the flat indices, rows at ``oob_index`` landing in the sink
+    block. ``store_k``/``store_v`` are the cache's stores
+    ``[n_layers, n_blocks + 1, block_size, kv_dim]``, updated IN PLACE
+    (the counterpart of the JAX step's donated pools); ``tokens``,
+    ``positions`` and ``flat_idx`` are int32 ``[b, t]``, ``tables``
+    int32 ``[b, ctx_pad / block_size]``. Returns f32 logits
+    ``[b, t, vocab]``; with ``last_row``, only row ``row[i]`` of each
+    sequence, ``[b, 1, vocab]``, taken from the same logits (a prefill
+    reads one row, and a captured step keeps its output alive for the
+    life of its graph: a full output of every long prefill shape would
+    pin ``t·vocab·4`` bytes a graph)."""
     L, nb, bs, kvd, ctx = n_layers, n_blocks, block_size, kv_dim, ctx_pad
     oob = nb * bs
+    width = ctx + bs
 
     @torch.inference_mode()
-    def fn(pool_k: torch.Tensor, pool_v: torch.Tensor, tokens: np.ndarray,
-           positions: np.ndarray, tables: np.ndarray,
-           flat_idx: np.ndarray) -> torch.Tensor:
-        dev = pool_k.device
+    def fn(store_k: torch.Tensor, store_v: torch.Tensor,
+           tokens: torch.Tensor, positions: torch.Tensor,
+           tables: torch.Tensor, flat_idx: torch.Tensor,
+           row: Optional[torch.Tensor] = None) -> torch.Tensor:
         # Clamped, as jnp.take(mode="clip"): table padding (and the
         # full-prefill reference's contiguous table on a small pool)
         # may point past the pool; those positions are masked by the
         # attention, and a gathered block is finite, so 0·x stays 0.
-        tab = torch.as_tensor(np.clip(tables, 0, nb - 1).reshape(-1),
-                              dtype=torch.long, device=dev)
+        # Then the sink block, the buffer's last block_size columns.
+        tab = F.pad(tables.clamp(0, nb - 1), (0, 1),
+                    value=nb).reshape(-1).long()
 
         def layer_kv(i: int):
-            # Layer i's [b, ctx, kvd] buffers, gathered just before
+            # Layer i's [b, ctx + bs, kvd] buffers, gathered just before
             # layer i (not all layers at once: at 7B, max_running=16
             # and ctx 2048 that would hold ~17 GB more).
-            return (pool_k[i].index_select(0, tab).view(b, ctx, kvd),
-                    pool_v[i].index_select(0, tab).view(b, ctx, kvd))
+            return (store_k[i].index_select(0, tab).view(b, width, kvd),
+                    store_v[i].index_select(0, tab).view(b, width, kvd))
 
-        logits, (knew, vnew) = model(
-            torch.as_tensor(tokens, device=dev),
-            positions=torch.as_tensor(positions, dtype=torch.int32,
-                                      device=dev),
-            kv=layer_kv)
-        flat = np.asarray(flat_idx).reshape(-1)
-        rows = np.nonzero(flat < oob)[0]        # mode="drop", on the host
-        if rows.size:
-            dst = torch.as_tensor(flat[rows], dtype=torch.long, device=dev)
-            src = torch.as_tensor(rows, dtype=torch.long, device=dev)
-            pool_k.view(L, nb * bs, kvd)[:, dst] = \
-                knew.reshape(L, b * t, kvd)[:, src].to(pool_k.dtype)
-            pool_v.view(L, nb * bs, kvd)[:, dst] = \
-                vnew.reshape(L, b * t, kvd)[:, src].to(pool_v.dtype)
+        logits, (knew, vnew) = model(tokens, positions=positions,
+                                     kv=layer_kv, ctx=ctx)
+        # mode="drop" on the device: a dropped row lands in the sink.
+        dst = flat_idx.reshape(-1).long().clamp(0, oob)
+        store_k.view(L, (nb + 1) * bs, kvd)[:, dst] = \
+            knew.reshape(L, b * t, kvd).to(store_k.dtype)
+        store_v.view(L, (nb + 1) * bs, kvd)[:, dst] = \
+            vnew.reshape(L, b * t, kvd).to(store_v.dtype)
+        if last_row:
+            logits = logits.gather(1, row.long().view(b, 1, 1).expand(
+                b, 1, logits.shape[-1]))
         return logits
 
     return fn
 
 
+class _StepInputs:
+    """One (b, t) step's device inputs — tokens, positions, block tables,
+    flat write indices and, for a ``last_row`` step, the row it returns —
+    as views of ONE int32 buffer, which the host fills with one copy
+    before each launch: the static inputs a captured step reads, and the
+    eager step's."""
+
+    def __init__(self, b: int, t: int, nb_max: int, oob: int,
+                 device: torch.device, last_row: bool):
+        shapes = ((b, t), (b, t), (b, nb_max), (b, t)) + (
+            ((b,),) if last_row else ())
+        sizes = [int(np.prod(s)) for s in shapes]
+        offs = np.cumsum([0] + sizes)
+        self._host = np.zeros(offs[-1], np.int32)
+        self._dev = torch.zeros(int(offs[-1]), dtype=torch.int32,
+                                device=device)
+        self._host_views = tuple(self._host[offs[i]:offs[i + 1]]
+                                 .reshape(s) for i, s in enumerate(shapes))
+        self.views = tuple(self._dev[offs[i]:offs[i + 1]].view(s)
+                           for i, s in enumerate(shapes))
+        self._oob = oob
+
+    def fill(self, tokens: np.ndarray, positions: np.ndarray,
+             tables: np.ndarray, flat_idx: np.ndarray,
+             row: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        srcs = (tokens, positions, tables, flat_idx, row or 0)
+        for dst, src in zip(self._host_views, srcs):
+            dst[...] = src
+        self._dev.copy_(torch.from_numpy(self._host))
+        return self.views
+
+    def idle(self) -> Tuple[torch.Tensor, ...]:
+        """Inputs whose every row lands in the sink: a launch of them
+        writes no live row of the pool (capture's warm-up)."""
+        for view in self._host_views:
+            view[...] = 0
+        self._host_views[3][...] = self._oob
+        self._dev.copy_(torch.from_numpy(self._host))
+        return self.views
+
+
+class _GraphStep:
+    """One (b, t) step captured in a CUDA graph over static inputs; a
+    call fills them and replays. ``launches`` counts the kernel wrapper
+    launches the graph holds (the wrappers count a captured launch once,
+    at capture; a replay runs them all again) and ``replays`` the
+    replays. The output is the graph's own tensor: it holds the last
+    replay's logits until the next replay of any graph of the engine
+    (they share one memory pool), so every caller consumes it first. It
+    lives as long as the graph, which is why a long prefill step returns
+    one row (:func:`build_step_fn`): a graph pins at most ``q_block``
+    rows of logits a sequence, whatever its prompt pad."""
+
+    def __init__(self, fn: Callable, stores: Tuple[torch.Tensor, ...],
+                 inputs: _StepInputs, pool: Any, side: torch.cuda.Stream):
+        from tony_tpu_torch.ops import LAUNCHES
+
+        dev = stores[0].device
+        # Warm-up outside the capture, on the engine's side stream (one
+        # for all its graphs: cuBLAS keeps a workspace for every stream
+        # it ran on), every row into the sink: cuBLAS workspaces, the
+        # kernel libraries and their modules are loaded before capture
+        # begins.
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn(*stores, *inputs.idle())
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: a replica restoring a hot swap's weights on
+        # another thread may allocate while this thread captures.
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.out = fn(*stores, *inputs.views)
+        self.launches = {k: v - before.get(k, 0) for k, v in LAUNCHES.items()
+                         if v != before.get(k, 0)}
+        self.replays = 0
+        self._inputs = inputs
+
+    def __call__(self, tokens, positions, tables, flat_idx,
+                 row=None) -> torch.Tensor:
+        self._inputs.fill(tokens, positions, tables, flat_idx, row)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
 class PagedModelRunner:
     """Shared geometry + step plumbing over ONE model and ONE paged KV
-    pool (the base the speculative lane's draft model will share)."""
+    pool (the base the speculative lane's draft model shares).
+
+    Cold-start plane (the reference's :mod:`tony_tpu.ckpt.aot` half of
+    the engine): ``aot_cache`` (a :class:`tony_tpu_torch.ckpt.AOTCache`)
+    resolves the kernel libraries each step shape launches through the
+    cache, into ``kernel_dir`` (default ``build/kernels``), and
+    :meth:`warm` resolves the step family ahead of traffic. On the card
+    a resolved step is its step function captured in a CUDA graph and
+    replayed; on the CPU it is the eager step. The step function is the
+    same either way: the cache changes who builds the libraries, never
+    the program. With no cache and no :meth:`warm`, ``_aot_fns`` stays
+    empty and every launch runs the step eagerly."""
 
     def _init_paged(self, model: Any, *, ctx_max: int, block_size: int,
                     q_block: int, decode_buckets: Sequence[int],
                     max_running: int, n_blocks: Optional[int],
-                    device: Optional[Union[str, torch.device]]) -> None:
+                    device: Optional[Union[str, torch.device]],
+                    aot_cache: Optional[Any] = None,
+                    kernel_dir: Optional[str] = None) -> None:
         cfg = model.cfg
         if q_block % 8:
             raise ValueError(f"q_block must be a multiple of 8, got "
@@ -219,6 +337,21 @@ class PagedModelRunner:
                                   block_size=self.block_size,
                                   dtype=cfg.dtype, device=model_dev)
         self._fns: Dict[tuple, Callable] = {}
+        self._inputs: Dict[Tuple[int, int], _StepInputs] = {}
+        # Cold-start plane (class docstring): the resolved steps, in a
+        # dict beside _fns, the graphs' shared memory pool and warm-up
+        # stream, and the counters. fresh_compiles counts nvcc builds;
+        # compile_ms is build + capture time on a miss (or without a
+        # cache), deserialize_ms library load + capture time on a hit.
+        self.aot_cache = aot_cache
+        self.kernel_dir = kernel_dir
+        self._aot_fns: Dict[Tuple[int, int], Callable] = {}
+        self._graph_pool: Any = None
+        self.aot_hits = 0
+        self.aot_misses = 0
+        self.fresh_compiles = 0
+        self.compile_ms = 0.0
+        self.deserialize_ms = 0.0
         # Forward-launch counter (prefills + decode steps).
         self.forwards = 0
         # Weight publication: the published pointer version and the
@@ -230,22 +363,148 @@ class PagedModelRunner:
         self.weight_swaps = 0
         self.swapping = False
 
-    def _fn(self, b: int, t: int, n_blocks: Optional[int] = None
-            ) -> Callable:
+    def _fn(self, b: int, t: int, n_blocks: Optional[int] = None,
+            last_row: bool = False) -> Callable:
         nb = self.cache.n_blocks if n_blocks is None else n_blocks
-        key = (b, t, nb)
+        key = (b, t, nb, last_row)
         if key not in self._fns:
             self._fns[key] = build_step_fn(
                 self.model, n_layers=self.n_layers, n_blocks=nb,
                 block_size=self.block_size, kv_dim=self.kv_dim,
-                ctx_pad=self.ctx_pad, b=b, t=t)
+                ctx_pad=self.ctx_pad, b=b, t=t, last_row=last_row)
         return self._fns[key]
 
-    def _run_fn(self, b, t, tokens, positions, tables, flat_idx):
-        logits = self._fn(b, t)(self.cache.k, self.cache.v, tokens,
-                                positions, tables, flat_idx)
+    def _last_row(self, t: int) -> bool:
+        """Whether the (b, t) step returns one row a sequence: a prefill
+        past ``q_block`` rows (whose caller reads only its last real
+        row). Decode and verify steps (``q_block`` rows) return all."""
+        return t > self.q_block
+
+    def _step_inputs(self, b: int, t: int) -> _StepInputs:
+        if (b, t) not in self._inputs:
+            self._inputs[(b, t)] = _StepInputs(
+                b, t, self.nb_max, self.cache.oob_index, self.cache.device,
+                self._last_row(t))
+        return self._inputs[(b, t)]
+
+    def _eager(self, b: int, t: int) -> Callable:
+        """The (b, t) step run eagerly over the static inputs."""
+        fn = self._fn(b, t, last_row=self._last_row(t))
+        inputs = self._step_inputs(b, t)
+        stores = (self.cache.k_store, self.cache.v_store)
+
+        def run(tokens, positions, tables, flat_idx, row=None
+                ) -> torch.Tensor:
+            return fn(*stores, *inputs.fill(tokens, positions, tables,
+                                            flat_idx, row))
+
+        return run
+
+    def _kernel_names(self) -> Tuple[str, ...]:
+        """The kernel libraries this runner's steps launch: flash-decode,
+        and the int8 GEMM where the model has a quantized projection;
+        none on the CPU."""
+        if self.device.type != "cuda":
+            return ()
+        from tony_tpu_torch.ops.quant import QuantDense
+
+        quant = any(isinstance(m, QuantDense) for m in self.model.modules())
+        return ("flash_decode",) + (("int8_matmul",) if quant else ())
+
+    def _capture(self, b: int, t: int) -> Callable:
+        """The resolved (b, t) step: captured in a CUDA graph on the
+        card (a failed capture raises), the eager step on the CPU."""
+        if self.device.type != "cuda":
+            return self._eager(b, t)
+        if self._graph_pool is None:
+            # One pool for every graph of this engine: at 7B a pool per
+            # graph would hold each graph's gather scratch apart.
+            self._graph_pool = (torch.cuda.graph_pool_handle(),
+                                torch.cuda.Stream(self.device))
+        return _GraphStep(self._fn(b, t, last_row=self._last_row(t)),
+                          (self.cache.k_store, self.cache.v_store),
+                          self._step_inputs(b, t), *self._graph_pool)
+
+    def _resolve_aot(self, b: int, t: int) -> Callable:
+        """One (b, t) step resolved now: its libraries through the cache
+        when one is armed (the runner's library set is one entry: the
+        first resolution on an empty cache misses, builds and puts it,
+        every later one hits and loads it, no nvcc; drift or corruption
+        is a counted miss that costs a build, never a wrong library),
+        else built where missing; then the step is captured."""
+        from tony_tpu_torch.ops import _build
+
+        t0 = time.monotonic()
+        res = _build.resolve(self._kernel_names(), cache=self.aot_cache,
+                             build_dir=self.kernel_dir)
+        fn = self._capture(b, t)
+        ms = 1e3 * (time.monotonic() - t0)
+        if res.hit:
+            self.aot_hits += 1
+            self.deserialize_ms += ms
+        else:
+            if res.hit is False:            # armed, and missed
+                self.aot_misses += 1
+            self.compile_ms += ms
+        self.fresh_compiles += res.built
+        return fn
+
+    def _step_callable(self, b: int, t: int) -> Callable:
+        """What :meth:`_run_fn` launches for shape (b, t): the eager step
+        when nothing armed the plane (the default engine), else the
+        resolved step — warmed, or resolved through the cache now, at
+        its first launch."""
+        fn = self._aot_fns.get((b, t))
+        if fn is None:
+            if self.aot_cache is None:
+                return self._eager(b, t)
+            fn = self._resolve_aot(b, t)
+            self._aot_fns[(b, t)] = fn
+        return fn
+
+    def warm(self, prefill_pads: Sequence[int] = ()) -> int:
+        """Resolve the enumerable step family NOW: every decode bucket
+        (the speculative verify rides the same shapes), the chunk
+        program ``(1, prefill_chunk)`` and the named prefill pads — so a
+        warm standby holds its captured steps before its first request.
+        Through the cache when one is armed (hits load the cached
+        libraries, misses build and populate the cache for the fleet),
+        else built here. Returns the programs resolved."""
+        shapes = [(int(b), self.q_block) for b in self.decode_buckets]
+        chunk = getattr(self, "prefill_chunk", None)
+        if chunk:
+            shapes.append((1, int(chunk)))
+        shapes += [(1, int(p)) for p in prefill_pads]
+        n = 0
+        for key in dict.fromkeys(shapes):
+            if key not in self._aot_fns:
+                self._aot_fns[key] = self._resolve_aot(*key)
+                n += 1
+        return n
+
+    def graph_launches(self) -> Dict[str, int]:
+        """Kernel launches the replays of this runner's captured steps
+        made: each graph's captured launches times its replays."""
+        out: Dict[str, int] = {}
+        for fn in self._aot_fns.values():
+            for name, n in getattr(fn, "launches", {}).items():
+                out[name] = out.get(name, 0) + n * fn.replays
+        return out
+
+    def graph_replays(self) -> int:
+        """Replays of this runner's captured steps."""
+        return sum(getattr(fn, "replays", 0)
+                   for fn in self._aot_fns.values())
+
+    def _run_fn(self, b, t, tokens, positions, tables, flat_idx, row=None):
+        """One (b, t) launch. Returns logits ``[b, t, vocab]``, or with
+        ``row`` (a prefill's last real row) that row's, ``[b, vocab]``."""
+        logits = self._step_callable(b, t)(tokens, positions, tables,
+                                           flat_idx, row)
         self.forwards += 1
-        return logits
+        if row is None:
+            return logits
+        return logits[:, 0] if self._last_row(t) else logits[:, row]
 
     @torch.no_grad()
     def swap_params(self, new: Mapping[str, torch.Tensor], *, version: int,
@@ -292,7 +551,10 @@ class ServeEngine(PagedModelRunner):
     :class:`tony_tpu_torch.models.transformer.Transformer` — its ``kv=``
     forward). ``device=None`` means the card; the model must live on
     the engine's device. ``prefix_cache`` and ``prefill_chunk`` arm the
-    admission lanes (module docstring).
+    admission lanes (module docstring). ``aot_cache``, ``kernel_dir``
+    and :meth:`warm` arm the cold-start plane (:class:`PagedModelRunner`);
+    ``warm_standby`` starts the engine as a warm standby, which
+    :meth:`promote` ends.
     """
 
     def __init__(self, model: Any, *, ctx_max: int, block_size: int = 16,
@@ -303,6 +565,9 @@ class ServeEngine(PagedModelRunner):
                  stats_window_s: float = 60.0, tag: str = "serve",
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
+                 aot_cache: Optional[Any] = None,
+                 warm_standby: bool = False,
+                 kernel_dir: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if join_policy not in ("continuous", "static"):
             raise ValueError(f"unknown join_policy {join_policy!r} "
@@ -310,7 +575,13 @@ class ServeEngine(PagedModelRunner):
         self._init_paged(model, ctx_max=ctx_max, block_size=block_size,
                          q_block=q_block, decode_buckets=decode_buckets,
                          max_running=max_running, n_blocks=n_blocks,
-                         device=device)
+                         device=device, aot_cache=aot_cache,
+                         kernel_dir=kernel_dir)
+        # Warm-standby membership (the cold-start plane's pool half): a
+        # standby is resolved and idle; it heartbeats warm_standby=1 so
+        # the session keeps it out of the routable endpoints until the
+        # AM promotes it (rpc_promote -> promote()).
+        self.warm_standby = bool(warm_standby)
         self.prefix_cache = bool(prefix_cache)
         if prefill_chunk is not None:
             prefill_chunk = int(prefill_chunk)
@@ -406,12 +677,13 @@ class ServeEngine(PagedModelRunner):
             # admission).
             flat[0, j] = self.cache.write_index(seq.rid, c0 + j)
         tables = self.cache.table_array([seq.rid], self.nb_max)
-        logits = self._run_fn(1, t_pad, tokens, positions, tables, flat)
+        logits = self._run_fn(1, t_pad, tokens, positions, tables, flat,
+                              row=t_real - 1)
         self.prefill_launches += 1
         self.prefill_rows += t_pad
         seq.pf_pos = c1
         if c1 >= n:
-            self._emit_token(seq, logits[0, n - 1 - c0].cpu().numpy())
+            self._emit_token(seq, logits[0].cpu().numpy())
         else:
             self._publish(seq)
 
@@ -643,12 +915,16 @@ class ServeEngine(PagedModelRunner):
                             nb_s - 1)[None].copy()
         flat = np.full((1, t_pad), nb_s * self.block_size, np.int32)
         flat[0, :t_real] = np.arange(t_real)    # rows past the pool drop
-        shape = (self.n_layers, nb_s, self.block_size, self.kv_dim)
+        # The scratch pool's blocks and its sink block.
+        shape = (self.n_layers, nb_s + 1, self.block_size, self.kv_dim)
         scratch_k = torch.zeros(shape, dtype=self.cache.k.dtype,
                                 device=self.cache.k.device)
         scratch_v = torch.zeros_like(scratch_k)
-        logits = self._fn(1, t_pad, nb_s)(scratch_k, scratch_v, toks,
-                                          positions, tables, flat)
+        dev = scratch_k.device
+        logits = self._fn(1, t_pad, nb_s)(
+            scratch_k, scratch_v,
+            *(torch.as_tensor(a, device=dev)
+              for a in (toks, positions, tables, flat)))
         return logits[0, :t_real].cpu().numpy()
 
     # -- telemetry ---------------------------------------------------------
@@ -700,12 +976,19 @@ class ServeEngine(PagedModelRunner):
                 if self.prefix_lookup_blocks else 0.0),
             "blocks_shared": float(self.cache.adopted_total),
             "prefill_chunks": float(self.prefill_chunks),
-            # Lanes not ported (disaggregation, the warm pool) and the
-            # speculative lane's rate (SpecEngine overrides it): their
-            # idle values.
+            # Lanes not ported (disaggregation, the demotion daemon)
+            # and the speculative lane's rate (SpecEngine overrides it):
+            # their idle values.
             "acceptance_rate": 0.0,
             "role": "colocated",
-            "warm_standby": 0.0,
+            # Cold-start plane: zeros when unarmed. warm_standby rides
+            # the heartbeat so the session keeps a standby out of the
+            # routable endpoints until the AM promotes it.
+            "aot_hits": float(self.aot_hits),
+            "aot_misses": float(self.aot_misses),
+            "compile_ms": float(self.compile_ms),
+            "warm_standby": 1.0 if self.warm_standby else 0.0,
+            "daemon_demotions": 0.0,
             "weight_version": float(self.weight_version),
             "weight_step": float(self.weight_step),
             "weight_swaps": float(self.weight_swaps),
@@ -748,6 +1031,19 @@ class ServeEngine(PagedModelRunner):
             json.dump(payload, fh)
         os.replace(tmp, path)
 
+
+    # -- warm-standby promotion --------------------------------------------
+    def promote(self) -> bool:
+        """Leave warm standby: the AM's scale-up path calls this (over
+        the replica's ``promote`` RPC verb) instead of cold-granting a
+        container; the next stats publish advertises warm_standby=0 and
+        the session adds the replica to the routable endpoints. Returns
+        whether the engine WAS a standby (idempotent: promoting an
+        active engine is a no-op, so a duplicated RPC is harmless)."""
+        with self._lock:
+            was = self.warm_standby
+            self.warm_standby = False
+        return was
 
     def swap_params(self, new: Mapping[str, torch.Tensor], *, version: int,
                     step: int) -> None:

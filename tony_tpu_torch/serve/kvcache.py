@@ -2,7 +2,8 @@
 (the core of :mod:`tony_tpu.serve.kvcache`).
 
 The pool is two device tensors ``[n_layers, n_blocks, block_size,
-kv_dim]`` (k and v); a sequence owns an ordered list of block ids (its
+kv_dim]`` (k and v, views of stores with one more block: the sink the
+step's dropped rows land in); a sequence owns an ordered list of block ids (its
 *block table*) covering positions ``[0, len)`` — position ``p`` lives at
 row ``p % block_size`` of block ``table[p // block_size]``. Allocation
 is host-side bookkeeping only (a LIFO free list of ids and per-block
@@ -80,9 +81,17 @@ class PagedKVCache:
         self.kv_dim = int(kv_dim)
         self.n_blocks = int(n_blocks)
         self.block_size = int(block_size)
-        shape = (self.n_layers, self.n_blocks, self.block_size, self.kv_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        # The pool and one sink block past it ([n_layers, n_blocks + 1,
+        # block_size, kv_dim]): the step commits the rows it drops
+        # (``oob_index``) into the sink, never into a live row, so it
+        # needs no host-side selection of the rows it keeps. ``k``/``v``
+        # are the pool's views without the sink.
+        shape = (self.n_layers, self.n_blocks + 1, self.block_size,
+                 self.kv_dim)
+        self.k_store = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_store = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.k = self.k_store[:, :self.n_blocks]
+        self.v = self.v_store[:, :self.n_blocks]
         # LIFO free list: a just-freed block is the next handed out, so
         # the reuse invariants get exercised constantly.
         self._free: List[int] = list(range(self.n_blocks - 1, -1, -1))
@@ -420,5 +429,6 @@ class PagedKVCache:
     @property
     def oob_index(self) -> int:
         """One-past-the-pool flat index: rows routed here (padding rows,
-        dummy batch slots) write nothing at commit."""
+        dummy batch slots) land in the sink block at commit and write no
+        live row."""
         return self.n_blocks * self.block_size

@@ -30,10 +30,14 @@ The speculative lane (``spec_k`` > 0: a
 :class:`~tony_tpu_torch.serve.spec.SpecEngine` drafting with a named
 draft model restored through the same params-only path, else with
 n-grams), the prefix cache and chunked prefill are armed as in the
-reference's replica. Lanes that are not ported (disaggregation, host
-tier, prefix store, QoS, AOT cache, warm standby, demotion, a serve
-mesh) raise ``NotImplementedError`` naming their ROADMAP item when the
-job conf asks for them.
+reference's replica, and so is the cold-start plane: an AOT cache
+directory (``tony.serve.aot-cache``) through which the engine's kernel
+libraries resolve, ``warm()`` of the step family into CUDA graphs after
+the restore, and the warm-standby pool (``tony.serve.warm-standby``):
+a standby heartbeats ``warm_standby=1`` until the AM's ``promote`` RPC.
+Lanes that are not ported (disaggregation, host tier, prefix store,
+QoS, demotion, a serve mesh) raise ``NotImplementedError`` naming their
+ROADMAP item when the job conf asks for them.
 """
 
 from __future__ import annotations
@@ -46,10 +50,11 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import torch
 
-from tony_tpu_torch import chaos, ckpt, constants, resolve_device
+from tony_tpu_torch import chaos, ckpt, constants, events, resolve_device
 from tony_tpu_torch.ckpt.format import torch_dtype
 from tony_tpu_torch.ckpt.restore import _apply_dtype_policy
-from tony_tpu_torch.conf import (CKPT_DIR, SERVE_AOT_CACHE, SERVE_BLOCK_SIZE,
+from tony_tpu_torch.conf import (CKPT_DIR, HISTORY_LOCATION,
+                                 SERVE_AOT_CACHE, SERVE_BLOCK_SIZE,
                                  SERVE_CKPT_DIR, SERVE_CTX_MAX,
                                  SERVE_DEMOTE_BATCH, SERVE_DEMOTE_WATERMARK,
                                  SERVE_DRAFT_CKPT_DIR, SERVE_DRAFT_MODEL,
@@ -67,7 +72,8 @@ from tony_tpu_torch.models.convert import jax_param_tree
 from tony_tpu_torch.publish import latest_publication
 from tony_tpu_torch.serve.engine import Completion, EngineFront, ServeEngine
 from tony_tpu_torch.serve.spec import SpecEngine
-from tony_tpu_torch.serve.swap import SwapError, resolve_target
+from tony_tpu_torch.serve.swap import (SwapError, derive_prefill_pads,
+                                       resolve_target)
 
 _ITEM = "ROADMAP.md, queue 1 item {}"
 
@@ -97,7 +103,10 @@ class Replica:
     ``draft_ckpt_dir`` (default: ``ckpt_dir``) through the same
     params-only path, else the lane drafts n-grams up to ``ngram_max``.
     ``prefix_cache`` and ``prefill_chunk`` arm the engine's admission
-    lanes."""
+    lanes. ``aot_cache`` (a directory) arms the cold-start plane's cache
+    and ``warm_standby`` starts the replica as a warm standby; with
+    either, the engine's step family is warmed right after the restore
+    (a standby must hold its captured steps before it is promoted)."""
 
     def __init__(self, *, model_name: str,
                  model_kwargs: Optional[Dict[str, Any]] = None,
@@ -110,8 +119,14 @@ class Replica:
                  draft_model_kwargs: Optional[Dict[str, Any]] = None,
                  draft_ckpt_dir: Optional[str] = None, ngram_max: int = 3,
                  prefix_cache: bool = False,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 aot_cache: Optional[str] = None,
+                 warm_standby: bool = False):
         t0 = time.perf_counter()
+        # Cold-start plane: a cache DIR becomes a live AOTCache shared by
+        # every step family the engine resolves, built before the engine
+        # so the first resolution can hit.
+        self._aot = ckpt.AOTCache(aot_cache) if aot_cache else None
         kw = dict(model_kwargs or {})
         self.device = resolve_device(kw.pop("device", None))
         kw.setdefault("param_dtype", _storage_dtype(dtype_policy))
@@ -132,7 +147,8 @@ class Replica:
                          q_block=q_block, n_blocks=n_blocks,
                          max_running=max_running, keep_logits=keep_logits,
                          tag=tag, prefix_cache=prefix_cache,
-                         prefill_chunk=prefill_chunk, device=self.device)
+                         prefill_chunk=prefill_chunk, aot_cache=self._aot,
+                         warm_standby=warm_standby, device=self.device)
         if spec_k:
             draft_kw: Dict[str, Any] = {"ngram_max": ngram_max}
             if draft_model_name:
@@ -162,8 +178,22 @@ class Replica:
         self.engine.weight_step = int(step)
         if pub is not None and pub["step"] == step:
             self.engine.weight_version = pub["version"]
+        t3 = time.perf_counter()
+        # Resolve the step family now when the plane is on: a standby
+        # must hold its captured steps before promotion, and a
+        # cache-armed active replica pays its libraries and captures
+        # before its first request (and its misses populate the cache
+        # for every later grant of the family).
+        self.warmed = 0
+        if self._aot is not None or warm_standby:
+            self.warmed = self.engine.warm()
+            print(f"[tony-serve-replica] warmed {self.warmed} step "
+                  f"program(s) (aot hits {self.engine.aot_hits}, misses "
+                  f"{self.engine.aot_misses}, nvcc builds "
+                  f"{self.engine.fresh_compiles})", flush=True)
         self.timings = {"build_s": t1 - t0, "restore_s": t2 - t1,
-                        "engine_s": time.perf_counter() - t2}
+                        "engine_s": t3 - t2,
+                        "warm_s": time.perf_counter() - t3}
         self._front = EngineFront(self.engine)
         self._publish: Optional[Any] = None
         self.port: Optional[int] = None
@@ -207,6 +237,43 @@ class Replica:
         return self._front.generate(tokens, max_new_tokens, rid=rid,
                                     conv=conv, tenant=tenant)
 
+    # -- warm-standby promotion --------------------------------------------
+    def promote(self) -> bool:
+        """The AM's scale-up path: leave warm standby and republish the
+        stats AT ONCE — the session routes on warm_standby=0, and
+        waiting a publish tick would hand back the latency the pool
+        exists to hide. Returns whether the replica WAS a standby."""
+        was = self.engine.promote()
+        if was and self._publish is not None:
+            self._publish()
+        return was
+
+    def tune_warm_pads(self, history_dir: str, *,
+                       limit: int = 4) -> List[int]:
+        """warm() pad self-tuning: read the prompt-length histograms that
+        earlier serve windows logged under ``history_dir`` and resolve
+        the prefill pads the traffic used (:func:`derive_prefill_pads`).
+        Best-effort: an unreadable log warms nothing extra and never
+        fails startup. Returns the pads."""
+        records: List[Dict[str, Any]] = []
+        try:
+            for job in events.list_jobs(history_dir):
+                try:
+                    records += [r for r in events.read_events(job["path"])
+                                if r.get("type") == events.SERVE_WINDOW]
+                except (OSError, ValueError):
+                    continue
+        except OSError:
+            return []
+        pads = derive_prefill_pads(records, q_block=self.engine.q_block,
+                                   ctx_max=self.engine.ctx_pad, limit=limit)
+        if pads:
+            n = self.engine.warm(prefill_pads=pads)
+            print(f"[tony-serve-replica] self-tuned prefill pads {pads} "
+                  f"from the serve history ({n} program(s) resolved)",
+                  flush=True)
+        return pads
+
     # -- hot weight swap ---------------------------------------------------
     def hot_swap(self, *, version: Optional[int] = None,
                  step: Optional[int] = None) -> Dict[str, Any]:
@@ -218,7 +285,9 @@ class Replica:
         1. resolve the target (the published pointer, or an explicit
            ``step`` pin);
         2. restore its params into a SECOND parameter set of the same
-           geometry while the engine keeps serving the old weights;
+           geometry while the engine keeps serving the old weights (its
+           captured steps read the live parameters' addresses, which the
+           flip keeps);
         3. quiesce to an iteration boundary under the front's drive lock
            and copy the new set into the live parameters
            (:meth:`EngineFront.quiesce_and_swap` →
@@ -337,7 +406,12 @@ class _ReplicaRpcHandler:
         ``"SwapError: ..."`` with the old weights still serving."""
         return self.replica.hot_swap(version=version, step=step)
 
-    # The disaggregated handoff verbs and the warm-standby promotion.
+    def rpc_promote(self) -> bool:
+        """The AM's scale-up verb against a warm standby (idempotent: a
+        duplicated call returns False)."""
+        return self.replica.promote()
+
+    # The disaggregated handoff verbs.
     def rpc_prefill_handoff(self, *args: Any, **kwargs: Any) -> Any:
         raise NotImplementedError(
             f"prefill_handoff: disaggregated serving is not ported yet "
@@ -352,11 +426,6 @@ class _ReplicaRpcHandler:
         raise NotImplementedError(
             f"kv_import: disaggregated serving is not ported yet "
             f"({_ITEM.format(9)})")
-
-    def rpc_promote(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            f"promote: the warm-standby pool is not ported yet "
-            f"({_ITEM.format(12)})")
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -378,24 +447,30 @@ def _model_kwargs_from_json(text: str) -> Dict[str, Any]:
     return kw
 
 
-def _refuse_unported(conf: TonyConfig, job_type: str) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for every
-    serving lane the conf arms that the port has not ported, so no such
-    setting is silently ignored."""
+def _warm_pool(conf: TonyConfig, job_type: str) -> int:
+    """The jobtype's warm-standby pool size: its own key, else the
+    serve-wide one."""
     warm = conf.get(serve_warm_standby_key(job_type))
     if warm is None:
         warm = conf.get(SERVE_WARM_STANDBY)
+    return int(warm or 0)
+
+
+def _refuse_unported(conf: TonyConfig, job_type: str) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for every
+    serving lane the conf arms that the port has not ported, so no such
+    setting is silently ignored. The demotion daemon needs the host
+    tier (the reference demotes only with ``host_offload``), so it
+    waits with it, under item 9."""
     role = conf.get(serve_role_key(job_type)) or "colocated"
     lanes = (
         (serve_role_key(job_type), role != "colocated", 9),
         (SERVE_HOST_BLOCKS, conf.get_int(SERVE_HOST_BLOCKS, 0) > 0, 9),
         (SERVE_PREFIX_STORE, bool(conf.get(SERVE_PREFIX_STORE)), 9),
         (SERVE_QOS_TENANTS, bool(conf.get(SERVE_QOS_TENANTS)), 9),
-        (SERVE_AOT_CACHE, bool(conf.get(SERVE_AOT_CACHE)), 12),
-        (SERVE_WARM_STANDBY, int(warm or 0) > 0, 12),
         (SERVE_DEMOTE_WATERMARK,
-         conf.get_float(SERVE_DEMOTE_WATERMARK, 0.0) > 0, 12),
-        (SERVE_DEMOTE_BATCH, conf.get_int(SERVE_DEMOTE_BATCH, 0) > 0, 12),
+         conf.get_float(SERVE_DEMOTE_WATERMARK, 0.0) > 0, 9),
+        (SERVE_DEMOTE_BATCH, conf.get_int(SERVE_DEMOTE_BATCH, 0) > 0, 9),
         (SERVE_MESH, bool(conf.get(SERVE_MESH)), 8),
     )
     for key, armed, item in lanes:
@@ -422,7 +497,17 @@ def main() -> int:
         print(f"[tony-serve-replica] need {SERVE_MODEL} and "
               f"{SERVE_CKPT_DIR} in the job conf")
         return 1
-    _refuse_unported(conf, os.environ.get(constants.ENV_JOB_NAME) or "serve")
+    job_type = os.environ.get(constants.ENV_JOB_NAME) or "serve"
+    _refuse_unported(conf, job_type)
+    # Warm-standby membership is decided here, by position: the AM grants
+    # elastic tasks above the jobtype's configured instance count, so an
+    # index at or past that count with a warm pool configured came up as
+    # a standby; it warms and waits for the promote RPC. The base gang
+    # (index < instances) always starts active.
+    task_index = int(os.environ.get(constants.ENV_TASK_INDEX) or 0)
+    warm_standby = (_warm_pool(conf, job_type) > 0
+                    and task_index >= conf.instances(job_type))
+    aot_cache = conf.get(SERVE_AOT_CACHE) or None
     replica = Replica(
         model_name=model_name,
         model_kwargs=_model_kwargs_from_json(conf.get(SERVE_MODEL_KWARGS)),
@@ -438,7 +523,13 @@ def main() -> int:
         draft_ckpt_dir=conf.get(SERVE_DRAFT_CKPT_DIR) or None,
         ngram_max=conf.get_int(SERVE_DRAFT_NGRAM_MAX, 3),
         prefix_cache=conf.get_bool(SERVE_PREFIX_CACHE, False),
-        prefill_chunk=conf.get_int(SERVE_PREFILL_CHUNK, 0) or None)
+        prefill_chunk=conf.get_int(SERVE_PREFILL_CHUNK, 0) or None,
+        aot_cache=aot_cache, warm_standby=warm_standby)
+    # warm() pad self-tuning: with the plane armed and a history root
+    # configured, resolve the prefill pads earlier serve traffic used.
+    history_dir = conf.get(HISTORY_LOCATION)
+    if history_dir and (aot_cache or warm_standby):
+        replica.tune_warm_pads(history_dir)
     replica.serve_forever(
         port=conf.get_int(SERVE_PORT, 0),
         stats_path=os.environ.get(constants.ENV_SERVE_STATS))

@@ -109,9 +109,10 @@ class NgramDraft:
 class ModelDraft(PagedModelRunner):
     """A second transformer as the draft lane, over its OWN paged pool
     through the same step functions as the target
-    (:class:`~tony_tpu_torch.serve.engine.PagedModelRunner`). The model
-    must live on the engine's device; its pool is allocated there beside
-    the target's.
+    (:class:`~tony_tpu_torch.serve.engine.PagedModelRunner`, with the
+    target's AOT cache: the draft resolves and warms its own family).
+    The model must live on the engine's device; its pool is allocated
+    there beside the target's.
 
     The draft pool is reserved lazily: the permanent reservation follows
     the verified extent, each proposal round rides a revocable
@@ -125,11 +126,14 @@ class ModelDraft(PagedModelRunner):
     def __init__(self, model: Any, *, ctx_max: int, block_size: int = 16,
                  q_block: int = 16, decode_buckets: Sequence[int] = (4, 16),
                  max_running: int = 16, n_blocks: Optional[int] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 aot_cache: Optional[Any] = None,
+                 kernel_dir: Optional[str] = None):
         self._init_paged(model, ctx_max=ctx_max, block_size=block_size,
                          q_block=q_block, decode_buckets=decode_buckets,
                          max_running=max_running, n_blocks=n_blocks,
-                         device=device)
+                         device=device, aot_cache=aot_cache,
+                         kernel_dir=kernel_dir)
         self._cursor: Dict[Any, int] = {}
 
     def _sync(self, seq: _Seq) -> bool:
@@ -246,7 +250,8 @@ class SpecEngine(ServeEngine):
                     draft_model, ctx_max=self.ctx_pad,
                     block_size=self.block_size, q_block=self.q_block,
                     decode_buckets=self.decode_buckets,
-                    max_running=self.max_running, device=self.device)
+                    max_running=self.max_running, device=self.device,
+                    aot_cache=self.aot_cache, kernel_dir=self.kernel_dir)
             else:
                 draft = NgramDraft(max_n=ngram_max)
         elif draft_model is not None:
@@ -318,6 +323,15 @@ class SpecEngine(ServeEngine):
         """The decode step of :meth:`ServeEngine.step`: one draft and
         verify round for the running batch."""
         self._verify_round()
+
+    def warm(self, prefill_pads: Sequence[int] = ()) -> int:
+        """The target's family (the verify rides the decode buckets),
+        then a model draft's own: its decode buckets and the named pads
+        (a first catch-up feeds a whole prompt)."""
+        n = super().warm(prefill_pads)
+        if isinstance(self.draft, PagedModelRunner):
+            n += self.draft.warm(prefill_pads)
+        return n
 
     def _evict(self, seq: _Seq, results: List[Completion]) -> None:
         self.draft.evict(seq)

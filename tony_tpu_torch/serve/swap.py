@@ -1,6 +1,7 @@
 """Hot weight swap, the replica's half: a copy of :class:`SwapError` and
 :func:`resolve_target` of :mod:`tony_tpu.serve.swap` over the port's
-checkpoint format and publication pointer.
+checkpoint format and publication pointer, and of
+:func:`derive_prefill_pads`, the cold-start plane's ``warm()`` pad tuner.
 
 The train gang advances a versioned pointer over its committed steps
 (:mod:`tony_tpu_torch.publish`); a replica swaps onto it in place
@@ -11,12 +12,12 @@ the live weights, quiesce, flip). The AM's rolling-swap pacing
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from tony_tpu_torch.ckpt.format import committed_steps
 from tony_tpu_torch.publish import latest_publication
 
-__all__ = ["SwapError", "resolve_target"]
+__all__ = ["SwapError", "derive_prefill_pads", "resolve_target"]
 
 
 class SwapError(RuntimeError):
@@ -53,3 +54,36 @@ def resolve_target(ckpt_dir: str, *, version: Optional[int] = None,
         raise SwapError(f"publication moved: wanted version {version}, "
                         f"pointer now names {rec['version']}")
     return rec["version"], rec["step"]
+
+
+def derive_prefill_pads(records: Iterable[Dict[str, Any]], *,
+                        q_block: int = 16, ctx_max: Optional[int] = None,
+                        limit: int = 4) -> List[int]:
+    """warm()'s pad self-tuner: the prefill pads worth resolving, read
+    from the prompt-length histograms the fleet's engines publish
+    (``prompt_hist`` in every stats window, accumulated into SERVE_WINDOW
+    event records). Sums counts across every record, keeps the ``limit``
+    most frequent pads, returns them ascending — feed straight to
+    ``engine.warm(prefill_pads=...)``. Pads that are not multiples of
+    ``q_block`` or exceed ``ctx_max`` are skipped (stale histograms from
+    a differently padded fleet must not warm programs this engine can
+    never launch). Empty in, empty out: the caller then warms the decode
+    family alone."""
+    counts: Dict[int, float] = {}
+    for rec in records:
+        stats = rec.get("payload", rec).get("stats", rec.get("payload", rec))
+        hist = stats.get("prompt_hist") if isinstance(stats, dict) else None
+        if not isinstance(hist, dict):
+            continue
+        for k, v in hist.items():
+            try:
+                pad, n = int(k), float(v)
+            except (TypeError, ValueError):
+                continue
+            if pad <= 0 or pad % q_block:
+                continue
+            if ctx_max is not None and pad > ctx_max:
+                continue
+            counts[pad] = counts.get(pad, 0.0) + n
+    top = sorted(counts, key=lambda p: (-counts[p], p))[:max(0, int(limit))]
+    return sorted(top)

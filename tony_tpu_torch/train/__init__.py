@@ -478,11 +478,25 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
     ``None``: its bucketed reduction is the cross-device sync, which a
     one-device step does not have.) A mesh, or ``reduce_op``,
     ``hierarchy``, ``gather`` or ``prefetch`` away from their defaults
-    (ROADMAP.md queue 1 item 8), ``quant=True`` (the int8 ZeRO-3
-    forward gathers, item 8) and ``aot_cache`` (item 12) raise
-    ``NotImplementedError``. The quantized compute lane needs no switch
-    here: a model built with ``quant=`` carries it. ``donate`` is
-    accepted and has no effect: the step updates the state in place."""
+    (ROADMAP.md queue 1 item 8) and ``quant=True`` (the int8 ZeRO-3
+    forward gathers, item 8) raise ``NotImplementedError``. The
+    quantized compute lane needs no switch here: a model built with
+    ``quant=`` carries it. ``donate`` is accepted and has no effect: the
+    step updates the state in place.
+
+    ``aot_cache`` (a :class:`tony_tpu_torch.ckpt.AOTCache`, e.g.
+    :func:`shared_aot_cache`): before the first step, the kernel
+    libraries the step launches (flash attention, the BN kernels, the
+    int8 GEMM of a quantized model, the fused optimizer under
+    ``update="fused_bucket"``) resolve through the cache, so a gang mate
+    or a re-gang loads what the first worker built instead of running
+    ``nvcc``. The entry is the library set's
+    (:func:`tony_tpu_torch.ckpt.aot.library_fingerprint`): a library
+    does not depend on the state's or the batch's geometry, so unlike
+    the reference's lowered program they are not part of it. The step
+    itself stays eager, the same bits as without a cache: it is
+    device-bound (the device idles 0.033-0.069 of an 8-layer 7B step on
+    an H100, ``PERF.md`` §5), so capturing it would buy little."""
     if update not in ("optax", "fused_bucket"):
         raise ValueError(f"unknown update mode {update!r} "
                          "(optax|fused_bucket)")
@@ -496,16 +510,21 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
         raise NotImplementedError("quant=True (int8 ZeRO-3 forward gathers) "
                                   "is not ported yet (ROADMAP.md, queue 1 "
                                   "item 8)")
-    if aot_cache is not None:
-        raise NotImplementedError("aot_cache is not ported yet (ROADMAP.md, "
-                                  "queue 1 item 12)")
     if loss_of is None:
         loss_of = lambda logits, batch: cross_entropy_loss(logits,
                                                            batch["y"])
+    # Cold-start plane: whether the step's libraries resolved through
+    # the cache yet.
+    resolved = []
 
     def stepper(state: TrainState, batch: Dict[str, Any]):
         model = state.model
         params = [p for p in model.parameters()]
+        if aot_cache is not None and not resolved:
+            from tony_tpu_torch.ops import _build
+
+            _build.resolve(_step_libraries(model, update), cache=aot_cache)
+            resolved.append(True)
 
         def loss_fn(mb):
             extra = apply_kwargs_of(mb) if apply_kwargs_of else {}
@@ -549,6 +568,44 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
         return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
 
     return stepper
+
+
+def _step_libraries(model: nn.Module, update: str) -> Tuple[str, ...]:
+    """The kernel libraries a train step of ``model`` launches on the
+    card: flash attention where a decoder attends with ``"flash"``, the
+    BN kernels on the fused BN lane, the int8 GEMM where a projection is
+    quantized, the fused optimizer under ``update="fused_bucket"``; none
+    on the CPU."""
+    if next(model.parameters()).device.type != "cuda":
+        return ()
+    from tony_tpu_torch.models.resnet import FusedBNAct
+    from tony_tpu_torch.ops.quant import QuantDense
+
+    modules = list(model.modules())
+    names = []
+    if getattr(getattr(model, "cfg", None), "attention", None) == "flash":
+        names.append("flash_attention")
+    if any(isinstance(m, FusedBNAct) for m in modules):
+        names.append("batchnorm")
+    if any(isinstance(m, QuantDense) for m in modules):
+        names.append("int8_matmul")
+    if update == "fused_bucket":
+        names.append("fused_optim")
+    return tuple(names)
+
+
+def shared_aot_cache(path: Optional[str] = None):
+    """The gang-shared train AOT cache for ``make_accum_train_step(
+    aot_cache=...)``, or ``None`` when the plane is unarmed. ``path``
+    defaults from ``TONY_TRAIN_AOT_CACHE`` (``tony.train.aot-cache``),
+    so a script arms it with one keyword and runs unchanged elsewhere.
+    Every worker opens the SAME durable directory: the first to resolve
+    a fingerprint builds and populates it (first writer wins), the rest
+    load the libraries without ``nvcc``."""
+    path = path or os.environ.get(constants.ENV_TRAIN_AOT_CACHE) or None
+    if not path:
+        return None
+    return ckpt.AOTCache(path)
 
 
 def train_loop(state: TrainState, step_fn: Callable[[TrainState, Any],
