@@ -76,6 +76,29 @@ caught):
    every parameter still in its bucket, one step's real buckets through
    the kernel and the plain version with ``torch.equal``; step time,
    throughput, MFU, peak memory and a profile;
+7a. train_zero3 — ZeRO-3 over the fsdp axis, on a one-rank NCCL group:
+   (a) ``make_accum_train_step(mesh=MeshSpec(dp=0).build(),
+   microbatches=2, reduce_op="reduce_scatter")`` with the fused AdamW and
+   with the per-leaf adamw, each from fresh 2-layer full-width states
+   against the step without a mesh: two steps' loss and grad norm, every
+   parameter and slot ``torch.equal``; then the fused mesh step at the
+   train_fused depth and batch (8 steps, exact launches), its step p50,
+   tokens/s, MFU and peak memory beside train_fused's; (b) row 14 on
+   ZeRO-3 shard buffers: ``plan_sharded`` of the 8-layer 7B's parameters
+   (global shapes, logical-axis specs) at fsdp 2 and 4 and of the CPU
+   tests' uneven tree at fsdp 4, the first and the last rank's chunk of
+   every scatter bucket through the kernel and its plain version
+   (``torch.equal`` on p and both slots, pad rows staying zero, every
+   buffer 16-byte aligned), the largest chunk timed beside its bound;
+   (c) where ``torch.cuda.device_count() >= 2``: one NCCL rank per card
+   running ``tests/workloads/torch_zero3_steps.py`` (the CPU tests'
+   gloo worker) with ``MeshSpec(fsdp=cards)`` on the 8-layer 7B, two
+   fused steps on 2 rows a card, against the one-card mesh path on the
+   same rows: first loss within 1e-2, each parameter's update within the
+   train phase's bf16 grad limit, every rank's parameter and slot storage
+   1/cards of the whole, the per-rank peak memory; on one card a line
+   says that (c) did not run and why. ``python3 chip_smoke.py
+   --zero3-cards-only`` runs (c) and its reference alone;
 8. serve_quant — the serve phase's model, seed and 16-request mix with
    ``quant=True`` (int8 qkv/o/mlp projections through ``int8_matmul``):
    every request completes, the int8 kernel ran 7 × 32 times per
@@ -170,7 +193,8 @@ caught):
    returns False. At full depth: ``python3 exp/port_replica_phase.py``;
 14. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
-   ``{"train_fused": {...}}`` line, a ``{"quant": {...}}`` line, a
+   ``{"train_fused": {...}}`` line, a ``{"train_zero3": {...}}`` line,
+   a ``{"quant": {...}}`` line, a
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
    ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
    ``{"serve_replica": {...}}`` line, the ``{"serve_prefix": ...}``,
@@ -224,6 +248,8 @@ from tony_tpu_torch.constants import EXIT_DRAINED  # noqa: E402
 from tony_tpu_torch.data import Dataset, ShardSpec, ckptio  # noqa: E402
 from tony_tpu_torch.models import get_model  # noqa: E402
 from tony_tpu_torch.models.convert import jax_param_tree  # noqa: E402
+from tony_tpu_torch.models.transformer import (  # noqa: E402
+    Transformer, TransformerConfig)
 from tony_tpu_torch.models.resnet import (FusedBNAct,  # noqa: E402
                                           resnet50_flops)
 from tony_tpu_torch.ops import LAUNCHES, _build  # noqa: E402
@@ -231,7 +257,9 @@ from tony_tpu_torch.ops import attention as attn  # noqa: E402
 from tony_tpu_torch.ops import batchnorm as bn  # noqa: E402
 from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.ops import quant as tq  # noqa: E402
-from tony_tpu_torch.parallel import MeshSpec  # noqa: E402
+from tony_tpu_torch.parallel import AXES, Mesh, MeshSpec  # noqa: E402
+from tony_tpu_torch.parallel.overlap import (GradBuckets,  # noqa: E402
+                                             strip_spec)
 from tony_tpu_torch.rpc import RpcClient, RpcError  # noqa: E402
 from tony_tpu_torch.serve import (EngineFront, Replica,  # noqa: E402
                                   ServeEngine)
@@ -239,8 +267,8 @@ from tony_tpu_torch.serve.swap import derive_prefill_pads  # noqa: E402
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
                                   cross_entropy_loss, global_batch,
                                   make_accum_train_step, make_train_step,
-                                  next_token_loss, sgd, train_loop,
-                                  train_stats_writer)
+                                  next_token_loss, param_specs, sgd,
+                                  train_loop, train_stats_writer)
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
@@ -2054,6 +2082,407 @@ def train_fused_phase(card: str, first_loss: float):
         **run, "first_loss_vs_train_rel": rel,
         "real_buckets_max_abs_err": bucket_err, "card": card,
     }
+
+
+# ---------------------------------------------------------------------
+# ZeRO-3 over the fsdp axis: the mesh path on one card, the fused update
+# (row 14) on shard buffers, the sharded step across cards.
+# ---------------------------------------------------------------------
+
+# Two full-width states of 2 layers fit beside each other (8 do not).
+ZERO3_BITWISE_LAYERS = 2
+# The shard counts row 14 is held at on the 8-layer 7B's plan.
+ZERO3_SHARDS = (2, 4)
+ZERO3_WORKER = os.path.join("tests", "workloads", "torch_zero3_steps.py")
+ZERO3_CARD_STEPS = 2
+ZERO3_RANK_TIMEOUT_S = 600
+# The sharded step's first loss against the one-card mesh path on the
+# same rows, relative (the train_fused limit).
+ZERO3_FIRST_LOSS_REL = FUSED_FIRST_LOSS_REL
+
+
+def zero3_loss(logits, batch):
+    return next_token_loss(logits, batch["x"])
+
+
+def zero3_state(layers, update, mesh):
+    """A full-width llama2-7b state of ``layers`` layers from the phase's
+    seed: the fused AdamW of train_fused, or the per-leaf adamw."""
+    model = get_model("llama2-7b", device="cuda", seed=SEED,
+                      n_layers=layers)
+    tx = (fo.FusedOptimizer(rule="adamw", lr=TRAIN_LR,
+                            weight_decay=FUSED_WD)
+          if update == "fused_bucket" else adamw(TRAIN_LR))
+    return create_train_state(model, tx, mesh=mesh)
+
+
+def zero3_slots(state):
+    opt = state.opt_state
+    if isinstance(opt, dict):
+        return [b for name in sorted(opt["slots"])
+                for b in opt["slots"][name]]
+    return list(opt.mu) + list(opt.nu)
+
+
+def zero3_bitwise(mesh, tokens):
+    """(a) ``make_accum_train_step(mesh=..., reduce_op="reduce_scatter")``
+    on the one-rank NCCL group against the step without a mesh, from
+    fresh states of the same weights at ZERO3_BITWISE_LAYERS layers, in
+    both update modes: two steps' loss and grad norm, then every
+    parameter and slot, ``torch.equal``."""
+    out = {}
+    for update in ("fused_bucket", "optax"):
+        runs = []
+        for m in (mesh, None):
+            state = zero3_state(ZERO3_BITWISE_LAYERS, update, m)
+            step = make_accum_train_step(
+                zero3_loss, m, microbatches=FUSED_MICROBATCHES,
+                update=update,
+                reduce_op="reduce_scatter" if m is not None
+                else "all_reduce")
+            metrics = [step(state, {"x": tokens})[1] for _ in range(2)]
+            runs.append((state, metrics))
+        (s_mesh, m_mesh), (s_plain, m_plain) = runs
+        bad = [f"step {i} {k}" for i, (a, b) in enumerate(zip(m_mesh,
+                                                              m_plain))
+               for k in ("loss", "grad_norm", "aux_loss")
+               if not torch.equal(a[k], b[k])]
+        pairs = list(zip(s_mesh.model.named_parameters(),
+                         s_plain.model.named_parameters()))
+        bad += [n for (n, a), (_, b) in pairs if not torch.equal(a, b)]
+        slots = list(zip(zero3_slots(s_mesh), zero3_slots(s_plain)))
+        bad += [f"slot {i}" for i, (a, b) in enumerate(slots)
+                if not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"train_zero3 (a) {update}: the one-rank "
+                                 f"mesh step differs from the step without "
+                                 f"a mesh: {bad[:6]}")
+        log(f"  (a) {update}: {ZERO3_BITWISE_LAYERS}-layer mesh step "
+            f"(reduce_scatter) == no-mesh step, torch.equal: 2 steps' loss "
+            f"and grad norm, {len(pairs)} parameters, {len(slots)} slot "
+            f"tensors (loss {float(m_mesh[-1]['loss']):.6f})")
+        out[update] = {"params": len(pairs), "slots": len(slots),
+                       "losses": [float(m["loss"]) for m in m_mesh]}
+        del runs, s_mesh, s_plain, pairs, slots
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero3_timed(mesh, tokens, card, fused_run):
+    """(a) The fused mesh step at the train_fused depth: its numbers
+    beside train_fused's from this run."""
+    state = zero3_state(TRAIN_LAYERS, "fused_bucket", mesh)
+    plan = state.buckets.plan
+    step = make_accum_train_step(
+        zero3_loss, mesh, microbatches=FUSED_MICROBATCHES,
+        update="fused_bucket", reduce_op="reduce_scatter")
+    per_step = TRAIN_LAYERS * FUSED_MICROBATCHES * TRAIN_STEPS
+    expect = {"flash_attention_fwd": 2 * per_step,
+              "flash_attention_bwd_dq": per_step,
+              "flash_attention_bwd_dkv": per_step,
+              "fused_bucket_update": plan.n_buckets * TRAIN_STEPS}
+    run = drive_steps("train_zero3", state.model.cfg, step, state,
+                      {"x": tokens}, FLASH_NAMES + ("fused_bucket_update",),
+                      expect)
+    same = run["losses"] == fused_run["losses"]
+    log(f"  (a) mesh step at {TRAIN_LAYERS} layers: p50 "
+        f"{run['step_p50_ms']:.1f} ms, {run['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {run['mfu']:.4f}, peak {run['max_memory_allocated'] / 1e9:.2f}"
+        f" GB | train_fused: p50 {fused_run['step_p50_ms']:.1f} ms, "
+        f"{fused_run['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{fused_run['mfu']:.4f}, peak "
+        f"{fused_run['max_memory_allocated'] / 1e9:.2f} GB; losses equal "
+        f"to train_fused's: {same}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run, n_buckets=plan.n_buckets, reduce_op="reduce_scatter",
+                losses_equal_train_fused=same,
+                train_fused={k: fused_run[k] for k in (
+                    "step_p50_ms", "tokens_per_s", "mfu",
+                    "max_memory_allocated")})
+
+
+def zero3_plans():
+    """The ZeRO-3 plans row 14 is held on: the 8-layer 7B's parameters
+    (their global shapes and logical-axis specs, no weights) at each of
+    ZERO3_SHARDS, and the CPU tests' uneven tree
+    (tests/test_torch_zero3.py ``_zero3_tree``) at fsdp 4, whose 6-row
+    leaf pads into a bucket of its own."""
+    meta = Transformer(TransformerConfig(n_layers=TRAIN_LAYERS),
+                       device="meta")
+    leaves = list(meta.parameters())
+    for size in ZERO3_SHARDS:
+        mesh = Mesh(shape={**dict.fromkeys(AXES, 1), "fsdp": size},
+                    processes=size, device=torch.device("meta"))
+        specs = [strip_spec(sp, mesh) for sp in param_specs(meta)]
+        yield f"llama2-7b x{TRAIN_LAYERS} fsdp={size}", \
+            GradBuckets.plan_sharded(leaves, specs, shard_size=size)
+    tree = [((5,), torch.float32, ()), ((), torch.float32, ()),
+            ((16, 8), torch.float32, ("fsdp",)),
+            ((6, 8), torch.float32, ("fsdp",)),
+            ((8, 4), torch.bfloat16, ("fsdp",))]
+    yield "uneven tree fsdp=4", GradBuckets.plan_sharded(
+        [torch.empty(s, dtype=d, device="meta") for s, d, _ in tree],
+        [sp for _, _, sp in tree], shard_size=4, bucket_bytes=256)
+
+
+def zero3_chunk_case(plan, b, f, gen):
+    """Rank ``f``'s chunk of bucket ``b``, each operand a buffer of its
+    own: g and p seeded, for a padded bucket packed shard-major from
+    seeded whole leaves (uneven ones zero-padded); f32 slots seeded on the
+    real rows and zero on the pad rows (the state starts at zero there and
+    stays so); and the pad mask."""
+    dt = plan.bucket_dtype(b)
+    n = plan.local_numel(b)
+    if plan._is_padded(b):
+        idxs = plan.buckets[b]
+        whole = {i: torch.randn(plan.shapes[i], generator=gen,
+                                device="cuda") for i in idxs}
+        sl = slice(f * n, (f + 1) * n)
+        p = plan.pack_bucket(b, {i: t.to(dt) for i, t in whole.items()})[sl]
+        g = plan.pack_bucket(b, {i: (t * 0.1).to(dt)
+                                 for i, t in whole.items()})[sl]
+        pad = plan.pack_bucket(b, {i: torch.ones(plan.shapes[i],
+                                                 device="cuda")
+                                   for i in idxs})[sl] == 0
+    else:
+        p = torch.randn(n, generator=gen, device="cuda").to(dt)
+        g = (torch.randn(n, generator=gen, device="cuda") * 0.1).to(dt)
+        pad = torch.zeros(n, dtype=torch.bool, device="cuda")
+    mu = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    nu = torch.rand(n, generator=gen, device="cuda") * 1e-3
+    slots = [mu.masked_fill_(pad, 0.0), nu.masked_fill_(pad, 0.0)]
+    return g.clone(), p.clone(), slots, pad
+
+
+def check_zero3_shards(gen):
+    """(b) Row 14 on ZeRO-3 shard buffers: for every scatter bucket of
+    every plan of :func:`zero3_plans`, the first and the last rank's chunk
+    through the kernel and through its plain version, ``torch.equal`` on
+    p and both slots; pad rows stay zero. Every buffer starts 16-byte
+    aligned (its own allocation; the kernel masks a ragged tail). The
+    largest chunk is timed beside its bytes bound."""
+    fused = fo.FusedOptimizer(rule="adamw", lr=TRAIN_LR,
+                              weight_decay=FUSED_WD)
+    scal = fused.scalars(3, "cuda")
+    checked, padded, largest = 0, 0, None
+    for name, plan in zero3_plans():
+        for b in range(plan.n_buckets):
+            if not plan._is_scatter(b):
+                continue
+            for f in sorted({0, plan.shard_size - 1}):
+                g, p, slots, pad = zero3_chunk_case(plan, b, f, gen)
+                for t in [g, p] + slots:
+                    if t.data_ptr() % 16:
+                        raise AssertionError(f"train_zero3 (b): a chunk "
+                                             f"buffer is not 16-byte "
+                                             f"aligned")
+                kp, ks = p.clone(), [s.clone() for s in slots]
+                fused_against_plain(fused, g, p, slots, scal,
+                                    f"{name} bucket {b} rank {f}")
+                fo.fused_bucket_update(g, kp, ks, scal, rule="adamw",
+                                       hyper=fused.hyper)
+                if pad.any():
+                    padded += 1
+                    if any(t[pad].any() for t in [kp] + ks):
+                        raise AssertionError(f"train_zero3 (b): {name} "
+                                             f"bucket {b} rank {f}: a pad "
+                                             f"row moved off zero")
+                checked += 1
+                if largest is None or p.numel() > largest[0]:
+                    largest = (p.numel(), name, b)
+                del g, p, slots, kp, ks
+        torch.cuda.empty_cache()
+    if not padded:
+        raise AssertionError("train_zero3 (b): no padded chunk was checked")
+    n, name, b = largest
+    g, p, slots = (torch.randn(n, generator=gen, device="cuda")
+                   for _ in range(3))
+    slots = [slots * 1e-3, torch.rand(n, generator=gen, device="cuda")]
+    ms = cuda_ms(lambda: fo.fused_bucket_update(
+        g, p, slots, scal, rule="adamw", hyper=fused.hyper))
+    plain_ms = cuda_ms(lambda: fo._rule_math(
+        "adamw", g, p, tuple(slots), scal[0], scal[1], scal[2],
+        **fused.hyper), iters=5)
+    bound_ms, bound_by = adamw_bound(n)
+    del g, p, slots
+    torch.cuda.empty_cache()
+    log(f"  (b) row 14 on {checked} ZeRO-3 chunks ({padded} with pad rows): "
+        f"kernel == plain (torch.equal, p and both slots), pad rows zero; "
+        f"largest chunk ({name} bucket {b}, n={n}) {ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms")
+    return {"chunks_checked": checked, "padded_chunks": padded,
+            "largest": {"plan": name, "bucket": b, "n": n, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}}
+
+
+def zero3_rows_tokens(rows):
+    rng = np.random.default_rng(SEED + 3)
+    return rng.integers(0, 32000, (rows, TRAIN_SEQ)).astype(np.int64)
+
+
+def zero3_reference(mesh, tokens):
+    """(c)'s reference: the one-card mesh path over the same rows, one
+    row a microbatch (so the loss is the same mean over rows), two steps.
+    Returns the first loss, every parameter after two steps on the host
+    and the norm of each parameter's update."""
+    state = zero3_state(TRAIN_LAYERS, "fused_bucket", mesh)
+    p0 = [p.detach().clone() for p in state.model.parameters()]
+    step = make_accum_train_step(
+        zero3_loss, mesh, microbatches=tokens.shape[0],
+        update="fused_bucket", reduce_op="reduce_scatter")
+    feed = {"x": torch.as_tensor(tokens, device="cuda")}
+    losses = [float(step(state, feed)[1]["loss"])
+              for _ in range(ZERO3_CARD_STEPS)]
+    names = [n for n, _ in state.model.named_parameters()]
+    delta = {n: float((p.detach() - q).norm()) for n, p, q in zip(
+        names, state.model.parameters(), p0)}
+    params = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    del state, p0, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, params, delta
+
+
+def zero3_across_cards(mesh, card):
+    """(c) The ZeRO-3 step on every card: one NCCL rank per card running
+    the CPU tests' worker (tests/workloads/torch_zero3_steps.py) with
+    ``MeshSpec(fsdp=cards)`` on the 8-layer 7B, two fused steps, against
+    (c)'s reference on one card: the first loss within
+    ZERO3_FIRST_LOSS_REL, each parameter's update within the train
+    phase's bf16 grad limit (relative L2), every rank's parameter and
+    slot storage 1/cards of the whole."""
+    cards = torch.cuda.device_count()
+    rows = 2 * cards
+    tokens = zero3_rows_tokens(rows)
+    ref_losses, ref_params, ref_delta = zero3_reference(mesh, tokens)
+    tmp = os.path.join("build", "zero3")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "batch.npz"), x=tokens)
+    cfg = {"model": "llama2-7b", "device": "cuda", "loss": "next_token",
+           "model_kwargs": {"n_layers": TRAIN_LAYERS, "seed": SEED},
+           "dp": 1, "fsdp": cards, "batch": os.path.join(tmp, "batch.npz"),
+           "runs": {"zero3": {
+               "step": "accum", "microbatches": FUSED_MICROBATCHES,
+               "steps": ZERO3_CARD_STEPS, "update": "fused_bucket",
+               "reduce_op": "reduce_scatter",
+               "tx": {"rule": "adamw", "lr": TRAIN_LR,
+                      "weight_decay": FUSED_WD}}}}
+    cpath = os.path.join(tmp, "cfg.json")
+    with open(cpath, "w") as fh:
+        json.dump(cfg, fh)
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    t0 = time.monotonic()
+    for rank in range(cards):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(cards),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port),
+                   INIT_METHOD=f"tcp://127.0.0.1:{port}",
+                   PYTHONPATH=os.pathsep.join(
+                       [root, os.environ.get("PYTHONPATH", "")]))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(root, ZERO3_WORKER), cpath,
+             os.path.join(tmp, f"r{rank}")], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        logs = [p.communicate(timeout=ZERO3_RANK_TIMEOUT_S)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for rank, (p, out) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"train_zero3 (c): rank {rank} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    reports = [json.load(open(os.path.join(tmp, f"r{r}.json")))["runs"][
+        "zero3"] for r in range(cards)]
+    got = dict(np.load(os.path.join(tmp, "r0.zero3.npz")))
+    first = reports[0]["metrics"][0]["loss"]
+    rel = abs(first - ref_losses[0]) / abs(ref_losses[0])
+    if not rel <= ZERO3_FIRST_LOSS_REL:
+        raise AssertionError(f"train_zero3 (c): first loss {first} vs the "
+                             f"one-card {ref_losses[0]} (rel {rel})")
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    worst = max((float(np.linalg.norm(got[n] - ref_params[n].numpy()))
+                 / max(ref_delta[n], 1e-30), n) for n in ref_params)
+    if not worst[0] <= limit:
+        raise AssertionError(f"train_zero3 (c): parameter {worst[1]}'s "
+                             f"update differs from the one-card run's by "
+                             f"{worst[0]} (relative L2) > {limit}")
+    for rank, rep in enumerate(reports):
+        for when in ("before", "after"):
+            rec = rep[when]
+            if not all(loc * cards == whole or loc == whole == 4096
+                       for loc, whole in rec["params"]):
+                raise AssertionError(f"train_zero3 (c): rank {rank} holds "
+                                     f"more than its shard ({when})")
+            for bufs in rec["slots"]:
+                if not all(n * (cards if sc else 1) == whole for n, whole, sc
+                           in zip(bufs, rec["slot_whole"], rec["scatter"])):
+                    raise AssertionError(f"train_zero3 (c): rank {rank}'s "
+                                         f"slots are not 1/{cards} ({when})")
+    peaks = [rep["peak_bytes"] for rep in reports]
+    steps_s = [rep["step_s"] for rep in reports]
+    log(f"  (c) {cards} cards, fsdp={cards}: first loss {first:.6f} vs "
+        f"one card {ref_losses[0]:.6f} (rel {rel:.2e}); worst update "
+        f"{worst[1]} rel L2 {worst[0]:.3e} (limit {limit}); storage 1/"
+        f"{cards} on every rank; step s {steps_s[0]}; per-rank peak "
+        f"{[round(x / 1e9, 2) for x in peaks]} GB; {wall:.1f} s with the "
+        f"ranks' start")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"cards": cards, "rows": rows, "first_loss": first,
+            "reference_first_loss": ref_losses[0], "first_loss_rel": rel,
+            "worst_update_rel_l2": worst[0], "worst_param": worst[1],
+            "losses": [m["loss"] for m in reports[0]["metrics"]],
+            "step_s_by_rank": steps_s, "peak_bytes_by_rank": peaks,
+            "wall_s": wall, "card": card}
+
+
+def train_zero3_phase(card, fused_run, gen, cards_only=False):
+    """ZeRO-3 on a one-rank NCCL group (as train_loop brings it up): (a)
+    the mesh path bitwise to the no-mesh step and timed at the
+    train_fused depth, (b) row 14 on shard buffers, (c) the sharded step
+    across every card where there are two or more."""
+    t0 = time.monotonic()
+    td.init_process_group("nccl", rank=0, world_size=1,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        mesh = MeshSpec(dp=0).build()
+        out = {"card": card}
+        if not cards_only:
+            rng = np.random.default_rng(SEED)
+            tokens = torch.as_tensor(rng.integers(
+                0, 32000, (TRAIN_BATCH, TRAIN_SEQ)), device="cuda")
+            out["bitwise"] = zero3_bitwise(mesh, tokens)
+            out["timed"] = zero3_timed(mesh, tokens, card, fused_run)
+            out["shards"] = check_zero3_shards(gen)
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            out["across_cards"] = zero3_across_cards(mesh, card)
+        else:
+            log(f"  (c) the ZeRO-3 step across cards did not run: this "
+                f"machine has {cards} card (NCCL takes one rank per "
+                f"card); the CPU tests run it on gloo ranks "
+                f"(tests/test_torch_zero3.py)")
+            out["across_cards"] = None
+        out["seconds"] = time.monotonic() - t0
+        log(f"  train_zero3: {out['seconds']:.1f} s")
+        return out
+    finally:
+        td.destroy_process_group()
+        # Later phases read the collective registry per step
+        # (train_stats_writer): leave none of this phase's records.
+        profiler.reset_collective_records()
+        profiler.reset_overlap_records()
 
 
 # ---------------------------------------------------------------------
@@ -4189,6 +4618,7 @@ def main() -> int:
         log("chip_smoke: torch.cuda.is_available() is False — this "
             "script needs a GPU")
         return 1
+    cards_only = "--zero3-cards-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4208,6 +4638,21 @@ def main() -> int:
             if "registers" in line or "spill" in line or (
                     name == "flash_decode" and "entry function" in line):
                 log(f"    {line.strip()}")
+
+    if cards_only:
+        # The ZeRO-3 step across the cards and its one-card reference
+        # alone (a multi-card machine's measurement).
+        log("[train_zero3 (c)]")
+        res = train_zero3_phase(card, None, None, cards_only=True)
+        if res["across_cards"] is None:
+            raise AssertionError("--zero3-cards-only needs two or more "
+                                 "cards")
+        print(json.dumps({"train_zero3": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # Phase 3: kernels against their plain versions.
     log("[kernels]")
@@ -4275,6 +4720,12 @@ def main() -> int:
     # Phase 7: the accumulating step with the fused bucket optimizer.
     log("[train_fused]")
     train_fused = train_fused_phase(card, train["losses"][0])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 7a: ZeRO-3 over the fsdp axis.
+    log("[train_zero3]")
+    train_zero3 = train_zero3_phase(card, train_fused, gen)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4369,10 +4820,12 @@ def main() -> int:
             "source": "tony_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": f"tony_tpu/ops/attention.py:{kernel_line}",
             "launches": train_launches[name]
+            + train_zero3["timed"]["launches"][name]
             + train_loop_res["launches"][name]
             + train_ckpt["launches_after_restore"][name],
             "launches_by_path": {
                 "train": train_launches[name],
+                "train_zero3": train_zero3["timed"]["launches"][name],
                 "train_loop": train_loop_res["launches"][name],
                 "train_ckpt_after_restore":
                     train_ckpt["launches_after_restore"][name]},
@@ -4397,10 +4850,14 @@ def main() -> int:
         "source": "tony_tpu_torch/ops/csrc/fused_optim.cu",
         "replaces": "tony_tpu/ops/fused_optim.py:123",
         "launches": train_fused["launches"]["fused_bucket_update"]
+        + train_zero3["timed"]["launches"]["fused_bucket_update"]
         + train_ckpt["small"]["launches"],
         "launches_by_path": {
             "train_fused": train_fused["launches"]["fused_bucket_update"],
+            "train_zero3":
+                train_zero3["timed"]["launches"]["fused_bucket_update"],
             "train_ckpt_after_restore": train_ckpt["small"]["launches"]},
+        "zero3_shards": train_zero3["shards"],
         "max_abs_err": max(fused_err, train_fused["real_buckets_max_abs_err"]),
         "ms": w_gate["ms"], "plain_ms": w_gate["plain_ms"],
         "bound_ms": w_gate["bound_ms"], "bound_by": w_gate["bound_by"],
@@ -4475,6 +4932,7 @@ def main() -> int:
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_fused": train_fused}), flush=True)
+    print(json.dumps({"train_zero3": train_zero3}), flush=True)
     print(json.dumps({"quant": {"int8_shapes": int8,
                                 "serve_quant": serve_quant,
                                 "train_quant": train_quant}}), flush=True)

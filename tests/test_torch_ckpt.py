@@ -250,9 +250,19 @@ class TestFormat:
         manifest["leaves"][0]["spec"] = ["data", None]
         path.write_text(__import__("json").dumps(manifest))
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
+        # The fsdp axis is ported (tests/test_torch_zero3.py) and so is
+        # an axis of size 1 in the manifest's mesh; a tensor-parallel
+        # leaf names item 11.
         manifest["leaves"][0]["spec"] = [None, "fsdp"]
         path.write_text(__import__("json").dumps(manifest))
-        with pytest.raises(NotImplementedError, match="item 8"):
+        ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
+        manifest["leaves"][0]["spec"] = ["model", "fsdp"]
+        manifest["mesh"] = {"axis_names": ["model"], "shape": {"model": 1}}
+        path.write_text(__import__("json").dumps(manifest))
+        ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
+        manifest["mesh"] = None
+        path.write_text(__import__("json").dumps(manifest))
+        with pytest.raises(NotImplementedError, match="item 11"):
             ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
 
     def test_dtype_policy_matches_the_reference(self, tmp_path):

@@ -134,7 +134,15 @@ class TestMesh:
     @pytest.mark.parametrize("axis", ["fsdp", "pp", "ep", "sp", "tp",
                                       "slices"])
     def test_other_axes_name_item_8(self, axis):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        """The fsdp axis is ported (tests/test_torch_zero3.py): its mesh
+        asks for the process group. The multi-slice axis names item 8,
+        the pipeline, expert, sequence and tensor axes item 11."""
+        if axis == "fsdp":
+            with pytest.raises(RuntimeError, match="initialize"):
+                MeshSpec(**{axis: 2}).build(device="cpu")
+            return
+        item = 8 if axis == "slices" else 11
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             MeshSpec(**{axis: 2}).build(device="cpu")
 
     def test_data_mesh_over_the_world(self, one_rank_group):

@@ -75,15 +75,20 @@ def test_planner_errors():
         overlap.GradBuckets.plan([torch.zeros(3)], 0)
     with pytest.raises(ValueError, match="empty"):
         overlap.GradBuckets.plan([])
+    # The scatter layouts are ported (tests/test_torch_zero3.py): on a
+    # plan without scatter buckets "shard" is the whole leaf and
+    # "gathered" belongs to scatter buckets only.
     plan = overlap.GradBuckets.plan([torch.zeros(3)])
-    for layout in ("shard", "gathered"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            plan.leaf_buffers(0, torch.zeros(3), layout=layout)
+    assert torch.equal(plan.leaf_buffers(0, torch.arange(3.0),
+                                         layout="shard")[0],
+                       torch.arange(3.0))
+    with pytest.raises(ValueError, match="scatter"):
+        plan.leaf_buffers(0, torch.zeros(3), layout="gathered")
     with pytest.raises(ValueError, match="unknown layout"):
         plan.leaf_buffers(0, torch.zeros(3), layout="rows")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        overlap.GradBuckets.plan_sharded([torch.zeros(3)], None,
-                                         shard_size=2)
+    sharded = overlap.GradBuckets.plan_sharded([torch.zeros(4)],
+                                               [("fsdp",)], shard_size=2)
+    assert sharded.n_scatter_buckets == 1 and sharded.local_numel(0) == 2
 
 
 # ---------------------------------------------------------------------------

@@ -65,7 +65,9 @@ def test_sources_found():
                  "tony_tpu_torch/serve/spec.py",
                  "tony_tpu_torch/ops/fused_optim.py",
                  "tony_tpu_torch/parallel/__init__.py",
-                 "tony_tpu_torch/parallel/overlap.py", "chip_smoke.py",
+                 "tony_tpu_torch/parallel/overlap.py",
+                 "tony_tpu_torch/parallel/sched.py",
+                 "tony_tpu_torch/parallel/layout.py", "chip_smoke.py",
                  "tony_tpu_torch/distributed.py",
                  "tony_tpu_torch/constants.py", "tony_tpu_torch/chaos.py",
                  "tony_tpu_torch/profiler.py",
@@ -88,7 +90,9 @@ def test_sources_found():
                  "tony_tpu_torch/events/__init__.py",
                  "tests/workloads/torch_dp_train.py",
                  "tests/workloads/torch_dp_steps.py",
-                 "tests/workloads/torch_ckpt_ranks.py"):
+                 "tests/workloads/torch_ckpt_ranks.py",
+                 "tests/workloads/torch_zero3_steps.py",
+                 "tests/workloads/torch_zero3_train.py"):
         assert must in names
     from tony_tpu_torch.ops import _build
     for name in _build.SOURCES:

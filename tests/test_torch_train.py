@@ -295,12 +295,17 @@ class TestTrainStep:
 
     def test_unported_arguments_raise(self):
         tm = get_model("llama-tiny", device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # The fsdp axis is ported (tests/test_torch_zero3.py): its mesh
+        # asks for the process group; the tensor axis is not.
+        with pytest.raises(RuntimeError, match="initialize"):
             MeshSpec(fsdp=2).build(device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MeshSpec(tp=2).build(device="cpu")
         with pytest.raises(NotImplementedError,
                            match="GradientTransformation or a FusedOptimizer"):
             ttrain.create_train_state(tm, object())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # A mesh is ported: anything but a built Mesh is refused.
+        with pytest.raises(TypeError, match="Mesh"):
             ttrain.make_accum_train_step(mesh=object(), microbatches=1)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttrain.make_train_step(seq_axis=True)
@@ -369,11 +374,16 @@ class TestAccumTrainStep:
         tok = {"x": torch.zeros((4, 8), dtype=torch.int64)}
         with pytest.raises(ValueError, match="unknown update mode"):
             ttrain.make_accum_train_step(microbatches=2, update="sgd")
-        for kw, item in ((dict(mesh=object()), "item 8"),
-                         (dict(reduce_op="reduce_scatter"), "item 8"),
-                         (dict(hierarchy="flat"), "item 8"),
-                         (dict(gather="per_leaf"), "item 8"),
-                         (dict(prefetch=2), "item 8"),
+        # The mesh, reduce_op, flat hierarchy, gather and prefetch are
+        # ported (tests/test_torch_zero3.py); the multi-slice hierarchy
+        # and the int8 gathers are not.
+        with pytest.raises(TypeError, match="Mesh"):
+            ttrain.make_accum_train_step(microbatches=2, mesh=object())
+        for kw in (dict(reduce_op="reduce_scatter"), dict(hierarchy="flat"),
+                   dict(gather="per_leaf"), dict(prefetch=2)):
+            assert callable(ttrain.make_accum_train_step(microbatches=2,
+                                                         **kw))
+        for kw, item in ((dict(hierarchy="hierarchical"), "item 8"),
                          (dict(quant=True), "item 8")):
             with pytest.raises(NotImplementedError, match=item):
                 ttrain.make_accum_train_step(microbatches=2, **kw)

@@ -15,9 +15,14 @@ Leaves absent from the manifest pass through from the target (``strict``
 raises for array leaves); a shape mismatch raises naming the leaf; a
 dtype change casts. Each restore is recorded through
 :func:`tony_tpu_torch.profiler.record_ckpt` (``"restore"``: its wall time
-and the device time and bytes of its host → device copies). A manifest spec naming a mesh axis other than the
-data axis raises ``NotImplementedError``: sharded states wait for the
-sharded slices.
+and the device time and bytes of its host → device copies).
+
+A ZeRO-3 target (tensors with a sharded
+:class:`~tony_tpu_torch.parallel.layout.Layout`) restores each rank's
+slice from the chunks that cover it, whatever fsdp size (or package)
+wrote the step. A manifest spec naming a mesh axis the port does not
+shard over (anything but data and fsdp, unless the manifest's mesh has
+it at size 1) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,11 +38,12 @@ from tony_tpu_torch import profiler
 from tony_tpu_torch.ckpt import format as fmt
 from tony_tpu_torch.ckpt.snapshot import (LeafView, _host_array,
                                           _is_saveable, _oriented, _parts,
-                                          _region, leaf_paths,
+                                          _region, as_leaf, leaf_paths,
                                           tree_unflatten)
 
-_DATA_AXIS = "data"
-_LATER = "ROADMAP.md, queue 1 item 8"
+# Mesh axes a restore maps, and the ROADMAP items of the others.
+_PORTED_AXES = ("data", "fsdp")
+_AXIS_ITEMS = {"slice": 8, "pipe": 11, "expert": 11, "seq": 11, "model": 11}
 
 
 def _assemble(reader: fmt.ChunkReader, leaf_idx: int, dtype: np.dtype,
@@ -118,15 +124,21 @@ def _apply_dtype_policy(policy: Optional[str], path: str,
     return DTYPE_POLICIES[policy]
 
 
-def _check_spec(meta: Dict[str, Any]) -> None:
+def _check_spec(meta: Dict[str, Any],
+                mesh_meta: Optional[Dict[str, Any]]) -> None:
+    sizes = (mesh_meta or {}).get("shape") or {}
     for entry in fmt.spec_from_json(meta.get("spec")) or ():
         names = entry if isinstance(entry, list) else (
             [entry] if entry is not None else [])
-        other = [a for a in names if a != _DATA_AXIS]
+        other = [a for a in names
+                 if a not in _PORTED_AXES and sizes.get(a) != 1]
         if other:
+            items = sorted({_AXIS_ITEMS.get(a, 11) for a in other})
             raise NotImplementedError(
                 f"checkpoint leaf {meta['path']} is sharded over mesh "
-                f"axes {other}; only the data axis is ported ({_LATER})")
+                f"axes {other}; only the data and fsdp axes are ported "
+                f"(ROADMAP.md, queue 1 item "
+                f"{' and '.join(map(str, items))})")
 
 
 def _as_tensor(arr: np.ndarray, name: str) -> torch.Tensor:
@@ -205,9 +217,11 @@ def _fill(reader: fmt.ChunkReader, leaf_idx: int, meta: Dict[str, Any],
 
 def _restore_leaf(reader: fmt.ChunkReader, leaf_idx: int,
                   meta: Dict[str, Any], target: Any,
-                  dtype_policy: Optional[str], pinned: _Pinned) -> Any:
-    _check_spec(meta)
+                  dtype_policy: Optional[str], pinned: _Pinned,
+                  mesh_meta: Optional[Dict[str, Any]] = None) -> Any:
+    _check_spec(meta, mesh_meta)
     global_shape = tuple(meta["shape"])
+    live, target = target, as_leaf(target)
     if isinstance(target, (torch.Tensor, LeafView)):
         t_shape = tuple(target.shape)
     elif isinstance(target, (bool, int, float, complex)):
@@ -225,7 +239,7 @@ def _restore_leaf(reader: fmt.ChunkReader, leaf_idx: int,
         dtype = _apply_dtype_policy(dtype_policy, meta["path"],
                                     fmt.dtype_name(target.dtype))
         _fill(reader, leaf_idx, meta, target, dtype, pinned)
-        return target
+        return live
     name = fmt.dtype_name(getattr(target, "dtype", None)
                           or fmt.dtype_from_name(meta["dtype"]))
     name = _apply_dtype_policy(dtype_policy, meta["path"], name)
@@ -250,7 +264,8 @@ def restore_pytree(root: str | Path, target: Any, *,
     come back as numpy arrays. Returns the tree with the restored leaves.
     ``strict`` raises when an array leaf has no manifest entry (else it
     passes through). ``mesh`` is the reference's elastic-restore target
-    and has nothing to map here: every rank restores every leaf.
+    and has nothing to map here: every rank restores its own tensors,
+    a ZeRO-3 shard the extent its layout names.
 
     ``dtype_policy`` is the serving plane's restore-time cast (``"bf16"``:
     float leaves assembled in bf16; optimizer/scale state never cast —
@@ -283,7 +298,7 @@ def restore_pytree(root: str | Path, target: Any, *,
                 continue
             idx, meta = by_path[path]
             out.append(_restore_leaf(reader, idx, meta, leaf, dtype_policy,
-                                     pinned))
+                                     pinned, manifest.get("mesh")))
     h2d_s = pinned.h2d_s()
     profiler.record_ckpt("restore", step=int(step), path_prefix=path_prefix,
                          seconds=time.perf_counter() - t0,

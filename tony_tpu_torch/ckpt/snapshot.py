@@ -23,10 +23,13 @@ stalls the train loop:
   proceeds into the next slot; only a save that finds every slot busy
   stalls until one frees.
 
-Under data parallelism every rank holds a full replica, so — as the
-reference's ``replica_id == 0`` rule — rank 0 writes every chunk and the
-other ranks write an empty shard file and wait for the global commit.
-Tensors on the CPU are copied synchronously and nothing is pinned.
+Ownership is the reference's ``replica_id == 0`` rule. A replicated leaf
+is written by rank 0 alone. A ZeRO-3 state's sharded leaf (a tensor with
+a :class:`~tony_tpu_torch.parallel.layout.Layout`) is written slice by
+slice, each rank of data index 0 writing its own fsdp shard: so a rank
+stages only its 1/fsdp of the sharded state. A rank that owns nothing
+writes an empty shard file and waits for the global commit. Tensors on
+the CPU are copied synchronously and nothing is pinned.
 
 The stall, the extract, the write and the payload are recorded per save
 through :func:`tony_tpu_torch.profiler.record_ckpt`. Writer errors never
@@ -56,6 +59,7 @@ import torch.distributed as td
 
 from tony_tpu_torch import profiler
 from tony_tpu_torch.ckpt import format as fmt
+from tony_tpu_torch.parallel.layout import layout_of
 
 # Pinned host arenas: the caching host allocator rounds every request up
 # to a power of two, so a slot is cut into power-of-two arenas (1 GiB, or
@@ -91,27 +95,62 @@ class LeafView:
     leading unit dims where the leaf stacks layers (layer ``l`` of a
     scanned ``[L, in, out]`` kernel is the part at ``(l, 0, 0)``). A
     checkpoint writes one chunk per part; a restore fills the parts in
-    place."""
+    place.
+
+    A tensor with a sharded layout (a ZeRO-3 shard) is a part at its
+    slice's offset in the global leaf; ``spec`` is then the leaf's spec
+    (for the manifest) and ``replica`` the rank's data index, and only
+    replica 0 writes the part. ``replica`` None: the leaf is replicated
+    and rank 0 writes it."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
     parts: List[Tuple[Tuple[int, ...], torch.Tensor, bool]]
+    spec: Optional[Tuple[Any, ...]] = None
+    replica: Optional[int] = None
 
     @classmethod
     def of(cls, t: torch.Tensor, transpose: bool = False) -> "LeafView":
-        shape = tuple(t.shape[::-1]) if transpose else tuple(t.shape)
-        return cls(shape, t.dtype, [((0,) * len(shape), t, transpose)])
+        lay = layout_of(t)
+        if lay is None or not lay.sharded:
+            shape = tuple(t.shape[::-1]) if transpose else tuple(t.shape)
+            return cls(shape, t.dtype, [((0,) * len(shape), t, transpose)])
+        shape, start = tuple(lay.shape), lay.offsets()
+        spec = tuple(lay.spec) + (None,) * (len(shape) - len(lay.spec))
+        if transpose:
+            shape, start, spec = shape[::-1], start[::-1], spec[::-1]
+        # A rank whose slice of a padded leaf lies wholly in the pad owns
+        # no part of it.
+        parts = [(start, t, transpose)] if t.numel() else []
+        return cls(shape, t.dtype, parts, spec, lay.replica)
 
     @classmethod
     def stacked(cls, ts: Sequence[torch.Tensor],
                 transpose: bool = False) -> "LeafView":
-        inner = LeafView.of(ts[0], transpose).shape
-        for t in ts:
-            if LeafView.of(t, transpose).shape != inner:
+        views = [LeafView.of(t, transpose) for t in ts]
+        inner = views[0].shape
+        for t, v in zip(ts, views):
+            if v.shape != inner:
                 raise ValueError(f"stacked leaf: part of shape "
                                  f"{tuple(t.shape)} vs {inner}")
+        spec = None if views[0].spec is None else (None,) + views[0].spec
         return cls((len(ts),) + inner, ts[0].dtype,
-                   [((i,) + (0,) * len(inner), t, transpose)
-                    for i, t in enumerate(ts)])
+                   [((i,) + tuple(start), t, tr)
+                    for i, v in enumerate(views)
+                    for start, t, tr in v.parts], spec, views[0].replica)
+
+    def owned_by(self, process: int) -> bool:
+        """Whether ``process`` writes this leaf's parts."""
+        return process == 0 if self.replica is None else self.replica == 0
+
+
+def as_leaf(leaf: Any) -> Any:
+    """A tensor with a sharded layout as its :class:`LeafView`; any other
+    leaf as it is."""
+    if isinstance(leaf, torch.Tensor):
+        lay = layout_of(leaf)
+        if lay is not None and lay.sharded:
+            return LeafView.of(leaf)
+    return leaf
 
 
 def _parts(leaf: Any) -> List[Tuple[Tuple[int, ...], torch.Tensor, bool]]:
@@ -207,7 +246,8 @@ def _leaf_meta(path: str, leaf: Any) -> Dict[str, Any]:
         arr = np.asarray(leaf)
         shape, dtype = arr.shape, arr.dtype
     return {"path": path, "shape": [int(s) for s in shape],
-            "dtype": fmt.dtype_name(dtype), "spec": None}
+            "dtype": fmt.dtype_name(dtype),
+            "spec": fmt.spec_to_json(getattr(leaf, "spec", None))}
 
 
 def _host_array(t: torch.Tensor) -> np.ndarray:
@@ -376,18 +416,25 @@ class _Staging:
         self.busy = None
 
 
-def _owned_parts(tree: Any) -> Tuple[List[Dict[str, Any]], List[Tuple[
-        int, Tuple[int, ...], Any, bool, Tuple[int, ...]]]]:
-    """Manifest metas of every saveable leaf, and its parts as
-    ``(leaf index, start, tensor or host value, transpose, region)``."""
+def _owned_parts(tree: Any, process: int = 0) -> Tuple[
+        List[Dict[str, Any]],
+        List[Tuple[int, Tuple[int, ...], Any, bool, Tuple[int, ...]]]]:
+    """Manifest metas of every saveable leaf, and the parts ``process``
+    writes, as ``(leaf index, start, tensor or host value, transpose,
+    region)``."""
     paths, leaves, _ = leaf_paths(tree)
     metas: List[Dict[str, Any]] = []
     parts = []
     for path, leaf in zip(paths, leaves):
         if not _is_saveable(leaf):
             continue
+        leaf = as_leaf(leaf)
         metas.append(_leaf_meta(path, leaf))
         li = len(metas) - 1
+        owner = leaf.owned_by(process) if isinstance(leaf, LeafView) \
+            else process == 0
+        if not owner:
+            continue
         if isinstance(leaf, (torch.Tensor, LeafView)):
             shape = tuple(leaf.shape)
             for start, t, tr in _parts(leaf):
@@ -422,10 +469,8 @@ def extract_snapshot(tree: Any, step: int, *,
     views of pinned host slot ``slot``, which :meth:`Snapshot.copy_out`
     fills."""
     t0 = time.perf_counter()
-    metas, parts = _owned_parts(tree)
     proc = _process_index() if process is None else process
-    if proc != 0:
-        parts = []
+    metas, parts = _owned_parts(tree, proc)
     chunks: List[Tuple[int, List[int], np.ndarray]] = [None] * len(parts)
     card = [i for i, p in enumerate(parts)
             if staging is not None and isinstance(p[2], torch.Tensor)
@@ -511,7 +556,10 @@ class AsyncCheckpointer:
     ``save(..., block=True)`` waits for the commit.
 
     One live instance per process per directory: construction sweeps torn
-    staging dirs from crashed predecessors (process 0 only).
+    staging dirs from crashed predecessors (process 0 only), then, in a
+    process group of several ranks, waits at a barrier for every rank, so
+    that no rank writes into a staging dir the sweep still removes (every
+    rank constructs its checkpointer, as ``train_loop`` does).
     ``buffers`` host slots of pinned memory are allocated on the first
     save that needs each, as many as fit in the host's available memory
     (at least one)."""
@@ -539,6 +587,9 @@ class AsyncCheckpointer:
             "nbytes": 0, "slots": 0}
         if self.process_index == 0:
             fmt.clean_stale(self.directory)
+        if self.num_processes > 1 and td.is_available() \
+                and td.is_initialized():
+            td.barrier()
         self._writer = threading.Thread(target=self._run, daemon=True,
                                         name="ckpt-writer")
         self._writer.start()
@@ -590,11 +641,10 @@ class AsyncCheckpointer:
         owned card chunk."""
         card = 0
         device = None
-        if self.process_index == 0:
-            for _, _, t, _, _ in _owned_parts(tree)[1]:
-                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
-                    card += t.numel() * t.element_size()
-                    device = t.device
+        for _, _, t, _, _ in _owned_parts(tree, self.process_index)[1]:
+            if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                card += t.numel() * t.element_size()
+                device = t.device
         if self._free is None:
             slots = self.buffers
             avail = _mem_available() if card else None

@@ -370,11 +370,40 @@ class Block(nn.Module):
         return x, new_kv
 
 
+# The reference's logical axes of each parameter (transformer.py:148-155,
+# :190, :296, :368, :470), in flax's layout: kernels are ``[in, out]``,
+# so a torch ``[out, in]`` weight reads its tuple reversed.
+_KERNEL_LOGICAL = {
+    "attn.wq": ("embed", "heads"), "attn.wk": ("embed", "kv_heads"),
+    "attn.wv": ("embed", "kv_heads"), "attn.wo": ("heads", "embed"),
+    "mlp.w_gate": ("embed", "ffn"), "mlp.w_up": ("embed", "ffn"),
+    "mlp.w_down": ("ffn", "embed"), "lm_head": ("embed", "vocab"),
+}
+
+
+def logical_axes(name: str) -> Tuple[str, ...]:
+    """The logical axes of the decoder's parameter ``name`` (a
+    ``named_parameters()`` name) in the port's layout: the embedding
+    ``("vocab", "embed")``, each projection's weight its flax kernel's
+    tuple reversed, the norm scales ``("norm",)``."""
+    if name == "embedding":
+        return ("vocab", "embed")
+    if name.endswith(".scale"):
+        return ("norm",)
+    key = name[:-len(".weight")] if name.endswith(".weight") else name
+    key = key.split(".", 2)[-1] if key.startswith("layers.") else key
+    if key not in _KERNEL_LOGICAL:
+        raise KeyError(f"decoder parameter {name!r} has no logical axes")
+    return tuple(reversed(_KERNEL_LOGICAL[key]))
+
+
 class Transformer(nn.Module):
     # The JAX decoder tree's converter, read by ``load_jax_params``, and
     # its inverse, read by ``jax_param_tree`` (checkpoints).
     params_from_jax = staticmethod(params_from_jax)
     params_to_jax = staticmethod(params_to_jax)
+    # Each parameter's logical axes, read by ``train.param_specs``.
+    logical_axes = staticmethod(logical_axes)
 
     def __init__(self, cfg: TransformerConfig,
                  device: Optional[Union[str, torch.device]] = None,

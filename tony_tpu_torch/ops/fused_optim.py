@@ -25,8 +25,13 @@ on one device.
 
 Unlike the JAX package, updates happen in place: parameters (or their
 bucket buffers) and slots are overwritten, and the functions return the
-same tensors. One device only: ZeRO-3 scatter buckets wait for ROADMAP.md
-queue 1 item 8.
+same tensors. On a ZeRO-3 plan (fsdp > 1) every rank holds, for each
+scatter bucket, its shard chunk of the parameters and slots: the update
+kernel runs once per bucket on that chunk (a buffer of its own, so its
+16-byte vector loads start aligned; the kernel masks a ragged tail), a
+padded (uneven) bucket's chunk is packed from the whole leaves with zero
+pad rows, which every rule keeps at zero, and its updated chunk is
+gathered back into the leaves.
 """
 
 from __future__ import annotations
@@ -41,9 +46,12 @@ import torch
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.ops.attention import LAUNCHES, _DTYPE_CODES
-from tony_tpu_torch.parallel.overlap import DEFAULT_BUCKET_BYTES, GradBuckets
-
-_LATER = "ROADMAP.md, queue 1 item 8"
+from tony_tpu_torch.parallel import FSDP
+from tony_tpu_torch.parallel.layout import Layout, layout_of, set_layout
+from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
+                                             GradBuckets, _all_gather,
+                                             fsdp_param_specs,
+                                             global_leaves)
 
 RULES: Tuple[str, ...] = ("adamw", "sgd", "adafactor")
 
@@ -272,22 +280,35 @@ class FusedOptimizer:
 
     def plan_for(self, params: Sequence[torch.Tensor],
                  mesh: Optional[Any] = None) -> GradBuckets:
-        """The bucket plan for ``params`` (one device: no mesh)."""
-        if mesh is not None:
-            raise NotImplementedError(f"sharded fused-optimizer plans are "
-                                      f"not ported yet ({_LATER})")
-        return GradBuckets.plan(params, self.bucket_bytes)
+        """The bucket plan for ``params`` on ``mesh``: the same derivation
+        at state creation, in the step and at a restore. A ZeRO-3 state's
+        parameters (shards with layouts, fsdp > 1) give the sharded plan
+        over their global shapes; anything else the plain plan."""
+        specs = fsdp_param_specs(params, mesh) if mesh is not None else None
+        if specs is None:
+            return GradBuckets.plan(params, self.bucket_bytes)
+        return GradBuckets.plan_sharded(global_leaves(params), specs,
+                                        shard_size=mesh.shape[FSDP],
+                                        bucket_bytes=self.bucket_bytes)
+
+    def bucket_specs(self, plan: GradBuckets) -> List[Tuple[Any, ...]]:
+        """Per-bucket specs of the bucket buffers: scatter buckets live in
+        the scatter layout (``("fsdp",)``), the rest replicated."""
+        return [(FSDP,) if plan._is_scatter(b) else ()
+                for b in range(plan.n_buckets)]
 
     def init_state(self, params: Sequence[torch.Tensor],
                    mesh: Optional[Any] = None,
                    plan: Optional[GradBuckets] = None) -> Dict[str, Any]:
         """Bucket-resident zero state ``{"count": 0, "slots": {name:
-        [per-bucket f32 buffer]}}`` on the parameters' device."""
+        [per-bucket f32 buffer]}}`` on the parameters' device; a scatter
+        bucket's buffer is this rank's chunk of it."""
         params = list(params)
         plan = self.plan_for(params, mesh) if plan is None else plan
         dev = params[0].device
-        slots = {name: [torch.zeros(n, dtype=torch.float32, device=dev)
-                        for n in plan.bucket_numel]
+        slots = {name: [torch.zeros(plan.local_numel(b), dtype=torch.float32,
+                                    device=dev)
+                        for b in range(plan.n_buckets)]
                  for name in self.slot_names}
         return {"count": 0, "slots": slots}
 
@@ -309,65 +330,158 @@ class FusedOptimizer:
 
     # -- the update core ----------------------------------------------------
 
+    @staticmethod
+    def local_pack(plan: GradBuckets, leaves: Sequence[torch.Tensor],
+                   b: int, f_idx: Optional[int], *,
+                   sharded: bool = True) -> torch.Tensor:
+        """Bucket ``b``'s local buffer from this rank's leaves: even
+        scatter leaves are their shard already, padded leaves (whole) are
+        zero-padded and sliced to shard ``f_idx``, everything else
+        concatenates whole (a one-leaf bucket is a view of its leaf)."""
+        idxs = plan.buckets[b]
+        if plan._is_scatter(b) and sharded and plan._is_padded(b):
+            parts = []
+            for i in idxs:
+                d = plan.shard_dims[i]
+                leaf = leaves[i]
+                full = leaf.new_zeros(plan.padded_shape(i))
+                full.narrow(d, 0, plan.shapes[i][d]).copy_(leaf)
+                rows = plan.padded_shape(i)[d] // plan.shard_size
+                parts.append(full.narrow(d, f_idx * rows, rows).reshape(-1))
+        else:
+            parts = [leaves[i].reshape(-1) for i in idxs]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
     @torch.no_grad()
     def region_apply(self, plan: GradBuckets,
-                     param_bufs: Sequence[torch.Tensor],
+                     param_bufs: Optional[Sequence[Optional[torch.Tensor]]],
                      grad_bufs: Sequence[torch.Tensor],
                      slots: Dict[str, List[torch.Tensor]],
-                     scal: torch.Tensor) -> torch.Tensor:
-        """Bucket-major update core over one device's bucket buffers:
-        the global grad norm (one sum of squares per buffer, in plain
-        torch), optax's clip ratio ``clip_norm / max(norm, clip_norm)``
+                     scal: torch.Tensor, *, sharded: Optional[bool] = None,
+                     mesh: Optional[Any] = None,
+                     params: Optional[Sequence[torch.Tensor]] = None
+                     ) -> torch.Tensor:
+        """Bucket-major update core over one rank's bucket buffers: the
+        global grad norm (one sum of squares per buffer, in plain torch;
+        the scatter buckets' partial sums summed over the fsdp group of
+        ``mesh``), optax's clip ratio ``clip_norm / max(norm, clip_norm)``
         when ``clip_norm`` is set (applied to copies; the grad buffers are
         left as they are), then one :func:`fused_bucket_update` per
-        bucket, which overwrites ``param_bufs`` and ``slots``. Returns the
-        norm (before clipping), a 0-d f32 tensor."""
+        bucket, which overwrites the parameter buffers and ``slots``.
+
+        ``param_bufs[b]`` is bucket ``b``'s parameter buffer; where it is
+        None (or ``param_bufs`` is), the buffer is packed from ``params``
+        (:meth:`local_pack`) and the updated values are written back into
+        them — a padded bucket's through an ``all_gather`` of its chunks,
+        as its leaves are whole. Returns the norm (before clipping), a 0-d
+        f32 tensor."""
         self.check_slots(plan, slots)
+        if sharded is None:
+            sharded = plan.shard_size > 1
+        fsdp_group = mesh.group((FSDP,)) if sharded else None
         sq = torch.zeros((), dtype=torch.float32, device=scal.device)
-        for gb in grad_bufs:
+        shard_sq = torch.zeros((), dtype=torch.float32, device=scal.device)
+        for b, gb in enumerate(grad_bufs):
             g = gb.float()
-            sq = sq + (g * g).sum()
+            if sharded and plan._is_scatter(b):
+                shard_sq = shard_sq + (g * g).sum()
+            else:
+                sq = sq + (g * g).sum()
+        if sharded and plan.n_scatter_buckets:
+            import torch.distributed as td
+
+            td.all_reduce(shard_sq, group=fsdp_group)
+            sq = sq + shard_sq
         gnorm = torch.sqrt(sq)
         if self.clip_norm is not None:
             clip = torch.full((), self.clip_norm, dtype=torch.float32,
                               device=gnorm.device)
             trim = clip / torch.maximum(gnorm, clip)
             grad_bufs = [gb * trim.to(gb.dtype) for gb in grad_bufs]
+        f_idx = mesh.coords()[FSDP] if sharded else None
         for b in range(plan.n_buckets):
+            p_buf = param_bufs[b] if param_bufs is not None else None
+            packed = p_buf is None
+            if packed:
+                p_buf = self.local_pack(plan, params, b, f_idx,
+                                        sharded=sharded)
             fused_bucket_update(
-                grad_bufs[b], param_bufs[b],
+                grad_bufs[b], p_buf,
                 tuple(slots[n][b] for n in self.slot_names), scal,
                 rule=self.rule, hyper=self.hyper)
+            if not packed:
+                continue
+            if sharded and plan._is_scatter(b) and plan._is_padded(b):
+                parts = plan.leaf_buffers(
+                    b, _all_gather(p_buf, plan.shard_size, fsdp_group),
+                    layout="gathered")
+            else:
+                parts = plan.leaf_buffers(
+                    b, p_buf, layout="shard" if sharded
+                    and plan._is_scatter(b) else "full")
+            for i, v in parts.items():
+                if v.data_ptr() != params[i].data_ptr():
+                    params[i].copy_(v)
         return gnorm
+
+    def region_collectives(self, plan: GradBuckets, *, sharded: bool = True,
+                           axis: str = FSDP
+                           ) -> List[Tuple[str, Tuple[str, ...], int, str]]:
+        """The collectives :meth:`region_apply` itself issues, as
+        ``(kind, axes, nbytes, note)``: one parameter ``all_gather`` per
+        padded scatter bucket (its uneven leaves are whole, so their
+        updated chunks gather back once); the scalar norm sum is left
+        out."""
+        out: List[Tuple[str, Tuple[str, ...], int, str]] = []
+        if not sharded:
+            return out
+        for b in range(plan.n_buckets):
+            if plan._is_scatter(b) and plan._is_padded(b):
+                out.append(("all_gather", (axis,), plan.bucket_nbytes[b],
+                            f"bucket {b} padded param re-gather"))
+        return out
 
 
 def fused_update_step(fused: FusedOptimizer, params: Sequence[torch.Tensor],
                       grads: Sequence[torch.Tensor],
                       opt_state: Dict[str, Any], mesh: Optional[Any] = None,
-                      *, plan: Optional[GradBuckets] = None
+                      *, plan: Optional[GradBuckets] = None,
+                      param_specs: Optional[Sequence[Any]] = None
                       ) -> Tuple[List[torch.Tensor], Dict[str, Any],
                                  torch.Tensor]:
     """Standalone leaf-major entry: pack ``params`` and ``grads`` into the
     plan's bucket buffers (a one-leaf bucket is its leaf's own storage),
     run :meth:`FusedOptimizer.region_apply`, and write the updated
     buckets back into ``params``. Returns ``(params, {"count", "slots"},
-    grad_norm)``; parameters and slots are updated in place."""
-    if mesh is not None:
-        raise NotImplementedError(f"sharded fused updates are not ported "
-                                  f"yet ({_LATER})")
+    grad_norm)``; parameters and slots are updated in place.
+
+    On a ZeRO-3 plan (``mesh`` with fsdp > 1: ``plan`` from
+    :meth:`FusedOptimizer.plan_for` of the sharded parameters, or
+    ``param_specs``) ``params`` and ``grads`` are this rank's leaves:
+    even scatter leaves their shards, the others whole; each bucket's
+    chunk is packed locally and updated by one launch."""
     params, grads = list(params), list(grads)
-    plan = fused.plan_for(params) if plan is None else plan
+    if plan is None:
+        if param_specs is not None:
+            plan = GradBuckets.plan_sharded(
+                global_leaves(params), param_specs,
+                shard_size=mesh.shape[FSDP], bucket_bytes=fused.bucket_bytes)
+        else:
+            plan = fused.plan_for(params, mesh)
     fused.check_slots(plan, opt_state["slots"])
+    sharded = plan.shard_size > 1 and mesh is not None
+    if plan.shard_size > 1 and mesh is None:
+        raise ValueError("fused_update_step: a sharded plan needs its mesh")
     count = opt_state["count"] + 1
     scal = fused.scalars(count, params[0].device)
+    f_idx = mesh.coords()[FSDP] if sharded else None
     with torch.no_grad():
-        p_bufs = plan.pack([p.detach() for p in params])
-        g_bufs = plan.pack([g.detach() for g in grads])
-        gnorm = fused.region_apply(plan, p_bufs, g_bufs, opt_state["slots"],
-                                   scal)
-        for p, v in zip(params, plan.unpack(p_bufs)):
-            if v.data_ptr() != p.data_ptr():
-                p.copy_(v)
+        g_bufs = [fused.local_pack(plan, [g.detach() for g in grads], b,
+                                   f_idx, sharded=sharded)
+                  for b in range(plan.n_buckets)]
+        gnorm = fused.region_apply(plan, None, g_bufs, opt_state["slots"],
+                                   scal, sharded=sharded, mesh=mesh,
+                                   params=[p.detach() for p in params])
     return params, {"count": count, "slots": opt_state["slots"]}, gnorm
 
 
@@ -381,10 +495,23 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 def _np_unpack_bucket(plan: GradBuckets, b: int,
                       buf: np.ndarray) -> Dict[int, np.ndarray]:
-    """Host-numpy twin of ``leaf_buffers``: whole leaves from one
-    bucket's buffer."""
+    """Host-numpy twin of ``leaf_buffers``: whole leaves from one bucket's
+    whole buffer (a scatter bucket's shard-major one in the "gathered"
+    layout, pads dropped)."""
     out: Dict[int, np.ndarray] = {}
     off = 0
+    if plan._is_scatter(b):
+        chunk = plan.bucket_numel[b] // plan.shard_size
+        for i in plan.buckets[b]:
+            shp = plan.shard_shape(i)
+            n = int(np.prod(shp, dtype=np.int64))
+            d = plan.shard_dims[i]
+            full = np.concatenate(
+                [buf[f * chunk + off:f * chunk + off + n].reshape(shp)
+                 for f in range(plan.shard_size)], axis=d)
+            out[i] = np.take(full, range(plan.shapes[i][d]), axis=d)
+            off += n
+        return out
     for i in plan.buckets[b]:
         n = int(np.prod(plan.shapes[i], dtype=np.int64))
         out[i] = buf[off:off + n].reshape(plan.shapes[i])
@@ -394,17 +521,38 @@ def _np_unpack_bucket(plan: GradBuckets, b: int,
 
 def _np_pack_bucket(plan: GradBuckets, b: int,
                     leaves: Sequence[np.ndarray]) -> np.ndarray:
-    """Host-numpy twin of ``pack`` for one bucket."""
-    return np.concatenate(
-        [np.asarray(leaves[i]).reshape(-1) for i in plan.buckets[b]])
+    """Host-numpy twin of ``pack`` for one bucket: shard-major with
+    zero-padded uneven leaves for a scatter bucket."""
+    if not plan._is_scatter(b):
+        return np.concatenate(
+            [np.asarray(leaves[i]).reshape(-1) for i in plan.buckets[b]])
+    src = {}
+    for i in plan.buckets[b]:
+        a = np.asarray(leaves[i])
+        if plan._pad(i):
+            d = plan.shard_dims[i]
+            a = np.pad(a, [(0, plan._pad(i) if k == d else 0)
+                           for k in range(a.ndim)])
+        src[i] = a
+    parts = []
+    for f in range(plan.shard_size):
+        for i in plan.buckets[b]:
+            d = plan.shard_dims[i]
+            n = plan.padded_shape(i)[d] // plan.shard_size
+            parts.append(np.take(src[i], range(f * n, (f + 1) * n),
+                                 axis=d).reshape(-1))
+    return np.concatenate(parts)
 
 
 def slots_to_leaf_major(plan: GradBuckets,
                         slots: Dict[str, Sequence[torch.Tensor]]
                         ) -> Dict[str, List[np.ndarray]]:
-    """Bucket-resident slot buffers → per-slot lists of host numpy
-    arrays shaped like the parameters, in the plan's leaf order (the
-    portable form a checkpoint carries)."""
+    """Bucket-resident slot buffers (whole ones: a scatter bucket's
+    buffer shard-major over every rank's chunk) → per-slot lists of host
+    numpy arrays shaped like the parameters, in the plan's leaf order
+    (the portable form a checkpoint carries). A ZeRO-3 state's
+    checkpoint does not come through here: each rank writes its chunk's
+    leaves at their extents (:func:`slot_leaves`)."""
     out: Dict[str, List[np.ndarray]] = {}
     for name, bufs in slots.items():
         leaves: List[Any] = [None] * len(plan.shapes)
@@ -426,6 +574,39 @@ def leaf_major_to_slots(plan: GradBuckets,
     return {name: [torch.from_numpy(_np_pack_bucket(plan, b, list(leaves)))
                    .to(dev) for b in range(plan.n_buckets)]
             for name, leaves in trees.items()}
+
+
+def slot_leaves(plan: GradBuckets, bufs: Sequence[torch.Tensor],
+                params: Sequence[torch.Tensor], mesh: Optional[Any] = None
+                ) -> List[torch.Tensor]:
+    """One slot's bucket buffers as per-leaf views (no copy). On a ZeRO-3
+    plan a scatter bucket's views are this rank's shard of each leaf,
+    carrying a :class:`~tony_tpu_torch.parallel.layout.Layout` at the
+    shard's offset; a padded leaf's view is cut to the rows that lie
+    inside the leaf (none for a rank whose shard is all pad), so the
+    portable form holds no pad row."""
+    if plan.shard_size == 1:
+        return plan.unpack(bufs)
+    f_idx = mesh.coords()[FSDP]
+    out: List[Any] = [None] * len(plan.shapes)
+    for b in range(plan.n_buckets):
+        if not plan._is_scatter(b):
+            out_b = plan.leaf_buffers(b, bufs[b], layout="full")
+        else:
+            out_b = {}
+            for i, v in plan.leaf_buffers(b, bufs[b],
+                                          layout="shard").items():
+                d = plan.shard_dims[i]
+                rows = plan.shard_shape(i)[d]
+                start = f_idx * rows
+                v = v.narrow(d, 0, max(0, min(rows,
+                                              plan.shapes[i][d] - start)))
+                lay = layout_of(params[i])
+                out_b[i] = set_layout(v, Layout(
+                    plan.shapes[i], lay.spec, d, start, lay.replica))
+        for i, v in out_b.items():
+            out[i] = v
+    return out
 
 
 def is_fused_state(state: Any) -> bool:
@@ -457,8 +638,9 @@ def encode_state(state: Any) -> Any:
     plan = state.buckets.plan
     state.tx.check_slots(plan, state.opt_state["slots"])
     names = [n for n, _ in state.model.named_parameters()]
-    leaf = {slot: jax_param_tree(state.model,
-                                 dict(zip(names, plan.unpack(bufs))))
+    params = list(state.model.parameters())
+    leaf = {slot: jax_param_tree(state.model, dict(zip(
+                names, slot_leaves(plan, bufs, params, state.mesh))))
             for slot, bufs in state.opt_state["slots"].items()}
     count = torch.tensor(state.opt_state["count"], dtype=torch.int32)
     return portable_state(state, {"count": count, "leaf": leaf})
@@ -467,8 +649,10 @@ def encode_state(state: Any) -> Any:
 def decode_state(tree: Any, mesh: Optional[Any] = None) -> Any:
     """Ckpt codec, decode half: the restored portable form → the live
     fused state. The restore has already copied the moments into the
-    bucket buffers the views alias; this writes back the count and the
-    step. ``mesh`` has nothing to re-plan on one device."""
+    bucket buffers the views alias (on a ZeRO-3 state each rank's
+    shards, read from whatever fsdp size wrote the step); this writes
+    back the count and the step. ``mesh`` has nothing to re-plan: the
+    live state was planned for its own mesh."""
     del mesh
     from tony_tpu_torch.models.convert import PortableState
 

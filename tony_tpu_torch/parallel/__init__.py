@@ -1,42 +1,94 @@
 """Parallelism plane of the port: the counterpart of
 :mod:`tony_tpu.parallel`.
 
-* :class:`MeshSpec` / :class:`Mesh` — the data axis of the reference's
-  mesh over ``torch.distributed``'s default process group, one rank per
-  device: ``MeshSpec(dp=0).build()`` spans the whole world. The other
-  axes keep their names (:data:`AXES`) at size 1; asking for one of them
-  raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 8).
+* :class:`MeshSpec` / :class:`Mesh` — the reference's mesh over
+  ``torch.distributed``'s default process group, one rank per device,
+  ranks laid out as the reference's ``build`` lays out devices
+  (``slices, dp, fsdp, pp, ep, sp, tp``, the last axis fastest). The
+  data and fsdp axes are ported: ``MeshSpec(dp=0, fsdp=N).build()``
+  spans the whole world, and the mesh carries one process group per
+  axis of size > 1 (the gradient-sync group, data × fsdp, is the whole
+  world: the default group). The other
+  axes keep their names (:data:`AXES`) at size 1; asking for one of
+  them raises ``NotImplementedError`` (ROADMAP.md, queue 1: ``slices``
+  item 8, ``pp``/``ep``/``sp``/``tp`` item 11).
+* :data:`RULES` and :func:`logical_spec` — the logical-axis → mesh-axis
+  lookup, as data: a spec is a tuple with one entry per dim (``None``,
+  an axis name or a tuple of names), what a ``PartitionSpec`` is to the
+  reference. There are no NamedShardings: a ZeRO-3 parameter carries its
+  global shape and spec (:class:`~tony_tpu_torch.parallel.layout.Layout`).
 * the gradient-bucket planner and microbatch accumulation of
   :mod:`~tony_tpu_torch.parallel.overlap` (:class:`GradBuckets`,
-  :func:`microbatch_grads`), which the train steps run on; the
-  data-parallel step all-reduces one bucket of its plan at a time.
+  :func:`microbatch_grads`, :func:`fsdp_param_specs`) and the forward
+  gather scheduler of :mod:`~tony_tpu_torch.parallel.sched`
+  (:class:`~tony_tpu_torch.parallel.sched.GatherPlan`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as td
 
 from tony_tpu_torch import resolve_device
-from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
-                                             GradBuckets, ResidentBuckets,
-                                             microbatch_grads)
-
-__all__ = ["AXES", "BATCH_AXES", "DATA", "DEFAULT_BUCKET_BYTES",
-           "GradBuckets", "Mesh", "MeshSpec", "ResidentBuckets", "SEQ",
-           "microbatch_grads"]
 
 # The reference's axis names, outermost to innermost.
 SLICE, DATA, FSDP, PIPE, EXPERT, SEQ, MODEL = (
     "slice", "data", "fsdp", "pipe", "expert", "seq", "model")
 AXES: Tuple[str, ...] = (SLICE, DATA, FSDP, PIPE, EXPERT, SEQ, MODEL)
-# The axes an input batch's leading dim is sharded over.
+# The axes an input batch's leading dim is sharded over (the reference's
+# ``batch_sharding``).
 BATCH_AXES: Tuple[str, ...] = (SLICE, DATA, FSDP)
 
-_LATER = "ROADMAP.md, queue 1 item 8"
+# Logical-axis → mesh-axis rules (a copy of the reference's): weights
+# shard over fsdp on their "embed"-like dim and over model on their
+# "heads/ffn/vocab"-like dim; activations' batch over the DP axes.
+RULES: Tuple[Tuple[str, object], ...] = (
+    ("batch", (SLICE, DATA, FSDP)),
+    ("act_seq", SEQ),
+    ("act_embed", None),
+    ("act_heads", MODEL),
+    ("embed", FSDP),
+    ("heads", MODEL),
+    ("kv_heads", MODEL),
+    ("ffn", MODEL),
+    ("vocab", MODEL),
+    ("expert", EXPERT),
+    ("expert_dim", None),
+    ("stage", None),
+    ("norm", None),
+)
+
+# MeshSpec field → (mesh axis, the ROADMAP item that ports it).
+_UNPORTED = {"pp": (PIPE, 11), "ep": (EXPERT, 11), "sp": (SEQ, 11),
+             "tp": (MODEL, 11), "slices": (SLICE, 8)}
+
+
+def logical_spec(*logical_axes: Optional[str],
+                 allow_unknown: bool = False) -> Tuple[Any, ...]:
+    """The spec of an array whose dims carry the given logical axis names
+    (None = unsharded dim), resolved through :data:`RULES`: the
+    reference's ``logical_sharding`` without the mesh. Unknown names
+    raise (a typo must not silently replicate a dim); ``allow_unknown``
+    leaves them unsharded deliberately."""
+    table = dict(RULES)
+    spec = []
+    for ax in logical_axes:
+        if ax is None:
+            spec.append(None)
+        elif ax in table:
+            spec.append(table[ax])
+        elif allow_unknown:
+            spec.append(None)
+        else:
+            raise ValueError(
+                f"unknown logical axis {ax!r}: not in RULES "
+                f"({sorted(table)}); pass allow_unknown=True to leave it "
+                f"unsharded deliberately")
+    return tuple(spec)
 
 
 @dataclasses.dataclass(eq=False)
@@ -44,18 +96,46 @@ class Mesh:
     """A device mesh over the default process group, one rank per device.
 
     ``shape`` maps every name of :data:`AXES` to its size, ``processes``
-    is the number of ranks that hold its devices and ``device`` this
-    rank's device. Compared and hashed by identity, as a mesh object is a
-    cache key."""
+    is the number of ranks that hold its devices, ``device`` this rank's
+    device and ``rank`` its rank; ``groups`` holds, for each tuple of
+    axes a collective runs over, the process group of this rank's
+    members along them (``None`` is the default group, the whole world).
+    Compared and hashed by identity, as a mesh object is a cache key."""
     shape: Dict[str, int]
     processes: int
     device: torch.device
+    rank: int = 0
+    groups: Dict[Tuple[str, ...], Any] = dataclasses.field(
+        default_factory=dict)
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """Each axis's index of ``rank`` (default: this rank)."""
+        rest = self.rank if rank is None else rank
+        out: Dict[str, int] = {}
+        for axis in reversed(AXES):
+            out[axis] = rest % self.shape[axis]
+            rest //= self.shape[axis]
+        return {a: out[a] for a in AXES}
+
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def group(self, axes: Sequence[str]) -> Any:
+        """The process group of this rank's members along ``axes`` (its
+        size-1 axes dropped); ``None``, the default group, when they span
+        the world. Raises when the mesh made no such group."""
+        key = tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+        if self.size(key) == self.processes:
+            return None
+        if key not in self.groups:
+            raise KeyError(f"the mesh has no process group over {key}")
+        return self.groups[key]
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One parallelism layout; only the data axis is ported. ``dp=0``
-    resolves to the world size."""
+    """One parallelism layout; the data and fsdp axes are ported.
+    ``dp=0`` resolves to the world size over the other axes."""
     dp: int = 0
     fsdp: int = 1
     pp: int = 1
@@ -69,12 +149,18 @@ class MeshSpec:
         """The mesh over the default process group (brought up by
         :func:`tony_tpu_torch.distributed.initialize` or
         ``init_process_group``). ``device=None`` is this rank's current
-        card and raises without a GPU; pass ``device="cpu"`` for gloo."""
-        for axis in ("fsdp", "pp", "ep", "sp", "tp", "slices"):
-            if getattr(self, axis) > 1:
+        card and raises without a GPU; pass ``device="cpu"`` for gloo.
+        Every rank must build the same mesh, in the same order as its
+        other meshes: the process groups are created collectively."""
+        for field, (axis, item) in _UNPORTED.items():
+            if getattr(self, field) > 1:
                 raise NotImplementedError(
-                    f"MeshSpec({axis}={getattr(self, axis)}): only the data "
-                    f"axis is ported ({_LATER})")
+                    f"MeshSpec({field}={getattr(self, field)}): the {axis!r} "
+                    f"axis is not ported yet (ROADMAP.md, queue 1 item "
+                    f"{item}); the data and fsdp axes are")
+        if self.fsdp < 1 or self.dp < 0:
+            raise ValueError(f"MeshSpec(dp={self.dp}, fsdp={self.fsdp}): "
+                             f"sizes must be positive (dp=0: the rest)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -87,10 +173,44 @@ class MeshSpec:
             raise ValueError(f"an NCCL process group cannot reduce tensors "
                              f"on {dev}")
         world = td.get_world_size()
-        dp = self.dp or world
-        if dp != world:
-            raise ValueError(f"mesh shape {{'data': {dp}}} needs {dp} "
-                             f"devices, have {world} (one rank per device)")
+        if not self.dp and world % self.fsdp:
+            raise ValueError(f"{world} devices not divisible by "
+                             f"slices*fsdp*pp*ep*sp*tp={self.fsdp}")
+        dp = self.dp or world // self.fsdp
         shape = dict.fromkeys(AXES, 1)
-        shape[DATA] = dp
-        return Mesh(shape=shape, processes=world, device=dev)
+        shape[DATA], shape[FSDP] = dp, self.fsdp
+        if dp * self.fsdp != world:
+            raise ValueError(
+                f"mesh shape {{'data': {dp}, 'fsdp': {self.fsdp}}} needs "
+                f"{dp * self.fsdp} devices, have {world} (one rank per "
+                f"device)")
+        mesh = Mesh(shape=shape, processes=world, device=dev,
+                    rank=td.get_rank())
+        if dp > 1 and self.fsdp > 1:
+            # One group per line of the (data, fsdp) grid along each axis,
+            # created by every rank in the same order.
+            for axis, lines in (
+                    (FSDP, [[d * self.fsdp + f for f in range(self.fsdp)]
+                            for d in range(dp)]),
+                    (DATA, [[d * self.fsdp + f for d in range(dp)]
+                            for f in range(self.fsdp)])):
+                for ranks in lines:
+                    group = td.new_group(ranks)
+                    if mesh.rank in ranks:
+                        mesh.groups[(axis,)] = group
+        return mesh
+
+
+from tony_tpu_torch.parallel.layout import (Layout, layout_of,  # noqa: E402
+                                            set_layout)
+from tony_tpu_torch.parallel.overlap import (  # noqa: E402  (re-export)
+    DEFAULT_BUCKET_BYTES, GradBuckets, ResidentBuckets, ShardBuckets,
+    fsdp_param_specs, microbatch_grads, sync_axes, sync_size)
+from tony_tpu_torch.parallel.sched import GatherPlan  # noqa: E402
+
+__all__ = ["AXES", "BATCH_AXES", "DATA", "DEFAULT_BUCKET_BYTES", "EXPERT",
+           "FSDP", "GatherPlan", "GradBuckets", "Layout", "MODEL", "Mesh",
+           "MeshSpec", "PIPE", "RULES", "ResidentBuckets", "SEQ", "SLICE",
+           "ShardBuckets", "fsdp_param_specs", "layout_of",
+           "logical_spec", "microbatch_grads", "set_layout", "sync_axes",
+           "sync_size"]

@@ -11,8 +11,17 @@ schema:
 * ``nbytes`` — per-issue payload bytes (list)
 
 The data-parallel train step records its bucketed gradient all-reduce
-here, and :func:`tony_tpu_torch.train.train_stats_writer` sums the bytes
-into each step's ``collective_bytes``.
+here; the accumulating step records its reduce levels (``"grad_reduce"``:
+``psum_scatter`` over fsdp for the ZeRO-3 scatter buckets, ``all_reduce``
+or ``psum_scatter`` over the sync group for the others) and, on a ZeRO-3
+state, its forward gathers (``"fwd_gather"``, with ``gather``,
+``prefetch`` and ``per_microbatch``), as the reference's
+``microbatch_grads`` does. :func:`tony_tpu_torch.train.train_stats_writer`
+sums the bytes into each step's ``collective_bytes``.
+
+Overlap (:func:`record_overlap`): the accumulating step's bucket plan
+under ``"accum_step"`` (buckets, bytes, microbatches, reduce op, sync
+group, ZeRO-3 and its scatter and padded bucket counts, the levels).
 
 Checkpoints (:func:`record_ckpt`): the async checkpointer records each
 save — the stall the train loop paid, the device→host extract, the
@@ -32,6 +41,7 @@ import logging
 from typing import Dict
 
 COLLECTIVE_RECORDS: Dict[str, Dict[str, object]] = {}
+OVERLAP_RECORDS: Dict[str, Dict[str, object]] = {}
 CKPT_RECORDS: Dict[str, Dict[str, object]] = {}
 INPUT_RECORDS: Dict[str, Dict[str, object]] = {}
 SERVE_RECORDS: Dict[str, Dict[str, object]] = {}
@@ -55,6 +65,19 @@ def collective_report() -> Dict[str, Dict[str, object]]:
 
 def reset_collective_records() -> None:
     COLLECTIVE_RECORDS.clear()
+
+
+def record_overlap(tag: str, /, **fields) -> None:
+    """Bank one bucket-plan record of the accumulating step."""
+    OVERLAP_RECORDS[tag] = dict(fields)
+
+
+def overlap_report() -> Dict[str, Dict[str, object]]:
+    return _snapshot(OVERLAP_RECORDS)
+
+
+def reset_overlap_records() -> None:
+    OVERLAP_RECORDS.clear()
 
 
 def record_ckpt(tag: str, **fields) -> None:

@@ -10,17 +10,22 @@
   then ``apply_updates`` as ``p + u``), with optax's defaults;
 * :func:`sgd` — optax's SGD (``trace`` momentum, then
   ``scale_by_learning_rate``, then ``p + u``);
-* :func:`create_train_state` and :func:`make_train_step` — one step is
-  loss → grad → update, returning ``{"loss", "grad_norm", "aux_loss"}``;
-  with a data-parallel :class:`~tony_tpu_torch.parallel.Mesh` the state
-  is broadcast from rank 0 and the step averages the grads over the
-  ranks, one ``all_reduce`` per bucket of the
-  :class:`~tony_tpu_torch.parallel.overlap.GradBuckets` plan;
+* :func:`param_specs`, :func:`create_train_state` and
+  :func:`make_train_step` — one step is loss → grad → update, returning
+  ``{"loss", "grad_norm", "aux_loss"}``; with a data-parallel
+  :class:`~tony_tpu_torch.parallel.Mesh` the state is broadcast from
+  rank 0 and the step averages the grads over the ranks, one
+  ``all_reduce`` per bucket of the
+  :class:`~tony_tpu_torch.parallel.overlap.GradBuckets` plan; on an
+  ``fsdp > 1`` mesh the state is ZeRO-3: each rank keeps its shard of
+  every parameter whose logical axes map to fsdp, and of its optimizer
+  state, and the step gathers and reduce-scatters them;
 * :func:`make_accum_train_step` — the same step over microbatches, with
   the grads accumulated in flat per-bucket buffers
-  (:func:`tony_tpu_torch.parallel.overlap.microbatch_grads`) and either
-  the optimizer applied to the leaf grads (``update="optax"``) or the
-  fused bucket optimizer applied in place, one kernel launch per bucket
+  (:func:`tony_tpu_torch.parallel.overlap.microbatch_grads`; with a mesh,
+  reduced bucket by bucket over the gradient sync group) and either the
+  optimizer applied to the leaf grads (``update="optax"``) or the fused
+  bucket optimizer applied in place, one kernel launch per bucket
   (``update="fused_bucket"``, with a
   :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer` state);
 * :func:`global_batch` — this rank's local shard of the global batch,
@@ -37,9 +42,10 @@ The module holds its parameters (an ``nn.Module``), so the train state
 wraps the model, and a step updates parameters and optimizer slots in
 place — the counterpart of the JAX step's donated state. Checkpoints
 carry the reference's ``TrainState`` (``.step``, ``.params``,
-``.opt_state``) in the JAX package's paths, shapes and layout. The
-sequence axis and cross-device accumulation are later slices
-(ROADMAP.md, queue 1).
+``.opt_state``) in the JAX package's paths, shapes and layout; a ZeRO-3
+state's ranks each write their shards. The sequence axis, the other
+mesh axes and the int8 gather wire format are later slices (ROADMAP.md,
+queue 1 items 8 and 11).
 """
 
 from __future__ import annotations
@@ -66,10 +72,14 @@ from tony_tpu_torch.ckpt.snapshot import Attrs
 from tony_tpu_torch.models.convert import (PortableState, jax_param_tree,
                                            portable_state)
 from tony_tpu_torch.ops.fused_optim import FusedOptimizer, bias_correction
-from tony_tpu_torch.parallel import BATCH_AXES, DATA, SEQ, Mesh
+from tony_tpu_torch.parallel import (BATCH_AXES, DATA, FSDP, SEQ, Mesh,
+                                     logical_spec)
 from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
                                              GradBuckets, ResidentBuckets,
-                                             microbatch_grads)
+                                             ShardBuckets, attach_like,
+                                             fsdp_param_specs,
+                                             microbatch_grads, shard_params,
+                                             sharded_global_norm)
 
 _LATER = "ROADMAP.md, queue 1"
 _log = logging.getLogger(__name__)
@@ -250,34 +260,79 @@ def sgd(learning_rate: float, momentum: Optional[float] = None,
 class TrainState:
     """The model (which holds the parameters), its optimizer and the
     optimizer's state; ``step`` counts applied updates. With a
-    :class:`FusedOptimizer`, ``buckets`` holds the parameters and grads
-    resident in their flat bucket buffers."""
+    :class:`FusedOptimizer`, ``buckets`` holds the parameters (and on one
+    device or a replicated mesh the grads) resident in their flat bucket
+    buffers: a :class:`ResidentBuckets`, or on a ZeRO-3 state a
+    :class:`ShardBuckets`. ``mesh`` is the mesh the state was created
+    on."""
     step: int
     model: nn.Module
     tx: Any
     opt_state: Any
-    buckets: Optional[ResidentBuckets] = None
+    buckets: Optional[Any] = None
+    mesh: Optional[Mesh] = None
+
+
+def param_specs(model: nn.Module) -> List[Tuple[Any, ...]]:
+    """One spec per parameter (``model.parameters()`` order) from the
+    model's logical axes (its ``logical_axes(name)``) through
+    :data:`tony_tpu_torch.parallel.RULES`: the counterpart of the
+    reference's ``param_shardings``. A model that names no logical axes
+    (the MNIST nets, ResNet) is replicated: every spec is ``()``."""
+    axes_of = getattr(model, "logical_axes", None)
+    names = [n for n, _ in model.named_parameters()]
+    if axes_of is None:
+        return [() for _ in names]
+    return [logical_spec(*axes_of(n)) for n in names]
+
+
+def _attach_slot_layouts(opt_state: Any, params: List[torch.Tensor]) -> None:
+    """A ZeRO-3 state's per-leaf slots carry their parameters' layouts."""
+    for name in ("mu", "nu", "trace"):
+        slots = getattr(opt_state, name, None)
+        if slots is not None:
+            attach_like(slots, params)
 
 
 def create_train_state(model: nn.Module, tx: Any,
-                       mesh: Optional[Mesh] = None) -> TrainState:
+                       mesh: Optional[Mesh] = None,
+                       specs: Optional[List[Tuple[Any, ...]]] = None
+                       ) -> TrainState:
     """A train state over ``model``'s own (already initialised or loaded)
-    parameters. With a data-parallel ``mesh`` every parameter and buffer
-    is first broadcast from rank 0, so the replicas start equal (the
-    reference creates them replicated); the model must lie on the mesh's
-    device.
+    parameters. With a ``mesh`` every parameter and buffer is first
+    broadcast from rank 0, so the replicas start equal (the reference
+    creates them replicated); the model must lie on the mesh's device.
+
+    On a mesh with ``fsdp > 1`` the state is ZeRO-3: each parameter whose
+    spec (``specs``, one per parameter in the port's layout; default
+    :func:`param_specs`, the model's logical axes) names the fsdp axis
+    keeps only this rank's shard of its sharded dim (``p.data`` becomes
+    the shard, the whole tensor is freed), with its
+    :class:`~tony_tpu_torch.parallel.layout.Layout` attached; so does its
+    optimizer state. A leaf whose sharded dim does not divide the fsdp
+    size stays whole (it crosses the step replicated). The model's
+    forward then needs the step's gathers: call it through the train
+    steps.
 
     ``tx`` is a :class:`GradientTransformation` (leaf-major state) or a
     :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer`: then every
     parameter's storage moves into its flat per-bucket buffer of the tx's
-    plan (``model.parameters()`` order), each ``.grad`` becomes a view of
-    a matching grad buffer, and the optimizer state is bucket-resident
-    f32 slots, consumed in place by
-    ``make_accum_train_step(update="fused_bucket")``. The parameters stay
-    ordinary ``nn.Parameter``s, so loading weights, ``state_dict()`` and
-    remat work on the views. Any other optimizer object raises
+    plan (``model.parameters()`` order; on a ZeRO-3 state this rank's
+    chunk of each scatter bucket, :class:`ShardBuckets`), each ``.grad``
+    becomes a view of a matching grad buffer (not on a ZeRO-3 state), and
+    the optimizer state is bucket-resident f32 slots, consumed in place
+    by ``make_accum_train_step(update="fused_bucket")``. The parameters
+    stay ordinary ``nn.Parameter``s, so loading weights, ``state_dict()``
+    and remat work on the views. Any other optimizer object raises
     ``NotImplementedError``."""
     params = [p for p in model.parameters()]
+    fused = isinstance(tx, FusedOptimizer)
+    if not fused and not isinstance(tx, GradientTransformation):
+        raise NotImplementedError(
+            f"optimizer {type(tx).__name__} is not ported; "
+            f"create_train_state takes a GradientTransformation or a "
+            f"FusedOptimizer ({_LATER})")
+    zero3 = False
     if mesh is not None:
         tensors = list(itertools.chain(params, model.buffers()))
         off = sorted({str(t.device) for t in tensors
@@ -288,18 +343,22 @@ def create_train_state(model: nn.Module, tx: Any,
         with torch.no_grad():
             for t in tensors:
                 td.broadcast(t, src=0)
-    if isinstance(tx, FusedOptimizer):
-        resident = ResidentBuckets.adopt(tx.plan_for(params), params)
+        if mesh.shape[FSDP] > 1:
+            shard_params(params, param_specs(model) if specs is None
+                         else list(specs), mesh)
+            zero3 = fsdp_param_specs(params, mesh) is not None
+    if fused:
+        plan = tx.plan_for(params, mesh)
+        buckets = ShardBuckets.adopt(plan, params) if zero3 \
+            else ResidentBuckets.adopt(plan, params)
         return TrainState(step=0, model=model, tx=tx,
-                          opt_state=tx.init_state(params,
-                                                  plan=resident.plan),
-                          buckets=resident)
-    if not isinstance(tx, GradientTransformation):
-        raise NotImplementedError(
-            f"optimizer {type(tx).__name__} is not ported; "
-            f"create_train_state takes a GradientTransformation or a "
-            f"FusedOptimizer ({_LATER})")
-    return TrainState(step=0, model=model, tx=tx, opt_state=tx.init(params))
+                          opt_state=tx.init_state(params, plan=plan),
+                          buckets=buckets, mesh=mesh)
+    opt_state = tx.init(params)
+    if zero3:
+        _attach_slot_layouts(opt_state, params)
+    return TrainState(step=0, model=model, tx=tx, opt_state=opt_state,
+                      mesh=mesh)
 
 
 def _is_leaf_state(tree: Any) -> bool:
@@ -387,6 +446,14 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
     so the metrics are the global batch's, as GSPMD's are in the
     reference. On one rank every bit is the step's without a mesh. Every
     rank applies the same update to the same replica.
+
+    On a ZeRO-3 state (:func:`create_train_state` on an ``fsdp > 1``
+    mesh), where the reference gets ZeRO-3 from GSPMD, the step runs the
+    accumulating engine with one microbatch
+    (:func:`~tony_tpu_torch.parallel.overlap.microbatch_grads`): the
+    sharded parameters gathered bucket by bucket, the grads
+    reduce-scattered into the shard layout, ``grad_norm`` summed over the
+    shards, the update applied to each rank's shards.
     ``seq_axis=True`` raises ``NotImplementedError``."""
     if seq_axis:
         raise NotImplementedError(
@@ -406,6 +473,9 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
     def step(state: TrainState, batch: Dict[str, Any]):
         model = state.model
         params = [p for p in model.parameters()]
+        specs = fsdp_param_specs(params, mesh)
+        if specs is not None:
+            return _zero3_step(state, batch, params, specs)
         for p in params:
             p.grad = None
         extra = apply_kwargs_of(batch) if apply_kwargs_of else {}
@@ -437,6 +507,24 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
             p.grad = None
         return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
 
+    def _zero3_step(state, batch, params, specs):
+        def loss_fn(mb):
+            extra = apply_kwargs_of(mb) if apply_kwargs_of else {}
+            logits = state.model(mb["x"], **extra)
+            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+            return loss_of(logits, mb) + aux, aux
+
+        if not isinstance(state.tx, GradientTransformation):
+            raise ValueError(f"make_train_step on a ZeRO-3 state needs a "
+                             f"GradientTransformation, got {type(state.tx)}")
+        loss, aux, grads = microbatch_grads(
+            loss_fn, params, batch, mesh, microbatches=1,
+            param_specs=specs)
+        gnorm = sharded_global_norm(grads, params, mesh)
+        state.opt_state = state.tx.update(grads, state.opt_state, params)
+        state.step += 1
+        return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
+
     return step
 
 
@@ -454,7 +542,7 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
                               [Dict[str, Any]], Dict[str, Any]]] = None,
                           aot_cache: Optional[Any] = None):
     """The microbatched-accumulation train step ``(state, batch) ->
-    (state, metrics)``, on one device.
+    (state, metrics)``, on one device or over a mesh.
 
     The batch's leading dim is split into ``microbatches``; each slice's
     backward adds its grads into flat per-bucket buffers
@@ -476,13 +564,27 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
 
     ``mesh=None`` means the model's own device. (The JAX step raises on
     ``None``: its bucketed reduction is the cross-device sync, which a
-    one-device step does not have.) A mesh, or ``reduce_op``,
-    ``hierarchy``, ``gather`` or ``prefetch`` away from their defaults
-    (ROADMAP.md queue 1 item 8) and ``quant=True`` (the int8 ZeRO-3
-    forward gathers, item 8) raise ``NotImplementedError``. The
-    quantized compute lane needs no switch here: a model built with
-    ``quant=`` carries it. ``donate`` is accepted and has no effect: the
-    step updates the state in place.
+    one-device step does not have.) With a mesh
+    (:meth:`MeshSpec.build <tony_tpu_torch.parallel.MeshSpec.build>`)
+    the batch is this rank's rows of the global batch
+    (:func:`global_batch`) and each microbatch's grads are reduced over
+    the data × fsdp sync group bucket by bucket: ``reduce_op=
+    "all_reduce"`` or ``"reduce_scatter"`` (a zero-padded
+    ``reduce_scatter`` and one tail ``all_gather``). The layout is
+    detected from the state, as the reference detects it from the
+    committed shardings: on a ZeRO-3 state
+    (:func:`~tony_tpu_torch.parallel.overlap.fsdp_param_specs`) each
+    microbatch gathers the sharded parameters (``gather="bucketed"``,
+    ``prefetch`` gathers in flight, or ``"per_leaf"`` — the same bits),
+    the scatter buckets' grads are reduce-scattered into the shard
+    layout and the update runs on each rank's shards (the fused update:
+    one kernel launch per bucket on the rank's chunk). ``hierarchy`` is
+    ``"auto"`` or ``"flat"`` (the same flat reduce); ``"hierarchical"``
+    (the multi-slice reduce, ROADMAP.md queue 1 item 8) and
+    ``quant=True`` (the int8 ZeRO-3 forward gathers, item 8) raise
+    ``NotImplementedError``. The quantized compute lane needs no switch
+    here: a model built with ``quant=`` carries it. ``donate`` is
+    accepted and has no effect: the step updates the state in place.
 
     ``aot_cache`` (a :class:`tony_tpu_torch.ckpt.AOTCache`, e.g.
     :func:`shared_aot_cache`): before the first step, the kernel
@@ -500,12 +602,24 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
     if update not in ("optax", "fused_bucket"):
         raise ValueError(f"unknown update mode {update!r} "
                          "(optax|fused_bucket)")
-    if mesh is not None or (reduce_op, hierarchy, gather, prefetch) != (
-            "all_reduce", "auto", "bucketed", 1):
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a tony_tpu_torch.parallel.Mesh "
+                        f"(MeshSpec(...).build()), got {type(mesh)}")
+    if reduce_op not in ("all_reduce", "reduce_scatter"):
+        raise ValueError(f"unknown reduce op {reduce_op!r} "
+                         "(all_reduce|reduce_scatter)")
+    if hierarchy == "hierarchical":
         raise NotImplementedError(
-            "cross-device accumulation (mesh, reduce_op, hierarchy, "
-            "gather, prefetch) is not ported yet (ROADMAP.md, queue 1 "
-            "item 8)")
+            "hierarchy='hierarchical' (the two-level multi-slice reduce) "
+            "is not ported yet (ROADMAP.md, queue 1 item 8)")
+    if hierarchy not in ("auto", "flat"):
+        raise ValueError(f"unknown hierarchy {hierarchy!r} "
+                         "(auto|flat|hierarchical)")
+    if gather not in ("bucketed", "per_leaf"):
+        raise ValueError(f"unknown gather mode {gather!r} "
+                         "(bucketed|per_leaf)")
+    if prefetch < 0:
+        raise ValueError(f"prefetch must be >= 0, got {prefetch}")
     if quant:
         raise NotImplementedError("quant=True (int8 ZeRO-3 forward gathers) "
                                   "is not ported yet (ROADMAP.md, queue 1 "
@@ -532,6 +646,12 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
             aux = torch.zeros((), dtype=torch.float32, device=logits.device)
             return loss_of(logits, mb) + aux, aux
 
+        mesh_kw = {}
+        if mesh is not None:
+            mesh_kw = dict(reduce_op=reduce_op,
+                           param_specs=fsdp_param_specs(params, mesh),
+                           hierarchy=hierarchy, gather=gather,
+                           prefetch=prefetch)
         if update == "fused_bucket":
             tx = state.tx
             if not isinstance(tx, FusedOptimizer):
@@ -549,9 +669,10 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
             count = state.opt_state["count"] + 1
             scal = tx.scalars(count, params[0].device)
             loss, aux, gnorm = microbatch_grads(
-                loss_fn, params, batch, microbatches=microbatches,
+                loss_fn, params, batch, mesh, microbatches=microbatches,
                 resident=state.buckets, fused=tx,
-                opt_slots=state.opt_state["slots"], opt_scal=scal)
+                opt_slots=state.opt_state["slots"], opt_scal=scal,
+                **mesh_kw)
             state.opt_state = {"count": count,
                                "slots": state.opt_state["slots"]}
         else:
@@ -560,9 +681,11 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
                     f"update='optax' needs a state whose tx is a "
                     f"GradientTransformation, got {type(state.tx)}")
             loss, aux, grads = microbatch_grads(
-                loss_fn, params, batch, microbatches=microbatches,
-                bucket_bytes=bucket_bytes)
-            gnorm = global_norm(grads)
+                loss_fn, params, batch, mesh, microbatches=microbatches,
+                bucket_bytes=bucket_bytes, **mesh_kw)
+            gnorm = sharded_global_norm(grads, params, mesh) \
+                if mesh_kw.get("param_specs") is not None \
+                else global_norm(grads)
             state.opt_state = state.tx.update(grads, state.opt_state, params)
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
