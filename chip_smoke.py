@@ -93,12 +93,26 @@ caught):
    (c) where ``torch.cuda.device_count() >= 2``: one NCCL rank per card
    running ``tests/workloads/torch_zero3_steps.py`` (the CPU tests'
    gloo worker) with ``MeshSpec(fsdp=cards)`` on the 8-layer 7B, two
-   fused steps on 2 rows a card, against the one-card mesh path on the
-   same rows: first loss within 1e-2, each parameter's update within the
-   train phase's bf16 grad limit, every rank's parameter and slot storage
-   1/cards of the whole, the per-rank peak memory; on one card a line
-   says that (c) did not run and why. ``python3 chip_smoke.py
-   --zero3-cards-only`` runs (c) and its reference alone;
+   fused steps through the gather window on 2 rows a card, against the
+   one-card mesh path on the same rows: first loss within 1e-2, each
+   parameter's update within the train phase's bf16 grad limit, every
+   rank's parameter and slot storage 1/cards of the whole; the same
+   steps with ``gather="per_leaf"`` ``torch.equal`` on every parameter,
+   both step peaks (after a reset once the state is built) and step
+   times, the window's high-water mark within its bound, and a third
+   step of each under ``torch.profiler`` (device time of the NCCL and
+   the other rows beside the wall time); (d) llama2-7b
+   at all 32 layers, nothing cut, at fsdp=cards: 2 rows of 2048 a card,
+   two microbatches, the fused AdamW, remat "dots" with
+   ``xent_chunk=1024``, 3 steps, the first loss within 1e-2 of a one-card
+   no-grad forward of the same seeded model on the same rows, the losses
+   finite and falling, storage 1/cards, each rank's step and build
+   peaks; (e) the 8-layer step with ``quant=True`` (the int8 gather
+   wire), 2 steps, its first loss within 5e-2 of (c)'s windowed one,
+   int8 bytes a quarter of the raw ones, ``gather_roundtrip_exact`` true
+   on NCCL. On one card a line says that (c)-(e) did not run and why.
+   ``python3 chip_smoke.py --zero3-cards-only`` runs (c)-(e) and their
+   references alone;
 8. serve_quant — the serve phase's model, seed and 16-request mix with
    ``quant=True`` (int8 qkv/o/mlp projections through ``int8_matmul``):
    every request completes, the int8 kernel ran 7 × 32 times per
@@ -2095,10 +2109,16 @@ ZERO3_BITWISE_LAYERS = 2
 ZERO3_SHARDS = (2, 4)
 ZERO3_WORKER = os.path.join("tests", "workloads", "torch_zero3_steps.py")
 ZERO3_CARD_STEPS = 2
-ZERO3_RANK_TIMEOUT_S = 600
+ZERO3_RANK_TIMEOUT_S = 420
 # The sharded step's first loss against the one-card mesh path on the
 # same rows, relative (the train_fused limit).
 ZERO3_FIRST_LOSS_REL = FUSED_FIRST_LOSS_REL
+# (d): the whole depth of llama2-7b, 3 steps on one batch.
+ZERO3_FULL_LAYERS, ZERO3_FULL_STEPS = 32, 3
+# (e): the int8 gather wire's amax history and its first loss against
+# the unquantized windowed step's, relative.
+ZERO3_QUANT_WINDOW = 8
+ZERO3_QUANT_FIRST_LOSS_REL = 5e-2
 
 
 def zero3_loss(logits, batch):
@@ -2307,16 +2327,24 @@ def check_zero3_shards(gen):
         "adamw", g, p, tuple(slots), scal[0], scal[1], scal[2],
         **fused.hyper), iters=5)
     bound_ms, bound_by = adamw_bound(n)
-    del g, p, slots
+    # The library yardstick on the same chunk (timed only, never called
+    # by the port): PyTorch's fused AdamW over one tensor of n elements.
+    w = p.clone().requires_grad_()
+    w.grad = g
+    opt = torch.optim.AdamW([w], lr=TRAIN_LR, weight_decay=FUSED_WD,
+                            fused=True)
+    library_ms = cuda_ms(opt.step)
+    del g, p, slots, opt, w
     torch.cuda.empty_cache()
     log(f"  (b) row 14 on {checked} ZeRO-3 chunks ({padded} with pad rows): "
         f"kernel == plain (torch.equal, p and both slots), pad rows zero; "
         f"largest chunk ({name} bucket {b}, n={n}) {ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms")
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.4f} ms, "
+        f"AdamW(fused=True) {library_ms:.4f} ms")
     return {"chunks_checked": checked, "padded_chunks": padded,
             "largest": {"plan": name, "bucket": b, "n": n, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by}}
+                        "bound_by": bound_by, "library_ms": library_ms}}
 
 
 def zero3_rows_tokens(rows):
@@ -2347,32 +2375,12 @@ def zero3_reference(mesh, tokens):
     return losses, params, delta
 
 
-def zero3_across_cards(mesh, card):
-    """(c) The ZeRO-3 step on every card: one NCCL rank per card running
-    the CPU tests' worker (tests/workloads/torch_zero3_steps.py) with
-    ``MeshSpec(fsdp=cards)`` on the 8-layer 7B, two fused steps, against
-    (c)'s reference on one card: the first loss within
-    ZERO3_FIRST_LOSS_REL, each parameter's update within the train
-    phase's bf16 grad limit (relative L2), every rank's parameter and
-    slot storage 1/cards of the whole."""
+def run_zero3_ranks(tag, cfg, tmp):
+    """One NCCL rank per card running the CPU tests' worker
+    (tests/workloads/torch_zero3_steps.py) on ``cfg``: returns every
+    rank's report and the wall time with the ranks' start."""
     cards = torch.cuda.device_count()
-    rows = 2 * cards
-    tokens = zero3_rows_tokens(rows)
-    ref_losses, ref_params, ref_delta = zero3_reference(mesh, tokens)
-    tmp = os.path.join("build", "zero3")
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    np.savez(os.path.join(tmp, "batch.npz"), x=tokens)
-    cfg = {"model": "llama2-7b", "device": "cuda", "loss": "next_token",
-           "model_kwargs": {"n_layers": TRAIN_LAYERS, "seed": SEED},
-           "dp": 1, "fsdp": cards, "batch": os.path.join(tmp, "batch.npz"),
-           "runs": {"zero3": {
-               "step": "accum", "microbatches": FUSED_MICROBATCHES,
-               "steps": ZERO3_CARD_STEPS, "update": "fused_bucket",
-               "reduce_op": "reduce_scatter",
-               "tx": {"rule": "adamw", "lr": TRAIN_LR,
-                      "weight_decay": FUSED_WD}}}}
-    cpath = os.path.join(tmp, "cfg.json")
+    cpath = os.path.join(tmp, f"{tag}_cfg.json")
     with open(cpath, "w") as fh:
         json.dump(cfg, fh)
     port = free_port()
@@ -2388,7 +2396,7 @@ def zero3_across_cards(mesh, card):
                        [root, os.environ.get("PYTHONPATH", "")]))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(root, ZERO3_WORKER), cpath,
-             os.path.join(tmp, f"r{rank}")], env=env,
+             os.path.join(tmp, f"{tag}{rank}")], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     try:
         logs = [p.communicate(timeout=ZERO3_RANK_TIMEOUT_S)[0]
@@ -2401,12 +2409,87 @@ def zero3_across_cards(mesh, card):
     wall = time.monotonic() - t0
     for rank, (p, out) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
-            raise AssertionError(f"train_zero3 (c): rank {rank} exited "
+            raise AssertionError(f"train_zero3 {tag}: rank {rank} exited "
                                  f"{p.returncode}:\n{out[-4000:]}")
-    reports = [json.load(open(os.path.join(tmp, f"r{r}.json")))["runs"][
-        "zero3"] for r in range(cards)]
-    got = dict(np.load(os.path.join(tmp, "r0.zero3.npz")))
-    first = reports[0]["metrics"][0]["loss"]
+    return [json.load(open(os.path.join(tmp, f"{tag}{r}.json")))["runs"]
+            for r in range(cards)], wall
+
+
+def check_zero3_storage(tag, reports, cards):
+    """Every rank's parameter and slot storage is 1/cards of the whole
+    (the norm scales, replicated, whole), before and after the steps."""
+    for rank, rep in enumerate(reports):
+        for when in ("before", "after"):
+            rec = rep[when]
+            if not all(loc * cards == whole or loc == whole == 4096
+                       for loc, whole in rec["params"]):
+                raise AssertionError(f"train_zero3 {tag}: rank {rank} holds "
+                                     f"more than its shard ({when})")
+            for bufs in rec["slots"]:
+                if not all(n * (cards if sc else 1) == whole for n, whole, sc
+                           in zip(bufs, rec["slot_whole"], rec["scatter"])):
+                    raise AssertionError(f"train_zero3 {tag}: rank {rank}'s "
+                                         f"slots are not 1/{cards} ({when})")
+
+
+def zero3_window_record(rep):
+    """The step's gather-window record: its high-water mark of gathered
+    bytes beside window_nbytes and the allowance."""
+    w = rep["overlap"]["accum_step"].get("window")
+    if w is None:
+        return None
+    return {k: w[k] for k in ("high_water_nbytes", "window_nbytes",
+                              "allowance_nbytes", "bound_nbytes",
+                              "fwd_gathers", "bwd_gathers", "prefetch")}
+
+
+def zero3_across_cards(mesh, card):
+    """(c) The ZeRO-3 step on every card: one NCCL rank per card running
+    the CPU tests' worker (tests/workloads/torch_zero3_steps.py) with
+    ``MeshSpec(fsdp=cards)`` on the 8-layer 7B, two fused steps through
+    the gather window, against (c)'s reference on one card: the first
+    loss within ZERO3_FIRST_LOSS_REL, each parameter's update within the
+    train phase's bf16 grad limit (relative L2), every rank's parameter
+    and slot storage 1/cards of the whole; then the same steps with
+    ``gather="per_leaf"`` (every leaf gathered for the whole microbatch)
+    ``torch.equal`` to the windowed ones on every parameter, both step
+    peaks and step times beside each other. (e) rides the same ranks: the
+    8-layer step on the int8 gather wire (``quant=True``), two steps,
+    its first loss within ZERO3_QUANT_FIRST_LOSS_REL of the windowed
+    run's, int8 bytes a quarter of the raw bytes in ``quant_report()``
+    and ``gather_roundtrip_exact`` true on NCCL."""
+    cards = torch.cuda.device_count()
+    rows = 2 * cards
+    tokens = zero3_rows_tokens(rows)
+    ref_losses, ref_params, ref_delta = zero3_reference(mesh, tokens)
+    tmp = os.path.join("build", "zero3")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "batch.npz"), x=tokens)
+    fused = {"step": "accum", "microbatches": FUSED_MICROBATCHES,
+             "steps": ZERO3_CARD_STEPS, "update": "fused_bucket",
+             "reduce_op": "reduce_scatter",
+             "tx": {"rule": "adamw", "lr": TRAIN_LR,
+                    "weight_decay": FUSED_WD}}
+    cfg = {"model": "llama2-7b", "device": "cuda", "loss": "next_token",
+           "model_kwargs": {"n_layers": TRAIN_LAYERS, "seed": SEED},
+           "dp": 1, "fsdp": cards, "batch": os.path.join(tmp, "batch.npz"),
+           "runs": {
+               "zero3": fused,
+               "per_leaf": {**fused, "gather": "per_leaf",
+                            "equal_to": "zero3", "dump": False},
+               "quant": {**fused, "quant": {"window": ZERO3_QUANT_WINDOW},
+                         "roundtrip": True, "dump": False},
+               # Where the time goes: a third step under the profiler,
+               # windowed and per_leaf.
+               "prof_window": {**fused, "steps": 3, "profile": True,
+                               "dump": False},
+               "prof_per_leaf": {**fused, "steps": 3, "profile": True,
+                                 "gather": "per_leaf", "dump": False}}}
+    reports, wall = run_zero3_ranks("c", cfg, tmp)
+    win = [rep["zero3"] for rep in reports]
+    got = dict(np.load(os.path.join(tmp, "c0.zero3.npz")))
+    first = win[0]["metrics"][0]["loss"]
     rel = abs(first - ref_losses[0]) / abs(ref_losses[0])
     if not rel <= ZERO3_FIRST_LOSS_REL:
         raise AssertionError(f"train_zero3 (c): first loss {first} vs the "
@@ -2418,33 +2501,177 @@ def zero3_across_cards(mesh, card):
         raise AssertionError(f"train_zero3 (c): parameter {worst[1]}'s "
                              f"update differs from the one-card run's by "
                              f"{worst[0]} (relative L2) > {limit}")
+    check_zero3_storage("(c)", win, cards)
     for rank, rep in enumerate(reports):
-        for when in ("before", "after"):
-            rec = rep[when]
-            if not all(loc * cards == whole or loc == whole == 4096
-                       for loc, whole in rec["params"]):
-                raise AssertionError(f"train_zero3 (c): rank {rank} holds "
-                                     f"more than its shard ({when})")
-            for bufs in rec["slots"]:
-                if not all(n * (cards if sc else 1) == whole for n, whole, sc
-                           in zip(bufs, rec["slot_whole"], rec["scatter"])):
-                    raise AssertionError(f"train_zero3 (c): rank {rank}'s "
-                                         f"slots are not 1/{cards} ({when})")
-    peaks = [rep["peak_bytes"] for rep in reports]
-    steps_s = [rep["step_s"] for rep in reports]
+        bad = rep["per_leaf"]["unequal_to"]
+        if bad or rep["per_leaf"]["metrics"] != rep["zero3"]["metrics"]:
+            raise AssertionError(f"train_zero3 (c): rank {rank}: the "
+                                 f"windowed step differs from "
+                                 f"gather='per_leaf': {bad[:6]}")
+    window = zero3_window_record(win[0])
+    if window is None or window["high_water_nbytes"] > (
+            window["window_nbytes"] + window["allowance_nbytes"]):
+        raise AssertionError(f"train_zero3 (c): the window's high-water "
+                             f"mark passed its bound: {window}")
+    peaks = [rep["peak_bytes"] for rep in win]
+    leaf_peaks = [rep["per_leaf"]["peak_bytes"] for rep in reports]
+    steps_s = [rep["step_s"] for rep in win]
+    leaf_s = [rep["per_leaf"]["step_s"] for rep in reports]
     log(f"  (c) {cards} cards, fsdp={cards}: first loss {first:.6f} vs "
         f"one card {ref_losses[0]:.6f} (rel {rel:.2e}); worst update "
         f"{worst[1]} rel L2 {worst[0]:.3e} (limit {limit}); storage 1/"
-        f"{cards} on every rank; step s {steps_s[0]}; per-rank peak "
-        f"{[round(x / 1e9, 2) for x in peaks]} GB; {wall:.1f} s with the "
-        f"ranks' start")
+        f"{cards} on every rank; windowed == per_leaf (torch.equal, "
+        f"{len(ref_params)} parameters on every rank); step s windowed "
+        f"{steps_s[0]} per_leaf {leaf_s[0]}; step peak windowed "
+        f"{[round(x / 1e9, 2) for x in peaks]} GB, per_leaf "
+        f"{[round(x / 1e9, 2) for x in leaf_peaks]} GB; window high-water "
+        f"{window['high_water_nbytes'] / 1e9:.3f} GB vs window_nbytes "
+        f"{window['window_nbytes'] / 1e9:.3f} + allowance "
+        f"{window['allowance_nbytes'] / 1e9:.3f} GB; {wall:.1f} s with "
+        f"the ranks' start")
+    profiles = {run: reports[0][run]["profile"]
+                for run in ("prof_window", "prof_per_leaf")}
+    for run, prof in profiles.items():
+        log(f"  (c) {run}, rank 0, step 3 under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, device time of the other rows "
+            f"{prof['compute_ms']:.1f} ms, of the NCCL rows "
+            f"{prof['nccl_ms']:.1f} ms (each kernel counted twice: its "
+            f"row and its op's); top "
+            f"{[(n[:40], round(ms, 1)) for n, ms in prof['top'][:5]]}")
+    across = {"cards": cards, "rows": rows, "first_loss": first,
+              "reference_first_loss": ref_losses[0], "first_loss_rel": rel,
+              "worst_update_rel_l2": worst[0], "worst_param": worst[1],
+              "losses": [m["loss"] for m in win[0]["metrics"]],
+              "step_s_by_rank": steps_s, "peak_bytes_by_rank": peaks,
+              "build_peak_bytes_by_rank": [r["build_peak_bytes"]
+                                           for r in win],
+              "per_leaf_step_s_by_rank": leaf_s,
+              "per_leaf_peak_bytes_by_rank": leaf_peaks,
+              "windowed_equal_per_leaf": True, "window": window,
+              "profiles": profiles,
+              "wall_s": wall, "card": card}
+    quant_run = zero3_quant_checks(reports, first, card)
     shutil.rmtree(tmp, ignore_errors=True)
-    return {"cards": cards, "rows": rows, "first_loss": first,
-            "reference_first_loss": ref_losses[0], "first_loss_rel": rel,
-            "worst_update_rel_l2": worst[0], "worst_param": worst[1],
-            "losses": [m["loss"] for m in reports[0]["metrics"]],
-            "step_s_by_rank": steps_s, "peak_bytes_by_rank": peaks,
-            "wall_s": wall, "card": card}
+    return across, quant_run
+
+
+def zero3_quant_checks(reports, first_unquantized, card):
+    """(e) The int8 gather wire's readings from (c)'s ranks."""
+    runs = [rep["quant"] for rep in reports]
+    losses = [m["loss"] for m in runs[0]["metrics"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_zero3 (e): losses {losses}")
+    rel = abs(losses[0] - first_unquantized) / abs(first_unquantized)
+    if not rel <= ZERO3_QUANT_FIRST_LOSS_REL:
+        raise AssertionError(f"train_zero3 (e): first loss {losses[0]} vs "
+                             f"the unquantized {first_unquantized} (rel "
+                             f"{rel})")
+    gather = runs[0]["quant"]["accum_gather"]
+    raw, int8 = sum(gather["raw_nbytes"]), sum(gather["int8_nbytes"])
+    if raw != 4 * int8:
+        raise AssertionError(f"train_zero3 (e): int8 bytes {int8} are not "
+                             f"a quarter of the raw {raw}")
+    if not all(r["roundtrip_exact"] for r in runs):
+        raise AssertionError("train_zero3 (e): gather_roundtrip_exact is "
+                             "false on NCCL")
+    wire = sum(runs[0]["collectives"]["accum.fwd_gather"]["nbytes"])
+    check_zero3_storage("(e)", runs, len(runs))
+    log(f"  (e) quant=True at {TRAIN_LAYERS} layers, fsdp={len(runs)}: "
+        f"losses {losses}, first vs unquantized rel {rel:.2e} (limit "
+        f"{ZERO3_QUANT_FIRST_LOSS_REL}); gather bytes a bucket pass "
+        f"int8 {int8} vs raw {raw}; wire bytes a microbatch {wire} "
+        f"(forward and backward); gather_roundtrip_exact on NCCL: True; "
+        f"step s {runs[0]['step_s']}; step peak "
+        f"{[round(r['peak_bytes'] / 1e9, 2) for r in runs]} GB")
+    return {"losses": losses, "first_loss_vs_unquantized_rel": rel,
+            "raw_nbytes": raw, "int8_nbytes": int8,
+            "wire_nbytes_per_microbatch": wire, "roundtrip_exact": True,
+            "amax_window": ZERO3_QUANT_WINDOW,
+            "step_s_by_rank": [r["step_s"] for r in runs],
+            "peak_bytes_by_rank": [r["peak_bytes"] for r in runs],
+            "card": card}
+
+
+def zero3_full_reference(tokens):
+    """(d)'s reference: a one-card no-grad forward of the same seeded
+    32-layer model (f32 parameters, 26.95 GB) on the same rows, freed
+    before the ranks start. Returns the loss."""
+    model = get_model("llama2-7b", device="cuda", seed=SEED,
+                      n_layers=ZERO3_FULL_LAYERS,
+                      xent_chunk=LOOP_XENT_CHUNK)
+    feed = torch.as_tensor(tokens, device="cuda")
+    with torch.no_grad():
+        loss = float(model(feed, targets=feed))
+    del model, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def zero3_full_depth(card):
+    """(d) llama2-7b at all 32 layers, nothing cut, trained at
+    fsdp=cards through the gather window: 2 rows of 2048 seeded tokens a
+    card, two microbatches, the fused AdamW, reduce_scatter, remat
+    ``"dots"`` with ``xent_chunk=1024`` (train_loop's cell), 3 steps on
+    the same batch. No one card holds this model's AdamW state, so the
+    checks are: the first loss against a one-card no-grad forward within
+    ZERO3_FIRST_LOSS_REL, the losses finite and falling, storage
+    1/cards on every rank before and after; each rank's step peak and
+    build peak are reported."""
+    cards = torch.cuda.device_count()
+    rows = 2 * cards
+    rng = np.random.default_rng(SEED + 4)
+    tokens = rng.integers(0, 32000, (rows, TRAIN_SEQ)).astype(np.int64)
+    ref = zero3_full_reference(tokens)
+    tmp = os.path.join("build", "zero3_full")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, "batch.npz"), x=tokens)
+    cfg = {"model": "llama2-7b", "device": "cuda", "targets": True,
+           "model_kwargs": {"n_layers": ZERO3_FULL_LAYERS, "seed": SEED,
+                            "xent_chunk": LOOP_XENT_CHUNK,
+                            "remat_policy": LOOP_POLICY},
+           "dp": 1, "fsdp": cards, "batch": os.path.join(tmp, "batch.npz"),
+           "runs": {"full": {
+               "step": "accum", "microbatches": FUSED_MICROBATCHES,
+               "steps": ZERO3_FULL_STEPS, "update": "fused_bucket",
+               "reduce_op": "reduce_scatter",
+               "tx": {"rule": "adamw", "lr": TRAIN_LR,
+                      "weight_decay": FUSED_WD}}}}
+    reports, wall = run_zero3_ranks("d", cfg, tmp)
+    runs = [rep["full"] for rep in reports]
+    losses = [m["loss"] for m in runs[0]["metrics"]]
+    rel = abs(losses[0] - ref) / abs(ref)
+    if not rel <= ZERO3_FIRST_LOSS_REL:
+        raise AssertionError(f"train_zero3 (d): first loss {losses[0]} vs "
+                             f"the one-card forward {ref} (rel {rel})")
+    if not (all(math.isfinite(x) for x in losses)
+            and all(b < a for a, b in zip(losses, losses[1:]))):
+        raise AssertionError(f"train_zero3 (d): losses not finite and "
+                             f"falling: {losses}")
+    if any(r["dumped"] for r in runs):
+        raise AssertionError("train_zero3 (d): the whole 32-layer model was "
+                             "written out")
+    check_zero3_storage("(d)", runs, cards)
+    window = zero3_window_record(runs[0])
+    peaks = [r["peak_bytes"] for r in runs]
+    builds = [r["build_peak_bytes"] for r in runs]
+    steps_s = [r["step_s"] for r in runs]
+    log(f"  (d) llama2-7b x{ZERO3_FULL_LAYERS} at fsdp={cards}: losses "
+        f"{losses}, first vs the one-card forward {ref:.6f} (rel "
+        f"{rel:.2e}); storage 1/{cards} on every rank; step s "
+        f"{steps_s[0]}; step peak {[round(x / 1e9, 2) for x in peaks]} "
+        f"GB, build peak {[round(x / 1e9, 2) for x in builds]} GB; window "
+        f"{window}; whole parameters {runs[0]['whole_param_bytes'] / 1e9:.2f}"
+        f" GB; {wall:.1f} s with the ranks' start")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"cards": cards, "layers": ZERO3_FULL_LAYERS, "rows": rows,
+            "losses": losses, "reference_loss": ref,
+            "first_loss_rel": rel, "step_s_by_rank": steps_s,
+            "peak_bytes_by_rank": peaks, "build_peak_bytes_by_rank": builds,
+            "build_s_by_rank": [r["build_s"] for r in runs],
+            "whole_param_bytes": runs[0]["whole_param_bytes"],
+            "window": window, "wall_s": wall, "card": card}
 
 
 def train_zero3_phase(card, fused_run, gen, cards_only=False):
@@ -2467,13 +2694,18 @@ def train_zero3_phase(card, fused_run, gen, cards_only=False):
             out["shards"] = check_zero3_shards(gen)
         cards = torch.cuda.device_count()
         if cards >= 2:
-            out["across_cards"] = zero3_across_cards(mesh, card)
+            out["across_cards"], out["quant_gather"] = zero3_across_cards(
+                mesh, card)
+            out["full_depth"] = zero3_full_depth(card)
         else:
-            log(f"  (c) the ZeRO-3 step across cards did not run: this "
-                f"machine has {cards} card (NCCL takes one rank per "
-                f"card); the CPU tests run it on gloo ranks "
-                f"(tests/test_torch_zero3.py)")
-            out["across_cards"] = None
+            log(f"  (c), (d), (e) the ZeRO-3 steps across cards did not "
+                f"run: this machine has {cards} card (NCCL takes one rank "
+                f"per card); the CPU tests run them on gloo ranks "
+                f"(tests/test_torch_zero3.py, "
+                f"tests/test_torch_zero3_window.py, "
+                f"tests/test_torch_quant_gather.py)")
+            out["across_cards"] = out["quant_gather"] = None
+            out["full_depth"] = None
         out["seconds"] = time.monotonic() - t0
         log(f"  train_zero3: {out['seconds']:.1f} s")
         return out
@@ -4642,7 +4874,7 @@ def main() -> int:
     if cards_only:
         # The ZeRO-3 step across the cards and its one-card reference
         # alone (a multi-card machine's measurement).
-        log("[train_zero3 (c)]")
+        log("[train_zero3 (c)-(e)]")
         res = train_zero3_phase(card, None, None, cards_only=True)
         if res["across_cards"] is None:
             raise AssertionError("--zero3-cards-only needs two or more "

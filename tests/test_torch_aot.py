@@ -777,13 +777,16 @@ class TestTrainStep:
 
     def test_mesh_and_quant_still_raise(self, tmp_path):
         # A mesh is ported (tests/test_torch_zero3.py): anything but a
-        # built Mesh is refused; the int8 gathers still raise.
+        # built Mesh is refused; the int8 gathers are ported
+        # (tests/test_torch_quant_gather.py) and quantize the bucketed
+        # gather's buckets only.
         with pytest.raises(TypeError, match="Mesh"):
             ttrain.make_accum_train_step(_loss, mesh=object(),
                                          microbatches=2,
                                          aot_cache=AOTCache(str(tmp_path)))
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(ValueError, match="bucket boundary"):
             ttrain.make_accum_train_step(_loss, microbatches=2, quant=True,
+                                         gather="per_leaf",
                                          aot_cache=AOTCache(str(tmp_path)))
 
 

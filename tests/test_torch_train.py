@@ -374,19 +374,27 @@ class TestAccumTrainStep:
         tok = {"x": torch.zeros((4, 8), dtype=torch.int64)}
         with pytest.raises(ValueError, match="unknown update mode"):
             ttrain.make_accum_train_step(microbatches=2, update="sgd")
-        # The mesh, reduce_op, flat hierarchy, gather and prefetch are
-        # ported (tests/test_torch_zero3.py); the multi-slice hierarchy
-        # and the int8 gathers are not.
+        # The mesh, reduce_op, flat hierarchy, gather, prefetch and the
+        # int8 gathers are ported (tests/test_torch_zero3.py,
+        # tests/test_torch_quant_gather.py); the multi-slice hierarchy is
+        # not. quant=True needs the bucketed gather and, to step, a mesh.
         with pytest.raises(TypeError, match="Mesh"):
             ttrain.make_accum_train_step(microbatches=2, mesh=object())
         for kw in (dict(reduce_op="reduce_scatter"), dict(hierarchy="flat"),
-                   dict(gather="per_leaf"), dict(prefetch=2)):
+                   dict(gather="per_leaf"), dict(prefetch=2),
+                   dict(quant=True)):
             assert callable(ttrain.make_accum_train_step(microbatches=2,
                                                          **kw))
-        for kw, item in ((dict(hierarchy="hierarchical"), "item 8"),
-                         (dict(quant=True), "item 8")):
-            with pytest.raises(NotImplementedError, match=item):
-                ttrain.make_accum_train_step(microbatches=2, **kw)
+        with pytest.raises(NotImplementedError, match="item 8"):
+            ttrain.make_accum_train_step(microbatches=2,
+                                         hierarchy="hierarchical")
+        with pytest.raises(ValueError, match="bucket boundary"):
+            ttrain.make_accum_train_step(microbatches=2, quant=True,
+                                         gather="per_leaf")
+        with pytest.raises(ValueError, match="needs a mesh"):
+            ttrain.make_accum_train_step(_next_token, microbatches=2,
+                                         quant=True)(
+                ttrain.create_train_state(tm, ttrain.adamw(1e-3)), tok)
         # aot_cache is ported: the step builds (tests/test_torch_aot.py
         # holds what it does).
         assert callable(ttrain.make_accum_train_step(microbatches=2,

@@ -777,7 +777,8 @@ def test_replicated_plan_reduce(one_rank_group):
 def test_records_name_the_planes(tiny_runs):
     """The step records its reduce levels and forward gathers under the
     reference's schema (``grad_reduce`` psum_scatter over fsdp,
-    ``fwd_gather`` with gather/prefetch/per_microbatch) and the plan under
+    ``fwd_gather`` with gather/prefetch/per_microbatch, its bytes those
+    of a microbatch's forward and backward gathers) and the plan under
     ``accum_step``."""
     reports, _ = tiny_runs["dp2_fsdp2"]
     run = reports[0]["runs"]["optax_ar"]
@@ -793,7 +794,9 @@ def test_records_name_the_planes(tiny_runs):
                                           [FSDP], "bucketed", 1, 2)
     assert plan["zero3"] is True and plan["n_scatter_buckets"] >= 1
     assert plan["sync_group"] == 4 and plan["microbatches"] == 2
-    assert sum(gather["nbytes"]) == sum(
+    # The gather window gathers every even scatter bucket twice a
+    # microbatch: for its forward and again for its backward.
+    assert sum(gather["nbytes"]) == 2 * sum(
         n for n, lv in zip(plan["bucket_nbytes"], plan["levels"][0][
             "bucket_nbytes"]) if lv)
     train = reports[0]["runs"]["train"]["collectives"]["accum.fwd_gather"]
@@ -1099,8 +1102,11 @@ def test_unported_pieces_name_their_items(one_rank_group):
     with pytest.raises(NotImplementedError, match="item 8"):
         ttrain.make_accum_train_step(mesh=mesh, microbatches=2,
                                      hierarchy="hierarchical")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.make_accum_train_step(mesh=mesh, microbatches=2, quant=True)
+    # quant=True is ported (the int8 gather wire): it needs the bucketed
+    # gather, whose buckets it quantizes.
+    with pytest.raises(ValueError, match="bucket boundary"):
+        ttrain.make_accum_train_step(mesh=mesh, microbatches=2, quant=True,
+                                     gather="per_leaf")
     for axis, item in (("slices", 8), ("tp", 11), ("pp", 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             MeshSpec(**{axis: 2}).build(device="cpu")

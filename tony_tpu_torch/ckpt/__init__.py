@@ -53,13 +53,19 @@ PORTABLE_CODECS: List[Tuple[str, Callable[[Any], bool],
 
 def register_portable_codec(name: str, predicate: Callable[[Any], bool],
                             encode: Callable[[Any], Any],
-                            decode: Callable[[Any, Any], Any]) -> None:
+                            decode: Callable[[Any, Any], Any], *,
+                            prepend: bool = False) -> None:
     """Register ``(predicate, encode, decode)`` under ``name`` (replacing
     an earlier registration of the same name). ``encode(tree) -> portable
     tree``; ``decode(tree, mesh) -> live tree``. First matching codec
-    wins."""
+    wins; ``prepend`` puts this one first (a codec that composes with
+    another one's trees, as the quantized-gather codec does)."""
     PORTABLE_CODECS[:] = [c for c in PORTABLE_CODECS if c[0] != name]
-    PORTABLE_CODECS.append((name, predicate, encode, decode))
+    entry = (name, predicate, encode, decode)
+    if prepend:
+        PORTABLE_CODECS.insert(0, entry)
+    else:
+        PORTABLE_CODECS.append(entry)
 
 
 def encode_portable(tree: Any) -> Any:

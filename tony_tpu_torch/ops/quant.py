@@ -22,6 +22,18 @@
   (weight ``[N, K]``, optional bias), dynamic (current-tensor) scales.
 * :class:`QuantConfig`, :func:`push_amax`, :func:`hist_scale`,
   :func:`bucket_amax` — the delayed-scaling helpers (pure tensor math).
+* Quantize-on-gather (quant.py:309-624): the ZeRO-3 forward gathers
+  (:class:`~tony_tpu_torch.parallel.sched.GatherPlan`, through the gather
+  window) send int8 codes of each even scatter bucket's local chunk,
+  quantized with a bucket scale every rank shares, and dequantize them on
+  arrival, so the int8 gather is bitwise quantize-after-gather. The scale
+  is delayed: a per-bucket ``[window]`` amax history rides the train
+  state (:func:`with_gather_quant` → :class:`~tony_tpu_torch.train
+  .QuantTrainState`), each step quantizes with ``max(history) / 127``
+  and rolls the current amax in (:func:`delayed_scales`). The history
+  saves and restores through a portable codec whose form is per leaf, so
+  a step saved at one fsdp size or by either package restores into
+  another (:func:`amax_to_leaf_major`, :func:`leaf_major_to_amax`).
 
 The public functions keep the JAX package's layout (``quant_dot(x, w)``
 with ``w`` ``[K, N]``); the module and the kernel take torch's ``[N, K]``
@@ -49,9 +61,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as td
 from torch import nn
 
 from tony_tpu_torch import resolve_device
@@ -468,6 +482,299 @@ def bucket_amax(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
         [torch.amax(torch.abs(leaf.to(torch.float32))) for leaf in leaves])
 
 
-__all__ = ["AMAX_FLOOR", "QMAX", "QuantConfig", "QuantDense", "bucket_amax",
-           "dequantize", "hist_scale", "int8_matmul", "push_amax",
-           "quant_dot", "quant_dot_general", "quantize", "scale_of"]
+# ---------------------------------------------------------------------
+# Quantize-on-gather (quant.py:309-490): the ZeRO-3 gathers' int8 wire.
+# ---------------------------------------------------------------------
+
+def is_quant_state(state: Any) -> bool:
+    """A train state riding the quantized-gather lane (or its portable
+    form)."""
+    from tony_tpu_torch.models.convert import PortableState
+
+    if isinstance(state, PortableState):
+        state = state.live
+    return getattr(state, "quant_state", None) is not None \
+        and getattr(state, "qconfig", None) is not None
+
+
+def check_quant_amax(gplan: Any, amax: Sequence[torch.Tensor]) -> None:
+    """The amax state must match this gather plan's bucket geometry: a
+    mismatch means it was built for another ``bucket_bytes`` or fsdp
+    size."""
+    if len(amax) != gplan.n_gather_buckets:
+        raise ValueError(
+            f"quant_amax carries {len(amax)} histories but the gather "
+            f"plan has {gplan.n_gather_buckets} buckets — the state was "
+            f"built for a different bucket_bytes or fsdp topology; "
+            f"rebuild it (with_gather_quant) or restore through the "
+            f"portable leaf-major form")
+    for k, h in enumerate(amax):
+        shape = tuple(h.shape)
+        if len(shape) != 1 or shape[0] < 1 or (
+                k and shape != tuple(amax[0].shape)):
+            raise ValueError(
+                f"amax history {k} has shape {shape} — every history "
+                f"must be one non-empty [window] f32 vector (bucket 0's "
+                f"is {tuple(amax[0].shape)})")
+
+
+def _current_amax(gplan: Any, leaves: Sequence[torch.Tensor],
+                  group: Any) -> torch.Tensor:
+    """Each gather bucket's amax over every rank: the local max over its
+    member leaves (this rank's shards), then one max all-reduce over the
+    fsdp ``group`` for all buckets."""
+    plan = gplan.plan
+    cur = torch.stack([bucket_amax([leaves[i].detach()
+                                    for i in plan.buckets[b]])
+                       for b in gplan.gather_buckets])
+    td.all_reduce(cur, op=td.ReduceOp.MAX, group=group)
+    return cur
+
+
+def delayed_scales(gplan: Any, leaves: Sequence[torch.Tensor],
+                   amax: Sequence[torch.Tensor], group: Any
+                   ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """This step's shared scale per gather bucket, from the history the
+    state carried in, and each history with the current amax rolled in
+    (measured once, at the step's entry: the parameters do not change
+    inside it)."""
+    scales = [hist_scale(h) for h in amax]
+    if not amax:
+        return scales, []
+    cur = _current_amax(gplan, leaves, group)
+    return scales, [push_amax(h, cur[k]) for k, h in enumerate(amax)]
+
+
+def _plans_of(params: Sequence[torch.Tensor], mesh: Any,
+              bucket_bytes: int):
+    """(plan, gplan) of the quantized-gather lane: the derivation the
+    accumulating step uses (``overlap.step_plans``)."""
+    from tony_tpu_torch.parallel import overlap
+
+    if mesh is None:
+        raise ValueError(
+            "quantize-on-gather needs a ZeRO-3 (fsdp-sharded) layout on "
+            "a mesh — the state has no mesh")
+    specs = overlap.fsdp_param_specs(params, mesh)
+    if specs is None:
+        raise ValueError(
+            "quantize-on-gather needs fsdp-sharded params (the lane "
+            "quantizes the forward param gathers; a replicated layout "
+            "has none)")
+    return overlap.step_plans(params, mesh, bucket_bytes=bucket_bytes,
+                              param_specs=specs)
+
+
+def _seed_histories(gplan: Any, params: Sequence[torch.Tensor], mesh: Any,
+                    window: int) -> List[torch.Tensor]:
+    from tony_tpu_torch.parallel import FSDP
+
+    cur = _current_amax(gplan, params, mesh.group((FSDP,))) \
+        if gplan.n_gather_buckets else []
+    return [torch.full((window,), float(m), dtype=torch.float32,
+                       device=mesh.device) for m in cur]
+
+
+def with_gather_quant(state: Any, mesh: Any, *, window: int = 8,
+                      bucket_bytes: Optional[int] = None) -> Any:
+    """Attach the quantized-gather lane to a ZeRO-3 train state: derive
+    the gather plan from the parameters' layouts and seed every bucket's
+    ``[window]`` amax history from the current parameter magnitudes (so
+    step 1's delayed scale is already calibrated). ``bucket_bytes``
+    defaults from a FusedOptimizer tx. Returns a
+    :class:`~tony_tpu_torch.train.QuantTrainState` over the same model,
+    optimizer and buckets."""
+    from tony_tpu_torch import profiler
+    from tony_tpu_torch.train import QuantTrainState
+
+    if bucket_bytes is None:
+        bucket_bytes = getattr(state.tx, "bucket_bytes",
+                               DEFAULT_BUCKET_BYTES)
+    qcfg = QuantConfig(window=window, bucket_bytes=bucket_bytes)
+    params = list(state.model.parameters())
+    plan, gplan = _plans_of(params, mesh, bucket_bytes)
+    amax = _seed_histories(gplan, params, mesh, window)
+    profiler.record_quant(
+        "attach", n_buckets=gplan.n_gather_buckets, window=window,
+        bucket_bytes=bucket_bytes, raw_nbytes=list(gplan.gather_nbytes),
+        int8_nbytes=[plan.bucket_numel[b] for b in gplan.gather_buckets])
+    fields = {f.name: getattr(state, f.name)
+              for f in dataclasses.fields(state)
+              if f.name not in ("qconfig", "quant_state")}
+    return QuantTrainState(**fields, qconfig=qcfg,
+                           quant_state={"amax": amax})
+
+
+def gather_roundtrip_exact(params: Sequence[torch.Tensor], mesh: Any,
+                           bucket_bytes: int) -> bool:
+    """The quantize-on-gather exactness pin as a callable check: for every
+    gathered leaf, the int8 gather dequantized equals quantize then
+    dequantize of the unquantized gather, bit for bit (the shared scale
+    commutes with the collective). True on every rank or on none."""
+    from tony_tpu_torch.parallel import FSDP
+
+    params = list(params)
+    plan, gplan = _plans_of(params, mesh, bucket_bytes)
+    group = mesh.group((FSDP,))
+    scales = [scale_of(m) for m in _current_amax(gplan, params, group)] \
+        if gplan.n_gather_buckets else []
+    q_full = gplan.gather(params, group, scales=scales)
+    full = gplan.gather(params, group)
+    ok = True
+    for k, b in enumerate(gplan.gather_buckets):
+        for i in plan.buckets[b]:
+            ref = dequantize(quantize(full[i], scales[k]), scales[k],
+                             full[i].dtype)
+            ok = ok and torch.equal(q_full[i], ref)
+    flag = torch.tensor(1 if ok else 0, dtype=torch.int32,
+                        device=mesh.device)
+    td.all_reduce(flag, op=td.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+# ---------------------------------------------------------------------
+# The checkpoint codec (quant.py:493-624): per-bucket amax ⇄ per leaf.
+# ---------------------------------------------------------------------
+
+def _leaf_names(tree: Any, names: Dict[int, str],
+                path: Tuple[Any, ...] = ()) -> List[Tuple[Tuple, List[str]]]:
+    """The reference tree's leaves (``jax_param_tree``'s), each with the
+    parameter names it covers (a stacked leaf covers one per layer)."""
+    from tony_tpu_torch.ckpt.snapshot import LeafView
+
+    found: List[Tuple[Tuple, List[str]]] = []
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            found += _leaf_names(sub, names, path + (key,))
+        return found
+    tensors = [t for _, t, _ in tree.parts] if isinstance(tree, LeafView) \
+        else [tree]
+    found.append((path, [names[id(t)] for t in tensors]))
+    return found
+
+
+def _amax_paths(model: nn.Module) -> List[Tuple[Tuple, List[str]]]:
+    from tony_tpu_torch.models.convert import jax_param_tree
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    return _leaf_names(jax_param_tree(model), names)
+
+
+def _nest(items: Sequence[Tuple[Tuple, Any]]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in items:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def amax_to_leaf_major(model: nn.Module, plan: Any, gplan: Any,
+                       amax: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """Per-bucket histories → the reference's param tree of ``[window]``
+    f32 host tensors: every member leaf carries its bucket's history, a
+    leaf outside the lane zeros, and a leaf that stacks layers the
+    elementwise max of its layers' (the conservative merge). The paths
+    do not depend on the fsdp size: the portable form the manifest
+    keeps."""
+    window = int(amax[0].shape[0]) if amax else 1
+    names = [n for n, _ in model.named_parameters()]
+    per: Dict[str, np.ndarray] = {n: np.zeros((window,), np.float32)
+                                  for n in names}
+    for k, b in enumerate(gplan.gather_buckets):
+        h = amax[k].detach().to("cpu", torch.float32).numpy()
+        for i in plan.buckets[b]:
+            per[names[i]] = h
+    return _nest([(path, torch.from_numpy(functools.reduce(
+        np.maximum, [per[n] for n in covered]).copy()))
+        for path, covered in _amax_paths(model)])
+
+
+def leaf_major_to_amax(model: nn.Module, plan: Any, gplan: Any,
+                       tree: Dict[str, Any], device: Any
+                       ) -> List[torch.Tensor]:
+    """Inverse of :func:`amax_to_leaf_major` onto this plan's buckets: a
+    bucket's history is the elementwise max over its member leaves' (the
+    conservative merge when the partition changed; a too-large scale
+    quantizes coarser for ``window`` steps, never clips). A bucket whose
+    members all carry zeros merges to zeros, which the codec reseeds."""
+    names = [n for n, _ in model.named_parameters()]
+    per: Dict[str, torch.Tensor] = {}
+    for path, covered in _amax_paths(model):
+        node = tree
+        for key in path:
+            node = node[key]
+        for n in covered:
+            per[n] = torch.as_tensor(node).to(torch.float32)
+    return [functools.reduce(torch.maximum, [per[names[i]] for i in
+                                             plan.buckets[b]]).to(device)
+            for b in gplan.gather_buckets]
+
+
+def _inner_codec(tree: Any):
+    from tony_tpu_torch import ckpt
+
+    for name, predicate, encode, decode in ckpt.PORTABLE_CODECS:
+        if name != "quant_gather" and predicate(tree):
+            return encode, decode
+    raise NotImplementedError(
+        f"no portable codec takes the optimizer of this quantized state "
+        f"({type(getattr(tree, 'tx', None)).__name__})")
+
+
+def encode_state(state: Any) -> Any:
+    """Ckpt codec, encode half: the train state's own portable form (its
+    optimizer's codec) plus ``.quant_state['amax_leaf']``, the per-leaf
+    histories."""
+    encode, _ = _inner_codec(state)
+    tree = encode(state)
+    plan, gplan = _plans_of(list(state.model.parameters()), state.mesh,
+                            state.qconfig.bucket_bytes)
+    tree["quant_state"] = {"amax_leaf": amax_to_leaf_major(
+        state.model, plan, gplan, state.quant_state["amax"])}
+    return tree
+
+
+def decode_state(tree: Any, mesh: Optional[Any] = None) -> Any:
+    """Ckpt codec, decode half: the optimizer's decode, then the restored
+    per-leaf histories merged onto this topology's buckets; a bucket that
+    became gatherable only here (all-zero history) is reseeded from the
+    live parameters, as :func:`with_gather_quant` seeds it — a floored
+    scale would clip it to zero."""
+    from tony_tpu_torch.models.convert import PortableState
+
+    if not isinstance(tree, PortableState):
+        return tree
+    _, decode = _inner_codec(tree)
+    state = decode(tree, mesh)
+    params = list(state.model.parameters())
+    plan, gplan = _plans_of(params, state.mesh, state.qconfig.bucket_bytes)
+    amax = leaf_major_to_amax(state.model, plan, gplan,
+                              tree["quant_state"]["amax_leaf"],
+                              state.mesh.device)
+    fresh = _seed_histories(gplan, params, state.mesh, state.qconfig.window)
+    state.quant_state = {"amax": [
+        fresh[k] if float(torch.amax(h)) == 0.0 else h
+        for k, h in enumerate(amax)]}
+    return state
+
+
+def _register_codec() -> None:
+    from tony_tpu_torch import ckpt
+
+    # Ahead of the optimizers' codecs: a quantized state matches theirs
+    # too, and this one delegates its optimizer to them.
+    ckpt.register_portable_codec("quant_gather", is_quant_state,
+                                 encode_state, decode_state, prepend=True)
+
+
+_register_codec()
+
+
+__all__ = ["AMAX_FLOOR", "QMAX", "QuantConfig", "QuantDense",
+           "amax_to_leaf_major", "bucket_amax", "check_quant_amax",
+           "delayed_scales", "dequantize", "gather_roundtrip_exact",
+           "hist_scale", "int8_matmul", "is_quant_state",
+           "leaf_major_to_amax", "push_amax", "quant_dot",
+           "quant_dot_general", "quantize", "scale_of", "with_gather_quant"]

@@ -19,7 +19,10 @@
   then either the leaf grads (the unfused tail) or the fused optimizer's
   in-place update (the fused tail). With a mesh, each microbatch gathers
   the ZeRO-3 parameters (:class:`~tony_tpu_torch.parallel.sched
-  .GatherPlan`) and reduces its grads bucket by bucket over the gradient
+  .GatherPlan`; ``gather="bucketed"`` through the gather window of
+  :mod:`~tony_tpu_torch.parallel.window`, which frees each bucket after
+  use, gathers it again for the backward and reduces each bucket as its
+  grads land) and reduces its grads bucket by bucket over the gradient
   sync group (:func:`reduce_schedule`);
 * :func:`fsdp_param_specs` — a ZeRO-3 layout detected from the
   parameters' :class:`~tony_tpu_torch.parallel.layout.Layout`\\ s: the
@@ -443,11 +446,12 @@ def _padded(buf: torch.Tensor, group_size: int) -> torch.Tensor:
 
 
 def _reduce_scatter(out: torch.Tensor, buf: torch.Tensor,
-                    group: Any) -> None:
-    """``out`` = this rank's chunk of the sum of ``buf`` over ``group``."""
+                    group: Any, async_op: bool = False) -> Any:
+    """``out`` = this rank's chunk of the sum of ``buf`` over ``group``
+    (returns the work handle with ``async_op``)."""
     scatter = getattr(td, "reduce_scatter_single", None) \
         or td.reduce_scatter_tensor
-    scatter(out, buf, group=group)
+    return scatter(out, buf, group=group, async_op=async_op)
 
 
 def _all_gather(shard: torch.Tensor, size: int, group: Any,
@@ -758,11 +762,17 @@ def _warn_uneven(plan: GradBuckets, uneven: List[Tuple[int, ...]]) -> None:
 
 
 def _record_plan(plan, mesh, sched, gplan, *, microbatches, reduce_op,
-                 gather, zero3) -> None:
+                 gather, zero3, window=None, quant_window=0) -> None:
     """The step's records under the reference's schema: the plan in the
     overlap registry, its reduce levels and (ZeRO-3) forward gathers in
     the collective registry. The reference's level name ``"ici"`` is its
-    single-slice level."""
+    single-slice level. With the gather window (``window``), the
+    ``accum.fwd_gather`` record lists the wire bytes of every gather of
+    the last microbatch, its forward's and its backward's, and the plan
+    record carries the window's high-water mark of gathered bytes beside
+    ``window_nbytes()`` and the allowance; on the quantized lane
+    (``quant_window``, the amax-history length) the wire bytes are int8
+    and ``quant_report()["accum_gather"]`` is recorded."""
     from tony_tpu_torch.parallel import sched as sched_mod
 
     axes = sync_axes(mesh)
@@ -778,6 +788,15 @@ def _record_plan(plan, mesh, sched, gplan, *, microbatches, reduce_op,
                 "level": "ici", "op": op, "axes": list(axes),
                 "bucket_nbytes": [n if m == mode else 0 for (m, _), n in
                                   zip(sched, plan.bucket_nbytes)]})
+    extra = {}
+    if window is not None:
+        extra["window"] = dict(
+            window.stats, high_water_nbytes=gplan.live.high,
+            window_nbytes=gplan.window_nbytes(),
+            allowance_nbytes=window.allowance_nbytes(),
+            bound_nbytes=window.bound_nbytes(),
+            gather_nbytes=list(gplan.gather_nbytes),
+            prefetch=gplan.prefetch, reduces=list(window.reduces))
     profiler.record_overlap(
         "accum_step", n_buckets=plan.n_buckets,
         bucket_nbytes=list(plan.bucket_nbytes), threshold=plan.threshold,
@@ -786,19 +805,80 @@ def _record_plan(plan, mesh, sched, gplan, *, microbatches, reduce_op,
         n_scatter_buckets=plan.n_scatter_buckets,
         n_padded_buckets=sum(1 for b in range(plan.n_buckets)
                              if plan._is_padded(b)),
-        levels=levels)
+        levels=levels, **extra)
     sched_mod.record_reduce_levels("accum", levels)
     if zero3 and gplan.gather_leaves:
-        if gather == "bucketed":
+        if window is not None:
+            nbytes = list(window.stats["gathered_wire_nbytes"])
+        elif gather == "bucketed":
             nbytes = list(gplan.gather_nbytes)
         else:
             nbytes = [math.prod(plan.shapes[i]) * _itemsize(plan.dtypes[i])
                       for i, _ in gplan.gather_leaves]
         profiler.record_collective(
             "accum.fwd_gather", kind="all_gather", plane="fwd_gather",
-            axes=[FSDP], nbytes=nbytes, gather=gather, quant=None,
+            axes=[FSDP], nbytes=nbytes, gather=gather,
+            quant="int8" if quant_window else None,
             prefetch=gplan.prefetch if gather == "bucketed" else None,
             per_microbatch=microbatches)
+    if quant_window:
+        raw = list(gplan.gather_nbytes)
+        q_nb = [plan.bucket_numel[b] for b in gplan.gather_buckets]
+        profiler.record_quant(
+            "accum_gather", n_buckets=gplan.n_gather_buckets,
+            window=quant_window, raw_nbytes=raw, int8_nbytes=q_nb,
+            bytes_saved=sum(raw) - sum(q_nb), per_microbatch=microbatches)
+
+
+class _Reducer:
+    """A microbatch's bucket reduces, issued as each bucket's grads are
+    packed and completed in issue order into the step's accumulators
+    (``acc[b] += reduced``, so each accumulator adds its microbatches in
+    order). At most ``depth`` reduces stay in flight, so the packed grads
+    of a bucket are freed one bucket later."""
+
+    def __init__(self, plan, sched, acc, mesh, rs_group, depth=1):
+        self.plan, self.sched, self.acc, self.mesh = plan, sched, acc, mesh
+        self.rs_group, self.depth = rs_group, depth
+        self.fsdp = mesh.group((FSDP,))
+        self.sync = mesh.group(sync_axes(mesh))
+        self.pending: List[Tuple[int, torch.Tensor, Any, list,
+                                 torch.Tensor]] = []
+
+    @torch.no_grad()
+    def issue(self, b: int, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        plan = self.plan
+        leaves = {i: g if g is not None else torch.zeros(
+            plan.shapes[i], dtype=plan.dtypes[i], device=self.acc[b].device)
+            for i, g in zip(plan.buckets[b], grads)}
+        buf = plan.pack_bucket(b, leaves)
+        del leaves
+        mode, post = self.sched[b]
+        if mode == "scatter":
+            s = buf.new_empty(buf.numel() // plan.shard_size)
+            work = _reduce_scatter(s, buf, self.fsdp, async_op=True)
+        elif mode == "rs":
+            buf = _padded(buf, self.rs_group)
+            s = buf.new_empty(buf.numel() // self.rs_group)
+            work = _reduce_scatter(s, buf, self.sync, async_op=True)
+        else:
+            s = buf
+            work = td.all_reduce(s, group=self.sync, async_op=True)
+        self.pending.append((b, s, work, post, buf))
+        while len(self.pending) > self.depth:
+            self._complete(self.pending.pop(0))
+
+    @torch.no_grad()
+    def drain(self) -> None:
+        while self.pending:
+            self._complete(self.pending.pop(0))
+
+    def _complete(self, item) -> None:
+        b, s, work, post, _buf = item
+        work.wait()
+        for g in post:
+            td.all_reduce(s, group=self.mesh.group(g))
+        self.acc[b].add_(s)
 
 
 def microbatch_grads(loss_fn: Callable[[Dict[str, Any]], Tuple[
@@ -814,7 +894,8 @@ def microbatch_grads(loss_fn: Callable[[Dict[str, Any]], Tuple[
                      reduce_op: str = "all_reduce",
                      param_specs: Optional[Sequence[Any]] = None,
                      hierarchy: str = "auto", gather: str = "bucketed",
-                     prefetch: int = 1):
+                     prefetch: int = 1, module: Optional[Any] = None,
+                     quant_amax: Optional[Sequence[torch.Tensor]] = None):
     """Gradient accumulation over ``microbatches`` into per-bucket buffers.
 
     ``loss_fn(microbatch) -> (loss, aux)`` runs the model that owns
@@ -848,24 +929,39 @@ def microbatch_grads(loss_fn: Callable[[Dict[str, Any]], Tuple[
     **ZeRO-3** (``param_specs``, one spec per parameter, from
     :func:`fsdp_param_specs`; the parameters are this rank's shards):
     each microbatch gathers the sharded parameters over the fsdp group
-    (``gather="bucketed"``: one ``all_gather`` per scatter bucket with
-    ``prefetch`` gathers in flight ahead of the one compute waits for;
-    ``"per_leaf"``: one per leaf — the same bits, data movement only),
-    binds them for the forward and backward, and ``reduce_scatter``\\ s
-    the grads of each shard-major bucket over fsdp (then sums over the
-    data axis): even leaves' grads come back in the shard layout,
-    uneven ones whole (warned once per plan). ``resident`` is then the
-    state's :class:`ShardBuckets` when the fused update runs."""
+    and ``reduce_scatter``\\ s the grads of each shard-major bucket over
+    fsdp (then sums over the data axis): even leaves' grads come back in
+    the shard layout, uneven ones whole (warned once per plan).
+    ``gather="bucketed"`` runs the gather window over ``module`` (the
+    model that owns ``params``, :class:`~tony_tpu_torch.parallel.window
+    .GatherWindow`): one ``all_gather`` per scatter bucket just before
+    its readers run, ``prefetch`` buckets ahead, freed after them and
+    gathered again, in reverse, for their backward; each bucket's reduce
+    is issued as soon as its last grad lands. ``"per_leaf"``: one
+    ``all_gather`` per leaf, every leaf gathered for the whole forward
+    and backward and the reduces issued after them (the numerics pin).
+    Both give the same bits: data movement only. ``resident`` is then
+    the state's :class:`ShardBuckets` when the fused update runs.
+
+    **Quantized gathers** (``quant_amax``: one f32 ``[window]`` amax
+    history per gather bucket, the same on every rank; ZeRO-3 with
+    ``gather="bucketed"`` only): each gather sends int8 codes quantized
+    with the delayed scale ``max(history) / 127``, shared by every rank,
+    so the int8 gather is bitwise quantize-after-gather, and the
+    backward's re-gathers send the same codes. The current amax of each
+    bucket is measured once at entry (local max, then a max all-reduce
+    over fsdp) and rolled into its history: the call returns the new
+    histories after its other results."""
     if mesh is not None:
         return _mesh_grads(
             loss_fn, list(params), batch, mesh, microbatches=microbatches,
             bucket_bytes=bucket_bytes, resident=resident, fused=fused,
             opt_slots=opt_slots, opt_scal=opt_scal, reduce_op=reduce_op,
             param_specs=param_specs, hierarchy=hierarchy, gather=gather,
-            prefetch=prefetch)
-    if param_specs is not None:
-        raise ValueError("microbatch_grads(param_specs=...) is the ZeRO-3 "
-                         "path and needs its mesh")
+            prefetch=prefetch, module=module, quant_amax=quant_amax)
+    if param_specs is not None or quant_amax is not None:
+        raise ValueError("microbatch_grads(param_specs=..., quant_amax=...) "
+                         "is the ZeRO-3 path and needs its mesh")
     params = list(params)
     plan = resident.plan if resident is not None else GradBuckets.plan(
         params, bucket_bytes)
@@ -923,17 +1019,13 @@ def _check_fused(fused, plan, resident, opt_slots, opt_scal) -> None:
     fused.check_slots(plan, opt_slots)
 
 
-def gather_params(gplan: Any, params: List[torch.Tensor], mesh: Any, *,
-                  gather: str = "bucketed",
-                  bufs: Optional[Sequence[Optional[torch.Tensor]]] = None
+def gather_params(gplan: Any, params: List[torch.Tensor], mesh: Any
                   ) -> Dict[int, torch.Tensor]:
     """The whole tensors of every gathered (even sharded) parameter,
-    ``{leaf index: tensor}``, from this rank's shards: bucketed
-    (:meth:`GatherPlan.gather`, sending ``bufs[b]`` where the shards live
-    in a bucket buffer) or one ``all_gather`` per leaf."""
+    ``{leaf index: tensor}``, from this rank's shards, one ``all_gather``
+    per leaf: the ``gather="per_leaf"`` path, which holds them for the
+    whole microbatch (the bucketed path runs the gather window)."""
     group = mesh.group((FSDP,))
-    if gather == "bucketed":
-        return gplan.gather(params, group, bufs=bufs)
     size = mesh.shape[FSDP]
     out = {}
     for i, d in gplan.gather_leaves:
@@ -946,7 +1038,7 @@ def gather_params(gplan: Any, params: List[torch.Tensor], mesh: Any, *,
 
 def _mesh_grads(loss_fn, params, batch, mesh, *, microbatches, bucket_bytes,
                 resident, fused, opt_slots, opt_scal, reduce_op,
-                param_specs, hierarchy, gather, prefetch):
+                param_specs, hierarchy, gather, prefetch, module, quant_amax):
     """The cross-device engine of :func:`microbatch_grads`."""
     from tony_tpu_torch.parallel import sched as sched_mod
 
@@ -962,6 +1054,12 @@ def _mesh_grads(loss_fn, params, batch, mesh, *, microbatches, bucket_bytes,
             f"{group} x microbatches {microbatches} "
             f"(= {group * microbatches})")
     zero3 = param_specs is not None
+    quant = quant_amax is not None
+    if quant and (not zero3 or gather != "bucketed"):
+        raise ValueError(
+            "quantize-on-gather (quant_amax=) needs the ZeRO-3 bucketed "
+            "gather path (fsdp-sharded params, gather='bucketed'): the "
+            "int8 lane lives on the GatherPlan bucket boundary")
     gplan = None
     if zero3:
         if resident is not None:
@@ -980,9 +1078,19 @@ def _mesh_grads(loss_fn, params, batch, mesh, *, microbatches, bucket_bytes,
         _check_fused(fused, plan, resident, opt_slots, opt_scal)
     sched, _, rs_group, _ = reduce_schedule(
         plan, mesh, reduce_op=reduce_op, hierarchy=hierarchy)
-    _record_plan(plan, mesh, sched, gplan, microbatches=microbatches,
-                 reduce_op=reduce_op, gather=gather, zero3=zero3)
+    windowed = zero3 and gather == "bucketed"
+    if windowed and module is None:
+        raise ValueError("the bucketed ZeRO-3 gather runs the gather window "
+                         "over the model: pass module= (the model that "
+                         "owns params)")
     fsdp_group, sync_group = mesh.group((FSDP,)), mesh.group(axes)
+    scales, new_amax = None, []
+    if quant:
+        from tony_tpu_torch.ops import quant as quant_mod
+
+        quant_mod.check_quant_amax(gplan, quant_amax)
+        scales, new_amax = quant_mod.delayed_scales(
+            gplan, params, quant_amax, fsdp_group)
     own = resident is None and not zero3
     if own:
         # Replicated leaves: backward writes each microbatch's grads into
@@ -998,57 +1106,85 @@ def _mesh_grads(loss_fn, params, batch, mesh, *, microbatches, bucket_bytes,
     loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
     aux_acc = torch.zeros((), dtype=torch.float32, device=dev)
     size = lead // microbatches
-    local = [p.data for p in params]
-    for k in range(microbatches):
-        mb = {key: v[k * size:(k + 1) * size] for key, v in batch.items()}
-        full = {}
-        if zero3:
-            full = gather_params(gplan, params, mesh, gather=gather,
-                                 bufs=getattr(resident, "param_bufs", None))
-        if bucketed_grads:
-            resident.zero_grads()
-        else:
-            for p in params:
-                p.grad = None
-        try:
-            for i, t in full.items():
-                params[i].data = t
-            loss, aux = loss_fn(mb)
-            loss.backward()
+    window = None
+    if windowed:
+        from tony_tpu_torch.parallel.window import GatherWindow
+
+        reducer = _Reducer(plan, sched, acc, mesh, rs_group)
+        window = GatherWindow(
+            module, params, plan, gplan, fsdp_group, reduce=reducer.issue,
+            drain=reducer.drain, bufs=getattr(resident, "param_bufs", None),
+            scales=scales)
+        with window:
+            for k in range(microbatches):
+                mb = {key: v[k * size:(k + 1) * size]
+                      for key, v in batch.items()}
+                window.begin()
+                try:
+                    loss, aux = loss_fn(mb)
+                    window.backward()
+                    loss.backward()
+                    window.finish_backward()
+                finally:
+                    window.end()
+                loss_acc = loss_acc + loss.detach()
+                aux_acc = aux_acc + aux.detach()
+                del loss, aux
+    else:
+        local = [p.data for p in params]
+        for k in range(microbatches):
+            mb = {key: v[k * size:(k + 1) * size]
+                  for key, v in batch.items()}
+            full = gather_params(gplan, params, mesh) if zero3 else {}
             if bucketed_grads:
-                resident.check()
-                bufs = resident.grad_bufs
+                resident.zero_grads()
             else:
-                grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                         for p in params]
                 for p in params:
                     p.grad = None
-        finally:
-            for i in full:
-                params[i].data = local[i]
-        del full
-        loss_acc = loss_acc + loss.detach()
-        aux_acc = aux_acc + aux.detach()
-        with torch.no_grad():
-            if not bucketed_grads:
-                bufs = plan.pack(grads)
-                del grads
-            for b, buf in enumerate(bufs):
-                mode, post = sched[b]
-                if mode == "scatter":
-                    s = buf.new_empty(buf.numel() // plan.shard_size)
-                    _reduce_scatter(s, buf, fsdp_group)
-                elif mode == "rs":
-                    buf = _padded(buf, rs_group)
-                    s = buf.new_empty(buf.numel() // rs_group)
-                    _reduce_scatter(s, buf, sync_group)
+            try:
+                for i, t in full.items():
+                    params[i].data = t
+                loss, aux = loss_fn(mb)
+                loss.backward()
+                if bucketed_grads:
+                    resident.check()
+                    bufs = resident.grad_bufs
                 else:
-                    s = buf
-                    td.all_reduce(s, group=sync_group)
-                for g in post:
-                    td.all_reduce(s, group=mesh.group(g))
-                acc[b].add_(s)
-            del bufs
+                    grads = [torch.zeros_like(p) if p.grad is None
+                             else p.grad for p in params]
+                    for p in params:
+                        p.grad = None
+            finally:
+                for i in full:
+                    params[i].data = local[i]
+            del full
+            loss_acc = loss_acc + loss.detach()
+            aux_acc = aux_acc + aux.detach()
+            with torch.no_grad():
+                if not bucketed_grads:
+                    bufs = plan.pack(grads)
+                    del grads
+                for b, buf in enumerate(bufs):
+                    mode, post = sched[b]
+                    if mode == "scatter":
+                        s = buf.new_empty(buf.numel() // plan.shard_size)
+                        _reduce_scatter(s, buf, fsdp_group)
+                    elif mode == "rs":
+                        buf = _padded(buf, rs_group)
+                        s = buf.new_empty(buf.numel() // rs_group)
+                        _reduce_scatter(s, buf, sync_group)
+                    else:
+                        s = buf
+                        td.all_reduce(s, group=sync_group)
+                    for g in post:
+                        td.all_reduce(s, group=mesh.group(g))
+                    acc[b].add_(s)
+                del bufs
+    _record_plan(plan, mesh, sched, gplan, microbatches=microbatches,
+                 reduce_op=reduce_op, gather=gather, zero3=zero3,
+                 window=window, quant_window=int(quant_amax[0].shape[0])
+                 if quant and quant_amax else 0)
+    tail = (new_amax,) if quant else ()
     denom = torch.full((), float(microbatches * group), dtype=torch.float32,
                        device=dev)
     scalars = torch.stack([loss_acc, aux_acc])
@@ -1066,7 +1202,7 @@ def _mesh_grads(loss_fn, params, batch, mesh, *, microbatches, bucket_bytes,
                 plan, resident.param_bufs, acc, opt_slots, opt_scal,
                 sharded=zero3 and plan.shard_size > 1, mesh=mesh,
                 params=params)
-            return loss, aux, gnorm
+            return (loss, aux, gnorm) + tail
         leaf_out: List[Any] = [None] * len(plan.shapes)
         for b, a in enumerate(acc):
             if plan._is_scatter(b) and plan._is_padded(b):
@@ -1082,7 +1218,7 @@ def _mesh_grads(loss_fn, params, batch, mesh, *, microbatches, bucket_bytes,
     if own:
         for p in params:
             p.grad = None
-    return loss, aux, leaf_out
+    return (loss, aux, leaf_out) + tail
 
 
 def sharded_global_norm(grads: Sequence[torch.Tensor],

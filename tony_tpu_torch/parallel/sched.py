@@ -10,7 +10,13 @@ for the ZeRO-3 forward gathers and the reduce records.
   asynchronously on the process group's own stream, at most
   ``prefetch`` ahead of the oldest one not yet waited for, and each is
   waited for — the compute stream ordered after it — before the forward
-  reads its leaves.
+  reads its leaves. One bucket at a time (:meth:`GatherPlan.issue`,
+  :meth:`GatherPlan.finish`) is what the ZeRO-3 gather window
+  (:mod:`~tony_tpu_torch.parallel.window`) drives; its
+  :class:`LiveBytes` counter keeps the step's high-water mark of
+  gathered bytes beside :meth:`GatherPlan.window_nbytes`. ``scales=``
+  (one shared f32 scale per gather bucket) sends int8 on the wire: the
+  quantize-on-gather lane of :mod:`tony_tpu_torch.ops.quant`.
 * :func:`record_reduce_levels` — the step's reduce levels in the unified
   registry (:func:`tony_tpu_torch.profiler.collective_report`).
 
@@ -20,19 +26,51 @@ slices (ROADMAP.md, queue 1 item 11).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as td
 
 from tony_tpu_torch import profiler
 from tony_tpu_torch.parallel import FSDP
-from tony_tpu_torch.parallel.overlap import GradBuckets, _all_gather
+from tony_tpu_torch.parallel.overlap import GradBuckets
 
 # Forward-gather prefetch depth: how many bucket gathers may be in flight
 # ahead of the one compute is consuming (0: no chain, every gather issued
 # at once).
 DEFAULT_PREFETCH = 1
+
+
+@dataclass
+class LiveBytes:
+    """Gathered bytes alive on this rank: ``live`` now, ``high`` the most
+    at once (a plan is made for one step: its high-water mark), and the
+    wire bytes of each gather issued (``issued``: int8 bytes on the
+    quantized lane; the window starts a list a microbatch). A bucket
+    counts its whole gathered payload from its issue to its release."""
+
+    live: int = 0
+    high: int = 0
+    issued: List[int] = field(default_factory=list)
+
+    def add(self, nbytes: int, wire: int) -> None:
+        self.live += nbytes
+        self.high = max(self.high, self.live)
+        self.issued.append(wire)
+
+    def sub(self, nbytes: int) -> None:
+        self.live -= nbytes
+
+
+class Gathering(NamedTuple):
+    """One bucket's gather in flight: the buffer the collective writes
+    (int8 on the quantized lane), its work handle, the shared scale (or
+    None) and the bucket's dtype."""
+    buf: torch.Tensor
+    work: Any
+    scale: Optional[torch.Tensor]
+    dtype: Any
 
 
 @dataclass(frozen=True)
@@ -53,6 +91,8 @@ class GatherPlan:
     gather_buckets: Tuple[int, ...] = ()
     gather_leaves: Tuple[Tuple[int, int], ...] = ()
     passthrough: Tuple[int, ...] = ()
+    live: LiveBytes = field(default_factory=LiveBytes, compare=False,
+                            repr=False)
 
     @classmethod
     def from_buckets(cls, plan: GradBuckets, *,
@@ -98,34 +138,93 @@ class GatherPlan:
         return max(sum(sizes[k:k + width])
                    for k in range(len(sizes) - width + 1))
 
+    def chunk(self, k: int, leaves: Sequence[torch.Tensor],
+              bufs: Optional[Sequence[Optional[torch.Tensor]]] = None
+              ) -> torch.Tensor:
+        """This rank's chunk of gather bucket ``k``: ``bufs[b]`` where the
+        shards live in a bucket buffer, else the member shards
+        concatenated."""
+        b = self.gather_buckets[k]
+        if bufs is not None and bufs[b] is not None:
+            return bufs[b]
+        return torch.cat([leaves[i].detach().reshape(-1)
+                          for i in self.plan.buckets[b]])
+
+    def issue(self, k: int, chunk: torch.Tensor, group: Any = None, *,
+              scale: Optional[torch.Tensor] = None,
+              out: Optional[torch.Tensor] = None) -> Gathering:
+        """Issue gather bucket ``k``'s ``all_gather`` of ``chunk`` over
+        ``group`` asynchronously, into ``out`` where given (a 1-D buffer of
+        the bucket's size) and counted in :attr:`live`. With ``scale``
+        the chunk is quantized first and int8 crosses the wire."""
+        plan, b = self.plan, self.gather_buckets[k]
+        dtype = chunk.dtype
+        if scale is not None:
+            from tony_tpu_torch.ops.quant import quantize
+
+            chunk, out = quantize(chunk, scale), None
+        if out is None:
+            out = chunk.new_empty(chunk.numel() * plan.shard_size)
+        work = _all_gather_into(out, chunk, group)
+        self.live.add(plan.bucket_nbytes[b],
+                      plan.bucket_numel[b] if scale is not None
+                      else plan.bucket_nbytes[b])
+        return Gathering(out, work, scale, dtype)
+
+    @staticmethod
+    def finish(g: Gathering) -> torch.Tensor:
+        """Wait for a gather (on the card: the current stream waits for
+        the collective's) and return the gathered buffer in the bucket's
+        dtype: on the quantized lane, the int8 codes dequantized with the
+        shared scale."""
+        g.work.wait()
+        if g.scale is None:
+            return g.buf
+        from tony_tpu_torch.ops.quant import dequantize
+
+        return dequantize(g.buf, g.scale, g.dtype)
+
+    def release(self, k: int) -> None:
+        """Gather bucket ``k``'s gathered bytes are freed."""
+        self.live.sub(self.plan.bucket_nbytes[self.gather_buckets[k]])
+
     def gather(self, leaves: Sequence[torch.Tensor], group: Any = None, *,
-               bufs: Optional[Sequence[Optional[torch.Tensor]]] = None
+               bufs: Optional[Sequence[Optional[torch.Tensor]]] = None,
+               scales: Optional[Sequence[torch.Tensor]] = None
                ) -> Dict[int, torch.Tensor]:
         """This rank's shards → ``{leaf index: whole leaf}`` for every
         gathered leaf, one ``all_gather`` over ``group`` (the fsdp group)
-        per bucket. ``bufs[b]``, where given, is bucket ``b``'s local
-        buffer (:class:`~tony_tpu_torch.parallel.overlap.ShardBuckets`),
-        sent as it is; otherwise the member shards are concatenated.
-        Bucket ``k``'s gather is issued only once bucket ``k − prefetch``'s
-        has completed, which bounds the gathered bytes in flight; every
-        gather is waited for (on the card: the current stream waits for
-        the collective's stream) before the leaves are returned."""
+        per bucket (:meth:`chunk` is what each rank sends). Bucket ``k``'s
+        gather is issued only once bucket ``k − prefetch``'s has
+        completed, which bounds the gathered bytes in flight; every
+        gather is waited for before the leaves are returned. ``scales``
+        (one f32 scale per gather bucket, the same on every rank) sends
+        int8 codes and dequantizes them on arrival: bitwise quantize
+        after the gather, since every shard shares the scale."""
         plan = self.plan
-        size = plan.shard_size
-        pending: List[Tuple[int, torch.Tensor, Any]] = []
+        pending: List[Tuple[int, Gathering]] = []
+        out: Dict[int, torch.Tensor] = {}
         for k, b in enumerate(self.gather_buckets):
             if self.prefetch and k >= self.prefetch:
-                pending[k - self.prefetch][2].wait()
-            chunk = bufs[b] if bufs is not None and bufs[b] is not None \
-                else torch.cat([leaves[i].detach().reshape(-1)
-                                for i in plan.buckets[b]])
-            full, work = _all_gather(chunk, size, group, async_op=True)
-            pending.append((b, full, work))
-        out: Dict[int, torch.Tensor] = {}
-        for b, full, work in pending:
-            work.wait()
-            out.update(plan.leaf_buffers(b, full, layout="gathered"))
+                pending[k - self.prefetch][1].work.wait()
+            pending.append((b, self.issue(
+                k, self.chunk(k, leaves, bufs), group,
+                scale=None if scales is None else scales[k])))
+        for k, (b, g) in enumerate(pending):
+            out.update(plan.leaf_buffers(b, self.finish(g),
+                                         layout="gathered"))
+            self.release(k)
         return out
+
+
+def _all_gather_into(out: torch.Tensor, chunk: torch.Tensor,
+                     group: Any) -> Any:
+    """``out`` ← ``chunk`` gathered rank-major over ``group``; returns the
+    async work handle."""
+    gather = getattr(td, "all_gather_single", None) \
+        or td.all_gather_into_tensor
+    return gather(out, chunk.contiguous().view(-1), group=group,
+                  async_op=True)
 
 
 def record_reduce_levels(tag: str, levels: Sequence[dict]) -> None:

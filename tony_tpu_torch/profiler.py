@@ -21,7 +21,16 @@ sums the bytes into each step's ``collective_bytes``.
 
 Overlap (:func:`record_overlap`): the accumulating step's bucket plan
 under ``"accum_step"`` (buckets, bytes, microbatches, reduce op, sync
-group, ZeRO-3 and its scatter and padded bucket counts, the levels).
+group, ZeRO-3 and its scatter and padded bucket counts, the levels) and,
+on the ZeRO-3 gather window, its ``"window"``: the step's high-water
+mark of gathered bytes beside ``window_nbytes`` and the allowance, the
+forward's and the backward's gathers of a microbatch and the reduces of
+each bucket.
+
+Quantized gathers (:func:`record_quant`): ``"attach"`` when a state
+joins the int8 gather lane and ``"accum_gather"`` per step (the gather
+buckets, the history window, raw and int8 bytes per bucket, the bytes
+saved), the reference's ``quant_report()`` fields.
 
 Checkpoints (:func:`record_ckpt`): the async checkpointer records each
 save — the stall the train loop paid, the device→host extract, the
@@ -45,6 +54,7 @@ OVERLAP_RECORDS: Dict[str, Dict[str, object]] = {}
 CKPT_RECORDS: Dict[str, Dict[str, object]] = {}
 INPUT_RECORDS: Dict[str, Dict[str, object]] = {}
 SERVE_RECORDS: Dict[str, Dict[str, object]] = {}
+QUANT_RECORDS: Dict[str, Dict[str, object]] = {}
 
 
 def _snapshot(store: Dict[str, Dict[str, object]]
@@ -78,6 +88,19 @@ def overlap_report() -> Dict[str, Dict[str, object]]:
 
 def reset_overlap_records() -> None:
     OVERLAP_RECORDS.clear()
+
+
+def record_quant(tag: str, /, **fields) -> None:
+    """Bank one record of the quantized-gather lane."""
+    QUANT_RECORDS[tag] = dict(fields)
+
+
+def quant_report() -> Dict[str, Dict[str, object]]:
+    return _snapshot(QUANT_RECORDS)
+
+
+def reset_quant_records() -> None:
+    QUANT_RECORDS.clear()
 
 
 def record_ckpt(tag: str, **fields) -> None:

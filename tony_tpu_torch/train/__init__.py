@@ -273,6 +273,19 @@ class TrainState:
     mesh: Optional[Mesh] = None
 
 
+@dataclasses.dataclass
+class QuantTrainState(TrainState):
+    """A :class:`TrainState` on the quantized-gather lane
+    (:func:`tony_tpu_torch.ops.quant.with_gather_quant`): ``quant_state``
+    is ``{"amax": [one f32 [window] history per gather bucket]}``, the
+    same on every rank, and ``qconfig`` the
+    :class:`~tony_tpu_torch.ops.quant.QuantConfig` it was built for. The
+    parameters and the reduce are untouched: only the ZeRO-3 gathers'
+    wire is int8."""
+    qconfig: Any = None
+    quant_state: Any = None
+
+
 def param_specs(model: nn.Module) -> List[Tuple[Any, ...]]:
     """One spec per parameter (``model.parameters()`` order) from the
     model's logical axes (its ``logical_axes(name)``) through
@@ -519,7 +532,7 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
                              f"GradientTransformation, got {type(state.tx)}")
         loss, aux, grads = microbatch_grads(
             loss_fn, params, batch, mesh, microbatches=1,
-            param_specs=specs)
+            param_specs=specs, module=state.model)
         gnorm = sharded_global_norm(grads, params, mesh)
         state.opt_state = state.tx.update(grads, state.opt_state, params)
         state.step += 1
@@ -574,17 +587,28 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
     detected from the state, as the reference detects it from the
     committed shardings: on a ZeRO-3 state
     (:func:`~tony_tpu_torch.parallel.overlap.fsdp_param_specs`) each
-    microbatch gathers the sharded parameters (``gather="bucketed"``,
-    ``prefetch`` gathers in flight, or ``"per_leaf"`` — the same bits),
-    the scatter buckets' grads are reduce-scattered into the shard
-    layout and the update runs on each rank's shards (the fused update:
-    one kernel launch per bucket on the rank's chunk). ``hierarchy`` is
-    ``"auto"`` or ``"flat"`` (the same flat reduce); ``"hierarchical"``
-    (the multi-slice reduce, ROADMAP.md queue 1 item 8) and
-    ``quant=True`` (the int8 ZeRO-3 forward gathers, item 8) raise
-    ``NotImplementedError``. The quantized compute lane needs no switch
-    here: a model built with ``quant=`` carries it. ``donate`` is
-    accepted and has no effect: the step updates the state in place.
+    microbatch gathers the sharded parameters, the scatter buckets' grads
+    are reduce-scattered into the shard layout and the update runs on
+    each rank's shards (the fused update: one kernel launch per bucket
+    on the rank's chunk). ``gather="bucketed"`` runs the gather window
+    (:class:`~tony_tpu_torch.parallel.window.GatherWindow`): each bucket
+    gathered just before its readers, ``prefetch`` buckets ahead, freed
+    after them and gathered again for their backward, and reduced as
+    soon as its grads land, so a rank holds its shards and a window of
+    whole buckets; ``"per_leaf"`` gathers every leaf for the whole
+    microbatch (the numerics pin). Both give the same bits. ``hierarchy``
+    is ``"auto"`` or ``"flat"`` (the same flat reduce);
+    ``"hierarchical"`` (the multi-slice reduce, ROADMAP.md queue 1 item
+    8) raises ``NotImplementedError``.
+
+    ``quant=True`` sends the ZeRO-3 gathers as int8
+    (:mod:`tony_tpu_torch.ops.quant`): the state must be a
+    :class:`QuantTrainState` (``quant.with_gather_quant``) whose
+    delayed-scaling amax histories ride the step; it needs
+    ``gather="bucketed"`` and composes with both ``update`` modes. The
+    quantized compute lane needs no switch here: a model built with
+    ``quant=`` carries it. ``donate`` is accepted and has no effect: the
+    step updates the state in place.
 
     ``aot_cache`` (a :class:`tony_tpu_torch.ckpt.AOTCache`, e.g.
     :func:`shared_aot_cache`): before the first step, the kernel
@@ -620,10 +644,10 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
                          "(bucketed|per_leaf)")
     if prefetch < 0:
         raise ValueError(f"prefetch must be >= 0, got {prefetch}")
-    if quant:
-        raise NotImplementedError("quant=True (int8 ZeRO-3 forward gathers) "
-                                  "is not ported yet (ROADMAP.md, queue 1 "
-                                  "item 8)")
+    if quant and gather != "bucketed":
+        raise ValueError(
+            "quant=True quantizes the BUCKETED gather wire format; "
+            f"gather={gather!r} has no bucket boundary to quantize at")
     if loss_of is None:
         loss_of = lambda logits, batch: cross_entropy_loss(logits,
                                                            batch["y"])
@@ -651,7 +675,10 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
             mesh_kw = dict(reduce_op=reduce_op,
                            param_specs=fsdp_param_specs(params, mesh),
                            hierarchy=hierarchy, gather=gather,
-                           prefetch=prefetch)
+                           prefetch=prefetch, module=model)
+        if quant:
+            mesh_kw["quant_amax"] = _quant_amax(state, mesh, update,
+                                                bucket_bytes)
         if update == "fused_bucket":
             tx = state.tx
             if not isinstance(tx, FusedOptimizer):
@@ -668,7 +695,7 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
                     f"bucket-resident opt state and wins; set it there")
             count = state.opt_state["count"] + 1
             scal = tx.scalars(count, params[0].device)
-            loss, aux, gnorm = microbatch_grads(
+            loss, aux, gnorm, *amax = microbatch_grads(
                 loss_fn, params, batch, mesh, microbatches=microbatches,
                 resident=state.buckets, fused=tx,
                 opt_slots=state.opt_state["slots"], opt_scal=scal,
@@ -680,17 +707,44 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
                 raise ValueError(
                     f"update='optax' needs a state whose tx is a "
                     f"GradientTransformation, got {type(state.tx)}")
-            loss, aux, grads = microbatch_grads(
+            loss, aux, grads, *amax = microbatch_grads(
                 loss_fn, params, batch, mesh, microbatches=microbatches,
                 bucket_bytes=bucket_bytes, **mesh_kw)
             gnorm = sharded_global_norm(grads, params, mesh) \
                 if mesh_kw.get("param_specs") is not None \
                 else global_norm(grads)
             state.opt_state = state.tx.update(grads, state.opt_state, params)
+        if quant:
+            state.quant_state = {"amax": amax[0]}
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
 
     return stepper
+
+
+def _quant_amax(state: Any, mesh: Optional[Mesh], update: str,
+                bucket_bytes: int) -> List[torch.Tensor]:
+    """The quantized step's amax histories, after checking that the state
+    rides the lane with the step's bucket plan."""
+    from tony_tpu_torch.ops import quant as quant_mod
+
+    if mesh is None:
+        raise ValueError("quant=True quantizes the ZeRO-3 gathers: it needs "
+                         "a mesh")
+    if not quant_mod.is_quant_state(state):
+        raise ValueError(
+            "quant=True needs a QuantTrainState carrying the "
+            "delayed-scaling amax state — attach it with "
+            "tony_tpu_torch.ops.quant.with_gather_quant(state, mesh)")
+    bb = getattr(state.tx, "bucket_bytes", bucket_bytes) \
+        if update == "fused_bucket" else bucket_bytes
+    if state.qconfig.bucket_bytes != bb:
+        raise ValueError(
+            f"quant=True: the state's QuantConfig.bucket_bytes="
+            f"{state.qconfig.bucket_bytes} disagrees with the step's {bb} "
+            f"— the amax histories were sized for a different bucket "
+            f"plan; rebuild with with_gather_quant(bucket_bytes={bb})")
+    return state.quant_state["amax"]
 
 
 def _step_libraries(model: nn.Module, update: str) -> Tuple[str, ...]:
