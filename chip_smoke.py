@@ -112,7 +112,15 @@ caught):
    int8 bytes a quarter of the raw ones, ``gather_roundtrip_exact`` true
    on NCCL. On one card a line says that (c)-(e) did not run and why.
    ``python3 chip_smoke.py --zero3-cards-only`` runs (c)-(e) and their
-   references alone;
+   references alone. ``python3 chip_smoke.py --ckpt-depth-only`` runs
+   alone, on one card, the save of an unsharded llama2-7b at 16 layers
+   with per-leaf AdamW (3.50 B parameters; the deepest depth above 12
+   the host's memory and disk hold, with the reason, where 16 does not
+   fit) after one step: its whole staging does not fit beside the state,
+   so it stages in pieces (the staged bytes ``torch.equal`` the live
+   state, the buffer within the budget), writes ~42 GB and restores into
+   a fresh state equal to the saved one chunk for chunk; it prints the
+   staging high-water mark beside the budget, the stall and the peak;
 8. serve_quant — the serve phase's model, seed and 16-request mix with
    ``quant=True`` (int8 qkv/o/mlp projections through ``int8_matmul``):
    every request completes, the int8 kernel ran 7 × 32 times per
@@ -144,6 +152,17 @@ caught):
    every block's exit scale 1: the elementwise kernels bitwise their
    plain versions in the model; the kernels against the plain versions;
    the fused lane against the plain lane;
+10a. train_resnet_ckpt — the same model and optimizer through
+   ``train_loop`` with deterministic cuDNN, a seeded batch a step made on
+   the card: run A 8 steps uninterrupted; run B from the same weights
+   with a save at step 4 (the portable form: flax ``params`` with HWIO
+   conv kernels, ``batch_stats``, optax sgd's trace), killed after step
+   6, then resumed by ``train_loop`` from other weights; B's step-8
+   parameters, BN buffers and traces ``torch.equal`` A's, the losses of
+   steps 5-8 equal, rows 10-13 launched exactly 4 steps' counts after
+   the restore; then the step-8 state saved whole-staged and through a
+   1 MiB staging budget in pieces writes the same bytes. The save's
+   stall, write and bytes and the restore's seconds are printed;
 11. train_loop — the train phase's model, weights and batch as a TonY
    job steps them: ``xent_chunk=1024`` (the chunked LM-head loss),
    ``remat_policy="dots"``, AdamW(3e-4) and
@@ -210,6 +229,7 @@ caught):
    ``{"train_fused": {...}}`` line, a ``{"train_zero3": {...}}`` line,
    a ``{"quant": {...}}`` line, a
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
+   ``{"train_resnet_ckpt": {...}}`` line, a
    ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
    ``{"serve_replica": {...}}`` line, the ``{"serve_prefix": ...}``,
    ``{"serve_spec": ...}`` and ``{"serve_coldstart": ...}`` lines, the
@@ -3703,6 +3723,210 @@ def train_resnet_phase(card: str):
             "plain_lane": plain_run, "first_loss_fused_vs_plain_rel": rel,
             "checks": checks, "card": card}
 
+# ---------------------------------------------------------------------
+# train_resnet_ckpt: ResNet-50 with SGD saved, killed and resumed through
+# train_loop.
+# ---------------------------------------------------------------------
+
+RESNET_CKPT_EVERY, RESNET_CKPT_KILL = 4, 6
+RESNET_CKPT_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "build", "resnet_ckpt_smoke")
+# The forced staging budget of the same save in pieces (bytes): the
+# largest chunk (a stage-4 3x3 conv kernel, 9.4 MB) sets the buffer.
+RESNET_PIECE_BUDGET = 1 << 20
+
+
+def resnet_batches(start, stop):
+    """Batches ``start``..``stop - 1`` of RESNET_BATCH seeded images and
+    labels, each made on the card from its own seed: a resumed run reads
+    the batches an uninterrupted one reads at the same steps."""
+    for i in range(start, stop):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1000 + i)
+        x = torch.randn((RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3),
+                        generator=gen, device="cuda")
+        y = torch.randint(0, 1000, (RESNET_BATCH,), generator=gen,
+                          device="cuda")
+        yield {"x": x.to(torch.bfloat16), "y": y}
+
+
+def resnet_state_tensors(state):
+    """Every parameter, BN buffer and momentum trace of a ResNet train
+    state, cloned."""
+    model = state.model
+    out = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    names = [n for n, _ in model.named_parameters()]
+    out.update({f"trace:{n}": t.clone()
+                for n, t in zip(names, state.opt_state.trace)})
+    return out
+
+
+def resnet_ckpt_run(tag, seed, ckpt_dir="", save_every=0, kill=None):
+    """ResNet-50 (fused BN lane, s2d stem, bf16 compute) from ``seed``
+    through ``train_loop`` with ``sgd(0.1, momentum=0.9)`` up to step
+    RESNET_STEPS: a ``ckpt_dir`` arms the restore and, with
+    ``save_every``, the saves (no final save); ``kill`` ends the run after
+    that many steps. Returns the run's numbers and its state."""
+    model = get_model("resnet50", device="cuda", fused_bn=True,
+                      s2d_stem=True, seed=seed)
+    state = create_train_state(model, sgd(RESNET_LR,
+                                          momentum=RESNET_MOMENTUM))
+    step = make_train_step(apply_kwargs_of=lambda b: {"train": True})
+    start = (ckpt.latest_step(ckpt_dir) or 0) if ckpt_dir else 0
+    losses = []
+
+    def on_step(i, metrics):
+        losses.append(float(metrics["loss"]))     # syncs
+        if kill is not None and i == kill:
+            raise _Killed(i)
+
+    for name in BN_NAMES:
+        LAUNCHES[name] = 0
+    profiler.reset_ckpt_records()
+    t0 = time.monotonic()
+    try:
+        state, _ = train_loop(state, step,
+                              resnet_batches(start, RESNET_STEPS),
+                              ckpt_dir=ckpt_dir, save_every=save_every,
+                              save_final=False, on_step=on_step)
+    except _Killed:
+        pass
+    torch.cuda.synchronize()
+    run = {"tag": tag, "start_step": start, "steps": len(losses),
+           "losses": losses, "seconds": time.monotonic() - t0,
+           "launches": {n: LAUNCHES[n] for n in BN_NAMES},
+           "final_step": state.step, "saves": recorded_save(),
+           "restore": profiler.ckpt_report().get("restore")}
+    log(f"  {tag}: steps {start + 1}..{start + len(losses)} in "
+        f"{run['seconds']:.1f} s, losses {[round(x, 5) for x in losses]}"
+        + "".join(f"; save at step {v['step']}: stall {v['stall_ms']:.1f} "
+                  f"ms, write {v['write_s']:.3f} s, {v['nbytes']} bytes, "
+                  f"{v['pieces']} piece(s)" for v in run["saves"])
+        + (f"; restore {run['restore']['seconds']:.3f} s"
+           if run["restore"] else ""))
+    return run, state
+
+
+def step_files(root, step):
+    """The shard files of a committed step, name → bytes."""
+    d = ckpt.step_dir(root, step)
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir())
+            if p.name.endswith(".bin")}
+
+
+def save_both_ways(state, root):
+    """``state`` saved whole-staged and through RESNET_PIECE_BUDGET in
+    pieces: the pieces save's record and whether both wrote the same
+    bytes."""
+    tree = ckpt.encode_portable(state)
+    snaps = {}
+    for how, budget in (("whole", None), ("pieces", RESNET_PIECE_BUDGET)):
+        saved = ckpt_snapshot._STAGING_BUDGET
+        ckpt_snapshot._STAGING_BUDGET = budget
+        try:
+            mgr = ckpt.AsyncCheckpointer(os.path.join(root, how))
+            snaps[how] = mgr.save(tree, step=state.step, block=True)
+            mgr.close()
+        finally:
+            ckpt_snapshot._STAGING_BUDGET = saved
+    same = step_files(os.path.join(root, "whole"), state.step) == \
+        step_files(os.path.join(root, "pieces"), state.step)
+    return snaps, same
+
+
+def train_resnet_ckpt_phase(card: str):
+    """ResNet-50 at batch 256 on the fused BN lane with deterministic
+    cuDNN: run A 8 steps uninterrupted; run B saves at step 4 through
+    train_loop, is killed after step 6 and resumed to step 8 from other
+    weights; B's step-8 parameters, BN buffers and traces torch.equal
+    A's, rows 10-13 launched their exact counts after the restore; the
+    step-8 state saved whole and in pieces writes the same bytes."""
+    shutil.rmtree(RESNET_CKPT_ROOT, ignore_errors=True)
+    os.makedirs(RESNET_CKPT_ROOT)
+    try:
+        with deterministic_cudnn():
+            return train_resnet_ckpt_run(card)
+    finally:
+        shutil.rmtree(RESNET_CKPT_ROOT, ignore_errors=True)
+
+
+def train_resnet_ckpt_run(card: str):
+    root = os.path.join(RESNET_CKPT_ROOT, "B")
+    run_a, state = resnet_ckpt_run("A (uninterrupted)", SEED)
+    ref = resnet_state_tensors(state)
+    del state
+    run_b1, state = resnet_ckpt_run("B (killed after step 6)", SEED, root,
+                                    save_every=RESNET_CKPT_EVERY,
+                                    kill=RESNET_CKPT_KILL)
+    del state
+    committed = ckpt.committed_steps(root)
+    if committed != [RESNET_CKPT_EVERY] or run_b1["steps"] != \
+            RESNET_CKPT_KILL:
+        raise AssertionError(f"train_resnet_ckpt: B committed {committed} "
+                             f"after {run_b1['steps']} steps")
+    run_b2, state = resnet_ckpt_run("B (resumed, other weights)", SEED + 1,
+                                    root)
+    got = resnet_state_tensors(state)
+    differ = [n for n in ref if not torch.equal(ref[n], got[n])]
+    control = None
+    if differ:
+        # Whether two uninterrupted runs agree at all on this machine.
+        _, again = resnet_ckpt_run("A again (control)", SEED)
+        control = [n for n in ref
+                   if not torch.equal(ref[n], resnet_state_tensors(again)[n])]
+        raise AssertionError(
+            f"train_resnet_ckpt: the resumed step 8 differs from A's in "
+            f"{len(differ)} of {len(ref)} tensors ({differ[:4]}); two "
+            f"uninterrupted runs differ in {len(control)}")
+    after = RESNET_STEPS - RESNET_CKPT_EVERY
+    expect = {k: v * after for k, v in RESNET_BN_PER_STEP.items()}
+    if run_b2["start_step"] != RESNET_CKPT_EVERY or run_b2["final_step"] \
+            != RESNET_STEPS or run_b2["launches"] != expect:
+        raise AssertionError(f"train_resnet_ckpt: resumed at "
+                             f"{run_b2['start_step']}, ended at "
+                             f"{run_b2['final_step']}, launches "
+                             f"{run_b2['launches']} != {expect}")
+    if run_b2["losses"] != run_a["losses"][RESNET_CKPT_EVERY:]:
+        raise AssertionError(f"train_resnet_ckpt: losses after the restore "
+                             f"{run_b2['losses']} != A's "
+                             f"{run_a['losses'][RESNET_CKPT_EVERY:]}")
+    n_params = len([n for n in ref if n.startswith("trace:")])
+    log(f"  B's step {RESNET_STEPS} == A's: {len(ref)} tensors torch.equal "
+        f"({n_params} parameters, their traces, "
+        f"{len(ref) - 2 * n_params} BN buffers); losses of steps "
+        f"{RESNET_CKPT_EVERY + 1}-{RESNET_STEPS} equal; launches after the "
+        f"restore {run_b2['launches']}")
+    snaps, same = save_both_ways(state, os.path.join(RESNET_CKPT_ROOT, "AB"))
+    pieces, whole = snaps["pieces"], snaps["whole"]
+    if not same or whole.pieces != 1 or pieces.pieces < 2:
+        raise AssertionError(f"train_resnet_ckpt: whole ({whole.pieces} "
+                             f"piece) and in pieces ({pieces.pieces}) "
+                             f"wrote the same bytes: {same}")
+    log(f"  step {RESNET_STEPS} saved whole and in {pieces.pieces} pieces "
+        f"of a {pieces.staging_nbytes} byte buffer (budget "
+        f"{RESNET_PIECE_BUDGET}): the same bytes on disk; stall "
+        f"{1e3 * whole.stall_s:.1f} ms whole, "
+        f"{1e3 * pieces.stall_s:.1f} ms in pieces")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    save, restore = run_b1["saves"][0], run_b2["restore"]
+    return {"model": "resnet50 fused_bn=True s2d_stem=True bf16 compute",
+            "batch": RESNET_BATCH, "image": RESNET_IMAGE, "lr": RESNET_LR,
+            "momentum": RESNET_MOMENTUM, "cudnn_deterministic": True,
+            "save_every": RESNET_CKPT_EVERY, "killed_after": RESNET_CKPT_KILL,
+            "state_bytes": save["nbytes"], "save": save,
+            "restore_s": restore["seconds"], "restore": restore,
+            "tensors_equal": len(ref), "runs": [run_a, run_b1, run_b2],
+            "launches_after_restore": run_b2["launches"],
+            "pieces": {"budget": RESNET_PIECE_BUDGET,
+                       "pieces": pieces.pieces,
+                       "staging_nbytes": pieces.staging_nbytes,
+                       "stall_ms": 1e3 * pieces.stall_s,
+                       "whole_stall_ms": 1e3 * whole.stall_s,
+                       "same_bytes": same},
+            "card": card}
+
+
 
 # ---------------------------------------------------------------------
 # Train loop phase: the step of a TonY job (data-parallel mesh, the
@@ -4090,14 +4314,17 @@ def token_stream(mesh, data_path, steps):
 def recorded_save():
     """The run's one save as its writer thread recorded it (profiler
     record ``async_save``: stall, allocation, staging, device-to-host and
-    write times), or none."""
+    write times, and the device staging's pieces, buffer and budget), or
+    none."""
     r = profiler.ckpt_report().get("async_save")
     if r is None:
         return []
     return [{"step": r["step"], "stall_ms": 1e3 * r["stall_s"],
              "alloc_ms": 1e3 * r["alloc_s"], "stage_ms": 1e3 * r["stage_s"],
              "d2h_ms": 1e3 * r["d2h_s"], "write_s": r["write_s"],
-             "nbytes": r["nbytes"]}]
+             "nbytes": r["nbytes"], "pieces": r["pieces"],
+             "staging_nbytes": r["staging_nbytes"],
+             "budget_nbytes": r["budget_nbytes"]}]
 
 
 def ckpt_run(tag, mesh, seed, data_path, ckpt_dir=None, save_every=0,
@@ -4379,6 +4606,9 @@ def train_ckpt_run(card: str, loop_p50_ms):
     if ckpt.committed_steps(b_root) != [CKPT_EVERY]:
         raise AssertionError(f"train_ckpt: B committed "
                              f"{ckpt.committed_steps(b_root)}")
+    if [v["pieces"] for v in run_b1["saves"]] != [1]:
+        raise AssertionError(f"train_ckpt: the {TRAIN_LAYERS}-layer save "
+                             f"was not staged whole: {run_b1['saves']}")
     if run_b2["start_step"] != CKPT_EVERY or run_b2["final_step"] != \
             TRAIN_STEPS or run_b1["steps"] != CKPT_KILL_AFTER \
             or run_a["final_step"] != TRAIN_STEPS:
@@ -4446,6 +4676,203 @@ def train_ckpt_run(card: str, loop_p50_ms):
             "max_memory_allocated_with_save":
                 run_b1["max_memory_allocated"],
             "small": small, "card": card, "serve_replica": replica}
+
+
+# ---------------------------------------------------------------------
+# --ckpt-depth-only: an unsharded state whose whole staging does not fit
+# on the card, saved in pieces.
+# ---------------------------------------------------------------------
+
+# llama2-7b unsharded with per-leaf AdamW: 16 bytes a parameter for the
+# step (f32 params, grads, mu, nu) and 12 for a whole-staged save do not
+# fit in 80 GB at 16 layers (3.50 B parameters, ~98 GB); in pieces ~56 GB
+# plus one piece. The save writes 12 bytes a parameter (42.0 GB at 16
+# layers), under CKPT_WRITE_LIMIT.
+DEPTH_LAYERS, DEPTH_MIN_LAYERS = 16, 13
+DEPTH_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "ckpt_depth_smoke")
+# Host memory left beside the pinned slot (the checkpointer's own margin,
+# the restore's pinned buffer and the interpreter).
+DEPTH_HOST_MARGIN = ckpt_snapshot._HOST_MARGIN + (4 << 30)
+
+
+def decoder_params(layers):
+    """llama2-7b's parameter count at ``layers`` layers (a meta-device
+    model: nothing is allocated)."""
+    cfg = TransformerConfig(n_layers=layers)
+    return sum(p.numel() for p in Transformer(cfg, device="meta")
+               .parameters())
+
+
+def depth_layers():
+    """DEPTH_LAYERS, or the deepest depth down to DEPTH_MIN_LAYERS whose
+    checkpoint (12 bytes a parameter) the host's free memory (one pinned
+    slot), its disk and the command's write limit hold; with why."""
+    avail = meminfo_available()
+    free = shutil.disk_usage(os.path.dirname(DEPTH_ROOT)).free
+    for layers in range(DEPTH_LAYERS, DEPTH_MIN_LAYERS - 1, -1):
+        nbytes = 12 * decoder_params(layers)
+        short = [what for what, ok in (
+            ("host memory", nbytes + DEPTH_HOST_MARGIN <= avail),
+            ("disk", 1.1 * nbytes <= free),
+            ("write limit", nbytes <= CKPT_WRITE_LIMIT)) if not ok]
+        if not short:
+            why = None if layers == DEPTH_LAYERS else (
+                f"{DEPTH_LAYERS} layers: too little {', '.join(last)}")
+            return layers, nbytes, avail, free, why
+        last = short
+    raise RuntimeError(f"--ckpt-depth-only: not even {DEPTH_MIN_LAYERS} "
+                       f"layers fit ({', '.join(last)}; host "
+                       f"MemAvailable {avail / 1e9:.1f} GB, free disk "
+                       f"{free / 1e9:.1f} GB)")
+
+
+def chunks_equal_on_card(tree, chunks):
+    """Each part of ``tree`` this process owns against the host chunk of
+    a snapshot of the same structure, byte for byte: card tensors on the
+    card (``torch.equal`` of their integer views, one chunk at a time),
+    host leaves on the host. Returns the paths that differ."""
+    leaves, parts = ckpt_snapshot._owned_parts(tree)
+    if len(parts) != len(chunks):
+        return ["<chunk count>"]
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bad = []
+    for (li, start, value, perm, region), (lc, sc, host) in zip(parts,
+                                                               chunks):
+        path = leaves[li]["path"]
+        if (li, list(start), tuple(region)) != (lc, sc, host.shape):
+            bad.append(path)
+            continue
+        if not isinstance(value, torch.Tensor):
+            if not np.array_equal(np.asarray(value).reshape(region), host):
+                bad.append(path)
+            continue
+        kind = ints[value.element_size()]
+        live = ckpt_snapshot._oriented(value, perm).contiguous().view(kind)
+        saved = torch.from_numpy(np.ascontiguousarray(host).reshape(-1)
+                                 .view(np.uint8)).to(value.device)
+        if not torch.equal(live.reshape(-1), saved.view(kind)):
+            bad.append(f"{path} {start}")
+        del live, saved
+    return bad
+
+
+def ckpt_depth_phase(card: str):
+    """llama2-7b unsharded at DEPTH_LAYERS (or the deepest the host
+    holds) with per-leaf AdamW: one step, a save whose whole staging does
+    not fit on the card, staged in pieces (the staged bytes torch.equal
+    the live state); a fresh state from other weights restores it and
+    equals the saved one chunk for chunk on the card."""
+    layers, nbytes, avail, free, why = depth_layers()
+    log(f"  depth {layers} layers ({nbytes / 1e9:.2f} GB a checkpoint); "
+        f"host MemAvailable {avail / 1e9:.1f} GB, free disk "
+        f"{free / 1e9:.1f} GB" + (f"; {why}" if why else ""))
+    shutil.rmtree(DEPTH_ROOT, ignore_errors=True)
+    os.makedirs(DEPTH_ROOT)
+    try:
+        out = ckpt_depth_run(layers, DEPTH_ROOT)
+    finally:
+        shutil.rmtree(DEPTH_ROOT, ignore_errors=True)
+    out.update(layers=layers, reduced_because=why, host_mem_available=avail,
+               disk_free=free, card=card)
+    return out
+
+
+def ckpt_depth_run(layers, root):
+    state = create_train_state(ckpt_model(layers, SEED), adamw(TRAIN_LR))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, CKPT_VOCAB, (TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32),
+        device="cuda")
+    step = make_train_step(lambda out, b: out,
+                           apply_kwargs_of=lambda b: {"targets": b["x"]})
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, {"x": tokens})
+    loss = float(metrics["loss"])
+    step_peak = torch.cuda.max_memory_allocated()
+    tree = ckpt.encode_portable(state)
+    parts = ckpt_snapshot._owned_parts(tree)[1]
+    sizes = [t.numel() * t.element_size() for _, _, t, _, _ in parts
+             if isinstance(t, torch.Tensor) and t.is_cuda]
+    whole = sum(-(-n // 256) * 256 for n in sizes)
+    largest = max(sizes)
+    budget = ckpt_snapshot.staging_budget(torch.device("cuda"))
+    allocated = torch.cuda.memory_allocated()
+    log(f"  {n_params} parameters; step loss {loss:.4f}, step peak "
+        f"{step_peak / 1e9:.2f} GB; allocated {allocated / 1e9:.2f} GB; "
+        f"whole staging {whole / 1e9:.2f} GB against a budget of "
+        f"{budget / 1e9:.2f} GB")
+    if whole <= budget:
+        raise AssertionError(f"--ckpt-depth-only: the whole staging "
+                             f"({whole / 1e9:.2f} GB) fits the budget "
+                             f"({budget / 1e9:.2f} GB): nothing in pieces")
+    profiler.reset_ckpt_records()
+    torch.cuda.reset_peak_memory_stats()
+    mgr = ckpt.AsyncCheckpointer(root, keep=1)
+    snap = mgr.save(tree, step=state.step)
+    chunks = snap.chunks          # views of the pinned slot, kept
+    save_peak = torch.cuda.max_memory_allocated()
+    high_water = save_peak - allocated
+    t0 = time.monotonic()
+    staged_bad = chunks_equal_on_card(tree, chunks)
+    check_s = time.monotonic() - t0
+    mgr.wait()
+    mgr.close()
+    save = recorded_save()[0]
+    budget = snap.budget_nbytes          # the save's own reading
+    if staged_bad or snap.pieces < 2:
+        raise AssertionError(f"--ckpt-depth-only: {snap.pieces} piece(s); "
+                             f"staged bytes differ from the live state at "
+                             f"{staged_bad[:4]}")
+    if snap.staging_nbytes > max(budget, largest) \
+            or high_water > budget + largest:
+        raise AssertionError(f"--ckpt-depth-only: staging buffer "
+                             f"{snap.staging_nbytes}, high-water "
+                             f"{high_water} past the budget {budget} + the "
+                             f"largest chunk {largest}")
+    log(f"  save in {snap.pieces} pieces of a "
+        f"{snap.staging_nbytes / 1e9:.2f} GB buffer: stall "
+        f"{snap.stall_s:.2f} s (staging {snap.stage_s:.3f} s, "
+        f"device-to-host {snap.d2h_s:.2f} s, pinning and allocation "
+        f"{snap.alloc_s:.2f} s), staging high-water "
+        f"{high_water / 1e9:.2f} GB against the budget "
+        f"{budget / 1e9:.2f} GB + largest chunk {largest / 1e9:.3f} GB; "
+        f"peak {save_peak / 1e9:.2f} GB; staged bytes equal the live "
+        f"state ({check_s:.1f} s); write {save['write_s']:.1f} s")
+    del tree, state, metrics, step, parts
+    gc.collect()
+    torch.cuda.empty_cache()
+    fresh = create_train_state(ckpt_model(layers, SEED + 1),
+                               adamw(TRAIN_LR))
+    profiler.reset_ckpt_records()
+    fresh = ckpt.decode_portable(ckpt.restore_pytree(
+        root, ckpt.encode_portable(fresh)))
+    restore = profiler.ckpt_report()["restore"]
+    t0 = time.monotonic()
+    restored_bad = chunks_equal_on_card(ckpt.encode_portable(fresh), chunks)
+    check2_s = time.monotonic() - t0
+    if restored_bad or fresh.step != 1 or fresh.opt_state.count != 1:
+        raise AssertionError(f"--ckpt-depth-only: the restored state "
+                             f"differs at {restored_bad[:4]} (step "
+                             f"{fresh.step}, count {fresh.opt_state.count})")
+    log(f"  restore {restore['seconds']:.1f} s (host-to-device "
+        f"{restore['h2d_s']:.2f} s); the restored state equals the saved "
+        f"one chunk for chunk on the card ({len(chunks)} chunks, "
+        f"{check2_s:.1f} s)")
+    del fresh, chunks, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": f"llama2-7b n_layers={layers}/32 unsharded, per-leaf "
+                     f"AdamW, xent_chunk={LOOP_XENT_CHUNK}, remat "
+                     f"{LOOP_POLICY}", "params": n_params, "loss": loss,
+            "checkpoint_bytes": save["nbytes"], "whole_staging_bytes": whole,
+            "budget_bytes": budget, "largest_chunk_bytes": largest,
+            "pieces": save["pieces"],
+            "staging_nbytes": save["staging_nbytes"],
+            "staging_high_water_bytes": high_water,
+            "allocated_before_save": allocated, "step_peak": step_peak,
+            "save_peak": save_peak, "save": save, "restore": restore,
+            "staged_equal_live": True, "restored_equal_saved": True}
 
 
 # ---------------------------------------------------------------------
@@ -4851,6 +5278,7 @@ def main() -> int:
             "script needs a GPU")
         return 1
     cards_only = "--zero3-cards-only" in sys.argv[1:]
+    depth_only = "--ckpt-depth-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4870,6 +5298,18 @@ def main() -> int:
             if "registers" in line or "spill" in line or (
                     name == "flash_decode" and "entry function" in line):
                 log(f"    {line.strip()}")
+
+    if depth_only:
+        # An unsharded state whose whole staging does not fit, saved in
+        # pieces and restored (a separate command: it writes ~42 GB).
+        log("[ckpt_depth]")
+        res = ckpt_depth_phase(card)
+        print(json.dumps({"ckpt_depth": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     if cards_only:
         # The ZeRO-3 step across the cards and its one-card reference
@@ -4981,6 +5421,13 @@ def main() -> int:
     # lane, then one f32 step's comparisons.
     log("[train_resnet]")
     train_resnet = train_resnet_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 10a: ResNet-50 with SGD saved, killed and resumed through
+    # train_loop.
+    log("[train_resnet_ckpt]")
+    train_resnet_ckpt = train_resnet_ckpt_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5143,7 +5590,12 @@ def main() -> int:
             "name": name, "route": "cuda", "row": row,
             "source": "tony_tpu_torch/ops/csrc/batchnorm.cu",
             "replaces": f"tony_tpu/ops/batchnorm.py:{line}",
-            "launches": train_resnet["launches"][name],
+            "launches": train_resnet["launches"][name]
+            + train_resnet_ckpt["launches_after_restore"][name],
+            "launches_by_path": {
+                "train_resnet": train_resnet["launches"][name],
+                "train_resnet_ckpt_after_restore":
+                    train_resnet_ckpt["launches_after_restore"][name]},
             "max_abs_err": bn_kernels["max_abs_err"][name],
             "sum_rel_err": bn_kernels["sum_rel"].get(name),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -5170,6 +5622,7 @@ def main() -> int:
                                 "train_quant": train_quant}}), flush=True)
     print(json.dumps({"bn_shapes": bn_kernels}), flush=True)
     print(json.dumps({"resnet": train_resnet}), flush=True)
+    print(json.dumps({"train_resnet_ckpt": train_resnet_ckpt}), flush=True)
     print(json.dumps({"train_loop": train_loop_res}), flush=True)
     print(json.dumps({"train_ckpt": train_ckpt}), flush=True)
     print(json.dumps({"serve_replica": serve_replica}), flush=True)

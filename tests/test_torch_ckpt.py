@@ -520,9 +520,16 @@ class TestTrainLoop:
         assert final.step == 1
 
     def test_unported_optimizer_state_raises(self, tmp_path):
-        state = _state(tx=ttrain.sgd(0.1, momentum=0.9))
+        """AdamW's and SGD's states have checkpoint forms
+        (tests/test_torch_ckpt_models.py holds SGD's); a per-leaf
+        optimizer with a state of its own has none yet, and the save
+        names the item that ports it."""
+        def init(params):
+            return {"m": [torch.zeros_like(p) for p in params]}
+
+        tx = ttrain.GradientTransformation(init, lambda g, s, p: s)
         with pytest.raises(NotImplementedError, match="item 3"):
-            ttrain.train_loop(state, _STEP, [_batch()],
+            ttrain.train_loop(_state(tx=tx), _STEP, [_batch()],
                               ckpt_dir=str(tmp_path))
 
     def test_checkpointer_shim_round_trip(self, tmp_path):

@@ -1442,3 +1442,57 @@ def test_accum_step_through_the_cache_builds_once(gen, tmp_path,
     for (n, p), q, r in zip(ref.model.named_parameters(),
                             a.model.parameters(), b.model.parameters()):
         assert torch.equal(p, q) and torch.equal(p, r), n
+
+
+@pytest.mark.parametrize("model", ["resnet18-thin", "llama-tiny"])
+def test_save_in_pieces_is_byte_identical(gen, tmp_path, monkeypatch, model):
+    """A save forced through a 64 KiB staging budget stages in pieces (a
+    buffer of the budget or of the largest chunk) and writes the same
+    bytes as a whole-staged save: conv weights in channels-last memory
+    permuted to flax's HWIO, transposed decoder kernels, the momentum
+    trace; the step restores into a fresh state ``torch.equal``."""
+    from tony_tpu_torch import ckpt
+    from tony_tpu_torch.ckpt import format as fmt
+    from tony_tpu_torch.ckpt import snapshot
+    from tony_tpu_torch.models import get_model
+    from tony_tpu_torch.train import create_train_state, sgd
+
+    def state_of(seed):
+        m = get_model(model, device="cuda", seed=seed)
+        if model == "resnet18-thin":
+            m = m.to(memory_format=torch.channels_last)
+        return create_train_state(m, sgd(0.1, momentum=0.9))
+
+    def tensors(state):
+        out = {n: t.detach().clone()
+               for n, t in state.model.state_dict().items()}
+        out.update({f"trace{i}": t.clone()
+                    for i, t in enumerate(state.opt_state.trace)})
+        return out
+
+    def shard_files(root):
+        d = fmt.step_dir(root, 1)
+        return {p.name: p.read_bytes() for p in sorted(d.iterdir())
+                if p.suffix == ".bin"}
+
+    state = state_of(0)
+    for t in state.opt_state.trace:
+        t.normal_(generator=gen)
+    tree = ckpt.encode_portable(state)
+    snaps = {}
+    for how, budget in (("whole", None), ("pieces", 64 << 10)):
+        monkeypatch.setattr(snapshot, "_STAGING_BUDGET", budget)
+        c = ckpt.AsyncCheckpointer(tmp_path / how)
+        snaps[how] = c.save(tree, step=1, block=True)
+        c.close()
+    largest = max(-(-t.numel() * t.element_size() // 256) * 256
+                  for t in state.model.parameters())
+    assert snaps["whole"].pieces == 1 and snaps["pieces"].pieces > 1
+    assert snaps["pieces"].staging_nbytes == max(64 << 10, largest)
+    assert shard_files(tmp_path / "whole") == shard_files(tmp_path / "pieces")
+    fresh = ckpt.decode_portable(ckpt.restore_pytree(
+        tmp_path / "pieces", ckpt.encode_portable(state_of(1))))
+    want, got = tensors(state), tensors(fresh)
+    assert fresh.step == state.step and sorted(want) == sorted(got)
+    for name in want:
+        assert torch.equal(want[name], got[name]), name

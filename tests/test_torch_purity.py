@@ -92,7 +92,8 @@ def test_sources_found():
                  "tests/workloads/torch_dp_steps.py",
                  "tests/workloads/torch_ckpt_ranks.py",
                  "tests/workloads/torch_zero3_steps.py",
-                 "tests/workloads/torch_zero3_train.py"):
+                 "tests/workloads/torch_zero3_train.py",
+                 "tests/workloads/torch_train_resume.py"):
         assert must in names
     from tony_tpu_torch.ops import _build
     for name in _build.SOURCES:
@@ -174,7 +175,8 @@ class TestCopiesEqualTheReference:
         for name in names:
             assert getattr(conf, name) == getattr(jconf, name), name
         serve_keys = {n for n in vars(jconf) if n.startswith("SERVE_")}
-        assert set(names) == serve_keys | {"CKPT_DIR", "HISTORY_LOCATION",
+        assert set(names) == serve_keys | {"CKPT_DIR", "CKPT_EVERY",
+                                           "CKPT_KEEP", "HISTORY_LOCATION",
                                            "TRAIN_AOT_CACHE"}
         for helper in _CONF_HELPERS:
             for jt in _JOB_TYPES:

@@ -194,13 +194,14 @@ class _Pinned:
 def _fill(reader: fmt.ChunkReader, leaf_idx: int, meta: Dict[str, Any],
           target: Any, dtype: str, pinned: _Pinned) -> None:
     """Assemble each part of a tensor or leaf-view target and copy it
-    into the part's tensor in place (transposing back on its device)."""
+    into the part's tensor in place, through the part's permuted view
+    (on its device: any strides, channels-last included)."""
     saved = meta["dtype"]
     storage = fmt.dtype_from_name(saved)
     shape = tuple(meta["shape"])
     cache: Dict[Any, np.ndarray] = {}
-    for start, t, transpose in _parts(target):
-        region = _region(shape, t, transpose)
+    for start, t, perm in _parts(target):
+        region = _region(shape, t, perm)
         out = None
         if t.device.type == "cuda":
             n = int(np.prod(region, dtype=np.int64)) * storage.itemsize
@@ -211,7 +212,7 @@ def _fill(reader: fmt.ChunkReader, leaf_idx: int, meta: Dict[str, Any],
         if t.device.type == "cuda":
             src = pinned.copy(src, t.device)
         src = src.to(fmt.torch_dtype(dtype))
-        view = _oriented(t, transpose)
+        view = _oriented(t, perm)
         view.copy_(src.reshape(view.shape))
 
 

@@ -16,7 +16,14 @@ stalls the train loop:
   issue order, so the loop's own small reads (a logged loss) wait behind
   one piece, never behind the whole state. The staging buffer is
   released once this copy has read it, so between saves the card holds
-  no second copy of the state; the next save allocates it again;
+  no second copy of the state; the next save allocates it again.
+  **In pieces**: where the owned chunks do not fit in the card's free
+  memory (``torch.cuda.mem_get_info`` and the allocator's cached bytes,
+  less a margin), ``save`` stages them through one device buffer of that
+  size (at least the largest chunk), piece by piece, and copies each
+  piece into the pinned slot before it stages the next; it returns once
+  the last piece is on the host, so its stall grows to the state's
+  device→host time. The bytes are the same either way;
 * **write + commit** (writer thread): serializes the chunks through
   :mod:`tony_tpu_torch.ckpt.format` and commits the step. ``buffers``
   host slots are kept: a save issued while one write is in flight
@@ -70,6 +77,11 @@ _ALIGN = 256
 _HOST_MARGIN = 16 << 30
 # Device→host copies are issued this many bytes at a time.
 _D2H_PIECE = 256 << 20
+# Device memory a save leaves free beside its staging buffer.
+_DEVICE_MARGIN = 2 << 30
+# The staging budget in bytes, None to size it from the card's free
+# memory (tests force a small one).
+_STAGING_BUDGET: Optional[int] = None
 
 
 class Attrs(dict):
@@ -89,13 +101,14 @@ class LeafView:
     """One leaf of the reference's tree over the port's tensors.
 
     ``shape`` and ``dtype`` are the leaf's in the reference's layout;
-    ``parts`` cover it, each ``(start, tensor, transpose)``: the tensor's
-    values at offset ``start``, transposed when ``transpose`` (a torch
-    ``[out, in]`` weight standing for flax's ``[in, out]`` kernel), with
-    leading unit dims where the leaf stacks layers (layer ``l`` of a
-    scanned ``[L, in, out]`` kernel is the part at ``(l, 0, 0)``). A
-    checkpoint writes one chunk per part; a restore fills the parts in
-    place.
+    ``parts`` cover it, each ``(start, tensor, perm)``: the tensor's
+    values at offset ``start``, its axes permuted by ``perm`` when it is
+    not None (a torch ``[out, in]`` weight standing for flax's ``[in,
+    out]`` kernel is ``(1, 0)``, an OIHW conv weight standing for flax's
+    HWIO kernel ``(2, 3, 1, 0)``), with leading unit dims where the leaf
+    stacks layers (layer ``l`` of a scanned ``[L, in, out]`` kernel is the
+    part at ``(l, 0, 0)``). A checkpoint writes one chunk per part; a
+    restore fills the parts in place, through the same permuted view.
 
     A tensor with a sharded layout (a ZeRO-3 shard) is a part at its
     slice's offset in the global leaf; ``spec`` is then the leaf's spec
@@ -104,23 +117,30 @@ class LeafView:
     and rank 0 writes it."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    parts: List[Tuple[Tuple[int, ...], torch.Tensor, bool]]
+    parts: List[Tuple[Tuple[int, ...], torch.Tensor,
+                      Optional[Tuple[int, ...]]]]
     spec: Optional[Tuple[Any, ...]] = None
     replica: Optional[int] = None
 
     @classmethod
-    def of(cls, t: torch.Tensor, transpose: bool = False) -> "LeafView":
+    def of(cls, t: torch.Tensor, transpose: bool = False,
+           perm: Optional[Sequence[int]] = None) -> "LeafView":
+        """``t`` as a leaf, its axes reversed (``transpose``) or permuted
+        by ``perm``."""
+        if transpose:
+            perm = tuple(range(t.dim()))[::-1]
+        perm = None if perm is None else tuple(perm)
         lay = layout_of(t)
         if lay is None or not lay.sharded:
-            shape = tuple(t.shape[::-1]) if transpose else tuple(t.shape)
-            return cls(shape, t.dtype, [((0,) * len(shape), t, transpose)])
+            return cls(_permuted(tuple(t.shape), perm), t.dtype,
+                       [((0,) * t.dim(), t, perm)])
         shape, start = tuple(lay.shape), lay.offsets()
         spec = tuple(lay.spec) + (None,) * (len(shape) - len(lay.spec))
-        if transpose:
-            shape, start, spec = shape[::-1], start[::-1], spec[::-1]
+        shape, start, spec = (_permuted(x, perm) for x in (shape, start,
+                                                          spec))
         # A rank whose slice of a padded leaf lies wholly in the pad owns
         # no part of it.
-        parts = [(start, t, transpose)] if t.numel() else []
+        parts = [(start, t, perm)] if t.numel() else []
         return cls(shape, t.dtype, parts, spec, lay.replica)
 
     @classmethod
@@ -134,13 +154,18 @@ class LeafView:
                                  f"{tuple(t.shape)} vs {inner}")
         spec = None if views[0].spec is None else (None,) + views[0].spec
         return cls((len(ts),) + inner, ts[0].dtype,
-                   [((i,) + tuple(start), t, tr)
+                   [((i,) + tuple(start), t, pm)
                     for i, v in enumerate(views)
-                    for start, t, tr in v.parts], spec, views[0].replica)
+                    for start, t, pm in v.parts], spec, views[0].replica)
 
     def owned_by(self, process: int) -> bool:
         """Whether ``process`` writes this leaf's parts."""
         return process == 0 if self.replica is None else self.replica == 0
+
+
+def _permuted(xs: Tuple[Any, ...], perm: Optional[Tuple[int, ...]]
+              ) -> Tuple[Any, ...]:
+    return xs if perm is None else tuple(xs[i] for i in perm)
 
 
 def as_leaf(leaf: Any) -> Any:
@@ -153,22 +178,24 @@ def as_leaf(leaf: Any) -> Any:
     return leaf
 
 
-def _parts(leaf: Any) -> List[Tuple[Tuple[int, ...], torch.Tensor, bool]]:
+def _parts(leaf: Any) -> List[Tuple[Tuple[int, ...], torch.Tensor,
+                                    Optional[Tuple[int, ...]]]]:
     if isinstance(leaf, LeafView):
         return leaf.parts
-    return [((0,) * leaf.dim(), leaf, False)]
+    return [((0,) * leaf.dim(), leaf, None)]
 
 
-def _oriented(t: torch.Tensor, transpose: bool) -> torch.Tensor:
+def _oriented(t: torch.Tensor, perm: Optional[Tuple[int, ...]]
+              ) -> torch.Tensor:
     """The part's values in the reference's layout (a view)."""
-    return t.t() if transpose else t
+    return t if perm is None else t.permute(perm)
 
 
 def _region(leaf_shape: Sequence[int], t: torch.Tensor,
-            transpose: bool) -> Tuple[int, ...]:
+            perm: Optional[Tuple[int, ...]]) -> Tuple[int, ...]:
     """A part's extent in the leaf: its oriented shape with leading unit
     dims up to the leaf's rank."""
-    shape = tuple(_oriented(t, transpose).shape)
+    shape = _permuted(tuple(t.shape), perm)
     return (1,) * (len(leaf_shape) - len(shape)) + shape
 
 
@@ -298,6 +325,9 @@ class Snapshot:
     d2h_s: float = 0.0
     alloc_s: float = 0.0
     write_s: float = 0.0
+    pieces: int = 0                              # device staging pieces
+    staging_nbytes: int = 0                      # device staging buffer
+    budget_nbytes: int = 0                       # the budget it fit in
     slot: Optional[int] = None
     d2h: Optional[Tuple[Any, ...]] = None        # the pending copy-out
     copied: threading.Event = field(default_factory=threading.Event)
@@ -338,13 +368,17 @@ class Snapshot:
         self.copied.set()
 
 
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
 def plan_arenas(sizes: Sequence[int]) -> Tuple[List[int], List[int],
                                                 List[Tuple[int, int]]]:
     """Pack chunks of ``sizes`` bytes (in order, 256-byte aligned) into
     power-of-two host arenas of up to 1 GiB (a larger chunk gets its own):
     ``(capacity per arena, bytes used per arena, (arena, offset) per
     chunk)`` — one host slot's allocations."""
-    aligned = [-(-n // _ALIGN) * _ALIGN for n in sizes]
+    aligned = [_aligned(n) for n in sizes]
     caps: List[int] = []
     used: List[int] = []
     place: List[Tuple[int, int]] = []
@@ -360,13 +394,44 @@ def plan_arenas(sizes: Sequence[int]) -> Tuple[List[int], List[int],
     return caps, used, place
 
 
+def plan_pieces(sizes: Sequence[int], budget: int
+                ) -> Tuple[int, List[List[int]]]:
+    """Chunks of ``sizes`` bytes (in order, 256-byte aligned) grouped into
+    the pieces of a staging buffer of ``budget`` bytes, or of the largest
+    chunk where that is larger: ``(buffer bytes, chunk indices per
+    piece)``."""
+    aligned = [_aligned(n) for n in sizes]
+    cap = max([int(budget)] + aligned)
+    pieces: List[List[int]] = []
+    used = cap
+    for i, n in enumerate(aligned):
+        if used + n > cap:
+            pieces.append([])
+            used = 0
+        pieces[-1].append(i)
+        used += n
+    return cap, pieces
+
+
+def staging_budget(device: torch.device) -> int:
+    """The bytes a save may stage on ``device`` at once: the card's free
+    memory and the allocator's cached bytes, less a margin."""
+    if _STAGING_BUDGET is not None:
+        return int(_STAGING_BUDGET)
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = torch.cuda.memory_reserved(device) \
+        - torch.cuda.memory_allocated(device)
+    return free + cached - _DEVICE_MARGIN
+
+
 class _Staging:
     """The transfer buffers of one checkpointer on one card: one device
     buffer the owned chunks are staged into, allocated by each save and
-    released once its copy-out has read it, and per host slot a list of
-    pinned arenas the side stream copies that buffer into, allocated on
-    first use and kept while the chunk layout holds (pinning costs seconds
-    a slot, the device buffer milliseconds)."""
+    released once its copy-out has read it (a save in pieces releases it
+    before it returns), and per host slot a list of pinned arenas that
+    buffer is copied into, allocated on first use and kept while the
+    chunk layout holds (pinning costs seconds a slot, the device buffer
+    milliseconds)."""
 
     def __init__(self, device: torch.device, slots: int):
         self.device = device
@@ -388,9 +453,13 @@ class _Staging:
             self.key = key
             self.drop()
             self.host = [None] * self.slots
-        if self.dev is None:
-            self.dev = torch.empty(max(1, sum(self.used)), dtype=torch.uint8,
+
+    def device_buffer(self, nbytes: int) -> torch.Tensor:
+        if self.dev is None or self.dev.numel() != max(1, nbytes):
+            self.dev = None
+            self.dev = torch.empty(max(1, nbytes), dtype=torch.uint8,
                                    device=self.device)
+        return self.dev
 
     def release(self) -> None:
         """Free the device buffer (its copy-out has completed)."""
@@ -400,6 +469,11 @@ class _Staging:
         arena, off = self.place[i]
         base = sum(self.used[:arena]) + off
         return self.dev[base:base + nbytes]
+
+    def host_view(self, arenas: List[torch.Tensor], i: int,
+                  nbytes: int) -> torch.Tensor:
+        arena, off = self.place[i]
+        return arenas[arena][off:off + nbytes]
 
     def host_arenas(self, slot: int) -> List[torch.Tensor]:
         if self.host[slot] is None:
@@ -418,9 +492,10 @@ class _Staging:
 
 def _owned_parts(tree: Any, process: int = 0) -> Tuple[
         List[Dict[str, Any]],
-        List[Tuple[int, Tuple[int, ...], Any, bool, Tuple[int, ...]]]]:
+        List[Tuple[int, Tuple[int, ...], Any, Optional[Tuple[int, ...]],
+                   Tuple[int, ...]]]]:
     """Manifest metas of every saveable leaf, and the parts ``process``
-    writes, as ``(leaf index, start, tensor or host value, transpose,
+    writes, as ``(leaf index, start, tensor or host value, perm,
     region)``."""
     paths, leaves, _ = leaf_paths(tree)
     metas: List[Dict[str, Any]] = []
@@ -437,23 +512,72 @@ def _owned_parts(tree: Any, process: int = 0) -> Tuple[
             continue
         if isinstance(leaf, (torch.Tensor, LeafView)):
             shape = tuple(leaf.shape)
-            for start, t, tr in _parts(leaf):
-                parts.append((li, tuple(start), t.detach(), tr,
-                              _region(shape, t, tr)))
+            for start, t, perm in _parts(leaf):
+                parts.append((li, tuple(start), t.detach(), perm,
+                              _region(shape, t, perm)))
         else:
             arr = np.asarray(leaf)
-            parts.append((li, (0,) * arr.ndim, arr, False, arr.shape))
+            parts.append((li, (0,) * arr.ndim, arr, None, arr.shape))
     return metas, parts
 
 
-def _copy_to_host(value: Any, transpose: bool,
+def _copy_to_host(value: Any, perm: Optional[Tuple[int, ...]],
                   region: Tuple[int, ...]) -> np.ndarray:
     """A synchronous host copy of one part, in the reference's layout."""
     if isinstance(value, np.ndarray):
         return np.array(value, copy=True)
-    t = _oriented(value, transpose).to("cpu", copy=True)
+    t = _oriented(value, perm).to("cpu", copy=True)
     t = t.contiguous().reshape(region)
     return _host_array(t)
+
+
+def _stage_in_pieces(staging: _Staging, parts: List[Any], card: List[int],
+                     sizes: List[int], arenas: List[torch.Tensor],
+                     budget: int, snap: "Snapshot") -> None:
+    """Stage the card chunks through one buffer of at most ``budget``
+    bytes (at least the largest chunk), piece by piece, each piece copied
+    into its pinned host arenas before the next is staged; returns once
+    the last piece is on the host and the buffer is freed."""
+    cap, pieces = plan_pieces(sizes, budget)
+    largest = max(_aligned(n) for n in sizes)
+    while True:
+        try:
+            dev = staging.device_buffer(cap)
+            break
+        except torch.cuda.OutOfMemoryError:
+            # The cached bytes were fragmented: halve the buffer.
+            staging.release()
+            if cap <= largest:
+                raise
+            cap, pieces = plan_pieces(sizes, max(cap // 2, largest))
+    cur = torch.cuda.current_stream(staging.device)
+    stage_ms = d2h_ms = 0.0
+    try:
+        with torch.no_grad():
+            for piece in pieces:
+                marks = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(3)]
+                marks[0].record(cur)
+                offs, off = [], 0
+                for j in piece:
+                    _, _, t, perm, _ = parts[card[j]]
+                    src = _oriented(t, perm)
+                    dev[off:off + sizes[j]].view(t.dtype).view(
+                        src.shape).copy_(src)
+                    offs.append(off)
+                    off += _aligned(sizes[j])
+                marks[1].record(cur)
+                for j, o in zip(piece, offs):
+                    staging.host_view(arenas, j, sizes[j]).copy_(
+                        dev[o:o + sizes[j]], non_blocking=True)
+                marks[2].record(cur)
+                marks[2].synchronize()      # the buffer is free again
+                stage_ms += marks[0].elapsed_time(marks[1])
+                d2h_ms += marks[1].elapsed_time(marks[2])
+    finally:
+        staging.release()
+    snap.pieces, snap.staging_nbytes = len(pieces), cap
+    snap.stage_s, snap.d2h_s = stage_ms / 1e3, d2h_ms / 1e3
 
 
 def extract_snapshot(tree: Any, step: int, *,
@@ -467,7 +591,9 @@ def extract_snapshot(tree: Any, step: int, *,
     checkpointer's, on the card), card tensors are staged into its device
     buffer on the current stream — ``save``'s stall — and the chunks are
     views of pinned host slot ``slot``, which :meth:`Snapshot.copy_out`
-    fills."""
+    fills; where they do not fit in :func:`staging_budget`, they are
+    staged and copied into the slot piece by piece before this returns
+    (:func:`plan_pieces`)."""
     t0 = time.perf_counter()
     proc = _process_index() if process is None else process
     metas, parts = _owned_parts(tree, proc)
@@ -483,35 +609,47 @@ def extract_snapshot(tree: Any, step: int, *,
             staging.busy.wait()           # the last copy-out read the buffer
         t_alloc = time.perf_counter()
         staging.layout(sizes)
+        whole = sum(staging.used)
+        snap.budget_nbytes = staging_budget(staging.device)
+        fits = whole <= snap.budget_nbytes
+        if fits:
+            staging.device_buffer(whole)
+            snap.pieces, snap.staging_nbytes = 1, whole
         snap.alloc_s = time.perf_counter() - t_alloc
-        cur = torch.cuda.current_stream(staging.device)
-        start = torch.cuda.Event(enable_timing=True)
-        staged = torch.cuda.Event(enable_timing=True)
-        start.record(cur)
-        with torch.no_grad():
-            for j, (i, n) in enumerate(zip(card, sizes)):
-                _, _, t, tr, _ = parts[i]
-                src = _oriented(t, tr)
-                dst = staging.dev_view(j, n).view(t.dtype).view(src.shape)
-                dst.copy_(src)
-        staged.record(cur)
+        if fits:
+            cur = torch.cuda.current_stream(staging.device)
+            start = torch.cuda.Event(enable_timing=True)
+            staged = torch.cuda.Event(enable_timing=True)
+            start.record(cur)
+            with torch.no_grad():
+                for j, (i, n) in enumerate(zip(card, sizes)):
+                    _, _, t, perm, _ = parts[i]
+                    src = _oriented(t, perm)
+                    dst = staging.dev_view(j, n).view(t.dtype).view(
+                        src.shape)
+                    dst.copy_(src)
+            staged.record(cur)
         t_alloc = time.perf_counter()
         arenas = staging.host_arenas(slot)
         snap.alloc_s += time.perf_counter() - t_alloc
-        staging.dev.record_stream(staging.side)
-        staging.busy = snap.copied
-        snap.d2h = (staging, arenas, start, staged)
+        if fits:
+            staging.dev.record_stream(staging.side)
+            staging.busy = snap.copied
+            snap.d2h = (staging, arenas, start, staged)
+        else:
+            _stage_in_pieces(staging, parts, card, sizes, arenas,
+                             snap.budget_nbytes, snap)
         for j, (i, n) in enumerate(zip(card, sizes)):
             li, start_off, t, _, region = parts[i]
-            arena, off = staging.place[j]
             storage = fmt.dtype_from_name(fmt.dtype_name(t.dtype))
-            host = arenas[arena].numpy()[off:off + n].view(storage)
+            host = staging.host_view(arenas, j, n).numpy().view(storage)
             chunks[i] = (li, list(start_off), host.reshape(region))
-        staged.synchronize()
-    for i, (li, start_off, value, tr, region) in enumerate(parts):
+        if fits:
+            staged.synchronize()
+    for i, (li, start_off, value, perm, region) in enumerate(parts):
         if chunks[i] is None:
             chunks[i] = (li, list(start_off),
-                         _copy_to_host(value, tr, region))
+                         _copy_to_host(value, perm, region))
     snap.chunks = chunks
     snap.nbytes = sum(int(a.nbytes) for _, _, a in chunks)
     snap.extract_s = time.perf_counter() - t0
@@ -617,7 +755,9 @@ class AsyncCheckpointer:
                     extract_s=snap.extract_s, write_s=write_s,
                     nbytes=snap.nbytes, n_chunks=len(snap.chunks),
                     keep=self.keep, stage_s=snap.stage_s,
-                    d2h_s=snap.d2h_s, alloc_s=snap.alloc_s)
+                    d2h_s=snap.d2h_s, alloc_s=snap.alloc_s,
+                    pieces=snap.pieces, staging_nbytes=snap.staging_nbytes,
+                    budget_nbytes=snap.budget_nbytes)
             except BaseException as e:  # noqa: BLE001 — surfaced on save/wait
                 with self._err_lock:
                     self._err = e

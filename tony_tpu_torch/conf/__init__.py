@@ -8,7 +8,8 @@ effective key (the AM writes it as ``tony-job.json``). This copy loads
 it and reads it with the same typed getters, and names every
 ``tony.serve.*`` key, the two per-jobtype serve keys and the instance
 count the replica reads, the history root its ``warm()`` pad tuner
-reads and the train plane's AOT cache key. ``tests/test_torch_purity.py`` holds each name, helper and getter
+reads, the train plane's AOT cache key and the ``tony.ckpt.*`` keys the
+train loop reads. ``tests/test_torch_purity.py`` holds each name, helper and getter
 equal to the original. Defaults, overrides, job-type discovery,
 serialization and validation stay in the control plane.
 """
@@ -20,8 +21,12 @@ from pathlib import Path
 from typing import Dict, Optional
 
 # Checkpoint plane: the durable directory the train gang commits steps
-# into; a replica with no tony.serve.ckpt-dir serves from it.
+# into (a replica with no tony.serve.ckpt-dir serves from it), the save
+# interval and the retention; train_loop reads them where no TONY_CKPT_*
+# variable names them.
 CKPT_DIR = "tony.ckpt.dir"
+CKPT_EVERY = "tony.ckpt.every"            # save every N steps (0 = final only)
+CKPT_KEEP = "tony.ckpt.keep"              # committed steps retained (def. 3)
 # The history plane's event-log root: a replica with the cold-start
 # plane armed tunes its warm() prefill pads from the serve windows there.
 HISTORY_LOCATION = "tony.history.location"

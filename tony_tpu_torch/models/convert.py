@@ -31,14 +31,18 @@ JAX package's param tree — its paths, shapes and layout, without a copy
 (:class:`~tony_tpu_torch.ckpt.snapshot.LeafView`): the decoder's
 scanned leaves stacked over layers (``layer_{i}`` without
 ``scan_layers``), kernels ``[in, out]``, the head at ``lm_head_kernel``
-with ``xent_chunk``. :func:`portable_state` wraps a train state's views
-as the reference's ``TrainState`` (``.step``, ``.params``,
-``.opt_state``): the form its checkpoints carry.
+with ``xent_chunk``; the MNIST MLP's ``Dense_i/kernel`` ``[in, out]``;
+the conv nets' flax paths with HWIO conv kernels (a permuted view of
+the OIHW weight), each BatchNorm lane under its own module names.
+:func:`portable_state` wraps a train state's views as the reference's
+``TrainState`` (``.step``, ``.params``, ``.opt_state``, and
+``.batch_stats`` for a model with BatchNorm statistics): the form its
+checkpoints carry.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -161,6 +165,43 @@ def conv_params_from_jax(tree: Mapping[str, Any]
     return out
 
 
+# flax's HWIO conv kernel as a view of torch's OIHW weight.
+_HWIO = (2, 3, 1, 0)
+
+
+def _put(tree: Dict[str, Any], path: Sequence[str], leaf: Any) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = leaf
+
+
+def conv_params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """The inverse of :func:`conv_params_from_jax` for one collection:
+    the flax tree over ``tensors`` (parameters, one optimizer slot per
+    parameter, or the BatchNorm buffers), the dotted names split into
+    flax's path, ``weight`` as ``kernel`` (4-D OIHW as an HWIO view, 2-D
+    ``[out, in]`` transposed), everything else as it is. The names are
+    the model's own, so each BatchNorm lane writes its own JAX lane's
+    paths. ``cfg`` is unused."""
+    del cfg
+    tree: Dict[str, Any] = {}
+    for name, t in tensors.items():
+        path = name.split(".")
+        if path[-1] == "weight":
+            path[-1] = "kernel"
+            t = LeafView.of(t, perm=_HWIO) if t.dim() == 4 \
+                else LeafView.of(t, transpose=True)
+        _put(tree, path, t)
+    return tree
+
+
+# The inverse of :func:`mlp_params_from_jax`: the MLP's tree is a conv
+# net's without convolutions (``Dense_i/kernel`` ``[in, out]``, ``bias``).
+mlp_params_to_jax = conv_params_to_jax
+
+
 def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
                   ) -> Dict[str, Any]:
     """The inverse of :func:`params_from_jax`: the JAX decoder's param
@@ -176,16 +217,10 @@ def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
     else:
         tree["lm_head"] = {"kernel": head}
 
-    def put(block, path, leaf):
-        node = block
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf
-
     if cfg.scan_layers:
         block: Dict[str, Any] = {}
         for path, name in _BLOCK_LEAVES.items():
-            put(block, path, LeafView.stacked(
+            _put(block, path, LeafView.stacked(
                 [tensors[f"layers.{i}.{name}"] for i in range(cfg.n_layers)],
                 transpose=path[-1] == "kernel"))
         tree["layers"] = {"block": block}
@@ -194,8 +229,8 @@ def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
         block = {}
         for path, name in _BLOCK_LEAVES.items():
             t = tensors[f"layers.{i}.{name}"]
-            put(block, path, LeafView.of(t, transpose=True)
-                if path[-1] == "kernel" else t)
+            _put(block, path, LeafView.of(t, transpose=True)
+                 if path[-1] == "kernel" else t)
         tree[f"layer_{i}"] = {"block": block}
     return tree
 
@@ -215,15 +250,28 @@ def jax_param_tree(model: nn.Module,
             f"(ROADMAP.md, queue 1 item 3)")
     if tensors is None:
         tensors = dict(model.named_parameters())
-    return layout(model.cfg, tensors)
+    return layout(getattr(model, "cfg", None), tensors)
+
+
+def jax_batch_stats(model: nn.Module) -> Optional[Dict[str, Any]]:
+    """``model``'s BatchNorm running statistics as the JAX model's
+    ``batch_stats`` collection (``.../mean``, ``.../var``, f32, the live
+    buffers), through the layout the model names as its
+    ``batch_stats_to_jax``; None for a model without."""
+    layout = getattr(model, "batch_stats_to_jax", None)
+    if layout is None:
+        return None
+    return layout(None, dict(model.named_buffers()))
 
 
 class PortableState(Attrs):
     """The portable form of a port train state: the reference
     ``TrainState``'s ``.step`` (an int64 scalar), ``.params`` and
-    ``.opt_state`` over views of the live tensors; ``live`` is the state
-    it views, which a codec's decode writes the restored scalars back
-    into."""
+    ``.opt_state`` over views of the live tensors, and a model's
+    ``.batch_stats`` beside them (the flax ``TrainState`` with
+    ``batch_stats`` a BatchNorm net trains in, the carry of the
+    reference's ``resnet_window``); ``live`` is the state it views, which
+    a codec's decode writes the restored scalars back into."""
     live: Any
 
 
@@ -233,6 +281,9 @@ def portable_state(state: Any, opt_state: Any) -> PortableState:
     tree = PortableState(
         step=torch.tensor(state.step, dtype=torch.int64),
         params=jax_param_tree(state.model), opt_state=opt_state)
+    stats = jax_batch_stats(state.model)
+    if stats is not None:
+        tree["batch_stats"] = stats
     tree.live = state
     return tree
 
@@ -244,8 +295,10 @@ def _field(tree: Any, name: str) -> Any:
 def _load_opt_state(model: nn.Module, state: Any, tree: Any) -> None:
     """Moments, count and step of a JAX train state's numpy tree into the
     port's ``state``: optax adamw's ``(ScaleByAdamState, ...)`` into an
-    ``AdamState``, or the fused optimizer's portable ``{"count", "leaf"}``
-    into its bucket-resident slots, in place."""
+    ``AdamState``, optax sgd's ``(TraceState, EmptyState)`` (or two
+    empty states without momentum) into a ``TraceState``, or the fused
+    optimizer's portable ``{"count", "leaf"}`` into its bucket-resident
+    slots, in place."""
     names = [n for n, _ in model.named_parameters()]
     opt = _field(tree, "opt_state")
     live = state.opt_state
@@ -264,6 +317,11 @@ def _load_opt_state(model: nn.Module, state: Any, tree: Any) -> None:
             for name, t in zip(names, getattr(live, slot)):
                 t.copy_(src[name].to(t.device, t.dtype))
         live.count = int(np.asarray(_field(adam, "count")))
+    elif hasattr(live, "trace"):
+        if live.trace is not None:
+            src = model.params_from_jax(_field(opt[0], "trace"))
+            for name, t in zip(names, live.trace):
+                t.copy_(src[name].to(t.device, t.dtype))
     else:
         raise NotImplementedError(
             f"loading a JAX optimizer state into "
@@ -288,17 +346,22 @@ def load_jax_params(model: nn.Module, tree: Any,
     (BatchNorm running statistics) fill it.
 
     With ``state`` (a port train state over ``model``), ``tree`` is a JAX
-    train state's numpy tree (``.step``, ``.params``, ``.opt_state``) and
-    its moments, count and step fill ``state`` too: optax adamw's into an
-    ``AdamState``, the fused optimizer's portable form into the bucket
-    slots."""
+    train state's numpy tree (``.step``, ``.params``, ``.opt_state``, and
+    ``.batch_stats`` where the model has BatchNorm statistics) and its
+    moments, count and step fill ``state`` too: optax adamw's into an
+    ``AdamState``, optax sgd's trace into a ``TraceState``, the fused
+    optimizer's portable form into the bucket slots."""
     convert = getattr(model, "params_from_jax", None)
     if convert is None:
         raise TypeError(f"{type(model).__name__} names no JAX tree "
                         f"converter (params_from_jax)")
     if state is not None:
         _load_opt_state(model, state, tree)
+        stats = tree.get("batch_stats") if isinstance(tree, Mapping) \
+            else getattr(tree, "batch_stats", None)
         tree = _field(tree, "params")
+        if stats is not None:
+            tree = {"params": tree, "batch_stats": stats}
     src = convert(tree)
     params = dict(model.named_parameters())
     targets = {**dict(model.named_buffers()), **params}

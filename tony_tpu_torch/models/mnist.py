@@ -29,14 +29,18 @@ from torch import nn
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import lecun_normal_, register
 from tony_tpu_torch.models.convert import (conv_params_from_jax,
-                                           mlp_params_from_jax)
+                                           conv_params_to_jax,
+                                           mlp_params_from_jax,
+                                           mlp_params_to_jax)
 from tony_tpu_torch.models.resnet import Conv
 from tony_tpu_torch.ops.quant import QuantDense
 
 
 class MLP(nn.Module):
-    # The JAX tree's converter, read by ``load_jax_params``.
+    # The JAX tree's converter, read by ``load_jax_params``, and its
+    # inverse, read by ``jax_param_tree`` (checkpoints).
     params_from_jax = staticmethod(mlp_params_from_jax)
+    params_to_jax = staticmethod(mlp_params_to_jax)
 
     def __init__(self, hidden: int = 512, classes: int = 10,
                  quant: bool = False, in_features: int = 784,
@@ -71,8 +75,10 @@ class MLP(nn.Module):
 
 
 class CNN(nn.Module):
-    # The JAX tree's converter, read by ``load_jax_params``.
+    # The JAX tree's converter, read by ``load_jax_params``, and its
+    # inverse, read by ``jax_param_tree`` (checkpoints).
     params_from_jax = staticmethod(conv_params_from_jax)
+    params_to_jax = staticmethod(conv_params_to_jax)
 
     def __init__(self, classes: int = 10,
                  device: Optional[Union[str, torch.device]] = None):

@@ -28,7 +28,9 @@ not ``F.batch_norm``'s). Module names follow the flax auto-names
 (``stem``, ``stem_bn``, ``Bottleneck_i``/``FusedBottleneck_i`` with
 ``Conv_j``, ``BatchNorm_k``/``FusedBNAct_k``, ``proj``, ``proj_bn``;
 ``Dense_0``), so :func:`tony_tpu_torch.models.convert.load_jax_params`
-carries a JAX ``{"params", "batch_stats"}`` tree of either lane across.
+carries a JAX ``{"params", "batch_stats"}`` tree of either lane across,
+and a checkpoint of the port's train state carries the same two
+collections in the JAX lane's paths (``.params``, ``.batch_stats``).
 
 A block takes a projection shortcut when its input channels differ from
 ``4·filters`` or its stride is not 1 (the fused lane's rule; the plain
@@ -46,7 +48,8 @@ from torch import nn
 
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import lecun_normal_, register
-from tony_tpu_torch.models.convert import conv_params_from_jax
+from tony_tpu_torch.models.convert import (conv_params_from_jax,
+                                           conv_params_to_jax)
 from tony_tpu_torch.ops.batchnorm import fused_bn_act
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -274,8 +277,12 @@ class ResNet(nn.Module):
     space-to-depth stem (the 7×7/s2 conv as the equivalent 4×4/s1 conv on
     the 2×2-packed image, see :func:`s2d_stem_kernel`)."""
 
-    # The JAX tree's converter, read by ``load_jax_params``.
+    # The JAX tree's converter, read by ``load_jax_params``; its inverse,
+    # read by ``jax_param_tree``, and the same layout over the BatchNorm
+    # buffers, read by ``jax_batch_stats`` (checkpoints).
     params_from_jax = staticmethod(conv_params_from_jax)
+    params_to_jax = staticmethod(conv_params_to_jax)
+    batch_stats_to_jax = staticmethod(conv_params_to_jax)
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  width: int = 64, dtype: Any = torch.bfloat16,

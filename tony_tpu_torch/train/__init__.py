@@ -35,8 +35,9 @@
   publication, the chaos kill point and per-step telemetry for the
   executor's heartbeat;
 * :func:`encode_state` / :func:`decode_state` — the checkpoint codec of
-  a train state with a per-leaf optimizer state (registered with
-  :mod:`tony_tpu_torch.ckpt`; the fused optimizer registers its own).
+  a train state with a per-leaf optimizer state, AdamW's or SGD's
+  (registered with :mod:`tony_tpu_torch.ckpt`; the fused optimizer
+  registers its own).
 
 The module holds its parameters (an ``nn.Module``), so the train state
 wraps the model, and a step updates parameters and optimizer slots in
@@ -67,7 +68,7 @@ import torch.distributed as td
 import torch.nn.functional as F
 from torch import nn
 
-from tony_tpu_torch import chaos, ckpt, constants, profiler
+from tony_tpu_torch import chaos, ckpt, conf, constants, profiler
 from tony_tpu_torch.ckpt.snapshot import Attrs
 from tony_tpu_torch.models.convert import (PortableState, jax_param_tree,
                                            portable_state)
@@ -384,33 +385,43 @@ def _is_leaf_state(tree: Any) -> bool:
 
 
 def encode_state(state: TrainState) -> PortableState:
-    """Ckpt codec, encode half: a train state with per-leaf AdamW state →
-    the reference's ``TrainState`` tree with optax adamw's
-    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``,
-    count an int32 scalar, every leaf a view of the live tensors. Other
-    optimizer states raise ``NotImplementedError``."""
+    """Ckpt codec, encode half: a train state with a per-leaf optimizer
+    state → the reference's ``TrainState`` tree, every leaf a view of the
+    live tensors: AdamW's as optax adamw's ``(ScaleByAdamState(count, mu,
+    nu), EmptyState(), EmptyState())``, count an int32 scalar; SGD's as
+    optax sgd's ``(TraceState(trace), EmptyState())``, or two empty
+    states without momentum. On a ZeRO-3 state the moments and the trace
+    are shards, as the parameters. Other optimizer states raise
+    ``NotImplementedError``."""
     opt = state.opt_state
-    if not isinstance(opt, AdamState):
-        raise NotImplementedError(
-            f"the checkpoint form of {type(opt).__name__} is not ported yet "
-            f"(ROADMAP.md, queue 1 item 3)")
     names = [n for n, _ in state.model.named_parameters()]
-    adam = Attrs(count=torch.tensor(opt.count, dtype=torch.int32),
-                 mu=jax_param_tree(state.model, dict(zip(names, opt.mu))),
-                 nu=jax_param_tree(state.model, dict(zip(names, opt.nu))))
-    return portable_state(state, (adam, Attrs(), Attrs()))
+
+    def tree_of(slots):
+        return jax_param_tree(state.model, dict(zip(names, slots)))
+
+    if isinstance(opt, AdamState):
+        adam = Attrs(count=torch.tensor(opt.count, dtype=torch.int32),
+                     mu=tree_of(opt.mu), nu=tree_of(opt.nu))
+        return portable_state(state, (adam, Attrs(), Attrs()))
+    if isinstance(opt, TraceState):
+        trace = Attrs() if opt.trace is None \
+            else Attrs(trace=tree_of(opt.trace))
+        return portable_state(state, (trace, Attrs()))
+    raise NotImplementedError(
+        f"the checkpoint form of {type(opt).__name__} is not ported yet "
+        f"(ROADMAP.md, queue 1 item 3)")
 
 
 def decode_state(tree: PortableState, mesh: Optional[Mesh] = None
                  ) -> TrainState:
     """Ckpt codec, decode half: the restore has filled the live tensors
-    through the views; this writes back the step and the count."""
+    through the views; this writes back the step and AdamW's count."""
     del mesh
     state = tree.live
-    adam = tree.opt_state[0]
     state.step = int(tree.step)
-    state.opt_state = AdamState(int(adam.count), state.opt_state.mu,
-                                state.opt_state.nu)
+    if isinstance(state.opt_state, AdamState):
+        state.opt_state = AdamState(int(tree.opt_state[0].count),
+                                    state.opt_state.mu, state.opt_state.nu)
     return state
 
 
@@ -785,6 +796,18 @@ def shared_aot_cache(path: Optional[str] = None):
     return ckpt.AOTCache(path)
 
 
+def _job_conf() -> conf.TonyConfig:
+    """The job conf the executor hands a task (``TONY_CONF_PATH``); an
+    empty one outside a job or where the file cannot be read."""
+    path = os.environ.get(constants.ENV_CONF_PATH)
+    if path:
+        try:
+            return conf.TonyConfig.load(path)
+        except (OSError, ValueError):
+            _log.warning("cannot read the job conf %s", path)
+    return conf.TonyConfig()
+
+
 def train_loop(state: TrainState, step_fn: Callable[[TrainState, Any],
                                                     Tuple[TrainState, Any]],
                batches: Optional[Iterable[Any]] = None, *,
@@ -806,8 +829,11 @@ def train_loop(state: TrainState, step_fn: Callable[[TrainState, Any],
     last_metrics)``.
 
     ``ckpt_dir``/``save_every``/``keep`` default from ``TONY_CKPT_DIR`` /
-    ``TONY_CKPT_EVERY`` / ``TONY_CKPT_KEEP`` (keep 3); with no directory
-    the loop is a plain fold.
+    ``TONY_CKPT_EVERY`` / ``TONY_CKPT_KEEP`` and, where a variable is
+    unset, from ``tony.ckpt.dir`` / ``.every`` / ``.keep`` of the job
+    conf at ``TONY_CONF_PATH`` (what ``JAXRuntime`` exports to a jax
+    task, read here for a ``--framework pytorch`` one; every 0, keep 3);
+    with no directory the loop is a plain fold.
 
     * ``restore_on_start``: restore the newest committed step into
       ``state`` in place before the first step (a no-op on the first
@@ -849,13 +875,16 @@ def train_loop(state: TrainState, step_fn: Callable[[TrainState, Any],
         batches = data
     stateful_data = (data is not None and hasattr(data, "state")
                      and hasattr(data, "restore"))
+    job = _job_conf()
     if ckpt_dir is None:
-        ckpt_dir = os.environ.get(constants.ENV_CKPT_DIR) or None
+        ckpt_dir = os.environ.get(constants.ENV_CKPT_DIR) \
+            or job.get(conf.CKPT_DIR) or None
     if save_every is None:
-        save_every = int(os.environ.get(constants.ENV_CKPT_EVERY, "0")
-                         or 0)
+        save_every = int(os.environ.get(constants.ENV_CKPT_EVERY) or
+                         job.get_int(conf.CKPT_EVERY, 0))
     if keep is None:
-        keep = int(os.environ.get(constants.ENV_CKPT_KEEP, "3") or 3)
+        keep = int(os.environ.get(constants.ENV_CKPT_KEEP) or
+                   job.get_int(conf.CKPT_KEEP, 3))
     if drain_file is None:
         drain_file = os.environ.get(constants.ENV_DRAIN_FILE) or None
     if publish_every is None:
