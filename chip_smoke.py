@@ -224,6 +224,42 @@ caught):
    a warm standby: its stats file says ``warm_standby`` 1, ``promote``
    over RPC flips it to 0 as the call returns, a second ``promote``
    returns False. At full depth: ``python3 exp/port_replica_phase.py``;
+13a. tony_jobs — the train -> serve loop as TonY jobs of the port's own
+   control plane (``python -m tony_tpu_torch.cli``, its AM, scheduler and
+   ``python -S`` executor; nothing of the JAX package): (a) the GPU
+   census finds every card ``nvidia-smi --query-gpu=index,uuid,name``
+   names, at its index, under its UUID and name; (b) an in-process
+   ``ckpt_run`` of llama2-7b at full width and 1 layer (the job's two
+   saves must stay under the machine's write limit beside train_ckpt's),
+   4 steps, the train_ckpt seed, data file and AdamW, finished and freed,
+   then the same run as ``cli submit --framework pytorch --conf
+   tony.worker.instances=1 --conf tony.worker.gpus=1 --conf
+   tony.ckpt.dir=... --conf tony.ckpt.every=2`` of
+   ``tests/workloads/torch_job_train.py``: the job SUCCEEDED, its task saw
+   exactly the census's card (``CUDA_VISIBLE_DEVICES``, UUID, one card),
+   rows 1-8's forward and backward pair launched in it (the run's counts
+   and a profiled last step's kernel names), its losses equal, and its
+   committed step 4 holds the in-process state and cursor byte for byte;
+   (c) a job asking one card more than the host has fails at launch with
+   ``unsatisfiable gpu ask``, no task started; (d) an in-process
+   ``Replica`` (bf16) on that step, then ``cli serve ... --gpus 1``: four
+   seeded prompts sent one at a time over RPC give the in-process greedy
+   tokens, row 9 launched in the replica as often (the ``launches`` of
+   its ``serve_stats`` verb), and ``cli kill`` ends the job KILLED. It
+   prints submit-to-first-step and submit-to-first-token seconds and the
+   job's step times by kind: its plain steps (neither the first, nor
+   one that carries the save made after the step before it, nor the
+   profiled last) with their p50, apart from those that carry a save. ``python3 chip_smoke.py --job-depth-only`` runs the phase
+   alone at 8 layers, the depth the train phase runs (its two saves,
+   45.14 GB, are the command's only large writes; the phase checks them
+   against the write limit and the free disk before it starts).
+   ``python3 chip_smoke.py --job-cards-only`` (2 or more
+   cards) runs alone one worker a card, each with
+   ``tony.worker.gpus=1``, training the train phase's 8-layer model by
+   NCCL data parallelism over 2 rows a card for 5 steps: every task saw
+   one card, the census's at its rank, the cards disjoint; the first loss
+   within 1e-2 of a one-card no-grad forward on the same global rows;
+   each rank's step times and peak;
 14. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"train_zero3": {...}}`` line,
@@ -231,7 +267,8 @@ caught):
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
    ``{"train_resnet_ckpt": {...}}`` line, a
    ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
-   ``{"serve_replica": {...}}`` line, the ``{"serve_prefix": ...}``,
+   ``{"serve_replica": {...}}`` line, a ``{"tony_jobs": {...}}`` line,
+   the ``{"serve_prefix": ...}``,
    ``{"serve_spec": ...}`` and ``{"serve_coldstart": ...}`` lines, the
    card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -4328,19 +4365,21 @@ def recorded_save():
 
 
 def ckpt_run(tag, mesh, seed, data_path, ckpt_dir=None, save_every=0,
-             kill=None, reference=None):
-    """One run of the 8-layer job through train_loop on the memmapped
-    tokens, on a DeviceIterator: a ``ckpt_dir`` arms the restore and, with
-    ``save_every``, the async saves (no final save). Returns the run's
-    numbers and, after its last step, its state and data cursor as the
-    manifest would hold them: a host snapshot (the snapshot engine's
-    synchronous copy, nothing written), or, given a ``reference``
-    snapshot, their comparison with it (:func:`same_state`)."""
-    model = ckpt_model(TRAIN_LAYERS, seed)
+             kill=None, reference=None, layers=TRAIN_LAYERS,
+             steps=TRAIN_STEPS):
+    """One run of the ``layers``-deep job (8 by default) through
+    train_loop on the memmapped tokens, on a DeviceIterator, to step
+    ``steps``: a ``ckpt_dir`` arms the restore and, with ``save_every``,
+    the async saves (no final save). Returns the run's numbers and, after
+    its last step, its state and data cursor as the manifest would hold
+    them: a host snapshot (the snapshot engine's synchronous copy, nothing
+    written), or, given a ``reference`` snapshot, their comparison with it
+    (:func:`same_state`)."""
+    model = ckpt_model(layers, seed)
     state = create_train_state(model, adamw(TRAIN_LR), mesh=mesh)
     step = loop_step_fn(model, mesh)
     start = (ckpt.latest_step(ckpt_dir) or 0) if ckpt_dir else 0
-    data = token_stream(mesh, data_path, TRAIN_STEPS - start)
+    data = token_stream(mesh, data_path, steps - start)
     ids, losses, stamps, allocated = [], [], [], []
 
     def rec_step(st, batch):
@@ -5272,6 +5311,544 @@ def standby_replica(root, layers):
     return res
 
 
+# ---------------------------------------------------------------------
+# tony_jobs: the train -> serve loop as TonY jobs of the port's own
+# control plane (tony_tpu_torch.cli submit / serve, its AM, scheduler
+# and executor), with a gpus ask pinned to the census's card.
+# ---------------------------------------------------------------------
+
+# The train job commits a step every JOB_EVERY of its JOB_STEPS steps:
+# two saves of 12 bytes a parameter. In the whole script they run at
+# JOB_LAYERS (5.57 GB each): at 8 layers (22.57 GB each) they would pass,
+# beside train_ckpt's 30.6 GB, the 45 GiB of disk writes a command may
+# make on the card's machine. ``--job-depth-only`` runs the phase alone
+# at JOB_DEPTH_LAYERS, its two saves (45.14 GB) its only large writes.
+JOB_LAYERS, JOB_DEPTH_LAYERS = 1, 8
+JOB_STEPS, JOB_EVERY = 4, 2
+JOB_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "tony_jobs_smoke")
+JOB_SCRIPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "workloads")
+JOB_PROMPT_LENS = (16, 64, 200, 512)     # the serve job's four prompts
+JOB_NEW_TOKENS = 8
+JOB_TIMEOUT_S = 600
+# --job-cards-only: one worker a card, the train cell's depth, no saves.
+JOB_CARDS_LAYERS, JOB_CARDS_STEPS = TRAIN_LAYERS, 5
+JOB_FLASH_KERNELS = MMA_FWD_KERNELS + MMA_BWD_KERNELS + CORE_FWD_KERNELS \
+    + CORE_BWD_KERNELS
+
+
+def gpu_census():
+    """(a) The port's GPU census against what ``nvidia-smi
+    --query-gpu=index,uuid,name`` names: every card, at its index, under
+    its UUID and name."""
+    from tony_tpu_torch import discovery
+
+    rows = [line.split(", ") for line in subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,uuid,name",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()]
+    named = discovery.restrict_to_visible(
+        [discovery.GpuDevice(int(i), uuid, name, 0) for i, uuid, name in rows],
+        os.environ.get("CUDA_VISIBLE_DEVICES"))
+    topo = discovery.discover_gpus()
+    got = [(d.index, d.uuid, d.name) for d in topo.devices]
+    want = [(d.index, d.uuid, d.name) for d in named]
+    if topo.source != "nvidia-smi" or got != want \
+            or topo.num_gpus != torch.cuda.device_count():
+        raise AssertionError(f"tony_jobs: the census ({topo.source}) found "
+                             f"{got}, nvidia-smi names {want}, torch counts "
+                             f"{torch.cuda.device_count()}")
+    log(f"  census ({topo.source}): {got}")
+    return topo
+
+
+def job_env():
+    """The env the jobs run in: the checkout on PYTHONPATH, and ``python``
+    on PATH being this interpreter (the tasks' commands say ``python``)."""
+    bin_dir = os.path.join(JOB_ROOT, "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    wrapper = os.path.join(bin_dir, "python")
+    if not os.path.exists(wrapper):
+        # exec by this interpreter's own path (a symlink elsewhere would
+        # lose its virtual environment).
+        with open(wrapper, "w") as fh:
+            fh.write(f"#!/bin/sh\nexec {sys.executable} \"$@\"\n")
+        os.chmod(wrapper, 0o755)
+    root = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ,
+                PATH=os.pathsep.join([bin_dir, os.environ.get("PATH", "")]),
+                PYTHONPATH=os.pathsep.join(
+                    [root, os.environ.get("PYTHONPATH", "")]))
+
+
+def tony_cli(args, workdir, out_name, wait=True):
+    """``python -m tony_tpu_torch.cli <args> --workdir <workdir>``, its
+    output in ``<workdir>/<out_name>``: the return code, or the running
+    process (``wait=False``)."""
+    os.makedirs(workdir, exist_ok=True)
+    out = open(os.path.join(workdir, out_name), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.cli", *args, "--workdir",
+         workdir], cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=job_env(), stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    if not wait:
+        return proc
+    try:
+        return proc.wait(timeout=JOB_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def job_dir(workdir):
+    """The one application directory a submit made under ``workdir``."""
+    apps = [d for d in os.listdir(workdir) if d.startswith("app_")]
+    if len(apps) != 1:
+        raise AssertionError(f"tony_jobs: {workdir} holds {apps}")
+    return os.path.join(workdir, apps[0])
+
+
+def job_final(workdir):
+    with open(os.path.join(job_dir(workdir), "final-status.json")) as fh:
+        return json.load(fh)
+
+
+def job_tail(workdir, out_name):
+    """The client's output and the containers' logs, for a failure."""
+    parts = []
+    for path in [os.path.join(workdir, out_name)] + sorted(
+            glob_files(job_dir(workdir), ("executor.log", "stdout.log",
+                                          "stderr.log"))):
+        with open(path, errors="replace") as fh:
+            parts.append(f"== {path}\n{fh.read()[-3000:]}")
+    return "\n".join(parts)
+
+
+def glob_files(root, names):
+    return [os.path.join(d, n) for d, _, files in os.walk(root)
+            for n in files if n in names]
+
+
+def job_results(workdir):
+    """Every task's ``job_result.json``, in rank order."""
+    out = []
+    for path in glob_files(job_dir(workdir), ("job_result.json",)):
+        with open(path) as fh:
+            out.append(json.load(fh))
+    return sorted(out, key=lambda r: r["rank"])
+
+
+def train_job_args(layers, steps, data_path, batch, workers, gpus,
+                   ckpt_dir=None, name="tony-jobs-train"):
+    cmd = (f"python torch_job_train.py --model llama2-7b --layers {layers} "
+           f"--steps {steps} --data {data_path} --batch {batch} "
+           f"--lr {TRAIN_LR!r} --seed {SEED} --xent-chunk {LOOP_XENT_CHUNK} "
+           f"--remat-policy {LOOP_POLICY} --device cuda")
+    args = ["submit", "--framework", "pytorch", "--src_dir", JOB_SCRIPT_DIR,
+            "--executes", cmd, "--name", name,
+            "--conf", f"tony.worker.instances={workers}",
+            "--conf", f"tony.worker.gpus={gpus}",
+            "--conf", f"tony.data.seed={SEED}"]
+    if ckpt_dir:
+        args += ["--conf", f"tony.ckpt.dir={ckpt_dir}",
+                 "--conf", f"tony.ckpt.every={JOB_EVERY}"]
+    return args
+
+
+def check_task_card(tag, result, topo, offset):
+    """The task saw exactly one card, the census's card at ``offset``,
+    pinned by TonY."""
+    card = topo.devices[offset]
+    if result["visible"] != str(card.index) or result["task_gpus"] != "1" \
+            or result["device_count"] != 1 or result["uuid"] != card.uuid:
+        raise AssertionError(f"{tag}: rank {result['rank']} saw "
+                             f"{result['visible']!r} (TONY_TASK_GPUS "
+                             f"{result['task_gpus']}, {result['device_count']}"
+                             f" card(s), {result['uuid']}), the census's card"
+                             f" {offset} is {card}")
+
+
+def steady_p50(step_ms):
+    """The p50 of a job's steps between its first (allocation, cuBLAS
+    and kernel-library warm-up) and its last (profiled), for a job that
+    saves no checkpoint."""
+    return float(np.median(step_ms[1:-1]))
+
+
+def job_step_kinds(step_ms, every):
+    """A saving job's step times by kind. ``step_ms[k - 1]`` runs from
+    the end of step k - 1 to the end of step k, so it carries the save
+    ``train_loop`` makes after step k - 1 where ``every`` divides k - 1:
+    the first (warm-up), the steps that carry a save (the first of them
+    pinning its host slot), the last (profiled), and the plain rest with
+    their p50 (None where there is none)."""
+    last = len(step_ms)
+    saves = [k for k in range(2, last) if (k - 1) % every == 0]
+    plain = [k for k in range(2, last) if (k - 1) % every]
+    return {"warmup_ms": step_ms[0], "last_ms": step_ms[-1],
+            "last_carries_save": (last - 1) % every == 0,
+            "save_steps": saves,
+            "save_ms": [step_ms[k - 1] for k in saves],
+            "plain_steps": plain,
+            "plain_ms": [step_ms[k - 1] for k in plain],
+            "plain_p50_ms": float(np.median([step_ms[k - 1] for k in plain]))
+            if plain else None}
+
+
+def job_writes(layers):
+    """The bytes the train job's saves write at ``layers`` layers (12 a
+    parameter: f32 parameters and AdamW's two moments)."""
+    return JOB_STEPS // JOB_EVERY * 12 * decoder_params(layers)
+
+
+def job_flash_profile(result):
+    return {"flash_kernel_launches_per_step": {
+        k: n for k, n in result["profiled_kernels"].items()
+        if any(name in k for name in JOB_FLASH_KERNELS)}}
+
+
+def committed_equals(snap, root, step):
+    """The committed step ``step`` under ``root`` holds ``snap``: the same
+    leaves, and per chunk the same extent and bytes (read back through the
+    port's ``ChunkReader``, which checks each chunk's CRC32)."""
+    from tony_tpu_torch.ckpt import format as ckpt_format
+
+    manifest = ckpt_format.read_manifest(root, step)
+    if manifest["leaves"] != json.loads(json.dumps(snap.leaves)):
+        raise AssertionError(f"tony_jobs: step {step} under {root} holds "
+                             f"other leaves than the in-process run")
+    index = {(c["leaf"], tuple(c["start"])): c for c in manifest["chunks"]}
+    if len(index) != len(snap.chunks):
+        raise AssertionError(f"tony_jobs: {len(index)} chunks on disk, "
+                             f"{len(snap.chunks)} in process")
+    nbytes = 0
+    with ckpt_format.ChunkReader(root, step, manifest) as reader:
+        for leaf, start, arr in snap.chunks:
+            chunk = index.get((leaf, tuple(start)))
+            want = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+            got = None if chunk is None else reader.read(chunk, arr.dtype)
+            if got is None or got.shape != arr.shape or not np.array_equal(
+                    got.reshape(-1).view(np.uint8), want):
+                raise AssertionError(
+                    f"tony_jobs: step {step} differs at "
+                    f"{snap.leaves[leaf]['path']} chunk {list(start)}")
+            nbytes += want.nbytes
+    return {"leaves": len(snap.leaves), "chunks": len(snap.chunks),
+            "bytes_compared": nbytes}
+
+
+def job_tokens(seed, n):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, CKPT_VOCAB, (n, TRAIN_SEQ), dtype=np.int32)
+
+
+def train_job(topo, data_path, layers):
+    """(b) The in-process reference (``ckpt_run`` of the same depth, seed,
+    data and optimizer), finished and freed, then the same 4 steps as a
+    TonY job with ``tony.worker.gpus=1`` and ``tony.ckpt.every=2``: the job
+    SUCCEEDED, its task saw the census's card alone, rows 1-8's forward
+    and backward pair launched in it (the whole run and a profiled last
+    step), its losses equal the reference's, and its committed step 4
+    holds the reference's state and cursor byte for byte."""
+    td.init_process_group("nccl", rank=0, world_size=1,
+                          init_method=f"tcp://127.0.0.1:{free_port()}")
+    try:
+        ref, snap = ckpt_run("in-process reference", MeshSpec(dp=1).build(),
+                             SEED, data_path, layers=layers,
+                             steps=JOB_STEPS)
+    finally:
+        td.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_dir = os.path.join(JOB_ROOT, "ckpt")
+    workdir = os.path.join(JOB_ROOT, "train")
+    t_submit = time.time()
+    rc = tony_cli(train_job_args(layers, JOB_STEPS, data_path,
+                                 TRAIN_BATCH, 1, 1, ckpt_dir),
+                  workdir, "submit.log")
+    wall = time.time() - t_submit
+    final = job_final(workdir)
+    if rc != 0 or final["status"] != "SUCCEEDED":
+        raise AssertionError(f"tony_jobs: the train job ended {rc} "
+                             f"{final['status']}: {final['message']}\n"
+                             + job_tail(workdir, "submit.log"))
+    (res,) = job_results(workdir)
+    check_task_card("tony_jobs train", res, topo, 0)
+    launches = {n: res["launches"][n] for n in FLASH_NAMES}
+    expect = {"flash_attention_fwd": 2 * layers * JOB_STEPS,
+              "flash_attention_bwd_dq": layers * JOB_STEPS,
+              "flash_attention_bwd_dkv": layers * JOB_STEPS}
+    if launches != expect or launches != ref["launches"]:
+        raise AssertionError(f"tony_jobs: the job launched {launches}, "
+                             f"expected {expect} (in process: "
+                             f"{ref['launches']})")
+    prof = job_flash_profile(res)
+    check_fwd_kernels("tony_jobs train", prof, 2 * layers)
+    check_bwd_kernels("tony_jobs train", prof, layers)
+    if res["losses"] != ref["losses"]:
+        raise AssertionError(f"tony_jobs: job losses {res['losses']} != "
+                             f"in-process {ref['losses']}")
+    committed = ckpt.committed_steps(ckpt_dir)
+    if committed != list(range(JOB_EVERY, JOB_STEPS + 1, JOB_EVERY)):
+        raise AssertionError(f"tony_jobs: the job committed {committed}")
+    compared = committed_equals(snap, ckpt_dir, JOB_STEPS)
+    del snap
+    gc.collect()
+    forbidden = {"jax", "jaxlib", "flax", "optax", "tony_tpu"}
+    if forbidden & set(res["modules"]):
+        raise AssertionError(f"tony_jobs: the task imported "
+                             f"{forbidden & set(res['modules'])}")
+    out = {"layers": layers, "steps": JOB_STEPS, "every": JOB_EVERY,
+           "status": final["status"], "wall_s": wall,
+           "submit_to_first_step_s": res["first_step_at"] - t_submit,
+           "step_ms": res["step_ms"],
+           "step_kinds": job_step_kinds(res["step_ms"], JOB_EVERY),
+           "losses": res["losses"], "launches": launches,
+           "profiled_flash": prof["flash_kernel_launches_per_step"],
+           "card": {"visible": res["visible"], "uuid": res["uuid"]},
+           "peak_bytes": res["peak_bytes"], "committed": committed,
+           "compared": compared,
+           "reference": {"seconds": ref["seconds"], "step_ms": ref["step_ms"],
+                         "losses": ref["losses"]}}
+    kinds = out["step_kinds"]
+    log(f"  train job: SUCCEEDED in {wall:.1f} s on {res['uuid']} (visible "
+        f"{res['visible']!r}); submit to first step "
+        f"{out['submit_to_first_step_s']:.1f} s; plain step(s) "
+        f"{kinds['plain_steps']} {kinds['plain_ms']} ms, step(s) carrying "
+        f"a save {kinds['save_steps']} {kinds['save_ms']} ms, profiled last "
+        f"{kinds['last_ms']:.1f} ms; launches {launches}; losses equal "
+        f"the in-process run's; committed {committed}, step {JOB_STEPS} "
+        f"== in process ({compared['chunks']} chunks, "
+        f"{compared['bytes_compared']} bytes)")
+    return out, ckpt_dir
+
+
+def overask_job(data_path):
+    """(c) A job asking one card more than the host has fails at launch
+    with the scheduler's message, and no task starts."""
+    cards = torch.cuda.device_count()
+    workdir = os.path.join(JOB_ROOT, "overask")
+    rc = tony_cli(train_job_args(JOB_LAYERS, JOB_STEPS, data_path,
+                                 TRAIN_BATCH, 1, cards + 1,
+                                 name="tony-jobs-overask"),
+                  workdir, "submit.log")
+    final = job_final(workdir)
+    started = os.path.isdir(os.path.join(job_dir(workdir), "containers"))
+    want = f"unsatisfiable gpu ask: {cards + 1} requested, {cards} free"
+    if rc == 0 or final["status"] != "FAILED" or want not in \
+            final["message"] or started:
+        raise AssertionError(f"tony_jobs: the over-ask ended {rc} "
+                             f"{final['status']} ({final['message']}), a "
+                             f"task started: {started}")
+    log(f"  over-ask of {cards + 1} card(s): FAILED at launch, no task "
+        f"started ({final['message']})")
+    return {"gpus": cards + 1, "status": final["status"],
+            "message": final["message"]}
+
+
+def serve_job(ckpt_dir, vocab, layers):
+    """(d) The committed step served by an in-process ``Replica`` (bf16)
+    and then by ``tony_tpu_torch.cli serve --gpus 1``: four seeded
+    prompts, one at a time over the RPC wire, give the in-process greedy
+    tokens; row 9 launched in the replica as often as in process; ``kill``
+    ends the job KILLED."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in JOB_PROMPT_LENS]
+    engine_kw = dict(ctx_max=2048, block_size=16, max_running=16)
+    replica = Replica(model_name="llama2-7b",
+                      model_kwargs=replica_model_kwargs(layers),
+                      ckpt_dir=ckpt_dir, dtype_policy="bf16", **engine_kw)
+    LAUNCHES["flash_decode"] = 0
+    ref = [replica.generate(p, JOB_NEW_TOKENS).tokens for p in prompts]
+    ref_launches = LAUNCHES["flash_decode"]
+    ref_step = replica.restored_step
+    del replica
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = os.path.join(JOB_ROOT, "serve")
+    t_submit = time.time()
+    proc = tony_cli(["serve", "--model", "llama2-7b", "--model_kwargs",
+                     json.dumps(replica_model_kwargs(layers)),
+                     "--ckpt_dir", ckpt_dir, "--gpus", "1",
+                     "--ctx_max", str(engine_kw["ctx_max"]),
+                     "--name", "tony-jobs-serve"],
+                    workdir, "serve.log", wait=False)
+    try:
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        stats = None
+        while stats is None and time.monotonic() < deadline \
+                and proc.poll() is None:
+            time.sleep(0.5)
+            if not any(d.startswith("app_") for d in os.listdir(workdir)):
+                continue
+            for path in glob_files(job_dir(workdir), ("serve-stats.json",)):
+                try:
+                    with open(path) as fh:
+                        got = json.load(fh)
+                except (OSError, ValueError):
+                    continue
+                if "rpc_port" in got:
+                    stats = got
+        if stats is None:
+            raise AssertionError("tony_jobs: the serve job published no RPC "
+                                 "port\n" + job_tail(workdir, "serve.log"))
+        tokens, t_first = [], None
+        with LongCallRpcClient(f"127.0.0.1:{int(stats['rpc_port'])}",
+                               timeout=600.0) as client:
+            before = client.call("serve_stats")["launches"]["flash_decode"]
+            for prompt in prompts:
+                out = client.call("generate", tokens=prompt,
+                                  max_new_tokens=JOB_NEW_TOKENS)
+                t_first = t_first or time.time()
+                tokens.append(out["tokens"])
+            launches = client.call("serve_stats")["launches"][
+                "flash_decode"] - before
+        if tokens != ref or launches != ref_launches or launches == 0 \
+                or stats["weight_step"] != ref_step:
+            raise AssertionError(f"tony_jobs: the serve job gave {tokens} "
+                                 f"(step {stats['weight_step']}, row 9 "
+                                 f"{launches}), in process {ref} (step "
+                                 f"{ref_step}, row 9 {ref_launches})")
+        app_id = os.path.basename(job_dir(workdir))
+        rc = tony_cli(["kill", app_id], workdir, "kill.log")
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    final = job_final(workdir)
+    if rc != 0 or code == 0 or final["status"] != "KILLED":
+        raise AssertionError(f"tony_jobs: kill returned {rc}, the serve "
+                             f"job ended {code} {final['status']}")
+    out = {"layers": layers, "prompts": list(JOB_PROMPT_LENS),
+           "new_tokens": JOB_NEW_TOKENS, "step": ref_step, "tokens_equal": True,
+           "flash_decode_launches": launches,
+           "submit_to_first_token_s": t_first - t_submit,
+           "status": final["status"]}
+    log(f"  serve job: step {ref_step}, {len(prompts)} prompts over RPC "
+        f"give the in-process greedy tokens; row 9 launched {launches} "
+        f"times in the replica; submit to first token "
+        f"{out['submit_to_first_token_s']:.1f} s; kill -> {final['status']}")
+    return out
+
+
+def tony_jobs_phase(card, layers=JOB_LAYERS):
+    """(a)-(d) at ``layers`` layers: the census, the train job against
+    its in-process run, the over-ask, and the serve job on the train
+    job's committed step. Refuses to start where the job's saves would
+    pass the command's write limit or the free disk."""
+    shutil.rmtree(JOB_ROOT, ignore_errors=True)
+    os.makedirs(JOB_ROOT)
+    writes = job_writes(layers)
+    free = shutil.disk_usage(JOB_ROOT).free
+    log(f"  the train job's saves write {writes / 1e9:.2f} GB; free disk "
+        f"{free / 1e9:.1f} GB")
+    if writes > CKPT_WRITE_LIMIT or 1.1 * writes > free:
+        raise RuntimeError(f"tony_jobs at {layers} layers: the saves write "
+                           f"{writes / 1e9:.2f} GB, the write limit is "
+                           f"{CKPT_WRITE_LIMIT / 1e9:.2f} GB, the free disk "
+                           f"{free / 1e9:.1f} GB")
+    try:
+        topo = gpu_census()
+        data_path = os.path.join(JOB_ROOT, "tokens.npy")
+        np.save(data_path, job_tokens(SEED, CKPT_EXAMPLES))
+        train, ckpt_dir = train_job(topo, data_path, layers)
+        overask = overask_job(data_path)
+        serve = serve_job(ckpt_dir, CKPT_VOCAB, layers)
+        kinds = train["step_kinds"]
+        log(f"  tony_jobs at {layers} layer(s) on {card}: submit to first "
+            f"step {train['submit_to_first_step_s']:.1f} s, submit to first "
+            f"token {serve['submit_to_first_token_s']:.1f} s, job plain "
+            f"step(s) {kinds['plain_ms']} ms (p50 {kinds['plain_p50_ms']}), "
+            f"step(s) carrying a save {kinds['save_ms']} ms")
+        return {"census": [d.__dict__ for d in topo.devices],
+                "train": train, "overask": overask, "serve": serve,
+                "card": card}
+    finally:
+        shutil.rmtree(JOB_ROOT, ignore_errors=True)
+
+
+def job_cards_phase(card):
+    """``--job-cards-only``: one worker a card through the port's TonY
+    job, each with ``tony.worker.gpus=1``, training the train cell's
+    model by NCCL data parallelism over 2 rows a card: every task saw one
+    card, the census's at its offset, the cards disjoint; the first loss
+    within 1e-2 of a one-card no-grad forward on the same global rows;
+    the step times and each rank's peak."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError("--job-cards-only needs two or more cards")
+    shutil.rmtree(JOB_ROOT, ignore_errors=True)
+    os.makedirs(JOB_ROOT)
+    try:
+        topo = gpu_census()
+        batch = TRAIN_BATCH * cards
+        data_path = os.path.join(JOB_ROOT, "tokens.npy")
+        np.save(data_path, job_tokens(SEED, CKPT_EXAMPLES))
+        workdir = os.path.join(JOB_ROOT, "cards")
+        t_submit = time.time()
+        rc = tony_cli(train_job_args(JOB_CARDS_LAYERS, JOB_CARDS_STEPS,
+                                     data_path, batch, cards, 1,
+                                     name="tony-jobs-cards"),
+                      workdir, "submit.log")
+        wall = time.time() - t_submit
+        final = job_final(workdir)
+        if rc != 0 or final["status"] != "SUCCEEDED":
+            raise AssertionError(f"job_cards: the job ended {rc} "
+                                 f"{final['status']}: {final['message']}\n"
+                                 + job_tail(workdir, "submit.log"))
+        results = job_results(workdir)
+        if [r["rank"] for r in results] != list(range(cards)):
+            raise AssertionError(f"job_cards: results of ranks "
+                                 f"{[r['rank'] for r in results]}")
+        for r in results:
+            check_task_card("job_cards", r, topo, r["rank"])
+        uuids = {r["uuid"] for r in results}
+        if len(uuids) != cards:
+            raise AssertionError(f"job_cards: the tasks shared cards: "
+                                 f"{[r['uuid'] for r in results]}")
+        ds = (Dataset.from_memmap({"x": data_path}, seed=SEED).shuffle()
+              .repeat().batch(batch).with_ids())
+        first = next(ds.iterator(ShardSpec(0, 1)))["x"]
+        model = ckpt_model(JOB_CARDS_LAYERS, SEED)
+        with torch.no_grad():
+            x = torch.from_numpy(np.asarray(first)).cuda()
+            ref = float(loop_loss(model, x))
+        del model, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = results[0]["losses"][0]
+        rel = abs(got - ref) / abs(ref)
+        if not all(math.isfinite(v) for r in results for v in r["losses"]) \
+                or rel > FUSED_FIRST_LOSS_REL:
+            raise AssertionError(f"job_cards: first loss {got} vs one card "
+                                 f"{ref} (rel {rel:.2e})")
+        step_ms = [r["step_ms"] for r in results]
+        out = {"cards": cards, "layers": JOB_CARDS_LAYERS,
+               "steps": JOB_CARDS_STEPS, "global_batch": batch,
+               "wall_s": wall,
+               "submit_to_first_step_s": min(
+                   r["first_step_at"] for r in results) - t_submit,
+               "first_loss": got, "one_card_loss": ref, "rel": rel,
+               "losses": results[0]["losses"], "step_ms": step_ms,
+               "step_p50_ms": [steady_p50(s) for s in step_ms],
+               "peak_bytes": [r["peak_bytes"] for r in results],
+               "visible": [r["visible"] for r in results],
+               "uuids": [r["uuid"] for r in results],
+               "launches": [{n: r["launches"][n] for n in FLASH_NAMES}
+                            for r in results], "card": card}
+        log(f"  {cards} tasks on disjoint cards {out['visible']} "
+            f"({out['uuids']}); first loss {got!r} vs one card {ref!r} "
+            f"(rel {rel:.2e}); step p50 {out['step_p50_ms']} ms; peaks "
+            f"{[round(b / 1e9, 2) for b in out['peak_bytes']]} GB")
+        return out
+    finally:
+        shutil.rmtree(JOB_ROOT, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5279,6 +5856,8 @@ def main() -> int:
         return 1
     cards_only = "--zero3-cards-only" in sys.argv[1:]
     depth_only = "--ckpt-depth-only" in sys.argv[1:]
+    job_cards_only = "--job-cards-only" in sys.argv[1:]
+    job_depth_only = "--job-depth-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5305,6 +5884,30 @@ def main() -> int:
         log("[ckpt_depth]")
         res = ckpt_depth_phase(card)
         print(json.dumps({"ckpt_depth": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if job_depth_only:
+        # The train -> serve jobs at 8 layers (a separate command: the
+        # two saves write 45.14 GB).
+        log(f"[tony_jobs at {JOB_DEPTH_LAYERS} layers]")
+        res = tony_jobs_phase(card, layers=JOB_DEPTH_LAYERS)
+        print(json.dumps({"tony_jobs_depth": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if job_cards_only:
+        # Data parallelism through a TonY job of the port, one worker a
+        # card (a multi-card machine's measurement).
+        log("[job_cards]")
+        res = job_cards_phase(card)
+        print(json.dumps({"job_cards": res}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -5443,6 +6046,13 @@ def main() -> int:
     train_ckpt = train_ckpt_phase(card,
                                   train_loop_res["runs"][0]["step_p50_ms"])
     serve_replica = train_ckpt.pop("serve_replica")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 13a: the train -> serve loop as TonY jobs of the port's own
+    # control plane.
+    log("[tony_jobs]")
+    tony_jobs = tony_jobs_phase(card)
 
     entry = {
         "name": "flash_decode", "route": "cuda",
@@ -5452,7 +6062,8 @@ def main() -> int:
         + serve_coldstart["flash_decode_launches"]
         + serve_prefix["flash_decode_launches"]
         + serve_spec["flash_decode_launches"]
-        + serve_replica["rpc"]["flash_decode_launches"],
+        + serve_replica["rpc"]["flash_decode_launches"]
+        + tony_jobs["serve"]["flash_decode_launches"],
         # serve_coldstart's launches are the replays' (each captured
         # launch times its graph's replays).
         "launches_by_path": {
@@ -5461,7 +6072,8 @@ def main() -> int:
                 serve_coldstart["flash_decode_launches"],
             "serve_prefix": serve_prefix["flash_decode_launches"],
             "serve_spec": serve_spec["flash_decode_launches"],
-            "serve_replica": serve_replica["rpc"]["flash_decode_launches"]},
+            "serve_replica": serve_replica["rpc"]["flash_decode_launches"],
+            "tony_jobs_serve": tony_jobs["serve"]["flash_decode_launches"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -5501,13 +6113,15 @@ def main() -> int:
             "launches": train_launches[name]
             + train_zero3["timed"]["launches"][name]
             + train_loop_res["launches"][name]
-            + train_ckpt["launches_after_restore"][name],
+            + train_ckpt["launches_after_restore"][name]
+            + tony_jobs["train"]["launches"][name],
             "launches_by_path": {
                 "train": train_launches[name],
                 "train_zero3": train_zero3["timed"]["launches"][name],
                 "train_loop": train_loop_res["launches"][name],
                 "train_ckpt_after_restore":
-                    train_ckpt["launches_after_restore"][name]},
+                    train_ckpt["launches_after_restore"][name],
+                "tony_jobs_train": tony_jobs["train"]["launches"][name]},
             "max_abs_err": max(main_shape["max_abs_err"][e] for e in outs),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -5626,6 +6240,7 @@ def main() -> int:
     print(json.dumps({"train_loop": train_loop_res}), flush=True)
     print(json.dumps({"train_ckpt": train_ckpt}), flush=True)
     print(json.dumps({"serve_replica": serve_replica}), flush=True)
+    print(json.dumps({"tony_jobs": tony_jobs}), flush=True)
     serve_prefix["card"] = card
     serve_spec["card"] = card
     print(json.dumps({"serve_prefix": serve_prefix}), flush=True)

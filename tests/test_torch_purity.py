@@ -4,17 +4,23 @@ copies from the JAX package stays equal to the original.
 Import purity is checked statically (``ast``): the test process already
 holds jax — other test files in the same worker, and the parity tests'
 JAX side, load it — so ``sys.modules`` cannot tell whether the port
-imported it. The copies held here: the job conf (every serve key, the
-history and train AOT keys, the serve helpers, loading and the
-getters), the serve replica's constants, the chaos ``rpc_delay``,
-``resolve_target``'s rules, the RPC wire's bytes, the AOT cache's
-constants, format tag and ``fingerprint_key``, and the events reader."""
+imported it. The control plane (``conf``, ``constants``, ``util``,
+``discovery``, ``session``, ``rpc``, ``events``, ``chaos``, ``runtime/``,
+``scheduler``, ``executor``, ``am``, ``client``, ``cli``, ``minipod``)
+imports only the standard library and its own modules, and importing the
+package imports nothing else. The copies held here: the job conf (every
+shared key, default and helper, loading and the getters), the
+constants, the chaos names and ``rpc_delay``, ``resolve_target``'s rules,
+the RPC wire's bytes, the AOT cache's constants, format tag and
+``fingerprint_key``, and the event names and reader."""
 
 from __future__ import annotations
 
 import ast
 import json
 import socket
+import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -93,7 +99,9 @@ def test_sources_found():
                  "tests/workloads/torch_ckpt_ranks.py",
                  "tests/workloads/torch_zero3_steps.py",
                  "tests/workloads/torch_zero3_train.py",
-                 "tests/workloads/torch_train_resume.py"):
+                 "tests/workloads/torch_train_resume.py",
+                 "tests/workloads/torch_job_train.py",
+                 *(f"tony_tpu_torch/{m}" for m in CONTROL_PLANE)):
         assert must in names
     from tony_tpu_torch.ops import _build
     for name in _build.SOURCES:
@@ -106,6 +114,73 @@ def test_imports_nothing_of_jax_or_the_jax_package(path):
     bad = [(line, name) for line, name in _imported_roots(path)
            if name in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# The port's control plane: standard library and each other only (the
+# executor and AM start as ``python -S``).
+CONTROL_PLANE = ("__init__.py", "conf/__init__.py", "constants.py",
+                 "util.py", "discovery.py", "ckpt_layout.py", "session.py",
+                 "rpc/__init__.py",
+                 "events/__init__.py", "chaos.py", "runtime/__init__.py",
+                 "runtime/base.py", "runtime/standalone.py",
+                 "runtime/pytorch_runtime.py", "scheduler/__init__.py",
+                 "executor/__init__.py", "executor/__main__.py",
+                 "am/__init__.py", "am/__main__.py", "client.py",
+                 "cli/__init__.py", "cli/__main__.py",
+                 "minipod/__init__.py")
+_CONTROL_MODULES = {"tony_tpu_torch." + m[:-3].replace("/", ".")
+                    .removesuffix(".__init__") for m in CONTROL_PLANE}
+
+
+def _module_level_imports(path: Path):
+    """Absolute module names imported at module level (not inside a
+    function, and not under ``if TYPE_CHECKING``)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+
+    def visit(nodes):
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                out.extend(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                out.extend(f"{node.module}.{a.name}"
+                           if node.module == "tony_tpu_torch"
+                           else node.module for a in node.names)
+            elif isinstance(node, ast.If) and not (
+                    isinstance(node.test, ast.Name)
+                    and node.test.id == "TYPE_CHECKING"):
+                visit(node.body + node.orelse)
+            elif isinstance(node, (ast.Try,)):
+                visit(node.body + node.orelse + node.finalbody)
+    visit(tree.body)
+    return out
+
+
+@pytest.mark.parametrize("name", CONTROL_PLANE)
+def test_control_plane_imports_only_the_stdlib(name):
+    for mod in _module_level_imports(ROOT / "tony_tpu_torch" / name):
+        root = mod.split(".")[0]
+        if root == "tony_tpu_torch":
+            assert mod in _CONTROL_MODULES | {"tony_tpu_torch"}, \
+                f"{name} imports {mod}"
+        else:
+            assert root in sys.stdlib_module_names, f"{name} imports {mod}"
+
+
+def test_executor_starts_without_site():
+    """``python -S`` (the executor's and the AM's interpreter flags)
+    imports the executor, the AM and the CLI with nothing but the
+    standard library and the port's control plane."""
+    code = ("import sys; import tony_tpu_torch.executor, tony_tpu_torch.am, "
+            "tony_tpu_torch.cli, tony_tpu_torch.client, "
+            "tony_tpu_torch.minipod; print(sorted({m.split('.')[0] for m "
+            "in sys.modules} - set(sys.stdlib_module_names) "
+            "- {'__main__'}))")
+    out = subprocess.run([sys.executable, "-S", "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=60,
+                         env={"PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["['tony_tpu_torch']"]
 
 
 def test_purity_check_catches_a_jax_import(tmp_path):
@@ -171,13 +246,23 @@ _CONF_HELPERS = ("serve_role_key", "serve_warm_standby_key",
 
 class TestCopiesEqualTheReference:
     def test_conf_keys_defaults_and_helpers(self):
-        names = [n for n in vars(conf) if n.isupper()]
-        for name in names:
+        """Every key both confs name is the same string; the port leaves
+        out the JAX runtime's libtpu, multi-slice and XLA keys and the
+        chip census override, and adds the GPU census and host keys; the
+        defaults differ only in the framework; the helpers agree."""
+        ours = {n for n in vars(conf) if n.isupper()}
+        ref = {n for n in vars(jconf) if n.isupper()}
+        for name in ours & ref - {"DEFAULTS"}:
             assert getattr(conf, name) == getattr(jconf, name), name
-        serve_keys = {n for n in vars(jconf) if n.startswith("SERVE_")}
-        assert set(names) == serve_keys | {"CKPT_DIR", "CKPT_EVERY",
-                                           "CKPT_KEEP", "HISTORY_LOCATION",
-                                           "TRAIN_AOT_CACHE"}
+        assert ref - ours == {"JAX_OVERLAP_XLA_FLAGS", "JAX_SLICES",
+                              "LIBTPU_PORT_BASE", "MEGASCALE_PORT",
+                              "SCHEDULER_TOTAL_TPUS"}
+        assert ours - ref == {"SCHEDULER_BACKEND", "SCHEDULER_HOST_GPUS",
+                              "SCHEDULER_TOTAL_GPUS"}
+        diff = {k for k in conf.DEFAULTS.keys() | jconf.DEFAULTS.keys()
+                if conf.DEFAULTS.get(k) != jconf.DEFAULTS.get(k)}
+        assert diff == {conf.APPLICATION_FRAMEWORK}
+        assert conf.DEFAULTS[conf.APPLICATION_FRAMEWORK] == "pytorch"
         for helper in _CONF_HELPERS:
             for jt in _JOB_TYPES:
                 assert getattr(conf, helper)(jt) == \
@@ -186,9 +271,8 @@ class TestCopiesEqualTheReference:
     @pytest.mark.parametrize("suffix", [".json", ".xml"])
     def test_conf_loading_and_getters(self, tmp_path, suffix):
         """The copy reads the conf the AM serializes (``TonyConfig.save``,
-        JSON, defaults included) to the same typed values as the
-        original. A Hadoop-style XML file, which only the client reads,
-        is refused rather than read wrongly."""
+        JSON, defaults included) and a Hadoop-style ``tony.xml`` to the
+        same typed values as the original."""
         props = {"tony.serve.instances": "2", "tony.chief.instances": "1",
                  "tony.serve.model-kwargs": '{"n_layers": 2}',
                  "tony.serve.prefix-cache": "yes", "tony.serve.spec-k": "",
@@ -199,14 +283,11 @@ class TestCopiesEqualTheReference:
             path.write_text("<configuration>" + "".join(
                 f"<property><name>{k}</name><value>{v}</value></property>"
                 for k, v in props.items()) + "</configuration>")
-            assert jconf.TonyConfig.load(path).get(
-                "tony.serve.demote-watermark") == "0.25"
-            with pytest.raises(ValueError):
-                conf.TonyConfig.load(path)
-            return
-        jconf.TonyConfig(props).save(path)
+        else:
+            jconf.TonyConfig(props).save(path)
         ours, ref = conf.TonyConfig.load(path), jconf.TonyConfig.load(path)
-        for key in json.loads(path.read_text()):
+        for key in props.keys() | (set(json.loads(path.read_text()))
+                                   if suffix == ".json" else set()):
             assert ours.get(key) == ref.get(key), key
             assert ours.get_bool(key) == ref.get_bool(key), key
         assert ours.get("tony.serve.port", "x") == \
@@ -228,6 +309,34 @@ class TestCopiesEqualTheReference:
                      "JHIST_SUFFIX", "JHIST_INPROGRESS_SUFFIX"):
             assert getattr(constants, name) == getattr(jconstants, name), \
                 name
+
+    def test_constants_chaos_and_event_names(self, monkeypatch):
+        """Every constant both packages name is equal, and the port adds
+        only its CUDA seams; the chaos env names and the executor's
+        heartbeat drop schedule, and the event names, are the
+        reference's."""
+        ours = {n for n in vars(constants) if n.isupper()}
+        ref = {n for n in vars(jconstants) if n.isupper()}
+        for name in ours & ref:
+            assert getattr(constants, name) == getattr(jconstants, name), \
+                name
+        assert ours - ref == {"ENV_CUDA_VISIBLE_DEVICES",
+                              "ENV_CUDA_DEVICE_ORDER", "ENV_TASK_GPUS",
+                              "ENV_NCCL_ASYNC_ERROR_HANDLING"}
+        assert {n for n in vars(chaos) if n.startswith("ENV_")} == \
+            {n for n in vars(jchaos) if n.startswith("ENV_")}
+        for name in (n for n in vars(jchaos) if n.startswith("ENV_")):
+            assert getattr(chaos, name) == getattr(jchaos, name), name
+        for mod in (chaos, jchaos):
+            mod.reset()
+            monkeypatch.setenv(mod.ENV_HB_DROP, "2")
+            assert [mod.drop_heartbeat() for _ in range(4)] == \
+                [True, True, False, False], mod.__name__
+            mod.reset()
+        names = {n for n in vars(jevents) if n.isupper()
+                 and isinstance(getattr(jevents, n), str)}
+        for name in names:
+            assert getattr(events, name) == getattr(jevents, name), name
 
     def test_chaos_rpc_delay(self, monkeypatch):
         assert (chaos.ENV_RPC_DELAY_S, chaos.ENV_RPC_DELAY_CALLS) == \

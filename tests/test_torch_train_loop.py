@@ -679,8 +679,15 @@ def test_constants_equal_the_reference():
     for name in ("ENV_KILL_STEP", "ENV_CRASH", "ENV_RPC_DELAY_S",
                  "ENV_RPC_DELAY_CALLS"):
         assert getattr(chaos, name) == getattr(jchaos, name), name
+    # The port's constants are the whole copy since its control plane
+    # came (every shared name equal), plus the CUDA seams.
     ours = {k for k in vars(constants) if k.isupper()}
-    assert ours == set(names)
+    ref = {k for k in vars(jconstants) if k.isupper()}
+    assert set(names) <= ours
+    for name in ours & ref:
+        assert getattr(constants, name) == getattr(jconstants, name), name
+    assert ours - ref == {"ENV_CUDA_VISIBLE_DEVICES", "ENV_CUDA_DEVICE_ORDER",
+                          "ENV_TASK_GPUS", "ENV_NCCL_ASYNC_ERROR_HANDLING"}
 
 
 def test_collective_report_is_a_copy():

@@ -1,15 +1,18 @@
 """Scripted faults for the port's train loop, publication, serve replica
 and RPC client: a copy of the part of :mod:`tony_tpu.chaos` that
 :func:`tony_tpu_torch.train.train_loop`, :mod:`tony_tpu_torch.publish`,
-:meth:`tony_tpu_torch.serve.replica.Replica.hot_swap` and
-:class:`tony_tpu_torch.rpc.RpcClient` consult.
+:meth:`tony_tpu_torch.serve.replica.Replica.hot_swap`,
+:class:`tony_tpu_torch.rpc.RpcClient`, the control plane's event log and
+the executor's heartbeat consult.
 
 ``TONY_CHAOS_KILL_STEP=k`` SIGKILLs this process as training step ``k``
 completes, the same env the control plane's chaos harness arms for the
 JAX package's loop; ``TONY_CHAOS_CRASH=<site>`` SIGKILLs it at the named
 crash site (:func:`crash_point`). A malformed step raises
 ``ValueError``: a typoed fault schedule must not turn a chaos test into a
-vacuous pass. ``TONY_CHAOS_RPC_DELAY_S=s`` stalls the first
+vacuous pass. ``TONY_CHAOS_HB_DROP=n`` swallows the executor's first
+``n`` heartbeat sends (:func:`drop_heartbeat`): a flaky window that must
+not mark a healthy task lost. ``TONY_CHAOS_RPC_DELAY_S=s`` stalls the first
 ``TONY_CHAOS_RPC_DELAY_CALLS`` (default 1) RPC calls by ``s`` seconds
 (:func:`rpc_delay`). In-process tests set ``KILL_HOOK``/``CRASH_HOOK`` to
 observe the fault instead of receiving SIGKILL and ``SLEEP_HOOK`` to
@@ -25,6 +28,7 @@ import time
 from typing import Callable, Dict, Optional
 
 ENV_KILL_STEP = "TONY_CHAOS_KILL_STEP"
+ENV_HB_DROP = "TONY_CHAOS_HB_DROP"
 ENV_RPC_DELAY_S = "TONY_CHAOS_RPC_DELAY_S"
 ENV_RPC_DELAY_CALLS = "TONY_CHAOS_RPC_DELAY_CALLS"
 ENV_CRASH = "TONY_CHAOS_CRASH"
@@ -92,6 +96,15 @@ def kill_point(step: int) -> None:
         KILL_HOOK(step)
         return
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+def drop_heartbeat() -> bool:
+    """True if this heartbeat send should be swallowed (the first ``n``
+    probes when ``TONY_CHAOS_HB_DROP=n`` is armed)."""
+    n = _int_env(ENV_HB_DROP)
+    if n is None or n <= 0:
+        return False
+    return _count("hb_drop") <= n
 
 
 def rpc_delay() -> None:

@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import shutil
 import signal
 import time
@@ -58,12 +57,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-MANIFEST_NAME = "manifest.json"
-FORMAT_VERSION = "tony-ckpt-v1"
-TMP_SUFFIX = ".tmp"
-ENV_CRASH = "TONY_CKPT_CRASH"
+# The layout of the root (names, the commit rule, the scans) lives in the
+# standard-library module the executor's heartbeat also reads.
+from tony_tpu_torch.ckpt_layout import MANIFEST_NAME, TMP_SUFFIX  # noqa: F401
+from tony_tpu_torch.ckpt_layout import STEP_RE as _STEP_RE
+from tony_tpu_torch.ckpt_layout import (committed_steps,  # noqa: F401
+                                        latest_step, step_dir, tmp_dir)
 
-_STEP_RE = re.compile(r"^step_(\d+)$")
+FORMAT_VERSION = "tony-ckpt-v1"
+ENV_CRASH = "TONY_CKPT_CRASH"
 # A chunk is read in pieces of this many bytes, each checksummed on a
 # second thread while the next is read.
 _READ_PIECE = 64 << 20
@@ -86,40 +88,12 @@ def _crash_point(phase: str) -> None:
 # Naming / discovery
 # ---------------------------------------------------------------------------
 
-def step_dir(root: str | Path, step: int) -> Path:
-    return Path(root) / f"step_{step:08d}"
-
-
-def tmp_dir(root: str | Path, step: int) -> Path:
-    return Path(root) / f"step_{step:08d}{TMP_SUFFIX}"
-
-
 def shard_file_name(proc: int) -> str:
     return f"shards_{proc:05d}.bin"
 
 
 def sidecar_name(proc: int) -> str:
     return f"shards_{proc:05d}.json"
-
-
-def committed_steps(root: str | Path) -> List[int]:
-    """All committed step numbers under ``root``, ascending. A directory
-    counts only if the commit rename happened AND the manifest is inside —
-    ``.tmp`` staging dirs and torn leftovers never appear here."""
-    root = Path(root)
-    if not root.is_dir():
-        return []
-    out = []
-    for entry in root.iterdir():
-        m = _STEP_RE.match(entry.name)
-        if m and (entry / MANIFEST_NAME).is_file():
-            out.append(int(m.group(1)))
-    return sorted(out)
-
-
-def latest_step(root: str | Path) -> Optional[int]:
-    steps = committed_steps(root)
-    return steps[-1] if steps else None
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,15 @@ the JAX coordinator triple. A user script calls::
     dist.initialize()          # False outside a TonY job or for 1 process
 
 which brings up ``torch.distributed``'s default process group: NCCL with
-this task's card ``cuda:{LOCAL_RANK}`` pinned, or gloo for
-``device="cpu"``. ``device=None`` means the card, and raises without a
-GPU: a job never falls back to gloo or the CPU on its own.
+this task's card as the current device, or gloo for ``device="cpu"``.
+``device=None`` means the card, and raises without a GPU: a job never
+falls back to gloo or the CPU on its own.
+
+The card (:func:`task_card`): a task TonY pinned (``tony.<jobtype>.gpus``;
+the runtime exports ``TONY_TASK_GPUS`` beside ``CUDA_VISIBLE_DEVICES``)
+sees only its own cards and uses the first, ``cuda:0``; a task TonY did not
+pin keeps ``cuda:{LOCAL_RANK}``. The choice reads what the runtime
+exported, never the device count.
 """
 
 from __future__ import annotations
@@ -41,6 +47,15 @@ def env_spec() -> Optional[Tuple[str, int, int, int]]:
     return init, int(world), int(rank), int(local)
 
 
+def task_card() -> int:
+    """The CUDA device index this task uses: 0 for a task TonY pinned
+    (``TONY_TASK_GPUS`` > 0: its first visible card), else its
+    ``LOCAL_RANK``."""
+    if int(os.environ.get(constants.ENV_TASK_GPUS) or 0) > 0:
+        return 0
+    return int(os.environ.get(constants.ENV_LOCAL_RANK) or 0)
+
+
 def initialize(device: Optional[Union[str, torch.device]] = None) -> bool:
     """Join the job's process group from the TonY env. Returns True when a
     multi-process group came up, False outside a TonY job or for one
@@ -50,11 +65,11 @@ def initialize(device: Optional[Union[str, torch.device]] = None) -> bool:
     spec = env_spec()
     if spec is None:
         return False
-    init, world, rank, local = spec
+    init, world, rank, _local = spec
     if world <= 1:
         return False
     if dev.type == "cuda":
-        torch.cuda.set_device(local)
+        torch.cuda.set_device(task_card())
         backend = "nccl"
     else:
         backend = "gloo"

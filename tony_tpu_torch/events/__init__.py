@@ -1,37 +1,271 @@
-"""The history plane's event-log reader: a copy of the read path of
-:mod:`tony_tpu.events` (``SERVE_WINDOW``, :func:`read_events`,
-:func:`list_jobs` and what they call), which the serve replica's
-``warm()`` pad tuner reads.
+"""Lifecycle event log: the jhist write/read path — a copy of
+:mod:`tony_tpu.events` (the port imports nothing of the JAX package).
 
-The control plane writes one JSON-lines file per job under a history
-root::
+Mirrors ``com.linkedin.tony.events`` (``EventHandler`` + the Avro ``Event``
+schema under ``tony-core/src/main/avro/``, unverified — SURVEY.md §0/§3.5).
+The serialization is JSON-lines and the store a plain directory tree::
 
     <history>/intermediate/<appId>.jhist.inprogress   (while running)
     <history>/finished/<appId>.jhist                  (after completion)
 
-whose first line is a metadata record and whose ``SERVE_WINDOW`` records
-carry each serve task's per-heartbeat stats, the prompt-length histogram
-among them. The writer stays in the control plane.
-``tests/test_torch_purity.py`` holds this copy equal to the original.
+The first line of every jhist file is a metadata record (user, app name,
+started timestamp, config snapshot). The port's AM writes APPLICATION_
+INITED, TASK_STARTED, TASK_METRICS, ALL_TASKS_RUNNING, TASK_FINISHED,
+APPLICATION_FINISHED, and the SERVE_WINDOW / TRAIN_STEP records of each
+task's stats file; the serve replica's ``warm()`` pad tuner reads the
+SERVE_WINDOW records back. The rest of the vocabulary (SCALE_DECISION,
+RESIZE, PUBLISH, SWAP) is kept so a port log and a JAX log read the same;
+the port's AM emits none of them yet. With ``max_bytes`` armed the
+writer compacts through stage-and-rename. Standard library only.
+``tests/test_torch_purity.py`` holds the names and the reader equal to
+the original.
 """
 
 from __future__ import annotations
 
+import getpass
 import json
 import os
 import threading
+import time
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional
 
-from tony_tpu_torch import constants
+from tony_tpu_torch import chaos, constants
 
+APPLICATION_INITED = "APPLICATION_INITED"
+TASK_STARTED = "TASK_STARTED"
+TASK_METRICS = "TASK_METRICS"
+ALL_TASKS_RUNNING = "ALL_TASKS_RUNNING"
+TASK_FINISHED = "TASK_FINISHED"
+APPLICATION_FINISHED = "APPLICATION_FINISHED"
 SERVE_WINDOW = "SERVE_WINDOW"
+TRAIN_STEP = "TRAIN_STEP"
+SCALE_DECISION = "SCALE_DECISION"
+RESIZE = "RESIZE"
+# Continuous weight publication (publish / serve.swap): one
+# PUBLISH per new manifest pointer the train gang stages, one SWAP per
+# replica the AM rolls onto it — together the timeline `tony history`
+# reconstructs (which version, which step, who swapped when, how long
+# each swap window lasted). Low-rate lifecycle records: NEVER rotation
+# victims.
+PUBLISH = "PUBLISH"
+SWAP = "SWAP"
 
 _METADATA = "METADATA"
 
+# Record types a long run emits continuously (one per task heartbeat /
+# train step): rotation's compaction victims. Lifecycle events,
+# SCALE_DECISION (low-rate, replay-bearing) and RESIZE (a handful per
+# job, the recovery timeline) always survive whole.
+_HIGH_RATE = frozenset({TASK_METRICS, SERVE_WINDOW, TRAIN_STEP})
+
+
+class EventHandler:
+    """Append-only jhist writer owned by the AM (reference: ``EventHandler``
+    producer thread; here writes are cheap enough to do inline under a lock)."""
+
+    def __init__(self, history_dir: str | Path, app_id: str,
+                 conf_snapshot: Optional[Dict[str, str]] = None,
+                 app_name: str = "", max_bytes: int = 0):
+        self.history_dir = Path(history_dir)
+        self.app_id = app_id
+        # Bounded rotation (0 = unbounded): past max_bytes the writer
+        # COMPACTS in place through stage-and-rename (lifecycle events
+        # whole, newest half of the high-rate tail) — a week-long serve
+        # job's log stays a bounded file, never an unbounded append.
+        self.max_bytes = int(max_bytes)
+        self.rotations = 0
+        self._lock = threading.Lock()
+        inter = self.history_dir / constants.EVENTS_DIR_INTERMEDIATE
+        inter.mkdir(parents=True, exist_ok=True)
+        self.inprogress_path = inter / (
+            app_id + constants.JHIST_INPROGRESS_SUFFIX)
+        self.finished_path = (self.history_dir / constants.EVENTS_DIR_FINISHED
+                              / (app_id + constants.JHIST_SUFFIX))
+        self._file = open(self.inprogress_path, "a", encoding="utf-8")
+        self._closed = False
+        self._write({
+            "type": _METADATA,
+            "timestamp": time.time(),
+            "payload": {
+                "app_id": app_id,
+                "app_name": app_name,
+                "user": getpass.getuser(),
+                "started": time.time(),
+                "config": dict(conf_snapshot or {}),
+            },
+        })
+
+    def _write(self, record: Dict[str, Any]) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._file.write(json.dumps(record, sort_keys=True) + "\n")
+            self._file.flush()
+            if self.max_bytes and self._file.tell() > self.max_bytes:
+                self._rotate_locked()
+
+    def _rotate_locked(self) -> None:
+        """Compact the inprogress file past ``max_bytes`` (caller holds
+        the lock): keep the metadata line, every lifecycle/scale record,
+        and the newest half of the high-rate tail, staged to a sibling
+        tmp and ``os.replace``d over the live path — the ckpt plane's
+        atomic stage-and-rename idiom, so a concurrent reader sees the
+        old file or the compacted one, never a torn half."""
+        self._file.close()
+        try:
+            records = _parse_file(self.inprogress_path)
+        except (OSError, ValueError):
+            # Unreadable under external interference: keep appending —
+            # rotation is a bound, never a reason to lose the log.
+            self._file = open(self.inprogress_path, "a", encoding="utf-8")
+            return
+        keep = [r for r in records if r.get("type") not in _HIGH_RATE]
+        high = [r for r in records if r.get("type") in _HIGH_RATE]
+        keep += high[len(high) // 2:]
+        keep.sort(key=lambda r: r.get("timestamp", 0.0))
+        # Chaos crash sites (tony_tpu.chaos): a kill -9 anywhere in the
+        # stage-and-rename must leave the OLD log (before the replace)
+        # or the NEW compacted one (after) — never a torn file. The
+        # fault-injection sweep pins all three boundaries.
+        chaos.crash_point("rotate_before_stage")
+        tmp = Path(f"{self.inprogress_path}.tmp.{os.getpid()}")
+        with open(tmp, "w", encoding="utf-8") as fh:
+            for r in keep:
+                fh.write(json.dumps(r, sort_keys=True) + "\n")
+            fh.flush()
+            os.fsync(fh.fileno())
+        chaos.crash_point("rotate_after_stage")
+        os.replace(tmp, self.inprogress_path)
+        chaos.crash_point("rotate_after_replace")
+        self._file = open(self.inprogress_path, "a", encoding="utf-8")
+        self.rotations += 1
+
+    def emit(self, event_type: str, **payload: Any) -> None:
+        self._write({"type": event_type, "timestamp": time.time(),
+                     "payload": payload})
+
+    # -- convenience emitters matching the reference's event vocabulary ----
+    def application_inited(self, attempt_id: int, num_tasks: int) -> None:
+        self.emit(APPLICATION_INITED, attempt_id=attempt_id,
+                  num_tasks=num_tasks)
+
+    def task_started(self, job_type: str, index: int, host: str) -> None:
+        self.emit(TASK_STARTED, job_type=job_type, index=index, host=host)
+
+    def task_metrics(self, job_type: str, index: int,
+                     metrics: Dict[str, float]) -> None:
+        """One TaskMonitor sample — the per-task metrics *timeline* the
+        portal renders (reference: MetricsRpc history, not just the final
+        snapshot in TASK_FINISHED)."""
+        self.emit(TASK_METRICS, job_type=job_type, index=index,
+                  metrics=dict(metrics))
+
+    def all_running(self, attempt_id: int,
+                    submit_to_running_s: Optional[float] = None) -> None:
+        """Gang barrier passed: every task is RUNNING. Carries the
+        submit→all-RUNNING latency when the client shipped its submit
+        timestamp (BASELINE.md secondary metric)."""
+        self.emit(ALL_TASKS_RUNNING, attempt_id=attempt_id,
+                  submit_to_running_s=submit_to_running_s)
+
+    def task_finished(self, job_type: str, index: int, status: str,
+                      exit_code: Optional[int], diagnostics: str = "",
+                      metrics: Optional[Dict[str, float]] = None) -> None:
+        self.emit(TASK_FINISHED, job_type=job_type, index=index,
+                  status=status, exit_code=exit_code,
+                  diagnostics=diagnostics, metrics=metrics or {})
+
+    def application_finished(self, status: str, message: str = "") -> None:
+        self.emit(APPLICATION_FINISHED, status=status, message=message)
+
+    # -- the load-bearing serve/train/scale records ------------------------
+    def serve_window(self, job_type: str, index: int,
+                     stats: Dict[str, Any]) -> None:
+        """One per-heartbeat serve stats window for one task — the
+        ALREADY-normalized heartbeat dict (session.Task.serve_metrics),
+        verbatim: the log is a recording of the schema the fleet
+        already speaks, never a second bookkeeping path."""
+        self.emit(SERVE_WINDOW, job_type=job_type, index=index,
+                  stats=dict(stats))
+
+    def train_step(self, job_type: str, index: int, step: int,
+                   step_time_s: float, collective_bytes: float = 0.0,
+                   mfu: float = 0.0) -> None:
+        """One training step's cost triple: wall time, collective bytes
+        (``profiler.collective_report()``'s total for the step plane),
+        and the caller's MFU estimate — the portal's per-step trend
+        across BENCH rounds."""
+        self.emit(TRAIN_STEP, job_type=job_type, index=index,
+                  step=int(step), step_time_s=float(step_time_s),
+                  collective_bytes=float(collective_bytes),
+                  mfu=float(mfu))
+
+    def scale_decision(self, job_type: str, delta: int, n_active: int,
+                       samples: List[Dict[str, Any]], now: float,
+                       last_action: Optional[float],
+                       policy: Dict[str, Any]) -> None:
+        """A SELF-VERIFYING autoscale record: everything
+        ``scaling.decide`` consumed (policy fields, active count,
+        samples, clock, last action) plus the delta the live AM took —
+        ``scaling.replay_decisions`` recomputes the decision from these
+        fields and must reproduce it exactly."""
+        self.emit(SCALE_DECISION, job_type=job_type, delta=int(delta),
+                  n_active=int(n_active),
+                  samples=[dict(s) for s in samples], now=float(now),
+                  last_action=last_action, policy=dict(policy))
+
+    def resize(self, phase: str, trigger: str, job_type: str,
+               old_workers: int, new_workers: int, wall_s: float,
+               ok: bool, detail: str = "") -> None:
+        """One resize-phase record (tony_tpu.am.resize): the phase name
+        (DRAINING / RE-GANG / RESTORING, or DEGRADED when the machine
+        fell back to the full gang restart), what triggered the resize,
+        the old→new topology, and the phase's wall seconds — `tony
+        history` renders these as the recovery timeline."""
+        self.emit(RESIZE, phase=str(phase), trigger=str(trigger),
+                  job_type=job_type, old_workers=int(old_workers),
+                  new_workers=int(new_workers), wall_s=float(wall_s),
+                  ok=bool(ok), detail=detail)
+
+    def publish(self, version: int, step: int, note: str = "") -> None:
+        """One new weight publication became the fleet's swap target
+        (tony_tpu.publish): the version the pointer file minted and the
+        committed checkpoint step it names. Emitted by the AM when its
+        publication tick first observes the version — exactly once per
+        version, however many heartbeats carry it."""
+        self.emit(PUBLISH, version=int(version), step=int(step),
+                  note=str(note))
+
+    def swap(self, job_type: str, index: int, from_version: int,
+             to_version: int, step: int, wall_s: float, ok: bool,
+             detail: str = "") -> None:
+        """One replica's hot-swap outcome (tony_tpu.serve.swap): which
+        versions it rolled between, the step restored, and the wall
+        seconds of the whole window (restore + quiesce + flip) — the
+        number ROOFLINE §16's swap-window model predicts. ok=False
+        records a rolled-back attempt: the replica kept serving
+        from_version."""
+        self.emit(SWAP, job_type=job_type, index=int(index),
+                  from_version=int(from_version),
+                  to_version=int(to_version), step=int(step),
+                  wall_s=float(wall_s), ok=bool(ok), detail=detail)
+
+    def close(self) -> None:
+        """Finalize: move intermediate → finished (the reference's HDFS
+        rename on job completion)."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._file.close()
+        self.finished_path.parent.mkdir(parents=True, exist_ok=True)
+        os.replace(self.inprogress_path, self.finished_path)
+
 
 # ---------------------------------------------------------------------------
-# Read path
+# Read path (consumed by the history server and by tests)
 # ---------------------------------------------------------------------------
 
 # Parse cache keyed by (mtime_ns, size): finished jhists are immutable and

@@ -31,15 +31,10 @@ from typing import Any, Dict, Optional
 from tony_tpu_torch import chaos
 from tony_tpu_torch.ckpt.format import MANIFEST_NAME, _fsync_dir, \
     committed_steps, step_dir
+from tony_tpu_torch.ckpt_layout import PUBLISH_FILE, latest_publication
 
 __all__ = ["PUBLISH_FILE", "PublishError", "publish_step",
            "latest_publication"]
-
-# Lives in the checkpoint ROOT, next to the step_%08d dirs it points
-# into — one rename away from every manifest it can name, so pointer
-# and checkpoint are always on the same filesystem (os.replace must be
-# atomic between them).
-PUBLISH_FILE = "published.json"
 
 
 class PublishError(RuntimeError):
@@ -99,20 +94,3 @@ def publish_step(ckpt_dir: str | Path, step: Optional[int] = None, *,
     return record
 
 
-def latest_publication(ckpt_dir: str | Path) -> Optional[Dict[str, Any]]:
-    """The current pointer record, or ``None`` when nothing was ever
-    published (or the file is unreadable/malformed — failure-silent BY
-    CONTRACT: this runs inside every executor heartbeat and the AM
-    tick, where a transiently half-visible network filesystem must read
-    as "no publication news", never kill the probe). A well-formed
-    record always carries integer ``version`` and ``step``."""
-    try:
-        with open(Path(ckpt_dir) / PUBLISH_FILE) as f:
-            rec = json.load(f)
-        if not isinstance(rec, dict):
-            return None
-        rec["version"] = int(rec["version"])
-        rec["step"] = int(rec["step"])
-        return rec
-    except (OSError, ValueError, TypeError, KeyError):
-        return None

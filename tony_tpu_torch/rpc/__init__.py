@@ -8,9 +8,18 @@ request line ``{"method", "params"[, "token"]}``, one response line
 reverse (``tests/test_torch_replica.py``). :class:`RpcServer` dispatches
 ``rpc_<method>`` callables on a handler object, one thread per
 connection; :class:`RpcClient` keeps one connection, re-dialed with
-bounded, jittered exponential backoff. The AM's verb set
-(``ApplicationRpcHandler``) stays in the control plane: the port's
-server fronts a serve replica (:mod:`tony_tpu_torch.serve.replica`).
+bounded, jittered exponential backoff. The port's server fronts a serve
+replica (:mod:`tony_tpu_torch.serve.replica`) and the port's AM, whose
+verb set is :class:`ApplicationRpcHandler` (a copy of the reference's:
+register_worker_spec, get_cluster_spec, heartbeat, register_execution_
+result, register_tensorboard_url, register_callback_info,
+metrics_report, get_task_infos, serve_endpoints, get_task_callback_info,
+get_job_status, finish_application; the reference's ``resize`` verb
+waits for elastic resize).
+
+Security: when ``tony.security.enabled`` is true the client must present
+the job token (shipped to executors in :data:`ENV_JOB_TOKEN`); a
+mismatch is rejected before dispatch.
 """
 
 from __future__ import annotations
@@ -21,11 +30,15 @@ import socket
 import socketserver
 import threading
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 from tony_tpu_torch import chaos
 
-__all__ = ["RpcClient", "RpcError", "RpcServer"]
+__all__ = ["ApplicationRpcHandler", "ENV_JOB_TOKEN", "RpcClient",
+           "RpcError", "RpcServer"]
+
+# Env var carrying the job token to executors (security.enabled only).
+ENV_JOB_TOKEN = "TONY_JOB_TOKEN"
 
 
 class RpcError(Exception):
@@ -258,3 +271,155 @@ class RpcClient:
 
     def __exit__(self, *exc: object) -> None:
         self.close()
+
+
+class ApplicationRpcHandler:
+    """Server-side verb set bridging RPC to a :class:`TonySession` — the
+    reference's ``ApplicationRpc`` service implementation living inside the
+    AM (``TonyApplicationMaster`` implements these verbs against its session).
+
+    The AM subclasses/owns this and may hook extra behavior (events, adapter
+    callbacks) via the ``on_*`` callback slots.
+    """
+
+    def __init__(self, session):
+        self.session = session
+        self.callback_info: Dict[str, str] = {}
+        self.on_registered: Optional[Callable[[str, int], None]] = None
+        self.on_result: Optional[Callable[[str, int, int, str], None]] = None
+        self.on_all_registered: Optional[Callable[[], None]] = None
+        self.on_metrics: Optional[Callable[[str, int, Dict[str, float]],
+                                           None]] = None
+        self.on_callback_info: Optional[Callable[[str, str], None]] = None
+        self._all_registered_fired = False
+        self._fire_lock = threading.Lock()
+
+    def reset(self, session) -> None:
+        """Point the handler at a fresh session (AM gang restart: the RPC
+        server survives across attempts, the session does not)."""
+        with self._fire_lock:
+            self.session = session
+            self.callback_info = {}
+            self._all_registered_fired = False
+
+    # -- executor-facing verbs --------------------------------------------
+    def rpc_register_worker_spec(self, job_type: str, index: int,
+                                 host: str, port: int) -> Dict[str, Any]:
+        self.session.on_registered(job_type, index, host, port)
+        if self.on_registered:
+            self.on_registered(job_type, index)
+        if self.session.all_registered():
+            # The once-only adapter callback runs under the lock BEFORE the
+            # barrier becomes visible to get_cluster_spec, so no executor can
+            # observe a complete spec with missing callback_info. A second
+            # pass (executor relaunch after preemption) re-marks RUNNING but
+            # does not re-fire the adapter.
+            with self._fire_lock:
+                if not self._all_registered_fired:
+                    if self.on_all_registered:
+                        self.on_all_registered()
+                    self._all_registered_fired = True
+            self.session.on_running()
+        return {"task_id": f"{job_type}:{index}"}
+
+    def rpc_get_cluster_spec(self) -> Dict[str, Any]:
+        complete = self._all_registered_fired and self.session.all_registered()
+        return {
+            "complete": complete,
+            "spec": self.session.cluster_spec() if complete else {},
+            "callback_info": dict(self.callback_info),
+        }
+
+    def rpc_heartbeat(self, job_type: str, index: int,
+                      ckpt_step: Optional[int] = None,
+                      serve: Optional[Dict[str, float]] = None,
+                      published: Optional[Dict[str, int]] = None) -> Any:
+        """Liveness + checkpoint progress + serving telemetry: executors
+        that see a ``tony.ckpt.dir`` piggyback the last COMMITTED step;
+        serve-replica executors piggyback the engine's published
+        qps/p99_ms/queue_depth (the autoscaler's signal). Both params
+        optional — seed-era executors send neither. ``published`` is the
+        ckpt root's publication pointer the executor's heartbeat carries
+        (the reference's verb lacks the parameter its own executor sends,
+        so there such a beat is an application error; here it is
+        recorded on the task).
+
+        Returns bare ``True`` normally; when an elastic resize has the
+        gang draining, returns ``{"ok": True, "drain": True}`` so the
+        executor can relay the drain directive to its user process (the
+        asymmetry keeps seed-era executors, which only truth-test the
+        reply, working unchanged)."""
+        self.session.on_heartbeat(job_type, index, ckpt_step=ckpt_step,
+                                  serve=serve, published=published)
+        if self.session.drain_pending(job_type, index):
+            return {"ok": True, "drain": True}
+        return True
+
+    def rpc_register_execution_result(self, job_type: str, index: int,
+                                      exit_code: int,
+                                      diagnostics: str = "") -> bool:
+        self.session.on_task_result(job_type, index, exit_code, diagnostics)
+        if self.on_result:
+            self.on_result(job_type, index, exit_code, diagnostics)
+        return True
+
+    def rpc_register_tensorboard_url(self, url: str) -> bool:
+        self.session.tensorboard_url = url
+        return True
+
+    def rpc_register_callback_info(self, task_id: str, payload: str) -> bool:
+        """Executor-pushed framework info (reference: registerCallbackInfo
+        feeding Framework.ApplicationMasterAdapter.receiveTaskCallbackInfo).
+        Recorded on the session and dispatched to the AM adapter hook."""
+        self.session.task_callback_info[task_id] = payload
+        if self.on_callback_info:
+            self.on_callback_info(task_id, payload)
+        return True
+
+    def rpc_metrics_report(self, job_type: str, index: int,
+                           metrics: Dict[str, float]) -> bool:
+        task = self.session.task(job_type, index)
+        sample = task.record_metrics(metrics)
+        if self.on_metrics:
+            # The sample, not the cumulative dict: a TASK_METRICS event is
+            # one TaskMonitor reading, and stale keys must not reappear
+            # with fresh timestamps in the portal timeline.
+            self.on_metrics(job_type, index, sample)
+        return True
+
+    # -- client-facing verbs ----------------------------------------------
+    def rpc_get_task_infos(self) -> list:
+        return self.session.task_infos()
+
+    def rpc_serve_endpoints(self, job_type: Optional[str] = None) -> list:
+        """The routable replica set (the reference's serve.router): serving
+        tasks with reported telemetry, in task_infos wire form — the
+        router derives each live replica's dial address from
+        ``host`` + the heartbeat-carried ``rpc_port`` and retires
+        terminal entries. Default spans EVERY serve-role jobtype (the
+        disaggregated prefill/decode gangs included); pass a jobtype to
+        scope."""
+        return self.session.serve_endpoints(job_type)
+
+    def rpc_get_task_callback_info(self) -> Dict[str, str]:
+        """The per-task pushed callback payloads (e.g. profiler endpoints) —
+        consumed by ``tony profile`` to find live trace servers."""
+        return dict(self.session.task_callback_info)
+
+    def rpc_get_job_status(self) -> Dict[str, Any]:
+        return {
+            "status": self.session.job_status.value,
+            "message": self.session.final_message,
+            "attempt_id": self.session.attempt_id,
+            "tensorboard_url": self.session.tensorboard_url,
+            "all_running_latency_s": self.session.all_running_latency_s,
+        }
+
+    def rpc_finish_application(self, reason: str = "killed by client") -> bool:
+        from tony_tpu_torch.session import JobStatus
+        with self.session.lock:
+            if self.session.job_status == JobStatus.RUNNING:
+                self.session.job_status = JobStatus.KILLED
+                self.session.final_message = reason
+        self.session.kill_remaining(reason)
+        return True

@@ -397,7 +397,13 @@ class _ReplicaRpcHandler:
                                      conv=conv, tenant=tenant).wire()
 
     def rpc_serve_stats(self) -> Dict[str, Any]:
-        return self.replica.engine.stats()
+        """The engine's stats, and under ``"launches"`` this process's
+        kernel launches by wrapper (``ops.LAUNCHES``): which of the
+        port's kernels served the requests, seen from outside the
+        replica's process."""
+        from tony_tpu_torch.ops import LAUNCHES
+
+        return {**self.replica.engine.stats(), "launches": dict(LAUNCHES)}
 
     def rpc_swap(self, version: Optional[int] = None,
                  step: Optional[int] = None) -> Dict[str, Any]:
