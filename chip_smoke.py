@@ -121,6 +121,33 @@ caught):
    state, the buffer within the budget), writes ~42 GB and restores into
    a fresh state equal to the saved one chunk for chunk; it prints the
    staging high-water mark beside the budget, the stall and the peak;
+7b. train_moe — mixtral-8x7b at full width (dim 4096, ffn 14336, 8
+   experts, top-2, 32/8 heads, vocab 32000) cut to 2 of 32 layers (3.165
+   B f32 parameters: with grads and AdamW's slots ~51 GB beside the
+   activations), random weights from the seed, the train batch of 2 x
+   2048: one step's loss and grads on the flash lane against the
+   ``attention="reference"`` lane of the same weights (loss within 1e-2;
+   the share of tokens a layer whose top-k expert set differs between
+   the lanes; the grads' relative L2 with each lane routing itself,
+   reported, and with the reference lane on the flash lane's routing,
+   held to the train phase's bf16 limit); then 4 steps of
+   ``make_train_step`` with AdamW(3e-4) and 4 of
+   ``make_accum_train_step(microbatches=2, update="fused_bucket")``:
+   the loss finite and falling, the first step's ``aux_loss`` within the
+   reference's band (coef x layers x 0.25-5), the fused first loss within
+   1e-2 of the reference lane's, exact launches of rows 3/4, 7/8 and 14,
+   step time, tokens/s, MFU, peak memory and a profile each.
+   ``python3 chip_smoke.py --moe-cards-only`` (4 cards) runs alone one
+   NCCL rank per card of ``tests/workloads/torch_moe_ep_steps.py`` (the
+   CPU tests' gloo worker): ``MeshSpec(ep=4)`` and ``MeshSpec(dp=2,
+   ep=2)`` at 2 layers with the chunked exchange, one step each against
+   rank 0's one-card step on the same weights and batch (loss within
+   1e-2; grads within the train phase's bf16 limit on the mesh's
+   routing, and reported with the card routing itself, beside the share
+   of top-k sets that differ), then ``ep=4`` at 8 layers, AdamW, 4 steps:
+   losses finite and falling, the step times, each rank holding 2 of the
+   8 experts, rank 0's step peak and the exchange's bytes a step from
+   the ``moe`` records;
 8. serve_quant — the serve phase's model, seed and 16-request mix with
    ``quant=True`` (int8 qkv/o/mlp projections through ``int8_matmul``):
    every request completes, the int8 kernel ran 7 × 32 times per
@@ -263,6 +290,7 @@ caught):
 14. report — a ``{"kernels": [...]}`` line (rows 1-15), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"train_zero3": {...}}`` line,
+   a ``{"train_moe": {...}}`` line,
    a ``{"quant": {...}}`` line, a
    ``{"bn_shapes": {...}}`` line, a ``{"resnet": {...}}`` line, a
    ``{"train_resnet_ckpt": {...}}`` line, a
@@ -319,6 +347,8 @@ from tony_tpu_torch.constants import EXIT_DRAINED  # noqa: E402
 from tony_tpu_torch.data import Dataset, ShardSpec, ckptio  # noqa: E402
 from tony_tpu_torch.models import get_model  # noqa: E402
 from tony_tpu_torch.models.convert import jax_param_tree  # noqa: E402
+from tony_tpu_torch.models import moe as moe_module  # noqa: E402
+from tony_tpu_torch.models.moe import MoEMLP  # noqa: E402
 from tony_tpu_torch.models.transformer import (  # noqa: E402
     Transformer, TransformerConfig)
 from tony_tpu_torch.models.resnet import (FusedBNAct,  # noqa: E402
@@ -2007,13 +2037,14 @@ def timed_steps(tag, step, state, batch, names, expect, steps):
     torch.cuda.reset_peak_memory_stats()
     for name in names:
         LAUNCHES[name] = 0
-    losses, step_ms, gnorms = [], [], []
+    losses, step_ms, gnorms, auxes = [], [], [], []
     for _ in range(steps):
         t1 = time.monotonic()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))      # syncs
         step_ms.append(1e3 * (time.monotonic() - t1))
         gnorms.append(float(metrics["grad_norm"]))
+        auxes.append(float(metrics["aux_loss"]))
     launches = {name: LAUNCHES[name] for name in names}
     peak = torch.cuda.max_memory_allocated()
     log(f"  losses {[round(x, 4) for x in losses]}; step ms "
@@ -2034,7 +2065,7 @@ def timed_steps(tag, step, state, batch, names, expect, steps):
         check_fwd_kernels(tag, prof, expect["flash_attention_fwd"] // steps)
         check_bwd_kernels(tag, prof, expect["flash_attention_bwd_dq"] // steps)
     return {"steps": steps, "losses": losses, "grad_norms": gnorms,
-            "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
+            "aux_losses": auxes, "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "max_memory_allocated": peak, "launches": launches,
             "profile": prof}
 
@@ -2436,13 +2467,26 @@ def run_zero3_ranks(tag, cfg, tmp):
     """One NCCL rank per card running the CPU tests' worker
     (tests/workloads/torch_zero3_steps.py) on ``cfg``: returns every
     rank's report and the wall time with the ranks' start."""
+    wall = run_ranks(f"train_zero3 {tag}", ZERO3_WORKER, tag, cfg, tmp,
+                     ZERO3_RANK_TIMEOUT_S)
+    return [json.load(open(os.path.join(tmp, f"{tag}{r}.json")))["runs"]
+            for r in range(torch.cuda.device_count())], wall
+
+
+def run_ranks(what, worker, tag, cfg, tmp, timeout):
+    """One NCCL rank per card running ``worker`` (a CPU tests' worker
+    under tests/workloads) on ``cfg``, each writing under
+    ``<tmp>/<tag><rank>`` and logging to ``<tmp>/<tag><rank>.log``;
+    returns the wall time with the ranks' start. A rank that fails, or
+    the time limit, ends every rank at once, and the error carries each
+    rank's log tail."""
     cards = torch.cuda.device_count()
     cpath = os.path.join(tmp, f"{tag}_cfg.json")
     with open(cpath, "w") as fh:
         json.dump(cfg, fh)
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
-    procs = []
+    procs, logs = [], []
     t0 = time.monotonic()
     for rank in range(cards):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(cards),
@@ -2451,25 +2495,40 @@ def run_zero3_ranks(tag, cfg, tmp):
                    INIT_METHOD=f"tcp://127.0.0.1:{port}",
                    PYTHONPATH=os.pathsep.join(
                        [root, os.environ.get("PYTHONPATH", "")]))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(root, ZERO3_WORKER), cpath,
-             os.path.join(tmp, f"{tag}{rank}")], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs.append(os.path.join(tmp, f"{tag}{rank}.log"))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(root, worker), cpath,
+                 os.path.join(tmp, f"{tag}{rank}")], env=env, stdout=out,
+                stderr=subprocess.STDOUT, text=True))
+    failed = None
     try:
-        logs = [p.communicate(timeout=ZERO3_RANK_TIMEOUT_S)[0]
-                for p in procs]
+        while any(p.poll() is None for p in procs):
+            failed = next((r for r, p in enumerate(procs)
+                           if p.poll() not in (None, 0)), None)
+            if failed is not None or time.monotonic() - t0 > timeout:
+                break
+            time.sleep(1.0)
+        else:
+            failed = next((r for r, p in enumerate(procs)
+                           if p.returncode != 0), None)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.monotonic() - t0
-    for rank, (p, out) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"train_zero3 {tag}: rank {rank} exited "
-                                 f"{p.returncode}:\n{out[-4000:]}")
-    return [json.load(open(os.path.join(tmp, f"{tag}{r}.json")))["runs"]
-            for r in range(cards)], wall
+    if failed is not None or wall > timeout:
+        tails = []
+        for rank, path in enumerate(logs):
+            with open(path) as fh:
+                tails.append(f"--- rank {rank} (exit "
+                             f"{procs[rank].returncode}):\n"
+                             f"{fh.read()[-3000:]}")
+        why = f"rank {failed} failed" if failed is not None \
+            else f"the ranks ran past {timeout} s"
+        raise AssertionError(f"{what}: {why}\n" + "\n".join(tails))
+    return wall
 
 
 def check_zero3_storage(tag, reports, cards):
@@ -2772,6 +2831,296 @@ def train_zero3_phase(card, fused_run, gen, cards_only=False):
         # (train_stats_writer): leave none of this phase's records.
         profiler.reset_collective_records()
         profiler.reset_overlap_records()
+
+
+# ---------------------------------------------------------------------
+# train_moe: mixtral-8x7b at full width through the flash kernels and
+# row 14; --moe-cards-only: expert parallelism across the cards.
+# ---------------------------------------------------------------------
+
+# Of 32 layers: 2 hold 3.17 B f32 parameters, ~51 GB with their grads
+# and AdamW's slots, beside the activations of 2 x 2048 tokens.
+MOE_LAYERS = 2
+MOE_STEPS = 4
+# The reference's band for the first step's summed aux loss
+# (tests/test_moe.py: 0.005 to 0.1 at coef 0.01 and 2 layers): coef ·
+# layers times 0.25 to 5.
+MOE_AUX_BAND = (0.25, 5.0)
+MOE_WORKER = os.path.join("tests", "workloads", "torch_moe_ep_steps.py")
+MOE_RANK_TIMEOUT_S = 420
+# --moe-cards-only: the 2-layer meshes held against one card, then the
+# timed depth at ep = cards.
+MOE_CARD_MESHES = ((1, 4), (2, 2))
+MOE_DEPTH_LAYERS = 8
+# The reference's MoEMLP default: two capacity chunks, the second's
+# dispatch in flight under the first's expert FFN.
+MOE_A2A_CHUNKS = 2
+
+
+@contextlib.contextmanager
+def reference_attention_lane(model):
+    """Every module of ``model`` that reads its config sees
+    ``attention="reference"`` for the block: the plain lane of the same
+    weights."""
+    mods = [m for m in model.modules() if hasattr(m, "cfg")]
+    saved = [m.cfg for m in mods]
+    for m in mods:
+        m.cfg = dataclasses.replace(m.cfg, attention="reference")
+    try:
+        yield
+    finally:
+        for m, cfg in zip(mods, saved):
+            m.cfg = cfg
+
+
+def moe_step_grads(model, tokens, pin=None):
+    """One forward and backward of loss + aux: the loss, the aux, every
+    parameter's grad and each MoE layer's routing (its expert choices a
+    round, by layer). ``pin`` (such routing) makes each layer take those
+    choices instead of its own argmax."""
+    routes = {}
+    model.zero_grad(set_to_none=True)
+    with moe_module.routing(model, seen=routes, pin=pin):
+        out, aux = model(tokens)
+        loss = next_token_loss(out, tokens) + aux
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), float(aux.detach()), grads, routes
+
+
+def topk_differ(a, b):
+    """Per layer, the share of tokens whose set of chosen experts differs
+    between two routings."""
+    return [float((a[k].sort(dim=0).values != b[k].sort(dim=0).values)
+                  .any(dim=0).float().mean()) for k in a]
+
+
+def moe_lanes(model, tokens):
+    """One step on the flash lane against the reference attention lane of
+    the same weights: the losses; the share of tokens whose top-k expert
+    set differs between the lanes, per layer; the grads' largest
+    relative L2 distance with each lane routing itself (reported: a
+    flipped near-tie moves a whole token between experts), and with the
+    reference lane taking the flash lane's routing, which is held to the
+    train phase's bf16 limit."""
+    loss_k, aux_k, g_k, r_k = moe_step_grads(model, tokens)
+    with reference_attention_lane(model):
+        loss_p, aux_p, g_p, r_p = moe_step_grads(model, tokens)
+    free = rel_l2(g_k, g_p)
+    del g_p
+    with reference_attention_lane(model):
+        _, _, g_q, _ = moe_step_grads(model, tokens, pin=r_k)
+    rel = rel_l2(g_k, g_q)
+    del g_q
+    worst, free_worst = max(rel, key=rel.get), max(free, key=free.get)
+    differ = topk_differ(r_k, r_p)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    log(f"  one step, flash vs reference attention: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} (rel {loss_rel:.2e}, tol {FUSED_FIRST_LOSS_REL}); "
+        f"tokens whose top-k set differs, by layer: "
+        f"{[round(x, 5) for x in differ]}; grads max relative L2 "
+        f"{free[free_worst]:.3e} ({free_worst}) each lane routing itself, "
+        f"{rel[worst]:.3e} ({worst}; tol {limit}) on the flash lane's "
+        f"routing")
+    if rel[worst] > limit:
+        raise AssertionError(f"train_moe grads: {worst} flash vs reference "
+                             f"relative L2 {rel[worst]} > {limit}")
+    if not loss_rel <= FUSED_FIRST_LOSS_REL:
+        raise AssertionError(f"train_moe: first loss {loss_k} vs the "
+                             f"reference lane's {loss_p}")
+    return {"loss_flash": loss_k, "loss_reference": loss_p,
+            "aux_flash": aux_k, "aux_reference": aux_p,
+            "loss_rel": loss_rel, "loss_rel_limit": FUSED_FIRST_LOSS_REL,
+            "topk_differ_share_by_layer": differ,
+            "grad_max_rel_l2_own_routing": free[free_worst],
+            "grad_worst_param_own_routing": free_worst,
+            "grad_max_rel_l2": rel[worst], "grad_worst_param": worst,
+            "grad_rel_l2_limit": limit}
+
+
+def check_aux(tag, coef, layers, auxes):
+    """The first step's aux loss within the reference's band (its test
+    reads the first step's too: training on one batch unbalances the
+    router, and the aux climbs)."""
+    lo, hi = (f * coef * layers for f in MOE_AUX_BAND)
+    if not lo < auxes[0] < hi:
+        raise AssertionError(f"{tag}: first aux_loss {auxes[0]} outside "
+                             f"({lo}, {hi})")
+    log(f"  aux_loss {[round(a, 5) for a in auxes]}, the first within "
+        f"({lo:.4f}, {hi:.4f})")
+
+
+def moe_run(tag, cfg, step, state, tokens, names, expect):
+    run = timed_steps(tag, step, state, {"x": tokens}, names, expect,
+                      MOE_STEPS)
+    check_aux(tag, cfg.moe_aux_coef, cfg.n_layers, run["aux_losses"])
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (run["step_p50_ms"] / 1e3)
+    flops_tok = dataclasses.replace(cfg, max_seq=TRAIN_SEQ).flops_per_token()
+    return {**run, "tokens_per_s": tokens_per_s,
+            "flops_per_token": flops_tok,
+            "mfu": tokens_per_s * flops_tok / PEAK_FLOPS[torch.bfloat16],
+            "peak_gb": run["max_memory_allocated"] / 1e9}
+
+
+def train_moe_phase(card: str):
+    t0 = time.monotonic()
+    model = get_model("mixtral-8x7b", device="cuda", seed=SEED,
+                      n_layers=MOE_LAYERS)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  mixtral-8x7b x{MOE_LAYERS} layers built in "
+        f"{time.monotonic() - t0:.1f} s ({n_params / 1e9:.3f} B f32 params; "
+        f"attention={cfg.attention}, remat={cfg.remat}, "
+        f"{cfg.moe_experts} experts, top-{cfg.moe_top_k})")
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (TRAIN_BATCH, TRAIN_SEQ)),
+                             device="cuda")
+    lanes = moe_lanes(model, tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = create_train_state(model, adamw(TRAIN_LR))
+    step = make_train_step(
+        loss_of=lambda out, batch: next_token_loss(out, batch["x"]))
+    expect = {"flash_attention_fwd": 2 * MOE_LAYERS * MOE_STEPS,
+              "flash_attention_bwd_dq": MOE_LAYERS * MOE_STEPS,
+              "flash_attention_bwd_dkv": MOE_LAYERS * MOE_STEPS}
+    train = moe_run("train_moe", cfg, step, state, tokens, FLASH_NAMES,
+                    expect)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = get_model("mixtral-8x7b", device="cuda", seed=SEED,
+                      n_layers=MOE_LAYERS)
+    fused = fo.FusedOptimizer(rule="adamw", lr=TRAIN_LR,
+                              weight_decay=FUSED_WD)
+    state = create_train_state(model, fused)
+    n_buckets = state.buckets.plan.n_buckets
+    step = make_accum_train_step(
+        lambda out, batch: next_token_loss(out, batch["x"]),
+        microbatches=FUSED_MICROBATCHES, update="fused_bucket")
+    per_step = MOE_LAYERS * FUSED_MICROBATCHES * MOE_STEPS
+    expect = {"flash_attention_fwd": 2 * per_step,
+              "flash_attention_bwd_dq": per_step,
+              "flash_attention_bwd_dkv": per_step,
+              "fused_bucket_update": n_buckets * MOE_STEPS}
+    accum = moe_run("train_moe_fused", cfg, step, state, tokens,
+                    FLASH_NAMES + ("fused_bucket_update",), expect)
+    rel = abs(accum["losses"][0] - lanes["loss_reference"]) \
+        / abs(lanes["loss_reference"])
+    log(f"  fused first loss {accum['losses'][0]:.6f} vs the reference "
+        f"lane's {lanes['loss_reference']:.6f} (rel {rel:.2e}, tol "
+        f"{FUSED_FIRST_LOSS_REL})")
+    if not rel <= FUSED_FIRST_LOSS_REL:
+        raise AssertionError(f"train_moe_fused: first loss "
+                             f"{accum['losses'][0]} vs "
+                             f"{lanes['loss_reference']}")
+    state.buckets.check()
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {name: train["launches"].get(name, 0)
+                + accum["launches"].get(name, 0)
+                for name in FLASH_NAMES + ("fused_bucket_update",)}
+    return {"model": f"mixtral-8x7b n_layers={MOE_LAYERS}/32",
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "lanes": lanes, "train_step": train,
+            "accum_fused": dict(accum, n_buckets=n_buckets,
+                                microbatches=FUSED_MICROBATCHES,
+                                first_loss_vs_reference_rel=rel),
+            "launches": launches, "card": card}
+
+
+def moe_cards_phase(card: str):
+    """Expert parallelism across the cards: NCCL ranks of the CPU tests'
+    worker. The 2-layer meshes against the one-card step on the same
+    weights and batch, then ep = cards at MOE_DEPTH_LAYERS, timed."""
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"--moe-cards-only needs 4 cards, found {cards}")
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "moe_cards")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    rng = np.random.default_rng(SEED)
+    np.savez(os.path.join(tmp, "batch.npz"), x=rng.integers(
+        0, 32000, (TRAIN_BATCH, TRAIN_SEQ)))
+    runs = [dict(name=f"dp{dp}_ep{ep}", dp=dp, ep=ep, steps=1,
+                 tx={"rule": "capture"}, reference=True, dump=False,
+                 a2a_chunks=MOE_A2A_CHUNKS,
+                 model_kwargs={"n_layers": MOE_LAYERS})
+            for dp, ep in MOE_CARD_MESHES]
+    runs.append(dict(name="depth", dp=1, ep=cards, steps=MOE_STEPS,
+                     tx={"rule": "adamw", "learning_rate": TRAIN_LR},
+                     dump=False, a2a_chunks=MOE_A2A_CHUNKS,
+                     model_kwargs={"n_layers": MOE_DEPTH_LAYERS}))
+    cfg = dict(model="mixtral-8x7b", device="cuda", seed=SEED,
+               batch=os.path.join(tmp, "batch.npz"), runs=runs)
+    wall = run_ranks("moe_cards", MOE_WORKER, "moe", cfg, tmp,
+                     MOE_RANK_TIMEOUT_S)
+    report = json.load(open(os.path.join(tmp, "moe0.json")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    out = {"wall_s": wall, "card": card}
+    for dp, ep in MOE_CARD_MESHES:
+        rep = report[f"dp{dp}_ep{ep}"]
+        ref = rep["reference"]
+        own, rel = ref["grad_rel_l2"], ref["pinned_grad_rel_l2"]
+        worst, own_worst = max(rel, key=rel.get), max(own, key=own.get)
+        loss_rel = abs(ref["mesh_loss"] - ref["loss"]) / abs(ref["loss"])
+        log(f"  dp={dp} x ep={ep}, {MOE_LAYERS} layers: loss "
+            f"{ref['mesh_loss']:.6f} vs one card {ref['loss']:.6f} (rel "
+            f"{loss_rel:.2e}, tol {FUSED_FIRST_LOSS_REL}); tokens whose "
+            f"top-k set differs, by layer: "
+            f"{[round(x, 5) for x in ref['topk_differ_share_by_layer']]}; "
+            f"grads max relative L2 {own[own_worst]:.3e} ({own_worst}) "
+            f"with the card routing itself, {rel[worst]:.3e} ({worst}; tol "
+            f"{limit}) on the mesh's routing; experts a rank "
+            f"{rep['counts']['layers.0.moe_mlp.w_gate']}")
+        if rel[worst] > limit or not loss_rel <= FUSED_FIRST_LOSS_REL:
+            raise AssertionError(f"moe cards dp={dp} ep={ep}: loss rel "
+                                 f"{loss_rel}, {worst} rel L2 {rel[worst]}")
+        out[f"dp{dp}_ep{ep}"] = {
+            "loss": ref["mesh_loss"], "one_card_loss": ref["loss"],
+            "loss_rel": loss_rel,
+            "topk_differ_share_by_layer": ref["topk_differ_share_by_layer"],
+            "grad_max_rel_l2_own_routing": own[own_worst],
+            "grad_worst_param_own_routing": own_worst,
+            "grad_max_rel_l2": rel[worst], "grad_worst_param": worst,
+            "grad_rel_l2_limit": limit, "records": rep["records"]}
+    rep = report["depth"]
+    losses = [m["loss"] for m in rep["metrics"]]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"moe cards depth: losses {losses}")
+    check_aux("moe cards depth", TransformerConfig.moe_aux_coef,
+              MOE_DEPTH_LAYERS, [m["aux_loss"] for m in rep["metrics"]])
+    step_ms = [1e3 * s for s in rep["step_s"]]
+    p50 = float(np.median(step_ms[1:]))
+    disp = rep["records"]["moe.dispatch"]
+    # A step exchanges each layer's slots four times forward (dispatch and
+    # combine, again in the remat recompute) and twice backward.
+    a2a_step = 3 * 2 * MOE_DEPTH_LAYERS * sum(disp["nbytes"])
+    log(f"  ep={cards}, {MOE_DEPTH_LAYERS} layers: losses "
+        f"{[round(x, 4) for x in losses]}; step ms "
+        f"{[round(x, 1) for x in step_ms]} (p50 after the first {p50:.1f}); "
+        f"peak {rep['peak_bytes'] / 1e9:.2f} GB a rank; a2a "
+        f"{a2a_step / 1e9:.3f} GB a step a rank")
+    out["depth"] = {
+        "model": f"mixtral-8x7b n_layers={MOE_DEPTH_LAYERS}/32",
+        "ep": cards, "steps": MOE_STEPS, "losses": losses,
+        "aux_losses": [m["aux_loss"] for m in rep["metrics"]],
+        "step_ms": step_ms, "step_p50_ms": p50,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3),
+        "peak_bytes_rank0": rep["peak_bytes"],
+        "experts_a_rank": rep["counts"]["layers.0.moe_mlp.w_gate"],
+        "a2a_record": disp, "a2a_bytes_per_step": a2a_step}
+    return out
 
 
 # ---------------------------------------------------------------------
@@ -5858,6 +6207,7 @@ def main() -> int:
     depth_only = "--ckpt-depth-only" in sys.argv[1:]
     job_cards_only = "--job-cards-only" in sys.argv[1:]
     job_depth_only = "--job-depth-only" in sys.argv[1:]
+    moe_cards_only = "--moe-cards-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5908,6 +6258,18 @@ def main() -> int:
         log("[job_cards]")
         res = job_cards_phase(card)
         print(json.dumps({"job_cards": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if moe_cards_only:
+        # Expert parallelism across four cards (a multi-card machine's
+        # measurement).
+        log("[moe_cards]")
+        res = moe_cards_phase(card)
+        print(json.dumps({"moe_cards": res}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -6001,6 +6363,12 @@ def main() -> int:
     # Phase 7a: ZeRO-3 over the fsdp axis.
     log("[train_zero3]")
     train_zero3 = train_zero3_phase(card, train_fused, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 7b: mixtral-8x7b at full width, cut in depth.
+    log("[train_moe]")
+    train_moe = train_moe_phase(card)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6112,12 +6480,14 @@ def main() -> int:
             "replaces": f"tony_tpu/ops/attention.py:{kernel_line}",
             "launches": train_launches[name]
             + train_zero3["timed"]["launches"][name]
+            + train_moe["launches"][name]
             + train_loop_res["launches"][name]
             + train_ckpt["launches_after_restore"][name]
             + tony_jobs["train"]["launches"][name],
             "launches_by_path": {
                 "train": train_launches[name],
                 "train_zero3": train_zero3["timed"]["launches"][name],
+                "train_moe": train_moe["launches"][name],
                 "train_loop": train_loop_res["launches"][name],
                 "train_ckpt_after_restore":
                     train_ckpt["launches_after_restore"][name],
@@ -6144,11 +6514,13 @@ def main() -> int:
         "replaces": "tony_tpu/ops/fused_optim.py:123",
         "launches": train_fused["launches"]["fused_bucket_update"]
         + train_zero3["timed"]["launches"]["fused_bucket_update"]
+        + train_moe["launches"]["fused_bucket_update"]
         + train_ckpt["small"]["launches"],
         "launches_by_path": {
             "train_fused": train_fused["launches"]["fused_bucket_update"],
             "train_zero3":
                 train_zero3["timed"]["launches"]["fused_bucket_update"],
+            "train_moe": train_moe["launches"]["fused_bucket_update"],
             "train_ckpt_after_restore": train_ckpt["small"]["launches"]},
         "zero3_shards": train_zero3["shards"],
         "max_abs_err": max(fused_err, train_fused["real_buckets_max_abs_err"]),
@@ -6231,6 +6603,7 @@ def main() -> int:
     print(json.dumps({"train": train}), flush=True)
     print(json.dumps({"train_fused": train_fused}), flush=True)
     print(json.dumps({"train_zero3": train_zero3}), flush=True)
+    print(json.dumps({"train_moe": train_moe}), flush=True)
     print(json.dumps({"quant": {"int8_shapes": int8,
                                 "serve_quant": serve_quant,
                                 "train_quant": train_quant}}), flush=True)

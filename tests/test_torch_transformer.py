@@ -263,7 +263,8 @@ class TestConvert:
 
 class TestUnported:
     @pytest.mark.parametrize("kw", [
-        dict(moe_experts=4), dict(attention="ring"), dict(mesh=object())])
+        dict(moe_experts=4, mesh=object()), dict(attention="ring"),
+        dict(mesh=object())])
     def test_unported_config_raises(self, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model("llama-tiny", device="cpu", **kw)

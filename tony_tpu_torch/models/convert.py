@@ -3,7 +3,11 @@ the MNIST MLP, and the convolutional nets (ResNet, the MNIST CNN).
 
 The input is the JAX package's param tree as a nested dict of **numpy**
 arrays (``jax.tree.map(np.asarray, params)`` on the JAX side — this
-module never imports jax). Both of its layouts are read:
+module never imports jax). A MoE decoder's blocks hold ``moe_mlp``
+(``w_router`` ``[D, E]``, the stacked experts ``w_gate``/``w_up``
+``[E, D, F]`` and ``w_down`` ``[E, F, D]``, in the port in the same
+layout) where a dense block holds ``mlp``. Both of its layouts are
+read:
 
 * scanned (``scan_layers=True``, remat or not): ``layers/block/...``
   with a leading layer axis, e.g. ``layers/block/attn/wq/kernel`` of
@@ -61,6 +65,22 @@ _BLOCK_LEAVES = {
     ("mlp", "w_up", "kernel"): "mlp.w_up.weight",
     ("mlp", "w_down", "kernel"): "mlp.w_down.weight",
 }
+# A MoE block's FFN (the reference's moe_mlp): the router [D, E] and the
+# stacked experts [E, D, F] / [E, F, D] keep their layout, no transpose.
+_MOE_LEAVES = {
+    ("moe_mlp", "w_router"): "moe_mlp.w_router",
+    ("moe_mlp", "w_gate"): "moe_mlp.w_gate",
+    ("moe_mlp", "w_up"): "moe_mlp.w_up",
+    ("moe_mlp", "w_down"): "moe_mlp.w_down",
+}
+
+
+def _leaves_of(moe: bool) -> Dict[tuple, str]:
+    """A block's leaves: the dense MLP's, or a MoE block's in its place."""
+    if not moe:
+        return _BLOCK_LEAVES
+    return {**{k: v for k, v in _BLOCK_LEAVES.items() if k[0] != "mlp"},
+            **_MOE_LEAVES}
 
 
 def _tensor(arr: Any) -> torch.Tensor:
@@ -82,7 +102,7 @@ def _get(tree: Mapping[str, Any], path) -> Any:
 def _block_params(block: Mapping[str, Any], index=None
                   ) -> Dict[str, torch.Tensor]:
     out = {}
-    for path, name in _BLOCK_LEAVES.items():
+    for path, name in _leaves_of("moe_mlp" in block).items():
         arr = _get(block, path)
         if index is not None:
             arr = arr[index]
@@ -217,9 +237,10 @@ def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
     else:
         tree["lm_head"] = {"kernel": head}
 
+    leaves = _leaves_of(cfg.moe_experts > 0)
     if cfg.scan_layers:
         block: Dict[str, Any] = {}
-        for path, name in _BLOCK_LEAVES.items():
+        for path, name in leaves.items():
             _put(block, path, LeafView.stacked(
                 [tensors[f"layers.{i}.{name}"] for i in range(cfg.n_layers)],
                 transpose=path[-1] == "kernel"))
@@ -227,7 +248,7 @@ def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
         return tree
     for i in range(cfg.n_layers):
         block = {}
-        for path, name in _BLOCK_LEAVES.items():
+        for path, name in leaves.items():
             t = tensors[f"layers.{i}.{name}"]
             _put(block, path, LeafView.of(t, transpose=True)
                  if path[-1] == "kernel" else t)

@@ -16,7 +16,12 @@ Two forwards:
   f32 logits and runs with autograd; with ``xent_chunk`` and
   ``targets`` it returns the fused LM-head loss instead
   (:func:`tony_tpu_torch.train.chunked_next_token_xent`), which never
-  builds the ``[b, t, vocab]`` logits.
+  builds the ``[b, t, vocab]`` logits. A mixture-of-experts decoder
+  (``moe_experts > 0``: each block's FFN is a
+  :class:`~tony_tpu_torch.models.moe.MoEMLP` named ``moe_mlp``) returns
+  ``(logits or loss, aux)``, ``aux`` the blocks' scaled load-balancing
+  losses summed over layers: a value each block returns, so a block
+  recomputed under remat does not add it twice.
 * serving (``kv=``): the t rows are NEW tokens at per-sequence absolute
   ``positions`` ``[b, t]``, the context lives in a per-layer KV buffer
   ``[b, width, n_kv_heads·head_dim]`` of which attention reads the first
@@ -25,7 +30,7 @@ Two forwards:
   itself and everything the cache holds below its position), attention
   runs through :func:`tony_tpu_torch.ops.flash_decode`, and the raw rows
   come back for the engine to commit into its paged pool. Runs under
-  inference mode.
+  inference mode. A MoE decoder refuses it, as the reference does.
 
 Both forwards run the ``quant=`` lanes (:meth:`TransformerConfig.quant_lanes`):
 a projection group in the set computes through
@@ -58,6 +63,7 @@ from torch.utils.checkpoint import (checkpoint,
 from tony_tpu_torch import resolve_device
 from tony_tpu_torch.models import lecun_normal_, register
 from tony_tpu_torch.models.convert import params_from_jax, params_to_jax
+from tony_tpu_torch.models.moe import MoEMLP
 from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
                                 flash_decode, reference_attention)
 from tony_tpu_torch.ops.quant import QuantDense
@@ -94,8 +100,9 @@ class TransformerConfig:
     # The fields below shape the training forward; the serving forward
     # ignores attention/scan_layers/remat/remat_policy/xent_chunk (a plain
     # layer loop, no gradients, the plain head). scan_layers only names
-    # the JAX param layout (convert.py reads both). attention="ring", a
-    # mesh and MoE raise until their slices land.
+    # the JAX param layout (convert.py reads both). attention="ring" and
+    # a mesh raise until their slices land (an expert mesh reaches the
+    # MoE blocks through create_train_state instead).
     # quant: which projection groups run the int8 lane — True means
     # ("qkv", "o", "mlp"); a string or tuple selects ("lm_head" opts the
     # unembed in).
@@ -355,11 +362,22 @@ class Block(nn.Module):
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.attn = Attention(cfg, device, param_dtype)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.mlp = MLP(cfg, device, param_dtype)
+        if cfg.moe_experts > 0:
+            self.moe_mlp = MoEMLP(
+                cfg.dim, cfg.ffn_hidden, cfg.moe_experts,
+                top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                aux_coef=cfg.moe_aux_coef, dtype=cfg.dtype, device=device,
+                param_dtype=param_dtype)
+        else:
+            self.mlp = MLP(cfg, device, param_dtype)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+                sin: torch.Tensor):
+        """The block's output; a MoE block's with its scaled aux loss."""
         x = x + self.attn(self.attn_norm(x), (cos, sin))
+        if hasattr(self, "moe_mlp"):
+            y, aux = self.moe_mlp(self.mlp_norm(x))
+            return x + y, aux
         return x + self.mlp(self.mlp_norm(x))
 
     def serve(self, x, positions, tables, kv, keep):
@@ -379,19 +397,30 @@ _KERNEL_LOGICAL = {
     "mlp.w_gate": ("embed", "ffn"), "mlp.w_up": ("embed", "ffn"),
     "mlp.w_down": ("ffn", "embed"), "lm_head": ("embed", "vocab"),
 }
+# The MoE leaves keep the reference's layout, so their tuples read as
+# they are (moe.py:109-123).
+_MOE_LOGICAL = {
+    "moe_mlp.w_router": ("embed", "expert_dim"),
+    "moe_mlp.w_gate": ("expert", "embed", "ffn"),
+    "moe_mlp.w_up": ("expert", "embed", "ffn"),
+    "moe_mlp.w_down": ("expert", "ffn", "embed"),
+}
 
 
 def logical_axes(name: str) -> Tuple[str, ...]:
     """The logical axes of the decoder's parameter ``name`` (a
     ``named_parameters()`` name) in the port's layout: the embedding
     ``("vocab", "embed")``, each projection's weight its flax kernel's
-    tuple reversed, the norm scales ``("norm",)``."""
+    tuple reversed, the norm scales ``("norm",)``, the MoE leaves the
+    reference's tuples (``("expert", "embed", "ffn")`` ...)."""
     if name == "embedding":
         return ("vocab", "embed")
     if name.endswith(".scale"):
         return ("norm",)
     key = name[:-len(".weight")] if name.endswith(".weight") else name
     key = key.split(".", 2)[-1] if key.startswith("layers.") else key
+    if key in _MOE_LOGICAL:
+        return _MOE_LOGICAL[key]
     if key not in _KERNEL_LOGICAL:
         raise KeyError(f"decoder parameter {name!r} has no logical axes")
     return tuple(reversed(_KERNEL_LOGICAL[key]))
@@ -410,12 +439,11 @@ class Transformer(nn.Module):
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg.quant_lanes()       # validates the lanes, as the JAX module
-        for field, slice_name in (("moe_experts", "the MoE slice"),
-                                  ("mesh", "the sharded slices")):
-            if getattr(cfg, field):
-                raise NotImplementedError(
-                    f"TransformerConfig.{field} is not ported yet; it lands "
-                    f"with {slice_name} ({_LATER})")
+        if cfg.mesh:
+            raise NotImplementedError(
+                f"TransformerConfig.mesh is not ported yet; it lands with "
+                f"the sharded slices ({_LATER}); an expert mesh reaches "
+                f"the MoE blocks through create_train_state(mesh=)")
         if cfg.attention == "ring":
             raise NotImplementedError(
                 f"attention='ring' is not ported yet; it lands with the "
@@ -458,6 +486,9 @@ class Transformer(nn.Module):
                 p.fill_(1.0)
             elif name.endswith(".weight"):
                 lecun_normal_(p, gen)
+            elif ".moe_mlp." in name:
+                # The reference's layout: fan-in is every dim but the last.
+                lecun_normal_(p, gen, fan_in=p.numel() // p.shape[-1])
         return self
 
     def forward(self, tokens: torch.Tensor, targets=None, *,
@@ -469,8 +500,9 @@ class Transformer(nn.Module):
         ``positions`` (default ``arange(t)``, shared over the batch);
         returns f32 logits [b, t, vocab] with autograd, or, with
         ``xent_chunk`` and ``targets`` (the tokens [b, t]), the scalar
-        chunked next-token loss. With ``kv``: the serving forward
-        (:meth:`serve`)."""
+        chunked next-token loss; a MoE decoder returns that with its aux
+        loss summed over layers, ``(out, aux)``. With ``kv``: the serving
+        forward (:meth:`serve`)."""
         if kv is not None:
             return self.serve(tokens, targets, positions=positions, kv=kv,
                               ctx=ctx)
@@ -492,17 +524,24 @@ class Transformer(nn.Module):
             policy["context_fn"] = functools.partial(
                 create_selective_checkpoint_contexts,
                 list(REMAT_SAVED[cfg.remat_policy]))
+        moe = cfg.moe_experts > 0
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
             if remat:
                 x = checkpoint(block, x, cos, sin, use_reentrant=False,
                                **policy)
             else:
                 x = block(x, cos, sin)
+            if moe:
+                x, layer_aux = x
+                aux = aux + layer_aux
         x = self.final_norm(x)
         if targets is not None:
-            return chunked_next_token_xent(x, self.lm_head.weight, targets,
-                                           cfg.xent_chunk, cfg.dtype)
-        return self.lm_head(x).float()
+            out = chunked_next_token_xent(x, self.lm_head.weight, targets,
+                                          cfg.xent_chunk, cfg.dtype)
+        else:
+            out = self.lm_head(x).float()
+        return (out, aux) if moe else out
 
     @torch.inference_mode()
     def serve(self, tokens: torch.Tensor, targets=None, *,
@@ -531,6 +570,8 @@ class Transformer(nn.Module):
         if positions is None:
             raise ValueError("serve-mode forward needs positions [b, t] "
                              "(per-sequence absolute)")
+        if self.cfg.moe_experts > 0:
+            raise ValueError("serve mode does not support MoE blocks")
         layer_kv = kv if callable(kv) else (lambda i: (kv[0][i], kv[1][i]))
         positions = positions.to(torch.int32)
         tables = rope_tables(positions, self.cfg.head_dim,
@@ -577,3 +618,21 @@ def llama_tiny(**kw) -> Transformer:
                        n_kv_heads=2, ffn_hidden=128, max_seq=64,
                        attention="reference", scan_layers=True,
                        remat=False), kw)
+
+
+@register("mixtral-8x7b")
+def mixtral_8x7b(**kw) -> Transformer:
+    """Mixtral-style sparse MoE: 8 experts, top-2 routing, GQA (training
+    only, as in the reference)."""
+    return _build(dict(vocab=32000, dim=4096, n_layers=32, n_heads=32,
+                       n_kv_heads=8, ffn_hidden=14336, max_seq=4096,
+                       moe_experts=8, moe_top_k=2), kw)
+
+
+@register("llama-moe-tiny")
+def llama_moe_tiny(**kw) -> Transformer:
+    """Test-scale MoE config: the mixtral code path at toy shapes."""
+    return _build(dict(vocab=256, dim=64, n_layers=2, n_heads=4,
+                       n_kv_heads=2, ffn_hidden=128, max_seq=64,
+                       attention="reference", scan_layers=True,
+                       remat=False, moe_experts=4, moe_top_k=2), kw)

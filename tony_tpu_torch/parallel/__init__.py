@@ -5,13 +5,16 @@
   ``torch.distributed``'s default process group, one rank per device,
   ranks laid out as the reference's ``build`` lays out devices
   (``slices, dp, fsdp, pp, ep, sp, tp``, the last axis fastest). The
-  data and fsdp axes are ported: ``MeshSpec(dp=0, fsdp=N).build()``
-  spans the whole world, and the mesh carries one process group per
-  axis of size > 1 (the gradient-sync group, data × fsdp, is the whole
-  world: the default group). The other
-  axes keep their names (:data:`AXES`) at size 1; asking for one of
-  them raises ``NotImplementedError`` (ROADMAP.md, queue 1: ``slices``
-  item 8, ``pp``/``ep``/``sp``/``tp`` item 11).
+  data, fsdp and expert axes are ported: ``MeshSpec(dp=0, fsdp=N)`` or
+  ``MeshSpec(dp=0, ep=N)`` spans the whole world, and the mesh carries
+  one process group per axis of size > 1 (an axis that spans the world
+  uses the default group). The batch is sharded over the data axes
+  alone (:data:`BATCH_AXES`), so the ranks along ``expert`` hold the
+  same rows, as in the reference. ``ep`` beside ``fsdp`` raises
+  ``NotImplementedError`` (ROADMAP.md, queue 1 item 11). The other axes
+  keep their names (:data:`AXES`) at size 1; asking for one of them
+  raises ``NotImplementedError`` (ROADMAP.md, queue 1: ``slices`` item
+  8, ``pp``/``sp``/``tp`` item 11).
 * :data:`RULES` and :func:`logical_spec` — the logical-axis → mesh-axis
   lookup, as data: a spec is a tuple with one entry per dim (``None``,
   an axis name or a tuple of names), what a ``PartitionSpec`` is to the
@@ -63,8 +66,8 @@ RULES: Tuple[Tuple[str, object], ...] = (
 )
 
 # MeshSpec field → (mesh axis, the ROADMAP item that ports it).
-_UNPORTED = {"pp": (PIPE, 11), "ep": (EXPERT, 11), "sp": (SEQ, 11),
-             "tp": (MODEL, 11), "slices": (SLICE, 8)}
+_UNPORTED = {"pp": (PIPE, 11), "sp": (SEQ, 11), "tp": (MODEL, 11),
+             "slices": (SLICE, 8)}
 
 
 def logical_spec(*logical_axes: Optional[str],
@@ -134,8 +137,9 @@ class Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One parallelism layout; the data and fsdp axes are ported.
-    ``dp=0`` resolves to the world size over the other axes."""
+    """One parallelism layout; the data, fsdp and expert axes are ported
+    (expert beside data, not beside fsdp). ``dp=0`` resolves to the world
+    size over the other axes."""
     dp: int = 0
     fsdp: int = 1
     pp: int = 1
@@ -157,10 +161,16 @@ class MeshSpec:
                 raise NotImplementedError(
                     f"MeshSpec({field}={getattr(self, field)}): the {axis!r} "
                     f"axis is not ported yet (ROADMAP.md, queue 1 item "
-                    f"{item}); the data and fsdp axes are")
-        if self.fsdp < 1 or self.dp < 0:
-            raise ValueError(f"MeshSpec(dp={self.dp}, fsdp={self.fsdp}): "
-                             f"sizes must be positive (dp=0: the rest)")
+                    f"{item}); the data, fsdp and expert axes are")
+        if self.ep > 1 and self.fsdp > 1:
+            raise NotImplementedError(
+                f"MeshSpec(fsdp={self.fsdp}, ep={self.ep}): expert "
+                f"parallelism beside ZeRO-3 is not ported yet (ROADMAP.md, "
+                f"queue 1 item 11)")
+        if self.fsdp < 1 or self.ep < 1 or self.dp < 0:
+            raise ValueError(f"MeshSpec(dp={self.dp}, fsdp={self.fsdp}, "
+                             f"ep={self.ep}): sizes must be positive (dp=0: "
+                             f"the rest)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -173,33 +183,39 @@ class MeshSpec:
             raise ValueError(f"an NCCL process group cannot reduce tensors "
                              f"on {dev}")
         world = td.get_world_size()
-        if not self.dp and world % self.fsdp:
+        rest = self.fsdp * self.ep
+        if not self.dp and world % rest:
             raise ValueError(f"{world} devices not divisible by "
-                             f"slices*fsdp*pp*ep*sp*tp={self.fsdp}")
-        dp = self.dp or world // self.fsdp
+                             f"slices*fsdp*pp*ep*sp*tp={rest}")
+        dp = self.dp or world // rest
         shape = dict.fromkeys(AXES, 1)
-        shape[DATA], shape[FSDP] = dp, self.fsdp
-        if dp * self.fsdp != world:
+        shape[DATA], shape[FSDP], shape[EXPERT] = dp, self.fsdp, self.ep
+        if dp * rest != world:
+            named = {a: n for a, n in shape.items() if n > 1} or {DATA: 1}
             raise ValueError(
-                f"mesh shape {{'data': {dp}, 'fsdp': {self.fsdp}}} needs "
-                f"{dp * self.fsdp} devices, have {world} (one rank per "
-                f"device)")
+                f"mesh shape {named} needs {dp * rest} devices, have "
+                f"{world} (one rank per device)")
         mesh = Mesh(shape=shape, processes=world, device=dev,
                     rank=td.get_rank())
-        if dp > 1 and self.fsdp > 1:
-            # One group per line of the (data, fsdp) grid along each axis,
-            # created by every rank in the same order.
-            for axis, lines in (
-                    (FSDP, [[d * self.fsdp + f for f in range(self.fsdp)]
-                            for d in range(dp)]),
-                    (DATA, [[d * self.fsdp + f for d in range(dp)]
-                            for f in range(self.fsdp)])):
-                for ranks in lines:
+        # One group per line of the grid along each axis that neither is
+        # trivial nor spans the world, created by every rank in the same
+        # order.
+        for axis in (FSDP, DATA, EXPERT):
+            if 1 < shape[axis] < world:
+                for ranks in _lines(shape, axis, world):
                     group = td.new_group(ranks)
                     if mesh.rank in ranks:
                         mesh.groups[(axis,)] = group
         return mesh
 
+
+def _lines(shape: Dict[str, int], axis: str, world: int):
+    """The rank lists of the mesh's lines along ``axis`` (the ranks that
+    differ in that coordinate alone), in rank order."""
+    i = AXES.index(axis)
+    stride = math.prod(shape[a] for a in AXES[i + 1:])
+    return [[r + k * stride for k in range(shape[axis])]
+            for r in range(world) if (r // stride) % shape[axis] == 0]
 
 from tony_tpu_torch.parallel.layout import (Layout, layout_of,  # noqa: E402
                                             set_layout)

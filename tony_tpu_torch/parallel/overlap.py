@@ -46,7 +46,7 @@ import torch
 import torch.distributed as td
 
 from tony_tpu_torch import profiler
-from tony_tpu_torch.parallel import DATA, FSDP, SLICE
+from tony_tpu_torch.parallel import DATA, EXPERT, FSDP, SLICE
 from tony_tpu_torch.parallel.layout import Layout, layout_of, set_layout
 
 _log = logging.getLogger(__name__)
@@ -657,6 +657,41 @@ def shard_params(params: Sequence[torch.Tensor], specs: Sequence[Any],
     return layouts
 
 
+def shard_experts(model: Any, specs: Sequence[Any], mesh: Any
+                  ) -> List[bool]:
+    """Keep only this rank's experts of every parameter whose spec names
+    the expert axis (``p.data`` becomes its ``E/ep`` experts, a copy; the
+    whole tensor is freed), attach its :class:`Layout` (the expert dim
+    sliced, the data index as the replica), and give every MoE layer of
+    ``model`` the mesh. Returns, per parameter, whether it was sliced."""
+    from tony_tpu_torch.models.moe import MoEMLP
+
+    size = mesh.shape[EXPERT]
+    coords = mesh.coords()
+    out = []
+    for p, spec in zip(model.parameters(), specs):
+        spec = strip_spec(spec, mesh)
+        dims = [d for d, entry in enumerate(spec) if EXPERT in _names(entry)]
+        if not dims:
+            out.append(False)
+            continue
+        d, shape = dims[0], tuple(p.shape)
+        if len(dims) > 1 or len(_names(spec[d])) > 1 or shape[d] % size:
+            raise ValueError(
+                f"param of shape {shape} with spec {spec}: the expert axis "
+                f"must shard one dim alone, into {size} equal parts — every "
+                f"rank owns the same number of experts")
+        n = shape[d] // size
+        lay = Layout(shape, spec, d, coords[EXPERT] * n, coords[DATA])
+        p.data = p.data.narrow(d, lay.start, n).clone()
+        set_layout(p, lay)
+        out.append(True)
+    for m in model.modules():
+        if isinstance(m, MoEMLP):
+            m.mesh = mesh
+    return out
+
+
 def attach_like(tensors: Sequence[torch.Tensor],
                 params: Sequence[torch.Tensor]) -> None:
     """Give each tensor (an optimizer slot of the same shape as its
@@ -1244,17 +1279,18 @@ def sharded_global_norm(grads: Sequence[torch.Tensor],
 def full_params(params: Sequence[torch.Tensor], mesh: Any
                 ) -> List[torch.Tensor]:
     """Every parameter whole: a ZeRO-3 shard gathered over the fsdp group
-    along its sharded dim (a new tensor), any other parameter as it is.
-    For evaluation and checks; the train steps gather bucket by bucket."""
-    size = mesh.shape[FSDP] if mesh is not None else 1
-    group = mesh.group((FSDP,)) if size > 1 else None
+    along its sharded dim (a new tensor), an expert mesh's experts over
+    the expert group, any other parameter as it is. For evaluation and
+    checks; the train steps gather bucket by bucket."""
     out = []
     for p in params:
         lay = layout_of(p)
         if lay is None or not lay.sharded:
             out.append(p.detach())
             continue
-        flat = _all_gather(p.detach(), size, group)
+        axis = EXPERT if EXPERT in _names(lay.spec[lay.dim]) else FSDP
+        size = mesh.shape[axis]
+        flat = _all_gather(p.detach(), size, mesh.group((axis,)))
         out.append(torch.cat(list(flat.view((size,) + tuple(p.shape))
                                   .unbind(0)), dim=lay.dim))
     return out

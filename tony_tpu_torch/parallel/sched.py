@@ -19,9 +19,12 @@ for the ZeRO-3 forward gathers and the reduce records.
   quantize-on-gather lane of :mod:`tony_tpu_torch.ops.quant`.
 * :func:`record_reduce_levels` — the step's reduce levels in the unified
   registry (:func:`tony_tpu_torch.profiler.collective_report`).
+* :func:`moe_dispatch_ffn_combine` — the expert-parallel exchange of a
+  MoE layer's capacity slots: one ``all_to_all`` over the expert group
+  each way per capacity chunk, the next chunk's dispatch issued before
+  this chunk's expert FFN runs.
 
-The expert-parallel dispatch and the pipeline edges wait for their
-slices (ROADMAP.md, queue 1 item 11).
+The pipeline edges wait for their slice (ROADMAP.md, queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ import torch
 import torch.distributed as td
 
 from tony_tpu_torch import profiler
-from tony_tpu_torch.parallel import FSDP
+from tony_tpu_torch.models.moe import swiglu_experts
+from tony_tpu_torch.parallel import EXPERT, FSDP, MODEL, PIPE, SEQ
 from tony_tpu_torch.parallel.overlap import GradBuckets
 
 # Forward-gather prefetch depth: how many bucket gathers may be in flight
@@ -236,3 +240,107 @@ def record_reduce_levels(tag: str, levels: Sequence[dict]) -> None:
         profiler.record_collective(
             f"{tag}.grad.{lv['level']}.{lv['op']}", kind=lv["op"],
             plane="grad_reduce", axes=list(lv["axes"]), nbytes=nbytes)
+
+
+def _issue_all_to_all(sent: torch.Tensor, group: Any) -> Tuple[torch.Tensor,
+                                                                 Any]:
+    """Start an equal-split ``all_to_all`` of ``sent`` (contiguous, its
+    dim 0 split over the group's ranks); returns the buffer it writes
+    and the work handle."""
+    buf = torch.empty_like(sent)
+    work = td.all_to_all_single(buf, sent.detach(), group=group,
+                                async_op=True)
+    return buf, work
+
+
+class _Exchanged(torch.autograd.Function):
+    """The receiving end of an ``all_to_all`` issued earlier
+    (:func:`_issue_all_to_all`): the forward waits for it and returns
+    its buffer; the backward sends the gradient back through the inverse
+    exchange, which for equal splits is the same ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, sent, pending, group):
+        buf, work = pending
+        work.wait()
+        ctx.group = group
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        out = torch.empty_like(grad)
+        td.all_to_all_single(out, grad, group=ctx.group)
+        return out, None, None
+
+
+def moe_dispatch_ffn_combine(xin: torch.Tensor,
+                             weights: Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor],
+                             mesh: Any, *, chunks: int = 2,
+                             axis: str = EXPERT) -> torch.Tensor:
+    """Expert-parallel SwiGLU over a MoE layer's slots, the counterpart of
+    the reference's ``moe_dispatch_ffn_combine``.
+
+    ``xin`` is this rank's ``[E, B_l, C, D]`` slot grid (its rows'
+    tokens dispatched to all E experts, in the compute dtype) and
+    ``weights`` the stacked ``(w_gate, w_up, w_down)`` of the ``E/ep``
+    experts this rank owns (its index on ``axis``), cast to the compute
+    dtype. The capacity dim splits into ``chunks`` waves (clamped to C).
+    Each wave's slots go to their experts' owners by an ``all_to_all``
+    over the expert group (split on experts, concatenated on groups),
+    run through the owner's experts, and come back by the inverse
+    exchange; wave c+1's dispatch is issued before wave c's FFN, so it
+    travels while that computes. Returns the ``[E, B_l, C, D]`` outputs
+    in the slots' places. Autograd sends each gradient back through the
+    inverse exchange.
+
+    The ranks along ``axis`` hold the same rows (the batch is sharded
+    over the data axes only), so an expert's owner computes every row
+    ``ep`` times, once for each peer: its weight grads are ``ep`` times
+    one peer's, which the train step's reduce accounts for.
+
+    Writes the reference's ``moe.dispatch`` and ``moe.combine`` records:
+    each chunk's per-rank payload, ``E · B_l · C_c · D`` elements."""
+    w_gate, w_up, w_down = weights
+    ep = mesh.shape[axis]
+    e, b, c, d = xin.shape
+    if e % ep:
+        raise ValueError(
+            f"n_experts={e} not divisible by the {ep}-way {axis!r} mesh "
+            f"axis — every rank must own the same number of experts")
+    for a in (MODEL, SEQ, PIPE):
+        if mesh.shape[a] > 1:
+            raise ValueError(
+                f"the expert exchange owns only the {axis!r} axis; mesh "
+                f"axis {a!r} has size {mesh.shape[a]}")
+    e_l = e // ep
+    if w_gate.shape[0] != e_l:
+        raise ValueError(f"{tuple(w_gate.shape)}: this rank should hold "
+                         f"{e_l} of the {e} experts")
+    n_chunks = max(1, min(chunks, c))
+    sizes = [c // n_chunks + (j < c % n_chunks) for j in range(n_chunks)]
+    nbytes = [e * b * n * d * xin.element_size() for n in sizes]
+    for tag in ("moe.dispatch", "moe.combine"):
+        profiler.record_collective(
+            tag, kind="all_to_all", plane="moe", axes=[axis],
+            nbytes=nbytes, chunks=n_chunks, capacity=c, experts=e)
+    group = mesh.group((axis,))
+    lo = [sum(sizes[:j]) for j in range(n_chunks)]
+    parts = [xin[:, :, a:a + n].contiguous() for a, n in zip(lo, sizes)]
+    sent = [_issue_all_to_all(parts[0], group)]
+    back = []
+    for j, n in enumerate(sizes):
+        if j + 1 < n_chunks:
+            sent.append(_issue_all_to_all(parts[j + 1], group))
+        # Block p of what arrives is peer p's rows for this rank's
+        # experts: [ep, E/ep, B_l, C_c, D] → [E/ep, ep·B_l·C_c, D].
+        got = _Exchanged.apply(parts[j], sent[j], group)
+        h = got.view(ep, e_l, b, n, d).transpose(0, 1).reshape(
+            e_l, ep * b * n, d)
+        out = swiglu_experts(h, w_gate, w_up, w_down)
+        out = out.view(e_l, ep, b, n, d).transpose(0, 1).contiguous()
+        back.append((out, _issue_all_to_all(out, group)))
+    return torch.cat([_Exchanged.apply(out, pending, group).view(e, b, n, d)
+                      for (out, pending), n in zip(back, sizes)], dim=2)
+

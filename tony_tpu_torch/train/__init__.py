@@ -73,13 +73,14 @@ from tony_tpu_torch.ckpt.snapshot import Attrs
 from tony_tpu_torch.models.convert import (PortableState, jax_param_tree,
                                            portable_state)
 from tony_tpu_torch.ops.fused_optim import FusedOptimizer, bias_correction
-from tony_tpu_torch.parallel import (BATCH_AXES, DATA, FSDP, SEQ, Mesh,
-                                     logical_spec)
+from tony_tpu_torch.parallel import (BATCH_AXES, DATA, EXPERT, FSDP, SEQ,
+                                     Mesh, layout_of, logical_spec)
 from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
                                              GradBuckets, ResidentBuckets,
                                              ShardBuckets, attach_like,
                                              fsdp_param_specs,
-                                             microbatch_grads, shard_params,
+                                             microbatch_grads, shard_experts,
+                                             shard_params,
                                              sharded_global_norm)
 
 _LATER = "ROADMAP.md, queue 1"
@@ -328,6 +329,16 @@ def create_train_state(model: nn.Module, tx: Any,
     forward then needs the step's gathers: call it through the train
     steps.
 
+    On a mesh with ``ep > 1`` each parameter whose spec names the expert
+    axis (a MoE block's stacked experts) keeps this rank's ``E/ep``
+    experts, with its :class:`~tony_tpu_torch.parallel.layout.Layout`
+    (its optimizer slots follow), and every
+    :class:`~tony_tpu_torch.models.moe.MoEMLP` of the model gets the mesh,
+    so its slots cross the expert group
+    (:func:`~tony_tpu_torch.parallel.sched.moe_dispatch_ffn_combine`).
+    The expert mesh takes a :class:`GradientTransformation`;
+    ``make_train_step`` is its step.
+
     ``tx`` is a :class:`GradientTransformation` (leaf-major state) or a
     :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer`: then every
     parameter's storage moves into its flat per-bucket buffer of the tx's
@@ -346,7 +357,12 @@ def create_train_state(model: nn.Module, tx: Any,
             f"optimizer {type(tx).__name__} is not ported; "
             f"create_train_state takes a GradientTransformation or a "
             f"FusedOptimizer ({_LATER})")
-    zero3 = False
+    if fused and mesh is not None and mesh.shape[EXPERT] > 1:
+        raise NotImplementedError(
+            "a FusedOptimizer on an expert mesh (ep > 1) is not ported yet "
+            "(ROADMAP.md, queue 1 item 11): its step, make_accum_train_step, "
+            "does not take the expert axis")
+    zero3 = experts = False
     if mesh is not None:
         tensors = list(itertools.chain(params, model.buffers()))
         off = sorted({str(t.device) for t in tensors
@@ -361,6 +377,10 @@ def create_train_state(model: nn.Module, tx: Any,
             shard_params(params, param_specs(model) if specs is None
                          else list(specs), mesh)
             zero3 = fsdp_param_specs(params, mesh) is not None
+        if mesh.shape[EXPERT] > 1:
+            experts = any(shard_experts(
+                model, param_specs(model) if specs is None else list(specs),
+                mesh))
     if fused:
         plan = tx.plan_for(params, mesh)
         buckets = ShardBuckets.adopt(plan, params) if zero3 \
@@ -369,7 +389,7 @@ def create_train_state(model: nn.Module, tx: Any,
                           opt_state=tx.init_state(params, plan=plan),
                           buckets=buckets, mesh=mesh)
     opt_state = tx.init(params)
-    if zero3:
+    if zero3 or experts:
         _attach_slot_layouts(opt_state, params)
     return TrainState(step=0, model=model, tx=tx, opt_state=opt_state,
                       mesh=mesh)
@@ -434,8 +454,38 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((x.float() * x.float()).sum() for x in tensors))
 
 
-# The data-parallel step's record in the collective registry.
+# The data-parallel step's record in the collective registry; on an
+# expert mesh the expert leaves' reduce (over the data axis) has its own.
 GRAD_REDUCE_TAG = "train_step.grad.data.all_reduce"
+EXPERT_REDUCE_TAG = "train_step.grad.experts.all_reduce"
+
+
+def model_loss(model: nn.Module, batch: Dict[str, Any],
+               loss_of: Callable[[Any, Dict[str, Any]], torch.Tensor],
+               apply_kwargs_of: Optional[Callable[[Dict[str, Any]],
+                                                  Dict[str, Any]]] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss_of(out, batch) + aux, aux)`` for one forward of ``model``
+    on ``batch["x"]``: ``aux`` is the auxiliary loss a MoE decoder
+    returns beside its output (``(out, aux)``), the reference's sown
+    ``losses`` summed; an f32 zero for any other model."""
+    extra = apply_kwargs_of(batch) if apply_kwargs_of else {}
+    out = model(batch["x"], **extra)
+    if getattr(getattr(model, "cfg", None), "moe_experts", 0) > 0:
+        out, aux = out
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=out.device)
+    return loss_of(out, batch) + aux, aux
+
+
+def _expert_leaves(params: List[torch.Tensor], mesh: Optional[Mesh]
+                   ) -> List[bool]:
+    """Which parameters hold this rank's share of the experts (an expert
+    mesh's sharded layouts)."""
+    if mesh is None or mesh.shape[EXPERT] <= 1:
+        return [False] * len(params)
+    return [(lay := layout_of(p)) is not None and lay.sharded
+            and lay.spec[lay.dim] == EXPERT for p in params]
 
 
 def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
@@ -451,9 +501,10 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
     ``xent_chunk``, whose scalar loss ``loss_of`` then receives in place
     of the logits). Metrics are 0-d tensors on the model's device:
     ``loss`` (with the auxiliary loss), ``grad_norm`` (optax.global_norm
-    of the f32 grads) and ``aux_loss`` (0 for dense models). The state
-    updates in place, which takes the place of the JAX step's donation;
-    the grads are freed after the update.
+    of the f32 grads) and ``aux_loss`` (the MoE load-balancing loss a
+    MoE decoder returns, summed over its layers, already in ``loss``; 0
+    for dense models). The state updates in place, which takes the place
+    of the JAX step's donation; the grads are freed after the update.
 
     With a data-parallel ``mesh`` (:meth:`MeshSpec.build
     <tony_tpu_torch.parallel.MeshSpec.build>`) the batch is this rank's
@@ -470,6 +521,16 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
     so the metrics are the global batch's, as GSPMD's are in the
     reference. On one rank every bit is the step's without a mesh. Every
     rank applies the same update to the same replica.
+
+    On an expert mesh (``MeshSpec(dp=, ep=)``; :func:`create_train_state`
+    gave each rank ``E/ep`` experts of every MoE block) the ``ep`` ranks
+    of a data index hold the same rows, and the expert owners compute
+    every row once for each of them. The loss is divided by all
+    ``dp · ep`` ranks: the replicated leaves are summed over all of them
+    (which keeps the replicas bitwise equal), the expert leaves over the
+    data axis alone, where their ``ep`` copies of each row make up the
+    missing factor. ``grad_norm`` sums the expert leaves' squares over
+    the expert group.
 
     On a ZeRO-3 state (:func:`create_train_state` on an ``fsdp > 1``
     mesh), where the reference gets ZeRO-3 from GSPMD, the step runs the
@@ -502,29 +563,23 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
             return _zero3_step(state, batch, params, specs)
         for p in params:
             p.grad = None
-        extra = apply_kwargs_of(batch) if apply_kwargs_of else {}
-        logits = model(batch["x"], **extra)
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-        loss = loss_of(logits, batch) + aux
+        loss, aux = model_loss(model, batch, loss_of, apply_kwargs_of)
         if mesh is not None:
-            ranks = mesh.shape[DATA]
+            ranks = mesh.shape[DATA] * mesh.shape[EXPERT]
             loss, aux = loss / ranks, aux / ranks
         loss.backward()
-        loss = loss.detach()
+        loss, aux = loss.detach(), aux.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
+        expert = _expert_leaves(params, mesh)
         if mesh is not None:
-            plan = reduce_plan(params)
-            profiler.record_collective(
-                GRAD_REDUCE_TAG, kind="all_reduce", plane="grad_reduce",
-                axes=[DATA], nbytes=list(plan.bucket_nbytes))
-            scalars = torch.stack([loss, aux])
-            bufs = plan.pack(grads) + [scalars]
-            for buf in bufs:
-                td.all_reduce(buf)
-            grads = plan.unpack(bufs[:-1])
-            loss, aux = scalars[0], scalars[1]
-        gnorm = global_norm(grads)
+            loss, aux = _reduce_grads(grads, expert, torch.stack(
+                [loss, aux]), reduce_plan, mesh)
+        gnorm = global_norm([g for g, x in zip(grads, expert) if not x])
+        if any(expert):
+            sq = global_norm([g for g, x in zip(grads, expert) if x]) ** 2
+            td.all_reduce(sq, group=mesh.group((EXPERT,)))
+            gnorm = torch.sqrt(gnorm * gnorm + sq)
         state.opt_state = state.tx.update(grads, state.opt_state, params)
         state.step += 1
         for p in params:
@@ -533,10 +588,7 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
 
     def _zero3_step(state, batch, params, specs):
         def loss_fn(mb):
-            extra = apply_kwargs_of(mb) if apply_kwargs_of else {}
-            logits = state.model(mb["x"], **extra)
-            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-            return loss_of(logits, mb) + aux, aux
+            return model_loss(state.model, mb, loss_of, apply_kwargs_of)
 
         if not isinstance(state.tx, GradientTransformation):
             raise ValueError(f"make_train_step on a ZeRO-3 state needs a "
@@ -550,6 +602,35 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
         return state, {"loss": loss, "grad_norm": gnorm, "aux_loss": aux}
 
     return step
+
+
+def _reduce_grads(grads: List[torch.Tensor], expert: List[bool],
+                  scalars: torch.Tensor,
+                  reduce_plan: Callable[[List[torch.Tensor]], GradBuckets],
+                  mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The data-parallel step's reduce, in place on ``grads``: the
+    replicated leaves and the ``(loss, aux)`` scalars summed over every
+    rank, one ``all_reduce`` per bucket; the expert leaves (``expert``)
+    over the data group. Returns the summed scalars."""
+    axes = [DATA] + ([EXPERT] if mesh.shape[EXPERT] > 1 else [])
+    for tag, keep, over in ((GRAD_REDUCE_TAG, False, axes),
+                            (EXPERT_REDUCE_TAG, True, [DATA])):
+        idx = [i for i, x in enumerate(expert) if x == keep]
+        if not idx or (keep and mesh.shape[DATA] == 1):
+            continue
+        group = mesh.group((DATA,)) if keep else None
+        plan = reduce_plan([grads[i] for i in idx])
+        profiler.record_collective(
+            tag, kind="all_reduce", plane="grad_reduce", axes=over,
+            nbytes=list(plan.bucket_nbytes))
+        bufs = plan.pack([grads[i] for i in idx])
+        if not keep:
+            bufs.append(scalars)
+        for buf in bufs:
+            td.all_reduce(buf, group=group)
+        for i, g in zip(idx, plan.unpack(bufs[:len(plan.bucket_nbytes)])):
+            grads[i] = g
+    return scalars[0], scalars[1]
 
 
 def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
@@ -640,6 +721,10 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a tony_tpu_torch.parallel.Mesh "
                         f"(MeshSpec(...).build()), got {type(mesh)}")
+    if mesh is not None and mesh.shape[EXPERT] > 1:
+        raise NotImplementedError(
+            "make_accum_train_step on an expert mesh (ep > 1) is not "
+            "ported yet (ROADMAP.md, queue 1 item 11): use make_train_step")
     if reduce_op not in ("all_reduce", "reduce_scatter"):
         raise ValueError(f"unknown reduce op {reduce_op!r} "
                          "(all_reduce|reduce_scatter)")
@@ -676,10 +761,7 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
             resolved.append(True)
 
         def loss_fn(mb):
-            extra = apply_kwargs_of(mb) if apply_kwargs_of else {}
-            logits = model(mb["x"], **extra)
-            aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-            return loss_of(logits, mb) + aux, aux
+            return model_loss(model, mb, loss_of, apply_kwargs_of)
 
         mesh_kw = {}
         if mesh is not None:
