@@ -57,6 +57,22 @@ caught):
    replayed against eager (tokens/s, step p50, idle share over three
    b=16 steps); ``swap_params`` onto other weights then a replay, equal
    to an eager engine on those weights;
+5b. serve_prefix, serve_spec, serve_disagg — the routed lanes on the
+   serve phase's model; serve_disagg: a prefill-role and a decode-role
+   engine, each behind the replica's RPC handler and server, the port's
+   ``RequestRouter`` (built as ``cli route`` builds it) dispatching to
+   them, the KV blocks over a loopback socket: (a) the serve mix one
+   request at a time, tokens and every logits row equal to a colocated
+   engine's, 16 handoffs, no fallback, no failover, ``blocks_shipped`` =
+   the mix's 268 blocks, the first import's blocks ``torch.equal`` to
+   the exported ones; (b) the longest request after ``warm()`` on the
+   decode engine, equal to (a); (c) the mix from 16 threads within
+   ``SERVE_REL_TOL`` of the serve phase's completions; row 9 launched 32
+   times a forward on both engines. Wire bytes, export and import ms,
+   re-sends, fallbacks and failovers, per-request wall, decode tokens/s
+   and peak for each pass. ``--disagg-cards-only`` (two or more
+   cards) runs (a) and (c) with the engines on ``cuda:0`` and ``cuda:1``,
+   then the split serve job with ``--gpus 1``;
 6. train — llama2-7b at full width cut to 8 layers (f32 parameters,
    bf16 compute, flash attention, remat), AdamW(3e-4), 8 steps on one
    fixed batch of 2 x 2048 seeded tokens: one step's grads through the
@@ -272,7 +288,12 @@ caught):
    ``Replica`` (bf16) on that step, then ``cli serve ... --gpus 1``: four
    seeded prompts sent one at a time over RPC give the in-process greedy
    tokens, row 9 launched in the replica as often (the ``launches`` of
-   its ``serve_stats`` verb), and ``cli kill`` ends the job KILLED. It
+   its ``serve_stats`` verb), and ``cli kill`` ends the job KILLED; (e)
+   the same step served split, ``cli serve --role prefill=1,decode=1``
+   (no card ask: both replicas on card 0) behind ``cli route --am``: the
+   four prompts through the router give (d)'s tokens by 4 handoffs,
+   each replica's heartbeat carries its role, row 9 launched 4 times in
+   the prefill replica and (d)'s count less 4 in the decode one. It
    prints submit-to-first-step and submit-to-first-token seconds and the
    job's step times by kind: its plain steps (neither the first, nor
    one that carries the save made after the step before it, nor the
@@ -297,7 +318,8 @@ caught):
    ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
    ``{"serve_replica": {...}}`` line, a ``{"tony_jobs": {...}}`` line,
    the ``{"serve_prefix": ...}``,
-   ``{"serve_spec": ...}`` and ``{"serve_coldstart": ...}`` lines, the
+   ``{"serve_spec": ...}``, ``{"serve_disagg": ...}`` and
+   ``{"serve_coldstart": ...}`` lines, the
    card line, and last ``{"ok": true, "device": {...}}``.
 
 Phase 3 also holds the int8 matmul (row 15) ``torch.equal`` to its plain
@@ -1179,6 +1201,345 @@ def serve_spec_phase(model):
         "flash_decode_launches": sum(r["flash_decode_launches"]
                                      for w, r in res.items()
                                      if w != "plain")}
+
+
+# ---------------------------------------------------------------------
+# Disaggregated serving: a prefill-role and a decode-role engine on one
+# model, each behind the port's RPC server, the KV blocks shipped over a
+# loopback socket, the port's router dispatching.
+# ---------------------------------------------------------------------
+
+class DisaggWatch:
+    """What the split engines did that the wire does not carry back: the
+    decode engine's completions (with their logits rows), the wire size
+    of each export (blocks, base64 characters), and, at the first
+    import, whether the decode pool's new blocks are ``torch.equal`` to
+    the prefill pool's exported blocks (the prefill side freed them at
+    export, and nothing reuses them before the first import)."""
+
+    def __init__(self, pf, dc):
+        self.done, self.wire, self.exported = {}, {}, {}
+        self.first_import = None
+        step, export, imp = dc.step, pf.cache.export_blocks, \
+            dc.cache.import_blocks
+
+        def watched_step():
+            out = step()
+            for c in out:
+                self.done[c.rid] = c
+            return out
+
+        def watched_export(seq_id, length):
+            blocks = export(seq_id, length)
+            self.exported[seq_id] = pf.cache.table(seq_id)[:len(blocks)]
+            self.wire[seq_id] = (len(blocks), sum(
+                len(b["k"]) + len(b["v"]) for b in blocks))
+            return blocks
+
+        def watched_import(seq_id, length, blocks, *, keys=(), offset=0):
+            adopted = imp(seq_id, length, blocks, keys=keys, offset=offset)
+            if self.first_import is None and blocks:
+                ids = torch.as_tensor(dc.cache.table(seq_id)[
+                    offset:offset + len(blocks)], device=dc.device)
+                src = torch.as_tensor(self.exported[seq_id][offset:],
+                                      device=pf.device)
+                same = all(torch.equal(a.index_select(1, ids),
+                                       b.index_select(1, src).to(a.device))
+                           for a, b in ((dc.cache.k, pf.cache.k),
+                                        (dc.cache.v, pf.cache.v)))
+                self.first_import = {"rid": seq_id, "blocks": len(blocks),
+                                     "torch_equal": same}
+            return adopted
+
+        dc.step = watched_step
+        pf.cache.export_blocks = watched_export
+        dc.cache.import_blocks = watched_import
+
+    def completion(self, rid):
+        """The completion the router returned for ``rid``: the fallback's
+        when the handoff fell back."""
+        return self.done.get(f"{rid}~fallback") or self.done[rid]
+
+
+class SplitReplica:
+    """The request surface of ``serve.replica.Replica`` over an engine
+    built here (no checkpoint restore), served by the replica's own RPC
+    handler on a free loopback port."""
+
+    def __init__(self, engine):
+        from tony_tpu_torch.rpc import RpcServer
+        from tony_tpu_torch.serve.disagg import DecodeFront, PrefillFront
+        from tony_tpu_torch.serve.replica import _ReplicaRpcHandler
+
+        self.engine = engine
+        self._front = EngineFront(engine)
+        self._prefill_front = PrefillFront(self._front)
+        self._decode_front = DecodeFront(self._front)
+        self.server = RpcServer(_ReplicaRpcHandler(self),
+                                host="127.0.0.1").start()
+
+    def generate(self, tokens, max_new_tokens, rid=None, conv=None,
+                 tenant=None):
+        return self._front.generate(tokens, max_new_tokens, rid=rid,
+                                    conv=conv, tenant=tenant)
+
+    def prefill_handoff(self, tokens, max_new_tokens, rid=None,
+                        decode=None, conv=None, tenant=None):
+        return self._prefill_front.prefill_handoff(
+            tokens, max_new_tokens, rid=rid, decode=decode, conv=conv,
+            tenant=tenant)
+
+    def kv_offer(self, keys):
+        return self._decode_front.kv_offer(keys)
+
+    def kv_import(self, payload):
+        return self._decode_front.kv_import(payload)
+
+
+def split_router(pf, dc):
+    """``pf`` and ``dc`` as :class:`SplitReplica` s behind their RPC
+    servers, and the port's router over them built as ``cli route``
+    builds it (``RequestRouter(block_size=...)``: its own RPC dial, the
+    15 s retry window, the wait for a reply of ``REPLY_TIMEOUT_S``); one
+    request through the split as a warm-up. Returns the router and the
+    servers' stop."""
+    from tony_tpu_torch.serve import RequestRouter
+
+    reps = {"prefill:0": SplitReplica(pf), "decode:0": SplitReplica(dc)}
+    router = RequestRouter(block_size=SERVE_ENGINE["block_size"])
+    for name, rep in reps.items():
+        router.upsert_replica(name, address=rep.server.address,
+                              stats=rep.engine.stats())
+    router.dispatch([1, 2, 3, 4], 2, rid="warm-up")
+    return router, lambda: [rep.server.stop() for rep in reps.values()]
+
+
+def resent():
+    """This process's RPC transport faults so far, by method."""
+    from tony_tpu_torch import rpc as rpc_mod
+    return dict(rpc_mod.RESENDS)
+
+
+class SplitCounters:
+    """The split's counters at one moment; ``since`` gives a pass's
+    numbers from two of them."""
+
+    def __init__(self, router, pf, dc):
+        st = router.stats()
+        self.values = {
+            "handoffs": st["handoffs"], "fallbacks": st["handoff_fallbacks"],
+            "failovers": st["failovers"], "export_ms": pf.handoff_ms,
+            "import_ms": dc.handoff_ms, "blocks_shipped": pf.blocks_shipped,
+            "imports_failed": dc.imports_failed,
+            "pf_forwards": pf.forwards, "dc_forwards": dc.forwards,
+            "dc_replays": dc.graph_replays(),
+            "dc_replayed": dc.graph_launches().get("flash_decode", 0)}
+
+        self.resends = resent()
+
+    def since(self, before):
+        d = {k: v - before.values[k] for k, v in self.values.items()}
+        d["resends"] = {m: n - before.resends.get(m, 0)
+                        for m, n in self.resends.items()
+                        if n != before.resends.get(m, 0)}
+        return d
+
+
+def split_pass(tag, router, pf, dc, watch, reqs, concurrent, n_layers):
+    """``reqs`` ((rid, tokens, max_new)) through ``router.dispatch``, one
+    at a time or from one thread each. Row 9's launches are counted
+    exactly: the eager ones (``LAUNCHES``, reset here) and the decode
+    engine's replays together are ``n_layers`` times both engines'
+    forwards. Returns the pass's numbers and the router's outputs."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    before = SplitCounters(router, pf, dc)
+    LAUNCHES["flash_decode"] = 0
+    walls = [None] * len(reqs)
+
+    def one(i):
+        rid, toks, n = reqs[i]
+        t0 = time.monotonic()
+        out = router.dispatch(toks, n, rid=rid)
+        walls[i] = 1e3 * (time.monotonic() - t0)
+        return out
+
+    t0 = time.monotonic()
+    if concurrent:
+        outs = run_threads(one, len(reqs))
+    else:
+        outs = [one(i) for i in range(len(reqs))]
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    d = SplitCounters(router, pf, dc).since(before)
+    eager = LAUNCHES["flash_decode"]
+    launches = eager + d["dc_replayed"]
+    forwards = d["pf_forwards"] + d["dc_forwards"]
+    if launches != n_layers * forwards or forwards == 0:
+        raise AssertionError(f"serve_disagg {tag}: flash_decode launches "
+                             f"{eager} eager + {d['dc_replayed']} replayed "
+                             f"!= {n_layers} x {forwards} forwards")
+    if d["dc_replays"] == d["dc_forwards"] and (
+            d["dc_replayed"] != n_layers * d["dc_forwards"]
+            or eager != n_layers * d["pf_forwards"]):
+        # Every decode forward replayed: the two engines' launches apart.
+        raise AssertionError(f"serve_disagg {tag}: decode engine "
+                             f"{d['dc_replayed']} replayed launches for "
+                             f"{d['dc_forwards']} forwards, prefill engine "
+                             f"{eager} for {d['pf_forwards']}")
+    for (rid, _, n), out in zip(reqs, outs):
+        if out["rid"] != rid or len(out["tokens"]) != n:
+            raise AssertionError(f"serve_disagg {tag}: {rid} gave {out}")
+    blocks = [watch.wire[rid][0] for rid, _, _ in reqs
+              if rid in watch.wire]
+    b64 = [watch.wire[rid][1] for rid, _, _ in reqs if rid in watch.wire]
+    raw_block = 2 * n_layers * pf.block_size * pf.kv_dim \
+        * pf.cache.k.element_size()
+    gen = sum(n for _, _, n in reqs)
+    res = {"requests": len(reqs), "concurrent": concurrent,
+           "handoffs": d["handoffs"], "fallbacks": d["fallbacks"],
+           "failovers": d["failovers"],
+           "rpc_resends": sum(d["resends"].values()),
+           "rpc_resends_by_method": d["resends"],
+           "imports_failed": d["imports_failed"],
+           "blocks_shipped": d["blocks_shipped"],
+           "wire_raw_bytes": raw_block * sum(blocks),
+           "wire_raw_bytes_per_request": [raw_block * b for b in blocks],
+           "wire_b64_bytes_per_request": b64,
+           "export_ms": d["export_ms"], "import_ms": d["import_ms"],
+           "request_wall_ms": walls,
+           "request_wall_p50_ms": float(np.median(walls)),
+           "wall_s": t1 - t0, "decode_tokens_per_s": gen / (t1 - t0),
+           "decode_engine": window_numbers(dc, t0, t1),
+           "prefill_engine": window_numbers(pf, t0, t1),
+           "forwards": {"prefill": d["pf_forwards"],
+                        "decode": d["dc_forwards"],
+                        "decode_replayed": d["dc_replays"]},
+           "flash_decode_launches": launches,
+           "flash_decode_launches_eager": eager,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  {tag}: {json.dumps({k: v for k, v in res.items() if not k.endswith('per_request') and k != 'request_wall_ms'})}")
+    return res, outs
+
+
+def serve_disagg_phase(model, serve_results):
+    """Disaggregated serving at the serve phase's full width: a
+    prefill-role and a decode-role ``ServeEngine`` on the one model, each
+    behind the port's RPC server answering the replica's verbs (the KV
+    crosses a real loopback socket), the port's ``RequestRouter``
+    dispatching to them as role replicas. (a) the serve mix one request
+    at a time, against a colocated engine one at a time: tokens and
+    every logits row equal, 16 handoffs, no fallback or failover, the
+    mix's blocks shipped, the first import's blocks ``torch.equal`` to the exported
+    ones (the colocated engine's decode steps replayed CUDA graphs, the
+    split decode engine's eager); (b) the longest request again after
+    ``warm()`` on the decode engine (its decode steps replayed CUDA
+    graphs, reading the imported blocks): equal to (a); (c)
+    the mix from 16 threads, against the serve phase's completions
+    within ``SERVE_REL_TOL`` with greedy tokens equal up to a near-tie.
+    Row 9 launched ``n_layers`` times a forward on both engines."""
+    cfg = model.cfg
+    mix = serve_mix(SEED, cfg.vocab)
+    want_blocks = sum(-(-len(t) // SERVE_ENGINE["block_size"])
+                      for t, _ in mix)
+    # Colocated reference, one request at a time, its decode steps
+    # replayed CUDA graphs (the eager steps' bits, a quarter of their
+    # host time).
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    co = ServeEngine(model, **SERVE_ENGINE)
+    co.warm()
+    co_front = EngineFront(co)
+    co_front.generate([1, 2, 3, 4], 2)                 # warm-up
+    ref, co_walls = {}, []
+    forwards0 = co.forwards
+    replayed0 = co.graph_launches().get("flash_decode", 0)
+    LAUNCHES["flash_decode"] = 0
+    t0 = time.monotonic()
+    for i, (toks, n) in enumerate(mix):
+        t1 = time.monotonic()
+        ref[f"a-{i}"] = co_front.generate(toks, n, rid=f"a-{i}")
+        co_walls.append(1e3 * (time.monotonic() - t1))
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    co_forwards = co.forwards - forwards0
+    co_launches = LAUNCHES["flash_decode"] + co.graph_launches().get(
+        "flash_decode", 0) - replayed0
+    if co_launches != cfg.n_layers * co_forwards:
+        raise AssertionError(f"serve_disagg colocated: launches "
+                             f"{co_launches} != {cfg.n_layers} x "
+                             f"{co_forwards}")
+    gen = sum(n for _, n in mix)
+    colocated = {"wall_s": t1 - t0, "decode_tokens_per_s": gen / (t1 - t0),
+                 "engine": window_numbers(co, t0, t1),
+                 "request_wall_ms": co_walls,
+                 "request_wall_p50_ms": float(np.median(co_walls)),
+                 "forwards": co_forwards,
+                 "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"  colocated, one at a time: {gen} tokens in {t1 - t0:.2f} s")
+    # The split.
+    pf = ServeEngine(model, role="prefill", **SERVE_ENGINE)
+    dc = ServeEngine(model, role="decode", **SERVE_ENGINE)
+    watch = DisaggWatch(pf, dc)
+    router, stop = split_router(pf, dc)
+    try:
+        watch.first_import = None       # check the mix's first, 28 blocks
+        reqs = [(f"a-{i}", toks, n) for i, (toks, n) in enumerate(mix)]
+        res_a, _ = split_pass("(a) sequential", router, pf, dc, watch,
+                              reqs, False, cfg.n_layers)
+        rows = same_streams({rid: watch.completion(rid)
+                             for rid, _, _ in reqs}, ref,
+                            "serve_disagg (a)")
+        if res_a["handoffs"] != len(mix) or res_a["fallbacks"] \
+                or res_a["failovers"] \
+                or res_a["blocks_shipped"] != want_blocks \
+                or not (watch.first_import or {}).get("torch_equal"):
+            raise AssertionError(f"serve_disagg (a): {res_a['handoffs']} "
+                                 f"handoffs, {res_a['fallbacks']} "
+                                 f"fallbacks, {res_a['failovers']} "
+                                 f"failovers, {res_a['blocks_shipped']} "
+                                 f"blocks (want {want_blocks}), first "
+                                 f"import {watch.first_import}")
+        res_a.update(bitwise_rows=rows, first_import=watch.first_import)
+        del co_front, co
+        free_cuda()
+        # (b): the longest request after warm() on the decode engine.
+        warmed = dc.warm()
+        longest = max(range(len(mix)), key=lambda i: len(mix[i][0]))
+        toks, n = mix[longest]
+        res_b, _ = split_pass("(b) after warm()", router, pf, dc, watch,
+                              [(f"b-{longest}", toks, n)], False,
+                              cfg.n_layers)
+        if res_b["forwards"]["decode_replayed"] \
+                != res_b["forwards"]["decode"]:
+            raise AssertionError(f"serve_disagg (b): {res_b['forwards']}: "
+                                 f"a decode forward was not a replay")
+        same_streams({f"a-{longest}": watch.completion(f"b-{longest}")},
+                     {f"a-{longest}": ref[f"a-{longest}"]},
+                     "serve_disagg (b)")
+        res_b.update(warmed_programs=warmed, request=longest,
+                     equal_to_a=True)
+        # (c): the mix from 16 threads.
+        reqs_c = [(f"c-{i}", toks, n) for i, (toks, n) in enumerate(mix)]
+        res_c, _ = split_pass("(c) concurrent", router, pf, dc, watch,
+                              reqs_c, True, cfg.n_layers)
+        worst, div, rows_c = compare_streams(
+            {i: watch.completion(f"c-{i}") for i in range(len(mix))},
+            dict(enumerate(serve_results)), SERVE_REL_TOL,
+            "serve_disagg (c)")
+        res_c.update(vs_serve_max_rel=worst, near_tie_divergences=div,
+                     rows_compared=rows_c, tol=SERVE_REL_TOL)
+    finally:
+        stop()
+    launches = sum(r["flash_decode_launches"] for r in (res_a, res_b, res_c))
+    del watch, pf, dc, router
+    free_cuda()
+    return {"model": "llama2-7b", "engine": {
+        k: v for k, v in SERVE_ENGINE.items() if k != "keep_logits"},
+        "mix": "serve_mix(SEED): 16 prompts of 24-475 tokens, 16-64 new",
+        "want_blocks": want_blocks, "colocated": colocated,
+        "a_sequential": res_a, "b_after_warm": res_b,
+        "c_concurrent": res_c, "flash_decode_launches": launches}
 
 
 # ---------------------------------------------------------------------
@@ -6004,19 +6365,9 @@ def serve_job(ckpt_dir, vocab, layers):
     prompts, one at a time over the RPC wire, give the in-process greedy
     tokens; row 9 launched in the replica as often as in process; ``kill``
     ends the job KILLED."""
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, vocab, n).tolist() for n in JOB_PROMPT_LENS]
+    prompts = job_prompts(vocab)
     engine_kw = dict(ctx_max=2048, block_size=16, max_running=16)
-    replica = Replica(model_name="llama2-7b",
-                      model_kwargs=replica_model_kwargs(layers),
-                      ckpt_dir=ckpt_dir, dtype_policy="bf16", **engine_kw)
-    LAUNCHES["flash_decode"] = 0
-    ref = [replica.generate(p, JOB_NEW_TOKENS).tokens for p in prompts]
-    ref_launches = LAUNCHES["flash_decode"]
-    ref_step = replica.restored_step
-    del replica
-    gc.collect()
-    torch.cuda.empty_cache()
+    ref, ref_launches, ref_step = replica_reference(ckpt_dir, vocab, layers)
     workdir = os.path.join(JOB_ROOT, "serve")
     t_submit = time.time()
     proc = tony_cli(["serve", "--model", "llama2-7b", "--model_kwargs",
@@ -6074,13 +6425,198 @@ def serve_job(ckpt_dir, vocab, layers):
                              f"job ended {code} {final['status']}")
     out = {"layers": layers, "prompts": list(JOB_PROMPT_LENS),
            "new_tokens": JOB_NEW_TOKENS, "step": ref_step, "tokens_equal": True,
-           "flash_decode_launches": launches,
+           "tokens": tokens, "flash_decode_launches": launches,
            "submit_to_first_token_s": t_first - t_submit,
            "status": final["status"]}
     log(f"  serve job: step {ref_step}, {len(prompts)} prompts over RPC "
         f"give the in-process greedy tokens; row 9 launched {launches} "
         f"times in the replica; submit to first token "
         f"{out['submit_to_first_token_s']:.1f} s; kill -> {final['status']}")
+    return out
+
+
+def replica_reference(ckpt_dir, vocab, layers):
+    """The serve jobs' reference: an in-process ``Replica`` (bf16) on the
+    committed step, the four prompts one at a time. Returns their greedy
+    tokens, row 9's launches and the step."""
+    replica = Replica(model_name="llama2-7b",
+                      model_kwargs=replica_model_kwargs(layers),
+                      ckpt_dir=ckpt_dir, dtype_policy="bf16", ctx_max=2048,
+                      block_size=16, max_running=16)
+    LAUNCHES["flash_decode"] = 0
+    tokens = [replica.generate(p, JOB_NEW_TOKENS).tokens
+              for p in job_prompts(vocab)]
+    launches, step = LAUNCHES["flash_decode"], replica.restored_step
+    del replica
+    free_cuda()
+    return tokens, launches, step
+
+
+def job_prompts(vocab):
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, n).tolist() for n in JOB_PROMPT_LENS]
+
+
+def wait_for_replicas(workdir, proc, n):
+    """The ``n`` replicas' stats files once each carries its RPC port, by
+    role (the stats' ``role``)."""
+    deadline = time.monotonic() + JOB_TIMEOUT_S
+    while time.monotonic() < deadline and proc.poll() is None:
+        time.sleep(0.5)
+        if not any(d.startswith("app_") for d in os.listdir(workdir)):
+            continue
+        found = {}
+        for path in glob_files(job_dir(workdir), ("serve-stats.json",)):
+            try:
+                with open(path) as fh:
+                    got = json.load(fh)
+            except (OSError, ValueError):
+                continue
+            if "rpc_port" in got:
+                found[got["role"]] = got
+        if len(found) == n:
+            return found
+    raise AssertionError(f"tony_jobs: {n} replicas did not publish an RPC "
+                         f"port\n" + job_tail(workdir, "serve.log"))
+
+
+def start_route(workdir, am_address):
+    """``python -m tony_tpu_torch.cli route --am <am_address>`` as a
+    process; returns it and the router's port (from its first line)."""
+    log_path = os.path.join(workdir, "route.log")
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tony_tpu_torch.cli", "route", "--am",
+         am_address, "--poll_s", "0.5"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=job_env(),
+        stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and proc.poll() is None:
+        with open(log_path) as fh:
+            line = fh.readline()
+        if " listening on " in line:
+            return proc, int(line.split(" listening on ")[1].split(",")[0]
+                             .rsplit(":", 1)[1])
+        time.sleep(0.1)
+    proc.kill()
+    proc.wait()
+    with open(log_path) as fh:
+        raise AssertionError(f"tony_jobs: tony route did not start: "
+                             f"{fh.read()[-2000:]}")
+
+
+def replica_launches(port):
+    with LongCallRpcClient(f"127.0.0.1:{port}", timeout=60.0) as client:
+        st = client.call("serve_stats")
+    return st["launches"].get("flash_decode", 0), st
+
+
+def serve_roles_job(ckpt_dir, vocab, layers, want_tokens, want_launches,
+                    gpus=0):
+    """(e) The committed step served split: ``cli serve --role
+    prefill=1,decode=1`` (``--gpus`` as given; none: both replicas share
+    card 0) and ``cli route --am <the job's AM>`` as a process. The four
+    prompts sent to the router's RPC one at a time give the colocated
+    serve job's tokens through 4 handoffs and no fallback; each
+    replica's heartbeat, as the AM's ``serve_endpoints`` shows it,
+    carries its role; row 9 launched once a layer a forward on each
+    replica, the prefill replica's four prefills and the decode
+    replica's the rest of the colocated job's launches. With ``gpus``,
+    each task saw its own cards (``CUDA_VISIBLE_DEVICES``). ``cli kill``
+    ends the job KILLED."""
+    from tony_tpu_torch.am import AM_ADDRESS_FILE
+
+    prompts = job_prompts(vocab)
+    workdir = os.path.join(JOB_ROOT, f"serve_roles_gpus{gpus}")
+    t_submit = time.time()
+    proc = tony_cli(["serve", "--model", "llama2-7b", "--model_kwargs",
+                     json.dumps(replica_model_kwargs(layers)),
+                     "--ckpt_dir", ckpt_dir, "--role", "prefill=1,decode=1",
+                     "--ctx_max", "2048", "--name", "tony-jobs-serve-roles"]
+                    + (["--gpus", str(gpus)] if gpus else []),
+                    workdir, "serve.log", wait=False)
+    route = None
+    try:
+        stats = wait_for_replicas(workdir, proc, 2)
+        with open(os.path.join(job_dir(workdir), AM_ADDRESS_FILE)) as fh:
+            am_address = fh.read().strip()
+        route, route_port = start_route(workdir, am_address)
+        ports = {role: int(st["rpc_port"]) for role, st in stats.items()}
+        before = {role: replica_launches(p)[0] for role, p in ports.items()}
+        with LongCallRpcClient(f"127.0.0.1:{route_port}",
+                               timeout=600.0) as router:
+            deadline = time.monotonic() + 60
+            while router.call("router_stats")["replicas_live"] < 2:
+                if time.monotonic() > deadline:
+                    raise AssertionError("tony_jobs: the router saw no "
+                                         "split fleet")
+                time.sleep(0.2)
+            tokens, outs, t_first = [], [], None
+            for prompt in prompts:
+                out = router.call("generate", tokens=prompt,
+                                  max_new_tokens=JOB_NEW_TOKENS)
+                t_first = t_first or time.time()
+                tokens.append(out["tokens"])
+                outs.append({k: out[k] for k in ("replica",
+                                                 "prefill_replica")})
+            rstats = router.call("router_stats")
+        after = {role: replica_launches(p) for role, p in ports.items()}
+        launches = {role: after[role][0] - before[role] for role in ports}
+        with RpcClient(am_address, timeout=30.0) as am:
+            eps = am.call("serve_endpoints")
+        roles = {e["job_type"]: (e.get("serve_metrics") or {}).get("role")
+                 for e in eps}
+        visible = {role: after[role][1].get("visible_devices")
+                   for role in ports}
+        if tokens != want_tokens or rstats["handoffs"] != len(prompts) \
+                or rstats["handoff_fallbacks"] \
+                or roles != {"prefill": "prefill", "decode": "decode"} \
+                or launches["prefill"] != layers * len(prompts) \
+                or sum(launches.values()) != want_launches:
+            raise AssertionError(
+                f"tony_jobs: the split job gave {tokens} (colocated "
+                f"{want_tokens}), router {rstats}, roles {roles}, row 9 "
+                f"{launches} (colocated {want_launches})\n"
+                + job_tail(workdir, "serve.log"))
+        if gpus and (sorted(visible.values()) != [
+                ",".join(str(i) for i in range(k * gpus, (k + 1) * gpus))
+                for k in range(2)]):
+            raise AssertionError(f"tony_jobs: the split job's tasks saw "
+                                 f"{visible}")
+        app_id = os.path.basename(job_dir(workdir))
+        rc = tony_cli(["kill", app_id], workdir, "kill.log")
+        code = proc.wait(timeout=120)
+    finally:
+        if route is not None and route.poll() is None:
+            route.kill()
+            route.wait()
+        if proc.poll() is None:
+            # A failure before the kill: end the job (its AM, executors
+            # and replicas), not only its client.
+            with contextlib.suppress(Exception):
+                tony_cli(["kill", os.path.basename(job_dir(workdir))],
+                         workdir, "kill.log")
+                proc.wait(timeout=60)
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    final = job_final(workdir)
+    if rc != 0 or code == 0 or final["status"] != "KILLED":
+        raise AssertionError(f"tony_jobs: kill returned {rc}, the split "
+                             f"serve job ended {code} {final['status']}")
+    out = {"layers": layers, "gpus": gpus, "tokens_equal": True,
+           "router": rstats, "dispatches": outs, "roles": roles,
+           "visible_devices": visible,
+           "flash_decode_launches": sum(launches.values()),
+           "flash_decode_launches_by_role": launches,
+           "submit_to_first_token_s": t_first - t_submit,
+           "status": final["status"]}
+    log(f"  split serve job ({gpus} card(s) a replica): the router's 4 "
+        f"handoffs give the colocated job's tokens; roles {roles}; row 9 "
+        f"{launches}; visible {visible}; submit to first token "
+        f"{out['submit_to_first_token_s']:.1f} s; kill -> "
+        f"{final['status']}")
     return out
 
 
@@ -6107,6 +6643,9 @@ def tony_jobs_phase(card, layers=JOB_LAYERS):
         train, ckpt_dir = train_job(topo, data_path, layers)
         overask = overask_job(data_path)
         serve = serve_job(ckpt_dir, CKPT_VOCAB, layers)
+        serve_roles = serve_roles_job(ckpt_dir, CKPT_VOCAB, layers,
+                                      serve["tokens"],
+                                      serve["flash_decode_launches"])
         kinds = train["step_kinds"]
         log(f"  tony_jobs at {layers} layer(s) on {card}: submit to first "
             f"step {train['submit_to_first_step_s']:.1f} s, submit to first "
@@ -6115,7 +6654,101 @@ def tony_jobs_phase(card, layers=JOB_LAYERS):
             f"step(s) carrying a save {kinds['save_ms']} ms")
         return {"census": [d.__dict__ for d in topo.devices],
                 "train": train, "overask": overask, "serve": serve,
-                "card": card}
+                "serve_roles": serve_roles, "card": card}
+    finally:
+        shutil.rmtree(JOB_ROOT, ignore_errors=True)
+
+
+def disagg_cards_phase(card):
+    """``--disagg-cards-only`` (two or more cards): serve_disagg's (a) and
+    (c) with the prefill engine on ``cuda:0`` and the decode engine on
+    ``cuda:1``, each with its own copy of llama2-7b from the same seed
+    (every parameter ``torch.equal`` across the cards): (a) tokens and
+    every logits row equal to a colocated engine's on ``cuda:0``, one
+    request at a time; (c) the mix from 16 threads within
+    ``SERVE_REL_TOL`` of (a)'s colocated completions. Then the split
+    serve job (``cli serve --role prefill=1,decode=1 --gpus 1``) on a
+    committed 1-layer step, each task pinned to its own card."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError("--disagg-cards-only needs two or more cards")
+    models = [get_model("llama2-7b", device=f"cuda:{i}", seed=SEED,
+                        param_dtype=torch.bfloat16) for i in range(2)]
+    for (name, a), (_, b) in zip(models[0].named_parameters(),
+                                 models[1].named_parameters()):
+        if not torch.equal(a, b.to("cuda:0")):
+            raise AssertionError(f"disagg_cards: {name} differs across the "
+                                 f"cards")
+    cfg = models[0].cfg
+    mix = serve_mix(SEED, cfg.vocab)
+    co = ServeEngine(models[0], **SERVE_ENGINE, device="cuda:0")
+    front = EngineFront(co)
+    front.generate([1, 2, 3, 4], 2)
+    t0 = time.monotonic()
+    ref = {f"a-{i}": front.generate(toks, n, rid=f"a-{i}")
+           for i, (toks, n) in enumerate(mix)}
+    co_wall = time.monotonic() - t0
+    del front, co
+    free_cuda()
+    pf = ServeEngine(models[0], role="prefill", **SERVE_ENGINE,
+                     device="cuda:0")
+    dc = ServeEngine(models[1], role="decode", **SERVE_ENGINE,
+                     device="cuda:1")
+    watch = DisaggWatch(pf, dc)
+    router, stop = split_router(pf, dc)
+    try:
+        watch.first_import = None       # check the mix's first, 28 blocks
+        reqs = [(f"a-{i}", toks, n) for i, (toks, n) in enumerate(mix)]
+        with torch.cuda.device(1):
+            torch.cuda.reset_peak_memory_stats()
+        res_a, _ = split_pass("cards (a) sequential", router, pf, dc, watch,
+                              reqs, False, cfg.n_layers)
+        rows = same_streams({rid: watch.completion(rid)
+                             for rid, _, _ in reqs}, ref,
+                            "disagg_cards (a)")
+        if res_a["handoffs"] != len(mix) or res_a["fallbacks"] \
+                or res_a["failovers"]:
+            raise AssertionError(f"disagg_cards (a): {res_a}")
+        res_a.update(bitwise_rows=rows, first_import=watch.first_import,
+                     colocated_wall_s=co_wall,
+                     decode_card_peak=torch.cuda.max_memory_allocated(1))
+        reqs_c = [(f"c-{i}", toks, n) for i, (toks, n) in enumerate(mix)]
+        res_c, _ = split_pass("cards (c) concurrent", router, pf, dc, watch,
+                              reqs_c, True, cfg.n_layers)
+        worst, div, rows_c = compare_streams(
+            {f"a-{i}": watch.completion(f"c-{i}") for i in range(len(mix))},
+            ref, SERVE_REL_TOL, "disagg_cards (c)")
+        res_c.update(vs_colocated_max_rel=worst, near_tie_divergences=div,
+                     rows_compared=rows_c,
+                     decode_card_peak=torch.cuda.max_memory_allocated(1))
+    finally:
+        stop()
+    del watch, pf, dc, router, models
+    free_cuda()
+    return {"cards": cards, "a_sequential": res_a, "c_concurrent": res_c,
+            "serve_roles_job": roles_job_on_a_fresh_step(gpus=1),
+            "card": card}
+
+
+def roles_job_on_a_fresh_step(gpus):
+    """The split serve job (``serve_roles_job``) on a 1-layer step saved
+    here from a fresh state (no train job), against an in-process
+    replica's tokens on that step."""
+    shutil.rmtree(JOB_ROOT, ignore_errors=True)
+    os.makedirs(JOB_ROOT)
+    try:
+        ckpt_dir = os.path.join(JOB_ROOT, "ckpt")
+        state = create_train_state(ckpt_model(JOB_LAYERS, SEED),
+                                   adamw(TRAIN_LR))
+        saver = ckpt.AsyncCheckpointer(ckpt_dir)
+        saver.save(ckpt.encode_portable(state), step=1, block=True)
+        saver.close()
+        del state
+        free_cuda()
+        tokens, launches, _ = replica_reference(ckpt_dir, CKPT_VOCAB,
+                                                JOB_LAYERS)
+        return serve_roles_job(ckpt_dir, CKPT_VOCAB, JOB_LAYERS, tokens,
+                               launches, gpus=gpus)
     finally:
         shutil.rmtree(JOB_ROOT, ignore_errors=True)
 
@@ -6199,6 +6832,7 @@ def job_cards_phase(card):
 
 
 def main() -> int:
+    t_script = time.monotonic()
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False — this "
             "script needs a GPU")
@@ -6208,6 +6842,7 @@ def main() -> int:
     job_cards_only = "--job-cards-only" in sys.argv[1:]
     job_depth_only = "--job-depth-only" in sys.argv[1:]
     moe_cards_only = "--moe-cards-only" in sys.argv[1:]
+    disagg_cards_only = "--disagg-cards-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -6258,6 +6893,18 @@ def main() -> int:
         log("[job_cards]")
         res = job_cards_phase(card)
         print(json.dumps({"job_cards": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if disagg_cards_only:
+        # The prefill and the decode engine on two cards (a multi-card
+        # machine's measurement).
+        log("[disagg_cards]")
+        res = disagg_cards_phase(card)
+        print(json.dumps({"disagg_cards": res}), flush=True)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -6340,6 +6987,10 @@ def main() -> int:
     serve_prefix = serve_prefix_phase(model)
     log("[serve_spec]")
     serve_spec = serve_spec_phase(model)
+    log("[serve_disagg]")
+    t_phase = time.monotonic()
+    serve_disagg = serve_disagg_phase(model, serve_results)
+    log(f"  serve_disagg: {time.monotonic() - t_phase:.1f} s")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6420,7 +7071,9 @@ def main() -> int:
     # Phase 13a: the train -> serve loop as TonY jobs of the port's own
     # control plane.
     log("[tony_jobs]")
+    t_phase = time.monotonic()
     tony_jobs = tony_jobs_phase(card)
+    log(f"  tony_jobs: {time.monotonic() - t_phase:.1f} s")
 
     entry = {
         "name": "flash_decode", "route": "cuda",
@@ -6430,8 +7083,10 @@ def main() -> int:
         + serve_coldstart["flash_decode_launches"]
         + serve_prefix["flash_decode_launches"]
         + serve_spec["flash_decode_launches"]
+        + serve_disagg["flash_decode_launches"]
         + serve_replica["rpc"]["flash_decode_launches"]
-        + tony_jobs["serve"]["flash_decode_launches"],
+        + tony_jobs["serve"]["flash_decode_launches"]
+        + tony_jobs["serve_roles"]["flash_decode_launches"],
         # serve_coldstart's launches are the replays' (each captured
         # launch times its graph's replays).
         "launches_by_path": {
@@ -6440,8 +7095,11 @@ def main() -> int:
                 serve_coldstart["flash_decode_launches"],
             "serve_prefix": serve_prefix["flash_decode_launches"],
             "serve_spec": serve_spec["flash_decode_launches"],
+            "serve_disagg": serve_disagg["flash_decode_launches"],
             "serve_replica": serve_replica["rpc"]["flash_decode_launches"],
-            "tony_jobs_serve": tony_jobs["serve"]["flash_decode_launches"]},
+            "tony_jobs_serve": tony_jobs["serve"]["flash_decode_launches"],
+            "tony_jobs_serve_roles":
+                tony_jobs["serve_roles"]["flash_decode_launches"]},
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["ms"], "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
@@ -6616,10 +7274,13 @@ def main() -> int:
     print(json.dumps({"tony_jobs": tony_jobs}), flush=True)
     serve_prefix["card"] = card
     serve_spec["card"] = card
+    serve_disagg["card"] = card
     print(json.dumps({"serve_prefix": serve_prefix}), flush=True)
     print(json.dumps({"serve_spec": serve_spec}), flush=True)
+    print(json.dumps({"serve_disagg": serve_disagg}), flush=True)
     serve_coldstart["card"] = card
     print(json.dumps({"serve_coldstart": serve_coldstart}), flush=True)
+    log(f"[done] {time.monotonic() - t_script:.1f} s")
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

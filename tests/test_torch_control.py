@@ -609,7 +609,7 @@ class TestServeCli:
         assert got[conf.APPLICATION_FRAMEWORK] == "standalone"
 
     @pytest.mark.parametrize("flags,item", [
-        (["--tenants", "gold:3"], 9), (["--role", "prefill=1,decode=1"], 9),
+        (["--tenants", "gold:3"], 9), (["--role", "prefill=1,decode=1", "--tenants", "gold:3"], 9),
         (["--host_blocks", "8"], 9), (["--mesh", '{"fsdp": 2}'], 8),
         (["--follow", "/job"], 10)],
         ids=["tenants", "role", "host_blocks", "mesh", "follow"])

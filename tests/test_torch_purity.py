@@ -92,6 +92,8 @@ def test_sources_found():
                  "tony_tpu_torch/rpc/__init__.py",
                  "tony_tpu_torch/serve/replica.py",
                  "tony_tpu_torch/serve/swap.py",
+                 "tony_tpu_torch/serve/router.py",
+                 "tony_tpu_torch/serve/disagg.py",
                  "tony_tpu_torch/ckpt/aot.py",
                  "tony_tpu_torch/events/__init__.py",
                  "tests/workloads/torch_dp_train.py",
@@ -165,6 +167,30 @@ def test_control_plane_imports_only_the_stdlib(name):
                 f"{name} imports {mod}"
         else:
             assert root in sys.stdlib_module_names, f"{name} imports {mod}"
+
+
+# Serving modules that run on a gateway host with no tensor library:
+# the request router, the handoff module whose error type it imports,
+# the chain keys, and the package's lazy facade (standard library, numpy
+# and each other).
+TENSOR_FREE = ("serve/__init__.py", "serve/router.py", "serve/disagg.py",
+               "serve/prefix.py")
+
+
+@pytest.mark.parametrize("name", TENSOR_FREE)
+def test_tensor_free_serving_modules(name):
+    """Neither torch nor jax, at module level or inside a function."""
+    roots = {root for _, root in
+             _imported_roots(ROOT / "tony_tpu_torch" / name)}
+    assert not roots & ({"torch", "triton"} | FORBIDDEN), name
+    for mod in _module_level_imports(ROOT / "tony_tpu_torch" / name):
+        root = mod.split(".")[0]
+        assert root in sys.stdlib_module_names | {"numpy",
+                                                   "tony_tpu_torch"}, mod
+        if root == "tony_tpu_torch":
+            assert mod in {"tony_tpu_torch.serve",
+                           "tony_tpu_torch.serve.prefix",
+                           "tony_tpu_torch.serve.disagg"}, mod
 
 
 def test_executor_starts_without_site():
@@ -452,6 +478,43 @@ class TestCopiesEqualTheReference:
                 server.stop()
         assert replies[0] == replies[1]
         assert replies[0][1] == b'{"ok": false, "error": "ValueError: no"}\n'
+
+    def test_router_and_shipper_defaults(self):
+        """The router's policy, views and constructor and the handoff's
+        shipper and fronts keep the reference's constants and
+        defaults."""
+        import dataclasses
+        import inspect
+
+        from tony_tpu.serve import disagg as jdisagg
+        from tony_tpu.serve import router as jrouter
+        from tony_tpu_torch.serve import disagg, router
+
+        for cls in ("RouterPolicy", "ReplicaView"):
+            ours = {f.name: f.default
+                    for f in dataclasses.fields(getattr(router, cls))}
+            ref = {f.name: f.default
+                   for f in dataclasses.fields(getattr(jrouter, cls))}
+            assert ours == ref, cls
+        pairs = [(router.RequestRouter.__init__,
+                  jrouter.RequestRouter.__init__),
+                 (router.RouterServer.__init__,
+                  jrouter.RouterServer.__init__),
+                 (router.RequestRouter.dispatch,
+                  jrouter.RequestRouter.dispatch),
+                 (disagg.KVShipper.__init__, jdisagg.KVShipper.__init__),
+                 (disagg.PrefillFront.__init__,
+                  jdisagg.PrefillFront.__init__)]
+        for a, b in pairs:
+            assert inspect.signature(a) == inspect.signature(b), a
+        assert vars(disagg.KVShipper()) == vars(jdisagg.KVShipper())
+        assert disagg.encode_f32([1.5, -2.0]) == \
+            jdisagg.encode_f32([1.5, -2.0])
+        err = IOError("x")
+        assert disagg._classify(err) == jdisagg._classify(err)
+        for msg in ("AdmissionError: full", "HandoffError: crc", "other"):
+            e = RuntimeError(msg)
+            assert disagg._classify(e) == jdisagg._classify(e), msg
 
     def test_aot_constants_and_fingerprint_key(self):
         """The store's layout and addressing are the reference's: the

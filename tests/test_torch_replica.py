@@ -856,7 +856,7 @@ class TestLaunch:
 # ---------------------------------------------------------------------------
 
 UNPORTED = [
-    (serve_role_key("serve"), "decode", 9), (SERVE_HOST_BLOCKS, "8", 9),
+    (SERVE_HOST_BLOCKS, "8", 9),
     (SERVE_PREFIX_STORE, "/tmp/stems", 9),
     (SERVE_QOS_TENANTS, "gold:3,silver:1", 9),
     (SERVE_DEMOTE_WATERMARK, "0.5", 9), (SERVE_DEMOTE_BATCH, "4", 9),
@@ -873,7 +873,8 @@ PORTED = [
     {SERVE_PREFIX_CACHE: "true"},
     {SERVE_PREFILL_CHUNK: "16", SERVE_PREFIX_CACHE: "true"},
     {SERVE_AOT_CACHE: "{tmp}/aot"}, {SERVE_WARM_STANDBY: "1"},
-    {serve_warm_standby_key("serve"): "2"}]
+    {serve_warm_standby_key("serve"): "2"},
+    {serve_role_key("serve"): "decode"}]
 
 
 class TestUnported:
@@ -920,6 +921,8 @@ class TestUnported:
             kind = "model" if SERVE_DRAFT_MODEL in lanes else "ngram"
             assert engine.draft.kind == kind
         assert engine.prefix_cache == (SERVE_PREFIX_CACHE in lanes)
+        assert engine.role == rep.role == lanes.get(
+            serve_role_key("serve"), "colocated")
         assert engine.prefill_chunk == (
             int(lanes[SERVE_PREFILL_CHUNK])
             if SERVE_PREFILL_CHUNK in lanes else None)
@@ -996,11 +999,16 @@ class TestUnported:
             replica_mod.main()
 
     def test_unported_verbs_and_request_tags(self, served):
+        """The handoff verbs are ported (tests/test_torch_disagg.py
+        drives them end to end): they answer, and a request tagged for a
+        lane still unported raises naming its item."""
         handler = served.rpc_handler()
-        for verb, item in (("prefill_handoff", 9), ("kv_offer", 9),
-                           ("kv_import", 9)):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                getattr(handler, f"rpc_{verb}")()
+        assert handler.rpc_kv_offer(keys=["0" * 16]) == 0
+        with pytest.raises(ValueError, match="decode target"):
+            handler.rpc_prefill_handoff(PROMPTS[0], 2)
+        from tony_tpu_torch.serve import HandoffError
+        with pytest.raises(HandoffError, match="malformed"):
+            handler.rpc_kv_import({"rid": "x"})
         for kw in ({"conv": "c-1"}, {"tenant": "gold"}):
             with pytest.raises(NotImplementedError, match="item 9"):
                 served.generate(PROMPTS[0], 2, **kw)

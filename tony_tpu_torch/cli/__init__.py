@@ -15,14 +15,17 @@ Subcommands:
 * ``submit``  — submit a job and monitor it to completion (exit code = job's)
 * ``serve``   — submit a serving job of the port's replica
   (``python -m tony_tpu_torch.serve.replica``); ``--gpus`` pins each
-  replica's cards
+  replica's cards; ``--role prefill=N,decode=M`` splits the fleet into
+  a prefill and a decode jobtype (disaggregated serving)
+* ``route``   — run the fleet's request router
+  (:mod:`tony_tpu_torch.serve.router`) against a live job's AM
 * ``kill``    — kill a running job
 * ``logs``    — print per-container logs of a local-substrate job
 * ``version`` — print the version
 
-Not in the port yet (ROADMAP queue 1, item 10): ``route``, ``publish``,
-``aot``, ``history``, ``notebook``, ``azkaban``, ``profile``, ``resize``
-and ``analyze``. Standard library only.
+Not in the port yet (ROADMAP queue 1, item 10): ``publish``, ``aot``,
+``history``, ``notebook``, ``azkaban``, ``profile``, ``resize`` and
+``analyze``. Standard library only.
 """
 
 from __future__ import annotations
@@ -90,11 +93,10 @@ def _refuse(flag: str, item: int, what: str) -> None:
 def serve_conf(args: argparse.Namespace) -> TonyConfig:
     """The serve job's conf, as the reference's ``cmd_serve`` writes it for
     the same arguments, with the port's replica as the command and
-    ``--gpus`` as ``tony.serve.gpus``. The lanes the port's replica does
-    not serve are refused here, at submit, naming their ROADMAP item."""
+    ``--gpus`` as ``tony.<jobtype>.gpus`` of each serving jobtype. The
+    lanes the port's replica does not serve are refused here, at submit,
+    naming their ROADMAP item."""
     for flag, val, item, what in (
-            ("--role", args.role, 9, "the disaggregated prefill/decode "
-                                     "split"),
             ("--tenants", args.tenants, 9, "multi-tenant QoS"),
             ("--qos_max_queue", args.qos_max_queue, 9, "multi-tenant QoS"),
             ("--host_blocks", args.host_blocks, 9, "the host KV tier"),
@@ -117,10 +119,20 @@ def serve_conf(args: argparse.Namespace) -> TonyConfig:
     cfg.set(conf_mod.APPLICATION_NAME,
             args.name or f"tony-serve-{args.model}")
     cfg.set(conf_mod.APPLICATION_STOP_ON_FAILURE, "false")
-    cfg.set(conf_mod.instances_key(constants.SERVE), str(args.replicas))
-    cfg.set(conf_mod.command_key(constants.SERVE), REPLICA_COMMAND)
-    if args.gpus:
-        cfg.set(conf_mod.gpus_key(constants.SERVE), str(args.gpus))
+    # Disaggregated split (--role prefill=2,decode=4): each role becomes
+    # its OWN jobtype sharing the serve.* engine config; the per-jobtype
+    # role key tells each replica which half of the handoff it fronts.
+    # Validated at submit: a mistyped role silently served as a
+    # colocated gang would serve the wrong topology.
+    roles = _parse_roles(args.role) if args.role else \
+        {constants.SERVE: args.replicas}
+    for name, n in roles.items():
+        cfg.set(conf_mod.instances_key(name), str(n))
+        cfg.set(conf_mod.command_key(name), REPLICA_COMMAND)
+        if args.role:
+            cfg.set(conf_mod.serve_role_key(name), name)
+        if args.gpus:
+            cfg.set(conf_mod.gpus_key(name), str(args.gpus))
     cfg.set(conf_mod.SERVE_MODEL, args.model)
     if args.model_kwargs:
         json.loads(args.model_kwargs)       # validate at submit, not launch
@@ -187,6 +199,34 @@ def serve_conf(args: argparse.Namespace) -> TonyConfig:
     return cfg
 
 
+def _parse_roles(spec: str) -> dict:
+    """``--role`` as ``{role: replicas}``, with the reference's
+    validation: known roles, no duplicates, counts >= 1, and a prefill
+    gang only with a decode gang (and the reverse)."""
+    roles = {}
+    for part in spec.split(","):
+        name, _, count = part.partition("=")
+        name = name.strip()
+        if name not in ("prefill", "decode", "colocated"):
+            raise SystemExit(f"--role: unknown role {name!r} "
+                             f"(prefill|decode|colocated)")
+        if name in roles:
+            raise SystemExit(f"--role: duplicate role {name!r}")
+        try:
+            n = int(count)
+        except ValueError:
+            raise SystemExit(f"--role: need {name}=<count>, got "
+                             f"{part!r}") from None
+        if n < 1:
+            raise SystemExit(f"--role: {name} needs >= 1 replica, got {n}")
+        roles[name] = n
+    if ("prefill" in roles) != ("decode" in roles):
+        raise SystemExit("--role: a split fleet needs BOTH a prefill and a "
+                         "decode gang (the router falls back to colocated "
+                         "only per request, not per topology)")
+    return roles
+
+
 def cmd_serve(args: argparse.Namespace) -> int:
     """Submit an online-serving job: ``--replicas`` replica containers of
     :mod:`tony_tpu_torch.serve.replica`, each restoring the training
@@ -196,6 +236,36 @@ def cmd_serve(args: argparse.Namespace) -> int:
     client = TonyClient(serve_conf(args), workdir=args.workdir,
                         am_host=args.am_host, quiet=args.quiet)
     return client.run(timeout=args.timeout)
+
+
+def cmd_route(args: argparse.Namespace) -> int:
+    """Run the fleet's request router (:mod:`tony_tpu_torch.serve.router`):
+    an RPC front that polls the AM's ``serve_endpoints`` verb for the
+    live replica set and dispatches ``generate`` calls by prefix-cache
+    overlap, queue depth and p99, with sticky session affinity, failover
+    and the prefill -> decode split of a disaggregated fleet. No tensor
+    library: it runs on any gateway host."""
+    import threading
+
+    from tony_tpu_torch.serve.router import (RequestRouter, RouterPolicy,
+                                             RouterServer)
+
+    policy = RouterPolicy(cache_weight=args.cache_weight,
+                          queue_weight=args.queue_weight,
+                          p99_weight=args.p99_weight)
+    router = RequestRouter(block_size=args.block_size, policy=policy)
+    server = RouterServer(router, port=args.port, am_address=args.am,
+                          poll_s=args.poll_s)
+    server.start()
+    print(f"[tony-route] listening on {server.address}, tracking "
+          f"replicas via AM {args.am}", flush=True)
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+    return 0
 
 
 def _job_dir_of(args: argparse.Namespace) -> Path:
@@ -324,7 +394,7 @@ def make_parser() -> argparse.ArgumentParser:
                     help="training checkpoint directory to serve")
     sv.add_argument("--gpus", type=int, default=0,
                     help="cards pinned to each replica "
-                         "(tony.serve.gpus; 0 = no card ask)")
+                         "(tony.<jobtype>.gpus; 0 = no card ask)")
     sv.add_argument("--replicas", type=int, default=1,
                     help="replica count")
     sv.add_argument("--max_replicas", type=int, default=None,
@@ -358,9 +428,14 @@ def make_parser() -> argparse.ArgumentParser:
     sv.add_argument("--draft_ckpt_dir",
                     help="draft model checkpoint dir (default: the "
                          "target's --ckpt_dir)")
+    sv.add_argument("--role", default=None, metavar="ROLE=N[,ROLE=N...]",
+                    help="disaggregated prefill/decode split: per-role "
+                         "gang sizes, e.g. 'prefill=1,decode=1' — each "
+                         "role becomes its own jobtype and the router "
+                         "ships KV blocks prefill -> decode over the RPC "
+                         "wire; omit for the colocated fleet")
     # The reference's flags for lanes the port's replica does not serve:
     # accepted so that using one names its ROADMAP item.
-    sv.add_argument("--role", default=None, help=argparse.SUPPRESS)
     sv.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
     sv.add_argument("--qos_max_queue", type=int, default=0,
                     help=argparse.SUPPRESS)
@@ -379,6 +454,25 @@ def make_parser() -> argparse.ArgumentParser:
     sv.add_argument("--timeout", type=float, default=None)
     sv.add_argument("--quiet", action="store_true")
     sv.set_defaults(fn=cmd_serve)
+
+    rt = sub.add_parser("route", help="run the fleet request router: "
+                        "routes generate RPCs over the live replica set "
+                        "by prefix-cache overlap and load")
+    rt.add_argument("--am", required=True,
+                    help="AM RPC address (host:port) to poll for the "
+                         "live replica set")
+    rt.add_argument("--port", type=int, default=0,
+                    help="router RPC port (0 = any)")
+    rt.add_argument("--block_size", type=int, default=16,
+                    help="fleet KV block size (must match the replicas' "
+                         "engine geometry: the chain keys are "
+                         "block-aligned)")
+    rt.add_argument("--cache_weight", type=float, default=4.0)
+    rt.add_argument("--queue_weight", type=float, default=1.0)
+    rt.add_argument("--p99_weight", type=float, default=0.5)
+    rt.add_argument("--poll_s", type=float, default=2.0,
+                    help="AM membership poll interval")
+    rt.set_defaults(fn=cmd_route)
 
     k = sub.add_parser("kill", help="kill a running job (yarn "
                        "application -kill analogue)")

@@ -326,12 +326,15 @@ def _decode_cuda(q, k, v, q_positions, scale, splits=None):
                                     *pos.stride(), *out.stride())
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.flash_decode_launch(
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        pos.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), b, h, hkv, t, d, ctx,
-        float(scale), _DECODE_CHUNK, plan.rt, plan.splits, plan.cps,
-        strides, stream)
+    # The launch goes to the calling thread's current device: make it the
+    # tensors' (an engine on another card than the thread's).
+    with torch.cuda.device(dev):
+        rc = lib.flash_decode_launch(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            pos.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, h, hkv, t, d, ctx,
+            float(scale), _DECODE_CHUNK, plan.rt, plan.splits, plan.cps,
+            strides, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: cuda error {rc} "

@@ -84,6 +84,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "mma_bf16.cuh"
@@ -701,18 +702,25 @@ int by_head_dim(int d, F&& f) {
   return f(integral_constant<int, 256>());
 }
 
-// Lets flash_decode_mma_kernel<HD, RT> take its shared memory (once per
-// process: the attribute stays set, and a launch costs host time).
+// Lets flash_decode_mma_kernel<HD, RT> take its shared memory on the
+// current device: once per device (the attribute stays set on that
+// device's module, and setting it costs a launch host time). The caller
+// makes the tensors' device current.
 template <int HD, int RT>
 int set_smem() {
-  static const int err =
-      Shape<HD, RT>::SMEM <= 48 * 1024
-          ? 0
-          : static_cast<int>(cudaFuncSetAttribute(
-                flash_decode_mma_kernel<HD, RT>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(Shape<HD, RT>::SMEM)));
-  return err;
+  if (Shape<HD, RT>::SMEM <= 48 * 1024) return 0;
+  constexpr int kDevices = 64;
+  static std::atomic<bool> set[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kDevices && set[dev].load(std::memory_order_acquire)) return 0;
+  err = cudaFuncSetAttribute(flash_decode_mma_kernel<HD, RT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(Shape<HD, RT>::SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kDevices) set[dev].store(true, std::memory_order_release);
+  return 0;
 }
 
 template <int HD, int RT>

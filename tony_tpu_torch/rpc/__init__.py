@@ -40,6 +40,15 @@ __all__ = ["ApplicationRpcHandler", "ENV_JOB_TOKEN", "RpcClient",
 # Env var carrying the job token to executors (security.enabled only).
 ENV_JOB_TOKEN = "TONY_JOB_TOKEN"
 
+# Transport faults of RpcClient.call by method, over this process's
+# life: a refused or dropped connection, a malformed reply line, or a
+# reply slower than the client's wait for it. The call is sent again
+# after each one until its retry window closes. The disaggregated serve
+# path reports them (a kv_import sent again collides with its own first
+# import, and the request falls back to colocated prefill).
+RESENDS: Dict[str, int] = {}
+_RESENDS_LOCK = threading.Lock()
+
 
 class RpcError(Exception):
     """Remote call failed: transported application-level error."""
@@ -130,15 +139,24 @@ class RpcClient:
     Hadoop RPC retries the same way. The jitter keeps a gang of
     executors whose AM hiccuped from re-dialing in lockstep; the cap
     keeps a long-timeout call responsive once the fault clears.
+
+    ``reply_timeout`` is the wait for the reply once a request is on the
+    wire (None: the per-operation cap, as the reference's client). A
+    verb that replies when its work is done, such as a serve replica's
+    ``generate``, sets it to the longest wait its caller accepts: a
+    reply slower than the wait is a transport fault, and the call is
+    sent again while the retry window is open.
     """
 
     def __init__(self, address: str, token: Optional[str] = None,
-                 timeout: float = 30.0, retry_interval: float = 0.2):
+                 timeout: float = 30.0, retry_interval: float = 0.2,
+                 reply_timeout: Optional[float] = None):
         host, _, port = address.rpartition(":")
         self._addr = (host, int(port))
         self.token = token
         self.timeout = timeout
         self.retry_interval = retry_interval
+        self.reply_timeout = reply_timeout
         self._sock: Optional[socket.socket] = None
         self._file = None
         self._lock = threading.Lock()
@@ -215,6 +233,9 @@ class RpcClient:
                     assert self._file is not None
                     self._file.write(payload)
                     self._file.flush()
+                    if self.reply_timeout is not None \
+                            and self._sock is not None:
+                        self._sock.settimeout(self.reply_timeout)
                     line = self._file.readline()
                 if not line:
                     raise ConnectionError("server closed connection")
@@ -226,6 +247,8 @@ class RpcClient:
                 raise
             except (OSError, ValueError, ConnectionError) as e:
                 last_err = e
+                with _RESENDS_LOCK:
+                    RESENDS[method] = RESENDS.get(method, 0) + 1
                 with self._lock:
                     self._close_locked()
                 delay = min(self.retry_interval * (2.0 ** attempt),

@@ -28,6 +28,12 @@ is then the plain one):
   with decode.
 
 The speculative lane is :class:`tony_tpu_torch.serve.spec.SpecEngine`.
+Disaggregated serving (:mod:`tony_tpu_torch.serve.disagg`) adds two
+entry points beside :meth:`ServeEngine.submit`: a prefill-role engine's
+:meth:`ServeEngine.prefill_only` (prefill, first token, export the KV
+blocks) and a decode-role engine's :meth:`ServeEngine.admit_handoff`
+(import them and decode on). ``role=`` is telemetry and router
+semantics: every engine keeps every entry point.
 
 Numerics: the JAX engine pins decode logits BITWISE against a
 sequential full prefill. PyTorch's matmuls are not guaranteed
@@ -70,6 +76,7 @@ import torch.nn.functional as F
 
 from tony_tpu_torch import profiler, resolve_device
 from tony_tpu_torch.serve import prefix as prefix_mod
+from tony_tpu_torch.serve.disagg import HandoffError, decode_f32, encode_f32
 from tony_tpu_torch.serve.kvcache import AdmissionError, PagedKVCache
 from tony_tpu_torch.serve.swap import SwapError
 
@@ -86,6 +93,22 @@ class Request:
     rid: Any
     tokens: List[int]
     max_new_tokens: int
+    # The reference's conversation handle (host-tier parking) and QoS
+    # tenant: lanes not ported yet, so the engine refuses a value other
+    # than None where a request enters.
+    conv: Optional[Any] = None
+    tenant: Optional[str] = None
+
+
+def _refuse_tags(what: str, conv: Any, tenant: Any) -> None:
+    """``NotImplementedError`` naming the ROADMAP item for a request
+    tagged for a lane not ported yet (``conv``: the host tier's
+    conversation handle, ``tenant``: the QoS class)."""
+    for name, value in (("conv", conv), ("tenant", tenant)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{what}({name}=...) needs a serving lane that is not "
+                f"ported yet ({_LANES_LATER})")
 
 
 @dataclasses.dataclass
@@ -568,10 +591,14 @@ class ServeEngine(PagedModelRunner):
                  aot_cache: Optional[Any] = None,
                  warm_standby: bool = False,
                  kernel_dir: Optional[str] = None,
+                 role: str = "colocated",
                  device: Optional[Union[str, torch.device]] = None):
         if join_policy not in ("continuous", "static"):
             raise ValueError(f"unknown join_policy {join_policy!r} "
                              "(continuous|static)")
+        if role not in ("colocated", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r} "
+                             "(colocated|prefill|decode)")
         self._init_paged(model, ctx_max=ctx_max, block_size=block_size,
                          q_block=q_block, decode_buckets=decode_buckets,
                          max_running=max_running, n_blocks=n_blocks,
@@ -590,6 +617,18 @@ class ServeEngine(PagedModelRunner):
                     f"prefill_chunk must be a positive q_block="
                     f"{self.q_block} multiple, got {prefill_chunk}")
         self.prefill_chunk = prefill_chunk
+        # Disaggregated serving role (module docstring): telemetry and
+        # the router's dispatch; a "decode" engine still prefills for
+        # itself on the colocated fallback.
+        self.role = role
+        # Handoff counters (zeros on a colocated engine: one heartbeat
+        # schema for the fleet). handoff_ms is the wall this engine
+        # spent exporting or importing KV bytes.
+        self.blocks_shipped = 0
+        self.handoff_ms = 0.0
+        self.imports_failed = 0
+        self.handoffs_out = 0
+        self.handoffs_in = 0
         self.keep_logits = keep_logits
         self.join_policy = join_policy
         self._queue: deque = deque()
@@ -624,14 +663,16 @@ class ServeEngine(PagedModelRunner):
                               max_running=self.max_running,
                               join_policy=join_policy,
                               prefix_cache=self.prefix_cache,
-                              prefill_chunk=self.prefill_chunk)
+                              prefill_chunk=self.prefill_chunk, role=role)
 
     # -- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
         """Queue a request (thread-safe). Requests that can NEVER fit
         the context buffer or the pool are rejected now with a
         non-retryable :class:`AdmissionError`; pool pressure is handled
-        at join time by leaving the request queued."""
+        at join time by leaving the request queued. A request tagged for
+        a lane not ported (``conv``, ``tenant``) raises."""
+        _refuse_tags("submit", req.conv, req.tenant)
         total = len(req.tokens) + req.max_new_tokens
         if not req.tokens:
             raise ValueError(f"request {req.rid!r}: empty prompt")
@@ -762,12 +803,16 @@ class ServeEngine(PagedModelRunner):
         self._publish(seq)
 
     # -- scheduling --------------------------------------------------------
-    def _admit(self, req: Request) -> Tuple[int, Sequence[str]]:
-        """Reserve the request's full extent, adopting published prefix
-        blocks first; returns the blocks adopted and the prompt's chain
-        keys (so publication never rehashes them). Raises :class:`AdmissionError` with the cache unchanged on pool
+    def _admit(self, req: Request, total: Optional[int] = None
+               ) -> Tuple[int, Sequence[str]]:
+        """Reserve the request's full extent (``total`` positions when
+        given: the prefill-only mode reserves the prompt alone), adopting
+        published prefix blocks first; returns the blocks adopted and
+        the prompt's chain keys (so publication never rehashes them).
+        Raises :class:`AdmissionError` with the cache unchanged on pool
         pressure, so a queued request retries whole."""
-        total = len(req.tokens) + req.max_new_tokens
+        if total is None:
+            total = len(req.tokens) + req.max_new_tokens
         if not self.prefix_cache:
             self.cache.reserve(req.rid, total)
             return 0, ()
@@ -811,19 +856,9 @@ class ServeEngine(PagedModelRunner):
                 matched, keys = self._admit(req)
             except AdmissionError:
                 return                      # pool pressure: stay queued
-            t_pad = -(-len(req.tokens) // self.q_block) * self.q_block
             with self._lock:
                 self._queue.popleft()
-                self._prompt_hist[t_pad] = \
-                    self._prompt_hist.get(t_pad, 0) + 1
-            seq = _Seq(req, t_submit)
-            if matched:
-                # The adopted blocks are indexed already: prefill and
-                # publish from past them.
-                seq.pf_pos = min(matched * self.block_size,
-                                 len(req.tokens) - 1)
-                seq.published = matched
-                seq.hkey = keys[matched - 1]
+            seq = self._start(req, t_submit, matched, keys)
             if self.prefill_chunk is not None:
                 self._prefilling.append(seq)
                 continue
@@ -832,6 +867,22 @@ class ServeEngine(PagedModelRunner):
                 self._evict(seq, results)
             else:
                 self._running.append(seq)
+
+    def _start(self, req: Request, t_submit: float, matched: int,
+               keys: Sequence[str]) -> _Seq:
+        """The admitted request's sequence: its padded prefill length
+        counted in the histogram and, past an adopted prefix, the
+        prefill and publication cursors moved beyond the adopted blocks
+        (indexed already)."""
+        t_pad = -(-len(req.tokens) // self.q_block) * self.q_block
+        with self._lock:
+            self._prompt_hist[t_pad] = self._prompt_hist.get(t_pad, 0) + 1
+        seq = _Seq(req, t_submit)
+        if matched:
+            seq.pf_pos = min(matched * self.block_size, len(req.tokens) - 1)
+            seq.published = matched
+            seq.hkey = keys[matched - 1]
+        return seq
 
     def _advance_prefill(self, results: List[Completion]) -> None:
         """One chunk for the oldest prefilling sequence (first in, first
@@ -893,6 +944,217 @@ class ServeEngine(PagedModelRunner):
                 and (max_steps is None or self._steps < max_steps):
             out.extend(self.step())
         return out
+
+    # -- disaggregated prefill/decode (tony_tpu_torch.serve.disagg) ---------
+    def prefill_only(self, req: Request) -> Dict[str, Any]:
+        """The prefill-role engine mode: run ``req``'s prompt through the
+        normal admission and prefill (prefix adoption, the chunked
+        ``(1, chunk)`` launches — the programs a colocated engine runs,
+        so the handoff cannot change a bit), emit the FIRST token, then
+        export the sequence's KV blocks as the handoff payload and free
+        the sequence. The engine is free for the next prompt when this
+        returns.
+
+        The caller (:class:`~tony_tpu_torch.serve.disagg.PrefillFront`)
+        holds the front's drive lock: every line here mutates the
+        pool."""
+        _refuse_tags("prefill_only", req.conv, req.tenant)
+        n = len(req.tokens)
+        if not req.tokens:
+            raise ValueError(f"request {req.rid!r}: empty prompt")
+        needed = self.cache.blocks_for(n)
+        if n > self.ctx_pad or needed > self.cache.n_blocks:
+            raise AdmissionError(
+                f"request {req.rid!r}: {n}-token prompt ({needed} "
+                f"blocks) > engine capacity (context {self.ctx_pad}, "
+                f"pool {self.cache.n_blocks} blocks)",
+                needed_blocks=needed,
+                free_blocks=self.cache.free_blocks, retryable=False)
+        matched, keys = self._admit(req, total=n)
+        seq = self._start(req, time.monotonic(), matched, keys)
+        if self.prefill_chunk is not None:
+            while not self._prefill_chunk_step(seq):
+                pass
+        else:
+            self._prefill(seq)
+        first = int(seq.tokens[n])
+        # The full prompt blocks' chain keys: the decode side's adoption
+        # probe and its publication seed (shipped even with this
+        # engine's prefix cache off).
+        wire_keys = (list(keys) if self.prefix_cache
+                     else prefix_mod.chain_keys(req.tokens, self.block_size))
+        t_export = time.monotonic()
+        payload: Dict[str, Any] = {
+            "rid": req.rid,
+            "tokens": [int(t) for t in req.tokens],
+            "first_token": first,
+            "max_new_tokens": int(req.max_new_tokens),
+            "length": n,
+            "conv": req.conv,
+            "tenant": req.tenant,
+            "keys": wire_keys,
+            "blocks": self.cache.export_blocks(req.rid, n),
+            **self.cache.wire_header(),
+        }
+        if self.keep_logits:
+            payload["logits_b64"] = encode_f32(seq.logits[0])
+        self.handoff_ms += 1e3 * (time.monotonic() - t_export)
+        self.cache.free_seq(req.rid)
+        # The prefill replica's load telemetry: a handoff never queues
+        # or joins the running batch, so without this event the replica
+        # would report qps 0 and p99 0 through any burst.
+        now = time.monotonic()
+        with self._lock:
+            self._events.append((now, now - seq.t_submit, 1,
+                                 seq.t_first - seq.t_submit))
+        self._completed += 1
+        return payload
+
+    def admit_handoff(self, payload: Dict[str, Any]
+                      ) -> Tuple[Any, Optional[Completion]]:
+        """The decode-role admission path: import a shipped prefill's KV
+        blocks into this engine's pool (:meth:`PagedKVCache.import_blocks`,
+        adopting any offered stem) and join the sequence to the running
+        batch with its prompt computed, so the next iteration decodes its
+        second token where a colocated engine would. Returns ``(rid,
+        completion)``; ``completion`` is set only for a ``max_new_tokens
+        == 1`` handoff, whose one token the prefill side produced.
+
+        Every rejection is typed and leaves the engine unchanged: a full
+        decode batch or an exhausted pool raises :class:`AdmissionError`,
+        a malformed or corrupt payload, a rid already live here or chain
+        keys that do not match the tokens raise
+        :class:`~tony_tpu_torch.serve.disagg.HandoffError`; each counts in
+        ``imports_failed``. A payload tagged for a lane not ported
+        (``conv``, ``tenant``) raises ``NotImplementedError`` first. The
+        caller (:class:`~tony_tpu_torch.serve.disagg.DecodeFront`) holds
+        the front's drive lock."""
+        _refuse_tags("admit_handoff", payload.get("conv"),
+                     payload.get("tenant"))
+        try:
+            try:
+                rid = payload["rid"]
+                tokens = [int(t) for t in payload["tokens"]]
+                max_new = int(payload["max_new_tokens"])
+                first = int(payload["first_token"])
+                offset = int(payload.get("offset", 0))
+            except (KeyError, TypeError, ValueError) as e:
+                raise HandoffError(
+                    f"malformed handoff payload: missing or mistyped "
+                    f"field ({type(e).__name__}: {e})",
+                    retryable=False) from e
+            n = len(tokens)
+            if n != int(payload.get("length", n)) or not tokens \
+                    or max_new < 1:
+                raise HandoffError(
+                    f"malformed handoff for {rid!r}: length "
+                    f"{payload.get('length')} vs {n} prompt token(s), "
+                    f"max_new_tokens {max_new}", retryable=False)
+            header = self.cache.wire_header()
+            got = {k: payload.get(k) for k in header}
+            if got != header:
+                raise HandoffError(
+                    f"handoff geometry mismatch for {rid!r}: {got} vs "
+                    f"this pool's {header}", retryable=False)
+            total = n + max_new
+            needed = self.cache.blocks_for(total)
+            if total > self.ctx_pad or needed > self.cache.n_blocks:
+                raise AdmissionError(
+                    f"handoff {rid!r} needs {total} positions "
+                    f"({needed} blocks) > engine capacity (context "
+                    f"{self.ctx_pad}, pool {self.cache.n_blocks} "
+                    f"blocks); it can never be admitted",
+                    needed_blocks=needed,
+                    free_blocks=self.cache.free_blocks, retryable=False)
+            if self.running >= self.max_running:
+                raise AdmissionError(
+                    f"handoff {rid!r} rejected: decode batch full "
+                    f"({self.running}/{self.max_running} running)",
+                    needed_blocks=needed,
+                    free_blocks=self.cache.free_blocks)
+            # A rid already live HERE would tear the front's rid-keyed
+            # completion routing: reject typed before any import.
+            live = {s.rid for s in self._running} \
+                | {s.rid for s in self._prefilling} \
+                | set(self.cache.owned_blocks())
+            with self._lock:
+                live |= {r.rid for r, _ in self._queue}
+            if rid in live:
+                raise HandoffError(
+                    f"handoff rid {rid!r} collides with a live sequence "
+                    f"on this engine — rids must be unique fleet-wide",
+                    retryable=False)
+            # The shipped blocks and the adopted stem must cover the
+            # prompt exactly, or the uncovered extent would decode from
+            # stale pool rows.
+            shipped = list(payload.get("blocks") or ())
+            if offset + len(shipped) != self.cache.blocks_for(n):
+                raise HandoffError(
+                    f"handoff {rid!r} blocks do not cover the prompt: "
+                    f"{offset} adopted + {len(shipped)} shipped != "
+                    f"{self.cache.blocks_for(n)} prompt block(s) for "
+                    f"{n} token(s)", retryable=False)
+            # The keys index imported blocks into the SHARED prefix
+            # tier, so they must be the tokens' own.
+            keys = [str(k) for k in payload.get("keys") or ()]
+            true_keys = prefix_mod.chain_keys(tokens, self.block_size)
+            if keys and keys != true_keys:
+                raise HandoffError(
+                    f"handoff chain keys for {rid!r} do not match the "
+                    f"shipped tokens ({len(keys)} key(s) vs "
+                    f"{len(true_keys)} derived) — key-scheme skew "
+                    f"between the gangs", retryable=False)
+            first_row: Optional[np.ndarray] = None
+            if self.keep_logits and payload.get("logits_b64"):
+                # Decoded before the import: the row rides outside the
+                # per-block CRC, and a corrupt one must reject with the
+                # pool unchanged.
+                try:
+                    first_row = decode_f32(payload["logits_b64"])
+                except (ValueError, TypeError) as e:
+                    raise HandoffError(
+                        f"malformed handoff logits for {rid!r}: {e}",
+                        retryable=False) from e
+            t_import = time.monotonic()
+            self.cache.import_blocks(rid, total, shipped, keys=keys,
+                                     offset=offset)
+            self.handoff_ms += 1e3 * (time.monotonic() - t_import)
+        except (AdmissionError, HandoffError):
+            self.imports_failed += 1
+            raise
+        now = time.monotonic()
+        seq = _Seq(Request(rid=rid, tokens=tokens, max_new_tokens=max_new),
+                   now)
+        seq.pf_pos = n                     # the prompt arrived computed
+        seq.t_first = now                  # with its first token
+        seq.tokens.append(first)
+        seq.remaining -= 1
+        if first_row is not None:
+            seq.logits.append(first_row)
+        if self.prefix_cache and keys:
+            # The imported prompt blocks hold verified rows: index them
+            # under the shipped keys (adopted ones are indexed already)
+            # and publish only what decode computes from here.
+            for i, key in enumerate(keys):
+                self.cache.publish_block(rid, i, key)
+            seq.published = len(keys)
+            seq.hkey = keys[-1]
+        self.handoffs_in += 1
+        if seq.remaining <= 0:             # max_new_tokens == 1
+            done: List[Completion] = []
+            self._evict(seq, done)
+            return rid, done[0]
+        self._running.append(seq)
+        return rid, None
+
+    def note_handoff_shipped(self, blocks: int) -> None:
+        """Bank one completed outbound handoff's shipped blocks. Called
+        by :class:`~tony_tpu_torch.serve.disagg.PrefillFront`, possibly
+        from concurrent RPC threads outside the drive lock, hence the
+        engine lock."""
+        with self._lock:
+            self.blocks_shipped += int(blocks)
+            self.handoffs_out += 1
 
     # -- the sequential reference ------------------------------------------
     def full_prefill_logits(self, tokens: Sequence[int]) -> np.ndarray:
@@ -976,11 +1238,14 @@ class ServeEngine(PagedModelRunner):
                 if self.prefix_lookup_blocks else 0.0),
             "blocks_shared": float(self.cache.adopted_total),
             "prefill_chunks": float(self.prefill_chunks),
-            # Lanes not ported (disaggregation, the demotion daemon)
-            # and the speculative lane's rate (SpecEngine overrides it):
-            # their idle values.
+            # The speculative lane's rate (SpecEngine overrides it).
             "acceptance_rate": 0.0,
-            "role": "colocated",
+            # Disaggregated serving: the role as a string, the handoff
+            # counters (zeros on a colocated engine).
+            "role": self.role,
+            "blocks_shipped": float(self.blocks_shipped),
+            "handoff_ms": float(self.handoff_ms),
+            "imports_failed": float(self.imports_failed),
             # Cold-start plane: zeros when unarmed. warm_standby rides
             # the heartbeat so the session keeps a standby out of the
             # routable endpoints until the AM promotes it.
@@ -1079,11 +1344,7 @@ class EngineFront:
         completes. ``conv`` (the host tier's conversation handle) and
         ``tenant`` (the QoS class) belong to lanes not ported yet: a
         value other than ``None`` raises."""
-        for name, value in (("conv", conv), ("tenant", tenant)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"generate({name}=...) needs a serving lane that is "
-                    f"not ported yet ({_LANES_LATER})")
+        _refuse_tags("generate", conv, tenant)
         if rid is None:
             rid = self.fresh_rid()
         self.engine.submit(Request(rid=rid, tokens=list(tokens),

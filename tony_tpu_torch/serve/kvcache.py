@@ -30,11 +30,20 @@ as a revocable extension, :meth:`~PagedKVCache.commit` advances the
 write cursor to the accepted length, and :meth:`~PagedKVCache.rollback`
 returns the rest of the extension in reverse allocation order.
 
+Wire tier (:mod:`tony_tpu_torch.serve.disagg`):
+:meth:`~PagedKVCache.export_blocks` snapshots a sequence's blocks as
+CRC32-guarded payloads and :meth:`~PagedKVCache.import_blocks` is the
+receiving admission path, atomic like :meth:`~PagedKVCache.admit_shared`
+and composing with the prefix tier (a shipped stem the importer already
+holds is adopted instead of rewritten). The payload is the JAX
+package's, byte for byte: the same keys, the raw ``[n_layers,
+block_size, kv_dim]`` bytes of each block and the same header, so a
+block exported by either package imports into the other.
+
 Capacity failures are a typed :class:`AdmissionError` carrying the
 needed/free block counts — back-pressure the engine acts on, not an
-allocator OOM. The host-offload tier (parking, demotion) and the wire
-tier (``export_blocks``/``import_blocks``) of the JAX package come with
-a later slice (ROADMAP.md, queue 1 item 9).
+allocator OOM. The host-offload tier (parking, demotion) of the JAX
+package comes with a later slice (ROADMAP.md, queue 1 item 9).
 
 Threading contract: the allocator is not internally locked; the
 engine's single drive thread (``EngineFront`` serializes callers)
@@ -43,13 +52,30 @@ performs every mutation.
 
 from __future__ import annotations
 
+import base64
+import zlib
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from tony_tpu_torch import resolve_device
+from tony_tpu_torch.serve.disagg import HandoffError
+
+# The wire's dtype names: numpy's names of the JAX pool's dtypes
+# (``str(np.dtype(jnp.bfloat16))`` is "bfloat16").
+_WIRE_DTYPES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.float32: "float32"}
+
+
+def _encode_payload(kb: Union[bytes, memoryview],
+                    vb: Union[bytes, memoryview]) -> Dict[str, Any]:
+    """One block's wire payload from its raw k/v bytes: base64 of each
+    and a CRC32 over both, the JAX package's encoding."""
+    return {"k": base64.b64encode(kb).decode("ascii"),
+            "v": base64.b64encode(vb).decode("ascii"),
+            "crc": zlib.crc32(vb, zlib.crc32(kb)) & 0xFFFFFFFF}
 
 
 class AdmissionError(RuntimeError):
@@ -109,6 +135,7 @@ class PagedKVCache:
         self.cow_total = 0
         self.lru_evicted_total = 0
         self.revived_total = 0
+        self.imported_total = 0
         # Speculative tier: per-sequence blocks added by spec_reserve
         # and not yet promoted by a commit, and the write cursor (the
         # positions below it hold verified rows).
@@ -309,6 +336,163 @@ class PagedKVCache:
     def cached_blocks(self) -> List[int]:
         """The LRU cached tier, least recently freed first."""
         return list(self._lru)
+
+    # -- wire tier (tony_tpu_torch.serve.disagg) ---------------------------
+    def wire_header(self) -> Dict[str, Any]:
+        """The geometry a block payload must match to be importable,
+        shipped with every handoff so a mis-paired fleet fails typed
+        instead of gathering garbage."""
+        return {"n_layers": self.n_layers, "kv_dim": self.kv_dim,
+                "block_size": self.block_size,
+                "dtype": _WIRE_DTYPES[self.k.dtype]}
+
+    def export_blocks(self, seq_id: Any, length: int) -> List[Dict[str, Any]]:
+        """Wire payloads of the blocks covering ``length`` positions of
+        ``seq_id``: per block, the raw ``[n_layers, block_size, kv_dim]``
+        k and v bytes (base64 for the JSON-lines RPC) and a CRC32 over
+        both. Rows past ``length`` in the tail block ship as they are:
+        they are never read on the importer either (the same masking by
+        position), so the CRC guards the wire, not content identity.
+        Read-only: no bookkeeping moves."""
+        table = self._tables[seq_id]
+        nb = self.blocks_for(length)
+        if nb > len(table):
+            raise ValueError(
+                f"cannot export {length} positions for {seq_id!r}: only "
+                f"{len(table)} block(s) reserved")
+        return [_encode_payload(kb, vb)
+                for kb, vb in self._fetch_raw(table[:nb])]
+
+    def _fetch_raw(self, ids: Sequence[int]
+                   ) -> List[Tuple[memoryview, memoryview]]:
+        """Raw host k/v bytes of pool blocks ``ids``: ONE batched gather
+        and ONE device-to-host copy per pool, not one per block. The
+        blocks come out ``[n, n_layers, block_size, kv_dim]`` and
+        contiguous, each block's bytes a view of the host copy (numpy
+        has no bfloat16, so the bytes are uint8)."""
+        if not ids:
+            return []
+        idx = torch.as_tensor(list(ids), dtype=torch.long,
+                              device=self.k.device)
+
+        def host(pool: torch.Tensor) -> np.ndarray:
+            blocks = pool.index_select(1, idx).transpose(0, 1).contiguous()
+            return blocks.view(torch.uint8).cpu().numpy()
+
+        kh, vh = host(self.k), host(self.v)
+        return [(memoryview(kh[i]).cast("B"), memoryview(vh[i]).cast("B"))
+                for i in range(len(ids))]
+
+    def _decode_block(self, blk: Dict[str, Any]) -> Tuple[np.ndarray,
+                                                          np.ndarray]:
+        """Decode and CRC-check one wire block payload into host bytes
+        ``[n_layers, block_size, kv_dim · itemsize]`` (uint8); raises
+        :class:`~tony_tpu_torch.serve.disagg.HandoffError`
+        (non-retryable: a resend of the same corrupt payload cannot heal
+        it) on any mismatch."""
+        try:
+            kb = base64.b64decode(blk["k"])
+            vb = base64.b64decode(blk["v"])
+            crc = int(blk["crc"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise HandoffError(f"malformed block payload: {e}",
+                               retryable=False) from e
+        got = zlib.crc32(vb, zlib.crc32(kb)) & 0xFFFFFFFF
+        if got != crc:
+            raise HandoffError(
+                f"block payload CRC mismatch (got {got:#010x}, want "
+                f"{crc:#010x})", retryable=False)
+        shape = (self.n_layers, self.block_size, self.kv_dim)
+        itemsize = self.k.element_size()
+        want = int(np.prod(shape)) * itemsize
+        if len(kb) != want or len(vb) != want:
+            raise HandoffError(
+                f"block payload geometry mismatch: {len(kb)}/{len(vb)} "
+                f"bytes vs expected {want} for {shape} "
+                f"{_WIRE_DTYPES[self.k.dtype]}", retryable=False)
+        raw = shape[:2] + (shape[2] * itemsize,)
+        return (np.frombuffer(kb, np.uint8).reshape(raw),
+                np.frombuffer(vb, np.uint8).reshape(raw))
+
+    def import_blocks(self, seq_id: Any, length: int,
+                      blocks: Sequence[Dict[str, Any]], *,
+                      keys: Sequence[str] = (), offset: int = 0) -> int:
+        """Fresh-admission import of a shipped prefill: adopt the first
+        ``offset`` blocks from the local prefix index through ``keys``
+        (the receiver half of the offer/import handshake), write the
+        shipped payloads into fresh pool blocks, and allocate the rest
+        of the ``length``-covering reservation fresh. Returns the blocks
+        adopted.
+
+        Atomic like :meth:`admit_shared`: every raising check — payload
+        CRC and geometry, the offered prefix still matching, pool
+        capacity — runs BEFORE any bookkeeping or byte moves, so an
+        :class:`AdmissionError` (pool pressure, retryable upstream) or a
+        :class:`~tony_tpu_torch.serve.disagg.HandoffError` leaves the
+        cache unchanged. The bytes land IN PLACE in ``k_store`` /
+        ``v_store`` (one ``index_copy_`` per pool): the engine's step
+        and its captured graphs read those stores' addresses. Imported
+        blocks are private (refcount 1); adopted blocks keep the
+        copy-on-write contract."""
+        if self._tables.get(seq_id):
+            raise ValueError(f"sequence {seq_id!r} already holds blocks "
+                             f"— import_blocks is a fresh-admission path")
+        offset = int(offset)
+        nb = self.blocks_for(length)
+        if offset < 0 or offset + len(blocks) > nb:
+            raise HandoffError(
+                f"import geometry mismatch: offset {offset} + "
+                f"{len(blocks)} shipped block(s) exceed the "
+                f"{nb}-block reservation for {length} positions",
+                retryable=False)
+        # 1. Decode and check every payload (raises, nothing changed).
+        arrs = [self._decode_block(b) for b in blocks]
+        # 2. The offered prefix must still match: it can evaporate
+        #    between offer and import (LRU reclaim under pressure). The
+        #    CURRENT match count rides the error so the shipper re-ships
+        #    exactly the missing tail.
+        matched = self.match_prefix(list(keys)[:offset])
+        if len(matched) < offset:
+            raise HandoffError(
+                f"offered prefix evaporated: {len(matched)} of {offset} "
+                f"block(s) still indexed", matched=len(matched))
+        # 3. Capacity, counting revivals as admit_shared does.
+        revive = sum(1 for b in matched if b in self._lru)
+        needed = nb - offset
+        if needed > self.free_blocks - revive:
+            raise AdmissionError(
+                f"KV pool exhausted: sequence {seq_id!r} needs {needed} "
+                f"fresh block(s) beyond {offset} adopted for {length} "
+                f"positions, {self.free_blocks - revive} available of "
+                f"{self.n_blocks}",
+                needed_blocks=needed,
+                free_blocks=self.free_blocks - revive)
+        # 4. Commit: adopt, write the shipped bytes into fresh blocks,
+        #    cover the tail.
+        for b in matched:
+            if b in self._lru:
+                del self._lru[b]
+                self._refs[b] = 1
+                self.revived_total += 1
+            else:
+                self._refs[b] += 1
+            self._touch_key(b)
+        self.adopted_total += len(matched)
+        table = list(matched)
+        if arrs:
+            dsts = [self._alloc_block() for _ in arrs]
+            idx = torch.as_tensor(dsts, dtype=torch.long,
+                                  device=self.k.device)
+            for store, part in ((self.k_store, 0), (self.v_store, 1)):
+                host = torch.from_numpy(np.stack([a[part] for a in arrs]))
+                src = host.to(store.device).view(store.dtype)
+                store.index_copy_(1, idx, src.transpose(0, 1))
+            table.extend(dsts)
+        self.imported_total += len(arrs)
+        while len(table) < nb:
+            table.append(self._alloc_block())
+        self._tables[seq_id] = table
+        return len(matched)
 
     def flush_prefix(self) -> int:
         """Unindex every published block (the hot swap's hygiene: their

@@ -35,9 +35,14 @@ directory (``tony.serve.aot-cache``) through which the engine's kernel
 libraries resolve, ``warm()`` of the step family into CUDA graphs after
 the restore, and the warm-standby pool (``tony.serve.warm-standby``):
 a standby heartbeats ``warm_standby=1`` until the AM's ``promote`` RPC.
-Lanes that are not ported (disaggregation, host tier, prefix store,
-QoS, demotion, a serve mesh) raise ``NotImplementedError`` naming their
-ROADMAP item when the job conf asks for them.
+Disaggregated serving: every replica fronts both halves of the KV
+handoff (:mod:`tony_tpu_torch.serve.disagg`), the ``prefill_handoff``,
+``kv_offer`` and ``kv_import`` verbs; its role (``tony.serve.role.
+<jobtype>``, written by ``tony_tpu_torch.cli serve --role``) is what it
+advertises, and the router's dispatch decides which verbs see traffic.
+Lanes that are not ported (host tier, prefix store, QoS, demotion, a
+serve mesh) raise ``NotImplementedError`` naming their ROADMAP item when
+the job conf asks for them.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from tony_tpu_torch.conf import (CKPT_DIR, HISTORY_LOCATION,
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import jax_param_tree
 from tony_tpu_torch.publish import latest_publication
+from tony_tpu_torch.serve.disagg import DecodeFront, PrefillFront
 from tony_tpu_torch.serve.engine import Completion, EngineFront, ServeEngine
 from tony_tpu_torch.serve.spec import SpecEngine
 from tony_tpu_torch.serve.swap import (SwapError, derive_prefill_pads,
@@ -106,7 +112,9 @@ class Replica:
     lanes. ``aot_cache`` (a directory) arms the cold-start plane's cache
     and ``warm_standby`` starts the replica as a warm standby; with
     either, the engine's step family is warmed right after the restore
-    (a standby must hold its captured steps before it is promoted)."""
+    (a standby must hold its captured steps before it is promoted).
+    ``role`` (``"colocated"``, ``"prefill"`` or ``"decode"``) is the
+    engine's disaggregated-serving role."""
 
     def __init__(self, *, model_name: str,
                  model_kwargs: Optional[Dict[str, Any]] = None,
@@ -121,7 +129,7 @@ class Replica:
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
                  aot_cache: Optional[str] = None,
-                 warm_standby: bool = False):
+                 warm_standby: bool = False, role: str = "colocated"):
         t0 = time.perf_counter()
         # Cold-start plane: a cache DIR becomes a live AOTCache shared by
         # every step family the engine resolves, built before the engine
@@ -148,7 +156,8 @@ class Replica:
                          max_running=max_running, keep_logits=keep_logits,
                          tag=tag, prefix_cache=prefix_cache,
                          prefill_chunk=prefill_chunk, aot_cache=self._aot,
-                         warm_standby=warm_standby, device=self.device)
+                         warm_standby=warm_standby, role=role,
+                         device=self.device)
         if spec_k:
             draft_kw: Dict[str, Any] = {"ngram_max": ngram_max}
             if draft_model_name:
@@ -194,7 +203,18 @@ class Replica:
         self.timings = {"build_s": t1 - t0, "restore_s": t2 - t1,
                         "engine_s": t3 - t2,
                         "warm_s": time.perf_counter() - t3}
-        self._front = EngineFront(self.engine)
+        self._attach(self.engine)
+
+    def _attach(self, engine: ServeEngine) -> None:
+        """Front ``engine``: one :class:`EngineFront` carrying both
+        handoff halves (the router's role-aware dispatch decides which
+        verbs see traffic; a colocated replica answering a stray
+        ``kv_offer`` is harmless)."""
+        self.engine = engine
+        self.role = engine.role
+        self._front = EngineFront(engine)
+        self._prefill_front = PrefillFront(self._front)
+        self._decode_front = DecodeFront(self._front)
         self._publish: Optional[Any] = None
         self.port: Optional[int] = None
 
@@ -236,6 +256,25 @@ class Replica:
         batch. ``conv`` and ``tenant`` raise (lanes not ported)."""
         return self._front.generate(tokens, max_new_tokens, rid=rid,
                                     conv=conv, tenant=tenant)
+
+    # -- disaggregated handoff (tony_tpu_torch.serve.disagg) ---------------
+    def prefill_handoff(self, tokens: Sequence[int], max_new_tokens: int,
+                        rid: Optional[Any] = None, decode: Any = None,
+                        conv: Optional[Any] = None,
+                        tenant: Optional[str] = None) -> Completion:
+        """Prefill-role request path: prefill ``tokens``, ship the KV
+        blocks to ``decode`` (a ``host:port`` address or an in-process
+        receiver), return the completion the decode side drove to the
+        end."""
+        return self._prefill_front.prefill_handoff(
+            tokens, max_new_tokens, rid=rid, decode=decode, conv=conv,
+            tenant=tenant)
+
+    def kv_offer(self, keys: Sequence[str]) -> int:
+        return self._decode_front.kv_offer(keys)
+
+    def kv_import(self, payload: Dict[str, Any]) -> Completion:
+        return self._decode_front.kv_import(payload)
 
     # -- warm-standby promotion --------------------------------------------
     def promote(self) -> bool:
@@ -389,21 +428,29 @@ class _ReplicaRpcHandler:
     def __init__(self, replica: Replica):
         self.replica = replica
 
+    @staticmethod
+    def _wire(c: Any) -> Dict[str, Any]:
+        return c if isinstance(c, dict) else c.wire()
+
     def rpc_generate(self, tokens: List[int], max_new_tokens: int = 16,
                      rid: Optional[str] = None,
                      conv: Optional[str] = None,
                      tenant: Optional[str] = None) -> Dict[str, Any]:
-        return self.replica.generate(tokens, max_new_tokens, rid=rid,
-                                     conv=conv, tenant=tenant).wire()
+        return self._wire(self.replica.generate(tokens, max_new_tokens,
+                                                rid=rid, conv=conv,
+                                                tenant=tenant))
 
     def rpc_serve_stats(self) -> Dict[str, Any]:
         """The engine's stats, and under ``"launches"`` this process's
         kernel launches by wrapper (``ops.LAUNCHES``): which of the
         port's kernels served the requests, seen from outside the
-        replica's process."""
+        replica's process; under ``"visible_devices"`` the cards its
+        job pinned it to (``CUDA_VISIBLE_DEVICES``, None where unset)."""
         from tony_tpu_torch.ops import LAUNCHES
 
-        return {**self.replica.engine.stats(), "launches": dict(LAUNCHES)}
+        return {**self.replica.engine.stats(), "launches": dict(LAUNCHES),
+                "visible_devices": os.environ.get(
+                    constants.ENV_CUDA_VISIBLE_DEVICES)}
 
     def rpc_swap(self, version: Optional[int] = None,
                  step: Optional[int] = None) -> Dict[str, Any]:
@@ -417,21 +464,28 @@ class _ReplicaRpcHandler:
         duplicated call returns False)."""
         return self.replica.promote()
 
-    # The disaggregated handoff verbs.
-    def rpc_prefill_handoff(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            f"prefill_handoff: disaggregated serving is not ported yet "
-            f"({_ITEM.format(9)})")
+    # -- disaggregated handoff verbs (tony_tpu_torch.serve.disagg) --------
+    def rpc_prefill_handoff(self, tokens: List[int],
+                            max_new_tokens: int = 16,
+                            rid: Optional[str] = None,
+                            decode_address: Optional[str] = None,
+                            conv: Optional[str] = None,
+                            tenant: Optional[str] = None
+                            ) -> Dict[str, Any]:
+        """The router's disaggregated dispatch verb: prefill here, ship
+        the KV replica to replica to ``decode_address``, return the
+        decode side's completion. Typed failures cross the wire as
+        ``"HandoffError: ..."``, which the router re-types for its
+        fallback."""
+        return self._wire(self.replica.prefill_handoff(
+            tokens, max_new_tokens, rid=rid, decode=decode_address,
+            conv=conv, tenant=tenant))
 
-    def rpc_kv_offer(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            f"kv_offer: disaggregated serving is not ported yet "
-            f"({_ITEM.format(9)})")
+    def rpc_kv_offer(self, keys: List[str]) -> int:
+        return self.replica.kv_offer(keys)
 
-    def rpc_kv_import(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            f"kv_import: disaggregated serving is not ported yet "
-            f"({_ITEM.format(9)})")
+    def rpc_kv_import(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        return self._wire(self.replica.kv_import(payload))
 
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -462,15 +516,13 @@ def _warm_pool(conf: TonyConfig, job_type: str) -> int:
     return int(warm or 0)
 
 
-def _refuse_unported(conf: TonyConfig, job_type: str) -> None:
+def _refuse_unported(conf: TonyConfig) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for every
     serving lane the conf arms that the port has not ported, so no such
     setting is silently ignored. The demotion daemon needs the host
     tier (the reference demotes only with ``host_offload``), so it
     waits with it, under item 9."""
-    role = conf.get(serve_role_key(job_type)) or "colocated"
     lanes = (
-        (serve_role_key(job_type), role != "colocated", 9),
         (SERVE_HOST_BLOCKS, conf.get_int(SERVE_HOST_BLOCKS, 0) > 0, 9),
         (SERVE_PREFIX_STORE, bool(conf.get(SERVE_PREFIX_STORE)), 9),
         (SERVE_QOS_TENANTS, bool(conf.get(SERVE_QOS_TENANTS)), 9),
@@ -504,7 +556,11 @@ def main() -> int:
               f"{SERVE_CKPT_DIR} in the job conf")
         return 1
     job_type = os.environ.get(constants.ENV_JOB_NAME) or "serve"
-    _refuse_unported(conf, job_type)
+    _refuse_unported(conf)
+    # Disaggregated role: the executor exports the jobtype, the conf maps
+    # jobtype -> role (what `cli serve --role` writes); a one-jobtype
+    # serve job has no role key and runs colocated.
+    role = conf.get(serve_role_key(job_type)) or "colocated"
     # Warm-standby membership is decided here, by position: the AM grants
     # elastic tasks above the jobtype's configured instance count, so an
     # index at or past that count with a warm pool configured came up as
@@ -530,7 +586,7 @@ def main() -> int:
         ngram_max=conf.get_int(SERVE_DRAFT_NGRAM_MAX, 3),
         prefix_cache=conf.get_bool(SERVE_PREFIX_CACHE, False),
         prefill_chunk=conf.get_int(SERVE_PREFILL_CHUNK, 0) or None,
-        aot_cache=aot_cache, warm_standby=warm_standby)
+        aot_cache=aot_cache, warm_standby=warm_standby, role=role)
     # warm() pad self-tuning: with the plane armed and a history root
     # configured, resolve the prefill pads earlier serve traffic used.
     history_dir = conf.get(HISTORY_LOCATION)
