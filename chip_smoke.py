@@ -73,6 +73,34 @@ caught):
    and peak for each pass. ``--disagg-cards-only`` (two or more
    cards) runs (a) and (c) with the engines on ``cuda:0`` and ``cuda:1``,
    then the split serve job with ``--gpus 1``;
+5c. serve_kvtier — the KV memory hierarchy and the tenants on the serve
+   phase's model: (a) the serve mix's 16 prompts as turn 1 of 16
+   conversations and turn 2 each history + 16-64 seeded tokens (16
+   generated), one request at a time, on an engine with a 512-block
+   host tier (the encode on its offload thread) and one without, turn 1
+   replayed on the host-tier engine, turn 2 there eager (its captured
+   steps set aside) and, from the same parked records put back,
+   replayed: 16 resumes each, every re-staged block ``torch.equal`` to
+   the block parked, turn
+   2's prefill rows fewer than the never-parked engine's, tokens and
+   logits within ``SERVE_REL_TOL`` of it, the replayed turn 2 equal to
+   the eager one; (b) the prefix mix on a prefix-cache engine with the
+   demotion daemon at watermark 0.5 over a 192-block pool (8 of the mix's
+   conversations, two waves of second turns): daemon demotions and
+   promotions, within
+   ``SERVE_REL_TOL`` of a host-tier-off engine; (c) the system prompt's
+   stem exported into a prefix store and adopted by a second engine
+   through the replica's ``_load_stems``: the adopted blocks
+   ``torch.equal`` to the exported ones, a probe hitting them equal to
+   the exporting engine's own hit and within ``SERVE_REL_TOL`` of a cold
+   engine; (d) tenants ``gold:3,silver:1``, 12 ``silver`` requests
+   against 4 ``gold`` from 16 threads: deferrals on ``silver`` only, the
+   victim within ``SERVE_REL_TOL`` of an unloaded engine, every tenant's
+   blocks drained; (e) two turns of one session through the router's
+   RPC verb over two host-tier replicas: the same replica, one resume.
+   Park, resume, demote and promote counts, bytes raw and base64, park
+   and resume ms, tokens/s, peaks and per-tenant numbers for each pass;
+   row 9 launched 32 times a forward in every pass;
 6. train — llama2-7b at full width cut to 8 layers (f32 parameters,
    bf16 compute, flash attention, remat), AdamW(3e-4), 8 steps on one
    fixed batch of 2 x 2048 seeded tokens: one step's grads through the
@@ -384,8 +412,8 @@ from tony_tpu_torch.parallel import AXES, Mesh, MeshSpec  # noqa: E402
 from tony_tpu_torch.parallel.overlap import (GradBuckets,  # noqa: E402
                                              strip_spec)
 from tony_tpu_torch.rpc import RpcClient, RpcError  # noqa: E402
-from tony_tpu_torch.serve import (EngineFront, Replica,  # noqa: E402
-                                  ServeEngine)
+from tony_tpu_torch.serve import (AdmissionError,  # noqa: E402
+                                  EngineFront, Replica, ServeEngine)
 from tony_tpu_torch.serve.swap import derive_prefill_pads  # noqa: E402
 from tony_tpu_torch.train import (adamw, create_train_state,  # noqa: E402
                                   cross_entropy_loss, global_batch,
@@ -411,7 +439,14 @@ F32_TOL = 1e-5
 SERVE_REL_TOL = 5e-2
 
 
+T_SCRIPT = time.monotonic()
+
+
 def log(msg: str) -> None:
+    """One line to stderr; a phase's header (``[name]``) carries the
+    seconds since the script started."""
+    if msg.startswith("[") and msg.endswith("]"):
+        msg = f"{msg} t={time.monotonic() - T_SCRIPT:.1f} s"
     print(msg, file=sys.stderr, flush=True)
 
 
@@ -1543,6 +1578,558 @@ def serve_disagg_phase(model, serve_results):
 
 
 # ---------------------------------------------------------------------
+# The KV memory hierarchy and the tenants: parking, the demotion daemon,
+# the persisted prefix store, QoS budgets, a routed session.
+# ---------------------------------------------------------------------
+
+KVTIER_HOST_BLOCKS = 512   # 4 GiB raw at 7B (8 MiB a block)
+KVTIER_POOL = 128          # device blocks of a one-at-a-time engine
+KVTIER_DAEMON_POOL = 192   # (b): the running prefix mix crosses 0.5 of it
+KVTIER_DAEMON_CONVERSATIONS = 8   # (b): the prefix mix cut from 16 (time)
+KVTIER_QOS_POOL = 128      # (d): the aggressor burst outgrows its share
+KVTIER_TENANTS = "gold:3,silver:1"
+KVTIER_TURN2_NEW = 16      # (a): tokens generated in a second turn
+
+
+def kvtier_engine(model, **kw):
+    """A serve engine of the phase on the model's device: the serve
+    cell's geometry, a pool of ``KVTIER_POOL`` blocks unless ``kw``
+    names another (the pool's size changes no launch: the step gathers
+    through the block tables)."""
+    return ServeEngine(model, **{**SERVE_ENGINE, "n_blocks": KVTIER_POOL,
+                                 "device": next(model.parameters()).device,
+                                 **kw})
+
+
+class Row9:
+    """Row 9's launches over one pass: ``LAUNCHES`` set to 0 when the
+    pass starts (after any ``warm()``), the engines' forwards and
+    replayed launches read when it ends; eager + replayed launches must
+    be ``n_layers`` times the engines' forwards."""
+
+    def __init__(self, engines):
+        self.engines = list(engines)
+        self.forwards0 = sum(e.forwards for e in self.engines)
+        self.replayed0 = sum(e.graph_launches().get("flash_decode", 0)
+                             for e in self.engines)
+        self.banked = 0
+        LAUNCHES["flash_decode"] = 0
+
+    def eager_from_now(self, engine):
+        """Set ``engine``'s captured steps aside (its later launches run
+        eager), banking the launches their replays made. Returns them
+        for :meth:`replay_from_now`."""
+        fns = dict(engine._aot_fns)
+        self.banked += engine.graph_launches().get("flash_decode", 0)
+        engine._aot_fns.clear()
+        return fns
+
+    def replay_from_now(self, engine, fns):
+        """Put the captured steps ``fns`` back: ``engine``'s later
+        launches replay them (the replays before were banked)."""
+        engine._aot_fns.update(fns)
+        self.banked -= engine.graph_launches().get("flash_decode", 0)
+
+    def close(self, tag, n_layers):
+        eager = LAUNCHES["flash_decode"]
+        replayed = self.banked + sum(
+            e.graph_launches().get("flash_decode", 0)
+            for e in self.engines) - self.replayed0
+        forwards = sum(e.forwards for e in self.engines) - self.forwards0
+        if eager + replayed != n_layers * forwards or forwards == 0:
+            raise AssertionError(f"serve_kvtier {tag}: flash_decode "
+                                 f"launches {eager} eager + {replayed} "
+                                 f"replayed != {n_layers} x {forwards} "
+                                 f"forwards")
+        return {"flash_decode_launches": eager + replayed,
+                "flash_decode_launches_replayed": replayed,
+                "forwards": forwards}
+
+
+class TierWatch:
+    """The host tier of one engine, watched: each park and resume timed
+    on the drive thread (a resume's wait for the offload thread's encode
+    included); with ``snapshot``, the blocks each park takes copied on
+    the card first (``snaps``, by parked id), and each resume's
+    re-staged blocks held against them with ``torch.equal``; raw and
+    base64 bytes of every resumed record. :meth:`numbers` reports what
+    happened since its last call."""
+
+    def __init__(self, engine, snapshot=False):
+        cache = engine.cache
+        park, resume = cache.park, cache.resume
+        self.engine = engine
+        self.snaps = {}
+        self._start()
+        raw_block = 2 * cache.n_layers * cache.block_size * cache.kv_dim \
+            * cache.k.element_size()
+
+        def watched_park(seq_id, length, *, keys=()):
+            if snapshot:
+                ids = torch.as_tensor(
+                    cache.table(seq_id)[:cache.blocks_for(length)],
+                    device=cache.k.device)
+                self.snaps[seq_id] = (cache.k.index_select(1, ids),
+                                      cache.v.index_select(1, ids))
+            t0 = time.monotonic()
+            try:
+                n = park(seq_id, length, keys=keys)
+            except AdmissionError:
+                self.snaps.pop(seq_id, None)
+                raise
+            self.park_ms.append(1e3 * (time.monotonic() - t0))
+            return n
+
+        def watched_resume(new_id, length, parked_id):
+            t0 = time.monotonic()
+            rec = cache._parked.get(parked_id)
+            if rec is not None:
+                rec["ready"].wait()
+            adopted = resume(new_id, length, parked_id)
+            self.resume_ms.append(1e3 * (time.monotonic() - t0))
+            self.resumed_blocks += rec["n"]
+            self.raw_bytes += raw_block * rec["n"]
+            self.b64_bytes += sum(len(b["k"]) + len(b["v"])
+                                  for b in rec["blocks"])
+            snap = self.snaps.pop(parked_id, None)
+            if snap is not None:
+                ids = torch.as_tensor(cache.table(new_id)[:rec["n"]],
+                                      device=cache.k.device)
+                self.equal.append(
+                    torch.equal(cache.k.index_select(1, ids), snap[0])
+                    and torch.equal(cache.v.index_select(1, ids), snap[1]))
+            return adopted
+
+        cache.park = watched_park
+        cache.resume = watched_resume
+
+    def _counters(self):
+        e, c = self.engine, self.engine.cache
+        return {"parks": c.parked_total, "resumes": c.resumed_total,
+                "park_hits": e.park_hits, "demotions": c.demoted_total,
+                "promotions": c.promoted_total}
+
+    def _start(self):
+        self.park_ms, self.resume_ms, self.equal = [], [], []
+        self.raw_bytes = self.b64_bytes = self.resumed_blocks = 0
+        self._base = self._counters()
+
+    def keep_parked(self):
+        """The engine's parked conversations as they stand: its
+        conversation map, the host tier's records and their snapshots
+        (a record's payloads are strings, never written again, so
+        shallow copies keep them whole)."""
+        e = self.engine
+        return dict(e._parked), dict(e.cache._parked), dict(self.snaps)
+
+    def put_back(self, kept):
+        """Drop the conversations parked since :meth:`keep_parked` and
+        put its records back, so a turn can resume them again."""
+        e = self.engine
+        for rec in list(e._parked.values()):
+            e.cache.unpark(rec["rid"])
+        convs, recs, snaps = kept
+        e._parked.clear()
+        e._parked.update(convs)
+        e.cache._parked.update(recs)
+        self.snaps.clear()
+        self.snaps.update(snaps)
+
+    def numbers(self):
+        now = self._counters()
+        out = {k: now[k] - self._base[k] for k in now}
+        out.update({
+            "host_blocks_used": self.engine.cache.host_blocks_used,
+            "restaged_torch_equal": sum(self.equal),
+            "resumed_blocks": self.resumed_blocks,
+            "resumed_raw_bytes": self.raw_bytes,
+            "resumed_b64_bytes": self.b64_bytes,
+            "park_ms_mean": float(np.mean(self.park_ms))
+            if self.park_ms else 0.0,
+            "resume_ms_mean": float(np.mean(self.resume_ms))
+            if self.resume_ms else 0.0,
+            "park_ms_total": float(sum(self.park_ms)),
+            "resume_ms_total": float(sum(self.resume_ms))})
+        self._start()
+        return out
+
+
+def converse(front, convs, turns, tag):
+    """Each conversation's turn ``turns`` (a list of (prompt, max_new)
+    by conversation), one request at a time, tagged ``conv=`` when
+    ``tag``. Returns the completions by conversation index, the
+    generated tokens and the wall seconds."""
+    out = {}
+    t0 = time.monotonic()
+    for i, (toks, n) in enumerate(turns):
+        out[i] = front.generate(toks, n, rid=f"{tag}-{i}",
+                                conv=convs[i] if convs else None)
+    torch.cuda.synchronize()
+    return out, sum(n for _, n in turns), time.monotonic() - t0
+
+
+def kvtier_parking(model, n_layers):
+    """(a): the serve mix's 16 prompts as turn 1 of 16 conversations,
+    turn 2 each history + 16-64 seeded new tokens (16 generated), one
+    request at a time, on an engine with the host tier and one without
+    (both warmed: their decode steps replay CUDA graphs). Turn 1 runs on
+    the host-tier engine, parking every conversation. Turn 2 runs there
+    twice from the same parked records: eager (its captured steps set
+    aside: every resume re-staged into the stores the next launch
+    reads), then, with the turn-1 records put back, replayed (the
+    re-staged blocks read by the captured graphs); and once on the
+    never-parked engine."""
+    cfg = model.cfg
+    mix = serve_mix(SEED, cfg.vocab)
+    rng = np.random.default_rng(SEED + 5)
+    more = [rng.integers(0, cfg.vocab, int(rng.integers(16, 65))).tolist()
+            for _ in range(len(mix))]
+    convs = [f"c{i}" for i in range(len(mix))]
+    plain = kvtier_engine(model)
+    host = kvtier_engine(model, host_blocks=KVTIER_HOST_BLOCKS,
+                         async_offload=True)
+    for e in (plain, host):
+        e.warm()
+    watch = TierWatch(host, snapshot=True)
+    fronts = {e: EngineFront(e) for e in (plain, host)}
+    for front in fronts.values():
+        front.generate([1, 2, 3, 4], 2, rid="warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    row9 = Row9([plain, host])
+    got1, _, _ = converse(fronts[host], convs, mix, "k1")
+    turn1 = watch.numbers()
+    kept = watch.keep_parked()
+    turn2 = [(list(mix[i][0]) + list(got1[i].tokens) + more[i],
+              KVTIER_TURN2_NEW) for i in range(len(mix))]
+    fns = row9.eager_from_now(host)
+    rows0 = host.prefill_rows
+    got2, gen, parked_s = converse(fronts[host], convs, turn2, "k2")
+    parked_rows = host.prefill_rows - rows0
+    eager = watch.numbers()
+    rows0 = plain.prefill_rows
+    ref2, _, plain_s = converse(fronts[plain], None, turn2, "p2")
+    plain_rows = plain.prefill_rows - rows0
+    worst, div, rows = compare_streams(got2, ref2, SERVE_REL_TOL,
+                                       "serve_kvtier (a) turn 2")
+    watch.put_back(kept)
+    row9.replay_from_now(host, fns)
+    rep2, _, replayed_s = converse(fronts[host], convs, turn2, "r2")
+    replayed = watch.numbers()
+    same_streams(rep2, got2, "serve_kvtier (a) replayed turn 2")
+    launches = row9.close("(a)", n_layers)
+    for tag, nums in (("eager", eager), ("replayed", replayed)):
+        if nums["park_hits"] != len(mix):
+            raise AssertionError(f"serve_kvtier (a) {tag}: park hits "
+                                 f"{nums['park_hits']}, want {len(mix)}")
+        if nums["restaged_torch_equal"] != len(mix):
+            raise AssertionError(f"serve_kvtier (a) {tag}: re-staged "
+                                 f"records equal to the parked ones: "
+                                 f"{nums['restaged_torch_equal']} of "
+                                 f"{len(mix)}")
+    if not parked_rows < plain_rows:
+        raise AssertionError(f"serve_kvtier (a): turn 2 prefilled "
+                             f"{parked_rows} rows, the never-parked "
+                             f"engine {plain_rows}")
+    if launches["flash_decode_launches_replayed"] == 0:
+        raise AssertionError("serve_kvtier (a): no decode step replayed")
+    res = {"conversations": len(mix), "turn2_new_tokens": gen,
+           "turn1": turn1, "eager_turn2": eager, "replayed_turn2": replayed,
+           "turn2_prefill_rows": parked_rows,
+           "never_parked_turn2_prefill_rows": plain_rows,
+           "turn2_tokens_per_s": {"parked_eager": gen / parked_s,
+                                  "parked_replayed": gen / replayed_s,
+                                  "never_parked_replayed": gen / plain_s},
+           "vs_never_parked_max_rel": worst,
+           "near_tie_divergences": div, "rows_compared": rows,
+           "replayed_equal_to_eager": True,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **launches}
+    host.cache.close()
+    log(f"  (a) parking: {json.dumps(res)}")
+    return res
+
+
+def kvtier_daemon(model, n_layers):
+    """(b): the prefix mix cut to 8 conversations (turn 1 of 8, then two
+    waves of 4 second turns), each wave from one submission, on a
+    prefix-cache engine with the host tier and the demotion daemon at
+    watermark 0.5 over a pool the running waves cross it in, against a
+    host-tier-off engine."""
+    cfg = model.cfg
+    turn1, more = prefix_mix(SEED, cfg.vocab)
+    turn1 = turn1[:KVTIER_DAEMON_CONVERSATIONS]
+    kw = dict(prefix_cache=True, n_blocks=KVTIER_DAEMON_POOL)
+    host = kvtier_engine(model, host_blocks=KVTIER_HOST_BLOCKS,
+                         demote_watermark=0.5, **kw)
+    off = kvtier_engine(model, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    row9 = Row9([host, off])
+    reqs = [(f"d1-{i}", toks, PREFIX_NEW) for i, toks in enumerate(turn1)]
+    ref1, off_s, _ = drive(off, reqs)
+    got1, host_s, _ = drive(host, reqs)
+    # Second turns of conversations 0-3 (their ~80-block requests hold
+    # the pool past the watermark, and the daemon demotes the cold own
+    # blocks of the others), then of 4-7 (whose demoted blocks promote).
+    waves = []
+    for w, base in enumerate((0, len(more))):
+        reqs2 = [(f"d{w + 2}-{base + j}", list(turn1[base + j])
+                  + list(ref1[f"d1-{base + j}"].tokens) + more[j],
+                  PREFIX_NEW) for j in range(len(more))]
+        ref2, _, _ = drive(off, reqs2)
+        got2, _, _ = drive(host, reqs2)
+        waves.append((got2, ref2, w + 2))
+        reqs += reqs2
+    launches = row9.close("(b)", n_layers)
+    worst, div, rows = 0.0, 0, 0
+    for got, ref, turn in [(got1, ref1, 1)] + waves:
+        w, d, r = compare_streams(got, ref, SERVE_REL_TOL,
+                                  f"serve_kvtier (b) turn {turn}")
+        worst, div, rows = max(worst, w), div + d, rows + r
+    st = host.stats()
+    if host.daemon_demotions <= 0 or st["promotions"] <= 0:
+        raise AssertionError(f"serve_kvtier (b): daemon demotions "
+                             f"{host.daemon_demotions}, promotions "
+                             f"{st['promotions']}")
+    gen = PREFIX_NEW * len(turn1)
+    res = {"requests": len(reqs), "pool_blocks":
+           KVTIER_DAEMON_POOL, "watermark": 0.5,
+           "demote_batch": host.demote_batch,
+           "daemon_demotions": host.daemon_demotions,
+           "demotions": st["demotions"], "promotions": st["promotions"],
+           "host_blocks_used": st["host_blocks"],
+           "host_degraded": host.host_degraded,
+           "prefill_rows": {"host_tier": host.prefill_rows,
+                            "off": off.prefill_rows},
+           "prefix_hit_blocks": {"host_tier": host.prefix_hit_blocks,
+                                 "off": off.prefix_hit_blocks},
+           "turn1_tokens_per_s": {"host_tier": gen / host_s,
+                                  "off": gen / off_s},
+           "vs_off_max_rel": worst, "near_tie_divergences": div,
+           "rows_compared": rows,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **launches}
+    log(f"  (b) demotion daemon: {json.dumps(res)}")
+    return res
+
+
+def block_bits(cache, keys):
+    """The k and v rows of the blocks indexed under ``keys``."""
+    ids = torch.as_tensor([cache._index[k] for k in keys],
+                          device=cache.k.device)
+    return cache.k.index_select(1, ids), cache.v.index_select(1, ids)
+
+
+def kvtier_store(model, n_layers):
+    """(c): the system prompt's stem, proved hot by a second request on
+    an exporting engine, persisted with ``export_stems`` into a
+    ``PrefixStore`` under the run's temporary root and adopted by a
+    second engine through the replica's ``_load_stems``; one probe
+    request on the adopting engine, on the exporting one (its own cache
+    hit) and on a cold engine."""
+    import tempfile
+
+    from tony_tpu_torch.serve import PrefixStore, prefix
+
+    cfg = model.cfg
+    turn1, _ = prefix_mix(SEED, cfg.vocab)
+    system = turn1[0][:PREFIX_SYSTEM]
+    rng = np.random.default_rng(SEED + 7)
+    probe = system + rng.integers(0, cfg.vocab, 100).tolist()
+    keys = prefix.chain_keys(system, SERVE_ENGINE["block_size"])
+    exporter = kvtier_engine(model, prefix_cache=True)
+    adopter = kvtier_engine(model, prefix_cache=True)
+    cold = kvtier_engine(model, prefix_cache=True)
+    ex_front = EngineFront(exporter)
+    row9 = Row9([exporter, adopter, cold])
+    for i in range(2):
+        ex_front.generate(turn1[i], PREFIX_NEW, rid=f"s-{i}")
+    root = tempfile.mkdtemp(prefix="kvtier-stems-")
+    try:
+        store = PrefixStore(root)
+        t0 = time.monotonic()
+        wrote = exporter.export_stems(store, lock=ex_front._drive)
+        export_s = time.monotonic() - t0
+        stub = Replica.__new__(Replica)
+        stub.engine, stub._store = adopter, store
+        t0 = time.monotonic()
+        Replica._load_stems(stub)
+        adopt_s = time.monotonic() - t0
+        disk_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(root) for f in fs)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if wrote < 1 or adopter.store_adopted != len(keys):
+        raise AssertionError(f"serve_kvtier (c): {wrote} stem(s) written, "
+                             f"{adopter.store_adopted} block(s) adopted "
+                             f"of {len(keys)}")
+    a, b = block_bits(adopter.cache, keys), block_bits(exporter.cache, keys)
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError("serve_kvtier (c): adopted blocks differ from "
+                             "the exported ones")
+    got = EngineFront(adopter).generate(probe, PREFIX_NEW, rid="probe")
+    if adopter.prefix_hit_blocks != len(keys):
+        raise AssertionError(f"serve_kvtier (c): the probe hit "
+                             f"{adopter.prefix_hit_blocks} adopted blocks, "
+                             f"want {len(keys)}")
+    hits0 = exporter.prefix_hit_blocks
+    own = ex_front.generate(probe, PREFIX_NEW, rid="probe")
+    if exporter.prefix_hit_blocks - hits0 != len(keys):
+        raise AssertionError("serve_kvtier (c): the exporting engine's own "
+                             "hit is not the system stem")
+    rows = same_streams({"probe": got}, {"probe": own},
+                        "serve_kvtier (c) adopted vs the exporter's hit")
+    ref = EngineFront(cold).generate(probe, PREFIX_NEW, rid="probe")
+    worst, div, rows_c = compare_streams({"probe": got}, {"probe": ref},
+                                         SERVE_REL_TOL,
+                                         "serve_kvtier (c) vs cold")
+    launches = row9.close("(c)", n_layers)
+    res = {"stems_written": wrote, "stem_blocks": len(keys),
+           "store_bytes_on_disk": disk_bytes, "export_s": export_s,
+           "load_and_adopt_s": adopt_s,
+           "adopted_torch_equal_to_exported": True,
+           "probe_hit_blocks": len(keys),
+           "equal_to_exporters_hit_rows": rows,
+           "vs_cold_max_rel": worst, "near_tie_divergences": div,
+           "rows_compared": rows_c, **launches}
+    log(f"  (c) prefix store: {json.dumps(res)}")
+    return res
+
+
+def kvtier_qos(model, n_layers):
+    """(d): tenants gold:3,silver:1 over a small pool, 16 threads: the
+    serve mix's first 12 requests from ``silver`` (the aggressor, all
+    submitted first), its last 4 from ``gold`` (the victim), against the
+    4 gold requests on an unloaded engine."""
+    from tony_tpu_torch.serve import QosPolicy, parse_tenants
+
+    cfg = model.cfg
+    mix = serve_mix(SEED, cfg.vocab)
+    silver, gold = list(range(12)), list(range(12, 16))
+    qos = QosPolicy(classes=parse_tenants(KVTIER_TENANTS))
+    eng = kvtier_engine(model, n_blocks=KVTIER_QOS_POOL, qos=qos)
+    unloaded = kvtier_engine(model, n_blocks=KVTIER_QOS_POOL)
+    front, ufront = EngineFront(eng), EngineFront(unloaded)
+    torch.cuda.reset_peak_memory_stats()
+    row9 = Row9([eng, unloaded])
+    ref = dict(zip(gold, run_threads(
+        lambda j: ufront.generate(*mix[gold[j]], rid=f"u-{gold[j]}"),
+        len(gold))))
+    done = {}
+
+    def one(i):
+        tenant = "silver" if i in silver else "gold"
+        if tenant == "gold":
+            # The aggressor's burst is in the queue first.
+            deadline = time.monotonic() + 300
+            while eng.queue_depth + eng.running < len(silver) \
+                    and len(done) == 0:
+                if time.monotonic() > deadline:
+                    raise AssertionError("serve_kvtier (d): the burst "
+                                         "never queued")
+                time.sleep(0.005)
+        c = front.generate(*mix[i], rid=f"q-{i}", tenant=tenant)
+        done[i] = c
+        return c
+
+    t0 = time.monotonic()
+    run_threads(one, len(mix))
+    wall = time.monotonic() - t0
+    launches = row9.close("(d)", n_layers)
+    worst, div, rows = compare_streams({i: done[i] for i in gold}, ref,
+                                       SERVE_REL_TOL,
+                                       "serve_kvtier (d) victim")
+    st = eng.stats()
+    ten = st["tenants"]
+    if st["qos_deferrals"] <= 0 or ten["gold"]["deferred"] != 0.0 \
+            or ten["silver"]["deferred"] != st["qos_deferrals"]:
+        raise AssertionError(f"serve_kvtier (d): deferrals "
+                             f"{st['qos_deferrals']}, by tenant "
+                             f"{ {t: v['deferred'] for t, v in ten.items()} }")
+    if eng._tenant_blocks or any(v["blocks"] for v in ten.values()) \
+            or eng.cache.free_blocks != eng.cache.n_blocks:
+        raise AssertionError(f"serve_kvtier (d): tenant blocks did not "
+                             f"drain: {eng._tenant_blocks}")
+    res = {"tenants": KVTIER_TENANTS, "pool_blocks": KVTIER_QOS_POOL,
+           "requests": {"silver": len(silver), "gold": len(gold)},
+           "qos_deferrals": st["qos_deferrals"],
+           "by_tenant": {t: {k: v[k] for k in ("completed", "deferred",
+                                               "blocks")}
+                         for t, v in ten.items()},
+           "victim_vs_unloaded_max_rel": worst,
+           "near_tie_divergences": div, "rows_compared": rows,
+           "wall_s": wall,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           **launches}
+    log(f"  (d) QoS: {json.dumps(res)}")
+    return res
+
+
+def kvtier_routed(model, n_layers):
+    """(e): two host-tier engines behind the replica's RPC handler, the
+    port's router (built as ``cli route`` builds it) and its RPC front
+    over them; two turns under one ``session_id``."""
+    from tony_tpu_torch.serve import RequestRouter
+    from tony_tpu_torch.serve.router import RouterRpcHandler
+
+    cfg = model.cfg
+    toks, n = serve_mix(SEED, cfg.vocab)[0]
+    engines = [kvtier_engine(model, host_blocks=KVTIER_HOST_BLOCKS)
+               for _ in range(2)]
+    reps = [SplitReplica(e) for e in engines]
+    router = RequestRouter(block_size=SERVE_ENGINE["block_size"])
+    for i, rep in enumerate(reps):
+        router.upsert_replica(f"kv:{i}", address=rep.server.address,
+                              stats=rep.engine.stats())
+    handler = RouterRpcHandler(router)
+    row9 = Row9(engines)
+    try:
+        out1 = handler.rpc_generate(toks, n, rid="e-1", session_id="kv-s")
+        turn2 = list(toks) + list(out1["tokens"]) + [1, 2, 3, 4]
+        out2 = handler.rpc_generate(turn2, n, rid="e-2", session_id="kv-s")
+    finally:
+        for rep in reps:
+            rep.server.stop()
+    launches = row9.close("(e)", n_layers)
+    eng = engines[int(out1["replica"].split(":")[1])]
+    if out2["replica"] != out1["replica"] or eng.park_hits != 1:
+        raise AssertionError(f"serve_kvtier (e): turns on "
+                             f"{out1['replica']} / {out2['replica']}, "
+                             f"park hits {eng.park_hits}")
+    res = {"replica": out1["replica"], "park_hits": eng.park_hits,
+           "router": {k: router.stats()[k] for k in (
+               "dispatched", "failovers", "sessions")}, **launches}
+    log(f"  (e) routed session: {json.dumps(res)}")
+    return res
+
+
+KVTIER_PASSES = (("a_parking", kvtier_parking), ("b_daemon", kvtier_daemon),
+                 ("c_store", kvtier_store), ("d_qos", kvtier_qos),
+                 ("e_routed", kvtier_routed))
+
+
+def serve_kvtier_phase(model, passes="abcde"):
+    """The KV memory hierarchy and the tenants at the serve phase's full
+    width (llama2-7b, 32 layers, bf16, ctx 2048, blocks of 16, random
+    weights from seed 0): (a) conversation parking, (b) the demotion
+    daemon, (c) the persisted prefix store, (d) QoS, (e) a routed
+    session (``passes``: the letters of those to run). Row 9 launched
+    ``n_layers`` times a forward in every pass."""
+    n_layers = model.cfg.n_layers
+    res = {"model": "llama2-7b", "host_blocks": KVTIER_HOST_BLOCKS}
+    for key, fn in KVTIER_PASSES:
+        if key[0] not in passes:
+            continue
+        t0 = time.monotonic()
+        res[key] = fn(model, n_layers)
+        res[key]["phase_s"] = time.monotonic() - t0
+        free_cuda()
+    res["flash_decode_launches"] = sum(
+        res[key]["flash_decode_launches"] for key, _ in KVTIER_PASSES
+        if key in res)
+    return res
+
+
+# ---------------------------------------------------------------------
 # The cold-start plane: the AOT cache, warm() into CUDA graphs, a warm
 # standby promoted.
 # ---------------------------------------------------------------------
@@ -2297,12 +2884,22 @@ def profile_train(step, state, batch, steps=2):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.monotonic()
-        for _ in range(steps):
-            step(state, batch)
+    # One warm-up step in the profiler's schedule before the ``steps``
+    # recorded: a session's first kernel records are often lost while its
+    # tracing starts (exp/port_profile_count_probe.py).
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=steps,
+                                    repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=sched) as prof:
+        step(state, batch)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.monotonic() - t0) / steps
+        prof.step()
+        t0 = time.monotonic()
+        for i in range(steps):
+            step(state, batch)
+            if i == steps - 1:
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.monotonic() - t0) / steps
+            prof.step()
     by_name, counts = {}, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -2359,6 +2956,42 @@ MMA_BWD_KERNELS = ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")
 CORE_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
+# Profiled windows a counting check may take: the profiler on the card
+# loses a kernel record in some windows even after a warm-up step (1 of
+# 20 in exp/port_profile_count_probe.py). Only that signature takes
+# another window (:func:`lost_records`).
+PROFILE_WINDOWS = 3
+
+
+def profiled_counts(prof, names):
+    """Launches a step the profiled window counted of each kernel in
+    ``names`` (None without device events)."""
+    if prof is None:
+        return None
+    launches = prof["flash_kernel_launches_per_step"]
+    return [sum(n for key, n in launches.items() if name in key)
+            for name in names]
+
+
+def core_records(prof):
+    """The profiled window's records of a CUDA-core flash kernel."""
+    return [key for key in prof["flash_kernel_launches_per_step"]
+            if any(name in key
+                   for name in CORE_FWD_KERNELS + CORE_BWD_KERNELS)]
+
+
+def lost_records(prof, fwd, bwd):
+    """The signature of a window whose profiler lost kernel records:
+    device events traced, no CUDA-core flash kernel among them, and the
+    tensor-core kernels counted at most their launches, some fewer. Any
+    other mismatch is a fault, judged at once."""
+    if prof is None or core_records(prof):
+        return False
+    got = profiled_counts(prof, MMA_FWD_KERNELS + MMA_BWD_KERNELS)
+    want = [fwd, bwd, bwd]
+    return got != want and all(g <= w for g, w in zip(got, want))
+
+
 def check_profiled(tag, prof, what, mma, core, per_step):
     """The profiled steps ran ``what`` in the tensor-core kernels ``mma``,
     ``per_step`` launches of each per step, and never in one of the
@@ -2367,14 +3000,13 @@ def check_profiled(tag, prof, what, mma, core, per_step):
         raise AssertionError(f"{tag}: the profiler traced no device event, "
                              f"so the {what} kernels cannot be named")
     launches = prof["flash_kernel_launches_per_step"]
-    for name in mma:
-        got = sum(n for key, n in launches.items() if name in key)
-        if got != per_step:
-            raise AssertionError(f"{tag}: {name} ran {got} times a step, "
-                                 f"not {per_step}: {launches}")
     ran = [key for key in launches if any(name in key for name in core)]
     if ran:
         raise AssertionError(f"{tag}: a CUDA-core {what} kernel ran: {ran}")
+    for name, got in zip(mma, profiled_counts(prof, mma)):
+        if got != per_step:
+            raise AssertionError(f"{tag}: {name} ran {got} times a step, "
+                                 f"not {per_step}: {launches}")
     log(f"  profile: the {what} ran {', '.join(mma)} ({per_step} each a "
         f"step) and no CUDA-core {what} kernel")
 
@@ -2423,8 +3055,19 @@ def timed_steps(tag, step, state, batch, names, expect, steps):
     prof = profile_train(step, state, batch)
     log(f"  {json.dumps(prof) if prof else 'no device events traced'}")
     if "flash_attention_fwd" in names:
-        check_fwd_kernels(tag, prof, expect["flash_attention_fwd"] // steps)
-        check_bwd_kernels(tag, prof, expect["flash_attention_bwd_dq"] // steps)
+        fwd = expect["flash_attention_fwd"] // steps
+        bwd = expect["flash_attention_bwd_dq"] // steps
+        windows = 1
+        while windows < PROFILE_WINDOWS and lost_records(prof, fwd, bwd):
+            log(f"  WARNING: {tag}: the profiled window counted "
+                f"{prof['flash_kernel_launches_per_step']}, fewer than "
+                f"{fwd} forward and {bwd} of each backward kernel a step, "
+                f"and no CUDA-core kernel: profiling another window")
+            prof = profile_train(step, state, batch)
+            windows += 1
+        check_fwd_kernels(tag, prof, fwd)
+        check_bwd_kernels(tag, prof, bwd)
+        prof["windows"] = windows
     return {"steps": steps, "losses": losses, "grad_norms": gnorms,
             "aux_losses": auxes, "step_ms": step_ms, "step_p50_ms": float(np.median(step_ms)),
             "max_memory_allocated": peak, "launches": launches,
@@ -6991,6 +7634,10 @@ def main() -> int:
     t_phase = time.monotonic()
     serve_disagg = serve_disagg_phase(model, serve_results)
     log(f"  serve_disagg: {time.monotonic() - t_phase:.1f} s")
+    log("[serve_kvtier]")
+    t_phase = time.monotonic()
+    serve_kvtier = serve_kvtier_phase(model)
+    log(f"  serve_kvtier: {time.monotonic() - t_phase:.1f} s")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7084,6 +7731,7 @@ def main() -> int:
         + serve_prefix["flash_decode_launches"]
         + serve_spec["flash_decode_launches"]
         + serve_disagg["flash_decode_launches"]
+        + serve_kvtier["flash_decode_launches"]
         + serve_replica["rpc"]["flash_decode_launches"]
         + tony_jobs["serve"]["flash_decode_launches"]
         + tony_jobs["serve_roles"]["flash_decode_launches"],
@@ -7096,6 +7744,7 @@ def main() -> int:
             "serve_prefix": serve_prefix["flash_decode_launches"],
             "serve_spec": serve_spec["flash_decode_launches"],
             "serve_disagg": serve_disagg["flash_decode_launches"],
+            "serve_kvtier": serve_kvtier["flash_decode_launches"],
             "serve_replica": serve_replica["rpc"]["flash_decode_launches"],
             "tony_jobs_serve": tony_jobs["serve"]["flash_decode_launches"],
             "tony_jobs_serve_roles":
@@ -7278,6 +7927,8 @@ def main() -> int:
     print(json.dumps({"serve_prefix": serve_prefix}), flush=True)
     print(json.dumps({"serve_spec": serve_spec}), flush=True)
     print(json.dumps({"serve_disagg": serve_disagg}), flush=True)
+    serve_kvtier["card"] = card
+    print(json.dumps({"serve_kvtier": serve_kvtier}), flush=True)
     serve_coldstart["card"] = card
     print(json.dumps({"serve_coldstart": serve_coldstart}), flush=True)
     log(f"[done] {time.monotonic() - t_script:.1f} s")

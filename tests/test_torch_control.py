@@ -569,6 +569,10 @@ _SERVE_ARGS = [
      "--draft_model", "llama-tiny", "--draft_model_kwargs",
      '{"n_layers": 1}', "--draft_ckpt_dir", "dck", "--max_replicas", "4",
      "--warm_standby", "1", "--slo_target_ms", "250"],
+    ["--model", "llama-tiny", "--ckpt_dir", "ck", "--host_blocks", "64",
+     "--prefix_store", "stems", "--demote_watermark", "0.5",
+     "--prefix_cache", "--tenants", "gold:3,silver:1",
+     "--qos_max_queue", "8"],
 ]
 
 
@@ -588,7 +592,7 @@ def _capture_conf(module, monkeypatch):
 
 class TestServeCli:
     @pytest.mark.parametrize("args", _SERVE_ARGS,
-                             ids=["minimal", "lanes", "spec"])
+                             ids=["minimal", "lanes", "spec", "kvtier"])
     @pytest.mark.parametrize("gpus", [None, "2"])
     def test_conf_is_the_jax_clis(self, args, gpus, monkeypatch,
                                   tmp_path):
@@ -609,13 +613,49 @@ class TestServeCli:
         assert got[conf.APPLICATION_FRAMEWORK] == "standalone"
 
     @pytest.mark.parametrize("flags,item", [
-        (["--tenants", "gold:3"], 9), (["--role", "prefill=1,decode=1", "--tenants", "gold:3"], 9),
-        (["--host_blocks", "8"], 9), (["--mesh", '{"fsdp": 2}'], 8),
+        (["--tenants", "gold:3"], None),
+        (["--role", "prefill=1,decode=1", "--tenants", "gold:3"], None),
+        (["--host_blocks", "8"], None), (["--mesh", '{"fsdp": 2}'], 8),
         (["--follow", "/job"], 10)],
         ids=["tenants", "role", "host_blocks", "mesh", "follow"])
-    def test_unported_lanes_refused_naming_their_item(self, flags, item):
-        with pytest.raises(SystemExit, match=f"item {item}\\)$"):
-            cli.main(["serve", "--model", "m", "--ckpt_dir", "c", *flags])
+    def test_unported_lanes_refused_naming_their_item(self, flags, item,
+                                                      monkeypatch,
+                                                      tmp_path):
+        """A lane the port does not serve is refused at submit naming
+        its ROADMAP item; the host tier and the tenants (item ``None``:
+        refused before they were ported) now write the JAX CLI's
+        conf."""
+        args = ["serve", "--model", "m", "--ckpt_dir", "c", *flags]
+        if item is not None:
+            with pytest.raises(SystemExit, match=f"item {item}\\)$"):
+                cli.main(args)
+            return
+        monkeypatch.chdir(tmp_path)
+        ours = _capture_conf("tony_tpu_torch", monkeypatch)
+        ref = _capture_conf("tony_tpu", monkeypatch)
+        assert cli.main(args) == 0 and jcli.main(args) == 0
+        got, want = dict(ours[0].items()), dict(ref[0].items())
+        assert {k: v for k, v in got.items() if "command" not in k} == \
+            {k: v for k, v in want.items() if "command" not in k}
+
+    @pytest.mark.parametrize("flags,message", [
+        (["--tenants", "gold:0"], "--tenants: tenant 'gold'"),
+        (["--tenants", "a:1,a:2"], "--tenants: duplicate"),
+        (["--qos_max_queue", "2"], "--qos_max_queue needs --tenants"),
+        (["--tenants", "g:1", "--qos_max_queue", "-1"], "must be >= 0"),
+        (["--host_blocks", "-1"], "--host_blocks must be >= 0"),
+        (["--demote_watermark", "0.5"], "needs --host_blocks"),
+        (["--host_blocks", "4", "--demote_watermark", "2"],
+         "pool fraction")],
+        ids=["weight", "duplicate", "cap_alone", "cap_negative",
+             "host_negative", "watermark_alone", "watermark_range"])
+    def test_kv_tier_and_tenant_flags_validated_as_the_reference(
+            self, flags, message):
+        args = ["serve", "--model", "m", "--ckpt_dir", "c", *flags]
+        with pytest.raises(SystemExit, match=message):
+            cli.main(args)
+        with pytest.raises(SystemExit, match=message):
+            jcli.main(args)
 
     @pytest.mark.parametrize("props", [
         {"tony.serve.instances": "1", "tony.serve.replicas.max": "3"},

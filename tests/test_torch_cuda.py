@@ -30,13 +30,13 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _inputs(gen, b, h, hkv, t, d, ctx, dtype):
-    q = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+def _inputs(gen, b, h, hkv, t, d, ctx, dtype, device="cuda"):
+    q = torch.randn((b, t, h, d), generator=gen, device=device).to(dtype)
     kb = torch.randn((b, ctx, hkv * d), generator=gen,
-                     device="cuda").to(dtype)
+                     device=device).to(dtype)
     vb = torch.randn((b, ctx, hkv * d), generator=gen,
-                     device="cuda").to(dtype)
-    pos = torch.randint(0, ctx + 8, (b, t), generator=gen, device="cuda",
+                     device=device).to(dtype)
+    pos = torch.randint(0, ctx + 8, (b, t), generator=gen, device=device,
                         dtype=torch.int32)
     return (q.transpose(1, 2), kb.view(b, ctx, hkv, d).transpose(1, 2),
             vb.view(b, ctx, hkv, d).transpose(1, 2), pos)
@@ -124,15 +124,15 @@ def test_flash_decode_row_with_a_negative_position_is_zero(gen, splits):
         ref.float().abs().max())
 
 
-def _flash_inputs(gen, b, h, hkv, t, tk, d, dtype, packed):
+def _flash_inputs(gen, b, h, hkv, t, tk, d, dtype, packed, device="cuda"):
     """q/k/v/dO as the model hands them over: packed [b, t, h·d]
     projections viewed as [b, h, t, d], or contiguous [b, h, t, d]."""
     def make(n, length):
         if packed:
-            x = torch.randn((b, length, n * d), generator=gen, device="cuda")
+            x = torch.randn((b, length, n * d), generator=gen, device=device)
             return x.to(dtype).unflatten(2, (n, d)).transpose(1, 2)
         return torch.randn((b, n, length, d), generator=gen,
-                           device="cuda").to(dtype)
+                           device=device).to(dtype)
     return make(h, t), make(hkv, tk), make(hkv, tk), make(h, t)
 
 
@@ -589,13 +589,13 @@ INT8_CASES = [(1, 1, 1), (33, 70, 130), (17, 4099, 257), (64, 128, 128),
               (4096, 4112, 520), (4096, 4096, 11008)]
 
 
-def _int8_case(gen, m, k, n):
-    xq = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+def _int8_case(gen, m, k, n, device="cuda"):
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=device,
                        dtype=torch.int8)
-    wq = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+    wq = torch.randint(-127, 128, (n, k), generator=gen, device=device,
                        dtype=torch.int8)
-    sx = torch.rand((), generator=gen, device="cuda")
-    sw = torch.rand((n,), generator=gen, device="cuda")
+    sx = torch.rand((), generator=gen, device=device)
+    sw = torch.rand((n,), generator=gen, device=device)
     return xq, wq, sx, sw
 
 
@@ -774,13 +774,13 @@ BN_CASES = [(1, 8), (17, 3), (1000, 64), (4099, 9), (100003, 96),
             (4096, 2048), (12544, 256)]
 
 
-def _bn_case(gen, m, c, dtype):
-    x = (torch.randn((m, c), generator=gen, device="cuda") * 2 + 0.5).to(
+def _bn_case(gen, m, c, dtype, device="cuda"):
+    x = (torch.randn((m, c), generator=gen, device=device) * 2 + 0.5).to(
         dtype)
-    res = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
-    dy = torch.randn((m, c), generator=gen, device="cuda").to(dtype)
-    gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
-    beta = torch.randn(c, generator=gen, device="cuda") * 0.1
+    res = torch.randn((m, c), generator=gen, device=device).to(dtype)
+    dy = torch.randn((m, c), generator=gen, device=device).to(dtype)
+    gamma = torch.randn(c, generator=gen, device=device) * 0.5 + 1.0
+    beta = torch.randn(c, generator=gen, device=device) * 0.1
     xf = x.float()
     mean = xf.mean(0)
     var = xf.var(0, unbiased=False)
@@ -1496,3 +1496,110 @@ def test_save_in_pieces_is_byte_identical(gen, tmp_path, monkeypatch, model):
     assert fresh.step == state.step and sorted(want) == sorted(got)
     for name in want:
         assert torch.equal(want[name], got[name]), name
+
+
+def test_every_kernel_launches_on_its_tensors_card(gen):
+    """Each kernel wrapper launches on the card its tensors live on, not
+    on the calling thread's current card: from a thread whose current
+    device is 0, every kernel runs on tensors on card 1 and agrees with
+    its plain version there (the tolerances of the tests above). The
+    inputs are made on card 1 (a copy from card 0 would open peer access
+    between the two, under which a launch on card 0 still reaches card
+    1's memory)."""
+    import threading
+
+    from tony_tpu_torch.ops import batchnorm as bn
+    from tony_tpu_torch.ops import fused_optim as fo
+    from tony_tpu_torch.ops import quant as tq
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    one = torch.device("cuda:1")
+    g1 = torch.Generator(device=one).manual_seed(0)
+    dec = _inputs(g1, 2, 8, 2, 5, 64, 100, torch.bfloat16, device=one)
+    fl = _flash_inputs(g1, 1, 4, 2, 96, 96, 128, torch.bfloat16, True,
+                       device=one)
+    fused = fo.FusedOptimizer(rule="adamw", lr=1e-3, weight_decay=1e-2)
+    g = torch.randn(4099, generator=g1, device=one) * 0.1
+    p = torch.randn(4099, generator=g1, device=one)
+    slots = [torch.rand(4099, generator=g1, device=one) * 1e-3
+             for _ in fused.slot_names]
+    i8 = _int8_case(g1, 64, 4096, 256, device=one)
+    x, res, dy, mean, var, gamma, beta = _bn_case(g1, 4096, 64,
+                                                  torch.bfloat16, device=one)
+    errors = []
+
+    def run():
+        try:
+            torch.cuda.set_device(0)
+            before = dict(LAUNCHES)
+            q, k, v, pos = dec
+            out = attn.flash_decode(q, k, v, pos)
+            ref = attn._decode_plain(q, k, v, pos, 64 ** -0.5, 100)
+            assert out.device == one
+            assert float((out.float() - ref.float()).abs().max()) <= \
+                2 ** -7 * float(ref.float().abs().max())
+            q, k, v, do = fl
+            o, lse = attn._flash_fwd_cuda(q, k, v, True, 128 ** -0.5)
+            dq, dk, dv = attn._flash_bwd_cuda(q, k, v, o, lse, do, True,
+                                              128 ** -0.5)
+            ref_o, ref_lse = attn._flash_fwd_plain(q, k, v, True,
+                                                   128 ** -0.5)
+            ref_dq, dsum = attn._flash_bwd_dq_plain(
+                q, k, v, ref_o, do, ref_lse, True, 128 ** -0.5)
+            ref_dk, ref_dv = attn._flash_bwd_dkv_plain(
+                q, k, v, do, ref_lse, dsum, True, 128 ** -0.5)
+            for got, want in ((o, ref_o), (dq, ref_dq), (dk, ref_dk),
+                              (dv, ref_dv)):
+                assert got.device == one
+                assert float((got.float() - want.float()).abs().max()) \
+                    <= _tol(want, torch.bfloat16)
+            scal = fused.scalars(3, one)
+            ref_p, ref_s = fo._rule_math("adamw", g, p, tuple(slots),
+                                         scal[0], scal[1], scal[2],
+                                         **fused.hyper)
+            out_p, out_s = fo.fused_bucket_update(
+                g, p.clone(), [s.clone() for s in slots], scal,
+                rule="adamw", hyper=fused.hyper)
+            assert torch.equal(out_p, ref_p)
+            assert all(torch.equal(a, b) for a, b in zip(out_s, ref_s))
+            y = tq.int8_matmul(*i8)
+            assert y.device == one and torch.equal(
+                y, tq._int8_matmul_plain(*i8))
+            sums = bn._stats_cuda(x)
+            xf = x.double()
+            scale = torch.stack([xf.abs().sum(0), (xf * xf).sum(0)]).float()
+            assert _sum_rel(sums, bn._stats_plain(x), scale) <= 1e-5
+            out = bn._apply_cuda(x, mean, var, gamma, beta, res, 1e-5, True)
+            assert torch.equal(out, bn._apply_plain(
+                x, mean, var, gamma, beta, res, 1e-5, True))
+            red = bn._bwd_reduce_plain(dy, x, mean, var, gamma, beta, res,
+                                       1e-5, True)
+            got_red = bn._bwd_reduce_cuda(dy, x, mean, var, gamma, beta,
+                                          res, 1e-5, True)
+            pre, xhat, _ = bn._pre_act(x, mean, var, gamma, beta, 1e-5)
+            gm = bn._masked_grad(dy, pre, res, True).double()
+            scale = torch.stack([gm.abs().sum(0),
+                                 (gm * xhat.double()).abs().sum(0)]).float()
+            assert _sum_rel(got_red, red, scale) <= 1e-5
+            dx, dres = bn._bwd_dx_cuda(dy, x, mean, var, gamma, beta, red,
+                                       res, 1e-5, True, 1.0 / 4096)
+            dx_p, dres_p = bn._bwd_dx_plain(dy, x, mean, var, gamma, beta,
+                                            red, res, 1e-5, True, 1.0 / 4096)
+            assert torch.equal(dx, dx_p) and torch.equal(dres, dres_p)
+            torch.cuda.synchronize(one)
+            grew = {k for k in LAUNCHES if LAUNCHES[k] != before.get(k, 0)}
+            assert {"flash_decode", "flash_attention_fwd",
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                    "fused_bucket_update", "int8_matmul", "bn_stats",
+                    "bn_apply", "bn_add_bwd_reduce",
+                    "bn_add_bwd_dx"} <= grew
+            assert torch.cuda.current_device() == 0
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if errors:
+        raise errors[0]

@@ -534,21 +534,24 @@ class TestDisaggBitwise:
         assert_bitwise_equal(again, ref)
 
     def test_unported_request_tags_refused(self, tiny):
-        """A handoff tagged for a lane not ported (conv: the host tier;
-        tenant: QoS) is refused naming its ROADMAP item, on both sides,
-        with the engines unchanged."""
+        """A handoff's ``conv`` and ``tenant`` tags (once refused, before
+        the host tier and QoS were ported) ride the payload: the decode
+        engine admits the turn under them, parks it at eviction on a
+        host tier, counts it under its tenant, and its tokens and logits
+        are the untagged handoff's."""
+        rng = np.random.RandomState(16)
+        prompt = [int(t) for t in rng.randint(0, 256, 9)]
+        ref, _, _ = disagg_requests(tiny, [prompt], max_new=4)
         pf_eng = make_engine(tiny, role="prefill")
-        dc_eng = make_engine(tiny, role="decode")
-        payload = prefill_payload(pf_eng, list(range(9)))
-        snap = cache_snapshot(dc_eng.cache)
-        for tag in ({"conv": "c-1"}, {"tenant": "gold"}):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                dc_eng.admit_handoff(dict(payload, **tag))
-            with pytest.raises(NotImplementedError, match="item 9"):
-                PrefillFront(EngineFront(pf_eng)).prefill_handoff(
-                    list(range(9)), 4, decode=DecodeFront(
-                        EngineFront(dc_eng)), **tag)
-        assert_same_snapshot(cache_snapshot(dc_eng.cache), snap)
+        payload = prefill_payload(pf_eng, prompt, rid="t")
+        assert payload["conv"] is None and payload["tenant"] is None
+        dc_eng = make_engine(tiny, role="decode", host_blocks=16)
+        dc = DecodeFront(EngineFront(dc_eng))
+        out = PrefillFront(EngineFront(pf_eng)).prefill_handoff(
+            prompt, 4, rid="t2", decode=dc, conv="c-1", tenant="gold")
+        assert_bitwise_equal({0: out}, ref)
+        assert dc_eng.parked_digest() == ["c-1"]
+        assert dc_eng.stats()["tenants"]["gold"]["completed"] == 1.0
         assert pf_eng.cache.free_blocks == pf_eng.cache.n_blocks
         assert dc_eng.imports_failed == 0
 

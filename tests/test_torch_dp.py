@@ -29,6 +29,7 @@ from tony_tpu import train as jtrain
 from tony_tpu.minipod import MiniPod
 from tony_tpu.models import get_model as jax_model
 from tony_tpu.session import TaskStatus
+from torch_ranks import wait_ranks
 from tony_tpu_torch import constants, distributed, profiler
 from tony_tpu_torch import train as ttrain
 from tony_tpu_torch.models import get_model
@@ -235,15 +236,7 @@ def _run_ranks(world, src, out_prefix):
             [sys.executable, str(WORKLOADS / "torch_dp_steps.py"), str(src),
              f"{out_prefix}{rank}"], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank}:\n{log}"
+    wait_ranks(procs, RANK_TIMEOUT_S, "torch_dp_steps.py")
 
 
 def test_two_gloo_ranks_match_one_process_and_jax(tmp_path):

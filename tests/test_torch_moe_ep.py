@@ -38,6 +38,7 @@ from tony_tpu import ckpt as jckpt
 from tony_tpu import parallel as jpar
 from tony_tpu import train as jtrain
 from tony_tpu.models import get_model as jax_model
+from torch_ranks import wait_ranks
 from tony_tpu_torch import ckpt
 from tony_tpu_torch import train as ttrain
 from tony_tpu_torch.models import get_model
@@ -116,14 +117,11 @@ def world(tmp_path_factory):
         for dp, ep in {(dp, ep) for dp, ep, _ in RUNS.values()}:
             _jax_mesh_steps(dp, ep)
         _port_steps()
-        logs = [p.communicate(timeout=240)[0] for p in procs]
-    finally:
+    except BaseException:
         for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank}:\n{log}"
+            p.kill()
+        raise
+    wait_ranks(procs, 240, "the expert-parallel ranks")
     report = json.loads((root / "r0.json").read_text())
     return root, report
 

@@ -174,7 +174,7 @@ def test_control_plane_imports_only_the_stdlib(name):
 # the chain keys, and the package's lazy facade (standard library, numpy
 # and each other).
 TENSOR_FREE = ("serve/__init__.py", "serve/router.py", "serve/disagg.py",
-               "serve/prefix.py")
+               "serve/prefix.py", "serve/kvstore.py", "serve/qos.py")
 
 
 @pytest.mark.parametrize("name", TENSOR_FREE)
@@ -190,7 +190,8 @@ def test_tensor_free_serving_modules(name):
         if root == "tony_tpu_torch":
             assert mod in {"tony_tpu_torch.serve",
                            "tony_tpu_torch.serve.prefix",
-                           "tony_tpu_torch.serve.disagg"}, mod
+                           "tony_tpu_torch.serve.disagg",
+                           "tony_tpu_torch.ckpt_layout"}, mod
 
 
 def test_executor_starts_without_site():

@@ -60,6 +60,7 @@ from tony_tpu.ops import fused_optim as jfo
 from tony_tpu.ops import quant as jq
 from tony_tpu.parallel import overlap as joverlap
 from tony_tpu.parallel import sched as jsched
+from torch_ranks import wait_ranks
 from tony_tpu_torch import ckpt, train as ttrain
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models.convert import load_jax_params, params_from_jax
@@ -109,15 +110,7 @@ def _run_ranks(world, cfg, prefix):
             [sys.executable, str(WORKER), str(cpath), f"{prefix}{rank}"],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank}:\n{log}"
+    wait_ranks(procs, RANK_TIMEOUT_S, "the quant-gather ranks")
     return [json.loads(Path(f"{prefix}{r}.json").read_text())["runs"]
             for r in range(world)]
 

@@ -654,12 +654,13 @@ class TestWire:
                     stats = client.call("serve_stats")
                     with pytest.raises(JRpcError, match="^SwapError"):
                         client.call("swap", step=7)
-                    with pytest.raises(JRpcError, match="item 9"):
-                        client.call("generate", tokens=PROMPTS[0],
-                                    max_new_tokens=2, tenant="gold")
+                    # A tenant tag crosses the wire to the engine.
+                    tagged = client.call("generate", tokens=PROMPTS[0],
+                                         max_new_tokens=2, tenant="gold")
         finally:
             server.stop()
         assert out["tokens"] == served.generate(PROMPTS[0], 5).tokens
+        assert tagged["tokens"] == out["tokens"][:2]
         assert stats["completed"] >= 1.0 and stats["weight_step"] == 2.0
 
     def test_port_client_to_jax_server(self, served):
@@ -855,12 +856,7 @@ class TestLaunch:
 # Absent devices and lanes not ported
 # ---------------------------------------------------------------------------
 
-UNPORTED = [
-    (SERVE_HOST_BLOCKS, "8", 9),
-    (SERVE_PREFIX_STORE, "/tmp/stems", 9),
-    (SERVE_QOS_TENANTS, "gold:3,silver:1", 9),
-    (SERVE_DEMOTE_WATERMARK, "0.5", 9), (SERVE_DEMOTE_BATCH, "4", 9),
-    (SERVE_MESH, '{"fsdp": 2}', 8)]
+UNPORTED = [(SERVE_MESH, '{"fsdp": 2}', 8)]
 
 
 # The lanes ported from the refused list, each armed through main().
@@ -874,7 +870,12 @@ PORTED = [
     {SERVE_PREFILL_CHUNK: "16", SERVE_PREFIX_CACHE: "true"},
     {SERVE_AOT_CACHE: "{tmp}/aot"}, {SERVE_WARM_STANDBY: "1"},
     {serve_warm_standby_key("serve"): "2"},
-    {serve_role_key("serve"): "decode"}]
+    {serve_role_key("serve"): "decode"},
+    {SERVE_HOST_BLOCKS: "8"},
+    {SERVE_HOST_BLOCKS: "16", SERVE_PREFIX_CACHE: "true",
+     SERVE_DEMOTE_WATERMARK: "0.5", SERVE_DEMOTE_BATCH: "4"},
+    {SERVE_PREFIX_STORE: "{tmp}/stems", SERVE_PREFIX_CACHE: "true"},
+    {SERVE_QOS_TENANTS: "gold:3,silver:1"}]
 
 
 class TestUnported:
@@ -939,11 +940,33 @@ class TestUnported:
             assert engine.aot_hits == rep.warmed - 1
         assert rep.warmed == (len(engine.decode_buckets)
                               if standby or armed else 0)
+        assert engine.cache.host_blocks == int(lanes.get(SERVE_HOST_BLOCKS,
+                                                         0))
+        assert (engine.cache._offload is not None) == \
+            (SERVE_HOST_BLOCKS in lanes)
+        assert engine.demote_watermark == float(
+            lanes.get(SERVE_DEMOTE_WATERMARK, 0.0))
+        assert engine.demote_batch == int(
+            lanes.get(SERVE_DEMOTE_BATCH, 0) or engine.nb_max)
+        assert (rep._store is not None) == (SERVE_PREFIX_STORE in lanes)
+        if SERVE_QOS_TENANTS in lanes:
+            assert engine.qos.classes == {"gold": 3.0, "silver": 1.0}
+        else:
+            assert engine.qos is None
         plain = _replica(port_ckpt, dtype_policy="bf16",
                          model_kwargs={"dtype": torch.float32})
+        # Tagged requests: a host tier parks each turn, a QoS engine
+        # meters the tenant; neither changes a token.
+        tags = {"conv": "c" if SERVE_HOST_BLOCKS in lanes else None,
+                "tenant": "gold" if SERVE_QOS_TENANTS in lanes else None}
         for prompt in PROMPTS:
-            assert rep.generate(prompt, 5).tokens == \
+            assert rep.generate(prompt, 5, **tags).tokens == \
                 plain.generate(prompt, 5).tokens
+        if SERVE_HOST_BLOCKS in lanes:
+            assert engine.parked_digest() == ["c"]
+        if SERVE_QOS_TENANTS in lanes:
+            assert engine.stats()["tenants"]["gold"]["completed"] == \
+                len(PROMPTS)
 
     def test_promote_verb(self, served, port_ckpt):
         """``promote`` left the unported verbs: on an active replica it
@@ -999,9 +1022,11 @@ class TestUnported:
             replica_mod.main()
 
     def test_unported_verbs_and_request_tags(self, served):
-        """The handoff verbs are ported (tests/test_torch_disagg.py
-        drives them end to end): they answer, and a request tagged for a
-        lane still unported raises naming its item."""
+        """The handoff verbs answer (tests/test_torch_disagg.py drives
+        them end to end), and the request tags, once refused, are
+        served: ``conv`` on a replica without a host tier is ignored,
+        and a ``tenant`` through the RPC verb is metered under its name,
+        the tokens the untagged request's."""
         handler = served.rpc_handler()
         assert handler.rpc_kv_offer(keys=["0" * 16]) == 0
         with pytest.raises(ValueError, match="decode target"):
@@ -1009,6 +1034,12 @@ class TestUnported:
         from tony_tpu_torch.serve import HandoffError
         with pytest.raises(HandoffError, match="malformed"):
             handler.rpc_kv_import({"rid": "x"})
-        for kw in ({"conv": "c-1"}, {"tenant": "gold"}):
-            with pytest.raises(NotImplementedError, match="item 9"):
-                served.generate(PROMPTS[0], 2, **kw)
+        want = served.generate(PROMPTS[0], 2).tokens
+        assert served.generate(PROMPTS[0], 2, conv="c-1").tokens == want
+        assert served.engine.parked_digest() == []
+        before = served.engine.stats()["tenants"].get(
+            "gold", {}).get("completed", 0.0)
+        out = handler.rpc_generate(PROMPTS[0], 2, tenant="gold")
+        assert out["tokens"] == want
+        assert served.engine.stats()["tenants"]["gold"]["completed"] == \
+            before + 1

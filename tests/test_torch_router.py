@@ -272,38 +272,116 @@ class TestRoutedServing:
 
     def test_sessions_and_tenants_refused_before_a_port_replica(self,
                                                                tiny):
-        """A session reaches a replica as ``conv`` (the host tier's
-        handle) and a tenant as the QoS class, lanes the port's
-        replicas refuse: the router's RPC front refuses both, typed and
-        naming the ROADMAP item, before routing; the in-process router
-        hands the replica's own refusal back over the wire."""
-        eng = make_engine(tiny)
-        srv = _serve(eng)
+        """Sessions and tenants (refused before the host tier and QoS
+        were ported) reach the port's replicas through the router's RPC
+        front: two turns under one ``session_id`` land on the same
+        host-tier replica, whose second turn resumes the parked first
+        (``park_hits`` 1), and the ``tenant`` reaches the engine as the
+        QoS class. The tokens are a plain engine's."""
+        engines = [make_engine(tiny, host_blocks=32) for _ in range(2)]
+        servers = [_serve(e) for e in engines]
         router = RequestRouter(block_size=8)
-        router.upsert_replica("r1", address=srv.address,
-                              stats=eng.stats())
+        for i, (e, srv) in enumerate(zip(engines, servers)):
+            router.upsert_replica(f"r{i}", address=srv.address,
+                                  stats=e.stats())
+        plain = EngineFront(make_engine(tiny))
+        rng = np.random.RandomState(12)
+        turn1 = [int(t) for t in rng.randint(0, 256, 11)]
         try:
             with RouterServer(router, host="127.0.0.1") as front:
-                with RpcClient(front.address, timeout=30.0) as client:
-                    for kw in ({"session_id": "s"}, {"tenant": "gold"}):
-                        with pytest.raises(RpcError, match=(
-                                r"^NotImplementedError: generate\("
-                                + next(iter(kw))
-                                + r"=\.\.\.\).*queue 1 item 9")):
-                            client.call("generate", tokens=[1, 2, 3],
-                                        max_new_tokens=2, **kw)
-                    assert client.call("router_stats")["dispatched"] == 0
-                    out = client.call("generate", tokens=[1, 2, 3],
-                                      max_new_tokens=2)
-            assert eng.forwards > 0 and out["replica"] == "r1"
-            forwards = eng.forwards
-            with pytest.raises(RpcError, match=(
-                    r"^NotImplementedError: generate\(conv=\.\.\.\)")):
-                router.dispatch([1, 2, 3], 2, session_id="s")
-            assert eng.forwards == forwards and eng.queue_depth == 0
-            assert router.stats()["failovers"] == 0
+                with RpcClient(front.address, timeout=60.0) as client:
+                    out1 = client.call("generate", tokens=turn1,
+                                       max_new_tokens=3, session_id="s",
+                                       tenant="gold")
+                    turn2 = turn1 + out1["tokens"] + [5, 6, 7]
+                    out2 = client.call("generate", tokens=turn2,
+                                       max_new_tokens=3, session_id="s",
+                                       tenant="gold")
+                    stats = client.call("router_stats")
+            assert out2["replica"] == out1["replica"]
+            assert out1["tokens"] == plain.generate(turn1, 3).tokens
+            assert out2["tokens"] == plain.generate(turn2, 3).tokens
+            eng = engines[int(out1["replica"][1:])]
+            assert eng.park_hits == 1 and eng.parked_digest() == ["s"]
+            assert eng.stats()["tenants"]["gold"]["completed"] == 2.0
+            assert stats["dispatched"] == 2 and stats["failovers"] == 0
+        finally:
+            for srv in servers:
+                srv.stop()
+
+    def test_live_rid_resent_is_refused(self, tiny):
+        """A ``generate`` sent again over RPC under a rid that is still
+        queued (a re-send after a transport fault) is refused with a
+        ``ValueError`` before it reaches the loop; the first request
+        completes untouched."""
+        import threading
+
+        from tony_tpu_torch.serve.replica import _ReplicaRpcHandler
+
+        eng = make_engine(tiny)
+        rep = _Replica(eng)
+        srv = RpcServer(_ReplicaRpcHandler(rep), host="127.0.0.1").start()
+        prompt = [1, 2, 3, 4, 5]
+        want = EngineFront(make_engine(tiny)).generate(prompt, 6).tokens
+        first = {}
+        try:
+            with rep.front._drive:          # the first request waits queued
+                def send():
+                    with RpcClient(srv.address, timeout=60.0) as client:
+                        first.update(client.call(
+                            "generate", tokens=prompt, max_new_tokens=6,
+                            rid="dup"))
+
+                t = threading.Thread(target=send)
+                t.start()
+                deadline = time.monotonic() + 30
+                while eng.queue_depth == 0:
+                    assert time.monotonic() < deadline, "never submitted"
+                    time.sleep(0.01)
+                with RpcClient(srv.address, timeout=60.0) as client:
+                    with pytest.raises(RpcError,
+                                       match=r"^ValueError: .*'dup' is live"):
+                        client.call("generate", tokens=prompt,
+                                    max_new_tokens=6, rid="dup")
+                assert eng.queue_depth == 1
+            t.join(timeout=60)
+            assert first["tokens"] == want
+            assert eng.stats()["completed"] == 1.0
         finally:
             srv.stop()
+
+    @pytest.mark.parametrize("stage", ["prefilling", "running"])
+    def test_live_rid_resent_mid_request_is_refused(self, tiny, stage):
+        """A rid submitted again while its first request is in its first
+        prefill (out of the queue, in no list yet) or running between
+        decode steps is refused with a ``ValueError`` and queues
+        nothing; the first request completes as a plain engine's."""
+        from tony_tpu_torch.serve import Request
+
+        eng = make_engine(tiny)
+        prompt = [1, 2, 3, 4, 5]
+        want = EngineFront(make_engine(tiny)).generate(prompt, 6).tokens
+        refused = []
+
+        def resend():
+            with pytest.raises(ValueError, match=r"'dup' is live"):
+                eng.submit(Request(rid="dup", tokens=prompt,
+                                   max_new_tokens=6))
+            refused.append(eng.queue_depth)
+
+        name = "_prefill" if stage == "prefilling" else "_decode"
+        inner = getattr(eng, name)
+
+        def hooked(*args):
+            if not refused:
+                resend()
+            return inner(*args)
+
+        setattr(eng, name, hooked)
+        got = EngineFront(eng).generate(prompt, 6, rid="dup")
+        assert refused == [0]
+        assert got.tokens == want
+        assert eng.stats()["completed"] == 1.0
 
     def test_router_dial_waits_for_a_slow_reply(self, monkeypatch):
         """A replica's ``generate`` replies when its generation ends. The

@@ -48,6 +48,7 @@ from tony_tpu.ops import fused_optim as jfo
 from tony_tpu.parallel import overlap as joverlap
 from tony_tpu.parallel import sched as jsched
 from tony_tpu.session import TaskStatus
+from torch_ranks import wait_ranks
 from tony_tpu_torch import ckpt, profiler
 from tony_tpu_torch import train as ttrain
 from tony_tpu_torch.models import get_model
@@ -88,15 +89,7 @@ def _run_ranks(world, cfg, prefix):
             [sys.executable, str(WORKLOADS / "torch_zero3_steps.py"),
              str(cpath), f"{prefix}{rank}"], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank}:\n{log}"
+    wait_ranks(procs, RANK_TIMEOUT_S, "torch_zero3_steps.py")
     return [json.loads(Path(f"{prefix}{r}.json").read_text())
             for r in range(world)]
 

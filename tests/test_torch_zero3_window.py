@@ -41,6 +41,7 @@ import optax
 from tony_tpu import parallel as jpar
 from tony_tpu import train as jtrain
 from tony_tpu.models import get_model as jax_model
+from torch_ranks import wait_ranks
 from tony_tpu_torch.models.convert import params_from_jax
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -122,15 +123,7 @@ def _run_ranks(world, cfg, prefix):
             [sys.executable, str(WORKER), str(cpath), f"{prefix}{rank}"],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    try:
-        logs = [p.communicate(timeout=RANK_TIMEOUT_S)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank}:\n{log}"
+    wait_ranks(procs, RANK_TIMEOUT_S, "the window ranks")
     return [json.loads(Path(f"{prefix}{r}.json").read_text())["runs"]
             for r in range(world)]
 

@@ -20,6 +20,9 @@ from tony_tpu_torch.parallel import MeshSpec
 
 
 def main(root: str, out: str) -> None:
+    # Several ranks share the host's cores: one thread each, not one
+    # pool each.
+    torch.set_num_threads(1)
     distributed.initialize(device="cpu")
     rank = td.get_rank()
     try:

@@ -19,6 +19,9 @@ from tony_tpu_torch.models import get_model
 from tony_tpu_torch.parallel import MeshSpec
 
 src, out = sys.argv[1], sys.argv[2]
+# Several ranks share the host's cores: one thread each, not one pool
+# each.
+torch.set_num_threads(1)
 assert dist.initialize(device="cpu"), "expected a multi-process TonY env"
 rank, world = dist.process_id(), dist.num_processes()
 mesh = MeshSpec().build(device="cpu")

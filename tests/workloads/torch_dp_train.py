@@ -18,6 +18,9 @@ from tony_tpu_torch import train
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.parallel import MeshSpec
 
+# Several ranks share the host's cores: one thread each, not one pool
+# each.
+torch.set_num_threads(1)
 initialized = dist.initialize(device="cpu")
 assert initialized, "expected a multi-process TonY env"
 rank, world = dist.process_id(), dist.num_processes()

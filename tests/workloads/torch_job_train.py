@@ -55,6 +55,10 @@ p.add_argument("--final-params", action="store_true",
 args = p.parse_args()
 
 on_card = args.device == "cuda"
+if not on_card:
+    # Several ranks share the host's cores: one thread each, not one
+    # pool each.
+    torch.set_num_threads(1)
 if not dist.initialize(device=args.device):
     # One process: a one-rank group, so the step runs the mesh path of a
     # multi-rank job (the rendezvous env's address, else a free port).

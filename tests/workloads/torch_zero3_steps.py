@@ -70,6 +70,10 @@ DUMP_LIMIT_BYTES = 8 << 30
 cfg = json.loads(open(sys.argv[1]).read())
 out = sys.argv[2]
 device = cfg.get("device", "cpu")
+if device == "cpu":
+    # Several ranks share the host's cores: one thread each, not one
+    # pool each.
+    torch.set_num_threads(1)
 assert dist.initialize(device=device), "expected a multi-process TonY env"
 rank = dist.process_id()
 mesh = MeshSpec(dp=cfg.get("dp", 0), fsdp=cfg["fsdp"]).build(

@@ -21,6 +21,9 @@ from tony_tpu_torch import distributed as dist
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.parallel import MeshSpec, layout_of
 
+# Several ranks share the host's cores: one thread each, not one pool
+# each.
+torch.set_num_threads(1)
 assert dist.initialize(device="cpu"), "expected a multi-process TonY env"
 rank, world = dist.process_id(), dist.num_processes()
 mesh = MeshSpec(dp=1, fsdp=world).build(device="cpu")

@@ -60,6 +60,8 @@ import torch
 # The layout of the root (names, the commit rule, the scans) lives in the
 # standard-library module the executor's heartbeat also reads.
 from tony_tpu_torch.ckpt_layout import MANIFEST_NAME, TMP_SUFFIX  # noqa: F401
+from tony_tpu_torch.ckpt_layout import (  # noqa: F401
+    _atomic_write_json, _fsync_dir)
 from tony_tpu_torch.ckpt_layout import STEP_RE as _STEP_RE
 from tony_tpu_torch.ckpt_layout import (committed_steps,  # noqa: F401
                                         latest_step, step_dir, tmp_dir)
@@ -157,26 +159,6 @@ def spec_from_json(entries: Optional[Sequence[Any]]
 # ---------------------------------------------------------------------------
 # Write side
 # ---------------------------------------------------------------------------
-
-def _fsync_dir(path: Path) -> None:
-    try:
-        fd = os.open(path, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
-
-
-def _atomic_write_json(path: Path, payload: Dict[str, Any]) -> None:
-    tmp = path.with_suffix(path.suffix + ".part")
-    with open(tmp, "w") as f:
-        json.dump(payload, f, sort_keys=True)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
 
 def write_process_file(staging: str | Path, proc: int,
                        chunks: Sequence[Tuple[int, Sequence[int],

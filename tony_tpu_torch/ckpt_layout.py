@@ -8,12 +8,15 @@ root beside the steps. :mod:`tony_tpu_torch.ckpt.format` and
 :mod:`tony_tpu_torch.publish` write this layout (their originals are
 ``tony_tpu.ckpt.format`` and ``tony_tpu.publish``); the executor's
 heartbeat reads it. Standard library only, so the executor reads it
-without importing torch.
+without importing torch; the persisted prefix store
+(:mod:`tony_tpu_torch.serve.kvstore`) commits its stems with the same
+two writes.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 from pathlib import Path
 from typing import Any, Dict, List, Optional
@@ -27,6 +30,30 @@ TMP_SUFFIX = ".tmp"
 PUBLISH_FILE = "published.json"
 
 STEP_RE = re.compile(r"^step_(\d+)$")
+
+
+def _fsync_dir(path: Path) -> None:
+    """fsync a directory, so a rename inside it is durable (a no-op where
+    the directory cannot be opened)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _atomic_write_json(path: Path, payload: Dict[str, Any]) -> None:
+    """``payload`` as JSON at ``path``: written and fsynced beside it,
+    then renamed into place."""
+    tmp = path.with_suffix(path.suffix + ".part")
+    with open(tmp, "w") as f:
+        json.dump(payload, f, sort_keys=True)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 def step_dir(root: str | Path, step: int) -> Path:

@@ -97,12 +97,6 @@ def serve_conf(args: argparse.Namespace) -> TonyConfig:
     lanes the port's replica does not serve are refused here, at submit,
     naming their ROADMAP item."""
     for flag, val, item, what in (
-            ("--tenants", args.tenants, 9, "multi-tenant QoS"),
-            ("--qos_max_queue", args.qos_max_queue, 9, "multi-tenant QoS"),
-            ("--host_blocks", args.host_blocks, 9, "the host KV tier"),
-            ("--prefix_store", args.prefix_store, 9, "the prefix store"),
-            ("--demote_watermark", args.demote_watermark, 9,
-             "the demotion daemon"),
             ("--mesh", args.mesh, 8, "a replica mesh"),
             ("--follow", args.follow, 10, "follow mode (the fleet swap)")):
         if val:
@@ -172,11 +166,49 @@ def serve_conf(args: argparse.Namespace) -> TonyConfig:
         try:
             target = float(args.slo_target_ms)
         except ValueError:
-            _refuse("--slo_target_ms", 9, "per-tenant SLO targets")
+            _refuse("--slo_target_ms", 10, "per-tenant SLO targets")
         if target < 0:
             raise SystemExit(f"--slo_target_ms must be >= 0, got {target}")
         if target:
             cfg.set(conf_mod.SERVE_SLO_TARGET_MS, str(target))
+    # The KV memory hierarchy and the tenants, validated at submit (the
+    # replica would refuse a bad value at launch, replica by replica;
+    # the store path is made absolute: replicas run with another cwd).
+    if args.host_blocks < 0:
+        raise SystemExit(f"--host_blocks must be >= 0, got "
+                         f"{args.host_blocks}")
+    if args.host_blocks:
+        cfg.set(conf_mod.SERVE_HOST_BLOCKS, str(args.host_blocks))
+    if args.prefix_store:
+        cfg.set(conf_mod.SERVE_PREFIX_STORE,
+                str(Path(args.prefix_store).resolve()))
+    if not 0.0 <= args.demote_watermark <= 1.0:
+        raise SystemExit(f"--demote_watermark must be a pool fraction "
+                         f"in [0, 1], got {args.demote_watermark}")
+    if args.demote_watermark and not args.host_blocks:
+        raise SystemExit("--demote_watermark needs --host_blocks > 0 "
+                         "(the daemon demotes into the host tier; "
+                         "without one the flag would be silently "
+                         "ignored)")
+    if args.demote_watermark:
+        cfg.set(conf_mod.SERVE_DEMOTE_WATERMARK, str(args.demote_watermark))
+    if args.tenants:
+        from tony_tpu_torch.serve.qos import parse_tenants
+
+        try:
+            parse_tenants(args.tenants)
+        except ValueError as e:
+            raise SystemExit(f"--tenants: {e}")
+        cfg.set(conf_mod.SERVE_QOS_TENANTS, args.tenants)
+    if args.qos_max_queue < 0:
+        raise SystemExit(f"--qos_max_queue must be >= 0, got "
+                         f"{args.qos_max_queue}")
+    if args.qos_max_queue:
+        if not args.tenants:
+            raise SystemExit("--qos_max_queue needs --tenants (the cap "
+                             "is per tenant class; without a spec it "
+                             "would be silently ignored)")
+        cfg.set(conf_mod.SERVE_QOS_MAX_QUEUE, str(args.qos_max_queue))
     if args.prefix_cache:
         cfg.set(conf_mod.SERVE_PREFIX_CACHE, "true")
     if args.prefill_chunk:
@@ -434,16 +466,31 @@ def make_parser() -> argparse.ArgumentParser:
                          "role becomes its own jobtype and the router "
                          "ships KV blocks prefill -> decode over the RPC "
                          "wire; omit for the colocated fleet")
-    # The reference's flags for lanes the port's replica does not serve:
-    # accepted so that using one names its ROADMAP item.
-    sv.add_argument("--tenants", default=None, help=argparse.SUPPRESS)
-    sv.add_argument("--qos_max_queue", type=int, default=0,
-                    help=argparse.SUPPRESS)
     sv.add_argument("--host_blocks", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    sv.add_argument("--prefix_store", default=None, help=argparse.SUPPRESS)
+                    help="host-RAM KV tier size in blocks (0 = off): "
+                         "cold published stems demote to the host "
+                         "instead of being dropped, and conversations "
+                         "park between turns, so a resumed turn "
+                         "prefills only its new tail")
+    sv.add_argument("--prefix_store", default=None, metavar="DIR",
+                    help="persisted prefix store directory: hot stems "
+                         "commit to disk by stage and rename, and a "
+                         "fresh replica adopts them on start")
     sv.add_argument("--demote_watermark", type=float, default=0.0,
-                    help=argparse.SUPPRESS)
+                    help="pool occupancy fraction above which each "
+                         "engine step demotes cold KV blocks into the "
+                         "--host_blocks tier (0 = off)")
+    sv.add_argument("--tenants", default=None, metavar="NAME:W[,NAME:W...]",
+                    help="tenant classes with weighted-fair KV-block "
+                         "budgets, e.g. gold:3,silver:1 (a bare name "
+                         "weighs 1); absent, serving is the untagged "
+                         "fleet's")
+    sv.add_argument("--qos_max_queue", type=int, default=0,
+                    help="per-tenant queue cap: past it a tenant's "
+                         "submits get retryable back-pressure (0 = "
+                         "unbounded; needs --tenants)")
+    # The reference's flags for lanes the port does not serve: accepted
+    # so that using one names its ROADMAP item.
     sv.add_argument("--mesh", default=None, help=argparse.SUPPRESS)
     sv.add_argument("--follow", default=None, help=argparse.SUPPRESS)
     sv.add_argument("--conf_file", help="tony.xml / JSON job config")

@@ -579,8 +579,12 @@ def _for_mma(x: torch.Tensor, d8: int) -> torch.Tensor:
 def _launch(lib, fn_name, counter, args, dims, tensors):
     strides = (ctypes.c_int64 * (4 * len(tensors)))(
         *[s for x in tensors for s in x.stride()])
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    rc = getattr(lib, fn_name)(*args, *dims, strides, stream)
+    dev = tensors[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # The launch goes to the calling thread's current device: make it the
+    # tensors'.
+    with torch.cuda.device(dev):
+        rc = getattr(lib, fn_name)(*args, *dims, strides, stream)
     if rc != 0:
         raise RuntimeError(
             f"{counter} kernel launch failed: cuda error {rc} "

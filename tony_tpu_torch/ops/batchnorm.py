@@ -219,10 +219,13 @@ def _reduce_cuda(mode, relu, x2d, dy, res2d, chans, eps, name):
     ptrs = [0 if t is None else t.data_ptr() for t in (x2d, dy, res2d)]
     ptrs += [t.data_ptr() for t in chans] if chans else [0] * 4
     lib = _lib()
-    rc = lib.bn_reduce_launch(
-        _MODE[mode], int(relu), _DTYPE_CODES[x2d.dtype], geo[0], *ptrs, eps,
-        m, c, *geo[1:], ws.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+    # Each launch goes to the calling thread's current device: make it
+    # the tensors'.
+    with torch.cuda.device(x2d.device):
+        rc = lib.bn_reduce_launch(
+            _MODE[mode], int(relu), _DTYPE_CODES[x2d.dtype], geo[0], *ptrs,
+            eps, m, c, *geo[1:], ws.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(x2d.device).cuda_stream)
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return out
@@ -239,12 +242,13 @@ def _apply_cuda(x2d, mean, var, gamma, beta, res2d, eps, relu):
     out = torch.empty_like(x2d)
     vec, *geo = _geometry(m, c, rows_2d + [out], x2d.device)
     lib = _lib()
-    rc = lib.bn_apply_launch(
-        int(res2d is not None), int(relu), _DTYPE_CODES[x2d.dtype], vec,
-        x2d.data_ptr(), 0 if res2d is None else res2d.data_ptr(),
-        mean.data_ptr(), var.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        eps, m, c, *geo, out.data_ptr(),
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+    with torch.cuda.device(x2d.device):
+        rc = lib.bn_apply_launch(
+            int(res2d is not None), int(relu), _DTYPE_CODES[x2d.dtype], vec,
+            x2d.data_ptr(), 0 if res2d is None else res2d.data_ptr(),
+            mean.data_ptr(), var.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), eps, m, c, *geo, out.data_ptr(),
+            torch.cuda.current_stream(x2d.device).cuda_stream)
     _raise_on(lib, rc, "bn_apply")
     LAUNCHES["bn_apply"] += 1
     return out
@@ -272,14 +276,15 @@ def _bwd_dx_cuda(dy, x2d, mean, var, gamma, beta, red, res2d, eps, relu,
     vec, *geo = _geometry(
         m, c, rows_2d + [t for t in (dx, dres) if t is not None], x2d.device)
     lib = _lib()
-    rc = lib.bn_dx_launch(
-        int(res2d is not None), int(relu), _DTYPE_CODES[x2d.dtype], vec,
-        dy.data_ptr(), x2d.data_ptr(),
-        0 if res2d is None else res2d.data_ptr(), mean.data_ptr(),
-        var.data_ptr(), gamma.data_ptr(), beta.data_ptr(), red.data_ptr(),
-        eps, minv, m, c, *geo, dx.data_ptr(),
-        0 if dres is None else dres.data_ptr(),
-        torch.cuda.current_stream(x2d.device).cuda_stream)
+    with torch.cuda.device(x2d.device):
+        rc = lib.bn_dx_launch(
+            int(res2d is not None), int(relu), _DTYPE_CODES[x2d.dtype], vec,
+            dy.data_ptr(), x2d.data_ptr(),
+            0 if res2d is None else res2d.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            red.data_ptr(), eps, minv, m, c, *geo, dx.data_ptr(),
+            0 if dres is None else dres.data_ptr(),
+            torch.cuda.current_stream(x2d.device).cuda_stream)
     _raise_on(lib, rc, name)
     LAUNCHES[name] += 1
     return dx, dres

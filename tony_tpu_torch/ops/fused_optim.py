@@ -172,12 +172,15 @@ def _update_cuda(g, p, slots, scal, rule, hyper):
     lib = _lib()
     ptrs = [s.data_ptr() for s in slots] + [0] * (2 - len(slots))
     wd = hyper["weight_decay"]
-    rc = lib.fused_optim_launch(
-        _RULE_CODES[rule], _DTYPE_CODES[p.dtype], g.data_ptr(), p.data_ptr(),
-        ptrs[0], ptrs[1], scal.data_ptr(), n, hyper["b1"], hyper["b2"],
-        1 - hyper["b1"], 1 - hyper["b2"], hyper["eps"], wd,
-        hyper["momentum"], int(bool(wd)),
-        torch.cuda.current_stream(dev).cuda_stream)
+    # The launch goes to the calling thread's current device: make it the
+    # tensors'.
+    with torch.cuda.device(dev):
+        rc = lib.fused_optim_launch(
+            _RULE_CODES[rule], _DTYPE_CODES[p.dtype], g.data_ptr(),
+            p.data_ptr(), ptrs[0], ptrs[1], scal.data_ptr(), n, hyper["b1"],
+            hyper["b2"], 1 - hyper["b1"], 1 - hyper["b2"], hyper["eps"], wd,
+            hyper["momentum"], int(bool(wd)),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"fused_bucket_update kernel launch failed: cuda error {rc} "

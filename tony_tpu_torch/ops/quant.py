@@ -292,16 +292,19 @@ def _int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     else:
         ws = None
         out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if plan.path == "wgmma":
-        rc = lib.int8_matmul_wgmma_launch(
-            pa, pb, sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), m, n, k, lda, ldb,
-            _TILE_CODE[plan.tile], plan.splits, plan.cps, plan.grid,
-            stream)
-    else:
-        rc = lib.int8_matmul_launch(pa, pb, sx.data_ptr(), sw.data_ptr(),
-                                    out.data_ptr(), m, n, k, lda, ldb, n,
-                                    stream)
+    # The launch goes to the calling thread's current device: make it the
+    # tensors'.
+    with torch.cuda.device(index):
+        if plan.path == "wgmma":
+            rc = lib.int8_matmul_wgmma_launch(
+                pa, pb, sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), m, n, k, lda, ldb,
+                _TILE_CODE[plan.tile], plan.splits, plan.cps, plan.grid,
+                stream)
+        else:
+            rc = lib.int8_matmul_launch(pa, pb, sx.data_ptr(),
+                                        sw.data_ptr(), out.data_ptr(), m, n,
+                                        k, lda, ldb, n, stream)
     if rc != 0:
         raise RuntimeError(
             f"int8_matmul kernel launch failed: cuda error {rc} "

@@ -2,14 +2,20 @@
 :mod:`tony_tpu.serve`.
 
 * :mod:`~tony_tpu_torch.serve.kvcache` — the paged KV cache: a block
-  pool with per-sequence block tables and typed admission errors, and
-  its wire tier (``export_blocks``/``import_blocks``);
+  pool with per-sequence block tables and typed admission errors, its
+  wire tier (``export_blocks``/``import_blocks``) and its host tier
+  (demotion and promotion of stems, parked conversations);
+* :mod:`~tony_tpu_torch.serve.kvstore` — the persisted prefix store
+  (standard library only): hot stems on disk by stage and rename;
+* :mod:`~tony_tpu_torch.serve.qos` — tenant classes and their
+  weighted-fair block budgets (standard library only);
 * :mod:`~tony_tpu_torch.serve.prefix` — the chain keys of the prefix
   cache, byte-identical to the JAX package's;
 * :mod:`~tony_tpu_torch.serve.engine` — the continuous-batching loop and
   its thread-safe :class:`EngineFront`, with attention in the
   hand-written flash-decode kernel, the prefix-cache and chunked-prefill
-  lanes, the prefill-only and handoff-admission entry points, the stats
+  lanes, conversation parking, the demotion daemon, the tenant budgets,
+  the prefill-only and handoff-admission entry points, the stats
   heartbeat and the in-place weight swap;
 * :mod:`~tony_tpu_torch.serve.spec` — speculative decoding: the n-gram
   and model drafts and :class:`SpecEngine`'s one-launch verify;
@@ -27,9 +33,8 @@
 * :mod:`~tony_tpu_torch.serve.swap` — :class:`SwapError` and
   :func:`resolve_target`, the replica's half of the hot swap.
 
-Still to port (ROADMAP.md): the host-tier, prefix-store and QoS lanes
-(item 9); a serve mesh (item 8); the autoscaler and fleet swap
-controller (item 10).
+Still to port (ROADMAP.md): a serve mesh (item 8); the autoscaler, its
+per-tenant SLO targets and the fleet swap controller (item 10).
 
 A lazy facade (PEP 562, as the reference's): the engine imports torch,
 and the router and the handoff's error type are imported on gateway
@@ -41,6 +46,8 @@ from typing import Any
 # name -> owning submodule (None: the name is a submodule).
 _LAZY = {
     "AdmissionError": "kvcache", "PagedKVCache": "kvcache",
+    "PrefixStore": "kvstore", "QosPolicy": "qos",
+    "parse_tenants": "qos",
     "Completion": "engine", "EngineFront": "engine",
     "PagedModelRunner": "engine", "Request": "engine",
     "ServeEngine": "engine", "build_step_fn": "engine",
@@ -50,7 +57,8 @@ _LAZY = {
     "HandoffError": "disagg", "KVShipper": "disagg",
     "PrefillFront": "disagg", "DecodeFront": "disagg",
     "Replica": "replica", "SwapError": "swap", "resolve_target": "swap",
-    "disagg": None, "engine": None, "kvcache": None, "prefix": None,
+    "disagg": None, "engine": None, "kvcache": None, "kvstore": None,
+    "prefix": None, "qos": None,
     "replica": None, "router": None, "spec": None, "swap": None,
 }
 __all__ = sorted(_LAZY)

@@ -27,6 +27,24 @@ is then the plain one):
   ``q_block`` multiple), one chunk per engine iteration, interleaved
   with decode.
 
+Three more lanes ride admission and eviction, each off by default:
+
+* ``host_blocks=N`` — the KV memory hierarchy: a host tier of ``N``
+  blocks (:mod:`tony_tpu_torch.serve.kvcache`). A request tagged with a
+  conversation handle (``conv``) is PARKED at eviction (its KV copied to
+  the host, its device blocks freed), and the conversation's next turn
+  resumes from the parked blocks, prefilling only its new tail. With the
+  prefix cache on, a demoted stretch of a prompt's chain is promoted
+  back before the match, and ``demote_watermark`` arms the demotion
+  daemon: above that pool fraction each step demotes ``demote_batch``
+  cold cached-tier blocks to the host ahead of need;
+* :meth:`ServeEngine.export_stems` / :meth:`ServeEngine.adopt_stem` —
+  the persisted prefix store (:mod:`tony_tpu_torch.serve.kvstore`);
+* ``qos=`` — per-tenant weighted-fair block budgets
+  (:mod:`tony_tpu_torch.serve.qos`): the admission scan defers a
+  request whose tenant is over its budget, and admits later tenants'
+  requests past it.
+
 The speculative lane is :class:`tony_tpu_torch.serve.spec.SpecEngine`.
 Disaggregated serving (:mod:`tony_tpu_torch.serve.disagg`) adds two
 entry points beside :meth:`ServeEngine.submit`: a prefill-role engine's
@@ -60,13 +78,14 @@ default engine runs it eagerly.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import threading
 import time
 import uuid
-from collections import deque
+from collections import OrderedDict, deque
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple, Union)
 
@@ -77,12 +96,9 @@ import torch.nn.functional as F
 from tony_tpu_torch import profiler, resolve_device
 from tony_tpu_torch.serve import prefix as prefix_mod
 from tony_tpu_torch.serve.disagg import HandoffError, decode_f32, encode_f32
-from tony_tpu_torch.serve.kvcache import AdmissionError, PagedKVCache
+from tony_tpu_torch.serve.kvcache import (AdmissionError, PagedKVCache,
+                                          encode_blocks)
 from tony_tpu_torch.serve.swap import SwapError
-
-# Where the lanes of the reference's engine that the port has not ported
-# yet are tracked.
-_LANES_LATER = "ROADMAP.md, queue 1 item 9"
 
 
 @dataclasses.dataclass
@@ -93,22 +109,13 @@ class Request:
     rid: Any
     tokens: List[int]
     max_new_tokens: int
-    # The reference's conversation handle (host-tier parking) and QoS
-    # tenant: lanes not ported yet, so the engine refuses a value other
-    # than None where a request enters.
+    # Conversation handle: a host-tier engine parks the request's KV
+    # under it at eviction and resumes the conversation's next turn from
+    # it (ignored without a host tier).
     conv: Optional[Any] = None
+    # Tenant tag: the request's QoS class on a budget-armed engine and
+    # the key of the per-tenant heartbeat breakdown.
     tenant: Optional[str] = None
-
-
-def _refuse_tags(what: str, conv: Any, tenant: Any) -> None:
-    """``NotImplementedError`` naming the ROADMAP item for a request
-    tagged for a lane not ported yet (``conv``: the host tier's
-    conversation handle, ``tenant``: the QoS class)."""
-    for name, value in (("conv", conv), ("tenant", tenant)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{what}({name}=...) needs a serving lane that is not "
-                f"ported yet ({_LANES_LATER})")
 
 
 @dataclasses.dataclass
@@ -130,7 +137,8 @@ class Completion:
 
 class _Seq:
     __slots__ = ("rid", "tokens", "n_prompt", "remaining", "logits",
-                 "t_submit", "t_first", "pf_pos", "published", "hkey")
+                 "t_submit", "t_first", "pf_pos", "published", "hkey",
+                 "conv", "tenant", "qcharge")
 
     def __init__(self, req: Request, t_submit: float):
         self.rid = req.rid
@@ -147,6 +155,11 @@ class _Seq:
         # key of the last one (the next block's chain prior).
         self.published = 0
         self.hkey = ""
+        self.conv = req.conv
+        self.tenant = req.tenant
+        # Device blocks charged to the tenant at admission (QoS armed),
+        # released at eviction.
+        self.qcharge = 0
 
 
 def _bucket_of(buckets: Sequence[int], n: int) -> int:
@@ -324,7 +337,9 @@ class PagedModelRunner:
                     max_running: int, n_blocks: Optional[int],
                     device: Optional[Union[str, torch.device]],
                     aot_cache: Optional[Any] = None,
-                    kernel_dir: Optional[str] = None) -> None:
+                    kernel_dir: Optional[str] = None,
+                    host_blocks: int = 0,
+                    async_offload: bool = False) -> None:
         cfg = model.cfg
         if q_block % 8:
             raise ValueError(f"q_block must be a multiple of 8, got "
@@ -358,7 +373,9 @@ class PagedModelRunner:
         self.cache = PagedKVCache(self.n_layers, self.kv_dim,
                                   n_blocks=n_blocks,
                                   block_size=self.block_size,
-                                  dtype=cfg.dtype, device=model_dev)
+                                  dtype=cfg.dtype, host_blocks=host_blocks,
+                                  async_offload=async_offload,
+                                  device=model_dev)
         self._fns: Dict[tuple, Callable] = {}
         self._inputs: Dict[Tuple[int, int], _StepInputs] = {}
         # Cold-start plane (class docstring): the resolved steps, in a
@@ -577,7 +594,10 @@ class ServeEngine(PagedModelRunner):
     admission lanes (module docstring). ``aot_cache``, ``kernel_dir``
     and :meth:`warm` arm the cold-start plane (:class:`PagedModelRunner`);
     ``warm_standby`` starts the engine as a warm standby, which
-    :meth:`promote` ends.
+    :meth:`promote` ends. ``host_blocks``, ``async_offload``,
+    ``demote_watermark``, ``demote_batch`` and ``qos`` arm the host tier,
+    its encode thread, the demotion daemon and the tenant budgets (module
+    docstring).
     """
 
     def __init__(self, model: Any, *, ctx_max: int, block_size: int = 16,
@@ -591,7 +611,10 @@ class ServeEngine(PagedModelRunner):
                  aot_cache: Optional[Any] = None,
                  warm_standby: bool = False,
                  kernel_dir: Optional[str] = None,
-                 role: str = "colocated",
+                 role: str = "colocated", host_blocks: int = 0,
+                 async_offload: bool = False,
+                 demote_watermark: float = 0.0, demote_batch: int = 0,
+                 qos: Optional[Any] = None,
                  device: Optional[Union[str, torch.device]] = None):
         if join_policy not in ("continuous", "static"):
             raise ValueError(f"unknown join_policy {join_policy!r} "
@@ -599,11 +622,15 @@ class ServeEngine(PagedModelRunner):
         if role not in ("colocated", "prefill", "decode"):
             raise ValueError(f"unknown role {role!r} "
                              "(colocated|prefill|decode)")
+        if not 0.0 <= float(demote_watermark) <= 1.0:
+            raise ValueError(f"demote_watermark must be a pool fraction "
+                             f"in [0, 1], got {demote_watermark}")
         self._init_paged(model, ctx_max=ctx_max, block_size=block_size,
                          q_block=q_block, decode_buckets=decode_buckets,
                          max_running=max_running, n_blocks=n_blocks,
                          device=device, aot_cache=aot_cache,
-                         kernel_dir=kernel_dir)
+                         kernel_dir=kernel_dir, host_blocks=host_blocks,
+                         async_offload=async_offload)
         # Warm-standby membership (the cold-start plane's pool half): a
         # standby is resolved and idle; it heartbeats warm_standby=1 so
         # the session keeps it out of the routable endpoints until the
@@ -629,9 +656,43 @@ class ServeEngine(PagedModelRunner):
         self.imports_failed = 0
         self.handoffs_out = 0
         self.handoffs_in = 0
+        # KV memory hierarchy (module docstring). _parked maps a
+        # conversation handle to {"tokens": the parked token history,
+        # "rid": the parked cache record's id}.
+        self.host_offload = host_blocks > 0
+        self.demote_watermark = float(demote_watermark)
+        # One context extent a sweep by default: a demotion is one
+        # batched device-to-host copy, so the batch sizes the transfer.
+        self.demote_batch = int(demote_batch) or self.nb_max
+        self.daemon_demotions = 0
+        self._parked: Dict[Any, Dict[str, Any]] = {}
+        self.park_hits = 0
+        self.park_lookups = 0
+        # Promotions and resumes that fell back to a re-prefill (pool
+        # pressure or a corrupt host payload): the hierarchy may cost
+        # recompute, never a wedge or a wrong byte.
+        self.host_degraded = 0
+        # Prefix-store bookkeeping: chain-parent links (to walk a hot tip
+        # back to its root) and the most recently adopted tips (the
+        # export candidates).
+        self._chain_parent: "OrderedDict[str, str]" = OrderedDict()
+        self._hot_tips: "OrderedDict[str, None]" = OrderedDict()
+        self._stored_tips: set = set()
+        self.store_adopted = 0
+        # Tenant budgets (a QosPolicy; None = off, the untagged path).
+        # The policy gates the admission scan only: the pool never sees
+        # tenants. Device blocks reserved a tenant (released at
+        # eviction) and lifetime completions a tenant.
+        self.qos = qos
+        self._tenant_blocks: Dict[str, int] = {}
+        self._tenant_completed: Dict[str, int] = {}
+        self._tenant_deferrals: Dict[str, int] = {}
+        self.admission_rejections = 0
+        self.qos_deferrals = 0
         self.keep_logits = keep_logits
         self.join_policy = join_policy
         self._queue: deque = deque()
+        self._joining: Any = None     # the rid between queue and lists
         self._lock = threading.Lock()
         self._running: List[_Seq] = []
         # Chunk-prefilling sequences, oldest first.
@@ -643,7 +704,7 @@ class ServeEngine(PagedModelRunner):
         self.prefill_rows = 0
         self.prefill_chunks = 0
         # Telemetry over a time window: (t_done, latency_s, n_tokens,
-        # ttft_s) per completion and (t_end, step_s) per step.
+        # ttft_s, tenant) per completion and (t_end, step_s) per step.
         self._events: deque = deque(maxlen=512)
         self._step_times: deque = deque(maxlen=512)
         self.stats_window_s = float(stats_window_s)
@@ -670,9 +731,11 @@ class ServeEngine(PagedModelRunner):
         """Queue a request (thread-safe). Requests that can NEVER fit
         the context buffer or the pool are rejected now with a
         non-retryable :class:`AdmissionError`; pool pressure is handled
-        at join time by leaving the request queued. A request tagged for
-        a lane not ported (``conv``, ``tenant``) raises."""
-        _refuse_tags("submit", req.conv, req.tenant)
+        at join time by leaving the request queued. A rid that is live
+        here (queued, prefilling or running) raises ``ValueError``: a
+        second sequence under one rid would tear the front's rid-keyed
+        completions. With a QoS queue cap, a tenant whose pending queue
+        is full gets a retryable :class:`AdmissionError`."""
         total = len(req.tokens) + req.max_new_tokens
         if not req.tokens:
             raise ValueError(f"request {req.rid!r}: empty prompt")
@@ -686,7 +749,32 @@ class ServeEngine(PagedModelRunner):
                 needed_blocks=needed,
                 free_blocks=self.cache.free_blocks, retryable=False)
         with self._lock:
+            if req.rid in self._live_rids():
+                raise ValueError(
+                    f"request rid {req.rid!r} is live on this engine — a "
+                    f"rid names one request until it completes")
+            tenant = req.tenant
+            if self.qos is not None and tenant is not None \
+                    and self.qos.max_queue:
+                depth = sum(1 for r, _ in self._queue if r.tenant == tenant)
+                if depth >= self.qos.max_queue:
+                    # Back-pressure to the bursting tenant only.
+                    self.admission_rejections += 1
+                    raise AdmissionError(
+                        f"request {req.rid!r}: tenant {tenant!r} queue "
+                        f"full ({depth}/{self.qos.max_queue} pending)",
+                        needed_blocks=needed,
+                        free_blocks=self.cache.free_blocks)
             self._queue.append((req, time.monotonic()))
+
+    def _live_rids(self) -> set:
+        """Rids queued, joining (out of the queue, in its first
+        prefill), prefilling or running (the caller holds the lock; the
+        pool's tables are the drive thread's alone)."""
+        return ({r.rid for r, _ in self._queue}
+                | {s.rid for s in self._running}
+                | {s.rid for s in self._prefilling}
+                | ({self._joining} if self._joining is not None else set()))
 
     @property
     def queue_depth(self) -> int:
@@ -765,8 +853,32 @@ class ServeEngine(PagedModelRunner):
             key = prefix_mod.chain_keys(
                 seq.tokens[i * bs:(i + 1) * bs], bs, prior=seq.hkey)[0]
             self.cache.publish_block(seq.rid, i, key)
+            self._note_parent(key, seq.hkey)
             seq.hkey = key
             seq.published += 1
+
+    def _note_parent(self, key: str, prior: str) -> None:
+        """Record one chain link (bounded), so a hot tip can be walked
+        back to its root when the prefix store exports the stem."""
+        self._chain_parent[key] = prior
+        self._chain_parent.move_to_end(key)
+        while len(self._chain_parent) > 4096:
+            self._chain_parent.popitem(last=False)
+
+    def _note_parents(self, keys: Sequence[str]) -> None:
+        for i, key in enumerate(keys):
+            self._note_parent(key, keys[i - 1] if i else "")
+
+    def _note_chain(self, keys: Sequence[str], matched: int) -> None:
+        """An adoption proved blocks shared: remember the links and mark
+        the adopted tip hot (the prefix store exports the hottest tips,
+        the stems a second prompt reused)."""
+        self._note_parents(keys[:matched])
+        tip = keys[matched - 1]
+        self._hot_tips[tip] = None
+        self._hot_tips.move_to_end(tip)
+        while len(self._hot_tips) > 64:
+            self._hot_tips.popitem(last=False)
 
     # -- decode ------------------------------------------------------------
 
@@ -804,19 +916,36 @@ class ServeEngine(PagedModelRunner):
 
     # -- scheduling --------------------------------------------------------
     def _admit(self, req: Request, total: Optional[int] = None
-               ) -> Tuple[int, Sequence[str]]:
+               ) -> Tuple[int, int, Sequence[str]]:
         """Reserve the request's full extent (``total`` positions when
-        given: the prefill-only mode reserves the prompt alone), adopting
-        published prefix blocks first; returns the blocks adopted and
-        the prompt's chain keys (so publication never rehashes them).
-        Raises :class:`AdmissionError` with the cache unchanged on pool
-        pressure, so a queued request retries whole."""
+        given: the prefill-only mode reserves the prompt alone): resumed
+        from its conversation's parked KV where it can be, else adopting
+        published prefix blocks first. Returns ``(start, matched,
+        keys)``: the prefill start (past the resumed or adopted extent),
+        the blocks adopted and the prompt's chain keys (so publication
+        never rehashes them). Raises :class:`AdmissionError` with the
+        cache unchanged on pool pressure, so a queued request retries
+        whole."""
         if total is None:
             total = len(req.tokens) + req.max_new_tokens
+        if self.host_offload and req.conv is not None:
+            res = self._try_resume(req, total)
+            if res is not None:
+                return res
         if not self.prefix_cache:
             self.cache.reserve(req.rid, total)
-            return 0, ()
+            return 0, 0, ()
         keys = prefix_mod.chain_keys(req.tokens, self.block_size)
+        if self.host_offload:
+            # Re-stage a demoted stretch of this chain before the match,
+            # so the admission adopts it like any published stem. A
+            # corrupt host payload falls back to recompute (the poison
+            # entry dropped), never an error.
+            try:
+                self.cache.promote(keys)
+            except HandoffError:
+                self.cache.discard_host(keys)
+                self.host_degraded += 1
         matched = self.cache.admit_shared(req.rid, total, keys)
         if matched * self.block_size >= len(req.tokens):
             # Full cover: the last prompt row still recomputes (its
@@ -835,7 +964,87 @@ class ServeEngine(PagedModelRunner):
         # must not skew the hit rate.
         self.prefix_lookup_blocks += len(keys)
         self.prefix_hit_blocks += matched
-        return matched, keys
+        if matched:
+            self._note_chain(keys, matched)
+        return (min(matched * self.block_size, len(req.tokens) - 1),
+                matched, keys)
+
+    def _park_keys(self, tokens: Sequence[int], length: int) -> List[str]:
+        """Chain keys of the FULL blocks inside ``tokens[:length]``: a
+        parked record's adoption probe at resume (a partial tail block
+        is keyless, as on the wire)."""
+        bs = self.block_size
+        return prefix_mod.chain_keys(list(tokens)[:(int(length) // bs) * bs],
+                                     bs)
+
+    def _park(self, seq: _Seq) -> bool:
+        """Park ``seq``'s KV under its conversation handle instead of
+        freeing it. The parked extent is ``len(tokens) - 1``: every row
+        below the newest token is verified-written (the last emitted
+        token's row is never computed), the bound :meth:`_publish`
+        trusts. A re-park of the conversation drops its stale turn
+        first; a full host tier returns False (state unchanged) and the
+        eviction frees plainly."""
+        length = len(seq.tokens) - 1
+        if length <= 0:
+            return False
+        old = self._parked.pop(seq.conv, None)
+        if old is not None:
+            self.cache.unpark(old["rid"])
+        try:
+            self.cache.park(seq.rid, length,
+                            keys=self._park_keys(seq.tokens, length))
+        except AdmissionError:
+            return False
+        self._parked[seq.conv] = {"tokens": list(seq.tokens),
+                                  "rid": seq.rid}
+        return True
+
+    def _try_resume(self, req: Request, total: int
+                    ) -> Optional[Tuple[int, int, Sequence[str]]]:
+        """Resume ``req`` from its conversation's parked KV: adopt what
+        is still on the device, re-stage the rest from the host
+        payloads, and start the prefill cursor at the parked extent (the
+        shared history's launches are never issued; the rows from the
+        cursor on compute what a full prefill computes there, as a
+        chunked prefill's split does). ``None`` falls through to a fresh
+        admission: no parked record, a turn that does not extend the
+        parked history (the record is dropped), or a typed resume
+        failure (pool pressure or host corruption: counted in
+        ``host_degraded``, the record dropped, the turn re-prefills)."""
+        self.park_lookups += 1
+        rec = self._parked.get(req.conv)
+        if rec is None:
+            return None
+        ptoks = rec["tokens"]
+        length = len(ptoks) - 1
+        if list(req.tokens)[:len(ptoks)] != ptoks:
+            # An edited or truncated conversation: no later turn can
+            # resume this record either.
+            self._parked.pop(req.conv, None)
+            self.cache.unpark(rec["rid"])
+            return None
+        try:
+            self.cache.resume(req.rid, total, rec["rid"])
+        except (AdmissionError, HandoffError):
+            self._parked.pop(req.conv, None)
+            self.cache.unpark(rec["rid"])
+            self.host_degraded += 1
+            return None
+        self._parked.pop(req.conv, None)
+        self.park_hits += 1
+        keys = self._park_keys(ptoks, length)
+        if self.prefix_cache and keys:
+            # The resumed blocks hold verified rows: index them so other
+            # prompts adopt the shared history, and start publication
+            # past them.
+            for i, key in enumerate(keys):
+                self.cache.publish_block(req.rid, i, key)
+            self._note_parents(keys)
+            self.prefix_lookup_blocks += len(keys)
+            self.prefix_hit_blocks += len(keys)
+            return length, len(keys), keys
+        return length, 0, ()
 
     def _join(self, results: List[Completion]) -> None:
         # Hot-swap quiesce: admission pauses while a swap drains the
@@ -846,40 +1055,97 @@ class ServeEngine(PagedModelRunner):
         if self.join_policy == "static" and (self._running
                                              or self._prefilling):
             return
+        blocked: set = set()          # tenants deferred this join
         while len(self._running) + len(self._prefilling) \
                 < self.max_running:
             with self._lock:
                 if not self._queue:
                     return
-                req, t_submit = self._queue[0]
+                if self.qos is None:
+                    i, (req, t_submit) = 0, self._queue[0]
+                else:
+                    picked = self._pick_qos(blocked)
+                    if picked is None:
+                        return             # every waiter is over budget
+                    i, (req, t_submit) = picked
             try:
-                matched, keys = self._admit(req)
+                admitted = self._admit(req)
             except AdmissionError:
                 return                      # pool pressure: stay queued
+            seq = self._start(req, t_submit, *admitted)
             with self._lock:
-                self._queue.popleft()
-            seq = self._start(req, t_submit, matched, keys)
-            if self.prefill_chunk is not None:
-                self._prefilling.append(seq)
-                continue
-            self._prefill(seq)
-            if seq.remaining <= 0:          # max_new_tokens == 1
-                self._evict(seq, results)
-            else:
-                self._running.append(seq)
+                # Slot i is still req's: submit only appends, and this
+                # drive thread is the only popper. The rid stays live
+                # (``_joining``) until the sequence is in a list.
+                del self._queue[i]
+                self._joining = req.rid
+                if self.qos is not None and req.tenant is not None:
+                    seq.qcharge = self.cache.blocks_for(
+                        len(req.tokens) + req.max_new_tokens)
+                    self._tenant_blocks[req.tenant] = \
+                        self._tenant_blocks.get(req.tenant, 0) \
+                        + seq.qcharge
+            try:
+                if self.prefill_chunk is not None:
+                    self._prefilling.append(seq)
+                    continue
+                self._prefill(seq)
+                if seq.remaining <= 0:          # max_new_tokens == 1
+                    self._evict(seq, results)
+                else:
+                    self._running.append(seq)
+            finally:
+                self._joining = None
 
-    def _start(self, req: Request, t_submit: float, matched: int,
-               keys: Sequence[str]) -> _Seq:
+    def _qos_active(self) -> set:
+        """The budget denominator's active tenants: those holding device
+        blocks or waiting in the queue (the caller holds the lock). An
+        idle tenant leaves the set and its share redistributes."""
+        active = {t for t, n in self._tenant_blocks.items() if n > 0}
+        active |= {r.tenant for r, _ in self._queue if r.tenant is not None}
+        return active
+
+    def _pick_qos(self, blocked: set
+                  ) -> Optional[Tuple[int, Tuple[Request, float]]]:
+        """The budget-armed admission scan (the caller holds the lock):
+        walk the queue first in, first out, DEFER a request whose tenant
+        is over its weighted-fair block budget (and, through ``blocked``,
+        every later request of that tenant in this join: per-tenant
+        order is kept), and return the first that fits with its slot.
+        Untagged requests bypass budgets. None when every waiter is over
+        budget."""
+        active = self._qos_active()
+        for i, (req, t_submit) in enumerate(self._queue):
+            tenant = req.tenant
+            if tenant is None:
+                return i, (req, t_submit)
+            if tenant in blocked:
+                continue
+            needed = self.cache.blocks_for(
+                len(req.tokens) + req.max_new_tokens)
+            budget = self.qos.budget(tenant, self.cache.n_blocks, active)
+            if self._tenant_blocks.get(tenant, 0) + needed > budget:
+                blocked.add(tenant)
+                self.qos_deferrals += 1
+                self._tenant_deferrals[tenant] = \
+                    self._tenant_deferrals.get(tenant, 0) + 1
+                continue
+            return i, (req, t_submit)
+        return None
+
+    def _start(self, req: Request, t_submit: float, start: int,
+               matched: int, keys: Sequence[str]) -> _Seq:
         """The admitted request's sequence: its padded prefill length
-        counted in the histogram and, past an adopted prefix, the
-        prefill and publication cursors moved beyond the adopted blocks
-        (indexed already)."""
+        counted in the histogram, the prefill cursor at ``start`` (past
+        a resumed or adopted extent) and, past an adopted prefix, the
+        publication cursor beyond the adopted blocks (indexed
+        already)."""
         t_pad = -(-len(req.tokens) // self.q_block) * self.q_block
         with self._lock:
             self._prompt_hist[t_pad] = self._prompt_hist.get(t_pad, 0) + 1
         seq = _Seq(req, t_submit)
+        seq.pf_pos = start
         if matched:
-            seq.pf_pos = min(matched * self.block_size, len(req.tokens) - 1)
             seq.published = matched
             seq.hkey = keys[matched - 1]
         return seq
@@ -899,12 +1165,27 @@ class ServeEngine(PagedModelRunner):
                 self._running.append(seq)
 
     def _evict(self, seq: _Seq, results: List[Completion]) -> None:
-        self.cache.free_seq(seq.rid)
+        # A host-tier engine parks a conversation-tagged turn's KV
+        # instead of dropping it (park frees the device blocks itself);
+        # a full host tier falls back to the plain free.
+        if not (self.host_offload and seq.conv is not None
+                and self._park(seq)):
+            self.cache.free_seq(seq.rid)
         now = time.monotonic()
         with self._lock:
             self._events.append((now, now - seq.t_submit,
                                  len(seq.tokens) - seq.n_prompt,
-                                 seq.t_first - seq.t_submit))
+                                 seq.t_first - seq.t_submit, seq.tenant))
+            if seq.tenant is not None:
+                if seq.qcharge:
+                    left = self._tenant_blocks.get(seq.tenant, 0) \
+                        - seq.qcharge
+                    if left > 0:
+                        self._tenant_blocks[seq.tenant] = left
+                    else:
+                        self._tenant_blocks.pop(seq.tenant, None)
+                self._tenant_completed[seq.tenant] = \
+                    self._tenant_completed.get(seq.tenant, 0) + 1
         self._completed += 1
         results.append(Completion(
             rid=seq.rid, prompt=seq.tokens[:seq.n_prompt],
@@ -930,6 +1211,14 @@ class ServeEngine(PagedModelRunner):
                 else:
                     still.append(s)
             self._running = still
+        # The demotion daemon (off unless a watermark armed it): above
+        # the watermark, demote one batch of cold cached-tier blocks to
+        # the host before the next admission needs them. Only refcount-0
+        # published blocks are taken, so no live sequence loses a row.
+        if self.demote_watermark > 0.0 and self.host_offload:
+            used = self.cache.n_blocks - self.cache.free_blocks
+            if used >= self.demote_watermark * self.cache.n_blocks:
+                self.daemon_demotions += self.cache.demote(self.demote_batch)
         t1 = time.monotonic()
         with self._lock:
             self._step_times.append((t1, t1 - t0))
@@ -958,7 +1247,6 @@ class ServeEngine(PagedModelRunner):
         The caller (:class:`~tony_tpu_torch.serve.disagg.PrefillFront`)
         holds the front's drive lock: every line here mutates the
         pool."""
-        _refuse_tags("prefill_only", req.conv, req.tenant)
         n = len(req.tokens)
         if not req.tokens:
             raise ValueError(f"request {req.rid!r}: empty prompt")
@@ -970,8 +1258,8 @@ class ServeEngine(PagedModelRunner):
                 f"pool {self.cache.n_blocks} blocks)",
                 needed_blocks=needed,
                 free_blocks=self.cache.free_blocks, retryable=False)
-        matched, keys = self._admit(req, total=n)
-        seq = self._start(req, time.monotonic(), matched, keys)
+        start, matched, keys = self._admit(req, total=n)
+        seq = self._start(req, time.monotonic(), start, matched, keys)
         if self.prefill_chunk is not None:
             while not self._prefill_chunk_step(seq):
                 pass
@@ -1006,7 +1294,7 @@ class ServeEngine(PagedModelRunner):
         now = time.monotonic()
         with self._lock:
             self._events.append((now, now - seq.t_submit, 1,
-                                 seq.t_first - seq.t_submit))
+                                 seq.t_first - seq.t_submit, seq.tenant))
         self._completed += 1
         return payload
 
@@ -1025,12 +1313,11 @@ class ServeEngine(PagedModelRunner):
         a malformed or corrupt payload, a rid already live here or chain
         keys that do not match the tokens raise
         :class:`~tony_tpu_torch.serve.disagg.HandoffError`; each counts in
-        ``imports_failed``. A payload tagged for a lane not ported
-        (``conv``, ``tenant``) raises ``NotImplementedError`` first. The
-        caller (:class:`~tony_tpu_torch.serve.disagg.DecodeFront`) holds
-        the front's drive lock."""
-        _refuse_tags("admit_handoff", payload.get("conv"),
-                     payload.get("tenant"))
+        ``imports_failed``. The payload's ``conv`` and ``tenant`` ride
+        into the sequence: a host-tier decode engine parks a handed-off
+        conversation at eviction. The caller
+        (:class:`~tony_tpu_torch.serve.disagg.DecodeFront`) holds the
+        front's drive lock."""
         try:
             try:
                 rid = payload["rid"]
@@ -1123,8 +1410,9 @@ class ServeEngine(PagedModelRunner):
             self.imports_failed += 1
             raise
         now = time.monotonic()
-        seq = _Seq(Request(rid=rid, tokens=tokens, max_new_tokens=max_new),
-                   now)
+        seq = _Seq(Request(rid=rid, tokens=tokens, max_new_tokens=max_new,
+                           conv=payload.get("conv"),
+                           tenant=payload.get("tenant")), now)
         seq.pf_pos = n                     # the prompt arrived computed
         seq.t_first = now                  # with its first token
         seq.tokens.append(first)
@@ -1137,6 +1425,7 @@ class ServeEngine(PagedModelRunner):
             # and publish only what decode computes from here.
             for i, key in enumerate(keys):
                 self.cache.publish_block(rid, i, key)
+            self._note_parents(keys)
             seq.published = len(keys)
             seq.hkey = keys[-1]
         self.handoffs_in += 1
@@ -1155,6 +1444,85 @@ class ServeEngine(PagedModelRunner):
         with self._lock:
             self.blocks_shipped += int(blocks)
             self.handoffs_out += 1
+
+    # -- persisted prefix store (tony_tpu_torch.serve.kvstore) --------------
+    def adopt_stem(self, keys: Sequence[str],
+                   blocks: Sequence[Dict[str, Any]]) -> int:
+        """Seed the prefix tier from a persisted stem (replica start):
+        import the chain's payloads through the check-then-commit path a
+        handoff rides, publish them, and release the scratch
+        reservation, so the blocks land refcount 0 in the cached tier
+        where a local stem would sit. Best effort: a corrupt block or
+        pool pressure adopts nothing (the replica warms by recompute),
+        never an error. Returns the blocks newly indexed."""
+        keys = [str(k) for k in keys]
+        if not self.prefix_cache or not keys or len(keys) != len(blocks):
+            return 0
+        matched = len(self.cache.match_prefix(keys))
+        if matched >= len(keys):
+            return 0
+        sid = ("stem", keys[-1])
+        try:
+            self.cache.import_blocks(sid, len(keys) * self.block_size,
+                                     list(blocks)[matched:], keys=keys,
+                                     offset=matched)
+        except (AdmissionError, HandoffError):
+            return 0
+        for i, key in enumerate(keys):
+            self.cache.publish_block(sid, i, key)
+        self.cache.free_seq(sid)
+        self._note_parents(keys)
+        self.store_adopted += len(keys) - matched
+        return len(keys) - matched
+
+    def export_stems(self, store: Any, limit: int = 8, *,
+                     lock: Any = None) -> int:
+        """Persist the hottest adopted stems (chains a SECOND prompt
+        proved shared) into ``store`` (a
+        :class:`~tony_tpu_torch.serve.kvstore.PrefixStore`), once a tip,
+        skipping chains whose blocks left the device index. Only the
+        choice of a chain and its one device-to-host fetch run under
+        ``lock`` (the front's drive lock; None when the caller holds
+        it): the base64 and CRC encode and the store's write run on the
+        fetched host copy after it is released, so serving stalls for
+        the fetch alone. Returns the stems written."""
+        guard = lock if lock is not None else contextlib.nullcontext()
+        with guard:
+            tips = [t for t in list(self._hot_tips)[-limit:]
+                    if t not in self._stored_tips]
+        wrote = 0
+        for tip in tips:
+            with guard:
+                chain = self._stem_chain(tip)
+                if chain is None:
+                    continue
+                raw = self.cache.fetch_keys(chain)
+                header = self.cache.wire_header()
+                swaps = self.weight_swaps
+            store.put(chain, encode_blocks(raw), header)
+            with guard:
+                # A swap in between flushed the bookkeeping: the tip is
+                # not this version's to mark.
+                if self.weight_swaps == swaps:
+                    self._stored_tips.add(tip)
+            wrote += 1
+        return wrote
+
+    def _stem_chain(self, tip: str) -> Optional[List[str]]:
+        """The chain of keys from the root to ``tip`` through the noted
+        parents, when all of it is still on the device (None when a
+        parent is unknown or a block aged out)."""
+        chain: List[str] = []
+        key = tip
+        while key:
+            chain.append(key)
+            key = self._chain_parent.get(key)
+            if key is None or len(chain) > self.cache.n_blocks:
+                return None
+        chain.reverse()
+        if len(self.cache.match_prefix(chain)) < len(chain):
+            return None                  # partly aged out: not exportable
+        return chain
 
     # -- the sequential reference ------------------------------------------
     def full_prefill_logits(self, tokens: Sequence[int]) -> np.ndarray:
@@ -1199,9 +1567,12 @@ class ServeEngine(PagedModelRunner):
         finished between them, as far back as the engine keeps them);
         queue depth; ``completed``/``steps``/``forwards`` as lifetime
         counters; the weight version, step and swap count and the swap
-        gate. Every key the control plane reads of the reference's engine
-        is here, at its idle value where the lane is not ported (the
-        uniform-schema rule). Recorded under ``"<tag>_stats"``."""
+        gate; the host tier's, the prefix store's and the QoS counters,
+        and ``tenants``, the per-tenant breakdown (qps, tokens/s, p99,
+        queued, blocks, completed, deferred) over the same window. Every
+        key the control plane reads of the reference's engine is here,
+        at its idle value where a lane is off (the uniform-schema rule).
+        Recorded under ``"<tag>_stats"``."""
         if t0 is None or t1 is None:
             t1 = time.monotonic()
             t0 = max(self._t0, t1 - self.stats_window_s)
@@ -1209,6 +1580,15 @@ class ServeEngine(PagedModelRunner):
             events = [e for e in self._events if t0 <= e[0] <= t1]
             steps = sorted(s for t, s in self._step_times if t0 <= t <= t1)
             prompt_hist = dict(self._prompt_hist)
+            tenant_blocks = dict(self._tenant_blocks)
+            tenant_completed = dict(self._tenant_completed)
+            tenant_deferrals = dict(self._tenant_deferrals)
+            tenant_queued: Dict[str, int] = {}
+            for r, _ in self._queue:
+                if r.tenant is not None:
+                    tenant_queued[r.tenant] = \
+                        tenant_queued.get(r.tenant, 0) + 1
+            rejections = self.admission_rejections
         lat = sorted(e[1] for e in events)
         ttft = sorted(e[3] for e in events)
         dt = max(1e-9, t1 - t0)
@@ -1217,6 +1597,27 @@ class ServeEngine(PagedModelRunner):
             if not vals:
                 return 0.0
             return vals[min(len(vals) - 1, int(p * (len(vals) - 1) + 0.5))]
+
+        per_lat: Dict[str, List[float]] = {}
+        per_tok: Dict[str, float] = {}
+        for e in events:
+            if e[4] is not None:
+                per_lat.setdefault(e[4], []).append(e[1])
+                per_tok[e[4]] = per_tok.get(e[4], 0.0) + e[2]
+        tenants: Dict[str, Dict[str, float]] = {}
+        for ten in sorted(set(per_lat) | set(tenant_blocks)
+                          | set(tenant_queued) | set(tenant_completed)
+                          | set(tenant_deferrals)):
+            lats = sorted(per_lat.get(ten, []))
+            tenants[ten] = {
+                "qps": len(lats) / dt,
+                "tokens_per_s": per_tok.get(ten, 0.0) / dt,
+                "p99_ms": 1e3 * pct(lats, 0.99),
+                "queued": float(tenant_queued.get(ten, 0)),
+                "blocks": float(tenant_blocks.get(ten, 0)),
+                "completed": float(tenant_completed.get(ten, 0)),
+                "deferred": float(tenant_deferrals.get(ten, 0)),
+            }
 
         stats: Dict[str, Any] = {
             "qps": len(events) / dt,
@@ -1253,7 +1654,21 @@ class ServeEngine(PagedModelRunner):
             "aot_misses": float(self.aot_misses),
             "compile_ms": float(self.compile_ms),
             "warm_standby": 1.0 if self.warm_standby else 0.0,
-            "daemon_demotions": 0.0,
+            # The KV memory hierarchy: zeros without the host tier.
+            # park_hit_rate is the share of conversation-tagged
+            # admissions that resumed from parked KV.
+            "host_blocks": float(self.cache.host_blocks_used),
+            "parked_seqs": float(len(self._parked)),
+            "demotions": float(self.cache.demoted_total),
+            "promotions": float(self.cache.promoted_total),
+            "park_hit_rate": (self.park_hits / self.park_lookups
+                              if self.park_lookups else 0.0),
+            "daemon_demotions": float(self.daemon_demotions),
+            # Tenant budgets: zeros and an empty dict on an untagged
+            # engine.
+            "admission_rejections": float(rejections),
+            "qos_deferrals": float(self.qos_deferrals),
+            "tenants": tenants,
             "weight_version": float(self.weight_version),
             "weight_step": float(self.weight_step),
             "weight_swaps": float(self.weight_swaps),
@@ -1278,15 +1693,26 @@ class ServeEngine(PagedModelRunner):
             return []
         return self.cache.digest(limit)
 
+    def parked_digest(self, limit: int = 256) -> List[str]:
+        """The conversation handles whose KV this engine holds parked:
+        advertised on the heartbeat beside the prefix digest, so the
+        router pins a returning turn to the replica that can resume it.
+        Empty without the host tier."""
+        return [str(c) for c in list(self._parked)[-limit:]]
+
     def write_stats(self, path: str,
                     extra: Optional[Dict[str, Any]] = None) -> None:
-        """Atomically publish :meth:`stats` (+ the prefix digest when it
-        is non-empty, + ``extra``: the replica adds its RPC port) as
-        JSON: the file the executor's heartbeat carries to the AM."""
+        """Atomically publish :meth:`stats` (+ the prefix and parked
+        digests when they are non-empty, + ``extra``: the replica adds
+        its RPC port) as JSON: the file the executor's heartbeat carries
+        to the AM."""
         payload: Dict[str, Any] = dict(self.stats())
         digest = self.prefix_digest()
         if digest:
             payload["prefix_digest"] = digest
+        parked = self.parked_digest()
+        if parked:
+            payload["parked_digest"] = parked
         if extra:
             payload.update(extra)
         # One temp file per writer: the replica's publisher thread and a
@@ -1312,11 +1738,18 @@ class ServeEngine(PagedModelRunner):
 
     def swap_params(self, new: Mapping[str, torch.Tensor], *, version: int,
                     step: int) -> None:
-        """The base flip, then the prefix tier flushed: every published
-        block holds rows computed under the old weights, so a post-swap
-        hit would serve a mixed-version answer."""
+        """The base flip, then the prefix tier and the host stems
+        flushed: every published block and demoted stem holds rows
+        computed under the old weights, so a post-swap hit would serve a
+        mixed-version answer. Parked conversations are KEPT: a resumed
+        turn keeps its pre-swap history's KV (their continuity
+        contract)."""
         super().swap_params(new, version=version, step=step)
         self.cache.flush_prefix()
+        # The stem-export bookkeeping names flushed keys.
+        self._chain_parent.clear()
+        self._hot_tips.clear()
+        self._stored_tips.clear()
 
 
 class EngineFront:
@@ -1341,14 +1774,14 @@ class EngineFront:
                  rid: Optional[Any] = None, conv: Optional[Any] = None,
                  tenant: Optional[str] = None) -> Completion:
         """Submit one request and drive the shared engine until it
-        completes. ``conv`` (the host tier's conversation handle) and
-        ``tenant`` (the QoS class) belong to lanes not ported yet: a
-        value other than ``None`` raises."""
-        _refuse_tags("generate", conv, tenant)
+        completes. ``conv`` tags the request with its conversation
+        handle, so a host-tier engine parks and resumes it across turns;
+        ``tenant`` names its QoS class on a budget-armed engine."""
         if rid is None:
             rid = self.fresh_rid()
         self.engine.submit(Request(rid=rid, tokens=list(tokens),
-                                   max_new_tokens=int(max_new_tokens)))
+                                   max_new_tokens=int(max_new_tokens),
+                                   conv=conv, tenant=tenant))
         return self._drive_until(rid)
 
     def _drive_until(self, rid: Any) -> Completion:

@@ -40,10 +40,35 @@ package's, byte for byte: the same keys, the raw ``[n_layers,
 block_size, kv_dim]`` bytes of each block and the same header, so a
 block exported by either package imports into the other.
 
+Host tier (``host_blocks > 0``): a host-RAM tier holding the same
+CRC-guarded wire payloads, so everything that moves between device and
+host re-enters through the import path's check-then-commit discipline
+(a corrupt host byte never reaches the pool). Two populations live
+there:
+
+* **demoted stems** — when the LIFO tier runs dry, the cached tier's LRU
+  eviction spills the victim's content to the host instead of dropping
+  it, and :meth:`~PagedKVCache.demote` spills a batch ahead of need;
+  :meth:`~PagedKVCache.promote` re-stages a chain-key run into device
+  blocks (one scatter a pool) where the device index stops matching,
+  refcount 0 in the cached tier, so the admission after it adopts them
+  like any published block;
+* **parked sequences** — :meth:`~PagedKVCache.park` snapshots a
+  sequence's blocks (one device-to-host copy a pool) with its chain keys
+  and frees the device reservation; :meth:`~PagedKVCache.resume`
+  re-admits it under a new id through ``import_blocks``, adopting what
+  is still on the device. The base64 and CRC encode can run off the
+  drive thread (:class:`_OffloadWorker`); the record's ready event gates
+  readers.
+
+Every host-tier write lands IN PLACE in ``k_store``/``v_store``, as an
+import does: the step and its captured graphs read the stores'
+addresses. A payload of either tier is byte for byte the JAX package's
+for the same pool contents.
+
 Capacity failures are a typed :class:`AdmissionError` carrying the
 needed/free block counts — back-pressure the engine acts on, not an
-allocator OOM. The host-offload tier (parking, demotion) of the JAX
-package comes with a later slice (ROADMAP.md, queue 1 item 9).
+allocator OOM.
 
 Threading contract: the allocator is not internally locked; the
 engine's single drive thread (``EngineFront`` serializes callers)
@@ -53,6 +78,8 @@ performs every mutation.
 from __future__ import annotations
 
 import base64
+import queue
+import threading
 import zlib
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -78,6 +105,66 @@ def _encode_payload(kb: Union[bytes, memoryview],
             "crc": zlib.crc32(vb, zlib.crc32(kb)) & 0xFFFFFFFF}
 
 
+def encode_blocks(raw: Sequence[Tuple[Any, Any]]) -> List[Dict[str, Any]]:
+    """The wire payloads of raw host block bytes (pairs of k and v, as
+    :meth:`PagedKVCache.fetch_keys` returns them)."""
+    return [_encode_payload(kb, vb) for kb, vb in raw]
+
+
+class _OffloadWorker:
+    """The host tier's encode thread, double-buffered: the drive
+    thread's batched device-to-host copy hands the host bytes over a
+    queue, this daemon thread runs the base64 and CRC encode, and a
+    bounded semaphore caps records in flight at two, so parking cannot
+    outrun host RAM. The worker writes only into the record it was
+    handed and publishes it by setting the record's ready event (readers
+    wait on it first), so no pool bookkeeping is touched off the drive
+    thread. The bytes it gets are a host copy, never a view of a pool
+    block the next step may reuse."""
+
+    def __init__(self, slots: int = 2):
+        self._q: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        self._slots = threading.BoundedSemaphore(slots)
+        # A failed encode parks here and re-raises on the drive thread
+        # at the next check().
+        self._err: Optional[BaseException] = None
+        self._err_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._loop, name="tony-kv-offload", daemon=True)
+        self._thread.start()
+
+    def submit(self, rec: Dict[str, Any],
+               raw: Sequence[Tuple[Any, Any]]) -> None:
+        self._slots.acquire()
+        self._q.put((rec, list(raw)))
+
+    def check(self) -> None:
+        """Re-raise (once) any encode failure on the caller's thread."""
+        with self._err_lock:
+            err, self._err = self._err, None
+        if err is not None:
+            raise err
+
+    def _loop(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            rec, raw = item
+            try:
+                rec["blocks"] = encode_blocks(raw)
+            except BaseException as e:  # noqa: BLE001 — re-raised by check()
+                with self._err_lock:
+                    self._err = e
+            finally:
+                rec["ready"].set()
+                self._slots.release()
+
+    def close(self) -> None:
+        self._q.put(None)
+        self._thread.join(timeout=10)
+
+
 class AdmissionError(RuntimeError):
     """The request cannot enter the engine NOW: the block pool cannot
     host it (or it can never fit). Retry/queue/shed upstream — this is
@@ -98,6 +185,7 @@ class PagedKVCache:
 
     def __init__(self, n_layers: int, kv_dim: int, *, n_blocks: int,
                  block_size: int, dtype: torch.dtype = torch.bfloat16,
+                 host_blocks: int = 0, async_offload: bool = False,
                  device: Optional[Union[str, torch.device]] = None):
         if n_blocks <= 0 or block_size <= 0:
             raise ValueError(f"need positive n_blocks/block_size, got "
@@ -141,6 +229,18 @@ class PagedKVCache:
         # positions below it hold verified rows).
         self._spec: Dict[Any, List[int]] = {}
         self._committed: Dict[Any, int] = {}
+        # Host tier (module docstring): demoted stems by chain key, least
+        # recently demoted first (the order they are dropped in when the
+        # tier fills), and parked sequences by id.
+        self.host_blocks = int(host_blocks)
+        self._host_index: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+        self._parked: Dict[Any, Dict[str, Any]] = {}
+        self.demoted_total = 0
+        self.promoted_total = 0
+        self.parked_total = 0
+        self.resumed_total = 0
+        self._offload = (_OffloadWorker()
+                         if async_offload and self.host_blocks > 0 else None)
 
     # -- capacity ----------------------------------------------------------
     @property
@@ -155,8 +255,11 @@ class PagedKVCache:
 
     def _alloc_block(self) -> int:
         """One fresh block: the LIFO free list first; when it is dry,
-        the least recently freed cached block, unindexed. Callers check
-        capacity first."""
+        the least recently freed cached block, unindexed. With the host
+        tier armed the evicted content spills to the host instead of
+        being dropped (the LRU order is the demotion policy); a full
+        host tier drops only stems, and degrades to the plain drop.
+        Callers check capacity first."""
         if self._free:
             b = self._free.pop()
         else:
@@ -164,6 +267,11 @@ class PagedKVCache:
             key = self._key_of.pop(b, None)
             if key is not None:
                 self._index.pop(key, None)
+                if self.host_blocks > 0 and self._host_reclaim(1):
+                    kb, vb = self._fetch_raw([b])[0]
+                    self._host_index[key] = _encode_payload(kb, vb)
+                    self._host_index.move_to_end(key)
+                    self.demoted_total += 1
             self.lru_evicted_total += 1
         self._refs[b] = 1
         return b
@@ -310,6 +418,9 @@ class PagedKVCache:
         re-publication of an indexed key refreshes its recency. The
         CALLER guarantees every row of the block is verified-written."""
         b = self._tables[seq_id][block_i]
+        # A device copy supersedes a demoted host copy of the same key
+        # (the same bytes): the device and host key sets stay disjoint.
+        self._host_index.pop(key, None)
         if key in self._index:
             self._touch_key(self._index[key])
             return False
@@ -360,8 +471,7 @@ class PagedKVCache:
             raise ValueError(
                 f"cannot export {length} positions for {seq_id!r}: only "
                 f"{len(table)} block(s) reserved")
-        return [_encode_payload(kb, vb)
-                for kb, vb in self._fetch_raw(table[:nb])]
+        return encode_blocks(self._fetch_raw(table[:nb]))
 
     def _fetch_raw(self, ids: Sequence[int]
                    ) -> List[Tuple[memoryview, memoryview]]:
@@ -481,12 +591,7 @@ class PagedKVCache:
         table = list(matched)
         if arrs:
             dsts = [self._alloc_block() for _ in arrs]
-            idx = torch.as_tensor(dsts, dtype=torch.long,
-                                  device=self.k.device)
-            for store, part in ((self.k_store, 0), (self.v_store, 1)):
-                host = torch.from_numpy(np.stack([a[part] for a in arrs]))
-                src = host.to(store.device).view(store.dtype)
-                store.index_copy_(1, idx, src.transpose(0, 1))
+            self._scatter(dsts, arrs)
             table.extend(dsts)
         self.imported_total += len(arrs)
         while len(table) < nb:
@@ -495,18 +600,242 @@ class PagedKVCache:
         return len(matched)
 
     def flush_prefix(self) -> int:
-        """Unindex every published block (the hot swap's hygiene: their
-        rows were computed under the old weights). Cached-tier blocks
-        move to the free list; a block still referenced keeps its rows
-        for its sequence but can no longer be adopted. Returns the
-        entries invalidated."""
-        n = len(self._index)
+        """Unindex every published block and drop every demoted host
+        stem (the hot swap's hygiene: their rows were computed under the
+        old weights). Cached-tier blocks move to the free list; a block
+        still referenced keeps its rows for its sequence but can no
+        longer be adopted. Parked records are KEPT: continuity is their
+        contract. Returns the entries invalidated (device + host)."""
+        n = len(self._index) + len(self._host_index)
         for b in list(self._lru):
             del self._lru[b]
             self._free.append(b)
         self._index.clear()
         self._key_of.clear()
+        self._host_index.clear()
         return n
+
+    # -- host tier ---------------------------------------------------------
+    @property
+    def host_blocks_used(self) -> int:
+        """Host-tier occupancy in blocks: demoted stems and every parked
+        record's payloads (an encode in flight counts: its extent is
+        known at submit)."""
+        return len(self._host_index) \
+            + sum(r["n"] for r in self._parked.values())
+
+    def _host_reclaim(self, need: int) -> bool:
+        """Make room for ``need`` more host payloads by dropping the
+        least recently demoted stems. Parked records are never victims:
+        parking is a contract with the engine, demotion opportunistic.
+        False when the tier cannot hold ``need`` with every stem
+        dropped."""
+        if need > self.host_blocks:
+            return False
+        while self.host_blocks_used + need > self.host_blocks \
+                and self._host_index:
+            self._host_index.popitem(last=False)
+        return self.host_blocks_used + need <= self.host_blocks
+
+    def _scatter(self, dsts: Sequence[int],
+                 arrs: Sequence[Tuple[np.ndarray, np.ndarray]]) -> None:
+        """Write decoded host blocks ``arrs`` into pool blocks ``dsts``:
+        one host-to-device copy and one ``index_copy_`` a pool, IN PLACE
+        in the stores (a captured step reads their addresses)."""
+        idx = torch.as_tensor(list(dsts), dtype=torch.long,
+                              device=self.k.device)
+        for store, part in ((self.k_store, 0), (self.v_store, 1)):
+            host = torch.from_numpy(np.stack([a[part] for a in arrs]))
+            src = host.to(store.device).view(store.dtype)
+            store.index_copy_(1, idx, src.transpose(0, 1))
+
+    def demote(self, count: int = 1) -> int:
+        """Demote up to ``count`` least recently freed cached-tier blocks
+        to the host tier: one device-to-host copy a pool, the payloads
+        kept under the blocks' chain keys, the device blocks to the LIFO
+        free list. Only refcount-0 published blocks live in the cached
+        tier, so a live sequence never loses a row. Returns the blocks
+        demoted (0 with the tier off or nothing to demote)."""
+        if self.host_blocks <= 0 or count <= 0:
+            return 0
+        victims = list(self._lru)[:count]
+        if victims and not self._host_reclaim(len(victims)):
+            victims = victims[:max(
+                0, self.host_blocks - self.host_blocks_used)]
+        if not victims:
+            return 0
+        raw = self._fetch_raw(victims)
+        for b, (kb, vb) in zip(victims, raw):
+            key = self._key_of.pop(b)
+            self._index.pop(key, None)
+            del self._lru[b]
+            self._free.append(b)
+            self._host_index[key] = _encode_payload(kb, vb)
+            self._host_index.move_to_end(key)
+        self.demoted_total += len(victims)
+        return len(victims)
+
+    def promote(self, keys: Sequence[str]) -> int:
+        """Re-stage the host-tier run of ``keys`` that starts where the
+        device index stops matching: every payload's CRC is checked
+        FIRST (a corrupt host byte raises :class:`HandoffError` with the
+        device and host tiers unchanged), then one scatter a pool into
+        fresh blocks, indexed refcount 0 in the cached tier. Only the
+        LIFO tier is consumed (an allocation through LRU eviction could
+        evict, or demote again, the chain being promoted), so under pool
+        pressure the run truncates to what fits. Returns the blocks
+        promoted."""
+        if self.host_blocks <= 0 or not self._host_index:
+            return 0
+        keys = list(keys)
+        start = len(self.match_prefix(keys))
+        run: List[str] = []
+        for key in keys[start:]:
+            if key not in self._host_index:
+                break
+            run.append(key)
+        run = run[:len(self._free)]
+        if not run:
+            return 0
+        arrs = [self._decode_block(self._host_index[k]) for k in run]
+        dsts = [self._free.pop() for _ in run]
+        self._scatter(dsts, arrs)
+        for key, b in zip(run, dsts):
+            del self._host_index[key]
+            self._index[key] = b
+            self._key_of[b] = key
+            self._lru[b] = None
+            self._lru.move_to_end(b)
+        self.promoted_total += len(run)
+        return len(run)
+
+    def discard_host(self, keys: Sequence[str]) -> int:
+        """Drop the host-tier stems of ``keys``: the recovery after a
+        corrupt payload failed :meth:`promote` (the poison entry must not
+        fail every later admission; the rows recompute). Returns the
+        entries dropped."""
+        return sum(self._host_index.pop(key, None) is not None
+                   for key in keys)
+
+    def host_keys(self) -> List[str]:
+        """Demoted-stem chain keys, least recently demoted first."""
+        return list(self._host_index)
+
+    def export_keys(self, keys: Sequence[str]) -> List[Dict[str, Any]]:
+        """Wire payloads of the device blocks indexed under ``keys``
+        (every key must be indexed: the prefix store persists only
+        chains wholly on the device). One batched fetch, read-only."""
+        return encode_blocks(self.fetch_keys(keys))
+
+    def fetch_keys(self, keys: Sequence[str]
+                   ) -> List[Tuple[memoryview, memoryview]]:
+        """Raw host k/v bytes of the device blocks indexed under
+        ``keys``: one batched fetch, read-only. A host copy, so
+        :func:`encode_blocks` may encode it after the pool moved on."""
+        ids: List[int] = []
+        for key in keys:
+            b = self._index.get(key)
+            if b is None:
+                raise KeyError(f"chain key {key!r} not indexed")
+            ids.append(b)
+        return self._fetch_raw(ids)
+
+    def park(self, seq_id: Any, length: int, *,
+             keys: Sequence[str] = ()) -> int:
+        """Park ``seq_id``: one device-to-host copy a pool of the blocks
+        covering ``length`` positions, kept with the full blocks' chain
+        ``keys`` (the resume's adoption probe) as a host-tier record,
+        then the device reservation is freed. With the async worker
+        armed the encode runs off the drive thread; the record's ready
+        event gates readers. Raises :class:`AdmissionError` (state
+        unchanged) when the tier is off or cannot hold the record: the
+        engine then evicts plainly. Returns the blocks parked."""
+        if seq_id in self._parked:
+            raise ValueError(f"sequence {seq_id!r} is already parked")
+        table = self._tables.get(seq_id)
+        nb = self.blocks_for(length)
+        if table is None or nb > len(table):
+            raise ValueError(
+                f"cannot park {length} positions for {seq_id!r}: "
+                f"{0 if table is None else len(table)} block(s) held")
+        keys = [str(k) for k in keys]
+        if len(keys) != int(length) // self.block_size:
+            raise ValueError(
+                f"park needs one chain key per FULL block: got "
+                f"{len(keys)} for {length} positions "
+                f"(block_size {self.block_size})")
+        if self.host_blocks <= 0 or not self._host_reclaim(nb):
+            raise AdmissionError(
+                f"host tier cannot hold {nb} block(s) for parked "
+                f"sequence {seq_id!r} "
+                f"({self.host_blocks_used}/{self.host_blocks} used)",
+                needed_blocks=nb,
+                free_blocks=max(0, self.host_blocks
+                                - self.host_blocks_used))
+        raw = self._fetch_raw(table[:nb])
+        rec: Dict[str, Any] = {"length": int(length), "keys": keys,
+                               "n": nb, "ready": threading.Event(),
+                               "blocks": None}
+        if self._offload is not None:
+            self._offload.submit(rec, raw)
+        else:
+            rec["blocks"] = encode_blocks(raw)
+            rec["ready"].set()
+        self._parked[seq_id] = rec
+        self.free_seq(seq_id)
+        self.parked_total += 1
+        return nb
+
+    def resume(self, new_id: Any, length: int, parked_id: Any) -> int:
+        """Re-admit parked ``parked_id`` as ``new_id`` covering
+        ``length`` positions through :meth:`import_blocks`' atomic path:
+        the chain-key prefix still on the device is adopted, the rest
+        re-staged from the host payloads (CRC-checked before any
+        bookkeeping moves), the remainder allocated fresh. The record is
+        consumed only on success: a :class:`HandoffError` (host
+        corruption) or an :class:`AdmissionError` (pool pressure) leaves
+        pool and record unchanged, so the caller can fall back to a
+        re-prefill. Returns the device blocks adopted."""
+        rec = self._parked.get(parked_id)
+        if rec is None:
+            raise KeyError(f"no parked sequence {parked_id!r}")
+        rec["ready"].wait()
+        if self._offload is not None:
+            self._offload.check()
+        if rec["blocks"] is None:
+            raise HandoffError(
+                f"parked sequence {parked_id!r} lost its host payloads "
+                f"(offload encode failed)", retryable=False)
+        keys = rec["keys"]
+        matched = len(self.match_prefix(keys))
+        adopted = self.import_blocks(new_id, length,
+                                     rec["blocks"][matched:], keys=keys,
+                                     offset=matched)
+        del self._parked[parked_id]
+        self.resumed_total += 1
+        return adopted
+
+    def unpark(self, parked_id: Any) -> int:
+        """Drop a parked record (a diverged conversation, a fallback to
+        re-prefill, or a re-park). Idempotent; waits out an encode in
+        flight so the record is never orphaned mid-write. Returns the
+        host blocks released."""
+        rec = self._parked.pop(parked_id, None)
+        if rec is None:
+            return 0
+        rec["ready"].wait()
+        return rec["n"]
+
+    def parked_ids(self) -> List[Any]:
+        """Parked sequence ids."""
+        return list(self._parked)
+
+    def close(self) -> None:
+        """Join the async offload worker (whoever builds an async cache
+        owns its teardown; a no-op without one)."""
+        if self._offload is not None:
+            self._offload.close()
+            self._offload = None
 
     # -- speculative tier --------------------------------------------------
     def committed_len(self, seq_id: Any) -> int:

@@ -40,9 +40,15 @@ handoff (:mod:`tony_tpu_torch.serve.disagg`), the ``prefill_handoff``,
 ``kv_offer`` and ``kv_import`` verbs; its role (``tony.serve.role.
 <jobtype>``, written by ``tony_tpu_torch.cli serve --role``) is what it
 advertises, and the router's dispatch decides which verbs see traffic.
-Lanes that are not ported (host tier, prefix store, QoS, demotion, a
-serve mesh) raise ``NotImplementedError`` naming their ROADMAP item when
-the job conf asks for them.
+The KV memory hierarchy and the tenants: ``tony.serve.host-blocks``
+arms the host tier (conversations tagged ``conv`` park and resume, with
+the encode on the offload thread), ``.demote-watermark`` and
+``.demote-batch`` its demotion daemon, ``.prefix-store`` the persisted
+stems (adopted at start, newly hot ones exported on the publish
+cadence), and ``tony.serve.qos.tenants`` / ``.max-queue`` the tenant
+budgets. A serve mesh (``tony.serve.mesh``) is not ported: the conf
+that asks for one raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ from tony_tpu_torch.conf import (CKPT_DIR, HISTORY_LOCATION,
                                  SERVE_MESH, SERVE_MODEL, SERVE_MODEL_KWARGS,
                                  SERVE_PORT, SERVE_PREFILL_CHUNK,
                                  SERVE_PREFIX_CACHE, SERVE_PREFIX_STORE,
-                                 SERVE_QOS_TENANTS, SERVE_SPEC_K,
+                                 SERVE_SPEC_K,
                                  SERVE_WARM_STANDBY, TonyConfig,
                                  serve_role_key, serve_warm_standby_key)
 from tony_tpu_torch.models import get_model
@@ -77,6 +83,8 @@ from tony_tpu_torch.models.convert import jax_param_tree
 from tony_tpu_torch.publish import latest_publication
 from tony_tpu_torch.serve.disagg import DecodeFront, PrefillFront
 from tony_tpu_torch.serve.engine import Completion, EngineFront, ServeEngine
+from tony_tpu_torch.serve.kvstore import PrefixStore
+from tony_tpu_torch.serve.qos import QosPolicy
 from tony_tpu_torch.serve.spec import SpecEngine
 from tony_tpu_torch.serve.swap import (SwapError, derive_prefill_pads,
                                        resolve_target)
@@ -114,7 +122,12 @@ class Replica:
     either, the engine's step family is warmed right after the restore
     (a standby must hold its captured steps before it is promoted).
     ``role`` (``"colocated"``, ``"prefill"`` or ``"decode"``) is the
-    engine's disaggregated-serving role."""
+    engine's disaggregated-serving role. ``host_blocks`` arms the host
+    tier (with the offload thread), ``demote_watermark`` and
+    ``demote_batch`` its demotion daemon, ``prefix_store`` (a
+    directory) the persisted stems, adopted before the first request,
+    and ``qos`` (a :class:`~tony_tpu_torch.serve.qos.QosPolicy`) the
+    tenant budgets."""
 
     def __init__(self, *, model_name: str,
                  model_kwargs: Optional[Dict[str, Any]] = None,
@@ -129,7 +142,10 @@ class Replica:
                  prefix_cache: bool = False,
                  prefill_chunk: Optional[int] = None,
                  aot_cache: Optional[str] = None,
-                 warm_standby: bool = False, role: str = "colocated"):
+                 warm_standby: bool = False, role: str = "colocated",
+                 host_blocks: int = 0, prefix_store: Optional[str] = None,
+                 demote_watermark: float = 0.0, demote_batch: int = 0,
+                 qos: Optional[QosPolicy] = None):
         t0 = time.perf_counter()
         # Cold-start plane: a cache DIR becomes a live AOTCache shared by
         # every step family the engine resolves, built before the engine
@@ -157,6 +173,10 @@ class Replica:
                          tag=tag, prefix_cache=prefix_cache,
                          prefill_chunk=prefill_chunk, aot_cache=self._aot,
                          warm_standby=warm_standby, role=role,
+                         host_blocks=host_blocks,
+                         async_offload=host_blocks > 0,
+                         demote_watermark=demote_watermark,
+                         demote_batch=demote_batch, qos=qos,
                          device=self.device)
         if spec_k:
             draft_kw: Dict[str, Any] = {"ngram_max": ngram_max}
@@ -188,6 +208,13 @@ class Replica:
         if pub is not None and pub["step"] == step:
             self.engine.weight_version = pub["version"]
         t3 = time.perf_counter()
+        self._attach(self.engine)
+        # The persisted stems, adopted before the first request, so a
+        # fresh replica serves a shared stem from disk instead of
+        # recomputing it; the publisher exports newly hot stems back.
+        self._store = PrefixStore(prefix_store) if prefix_store else None
+        if self._store is not None:
+            self._load_stems()
         # Resolve the step family now when the plane is on: a standby
         # must hold its captured steps before promotion, and a
         # cache-armed active replica pays its libraries and captures
@@ -203,7 +230,6 @@ class Replica:
         self.timings = {"build_s": t1 - t0, "restore_s": t2 - t1,
                         "engine_s": t3 - t2,
                         "warm_s": time.perf_counter() - t3}
-        self._attach(self.engine)
 
     def _attach(self, engine: ServeEngine) -> None:
         """Front ``engine``: one :class:`EngineFront` carrying both
@@ -217,6 +243,21 @@ class Replica:
         self._decode_front = DecodeFront(self._front)
         self._publish: Optional[Any] = None
         self.port: Optional[int] = None
+
+    def _load_stems(self) -> None:
+        """Warm the engine's prefix tier from the store, best effort: a
+        corrupt or geometry-skewed stem is skipped (that prefix
+        recomputes), never a startup failure."""
+        header = self.engine.cache.wire_header()
+        adopted = 0
+        for tip in self._store.stems():
+            rec = self._store.get(tip)
+            if rec is None or rec.get("header") != header:
+                continue
+            adopted += self.engine.adopt_stem(rec["keys"], rec["blocks"])
+        if adopted:
+            print(f"[tony-serve-replica] adopted {adopted} KV block(s) "
+                  f"from the prefix store", flush=True)
 
     def _restore_params(self, model: Any,
                         tensors: Mapping[str, torch.Tensor], root: str, *,
@@ -253,7 +294,9 @@ class Replica:
         """Submit one request and drive the shared engine until it
         completes. Thread-safe: concurrent callers interleave on the
         front's drive lock, so their requests ride one continuous
-        batch. ``conv`` and ``tenant`` raise (lanes not ported)."""
+        batch. ``conv`` is the conversation handle a host-tier engine
+        parks and resumes under; ``tenant`` the QoS class its admission
+        budgets meter."""
         return self._front.generate(tokens, max_new_tokens, rid=rid,
                                     conv=conv, tenant=tenant)
 
@@ -409,6 +452,14 @@ class Replica:
                                         extra={"rpc_port": server.port})
             except OSError:
                 pass
+            if self._store is not None:
+                # Newly hot stems persist on the publish cadence; only
+                # the pool's fetch takes the drive lock.
+                try:
+                    self.engine.export_stems(self._store,
+                                             lock=self._front._drive)
+                except OSError:
+                    pass
 
         # hot_swap republishes through this hook, so the router's
         # swap-window down-mark lifts on the next heartbeat.
@@ -519,23 +570,11 @@ def _warm_pool(conf: TonyConfig, job_type: str) -> int:
 def _refuse_unported(conf: TonyConfig) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for every
     serving lane the conf arms that the port has not ported, so no such
-    setting is silently ignored. The demotion daemon needs the host
-    tier (the reference demotes only with ``host_offload``), so it
-    waits with it, under item 9."""
-    lanes = (
-        (SERVE_HOST_BLOCKS, conf.get_int(SERVE_HOST_BLOCKS, 0) > 0, 9),
-        (SERVE_PREFIX_STORE, bool(conf.get(SERVE_PREFIX_STORE)), 9),
-        (SERVE_QOS_TENANTS, bool(conf.get(SERVE_QOS_TENANTS)), 9),
-        (SERVE_DEMOTE_WATERMARK,
-         conf.get_float(SERVE_DEMOTE_WATERMARK, 0.0) > 0, 9),
-        (SERVE_DEMOTE_BATCH, conf.get_int(SERVE_DEMOTE_BATCH, 0) > 0, 9),
-        (SERVE_MESH, bool(conf.get(SERVE_MESH)), 8),
-    )
-    for key, armed, item in lanes:
-        if armed:
-            raise NotImplementedError(
-                f"{key}={conf.get(key)!r}: this serving lane is not ported "
-                f"yet ({_ITEM.format(item)})")
+    setting is silently ignored: a serve mesh (item 8)."""
+    if conf.get(SERVE_MESH):
+        raise NotImplementedError(
+            f"{SERVE_MESH}={conf.get(SERVE_MESH)!r}: this serving lane is "
+            f"not ported yet ({_ITEM.format(8)})")
 
 
 def main() -> int:
@@ -586,7 +625,12 @@ def main() -> int:
         ngram_max=conf.get_int(SERVE_DRAFT_NGRAM_MAX, 3),
         prefix_cache=conf.get_bool(SERVE_PREFIX_CACHE, False),
         prefill_chunk=conf.get_int(SERVE_PREFILL_CHUNK, 0) or None,
-        aot_cache=aot_cache, warm_standby=warm_standby, role=role)
+        aot_cache=aot_cache, warm_standby=warm_standby, role=role,
+        host_blocks=conf.get_int(SERVE_HOST_BLOCKS, 0),
+        prefix_store=conf.get(SERVE_PREFIX_STORE) or None,
+        demote_watermark=conf.get_float(SERVE_DEMOTE_WATERMARK, 0.0),
+        demote_batch=conf.get_int(SERVE_DEMOTE_BATCH, 0),
+        qos=QosPolicy.from_conf(conf))
     # warm() pad self-tuning: with the plane armed and a history root
     # configured, resolve the prefill pads earlier serve traffic used.
     history_dir = conf.get(HISTORY_LOCATION)

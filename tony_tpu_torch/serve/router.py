@@ -582,9 +582,10 @@ class RequestRouter:
 # ``generate`` and ``prefill_handoff`` reply when the generation ends, so
 # the wait belongs to the generation. The reference's router waits at
 # most the RPC client's 10 s per-operation cap and then sends the call
-# again under the same rid; a re-sent ``generate`` puts that rid into the
-# engine a second time, which the engine does not refuse (ROADMAP.md
-# queue 3). The dial and a refused connection keep the short window.
+# again under the same rid, and the engine refuses a re-sent ``generate``
+# whose rid is still live: waiting for the reply avoids that refusal for
+# a generation that is merely slow. The dial and a refused connection
+# keep the short window.
 REPLY_TIMEOUT_S = 600.0
 
 
@@ -644,17 +645,11 @@ class RouterRpcHandler:
                      session_id: Optional[str] = None,
                      tenant: Optional[str] = None) -> Dict[str, Any]:
         """One request through :meth:`RequestRouter.dispatch`. A
-        ``session_id`` reaches the replica as ``conv``, the host tier's
-        conversation handle, and a ``tenant`` as the QoS class: the
-        port's replicas serve neither lane yet, so both are refused here
-        with ``NotImplementedError`` before any routing."""
-        for name, value in (("session_id", session_id),
-                            ("tenant", tenant)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"generate({name}=...) needs a serving lane that is "
-                    f"not ported yet (ROADMAP.md, queue 1 item 9)")
-        return self.router.dispatch(tokens, max_new_tokens, rid=rid)
+        ``session_id`` pins the session to its replica and reaches it as
+        ``conv``, the host tier's conversation handle; a ``tenant``
+        reaches it as the QoS class."""
+        return self.router.dispatch(tokens, max_new_tokens, rid=rid,
+                                    session_id=session_id, tenant=tenant)
 
     def rpc_router_stats(self) -> Dict[str, float]:
         return self.router.stats()
