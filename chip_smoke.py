@@ -26,7 +26,14 @@ caught):
    ``flash_bwd_dq_mma_kernel``/``flash_bwd_dkv_mma_kernel``, f32 runs the
    CUDA-core kernels). Each is timed beside its plain version, the
    ``scaled_dot_product_attention`` yardstick and the bytes/operations
-   bound; and the fused bucket optimizer update for every rule (AdamW
+   bound; ``ring_blocks``: q, k, v [1, 32, 8192, 128] bf16 as 4
+   sequence shards, the four ranks' causal rings through the loops
+   ring attention's ranks run, their sends handed over in memory
+   (``parallel.ring_attention.ring_blocks``), on rows 1 and 5 (each
+   kernel once a block: 10), forward and backward, against flash over
+   the whole sequence and against the ring's plain version (relative L2
+   within the train phase's bf16 limit), timed beside them, SDPA and
+   the bound; and the fused bucket optimizer update for every rule (AdamW
    with and without weight decay, SGD-momentum, Adafactor-style), in f32
    and bf16, at n = 1, 1000 and one 7B ``w_gate`` bucket, with
    ``torch.equal`` on p and every slot, timed at the ``w_gate`` and the
@@ -191,7 +198,30 @@ caught):
    of top-k sets that differ), then ``ep=4`` at 8 layers, AdamW, 4 steps:
    losses finite and falling, the step times, each rank holding 2 of the
    8 experts, rank 0's step peak and the exchange's bytes a step from
-   the ``moe`` records;
+   the ``moe`` records.
+   ``python3 chip_smoke.py --sharded-cards-only`` (4 cards) runs alone
+   one NCCL rank per card of ``tests/workloads/torch_sharded_steps.py``
+   (the CPU tests' gloo worker), llama2-7b at full width, bf16 compute,
+   f32 parameters, remat: (a) ``MeshSpec(tp=4)`` at 2 layers, batch 2 x
+   2048, (b) ``MeshSpec(sp=4)`` with ring attention and (c)
+   ``MeshSpec(tp=2, sp=2)`` with ring attention at 2 layers, batch 1 x
+   8192, each one step against rank 0's one-card step on the same
+   weights and batch (loss within 1e-2, every gathered grad within the
+   bf16 limit, the replicated leaves and their grads bitwise equal on
+   every rank); (d) ``MeshSpec(tp=4)`` at all 32 layers (one card cannot
+   hold its f32 AdamW state) and (e) ``MeshSpec(tp=2, sp=2)`` at 8
+   layers on 1 x 16384 tokens, AdamW(3e-4), 4 steps each: losses finite
+   and falling, step times and the host's share of each, tokens/s,
+   every rank's peak, a step's model-axis all-reduce and ring send
+   bytes, and rank 0's device time by kernel group over one more step
+   under ``torch.profiler`` (the flash kernels' share above 0); (e)'s
+   first loss within 1e-2 of rank 0's one-card run of the same 4 AdamW
+   steps, whose losses are reported beside the mesh's. In every run
+   each rank's launches of rows 1 and 5 in its steps are exactly what
+   its attention runs: per layer and step the forward twice (remat
+   recomputes it) and the dQ and dK/dV kernels once, on a tp mesh once
+   each, in a ring once for each block the rank's causal ring runs
+   (seq index + 1);
 8. serve_quant — the serve phase's model, seed and 16-request mix with
    ``quant=True`` (int8 qkv/o/mlp projections through ``int8_matmul``):
    every request completes, the int8 kernel ran 7 × 32 times per
@@ -346,6 +376,7 @@ caught):
    ``{"train_loop": {...}}`` line, a ``{"train_ckpt": {...}}`` line, a
    ``{"serve_replica": {...}}`` line, a ``{"tony_jobs": {...}}`` line,
    the ``{"serve_prefix": ...}``,
+   ``{"serve_kvtier": ...}``,
    ``{"serve_spec": ...}``, ``{"serve_disagg": ...}`` and
    ``{"serve_coldstart": ...}`` lines, the
    card line, and last ``{"ok": true, "device": {...}}``.
@@ -409,6 +440,8 @@ from tony_tpu_torch.ops import batchnorm as bn  # noqa: E402
 from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.ops import quant as tq  # noqa: E402
 from tony_tpu_torch.parallel import AXES, Mesh, MeshSpec  # noqa: E402
+from tony_tpu_torch.parallel import ring_attention as ring_mod  # noqa: E402
+from tony_tpu_torch.parallel import tensor as tpar  # noqa: E402
 from tony_tpu_torch.parallel.overlap import (GradBuckets,  # noqa: E402
                                              strip_spec)
 from tony_tpu_torch.rpc import RpcClient, RpcError  # noqa: E402
@@ -4128,6 +4161,272 @@ def moe_cards_phase(card: str):
 
 
 # ---------------------------------------------------------------------
+# Ring attention's blocks on the flash kernels (rows 1 and 5), and
+# --sharded-cards-only: tensor and sequence parallelism across the cards.
+# ---------------------------------------------------------------------
+
+# q, k, v [1, 32, 8192, 128] bf16 as 4 seq shards of 2048 tokens: the
+# four ranks' rings through the loops ring attention's ranks run
+# (parallel.ring_attention.ring_blocks) on the flash kernels, against
+# flash over the whole sequence and against the ring's plain version,
+# relative L2 within the train phase's bf16 limit.
+RING_SHAPE, RING_SHARDS = (1, 32, 8192, 128), 4
+RING_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def tensor_rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def check_ring_blocks(gen):
+    """The ring_blocks check: the kernels' launches (each of rows 1 and 5
+    once a block the causal ring runs: 4 · 5 / 2), the errors, and the
+    times of the kernels' ring, the plain ring, flash over the whole
+    sequence and SDPA beside the bound of the same causal work."""
+    b, h, t, d = RING_SHAPE
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    run = lambda plain=False: ring_mod.ring_blocks(
+        q, k, v, do, RING_SHARDS, True, scale, plain=plain)
+    before = {n: LAUNCHES[n] for n in RING_NAMES}
+    got = run()
+    torch.cuda.synchronize()
+    launches = {n: LAUNCHES[n] - before[n] for n in RING_NAMES}
+    blocks = RING_SHARDS * (RING_SHARDS + 1) // 2
+    if set(launches.values()) != {blocks}:
+        raise AssertionError(f"ring_blocks: launches {launches}, expected "
+                             f"{blocks} of each")
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def whole_flash():
+        o = attn.flash_attention(qg, kg, vg, causal=True)
+        return (o.detach(),) + torch.autograd.grad(o, (qg, kg, vg), do)
+
+    whole = whole_flash()
+    plain = run(plain=True)
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    errs = {}
+    for ref_name, ref in (("whole_flash", whole), ("plain", plain)):
+        for key, a, r in zip(("o", "dq", "dk", "dv"), got, ref):
+            rel = tensor_rel_l2(a, r)
+            mx = (a.float() - r.float()).abs().max().item()
+            if not (math.isfinite(rel) and rel <= limit):
+                raise AssertionError(f"ring_blocks {key} vs {ref_name}: "
+                                     f"relative L2 {rel} > {limit}")
+            errs[f"{key}_vs_{ref_name}"] = {"rel_l2": rel, "max_abs": mx}
+    del whole, plain
+    ms = cuda_ms(run, iters=3, warmup=1)
+    plain_ms = cuda_ms(lambda: run(plain=True), iters=2, warmup=1)
+    whole_ms = cuda_ms(whole_flash, iters=3, warmup=1)
+    qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        return torch.autograd.grad(o, (qs, ks, vs), do)
+
+    library_ms = cuda_ms(sdpa, iters=3, warmup=1)
+    bounds = flash_bounds(b, h, h, t, t, d, True, torch.bfloat16)
+    bound_ms = sum(x[0] for x in bounds.values())
+    log(f"  ring_blocks {RING_SHAPE} bf16 as {RING_SHARDS} shards: "
+        f"{blocks} blocks of each kernel; rel L2 vs whole flash "
+        f"{ {k: round(v['rel_l2'], 5) for k, v in errs.items()} }; "
+        f"kernels {ms:.2f} ms fwd+bwd, plain {plain_ms:.2f} ms, whole "
+        f"flash {whole_ms:.2f} ms, SDPA {library_ms:.2f} ms, bound "
+        f"{bound_ms:.3f} ms")
+    return {"shape": "bf16 b=1 h=32 t=8192 d=128 causal, 4 shards of 2048",
+            "launches": launches, "blocks": blocks, "errors": errs,
+            "rel_l2_limit": limit,
+            "max_abs_err": max(e["max_abs"] for k, e in errs.items()
+                               if k.endswith("whole_flash")),
+            "ms": ms, "plain_ms": plain_ms, "whole_flash_ms": whole_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations"}
+
+
+SHARDED_WORKER = os.path.join("tests", "workloads",
+                              "torch_sharded_steps.py")
+SHARDED_RANK_TIMEOUT_S = 900
+# (a)-(c): name, MeshSpec sizes, attention, global batch; 2 layers, one
+# step against rank 0's one-card step on the same weights and batch.
+SHARDED_CHECKS = (("a_tp4", dict(tp=4), "flash", (2, 2048)),
+                  ("b_sp4_ring", dict(sp=4), "ring", (1, 8192)),
+                  ("c_tp2_sp2_ring", dict(tp=2, sp=2), "ring", (1, 8192)))
+SHARDED_CHECK_LAYERS = 2
+SHARDED_STEPS = 4
+# (d) all 32 layers at tp = 4 (f32 parameters, grads and AdamW slots:
+# ~108 GB whole, ~27 GB a rank); (e) tp=2 x sp=2 at 8 layers on a
+# 16384-token sequence.
+SHARDED_DEPTH = ("d_tp4_depth", dict(tp=4), "flash", (2, 2048), 32)
+SHARDED_LONG = ("e_tp2_sp2_long", dict(tp=2, sp=2), "ring", (1, 16384), 8)
+
+
+def check_sharded_launches(name, rep, attention, layers, steps):
+    """Each rank's launches of rows 1 and 5 in a run's steps against its
+    attention's: per layer and step the forward twice (remat recomputes
+    it), the dQ and dK/dV kernels once; in a ring each once for every
+    block the rank's causal ring runs (its seq index + 1). Returns the
+    counts by rank."""
+    by_rank = {}
+    for r in rep["ranks"]:
+        blocks = r["coords"].get("seq", 0) + 1 if attention == "ring" \
+            else 1
+        want = {RING_NAMES[0]: 2 * layers * steps * blocks,
+                RING_NAMES[1]: layers * steps * blocks,
+                RING_NAMES[2]: layers * steps * blocks}
+        got = {n: r["launches"].get(n, 0) for n in RING_NAMES}
+        if got != want:
+            raise AssertionError(f"sharded cards {name}: rank {r['rank']} "
+                                 f"({r['coords']}) launched {got}, its "
+                                 f"{attention} attention runs {want} "
+                                 f"({r['launches']})")
+        by_rank[r["rank"]] = got
+    log(f"  ({name}) launches of rows 1 and 5 by rank: {by_rank}")
+    return by_rank
+
+
+def sharded_cards_phase(card: str):
+    """``--sharded-cards-only``: one NCCL rank a card of the CPU tests'
+    worker (tests/workloads/torch_sharded_steps.py), llama2-7b at full
+    width, bf16 compute, f32 parameters, remat. (a)-(c) hold one step on
+    the tp, sp and tp x sp meshes against rank 0's one-card step (loss
+    within 1e-2, every parameter's gathered grad within the train
+    phase's bf16 limit, the replicated leaves and their grads bitwise
+    equal on every rank); (d) trains all 32 layers at tp=4 and (e) 8
+    layers on a 16384-token sequence at tp=2 x sp=2, AdamW(3e-4), 4
+    steps each: losses finite and falling, step time, tokens/s, each
+    rank's peak, and the bytes a step of the model axis' all-reduces and
+    of the ring's sends; (e) beside rank 0's one-card run of the same
+    steps. Every run's launches of rows 1 and 5 on every rank are its
+    attention's (:func:`check_sharded_launches`)."""
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"--sharded-cards-only needs 4 cards, found "
+                             f"{cards}")
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "sharded_cards")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    common = {"remat": True}
+    runs = [dict(name=name, attention=att, steps=1, batch_shape=list(shape),
+                 tx={"rule": "capture"}, reference=True, dump=False,
+                 model_kwargs=dict(common, n_layers=SHARDED_CHECK_LAYERS),
+                 **mesh)
+            for name, mesh, att, shape in SHARDED_CHECKS]
+    for name, mesh, att, shape, layers in (SHARDED_DEPTH, SHARDED_LONG):
+        # (e) fits one card: rank 0 runs its steps alone after the mesh.
+        runs.append(dict(name=name, attention=att, steps=SHARDED_STEPS,
+                         batch_shape=list(shape), dump=False,
+                         records_from=SHARDED_STEPS - 1, profile=True,
+                         reference=name == SHARDED_LONG[0],
+                         tx={"rule": "adamw", "learning_rate": TRAIN_LR},
+                         model_kwargs=dict(common, n_layers=layers), **mesh))
+    cfg = dict(model="llama2-7b", device="cuda", seed=SEED, vocab=32000,
+               runs=runs)
+    wall = run_ranks("sharded_cards", SHARDED_WORKER, "sharded", cfg, tmp,
+                     SHARDED_RANK_TIMEOUT_S)
+    report = json.load(open(os.path.join(tmp, "sharded0.json")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    out = {"wall_s": wall, "card": card}
+    for name, mesh, att, shape in SHARDED_CHECKS:
+        rep = report[name]
+        launches = check_sharded_launches(name, rep, att,
+                                          SHARDED_CHECK_LAYERS, 1)
+        ref = rep["reference"]
+        loss = rep["metrics"][0]["loss"]
+        loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        rel = ref["grad_rel_l2"]
+        worst = max(rel, key=rel.get)
+        log(f"  ({name}) {mesh} {att}, {SHARDED_CHECK_LAYERS} layers, batch "
+            f"{shape}: loss {loss:.6f} vs one card {ref['loss']:.6f} (rel "
+            f"{loss_rel:.2e}); grads max relative L2 {rel[worst]:.3e} "
+            f"({worst}; tol {limit}); replicated leaves differing "
+            f"{rep['replicated_differ']}")
+        if not loss_rel <= FUSED_FIRST_LOSS_REL or rel[worst] > limit \
+                or rep["replicated_differ"]:
+            raise AssertionError(f"sharded cards {name}: loss rel "
+                                 f"{loss_rel}, {worst} rel L2 {rel[worst]}, "
+                                 f"differing {rep['replicated_differ']}")
+        out[name] = {"mesh": rep["mesh"], "attention": att,
+                     "batch": list(shape), "loss": loss,
+                     "one_card_loss": ref["loss"], "loss_rel": loss_rel,
+                     "grad_max_rel_l2": rel[worst], "grad_worst_param": worst,
+                     "grad_rel_l2_limit": limit,
+                     "replicated_bitwise_equal": True,
+                     "launches_by_rank": launches,
+                     "records": rep["records"]}
+    for name, mesh, att, shape, layers in (SHARDED_DEPTH, SHARDED_LONG):
+        rep = report[name]
+        launches = check_sharded_launches(name, rep, att, layers,
+                                          SHARDED_STEPS)
+        losses = [m["loss"] for m in rep["metrics"]]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"sharded cards {name}: losses {losses}")
+        if rep["replicated_differ"]:
+            raise AssertionError(f"sharded cards {name}: replicated leaves "
+                                 f"differ {rep['replicated_differ']}")
+        step_ms = [1e3 * x for x in rep["step_s"]]
+        host_ms = [1e3 * x for x in rep["host_s"]]
+        p50 = float(np.median(step_ms[1:]))
+        recs = rep["records"]
+        model_ar = recs.get(tpar.MODEL_REDUCE_TAG, {})
+        ring_bytes = sum(recs.get(f"{ring_mod.RING_TAG}.{w}", {}).get(
+            "nbytes_total", 0) for w in ("fwd", "bwd"))
+        peaks = [r["peak_bytes"] for r in rep["ranks"]]
+        tokens = shape[0] * shape[1]
+        log(f"  ({name}) {mesh} {att}, {layers} layers, batch {shape}: "
+            f"losses {[round(x, 4) for x in losses]}; step ms "
+            f"{[round(x, 1) for x in step_ms]} (p50 after the first "
+            f"{p50:.1f}, {tokens / (p50 / 1e3):.0f} tokens/s; the host "
+            f"queued each in {[round(x, 1) for x in host_ms]}); peaks GB "
+            f"{[round(x / 1e9, 2) for x in peaks]} (build "
+            f"{[round(r['build_peak_bytes'] / 1e9, 2) for r in rep['ranks']]}"
+            f"); a step's model all-reduce "
+            f"{model_ar.get('nbytes_total', 0) / 1e9:.3f} GB in "
+            f"{model_ar.get('calls', 0)} calls, ring sends "
+            f"{ring_bytes / 1e9:.3f} GB a rank; build {rep['build_s']:.1f} s")
+        prof = rep["profile"]
+        if prof is None or not prof["device_ms_by_group"][
+                "flash_attention"] > 0:
+            raise AssertionError(f"sharded cards {name}: no flash kernel "
+                                 f"in rank 0's profiled step: {prof}")
+        log(f"    rank 0's profiled step: {prof['step_wall_ms']:.1f} ms, "
+            f"device ms {json.dumps(prof['device_ms_by_group'])}")
+        one_card = None
+        if "reference" in rep:
+            one_card = rep["reference"]["losses"]
+            rel = abs(losses[0] - one_card[0]) / abs(one_card[0])
+            log(f"    one card, the same {SHARDED_STEPS} steps: losses "
+                f"{[round(x, 4) for x in one_card]} (first loss rel "
+                f"{rel:.2e}, tol {FUSED_FIRST_LOSS_REL})")
+            if not rel <= FUSED_FIRST_LOSS_REL:
+                raise AssertionError(f"sharded cards {name}: first loss "
+                                     f"{losses[0]} vs one card "
+                                     f"{one_card[0]}")
+        out[name] = {
+            "model": f"llama2-7b n_layers={layers}/32", "mesh": rep["mesh"],
+            "attention": att, "batch": list(shape), "steps": SHARDED_STEPS,
+            "losses": losses, "one_card_losses": one_card,
+            "step_ms": step_ms, "host_queue_ms": host_ms,
+            "step_p50_ms": p50, "launches_by_rank": launches,
+            "tokens_per_s": tokens / (p50 / 1e3), "peak_bytes": peaks,
+            "build_peak_bytes": [r["build_peak_bytes"]
+                                 for r in rep["ranks"]],
+            "build_s": rep["build_s"],
+            "model_all_reduce_bytes_per_step": model_ar.get("nbytes_total"),
+            "model_all_reduce_calls_per_step": model_ar.get("calls"),
+            "ring_send_bytes_per_step": ring_bytes,
+            "profile_rank0": prof,
+            "params_a_rank": sum(c[0] for c in rep["counts"].values()),
+            "params_whole": sum(c[1] for c in rep["counts"].values())}
+    return out
+
+
+# ---------------------------------------------------------------------
 # Int8 matmul (kernel row 15) and the quantized lane.
 # ---------------------------------------------------------------------
 
@@ -7486,6 +7785,7 @@ def main() -> int:
     job_depth_only = "--job-depth-only" in sys.argv[1:]
     moe_cards_only = "--moe-cards-only" in sys.argv[1:]
     disagg_cards_only = "--disagg-cards-only" in sys.argv[1:]
+    sharded_cards_only = "--sharded-cards-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -7554,6 +7854,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if sharded_cards_only:
+        # Tensor and sequence parallelism across four cards (a
+        # multi-card machine's measurement).
+        log("[sharded_cards]")
+        res = sharded_cards_phase(card)
+        print(json.dumps({"sharded_cards": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     if moe_cards_only:
         # Expert parallelism across four cards (a multi-card machine's
         # measurement).
@@ -7605,6 +7917,8 @@ def main() -> int:
                               time_it=shape[-1] and dtype == torch.bfloat16)
             flash[f"{shape[0]}_{str(dtype)[6:]}"] = res
         torch.cuda.empty_cache()
+    ring_blocks = check_ring_blocks(gen)
+    torch.cuda.empty_cache()
     fused_err, fused_timed = check_fused(gen)
     int8 = check_int8(gen)
     bn_kernels = check_bn(gen)
@@ -7790,8 +8104,10 @@ def main() -> int:
             + train_moe["launches"][name]
             + train_loop_res["launches"][name]
             + train_ckpt["launches_after_restore"][name]
-            + tony_jobs["train"]["launches"][name],
+            + tony_jobs["train"]["launches"][name]
+            + ring_blocks["launches"][name],
             "launches_by_path": {
+                "ring_blocks": ring_blocks["launches"][name],
                 "train": train_launches[name],
                 "train_zero3": train_zero3["timed"]["launches"][name],
                 "train_moe": train_moe["launches"][name],
@@ -7808,6 +8124,8 @@ def main() -> int:
                 res["max_abs_err"][e] for res in flash.values()
                 for e in outs),
             **FLASH_KERNELS[name],
+            "ring_blocks": {k: v for k, v in ring_blocks.items()
+                            if k != "launches"},
             "by_shape": {res["shape"]["rows"]: {
                 k: res["kernels"][name][k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -250,14 +250,17 @@ class TestFormat:
         manifest["leaves"][0]["spec"] = ["data", None]
         path.write_text(__import__("json").dumps(manifest))
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
-        # The fsdp axis is ported (tests/test_torch_zero3.py) and so is
-        # an axis of size 1 in the manifest's mesh; a tensor-parallel
-        # leaf names item 11.
+        # The fsdp and tensor axes are ported (tests/test_torch_zero3.py,
+        # tests/test_torch_tp.py) and so is an axis of size 1 in the
+        # manifest's mesh; a pipeline leaf names item 11.
         manifest["leaves"][0]["spec"] = [None, "fsdp"]
         path.write_text(__import__("json").dumps(manifest))
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
         manifest["leaves"][0]["spec"] = ["model", "fsdp"]
-        manifest["mesh"] = {"axis_names": ["model"], "shape": {"model": 1}}
+        path.write_text(__import__("json").dumps(manifest))
+        ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
+        manifest["leaves"][0]["spec"] = ["pipe", "fsdp"]
+        manifest["mesh"] = {"axis_names": ["pipe"], "shape": {"pipe": 1}}
         path.write_text(__import__("json").dumps(manifest))
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
         manifest["mesh"] = None

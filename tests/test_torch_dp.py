@@ -135,11 +135,11 @@ class TestMesh:
     @pytest.mark.parametrize("axis", ["fsdp", "pp", "ep", "sp", "tp",
                                       "slices"])
     def test_other_axes_name_item_8(self, axis):
-        """The fsdp and expert axes are ported (tests/test_torch_zero3.py,
-        tests/test_torch_moe_ep.py): their meshes ask for the process
-        group. The multi-slice axis names item 8, the pipeline, sequence
-        and tensor axes item 11."""
-        if axis in ("fsdp", "ep"):
+        """The fsdp, expert, sequence and tensor axes are ported
+        (tests/test_torch_zero3.py, tests/test_torch_moe_ep.py,
+        tests/test_torch_tp.py): their meshes ask for the process group.
+        The multi-slice axis names item 8, the pipeline axis item 11."""
+        if axis in ("fsdp", "ep", "sp", "tp"):
             with pytest.raises(RuntimeError, match="initialize"):
                 MeshSpec(**{axis: 2}).build(device="cpu")
             return

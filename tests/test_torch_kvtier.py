@@ -294,10 +294,18 @@ class TestHostTier:
         """The async double buffer: the encode runs off-thread, the
         ready event gates the resume, and close() joins the worker. The
         worker's payloads equal the synchronous path's."""
+        # Only the workers these pools start: the JAX package names its
+        # offload thread alike, and another file's engines in this
+        # process may still hold theirs.
+        before = set(threading.enumerate())
+
+        def ours():
+            return [t for t in threading.enumerate()
+                    if t.name == "tony-kv-offload" and t not in before]
+
         c, ref = twin_pools(async_offload=True)
         try:
-            assert any(t.name == "tony-kv-offload"
-                       for t in threading.enumerate())
+            assert len(ours()) == 2
             toks = list(range(8))
             for p in (c, ref):
                 p.reserve("s", 8)
@@ -316,8 +324,7 @@ class TestHostTier:
         finally:
             c.close()
             ref.close()
-        assert not any(t.name == "tony-kv-offload"
-                       for t in threading.enumerate())
+        assert not ours()
 
     def test_parked_crc_corruption_rejected_record_kept(self):
         c, _ = twin_pools()

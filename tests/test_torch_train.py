@@ -295,20 +295,26 @@ class TestTrainStep:
 
     def test_unported_arguments_raise(self):
         tm = get_model("llama-tiny", device="cpu")
-        # The fsdp axis is ported (tests/test_torch_zero3.py): its mesh
-        # asks for the process group; the tensor axis is not.
+        # The fsdp and tensor axes are ported (tests/test_torch_zero3.py,
+        # tests/test_torch_tp.py): their meshes ask for the process
+        # group; the pipeline axis is not.
         with pytest.raises(RuntimeError, match="initialize"):
             MeshSpec(fsdp=2).build(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(RuntimeError, match="initialize"):
             MeshSpec(tp=2).build(device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MeshSpec(pp=2).build(device="cpu")
         with pytest.raises(NotImplementedError,
                            match="GradientTransformation or a FusedOptimizer"):
             ttrain.create_train_state(tm, object())
         # A mesh is ported: anything but a built Mesh is refused.
         with pytest.raises(TypeError, match="Mesh"):
             ttrain.make_accum_train_step(mesh=object(), microbatches=1)
+        # The sequence axis is ported: seq_axis=True makes a step, and a
+        # pipeline mesh is refused.
+        assert callable(ttrain.make_train_step(seq_axis=True))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrain.make_train_step(seq_axis=True)
+            MeshSpec(pp=2, tp=2).build(device="cpu")
         with pytest.raises(ValueError, match="xent_chunk"):
             tm(torch.zeros((1, 8), dtype=torch.int32),
                torch.zeros((1, 8), dtype=torch.int32))

@@ -22,6 +22,7 @@ from tony_tpu.models import transformer as jtr
 from tony_tpu_torch.models import get_model
 from tony_tpu_torch.models import transformer as ttr
 from tony_tpu_torch.models.convert import load_jax_params, params_from_jax
+from tony_tpu_torch.parallel import AXES, MODEL, Mesh
 
 LAYERS = 2
 
@@ -261,12 +262,25 @@ class TestConvert:
             params_from_jax(tree)
 
 
+def _tp_mesh():
+    shape = dict.fromkeys(AXES, 1)
+    shape[MODEL] = 2
+    return Mesh(shape=shape, processes=2, device=torch.device("cpu"))
+
+
 class TestUnported:
-    @pytest.mark.parametrize("kw", [
-        dict(moe_experts=4, mesh=object()), dict(attention="ring"),
-        dict(mesh=object())])
-    def test_unported_config_raises(self, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The mesh and ring attention are ported (tests/test_torch_tp.py,
+    # tests/test_torch_ring.py): a MoE decoder on a model axis is not;
+    # ring attention without a mesh raises as the reference's assert
+    # does; a mesh that is not a built Mesh is refused.
+    @pytest.mark.parametrize("kw,exc,match", [
+        pytest.param(dict(moe_experts=4, mesh=_tp_mesh()),
+                     NotImplementedError, "ROADMAP", id="kw0"),
+        pytest.param(dict(attention="ring"), ValueError, "needs cfg.mesh",
+                     id="kw1"),
+        pytest.param(dict(mesh=object()), TypeError, "Mesh", id="kw2")])
+    def test_unported_config_raises(self, kw, exc, match):
+        with pytest.raises(exc, match=match):
             get_model("llama-tiny", device="cpu", **kw)
 
     def test_serve_forward_argument_errors(self):

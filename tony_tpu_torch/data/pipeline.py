@@ -264,9 +264,18 @@ class Dataset:
             self, ShardSpec.from_env() if shard is None else shard)
 
     def device_iterator(self, mesh=None, *, shard: Optional[ShardSpec] = None,
-                        prefetch: int = 2, seq_axis: bool = False,
+                        prefetch: int = 2,
+                        seq_axis: Optional[bool] = None,
                         tag: str = "input"):
+        """This dataset's :class:`DeviceIterator`. With a ``mesh`` and no
+        ``shard``, the shard is the rank's block of the global batch over
+        the mesh's batch axes (``mesh.batch_index()``: the ranks along
+        expert, seq and model share one); on a mesh with a seq axis each
+        batch comes out as the rank's ``[B/dp, T/sp]`` sequence shard
+        (``seq_axis``, the reference's flag, follows from the mesh)."""
         from tony_tpu_torch.data.prefetch import DeviceIterator
+        if shard is None and mesh is not None:
+            shard = ShardSpec(*mesh.batch_index())
         return DeviceIterator(self.iterator(shard), mesh,
                               depth=prefetch, seq_axis=seq_axis, tag=tag)
 

@@ -125,7 +125,7 @@ class DeviceIterator:
     """
 
     def __init__(self, it: PipelineIterator, mesh=None, *, depth: int = 2,
-                 seq_axis: bool = False, tag: str = "input"):
+                 seq_axis: Optional[bool] = None, tag: str = "input"):
         if depth < 0:
             raise ValueError(f"prefetch depth must be >= 0, got {depth}")
         self._it = it

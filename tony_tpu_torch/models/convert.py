@@ -53,6 +53,7 @@ import torch
 from torch import nn
 
 from tony_tpu_torch.ckpt.snapshot import Attrs, LeafView
+from tony_tpu_torch.parallel.layout import layout_of
 
 _BLOCK_LEAVES = {
     ("attn_norm", "scale"): "attn_norm.scale",
@@ -336,13 +337,13 @@ def _load_opt_state(model: nn.Module, state: Any, tree: Any) -> None:
         for slot in ("mu", "nu"):
             src = model.params_from_jax(_field(adam, slot))
             for name, t in zip(names, getattr(live, slot)):
-                t.copy_(src[name].to(t.device, t.dtype))
+                t.copy_(rank_slice(src[name], t, name).to(t.device, t.dtype))
         live.count = int(np.asarray(_field(adam, "count")))
     elif hasattr(live, "trace"):
         if live.trace is not None:
             src = model.params_from_jax(_field(opt[0], "trace"))
             for name, t in zip(names, live.trace):
-                t.copy_(src[name].to(t.device, t.dtype))
+                t.copy_(rank_slice(src[name], t, name).to(t.device, t.dtype))
     else:
         raise NotImplementedError(
             f"loading a JAX optimizer state into "
@@ -371,7 +372,9 @@ def load_jax_params(model: nn.Module, tree: Any,
     ``.batch_stats`` where the model has BatchNorm statistics) and its
     moments, count and step fill ``state`` too: optax adamw's into an
     ``AdamState``, optax sgd's trace into a ``TraceState``, the fused
-    optimizer's portable form into the bucket slots."""
+    optimizer's portable form into the bucket slots. A sharded
+    parameter (ZeRO-3, expert or tensor-parallel) takes this rank's
+    slice of its JAX leaf (:func:`rank_slice`)."""
     convert = getattr(model, "params_from_jax", None)
     if convert is None:
         raise TypeError(f"{type(model).__name__} names no JAX tree "
@@ -393,8 +396,21 @@ def load_jax_params(model: nn.Module, tree: Any,
                          f"{missing[:4]}, unexpected {extra[:4]}")
     for name, t in src.items():
         p = targets[name]
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: JAX shape {tuple(t.shape)} vs "
-                             f"model {tuple(p.shape)}")
-        p.copy_(t.to(device=p.device, dtype=p.dtype))
+        p.copy_(rank_slice(t, p, name).to(device=p.device, dtype=p.dtype))
     return model
+
+
+def rank_slice(whole: torch.Tensor, target: torch.Tensor,
+               name: str) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``whole`` for ``target``: the
+    slice its sharded :class:`~tony_tpu_torch.parallel.layout.Layout`
+    names (a ZeRO-3, expert or tensor-parallel shard), else ``whole``;
+    the shapes must agree."""
+    lay = layout_of(target)
+    shape = tuple(lay.shape) if lay is not None else tuple(target.shape)
+    if tuple(whole.shape) != shape:
+        raise ValueError(f"{name}: JAX shape {tuple(whole.shape)} vs "
+                         f"model {shape}")
+    if lay is None or not lay.sharded:
+        return whole
+    return whole.narrow(lay.dim, lay.start, target.shape[lay.dim])

@@ -32,6 +32,24 @@ Two forwards:
   come back for the engine to commit into its paged pool. Runs under
   inference mode. A MoE decoder refuses it, as the reference does.
 
+On a mesh with a ``model`` or ``seq`` axis (``TransformerConfig.mesh``,
+or the mesh :func:`tony_tpu_torch.train.create_train_state` hands the
+model, which cuts the parameters with
+:func:`tony_tpu_torch.parallel.tensor.shard_model`) the training forward
+is Megatron's, the collectives the reference gets from GSPMD written by
+hand (:mod:`tony_tpu_torch.parallel.tensor`): ``wq``/``wk``/``wv``,
+``w_gate``/``w_up`` and the LM head are column shards, ``wo`` and
+``w_down`` row shards, the embedding a vocab shard; each rank attends
+its ``n_heads/tp`` local heads with the classic ``[B, H, T, D]`` flash
+kernels (not the packed ones, as the JAX module's mesh route), K/V
+repeated up to the query heads where the kv heads do not divide ``tp``.
+With ``seq > 1`` (or ``attention="ring"``) each rank holds ``T/sp``
+positions at their global offset and attention is
+:func:`tony_tpu_torch.parallel.ring_attention.ring_attention`. The
+logits are this rank's vocab columns and positions, returned as
+:class:`tony_tpu_torch.parallel.tensor.ShardedLogits` for the
+vocab-parallel losses.
+
 Both forwards run the ``quant=`` lanes (:meth:`TransformerConfig.quant_lanes`):
 a projection group in the set computes through
 :class:`tony_tpu_torch.ops.quant.QuantDense` (int8 × int8 → int32 on the
@@ -67,6 +85,9 @@ from tony_tpu_torch.models.moe import MoEMLP
 from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
                                 flash_decode, reference_attention)
 from tony_tpu_torch.ops.quant import QuantDense
+from tony_tpu_torch.parallel import MODEL, SEQ, Mesh
+from tony_tpu_torch.parallel import tensor as tpar
+from tony_tpu_torch.parallel.ring_attention import ring_attention
 from tony_tpu_torch.train import chunked_next_token_xent
 
 _LATER = "ROADMAP.md, queue 1"
@@ -100,9 +121,10 @@ class TransformerConfig:
     # The fields below shape the training forward; the serving forward
     # ignores attention/scan_layers/remat/remat_policy/xent_chunk (a plain
     # layer loop, no gradients, the plain head). scan_layers only names
-    # the JAX param layout (convert.py reads both). attention="ring" and
-    # a mesh raise until their slices land (an expert mesh reaches the
-    # MoE blocks through create_train_state instead).
+    # the JAX param layout (convert.py reads both). mesh: a built
+    # tony_tpu_torch.parallel.Mesh whose seq and model axes the training
+    # forward runs over (attention="ring" needs one; an expert mesh
+    # reaches the MoE blocks through create_train_state instead).
     # quant: which projection groups run the int8 lane — True means
     # ("qkv", "o", "mlp"); a string or tuple selects ("lm_head" opts the
     # unembed in).
@@ -279,11 +301,14 @@ class Attention(nn.Module):
                               param_dtype)
         self.wo = _proj_dense(cfg, "o", nh * hd, cfg.dim, device,
                               param_dtype)
+        self.mesh = cfg.mesh
 
     def forward(self, x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
         """Training forward: causal self-attention over the t rows, routed
         as the JAX module routes it (transformer.py:237-287)."""
         cfg = self.cfg
+        if self.mesh is not None:
+            return self._forward_mesh(x, tables, self.mesh)
         b, t, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
@@ -304,6 +329,45 @@ class Attention(nn.Module):
                   else reference_attention)
         out = attend(q, k, v, causal=True)
         return self.wo(out.transpose(1, 2).reshape(b, t, nh * hd))
+
+    def _forward_mesh(self, x: torch.Tensor, tables: RopeTables,
+                      mesh: Mesh) -> torch.Tensor:
+        """The training forward on this rank's local heads (``wq``,
+        ``wk``, ``wv`` column shards, ``wo`` a row shard), over its seq
+        shard with ring attention where the mesh has one."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        hd, tp = cfg.head_dim, mesh.shape[MODEL]
+        nh = cfg.n_heads // tp
+        x = tpar.copy_to_model(x, mesh)
+        q = self.wq(x).view(b, t, nh, hd)
+        if cfg.n_kv_heads % tp == 0:
+            nkv = cfg.n_kv_heads // tp
+            k = self.wk(x).view(b, t, nkv, hd)
+            v = self.wv(x).view(b, t, nkv, hd)
+        else:
+            # The kv heads do not divide tp: every rank projects them all
+            # (its weight grads summed over the model group) and repeats
+            # them up to its query heads, as the reference repeats K/V.
+            reps, first = cfg.n_heads // cfg.n_kv_heads, \
+                mesh.coords()[MODEL] * nh
+            k, v = (F.linear(x.to(cfg.dtype), tpar.copy_to_model(
+                w.weight, mesh).to(cfg.dtype)).view(b, t, cfg.n_kv_heads, hd)
+                .repeat_interleave(reps, dim=2).narrow(2, first, nh)
+                for w in (self.wk, self.wv))
+            nkv = nh
+        q = apply_rope(q.transpose(1, 2), tables)
+        k = apply_rope(k.transpose(1, 2), tables)
+        v = v.transpose(1, 2)
+        if cfg.attention == "ring" or mesh.shape[SEQ] > 1:
+            out = ring_attention(q, k, v, mesh, causal=True)
+        elif cfg.attention == "flash":
+            # flash_attention_sharded's body: this rank's heads.
+            out = flash_attention(q, k, v, causal=True)
+        else:
+            out = reference_attention(q, k, v, causal=True)
+        out = out.transpose(1, 2).reshape(b, t, nh * hd)
+        return tpar.row_parallel(self.wo, out, mesh)
 
     def serve(self, x: torch.Tensor, positions: torch.Tensor,
               tables: RopeTables, kv: LayerKV, keep: _Keep
@@ -350,9 +414,14 @@ class MLP(nn.Module):
                                 param_dtype)
         self.w_down = _proj_dense(cfg, "mlp", cfg.ffn_hidden, cfg.dim,
                                   device, param_dtype)
+        self.mesh = cfg.mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        """SwiGLU; on a model axis ``w_gate``/``w_up`` are column shards
+        and ``w_down`` a row shard."""
+        x = tpar.copy_to_model(x, self.mesh)
+        return tpar.row_parallel(
+            self.w_down, F.silu(self.w_gate(x)) * self.w_up(x), self.mesh)
 
 
 class Block(nn.Module):
@@ -439,17 +508,12 @@ class Transformer(nn.Module):
                  param_dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg.quant_lanes()       # validates the lanes, as the JAX module
-        if cfg.mesh:
-            raise NotImplementedError(
-                f"TransformerConfig.mesh is not ported yet; it lands with "
-                f"the sharded slices ({_LATER}); an expert mesh reaches "
-                f"the MoE blocks through create_train_state(mesh=)")
-        if cfg.attention == "ring":
-            raise NotImplementedError(
-                f"attention='ring' is not ported yet; it lands with the "
-                f"sharded slices ({_LATER})")
-        if cfg.attention not in ("flash", "reference"):
+        if cfg.attention not in ("flash", "reference", "ring"):
             raise ValueError(f"unknown attention {cfg.attention!r}")
+        if cfg.attention == "ring" and cfg.mesh is None:
+            # The reference asserts it (transformer.py:268).
+            raise ValueError("attention='ring' needs cfg.mesh")
+        _check_mesh(cfg, cfg.mesh)
         # As the JAX module: an unknown policy, or a policy without remat,
         # fails loudly instead of silently not applying.
         if cfg.remat_policy is not None \
@@ -466,6 +530,25 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, dev)
         self.lm_head = _proj_dense(cfg, "lm_head", cfg.dim, cfg.vocab, dev,
                                    param_dtype)
+        self.mesh = cfg.mesh
+
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Run the training forward over ``mesh``'s seq and model axes
+        (:func:`tony_tpu_torch.parallel.tensor.shard_model` cuts the
+        parameters and calls it)."""
+        _check_mesh(self.cfg, mesh)
+        for m in self.modules():
+            if isinstance(m, (Transformer, Attention, MLP)):
+                m.mesh = mesh
+
+    def whole_under(self, mesh: Mesh) -> List[str]:
+        """The parameters whose spec names ``model`` but which stay whole
+        on ``mesh``: the K/V projections where the kv heads do not divide
+        ``tp``."""
+        if self.cfg.n_kv_heads % mesh.shape[MODEL] == 0:
+            return []
+        return [n for n, _ in self.named_parameters()
+                if n.endswith(("attn.wk.weight", "attn.wv.weight"))]
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Transformer":
@@ -513,11 +596,17 @@ class Transformer(nn.Module):
         if targets is not None and not cfg.xent_chunk:
             raise ValueError("targets are only taken with xent_chunk (the "
                              "fused LM-head loss)")
+        mesh = self.mesh
+        if mesh is not None:
+            _check_sharded(self, mesh)
         t = tokens.shape[1]
         if positions is None:
-            positions = torch.arange(t, device=tokens.device)
+            # Under sp this rank's positions are its shard's, global.
+            start = 0 if mesh is None else mesh.coords()[SEQ] * t
+            positions = torch.arange(start, start + t, device=tokens.device)
         cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-        x = F.embedding(tokens.long(), self.embedding).to(cfg.dtype)
+        x = tpar.vocab_parallel_embedding(tokens.long(), self.embedding,
+                                          mesh).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()
         policy = {}
         if cfg.remat_policy is not None:
@@ -539,6 +628,9 @@ class Transformer(nn.Module):
         if targets is not None:
             out = chunked_next_token_xent(x, self.lm_head.weight, targets,
                                           cfg.xent_chunk, cfg.dtype)
+        elif mesh is not None:
+            out = tpar.ShardedLogits.of(tpar.column_parallel(
+                self.lm_head, x, mesh).float(), mesh)
         else:
             out = self.lm_head(x).float()
         return (out, aux) if moe else out
@@ -572,6 +664,12 @@ class Transformer(nn.Module):
                              "(per-sequence absolute)")
         if self.cfg.moe_experts > 0:
             raise ValueError("serve mode does not support MoE blocks")
+        if self.mesh is not None and (self.mesh.shape[MODEL] > 1
+                                      or self.mesh.shape[SEQ] > 1):
+            raise NotImplementedError(
+                f"the serve forward on a model or seq axis (tensor- or "
+                f"sequence-parallel serving) is not ported ({_LATER} item "
+                f"11)")
         layer_kv = kv if callable(kv) else (lambda i: (kv[0][i], kv[1][i]))
         positions = positions.to(torch.int32)
         tables = rope_tables(positions, self.cfg.head_dim,
@@ -591,6 +689,43 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         logits = self.lm_head(x).float()
         return logits, (torch.stack(ks), torch.stack(vs))
+
+
+def _check_mesh(cfg: TransformerConfig, mesh: Optional[Mesh]) -> None:
+    """What a decoder on ``mesh`` cannot run yet raises."""
+    if mesh is None:
+        return
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a tony_tpu_torch.parallel.Mesh "
+                        f"(MeshSpec(...).build()), got {type(mesh)}")
+    if mesh.shape[MODEL] == 1 and mesh.shape[SEQ] == 1:
+        return
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            f"a MoE decoder on a model or seq axis (tp inside the MoE "
+            f"block) is not ported yet ({_LATER} item 11)")
+    if cfg.quant_lanes():
+        raise NotImplementedError(
+            f"the quant lanes on a model or seq axis are not ported yet "
+            f"({_LATER} item 11)")
+    if cfg.xent_chunk:
+        raise NotImplementedError(
+            f"xent_chunk on a model or seq axis is not ported yet "
+            f"({_LATER} item 11)")
+    tp = mesh.shape[MODEL]
+    for what, n in (("n_heads", cfg.n_heads), ("ffn_hidden", cfg.ffn_hidden),
+                    ("vocab", cfg.vocab)):
+        if n % tp:
+            raise ValueError(f"{what}={n} does not divide over tp={tp}")
+
+
+def _check_sharded(model: "Transformer", mesh: Mesh) -> None:
+    if mesh.shape[MODEL] > 1 and \
+            model.embedding.shape[0] == model.cfg.vocab:
+        raise RuntimeError(
+            "the decoder's parameters are whole on a tp mesh: "
+            "create_train_state(model, tx, mesh=mesh) (or "
+            "tony_tpu_torch.parallel.tensor.shard_model) cuts them")
 
 
 def _build(defaults: dict, kw: dict) -> Transformer:

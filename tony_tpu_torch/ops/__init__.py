@@ -9,6 +9,7 @@ launches by wrapper name.
 
 from tony_tpu_torch.ops.attention import (LAUNCHES, flash_attention,
                                           flash_attention_packed,
+                                          flash_attention_sharded,
                                           flash_decode, reference_attention)
 from tony_tpu_torch.ops.batchnorm import fused_bn_act
 from tony_tpu_torch.ops.fused_optim import (FusedOptimizer,
@@ -17,6 +18,7 @@ from tony_tpu_torch.ops.quant import (QuantDense, int8_matmul, quant_dot,
                                       quant_dot_general)
 
 __all__ = ["LAUNCHES", "FusedOptimizer", "QuantDense", "flash_attention",
-           "flash_attention_packed", "flash_decode", "fused_bn_act",
+           "flash_attention_packed", "flash_attention_sharded",
+           "flash_decode", "fused_bn_act",
            "fused_bucket_update", "int8_matmul", "quant_dot",
            "quant_dot_general", "reference_attention"]

@@ -11,6 +11,9 @@
   :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`, which
   follow the JAX kernels' math block by block with their rounding points.
   Both layouts are the same [B, H, T, D] views with other strides.
+* :func:`flash_attention_sharded` — the global-array entry point over a
+  tensor-parallel mesh: each rank's batch rows and ``H/tp`` heads
+  through :func:`flash_attention`.
 * :func:`flash_decode` — position-masked flash-decoding attention of a
   small q-block against a cached K/V buffer. A CUDA tensor runs the
   hand-written Hopper kernels of ``csrc/flash_decode.cu`` (bf16 on the
@@ -759,3 +762,35 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = flash_attention(heads_view(q), heads_view(k), heads_view(v),
                           causal=causal, scale=scale)
     return out.transpose(1, 2).reshape(b, t, hd)
+
+
+def flash_attention_sharded(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, mesh, causal: bool = True,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Global-array entry point: q/k/v are the global ``[B, H, T, D]``
+    arrays (the same on every rank of ``mesh``, a
+    :class:`tony_tpu_torch.parallel.Mesh`); returns this rank's block of
+    the output, batch over the data axes and heads over ``model``, the
+    sequence whole (a sharded sequence is
+    :func:`tony_tpu_torch.parallel.ring_attention.ring_attention_sharded`'s).
+    Each rank runs :func:`flash_attention` (the classic ``[B, H, T, D]``
+    kernels) on its ``H/tp`` local heads; a decoder on a tp mesh holds
+    those already and calls :func:`flash_attention` on them itself.
+    Where the kv heads do not divide the model axis, K/V are repeated up
+    to the query heads (exact); heads or a batch that do not divide raise
+    ``ValueError`` (the reference runs the kernel unmapped there instead:
+    the port never computes a whole array on every rank)."""
+    from tony_tpu_torch.parallel import BATCH_AXES, MODEL
+    from tony_tpu_torch.parallel.ring_attention import local_block
+
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"query heads {q.shape[1]} not a multiple of kv "
+                         f"heads {k.shape[1]}")
+    tp = mesh.shape[MODEL]
+    if k.shape[1] % tp:
+        reps = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(reps, dim=1)
+        v = v.repeat_interleave(reps, dim=1)
+    dims = {0: BATCH_AXES, 1: (MODEL,)}
+    q, k, v = (local_block(x, mesh, dims) for x in (q, k, v))
+    return flash_attention(q, k, v, causal=causal, scale=scale)

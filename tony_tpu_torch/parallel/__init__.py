@@ -10,11 +10,17 @@
   one process group per axis of size > 1 (an axis that spans the world
   uses the default group). The batch is sharded over the data axes
   alone (:data:`BATCH_AXES`), so the ranks along ``expert`` hold the
-  same rows, as in the reference. ``ep`` beside ``fsdp`` raises
-  ``NotImplementedError`` (ROADMAP.md, queue 1 item 11). The other axes
-  keep their names (:data:`AXES`) at size 1; asking for one of them
-  raises ``NotImplementedError`` (ROADMAP.md, queue 1: ``slices`` item
-  8, ``pp``/``sp``/``tp`` item 11).
+  same rows, as in the reference. The sequence and tensor axes are
+  ported too: ``MeshSpec(dp=, sp=, tp=)`` adds the ``seq`` group (ring
+  attention, :mod:`~tony_tpu_torch.parallel.ring_attention`), the
+  ``model`` group (the decoder's Megatron shards,
+  :mod:`~tony_tpu_torch.parallel.tensor`) and the ``(data, seq)``
+  gradient-sync group; ``model`` is innermost, so tp neighbours are
+  adjacent ranks. ``ep`` beside ``fsdp``, and ``tp`` or ``sp`` beside
+  ``fsdp`` or ``ep``, raise ``NotImplementedError`` (ROADMAP.md, queue
+  1 item 11). The other axes keep their names (:data:`AXES`) at size
+  1; asking for one of them raises ``NotImplementedError`` (ROADMAP.md,
+  queue 1: ``slices`` item 8, ``pp`` item 11).
 * :data:`RULES` and :func:`logical_spec` — the logical-axis → mesh-axis
   lookup, as data: a spec is a tuple with one entry per dim (``None``,
   an axis name or a tuple of names), what a ``PartitionSpec`` is to the
@@ -66,8 +72,7 @@ RULES: Tuple[Tuple[str, object], ...] = (
 )
 
 # MeshSpec field → (mesh axis, the ROADMAP item that ports it).
-_UNPORTED = {"pp": (PIPE, 11), "sp": (SEQ, 11), "tp": (MODEL, 11),
-             "slices": (SLICE, 8)}
+_UNPORTED = {"pp": (PIPE, 11), "slices": (SLICE, 8)}
 
 
 def logical_spec(*logical_axes: Optional[str],
@@ -134,12 +139,37 @@ class Mesh:
             raise KeyError(f"the mesh has no process group over {key}")
         return self.groups[key]
 
+    def peer(self, axis: str, offset: int) -> int:
+        """The global rank ``offset`` steps along ``axis`` from this rank
+        (cyclic): the ring's neighbours are ``peer(SEQ, ±1)``."""
+        coords = self.coords()
+        coords[axis] = (coords[axis] + offset) % self.shape[axis]
+        return self.index(AXES, coords)
+
+    def index(self, axes: Sequence[str],
+              coords: Optional[Dict[str, int]] = None) -> int:
+        """The linear index of ``coords`` (default: this rank's) over
+        ``axes``, the first outermost: over :data:`AXES` it is the rank."""
+        coords = self.coords() if coords is None else coords
+        index = 0
+        for a in axes:
+            index = index * self.shape[a] + coords[a]
+        return index
+
+    def batch_index(self) -> Tuple[int, int]:
+        """``(index, count)`` of this rank's block of the global batch
+        over :data:`BATCH_AXES`: the ranks along ``expert``, ``seq`` and
+        ``model`` share one block (the ``ShardSpec`` a rank's input
+        pipeline reads)."""
+        return self.index(BATCH_AXES), self.size(BATCH_AXES)
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One parallelism layout; the data, fsdp and expert axes are ported
-    (expert beside data, not beside fsdp). ``dp=0`` resolves to the world
-    size over the other axes."""
+    """One parallelism layout; the data, fsdp, expert, sequence and tensor
+    axes are ported (expert beside data; seq and model beside data and
+    each other, not beside fsdp or expert). ``dp=0`` resolves to the
+    world size over the other axes."""
     dp: int = 0
     fsdp: int = 1
     pp: int = 1
@@ -161,16 +191,26 @@ class MeshSpec:
                 raise NotImplementedError(
                     f"MeshSpec({field}={getattr(self, field)}): the {axis!r} "
                     f"axis is not ported yet (ROADMAP.md, queue 1 item "
-                    f"{item}); the data, fsdp and expert axes are")
+                    f"{item}); the data, fsdp, expert, seq and model "
+                    f"axes are")
         if self.ep > 1 and self.fsdp > 1:
             raise NotImplementedError(
                 f"MeshSpec(fsdp={self.fsdp}, ep={self.ep}): expert "
                 f"parallelism beside ZeRO-3 is not ported yet (ROADMAP.md, "
                 f"queue 1 item 11)")
-        if self.fsdp < 1 or self.ep < 1 or self.dp < 0:
+        for field in ("tp", "sp"):
+            size = getattr(self, field)
+            for other in ("fsdp", "ep"):
+                if size > 1 and getattr(self, other) > 1:
+                    raise NotImplementedError(
+                        f"MeshSpec({field}={size}, {other}="
+                        f"{getattr(self, other)}): the {field} axis beside "
+                        f"{other} is not ported yet (ROADMAP.md, queue 1 "
+                        f"item 11); it runs beside data parallelism")
+        if min(self.fsdp, self.ep, self.sp, self.tp) < 1 or self.dp < 0:
             raise ValueError(f"MeshSpec(dp={self.dp}, fsdp={self.fsdp}, "
-                             f"ep={self.ep}): sizes must be positive (dp=0: "
-                             f"the rest)")
+                             f"ep={self.ep}, sp={self.sp}, tp={self.tp}): "
+                             f"sizes must be positive (dp=0: the rest)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -183,13 +223,14 @@ class MeshSpec:
             raise ValueError(f"an NCCL process group cannot reduce tensors "
                              f"on {dev}")
         world = td.get_world_size()
-        rest = self.fsdp * self.ep
+        rest = self.fsdp * self.ep * self.sp * self.tp
         if not self.dp and world % rest:
             raise ValueError(f"{world} devices not divisible by "
                              f"slices*fsdp*pp*ep*sp*tp={rest}")
         dp = self.dp or world // rest
         shape = dict.fromkeys(AXES, 1)
         shape[DATA], shape[FSDP], shape[EXPERT] = dp, self.fsdp, self.ep
+        shape[SEQ], shape[MODEL] = self.sp, self.tp
         if dp * rest != world:
             named = {a: n for a, n in shape.items() if n > 1} or {DATA: 1}
             raise ValueError(
@@ -197,25 +238,37 @@ class MeshSpec:
                 f"{world} (one rank per device)")
         mesh = Mesh(shape=shape, processes=world, device=dev,
                     rank=td.get_rank())
-        # One group per line of the grid along each axis that neither is
-        # trivial nor spans the world, created by every rank in the same
-        # order.
-        for axis in (FSDP, DATA, EXPERT):
-            if 1 < shape[axis] < world:
-                for ranks in _lines(shape, axis, world):
-                    group = td.new_group(ranks)
-                    if mesh.rank in ranks:
-                        mesh.groups[(axis,)] = group
+        # One group per line of the grid along each axis (and along the
+        # data and seq axes together, the gradient-sync group of a
+        # sequence-parallel mesh) that neither is trivial nor spans the
+        # world, created by every rank in the same order.
+        for axes in ((FSDP,), (DATA,), (EXPERT,), (SEQ,), (MODEL,),
+                     (DATA, SEQ)):
+            key = tuple(a for a in axes if shape[a] > 1)
+            if key in mesh.groups or not 1 < mesh.size(key) < world:
+                continue
+            for ranks in _lines(shape, key, world):
+                group = td.new_group(ranks)
+                if mesh.rank in ranks:
+                    mesh.groups[key] = group
         return mesh
 
 
-def _lines(shape: Dict[str, int], axis: str, world: int):
-    """The rank lists of the mesh's lines along ``axis`` (the ranks that
-    differ in that coordinate alone), in rank order."""
-    i = AXES.index(axis)
-    stride = math.prod(shape[a] for a in AXES[i + 1:])
-    return [[r + k * stride for k in range(shape[axis])]
-            for r in range(world) if (r // stride) % shape[axis] == 0]
+def _lines(shape: Dict[str, int], axes: Sequence[str], world: int):
+    """The rank lists of the mesh's sub-grids along ``axes`` (the ranks
+    that differ in those coordinates alone), in rank order."""
+    def others(r):
+        rest, out = r, []
+        for a in reversed(AXES):
+            if a not in axes:
+                out.append(rest % shape[a])
+            rest //= shape[a]
+        return tuple(out)
+
+    lines: Dict[Tuple[int, ...], list] = {}
+    for r in range(world):
+        lines.setdefault(others(r), []).append(r)
+    return list(lines.values())
 
 from tony_tpu_torch.parallel.layout import (Layout, layout_of,  # noqa: E402
                                             set_layout)

@@ -2,13 +2,16 @@
 counterpart of a ``jax.Array``'s committed sharding.
 
 A ZeRO-3 state keeps, on each rank, only that rank's slice of every
-fsdp-sharded parameter (and of its optimizer slots); the tensor itself
-has the slice's shape. Its :class:`Layout`, attached to the tensor
-object, says which slice: the global shape, the spec (one entry per dim,
-as :func:`~tony_tpu_torch.parallel.logical_spec` gives it), the sharded
-dim and the slice's offset on it, and the rank's index on the data axis
-(replica 0 writes the slice in a checkpoint, the reference's
-``replica_id == 0`` rule). The train step detects a ZeRO-3 state from
+fsdp-sharded parameter (and of its optimizer slots), an expert mesh its
+experts, a tensor-parallel mesh its ``model`` shard of each column- or
+row-parallel weight; the tensor itself has the slice's shape. Its
+:class:`Layout`, attached to the tensor object, says which slice: the
+global shape, the spec (one entry per dim, as
+:func:`~tony_tpu_torch.parallel.logical_spec` gives it), the sharded dim
+and the slice's offset on it, and the rank's replica index: on the data
+axis, or on a tensor-parallel mesh over the data and seq axes (the
+ranks that hold the same shard; replica 0 writes the slice in a
+checkpoint, the reference's ``replica_id == 0`` rule). The train step detects a ZeRO-3 state from
 these layouts, and the checkpoint plane saves and restores each slice at
 its extent.
 """
@@ -28,7 +31,9 @@ class Layout:
     """``shape`` and ``spec`` are the global array's (torch layout);
     ``dim`` is the dim this tensor slices (None: the tensor is whole,
     replicated on every rank) and ``start`` the slice's offset on it;
-    ``replica`` is the rank's index on the data axis."""
+    ``replica`` is the rank's index among the ranks that hold the same
+    slice (the data axis; the data and seq axes on a tensor-parallel
+    mesh)."""
     shape: Tuple[int, ...]
     spec: Tuple[Any, ...]
     dim: Optional[int] = None

@@ -46,7 +46,7 @@ import torch
 import torch.distributed as td
 
 from tony_tpu_torch import profiler
-from tony_tpu_torch.parallel import DATA, EXPERT, FSDP, SLICE
+from tony_tpu_torch.parallel import DATA, EXPERT, FSDP, MODEL, SEQ, SLICE
 from tony_tpu_torch.parallel.layout import Layout, layout_of, set_layout
 
 _log = logging.getLogger(__name__)
@@ -60,13 +60,17 @@ _LATER = "ROADMAP.md, queue 1 item 8"
 
 def sync_axes(mesh: Any) -> Tuple[str, ...]:
     """The gradient-sync mesh axes: the slice axis plus both DP axes, in
-    mesh order, as the batch is placed."""
-    return (SLICE, DATA, FSDP)
+    mesh order, as the batch is placed, and the seq axis where the mesh
+    has one (size > 1): every parameter is replicated over ``seq`` and
+    the batch split over it, so a leaf's grads are summed over it too.
+    ``model`` never joins (a tensor-parallel leaf's shard is reduced
+    over the data and seq axes only)."""
+    return (SLICE, DATA, FSDP) + ((SEQ,) if mesh.shape[SEQ] > 1 else ())
 
 
 def sync_size(mesh: Any) -> int:
-    """Rank count of the gradient-sync group (the product of the slice and
-    DP axes)."""
+    """Rank count of the gradient-sync group (the product of the slice, DP
+    and seq axes)."""
     return math.prod(mesh.shape[a] for a in sync_axes(mesh))
 
 
@@ -1280,15 +1284,17 @@ def full_params(params: Sequence[torch.Tensor], mesh: Any
                 ) -> List[torch.Tensor]:
     """Every parameter whole: a ZeRO-3 shard gathered over the fsdp group
     along its sharded dim (a new tensor), an expert mesh's experts over
-    the expert group, any other parameter as it is. For evaluation and
-    checks; the train steps gather bucket by bucket."""
+    the expert group, a tensor-parallel shard over the model group, any
+    other parameter as it is. For evaluation and checks; the train steps
+    gather bucket by bucket."""
     out = []
     for p in params:
         lay = layout_of(p)
         if lay is None or not lay.sharded:
             out.append(p.detach())
             continue
-        axis = EXPERT if EXPERT in _names(lay.spec[lay.dim]) else FSDP
+        axis = next(a for a in (EXPERT, MODEL, FSDP)
+                    if a in _names(lay.spec[lay.dim]))
         size = mesh.shape[axis]
         flat = _all_gather(p.detach(), size, mesh.group((axis,)))
         out.append(torch.cat(list(flat.view((size,) + tuple(p.shape))

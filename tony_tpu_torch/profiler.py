@@ -69,6 +69,17 @@ def record_collective(tag: str, /, **fields) -> None:
     COLLECTIVE_RECORDS[tag] = dict(fields)
 
 
+def count_collective(tag: str, /, nbytes: int, **fields) -> None:
+    """Add one issue of ``nbytes`` to the record under ``tag`` (``calls``
+    and ``nbytes_total`` accumulate until the records are reset): the
+    record of a collective issued many times a step, such as the tensor
+    axis' all-reduces and the ring's sends."""
+    rec = COLLECTIVE_RECORDS.setdefault(tag, {"calls": 0, "nbytes_total": 0})
+    rec.update(fields)
+    rec["calls"] += 1
+    rec["nbytes_total"] += int(nbytes)
+
+
 def collective_report() -> Dict[str, Dict[str, object]]:
     return _snapshot(COLLECTIVE_RECORDS)
 

@@ -1,7 +1,10 @@
 """Training: the counterpart of :mod:`tony_tpu.train`.
 
 * :func:`cross_entropy_loss`, :func:`next_token_loss` — mean softmax
-  cross entropy on f32 logits, and its causal-LM shift;
+  cross entropy on f32 logits, and its causal-LM shift; a decoder's
+  logits on a model axis (this rank's vocab columns) take the
+  vocab-parallel cross entropy, and on a seq axis the shift takes the
+  label of a shard's last position from the next shard;
 * :func:`chunked_next_token_xent` — the fused LM head and causal cross
   entropy over row chunks, which never builds the ``[B, T, V]`` logits
   (a decoder with ``xent_chunk`` returns it for ``targets=``);
@@ -44,9 +47,12 @@ wraps the model, and a step updates parameters and optimizer slots in
 place — the counterpart of the JAX step's donated state. Checkpoints
 carry the reference's ``TrainState`` (``.step``, ``.params``,
 ``.opt_state``) in the JAX package's paths, shapes and layout; a ZeRO-3
-state's ranks each write their shards. The sequence axis, the other
-mesh axes and the int8 gather wire format are later slices (ROADMAP.md,
-queue 1 items 8 and 11).
+state's ranks each write their shards. On a mesh with ``model`` or
+``seq`` axes (``MeshSpec(dp=, sp=, tp=)``) the decoder's parameters are
+Megatron shards (:mod:`tony_tpu_torch.parallel.tensor`), attention runs
+around the seq ring and the grads are summed over the data and seq axes.
+The pipeline axis, the multi-slice reduce and the other pairings of the
+mesh axes are later slices (ROADMAP.md, queue 1 items 8 and 11).
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ import os
 import time
 import weakref
 from typing import (Any, Callable, Dict, Iterable, List, Mapping,
-                    NamedTuple, Optional, Tuple)
+                    NamedTuple, Optional, Tuple, Union)
 
 import numpy as np
 import torch
@@ -73,8 +79,9 @@ from tony_tpu_torch.ckpt.snapshot import Attrs
 from tony_tpu_torch.models.convert import (PortableState, jax_param_tree,
                                            portable_state)
 from tony_tpu_torch.ops.fused_optim import FusedOptimizer, bias_correction
-from tony_tpu_torch.parallel import (BATCH_AXES, DATA, EXPERT, FSDP, SEQ,
-                                     Mesh, layout_of, logical_spec)
+from tony_tpu_torch.parallel import (BATCH_AXES, DATA, EXPERT, FSDP, MODEL,
+                                     SEQ, Mesh, layout_of, logical_spec)
+from tony_tpu_torch.parallel import tensor as tpar
 from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
                                              GradBuckets, ResidentBuckets,
                                              ShardBuckets, attach_like,
@@ -87,18 +94,65 @@ _LATER = "ROADMAP.md, queue 1"
 _log = logging.getLogger(__name__)
 
 
-def cross_entropy_loss(logits: torch.Tensor,
+def cross_entropy_loss(logits: Union[torch.Tensor, tpar.ShardedLogits],
                        labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross entropy; labels are integer classes (any rank)."""
+    """Mean softmax cross entropy; labels are integer classes (any rank).
+    A decoder's logits on a mesh (:class:`~tony_tpu_torch.parallel.tensor.
+    ShardedLogits`) are this rank's block: over a model axis its vocab
+    columns, through the vocab-parallel cross entropy (the same value on
+    every rank of the model group); ``labels`` are the block's rows."""
+    if isinstance(logits, tpar.ShardedLogits):
+        if logits.mesh.shape[MODEL] > 1:
+            return _xent_sum(logits, labels) / labels.numel()
+        logits = logits.logits
     logits = logits.float()
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            labels.reshape(-1).long())
 
 
-def next_token_loss(logits: torch.Tensor,
+def _xent_sum(logits: Union[torch.Tensor, tpar.ShardedLogits],
+              labels: torch.Tensor) -> torch.Tensor:
+    """The summed cross entropy of ``logits`` ``[..., V]`` or of a
+    :class:`~tony_tpu_torch.parallel.tensor.ShardedLogits` block."""
+    if isinstance(logits, tpar.ShardedLogits):
+        shard, logits = logits, logits.logits
+        if shard.mesh.shape[MODEL] > 1:
+            return tpar.vocab_parallel_xent(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                shard.lo, shard.mesh).sum()
+    flat = logits.reshape(-1, logits.shape[-1])
+    return F.cross_entropy(flat.float(), labels.reshape(-1).long(),
+                           reduction="sum")
+
+
+def next_token_loss(logits: Union[torch.Tensor, tpar.ShardedLogits],
                     tokens: torch.Tensor) -> torch.Tensor:
-    """Causal-LM loss: predict token t+1 from position t."""
-    return cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
+    """Causal-LM loss: predict token t+1 from position t.
+
+    A decoder's logits on a seq axis (:class:`~tony_tpu_torch.parallel.
+    tensor.ShardedLogits`) hold this rank's ``T/sp`` positions of the
+    sequence and ``tokens`` the same shard: the label of the shard's
+    last position is the next shard's first token (gathered over the
+    seq group; the last shard has no label there), and the value is this
+    shard's summed loss scaled so that its mean over the seq group is
+    the loss over the whole sequence, ``B·(T−1)`` rows: what the train
+    step averages."""
+    sharded = isinstance(logits, tpar.ShardedLogits)
+    if not sharded or logits.mesh.shape[SEQ] == 1:
+        t = logits.logits.shape[1] if sharded else logits.shape[1]
+        head = logits.narrow(0, t - 1) if sharded else logits[:, :-1]
+        return cross_entropy_loss(head, tokens[:, 1:])
+    mesh = logits.mesh
+    sp, here = mesh.shape[SEQ], mesh.coords()[SEQ]
+    b, t = tokens.shape
+    firsts = [torch.empty_like(tokens[:, 0]) for _ in range(sp)]
+    td.all_gather(firsts, tokens[:, 0].contiguous(),
+                  group=mesh.group((SEQ,)))
+    labels = torch.cat([tokens[:, 1:], firsts[(here + 1) % sp][:, None]],
+                       dim=1)
+    if here == sp - 1:
+        logits, labels = logits.narrow(0, t - 1), labels[:, :-1]
+    return _xent_sum(logits, labels) * (sp / (b * (sp * t - 1)))
 
 
 def _chunk_logits(hc: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
@@ -339,6 +393,15 @@ def create_train_state(model: nn.Module, tx: Any,
     The expert mesh takes a :class:`GradientTransformation`;
     ``make_train_step`` is its step.
 
+    On a mesh with ``tp > 1`` or ``sp > 1`` (a decoder with a
+    ``set_mesh``) :func:`tony_tpu_torch.parallel.tensor.shard_model` cuts
+    each parameter whose spec names ``model`` to this rank's Megatron
+    shard and gives the model the mesh (its forward then runs the tensor
+    axis' collectives and the seq ring); every parameter and optimizer
+    slot carries its :class:`~tony_tpu_torch.parallel.layout.Layout`.
+    It takes a :class:`GradientTransformation`; ``make_train_step`` is
+    its step.
+
     ``tx`` is a :class:`GradientTransformation` (leaf-major state) or a
     :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer`: then every
     parameter's storage moves into its flat per-bucket buffer of the tx's
@@ -362,7 +425,15 @@ def create_train_state(model: nn.Module, tx: Any,
             "a FusedOptimizer on an expert mesh (ep > 1) is not ported yet "
             "(ROADMAP.md, queue 1 item 11): its step, make_accum_train_step, "
             "does not take the expert axis")
-    zero3 = experts = False
+    zero3 = experts = tensor = False
+    if mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[SEQ] > 1):
+        if fused or not hasattr(model, "set_mesh"):
+            raise NotImplementedError(
+                f"the model and seq axes take a decoder (set_mesh) with a "
+                f"GradientTransformation; {type(model).__name__} with "
+                f"{type(tx).__name__} on them is not ported yet "
+                f"(ROADMAP.md, queue 1 item 11)")
+        tensor = True
     if mesh is not None:
         tensors = list(itertools.chain(params, model.buffers()))
         off = sorted({str(t.device) for t in tensors
@@ -381,6 +452,9 @@ def create_train_state(model: nn.Module, tx: Any,
             experts = any(shard_experts(
                 model, param_specs(model) if specs is None else list(specs),
                 mesh))
+        if tensor:
+            tpar.shard_model(model, param_specs(model) if specs is None
+                             else list(specs), mesh)
     if fused:
         plan = tx.plan_for(params, mesh)
         buckets = ShardBuckets.adopt(plan, params) if zero3 \
@@ -389,7 +463,7 @@ def create_train_state(model: nn.Module, tx: Any,
                           opt_state=tx.init_state(params, plan=plan),
                           buckets=buckets, mesh=mesh)
     opt_state = tx.init(params)
-    if zero3 or experts:
+    if zero3 or experts or tensor:
         _attach_slot_layouts(opt_state, params)
     return TrainState(step=0, model=model, tx=tx, opt_state=opt_state,
                       mesh=mesh)
@@ -463,18 +537,29 @@ EXPERT_REDUCE_TAG = "train_step.grad.experts.all_reduce"
 def model_loss(model: nn.Module, batch: Dict[str, Any],
                loss_of: Callable[[Any, Dict[str, Any]], torch.Tensor],
                apply_kwargs_of: Optional[Callable[[Dict[str, Any]],
-                                                  Dict[str, Any]]] = None
+                                                  Dict[str, Any]]] = None,
+               mesh: Optional[Mesh] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss_of(out, batch) + aux, aux)`` for one forward of ``model``
     on ``batch["x"]``: ``aux`` is the auxiliary loss a MoE decoder
     returns beside its output (``(out, aux)``), the reference's sown
-    ``losses`` summed; an f32 zero for any other model."""
+    ``losses`` summed; an f32 zero for any other model. On a ``mesh``
+    with a model or seq axis the output must be the block of a sharded
+    decoder (:class:`~tony_tpu_torch.parallel.tensor.ShardedLogits`):
+    whole logits there would be taken for the whole batch's."""
     extra = apply_kwargs_of(batch) if apply_kwargs_of else {}
     out = model(batch["x"], **extra)
     if getattr(getattr(model, "cfg", None), "moe_experts", 0) > 0:
         out, aux = out
     else:
-        aux = torch.zeros((), dtype=torch.float32, device=out.device)
+        aux = torch.zeros((), dtype=torch.float32, device=batch["x"].device)
+    if mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[SEQ] > 1) \
+            and not isinstance(out, tpar.ShardedLogits):
+        raise ValueError(
+            f"on a mesh with a model or seq axis the model returns its "
+            f"block of the logits (ShardedLogits, from a decoder that "
+            f"create_train_state(..., mesh=) cut), got "
+            f"{type(out).__name__}")
     return loss_of(out, batch) + aux, aux
 
 
@@ -490,7 +575,8 @@ def _expert_leaves(params: List[torch.Tensor], mesh: Optional[Mesh]
 
 def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
                                                torch.Tensor]] = None,
-                    mesh: Optional[Mesh] = None, seq_axis: bool = False,
+                    mesh: Optional[Mesh] = None,
+                    seq_axis: Optional[bool] = None,
                     apply_kwargs_of: Optional[Callable[
                         [Dict[str, Any]], Dict[str, Any]]] = None):
     """The train step ``(state, batch) -> (state, metrics)``.
@@ -539,11 +625,22 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
     sharded parameters gathered bucket by bucket, the grads
     reduce-scattered into the shard layout, ``grad_norm`` summed over the
     shards, the update applied to each rank's shards.
-    ``seq_axis=True`` raises ``NotImplementedError``."""
-    if seq_axis:
-        raise NotImplementedError(
-            "seq_axis=True (the ring-attention sequence axis) is not ported "
-            "yet (ROADMAP.md, queue 1 item 11)")
+
+    On a mesh with ``model`` and ``seq`` axes (:func:`create_train_state`
+    cut the decoder into Megatron shards) the ``tp`` ranks of a data and
+    seq index hold the same rows and compute the same loss. Where
+    ``sp > 1`` each rank's batch is its ``[B/dp, T/sp]`` shard (what
+    :func:`global_batch` hands it on that mesh) and the loss the
+    seq-parallel :func:`next_token_loss`, whose mean over the seq group
+    is the whole sequence's; ``seq_axis`` (the reference's flag) follows
+    from the mesh, and ``seq_axis=False`` on a seq axis raises. The loss
+    is divided by the ``dp · sp`` ranks and every leaf, sharded over ``model`` or
+    replicated, is summed over the data and seq group (the replicated
+    leaves come out bitwise equal on the ``tp`` ranks: the tensor axis'
+    all-reduces give every rank the same bits); ``grad_norm`` sums the
+    ``model`` shards' squares over the model group and counts the
+    replicated leaves once."""
+    _check_seq_axis(mesh, seq_axis)
     if loss_of is None:
         loss_of = lambda logits, batch: cross_entropy_loss(logits,
                                                            batch["y"])
@@ -563,9 +660,10 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
             return _zero3_step(state, batch, params, specs)
         for p in params:
             p.grad = None
-        loss, aux = model_loss(model, batch, loss_of, apply_kwargs_of)
+        loss, aux = model_loss(model, batch, loss_of, apply_kwargs_of,
+                               mesh)
         if mesh is not None:
-            ranks = mesh.shape[DATA] * mesh.shape[EXPERT]
+            ranks = mesh.shape[DATA] * mesh.shape[EXPERT] * mesh.shape[SEQ]
             loss, aux = loss / ranks, aux / ranks
         loss.backward()
         loss, aux = loss.detach(), aux.detach()
@@ -575,11 +673,15 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
         if mesh is not None:
             loss, aux = _reduce_grads(grads, expert, torch.stack(
                 [loss, aux]), reduce_plan, mesh)
-        gnorm = global_norm([g for g, x in zip(grads, expert) if not x])
-        if any(expert):
-            sq = global_norm([g for g, x in zip(grads, expert) if x]) ** 2
-            td.all_reduce(sq, group=mesh.group((EXPERT,)))
-            gnorm = torch.sqrt(gnorm * gnorm + sq)
+        shard = tpar.model_leaves(params) if mesh is not None \
+            and mesh.shape[MODEL] > 1 else [False] * len(params)
+        gnorm = global_norm([g for g, x, m in zip(grads, expert, shard)
+                             if not (x or m)])
+        for axis, own in ((EXPERT, expert), (MODEL, shard)):
+            if any(own):
+                sq = global_norm([g for g, x in zip(grads, own) if x]) ** 2
+                td.all_reduce(sq, group=mesh.group((axis,)))
+                gnorm = torch.sqrt(gnorm * gnorm + sq)
         state.opt_state = state.tx.update(grads, state.opt_state, params)
         state.step += 1
         for p in params:
@@ -609,16 +711,18 @@ def _reduce_grads(grads: List[torch.Tensor], expert: List[bool],
                   reduce_plan: Callable[[List[torch.Tensor]], GradBuckets],
                   mesh: Mesh) -> Tuple[torch.Tensor, torch.Tensor]:
     """The data-parallel step's reduce, in place on ``grads``: the
-    replicated leaves and the ``(loss, aux)`` scalars summed over every
-    rank, one ``all_reduce`` per bucket; the expert leaves (``expert``)
-    over the data group. Returns the summed scalars."""
-    axes = [DATA] + ([EXPERT] if mesh.shape[EXPERT] > 1 else [])
+    replicated leaves, a model axis' shards and the ``(loss, aux)``
+    scalars summed over the data, expert and seq axes, one
+    ``all_reduce`` per bucket; the expert leaves (``expert``) over the
+    data group. Returns the summed scalars."""
+    axes = [DATA] + [a for a in (EXPERT, SEQ) if mesh.shape[a] > 1]
     for tag, keep, over in ((GRAD_REDUCE_TAG, False, axes),
                             (EXPERT_REDUCE_TAG, True, [DATA])):
         idx = [i for i, x in enumerate(expert) if x == keep]
-        if not idx or (keep and mesh.shape[DATA] == 1):
+        if not idx or (keep and mesh.shape[DATA] == 1) \
+                or mesh.size(over) == 1 < mesh.processes:
             continue
-        group = mesh.group((DATA,)) if keep else None
+        group = mesh.group(over)
         plan = reduce_plan([grads[i] for i in idx])
         profiler.record_collective(
             tag, kind="all_reduce", plane="grad_reduce", axes=over,
@@ -725,6 +829,11 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
         raise NotImplementedError(
             "make_accum_train_step on an expert mesh (ep > 1) is not "
             "ported yet (ROADMAP.md, queue 1 item 11): use make_train_step")
+    if mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[SEQ] > 1):
+        raise NotImplementedError(
+            "make_accum_train_step on a mesh with a model or seq axis is "
+            "not ported yet (ROADMAP.md, queue 1 item 11): use "
+            "make_train_step")
     if reduce_op not in ("all_reduce", "reduce_scatter"):
         raise ValueError(f"unknown reduce op {reduce_op!r} "
                          "(all_reduce|reduce_scatter)")
@@ -1142,7 +1251,8 @@ def _validate_local_batch(mesh: Mesh, local_batch: Any,
     flat = _flatten(local_batch)
     if not flat:
         return
-    nproc = mesh.processes
+    # The ranks along seq and model feed the same rows.
+    nproc = mesh.processes // (mesh.shape[SEQ] * mesh.shape[MODEL])
     n_shards = math.prod(mesh.shape[a] for a in BATCH_AXES)
     ref_path = ref_dim = None
     for name, leaf in flat:
@@ -1192,16 +1302,34 @@ _VALIDATED_CONTRACTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _VALIDATED_CONTRACTS_MAX = 256
 
 
-def global_batch(mesh: Mesh, local_batch: Any, seq_axis: bool = False,
-                 check: bool = True) -> Any:
+def _check_seq_axis(mesh: Optional[Mesh], seq_axis: Optional[bool]
+                    ) -> None:
+    """``seq_axis`` follows from the mesh: False on a seq axis raises."""
+    if seq_axis is False and mesh is not None and mesh.shape[SEQ] > 1:
+        raise ValueError(
+            f"seq_axis=False on a mesh with a {mesh.shape[SEQ]}-way seq "
+            f"axis: its ranks train on sequence shards (leave seq_axis "
+            f"out; it follows from the mesh)")
+
+
+def global_batch(mesh: Mesh, local_batch: Any,
+                 seq_axis: Optional[bool] = None, check: bool = True) -> Any:
     """This rank's part of the global batch — every rank calls it with its
     own local shard (multi-host feeding) — as tensors on the mesh's
     device, in the local batch's dict/list structure (a pinned host
     tensor is copied without a host wait, on the current stream). Under
     data parallelism each rank holds its own rows, so nothing crosses
-    ranks.
+    ranks. On a mesh with a seq axis (the reference's
+    ``batch_sharding(seq_axis=True)``; ``seq_axis`` follows from the
+    mesh, and False there raises) every rank of a data index passes the
+    same rows with the whole sequence and keeps its seq shard: each leaf
+    of rank 2 or more is cut to ``[:, s·T/sp : (s+1)·T/sp]`` for the
+    rank's seq index ``s`` (a 1-D leaf stays whole).
     ``check`` pre-flights the reference's shape contract with a
     leaf-naming ``ValueError`` (memoized per contract)."""
+    _check_seq_axis(mesh, seq_axis)
+    sp = mesh.shape[SEQ]
+    seq_axis = bool(seq_axis) or sp > 1
     flat = _flatten(local_batch)
     if check:
         key = (seq_axis, tuple(p for p, _ in flat),
@@ -1211,8 +1339,12 @@ def global_batch(mesh: Mesh, local_batch: Any, seq_axis: bool = False,
             _validate_local_batch(mesh, local_batch, seq_axis=seq_axis)
             if len(seen) < _VALIDATED_CONTRACTS_MAX:
                 seen.add(key)
-    return _unflatten(local_batch, (_to_device(leaf, mesh.device)
-                                    for _, leaf in flat))
+    placed = (_to_device(leaf, mesh.device) for _, leaf in flat)
+    if sp > 1:
+        here = mesh.coords()[SEQ]
+        placed = (x.narrow(1, here * (x.shape[1] // sp), x.shape[1] // sp)
+                  if x.dim() >= 2 else x for x in placed)
+    return _unflatten(local_batch, placed)
 
 
 def _to_device(leaf: Any, device: torch.device) -> torch.Tensor:
