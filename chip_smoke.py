@@ -33,7 +33,15 @@ caught):
    kernel once a block: 10), forward and backward, against flash over
    the whole sequence and against the ring's plain version (relative L2
    within the train phase's bf16 limit), timed beside them, SDPA and
-   the bound; and the fused bucket optimizer update for every rule (AdamW
+   the bound; ``pipeline_stages``: llama2-7b's first two Blocks at full
+   width (f32 parameters, bf16 compute) as two pipeline stages of one
+   layer, batch 4 x 2048 in 4 microbatches, the gpipe and 1F1B loops
+   driven in lockstep on the card (``parallel.pipeline.pipeline_blocks``),
+   output, input grad and every parameter's grad against the two Blocks
+   applied one after the other (relative L2 within the train phase's
+   bf16 limit), rows 3 and 7 launched as each schedule runs them (per
+   microbatch and layer one forward for gpipe, two for 1F1B, one dQ and
+   one dK/dV); and the fused bucket optimizer update for every rule (AdamW
    with and without weight decay, SGD-momentum, Adafactor-style), in f32
    and bf16, at n = 1, 1000 and one 7B ``w_gate`` bucket, with
    ``torch.equal`` on p and every slot, timed at the ``w_gate`` and the
@@ -199,6 +207,22 @@ caught):
    losses finite and falling, the step times, each rank holding 2 of the
    8 experts, rank 0's step peak and the exchange's bytes a step from
    the ``moe`` records.
+   ``python3 chip_smoke.py --pipeline-cards-only`` (4 cards) runs alone
+   one NCCL rank per card of ``tests/workloads/torch_pp_steps.py`` (the
+   CPU tests' gloo worker), llama2-7b at full width, bf16 compute, f32
+   parameters, each stage's Blocks without remat: (a) 4 layers at
+   ``MeshSpec(pp=4)`` and 2 layers at ``MeshSpec(dp=2, pp=2)``, gpipe
+   and 1F1B, batch 4 x 2048, one step each against rank 0's one-card
+   step of the whole model (loss within 1e-2, every gathered grad within
+   the bf16 limit, the replicated leaves and their grads bitwise equal
+   on every rank); (b) all 32 layers at pp=4 through
+   ``pipelined_lm_logits`` (gpipe) and (c) the same through 1F1B, batch
+   8 x 2048 in 8 microbatches, AdamW(3e-4), 4 steps: losses finite and
+   falling, step times, tokens/s, every rank's peak, a step's stage
+   sends beside the recorded plan, and (b) rank 0's device time by
+   kernel group over one more step under ``torch.profiler``; every
+   rank's launches of rows 3 and 7 in its steps are its stage's
+   schedule's;
    ``python3 chip_smoke.py --sharded-cards-only`` (4 cards) runs alone
    one NCCL rank per card of ``tests/workloads/torch_sharded_steps.py``
    (the CPU tests' gloo worker), llama2-7b at full width, bf16 compute,
@@ -366,7 +390,9 @@ caught):
    one card, the census's at its rank, the cards disjoint; the first loss
    within 1e-2 of a one-card no-grad forward on the same global rows;
    each rank's step times and peak;
-14. report — a ``{"kernels": [...]}`` line (rows 1-15), a
+14. report — a ``{"flash_shapes": {...}}`` line, a
+   ``{"pipeline_stages": {...}}`` line, a ``{"kernels": [...]}`` line
+   (rows 1-15; rows 3 and 7 count the pipeline_stages launches), a
    ``{"serve": {...}}`` line, a ``{"train": {...}}`` line, a
    ``{"train_fused": {...}}`` line, a ``{"train_zero3": {...}}`` line,
    a ``{"train_moe": {...}}`` line,
@@ -431,7 +457,7 @@ from tony_tpu_torch.models.convert import jax_param_tree  # noqa: E402
 from tony_tpu_torch.models import moe as moe_module  # noqa: E402
 from tony_tpu_torch.models.moe import MoEMLP  # noqa: E402
 from tony_tpu_torch.models.transformer import (  # noqa: E402
-    Transformer, TransformerConfig)
+    Transformer, TransformerConfig, rope_tables)
 from tony_tpu_torch.models.resnet import (FusedBNAct,  # noqa: E402
                                           resnet50_flops)
 from tony_tpu_torch.ops import LAUNCHES, _build  # noqa: E402
@@ -440,6 +466,7 @@ from tony_tpu_torch.ops import batchnorm as bn  # noqa: E402
 from tony_tpu_torch.ops import fused_optim as fo  # noqa: E402
 from tony_tpu_torch.ops import quant as tq  # noqa: E402
 from tony_tpu_torch.parallel import AXES, Mesh, MeshSpec  # noqa: E402
+from tony_tpu_torch.parallel import pipeline as pipe_mod  # noqa: E402
 from tony_tpu_torch.parallel import ring_attention as ring_mod  # noqa: E402
 from tony_tpu_torch.parallel import tensor as tpar  # noqa: E402
 from tony_tpu_torch.parallel.overlap import (GradBuckets,  # noqa: E402
@@ -4427,6 +4454,272 @@ def sharded_cards_phase(card: str):
 
 
 # ---------------------------------------------------------------------
+# pipeline_stages (phase 3) and --pipeline-cards-only: pipeline
+# parallelism.
+# ---------------------------------------------------------------------
+
+# llama2-7b at full width, 2 layers as 2 stages of 1, batch 4 x 2048 in
+# 4 microbatches: both schedules' loops in lockstep on one card
+# (parallel.pipeline.pipeline_blocks), against the two Blocks applied
+# one after the other.
+PIPE_STAGES, PIPE_BATCH, PIPE_MICROBATCHES = 2, (4, 2048), 4
+# Rows 3 and 7 a schedule runs per microbatch and layer: the forward
+# (gpipe keeps the graph; 1F1B recomputes the forward in its backward),
+# the dQ and the dK/dV kernel.
+PIPE_FWD_PER_MB = {"gpipe": 1, "1f1b": 2}
+
+
+def stage_launches(schedule, layers, microbatches, steps=1):
+    """Rows 3 and 7's launches of ``layers`` layers' stage over
+    ``microbatches`` microbatches and ``steps`` steps."""
+    n = layers * microbatches * steps
+    return {RING_NAMES[0]: PIPE_FWD_PER_MB[schedule] * n,
+            RING_NAMES[1]: n, RING_NAMES[2]: n}
+
+
+def check_pipeline_stages(gen):
+    """The pipeline_stages check: llama2-7b's first two Blocks (f32
+    parameters, bf16 compute, the packed flash path) as two stages, the
+    gpipe and 1F1B loops driven in lockstep on the card over 4
+    microbatches of 1 x 2048; output, input grad and every stage
+    parameter's grad against the Blocks applied one after the other on
+    the whole batch (relative L2 within the train phase's bf16 limit),
+    and each schedule's launches of rows 3 and 7 against the
+    schedule's count. Returns the errors, launches and times."""
+    t0 = time.monotonic()
+    model = get_model("llama2-7b", n_layers=PIPE_STAGES, device="cuda",
+                      seed=SEED)
+    cfg = model.cfg
+    blocks = list(model.layers)
+    b, t = PIPE_BATCH
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=gen,
+                           device="cuda")
+    x = torch.nn.functional.embedding(tokens, model.embedding).to(cfg.dtype)
+    dy = (torch.randn((b, t, cfg.dim), generator=gen, device="cuda")
+          * 1e-2).to(cfg.dtype)
+    cos, sin = rope_tables(torch.arange(t, device="cuda"), cfg.head_dim,
+                           cfg.rope_theta)
+    params = [list(blk.parameters()) for blk in blocks]
+    xr = x.detach().requires_grad_()
+    h = xr
+    for blk in blocks:
+        h = blk(h, cos, sin)
+    ref_grads = torch.autograd.grad(h, [p for ps in params for p in ps]
+                                    + [xr], dy)
+    ref_y, ref_dx = h.detach(), ref_grads[-1]
+    ref_grads = ref_grads[:-1]
+    del h
+    fns = [lambda _p, hh, blk=blk: blk(hh, cos, sin) for blk in blocks]
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    out = {"model": f"llama2-7b n_layers={PIPE_STAGES}/32 as "
+                    f"{PIPE_STAGES} stages", "batch": list(PIPE_BATCH),
+           "microbatches": PIPE_MICROBATCHES, "rel_l2_limit": limit}
+    for schedule in pipe_mod.SCHEDULES:
+        before = {n: LAUNCHES[n] for n in RING_NAMES}
+        t_run = time.monotonic()
+        y, grads, dx = pipe_mod.pipeline_blocks(
+            fns, params, x, dy, PIPE_MICROBATCHES, schedule=schedule)
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t_run
+        launches = {n: LAUNCHES[n] - before[n] for n in RING_NAMES}
+        want = stage_launches(schedule, PIPE_STAGES, PIPE_MICROBATCHES)
+        if launches != want:
+            raise AssertionError(f"pipeline_stages {schedule}: launches "
+                                 f"{launches}, the schedule runs {want}")
+        errs = {"y": tensor_rel_l2(y, ref_y), "dx": tensor_rel_l2(dx, ref_dx)}
+        flat = [g for gs in grads for g in gs]
+        errs["grads_max"] = max(tensor_rel_l2(g, r)
+                                for g, r in zip(flat, ref_grads))
+        bad = {k: v for k, v in errs.items()
+               if not (math.isfinite(v) and v <= limit)}
+        if bad:
+            raise AssertionError(f"pipeline_stages {schedule}: relative L2 "
+                                 f"{bad} > {limit}")
+        out[schedule] = {"launches": launches, "rel_l2": errs,
+                         "max_abs_err_y": (y.float() - ref_y.float()).abs()
+                         .max().item(), "wall_s": run_s}
+        del y, grads, dx
+    del model, blocks, params, ref_grads, ref_y, ref_dx, x, dy
+    out["wall_s"] = time.monotonic() - t0
+    log(f"  pipeline_stages {PIPE_STAGES} stages x 1 layer, batch "
+        f"{PIPE_BATCH} in {PIPE_MICROBATCHES} microbatches: "
+        + "; ".join(
+            f"{sc} launches {out[sc]['launches']}, rel L2 "
+            f"{ {k: round(v, 5) for k, v in out[sc]['rel_l2'].items()} }"
+            for sc in pipe_mod.SCHEDULES)
+        + f" (tol {limit}); {out['wall_s']:.1f} s")
+    return out
+
+
+PIPE_WORKER = os.path.join("tests", "workloads", "torch_pp_steps.py")
+PIPE_RANK_TIMEOUT_S = 900
+# (a): name, MeshSpec sizes, layers, schedule, global batch,
+# microbatches; one step against rank 0's one-card step on the same
+# weights and batch.
+PIPE_CHECKS = tuple(
+    (f"a_{tag}_{schedule}", mesh, layers, schedule, (4, 2048), mb)
+    for tag, mesh, layers, mb in (("pp4", dict(pp=4), 4, 4),
+                                  ("dp2_pp2", dict(dp=2, pp=2), 2, 2))
+    for schedule in pipe_mod.SCHEDULES)
+# (b) all 32 layers at pp=4 through gpipe, (c) the same stack through
+# gpipe_1f1b: batch 8 x 2048 in 8 microbatches, AdamW(3e-4), 4 steps.
+PIPE_DEPTH = tuple((f"{tag}_pp4_32_{schedule}", dict(pp=4), 32, schedule,
+                    (8, 2048), 8)
+                   for tag, schedule in (("b", "gpipe"), ("c", "1f1b")))
+PIPE_STEPS = 4
+
+
+def check_pipe_launches(name, rep, schedule, layers, microbatches, steps):
+    """Each rank's launches of rows 3 and 7 in a run's steps against its
+    stage's schedule (:func:`stage_launches`)."""
+    by_rank = {}
+    for r in rep["ranks"]:
+        want = stage_launches(schedule, layers, microbatches, steps)
+        got = {n: r["launches"].get(n, 0) for n in RING_NAMES}
+        if got != want:
+            raise AssertionError(f"pipeline cards {name}: rank {r['rank']} "
+                                 f"({r['coords']}) launched {got}, its "
+                                 f"stage's {schedule} runs {want} "
+                                 f"({r['launches']})")
+        by_rank[r["rank"]] = got
+    log(f"  ({name}) launches of rows 3 and 7 by rank: {by_rank}")
+    return by_rank
+
+
+def pipeline_cards_phase(card: str):
+    """``--pipeline-cards-only``: one NCCL rank a card of the CPU tests'
+    worker (tests/workloads/torch_pp_steps.py), llama2-7b at full width,
+    bf16 compute, f32 parameters, each stage's Blocks without remat.
+    (a) 4 layers at pp=4 and 2 layers at dp=2 x pp=2, gpipe and 1F1B,
+    one step against rank 0's one-card step of the whole model on the
+    same weights and batch (loss within 1e-2, every gathered grad within
+    the train phase's bf16 limit, the replicated leaves and their grads
+    bitwise equal on every rank); (b) all 32 layers at pp=4 through
+    pipelined_lm_logits (gpipe) and (c) the same stack through 1F1B,
+    batch 8 x 2048 in 8 microbatches, AdamW(3e-4), 4 steps: losses
+    finite and falling, step times, tokens/s, each rank's peak, the
+    bytes a step of the stage sends beside the recorded plan, and rank
+    0's device time by kernel group over one more step under
+    ``torch.profiler``. Every run's launches of rows 3 and 7 on every
+    rank are its stage's schedule (:func:`check_pipe_launches`)."""
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        raise AssertionError(f"--pipeline-cards-only needs 4 cards, found "
+                             f"{cards}")
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "pipeline_cards")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    runs = [dict(name=name, schedule=sched, steps=1, batch_shape=list(shape),
+                 microbatches=mb, tx={"rule": "capture"}, reference=True,
+                 dump=False, model_kwargs={"n_layers": layers}, **mesh)
+            for name, mesh, layers, sched, shape, mb in PIPE_CHECKS]
+    runs += [dict(name=name, schedule=sched, steps=PIPE_STEPS,
+                  batch_shape=list(shape), microbatches=mb, dump=False,
+                  records_from=PIPE_STEPS - 1, profile=sched == "gpipe",
+                  tx={"rule": "adamw", "learning_rate": TRAIN_LR},
+                  model_kwargs={"n_layers": layers}, **mesh)
+             for name, mesh, layers, sched, shape, mb in PIPE_DEPTH]
+    cfg = dict(model="llama2-7b", device="cuda", seed=SEED, vocab=32000,
+               runs=runs)
+    wall = run_ranks("pipeline_cards", PIPE_WORKER, "pp", cfg, tmp,
+                     PIPE_RANK_TIMEOUT_S)
+    report = json.load(open(os.path.join(tmp, "pp0.json")))
+    shutil.rmtree(tmp, ignore_errors=True)
+    limit = TRAIN_GRAD_REL_L2[torch.bfloat16]
+    out = {"wall_s": wall, "card": card}
+    for name, mesh, layers, sched, shape, mb in PIPE_CHECKS:
+        rep = report[name]
+        per_stage = layers // mesh["pp"]
+        launches = check_pipe_launches(name, rep, sched, per_stage, mb, 1)
+        ref = rep["reference"]
+        loss = rep["metrics"][0]["loss"]
+        loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        rel = ref["grad_rel_l2"]
+        worst = max(rel, key=rel.get)
+        log(f"  ({name}) {mesh} {sched}, {layers} layers, batch {shape} in "
+            f"{mb} microbatches: loss {loss:.6f} vs one card "
+            f"{ref['loss']:.6f} (rel {loss_rel:.2e}); grads max relative "
+            f"L2 {rel[worst]:.3e} ({worst}; tol {limit}); replicated "
+            f"leaves differing {rep['replicated_differ']}")
+        if not loss_rel <= FUSED_FIRST_LOSS_REL or rel[worst] > limit \
+                or rep["replicated_differ"]:
+            raise AssertionError(f"pipeline cards {name}: loss rel "
+                                 f"{loss_rel}, {worst} rel L2 {rel[worst]}, "
+                                 f"differing {rep['replicated_differ']}")
+        out[name] = {"mesh": rep["mesh"], "schedule": sched,
+                     "layers": layers, "batch": list(shape),
+                     "microbatches": mb, "loss": loss,
+                     "one_card_loss": ref["loss"], "loss_rel": loss_rel,
+                     "grad_max_rel_l2": rel[worst], "grad_worst_param": worst,
+                     "grad_rel_l2_limit": limit,
+                     "replicated_bitwise_equal": True,
+                     "launches_by_rank": launches}
+    for name, mesh, layers, sched, shape, mb in PIPE_DEPTH:
+        rep = report[name]
+        per_stage = layers // mesh["pp"]
+        launches = check_pipe_launches(name, rep, sched, per_stage, mb,
+                                       PIPE_STEPS)
+        losses = [m["loss"] for m in rep["metrics"]]
+        if not all(math.isfinite(x) for x in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"pipeline cards {name}: losses {losses}")
+        if rep["replicated_differ"]:
+            raise AssertionError(f"pipeline cards {name}: replicated leaves "
+                                 f"differ {rep['replicated_differ']}")
+        if rep["layers_held"] != per_stage:
+            raise AssertionError(f"pipeline cards {name}: rank 0 holds "
+                                 f"{rep['layers_held']} layers")
+        step_ms = [1e3 * x for x in rep["step_s"]]
+        host_ms = [1e3 * x for x in rep["host_s"]]
+        p50 = float(np.median(step_ms[1:]))
+        tag = "gpipe" if sched == "gpipe" else "gpipe_1f1b"
+        sends = {r["rank"]: r["records"].get(f"{tag}.send_recv", {})
+                 .get("nbytes_total", 0) for r in rep["ranks"]}
+        plan = rep["ranks"][0]["records"].get(f"{tag}.ppermute", {})
+        peaks = [r["peak_bytes"] for r in rep["ranks"]]
+        tokens = shape[0] * shape[1]
+        log(f"  ({name}) {mesh} {sched}, {layers} layers, batch {shape} in "
+            f"{mb} microbatches: losses {[round(x, 4) for x in losses]}; "
+            f"step ms {[round(x, 1) for x in step_ms]} (p50 after the first "
+            f"{p50:.1f}, {tokens / (p50 / 1e3):.0f} tokens/s; the host "
+            f"queued each in {[round(x, 1) for x in host_ms]}); peaks GB "
+            f"{[round(x / 1e9, 2) for x in peaks]} (build "
+            f"{[round(r['build_peak_bytes'] / 1e9, 2) for r in rep['ranks']]}"
+            f"); a step's sends GB by rank "
+            f"{ {r: round(b / 1e9, 4) for r, b in sends.items()} }, the "
+            f"recorded plan {sum(plan.get('nbytes', [])) / 1e9:.4f} GB an "
+            f"edge; build {rep['build_s']:.1f} s")
+        prof = rep["profile"]
+        if sched == "gpipe" and (prof is None or not prof[
+                "device_ms_by_group"]["flash_attention"] > 0):
+            raise AssertionError(f"pipeline cards {name}: no flash kernel "
+                                 f"in rank 0's profiled step: {prof}")
+        if prof is not None:
+            log(f"    rank 0's profiled step: {prof['step_wall_ms']:.1f} ms, "
+                f"device ms {json.dumps(prof['device_ms_by_group'])}")
+        out[name] = {
+            "model": f"llama2-7b n_layers={layers}/32", "mesh": rep["mesh"],
+            "schedule": sched, "batch": list(shape), "microbatches": mb,
+            "steps": PIPE_STEPS, "losses": losses, "step_ms": step_ms,
+            "host_queue_ms": host_ms, "step_p50_ms": p50,
+            "tokens_per_s": tokens / (p50 / 1e3), "peak_bytes": peaks,
+            "build_peak_bytes": [r["build_peak_bytes"]
+                                 for r in rep["ranks"]],
+            "build_s": rep["build_s"], "launches_by_rank": launches,
+            "send_bytes_per_step_by_rank": sends,
+            "planned_edge_bytes_per_step": sum(plan.get("nbytes", [])),
+            "profile_rank0": prof,
+            "params_a_rank": sum(c[0] for c in rep["counts"].values()),
+            # Layer 0's leaves carry the whole stacked [L, ...] shapes.
+            "params_whole": sum(
+                c[1] if n.startswith("layers.0.") else c[0]
+                for n, c in rep["counts"].items()
+                if n.startswith("layers.0.") or not n.startswith("layers."))}
+    return out
+
+
+# ---------------------------------------------------------------------
 # Int8 matmul (kernel row 15) and the quantized lane.
 # ---------------------------------------------------------------------
 
@@ -7786,6 +8079,7 @@ def main() -> int:
     moe_cards_only = "--moe-cards-only" in sys.argv[1:]
     disagg_cards_only = "--disagg-cards-only" in sys.argv[1:]
     sharded_cards_only = "--sharded-cards-only" in sys.argv[1:]
+    pipeline_cards_only = "--pipeline-cards-only" in sys.argv[1:]
     # Phase 1: device.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -7866,6 +8160,18 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    if pipeline_cards_only:
+        # Pipeline parallelism across four cards (a multi-card machine's
+        # measurement).
+        log("[pipeline_cards]")
+        res = pipeline_cards_phase(card)
+        print(json.dumps({"pipeline_cards": res}), flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+
     if moe_cards_only:
         # Expert parallelism across four cards (a multi-card machine's
         # measurement).
@@ -7918,6 +8224,9 @@ def main() -> int:
             flash[f"{shape[0]}_{str(dtype)[6:]}"] = res
         torch.cuda.empty_cache()
     ring_blocks = check_ring_blocks(gen)
+    torch.cuda.empty_cache()
+    pipeline_stages = check_pipeline_stages(gen)
+    gc.collect()
     torch.cuda.empty_cache()
     fused_err, fused_timed = check_fused(gen)
     int8 = check_int8(gen)
@@ -8105,9 +8414,14 @@ def main() -> int:
             + train_loop_res["launches"][name]
             + train_ckpt["launches_after_restore"][name]
             + tony_jobs["train"]["launches"][name]
-            + ring_blocks["launches"][name],
+            + ring_blocks["launches"][name]
+            + sum(pipeline_stages[sc]["launches"][name]
+                  for sc in pipe_mod.SCHEDULES),
             "launches_by_path": {
                 "ring_blocks": ring_blocks["launches"][name],
+                "pipeline_stages": {
+                    sc: pipeline_stages[sc]["launches"][name]
+                    for sc in pipe_mod.SCHEDULES},
                 "train": train_launches[name],
                 "train_zero3": train_zero3["timed"]["launches"][name],
                 "train_moe": train_moe["launches"][name],
@@ -8223,6 +8537,7 @@ def main() -> int:
     serve["card"] = card
     serve_quant["card"] = card
     print(json.dumps({"flash_shapes": flash}), flush=True)
+    print(json.dumps({"pipeline_stages": pipeline_stages}), flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"train": train}), flush=True)

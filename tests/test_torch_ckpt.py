@@ -250,9 +250,10 @@ class TestFormat:
         manifest["leaves"][0]["spec"] = ["data", None]
         path.write_text(__import__("json").dumps(manifest))
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
-        # The fsdp and tensor axes are ported (tests/test_torch_zero3.py,
-        # tests/test_torch_tp.py) and so is an axis of size 1 in the
-        # manifest's mesh; a pipeline leaf names item 11.
+        # The fsdp, tensor and pipeline axes are ported
+        # (tests/test_torch_zero3.py, tests/test_torch_tp.py,
+        # tests/test_torch_pipeline.py) and so is an axis of size 1 in
+        # the manifest's mesh; a multi-slice leaf names item 8.
         manifest["leaves"][0]["spec"] = [None, "fsdp"]
         path.write_text(__import__("json").dumps(manifest))
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
@@ -265,7 +266,10 @@ class TestFormat:
         ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
         manifest["mesh"] = None
         path.write_text(__import__("json").dumps(manifest))
-        with pytest.raises(NotImplementedError, match="item 11"):
+        ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
+        manifest["leaves"][0]["spec"] = ["slice", "fsdp"]
+        path.write_text(__import__("json").dumps(manifest))
+        with pytest.raises(NotImplementedError, match="item 8"):
             ckpt.restore_pytree(tmp_path, {"w": torch.zeros(4, 4)})
 
     def test_dtype_policy_matches_the_reference(self, tmp_path):

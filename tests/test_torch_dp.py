@@ -135,16 +135,15 @@ class TestMesh:
     @pytest.mark.parametrize("axis", ["fsdp", "pp", "ep", "sp", "tp",
                                       "slices"])
     def test_other_axes_name_item_8(self, axis):
-        """The fsdp, expert, sequence and tensor axes are ported
-        (tests/test_torch_zero3.py, tests/test_torch_moe_ep.py,
-        tests/test_torch_tp.py): their meshes ask for the process group.
-        The multi-slice axis names item 8, the pipeline axis item 11."""
-        if axis in ("fsdp", "ep", "sp", "tp"):
+        """The fsdp, pipeline, expert, sequence and tensor axes are ported
+        (tests/test_torch_zero3.py, tests/test_torch_pipeline.py,
+        tests/test_torch_moe_ep.py, tests/test_torch_tp.py): their meshes
+        ask for the process group. The multi-slice axis names item 8."""
+        if axis in ("fsdp", "pp", "ep", "sp", "tp"):
             with pytest.raises(RuntimeError, match="initialize"):
                 MeshSpec(**{axis: 2}).build(device="cpu")
             return
-        item = 8 if axis == "slices" else 11
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(NotImplementedError, match="item 8"):
             MeshSpec(**{axis: 2}).build(device="cpu")
 
     def test_data_mesh_over_the_world(self, one_rank_group):

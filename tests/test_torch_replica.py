@@ -915,6 +915,14 @@ class TestUnported:
                             lambda self, **kw: built.append(self))
         assert replica_mod.main() == 0
         (rep,) = built
+        try:
+            self._check_lane(rep, lanes, port_ckpt, tmp_path)
+        finally:
+            # serve_forever is patched out: the test owns the teardown of
+            # the host tier's offload worker.
+            rep.engine.cache.close()
+
+    def _check_lane(self, rep, lanes, port_ckpt, tmp_path):
         engine = rep.engine
         if SERVE_SPEC_K in lanes:
             assert isinstance(engine, SpecEngine)
@@ -967,6 +975,24 @@ class TestUnported:
         if SERVE_QOS_TENANTS in lanes:
             assert engine.stats()["tenants"]["gold"]["completed"] == \
                 len(PROMPTS)
+
+    def test_serve_forever_joins_the_offload_worker(self, port_ckpt):
+        """A replica with the host-blocks lane runs the host tier's
+        ``tony-kv-offload`` worker; ``serve_forever``'s teardown joins
+        it with the RPC server, so the thread does not outlive the lane
+        (the reference's shutdown hygiene, tests/test_kvtier.py:259)."""
+        def offload_threads():
+            return [t for t in threading.enumerate()
+                    if t.name == "tony-kv-offload" and t.is_alive()]
+
+        before = set(offload_threads())
+        rep = _replica(port_ckpt, host_blocks=8)
+        assert set(offload_threads()) - before
+        stop = threading.Event()
+        stop.set()
+        rep.serve_forever(host="127.0.0.1", stop=stop)
+        assert rep.engine.cache._offload is None
+        assert set(offload_threads()) <= before
 
     def test_promote_verb(self, served, port_ckpt):
         """``promote`` left the unported verbs: on an active replica it

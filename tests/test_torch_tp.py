@@ -509,11 +509,11 @@ def test_mesh_spec_rejects_bad_shape(one_rank_group):
 
 
 def test_unported_pairings_name_item_11():
-    """The pipeline axis, tp beside fsdp, tp beside ep (tp inside the MoE
-    block), make_accum_train_step on a tp or sp mesh and xent_chunk on a
-    model axis raise NotImplementedError naming item 11; seq_axis=False
-    on an sp mesh raises."""
-    for spec in (dict(pp=2), dict(fsdp=2, tp=2), dict(ep=2, tp=2),
+    """The pipeline axis beside tp, tp beside fsdp, tp beside ep (tp
+    inside the MoE block), make_accum_train_step on a tp or sp mesh and
+    xent_chunk on a model axis raise NotImplementedError naming item 11;
+    seq_axis=False on an sp mesh raises."""
+    for spec in (dict(pp=2, tp=2), dict(fsdp=2, tp=2), dict(ep=2, tp=2),
                  dict(fsdp=2, sp=2)):
         with pytest.raises(NotImplementedError, match="item 11"):
             MeshSpec(**spec).build(device="cpu")

@@ -295,14 +295,15 @@ class TestTrainStep:
 
     def test_unported_arguments_raise(self):
         tm = get_model("llama-tiny", device="cpu")
-        # The fsdp and tensor axes are ported (tests/test_torch_zero3.py,
-        # tests/test_torch_tp.py): their meshes ask for the process
-        # group; the pipeline axis is not.
+        # The fsdp, tensor and pipeline axes are ported
+        # (tests/test_torch_zero3.py, tests/test_torch_tp.py,
+        # tests/test_torch_pipeline.py): their meshes ask for the process
+        # group.
         with pytest.raises(RuntimeError, match="initialize"):
             MeshSpec(fsdp=2).build(device="cpu")
         with pytest.raises(RuntimeError, match="initialize"):
             MeshSpec(tp=2).build(device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(RuntimeError, match="initialize"):
             MeshSpec(pp=2).build(device="cpu")
         with pytest.raises(NotImplementedError,
                            match="GradientTransformation or a FusedOptimizer"):
@@ -310,8 +311,8 @@ class TestTrainStep:
         # A mesh is ported: anything but a built Mesh is refused.
         with pytest.raises(TypeError, match="Mesh"):
             ttrain.make_accum_train_step(mesh=object(), microbatches=1)
-        # The sequence axis is ported: seq_axis=True makes a step, and a
-        # pipeline mesh is refused.
+        # The sequence axis is ported: seq_axis=True makes a step; the
+        # pipeline axis beside the tensor axis is refused.
         assert callable(ttrain.make_train_step(seq_axis=True))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MeshSpec(pp=2, tp=2).build(device="cpu")

@@ -1100,10 +1100,11 @@ def test_unported_pieces_name_their_items(one_rank_group):
     with pytest.raises(ValueError, match="bucket boundary"):
         ttrain.make_accum_train_step(mesh=mesh, microbatches=2, quant=True,
                                      gather="per_leaf")
-    # The tensor axis is ported beside data parallelism
-    # (tests/test_torch_tp.py); beside fsdp it names item 11.
+    # The tensor and pipeline axes are ported beside data parallelism
+    # (tests/test_torch_tp.py, tests/test_torch_pipeline.py); beside fsdp
+    # they name item 11.
     for spec, item in ((dict(slices=2), 8), (dict(fsdp=2, tp=2), 11),
-                       (dict(pp=2), 11)):
+                       (dict(pp=2, fsdp=2), 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             MeshSpec(**spec).build(device="cpu")
     for kw, match in ((dict(gather="x"), "gather mode"),

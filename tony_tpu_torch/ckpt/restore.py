@@ -17,12 +17,12 @@ dtype change casts. Each restore is recorded through
 :func:`tony_tpu_torch.profiler.record_ckpt` (``"restore"``: its wall time
 and the device time and bytes of its host → device copies).
 
-A ZeRO-3, expert- or tensor-parallel target (tensors with a sharded
-:class:`~tony_tpu_torch.parallel.layout.Layout`) restores each rank's
-slice from the chunks that cover it, whatever fsdp, ep or tp size (or
-package) wrote the step. A manifest spec naming a mesh axis the port
-does not shard over (slice or pipe, unless the manifest's mesh has it
-at size 1) raises ``NotImplementedError``.
+A ZeRO-3, expert-, tensor- or pipeline-parallel target (tensors with a
+sharded :class:`~tony_tpu_torch.parallel.layout.Layout`; a pipeline
+stage's layers are parts of the stacked leaf) restores each rank's slice
+from the chunks that cover it, whatever fsdp, ep, tp or pp size (or
+package) wrote the step. A manifest spec naming the slice axis (unless
+the manifest's mesh has it at size 1) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ from tony_tpu_torch.ckpt.snapshot import (LeafView, _host_array,
                                           tree_unflatten)
 
 # Mesh axes a restore maps, and the ROADMAP items of the others.
-_PORTED_AXES = ("data", "fsdp", "expert", "seq", "model")
-_AXIS_ITEMS = {"slice": 8, "pipe": 11}
+_PORTED_AXES = ("data", "fsdp", "pipe", "expert", "seq", "model")
+_AXIS_ITEMS = {"slice": 8}
 
 
 def _assemble(reader: fmt.ChunkReader, leaf_idx: int, dtype: np.dtype,
@@ -136,8 +136,8 @@ def _check_spec(meta: Dict[str, Any],
             items = sorted({_AXIS_ITEMS.get(a, 11) for a in other})
             raise NotImplementedError(
                 f"checkpoint leaf {meta['path']} is sharded over mesh "
-                f"axes {other}; only the data, fsdp, expert, seq and "
-                f"model axes are ported "
+                f"axes {other}; only the data, fsdp, pipe, expert, seq "
+                f"and model axes are ported "
                 f"(ROADMAP.md, queue 1 item "
                 f"{' and '.join(map(str, items))})")
 

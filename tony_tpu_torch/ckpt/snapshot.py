@@ -136,8 +136,11 @@ class LeafView:
                        [((0,) * t.dim(), t, perm)])
         shape, start = tuple(lay.shape), lay.offsets()
         spec = tuple(lay.spec) + (None,) * (len(shape) - len(lay.spec))
-        shape, start, spec = (_permuted(x, perm) for x in (shape, start,
-                                                          spec))
+        # A pipeline stage's layer lies at its index of the stacked dim,
+        # which the tensor (and its permutation) drops.
+        lead = 1 if lay.stage_layer else 0
+        shape, start, spec = (x[:lead] + _permuted(x[lead:], perm)
+                              for x in (shape, start, spec))
         # A rank whose slice of a padded leaf lies wholly in the pad owns
         # no part of it.
         parts = [(start, t, perm)] if t.numel() else []
@@ -146,8 +149,18 @@ class LeafView:
     @classmethod
     def stacked(cls, ts: Sequence[torch.Tensor],
                 transpose: bool = False) -> "LeafView":
+        """The layers ``ts`` stacked on a new leading dim; the layers of a
+        pipeline stage (each already a part of the whole stacked leaf)
+        as that leaf, whose other layers other ranks hold."""
         views = [LeafView.of(t, transpose) for t in ts]
         inner = views[0].shape
+        if len(inner) > ts[0].dim():
+            if any(v.shape != inner for v in views):
+                raise ValueError(f"stacked leaf: stage layers of shapes "
+                                 f"{sorted({v.shape for v in views})}")
+            return cls(inner, ts[0].dtype,
+                       [part for v in views for part in v.parts],
+                       views[0].spec, views[0].replica)
         for t, v in zip(ts, views):
             if v.shape != inner:
                 raise ValueError(f"stacked leaf: part of shape "

@@ -240,10 +240,14 @@ def params_to_jax(cfg: Any, tensors: Mapping[str, torch.Tensor]
 
     leaves = _leaves_of(cfg.moe_experts > 0)
     if cfg.scan_layers:
+        # A decoder cut to its pipeline stage holds its stage's layers;
+        # their layouts place them in the whole stacked leaf.
+        n_layers = len({k.split(".")[1] for k in tensors
+                        if k.startswith("layers.")})
         block: Dict[str, Any] = {}
         for path, name in leaves.items():
             _put(block, path, LeafView.stacked(
-                [tensors[f"layers.{i}.{name}"] for i in range(cfg.n_layers)],
+                [tensors[f"layers.{i}.{name}"] for i in range(n_layers)],
                 transpose=path[-1] == "kernel"))
         tree["layers"] = {"block": block}
         return tree
@@ -322,6 +326,7 @@ def _load_opt_state(model: nn.Module, state: Any, tree: Any) -> None:
     optimizer's portable ``{"count", "leaf"}`` into its bucket-resident
     slots, in place."""
     names = [n for n, _ in model.named_parameters()]
+    whole = whole_names(model)
     opt = _field(tree, "opt_state")
     live = state.opt_state
     if isinstance(live, dict) and "slots" in live:
@@ -337,13 +342,15 @@ def _load_opt_state(model: nn.Module, state: Any, tree: Any) -> None:
         for slot in ("mu", "nu"):
             src = model.params_from_jax(_field(adam, slot))
             for name, t in zip(names, getattr(live, slot)):
-                t.copy_(rank_slice(src[name], t, name).to(t.device, t.dtype))
+                t.copy_(rank_slice(src[whole[name]], t, name).to(
+                    t.device, t.dtype))
         live.count = int(np.asarray(_field(adam, "count")))
     elif hasattr(live, "trace"):
         if live.trace is not None:
             src = model.params_from_jax(_field(opt[0], "trace"))
             for name, t in zip(names, live.trace):
-                t.copy_(rank_slice(src[name], t, name).to(t.device, t.dtype))
+                t.copy_(rank_slice(src[whole[name]], t, name).to(
+                    t.device, t.dtype))
     else:
         raise NotImplementedError(
             f"loading a JAX optimizer state into "
@@ -374,7 +381,9 @@ def load_jax_params(model: nn.Module, tree: Any,
     ``AdamState``, optax sgd's trace into a ``TraceState``, the fused
     optimizer's portable form into the bucket slots. A sharded
     parameter (ZeRO-3, expert or tensor-parallel) takes this rank's
-    slice of its JAX leaf (:func:`rank_slice`)."""
+    slice of its JAX leaf (:func:`rank_slice`); a decoder cut to its
+    pipeline stage takes its stage's layers of the stacked
+    ``layers/block/...`` leaves (:func:`whole_names`)."""
     convert = getattr(model, "params_from_jax", None)
     if convert is None:
         raise TypeError(f"{type(model).__name__} names no JAX tree "
@@ -389,15 +398,39 @@ def load_jax_params(model: nn.Module, tree: Any,
     src = convert(tree)
     params = dict(model.named_parameters())
     targets = {**dict(model.named_buffers()), **params}
-    missing = sorted(set(params) - set(src))
-    extra = sorted(set(src) - set(targets))
+    # A pipeline stage's layer i is layer whole[name] of the whole model;
+    # the other stages' layers are theirs.
+    whole = whole_names(model)
+    staged = any((lay := layout_of(p)) is not None and lay.stage_layer
+                 for p in params.values())
+    by_source = {whole.get(n, n): n for n in targets}
+    if staged:
+        src = {k: v for k, v in src.items()
+               if k in by_source or not k.startswith("layers.")}
+    missing = sorted(whole[n] for n in params if whole[n] not in src)
+    extra = sorted(set(src) - set(by_source))
     if missing or extra:
         raise ValueError(f"JAX params do not match the model: missing "
                          f"{missing[:4]}, unexpected {extra[:4]}")
-    for name, t in src.items():
+    for key, t in src.items():
+        name = by_source[key]
         p = targets[name]
         p.copy_(rank_slice(t, p, name).to(device=p.device, dtype=p.dtype))
     return model
+
+
+def whole_names(model: nn.Module) -> Dict[str, str]:
+    """Each parameter's name in the whole model: its own, or for layer
+    ``i`` of a decoder cut to its pipeline stage, ``layers.{j}...`` with
+    ``j`` the layer's index in the whole stack (its layout's)."""
+    out = {}
+    for name, p in model.named_parameters():
+        lay = layout_of(p)
+        if lay is not None and lay.stage_layer:
+            out[name] = f"layers.{lay.start}.{name.split('.', 2)[2]}"
+        else:
+            out[name] = name
+    return out
 
 
 def rank_slice(whole: torch.Tensor, target: torch.Tensor,
@@ -408,9 +441,12 @@ def rank_slice(whole: torch.Tensor, target: torch.Tensor,
     the shapes must agree."""
     lay = layout_of(target)
     shape = tuple(lay.shape) if lay is not None else tuple(target.shape)
+    if lay is not None and lay.stage_layer:
+        # A pipeline stage's layer is whole: the stacked dim is dropped.
+        shape = shape[1:]
     if tuple(whole.shape) != shape:
         raise ValueError(f"{name}: JAX shape {tuple(whole.shape)} vs "
                          f"model {shape}")
-    if lay is None or not lay.sharded:
+    if lay is None or not lay.sharded or lay.stage_layer:
         return whole
     return whole.narrow(lay.dim, lay.start, target.shape[lay.dim])

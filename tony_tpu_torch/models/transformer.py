@@ -50,6 +50,13 @@ logits are this rank's vocab columns and positions, returned as
 :class:`tony_tpu_torch.parallel.tensor.ShardedLogits` for the
 vocab-parallel losses.
 
+On a mesh with a ``pipe`` axis (``MeshSpec(dp=, pp=)``)
+:func:`tony_tpu_torch.train.create_train_state` cuts the decoder to this
+rank's stage (:meth:`Transformer.cut_to_stage`): its ``layers`` are the
+stage's blocks, which run with no mesh (the packed flash route), and the
+training forward is :func:`tony_tpu_torch.parallel.pipeline.
+pipelined_lm_logits`; the whole-model forward raises there.
+
 Both forwards run the ``quant=`` lanes (:meth:`TransformerConfig.quant_lanes`):
 a projection group in the set computes through
 :class:`tony_tpu_torch.ops.quant.QuantDense` (int8 × int8 → int32 on the
@@ -67,8 +74,10 @@ promotion, logits in f32.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 from typing import (Any, Callable, List, NamedTuple, Optional, Tuple,
                     Union)
 
@@ -85,7 +94,8 @@ from tony_tpu_torch.models.moe import MoEMLP
 from tony_tpu_torch.ops import (flash_attention, flash_attention_packed,
                                 flash_decode, reference_attention)
 from tony_tpu_torch.ops.quant import QuantDense
-from tony_tpu_torch.parallel import MODEL, SEQ, Mesh
+from tony_tpu_torch.parallel import DATA, MODEL, PIPE, SEQ, Mesh
+from tony_tpu_torch.parallel.layout import Layout, set_layout
 from tony_tpu_torch.parallel import tensor as tpar
 from tony_tpu_torch.parallel.ring_attention import ring_attention
 from tony_tpu_torch.train import chunked_next_token_xent
@@ -232,6 +242,38 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(x.dtype)
 
 
+# The weight casts shared_weight_casts() keeps, per thread: (weight id,
+# grad mode) -> (weight, its cast).
+_CASTS = threading.local()
+
+
+@contextlib.contextmanager
+def shared_weight_casts():
+    """Within the context each :class:`Dense` weight is cast to its
+    compute dtype once (once with autograd, once without) and every call
+    reuses that cast and its autograd node: a pipeline stage's
+    microbatches then keep one compute-dtype copy of the stage's weights
+    for their backward, not one each. The same values as casting at
+    every use."""
+    prev = getattr(_CASTS, "table", None)
+    _CASTS.table = {}
+    try:
+        yield
+    finally:
+        _CASTS.table = prev
+
+
+def _cast(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    table = getattr(_CASTS, "table", None)
+    if table is None or weight.dtype == dtype:
+        return weight.to(dtype)
+    key = (id(weight), torch.is_grad_enabled())
+    hit = table.get(key)
+    if hit is None or hit[0] is not weight:
+        hit = table[key] = (weight, weight.to(dtype))
+    return hit[1]
+
+
 class Dense(nn.Linear):
     """A bias-free projection that computes in ``compute_dtype`` whatever
     its weight is stored in (flax ``nn.Dense(dtype=..., param_dtype=...)``:
@@ -245,7 +287,7 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.compute_dtype),
-                        self.weight.to(self.compute_dtype))
+                        _cast(self.weight, self.compute_dtype))
 
 
 def _proj_dense(cfg: TransformerConfig, lane: str, n_in: int, n_out: int,
@@ -301,7 +343,7 @@ class Attention(nn.Module):
                               param_dtype)
         self.wo = _proj_dense(cfg, "o", nh * hd, cfg.dim, device,
                               param_dtype)
-        self.mesh = cfg.mesh
+        self.mesh = _block_mesh(cfg.mesh)
 
     def forward(self, x: torch.Tensor, tables: RopeTables) -> torch.Tensor:
         """Training forward: causal self-attention over the t rows, routed
@@ -414,7 +456,7 @@ class MLP(nn.Module):
                                 param_dtype)
         self.w_down = _proj_dense(cfg, "mlp", cfg.ffn_hidden, cfg.dim,
                                   device, param_dtype)
-        self.mesh = cfg.mesh
+        self.mesh = _block_mesh(cfg.mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """SwiGLU; on a model axis ``w_gate``/``w_up`` are column shards
@@ -538,8 +580,9 @@ class Transformer(nn.Module):
         parameters and calls it)."""
         _check_mesh(self.cfg, mesh)
         for m in self.modules():
-            if isinstance(m, (Transformer, Attention, MLP)):
-                m.mesh = mesh
+            if isinstance(m, (Attention, MLP)):
+                m.mesh = _block_mesh(mesh)
+        self.mesh = mesh
 
     def whole_under(self, mesh: Mesh) -> List[str]:
         """The parameters whose spec names ``model`` but which stay whole
@@ -549,6 +592,33 @@ class Transformer(nn.Module):
             return []
         return [n for n, _ in self.named_parameters()
                 if n.endswith(("attn.wk.weight", "attn.wv.weight"))]
+
+    def cut_to_stage(self, mesh: Mesh) -> None:
+        """Keep only this rank's pipeline stage of the block stack: with
+        ``S = mesh.shape["pipe"]`` and stage ``s`` (the rank's pipe
+        index), layers ``[s·L/S, (s+1)·L/S)``, renumbered from 0; the
+        others are dropped. Each kept parameter gets its
+        :class:`~tony_tpu_torch.parallel.layout.Layout`: index ``s·L/S +
+        i`` of the stacked ``[L, ...]`` leaf, spec ``("pipe", None,
+        ...)``, the replica being the rank's data index. The embedding,
+        the norms and the head stay whole. The blocks keep running with
+        no mesh; the model's own forward then raises (the pipelined one
+        is :func:`tony_tpu_torch.parallel.pipeline.
+        pipelined_lm_logits`)."""
+        _check_mesh(self.cfg, mesh)
+        n = self.cfg.n_layers // mesh.shape[PIPE]
+        first = mesh.coords()[PIPE] * n
+        if len(self.layers) != self.cfg.n_layers:
+            raise ValueError(f"the decoder holds {len(self.layers)} of "
+                             f"{self.cfg.n_layers} layers: it is cut already")
+        self.layers = nn.ModuleList(list(self.layers)[first:first + n])
+        replica = mesh.index((DATA,))
+        for i, block in enumerate(self.layers):
+            for p in block.parameters():
+                set_layout(p, Layout((self.cfg.n_layers,) + tuple(p.shape),
+                                     (PIPE,) + (None,) * p.dim(), 0,
+                                     first + i, replica))
+        self.mesh = mesh
 
     @torch.no_grad()
     def init_weights(self, seed: int = 0) -> "Transformer":
@@ -599,6 +669,12 @@ class Transformer(nn.Module):
         mesh = self.mesh
         if mesh is not None:
             _check_sharded(self, mesh)
+            if mesh.shape[PIPE] > 1:
+                raise ValueError(
+                    "the whole decoder's forward on a pipeline mesh: run "
+                    "tony_tpu_torch.parallel.pipelined_lm_logits(model, "
+                    "tokens, mesh, n_stages=, microbatches=), e.g. as "
+                    "make_train_step(forward=...)")
         t = tokens.shape[1]
         if positions is None:
             # Under sp this rank's positions are its shard's, global.
@@ -665,11 +741,12 @@ class Transformer(nn.Module):
         if self.cfg.moe_experts > 0:
             raise ValueError("serve mode does not support MoE blocks")
         if self.mesh is not None and (self.mesh.shape[MODEL] > 1
-                                      or self.mesh.shape[SEQ] > 1):
+                                      or self.mesh.shape[SEQ] > 1
+                                      or self.mesh.shape[PIPE] > 1):
             raise NotImplementedError(
-                f"the serve forward on a model or seq axis (tensor- or "
-                f"sequence-parallel serving) is not ported ({_LATER} item "
-                f"11)")
+                f"the serve forward on a model, seq or pipe axis (tensor-, "
+                f"sequence- or pipeline-parallel serving) is not ported "
+                f"({_LATER} item 11)")
         layer_kv = kv if callable(kv) else (lambda i: (kv[0][i], kv[1][i]))
         positions = positions.to(torch.int32)
         tables = rope_tables(positions, self.cfg.head_dim,
@@ -698,6 +775,21 @@ def _check_mesh(cfg: TransformerConfig, mesh: Optional[Mesh]) -> None:
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a tony_tpu_torch.parallel.Mesh "
                         f"(MeshSpec(...).build()), got {type(mesh)}")
+    pp = mesh.shape[PIPE]
+    if pp > 1:
+        for on, what in ((cfg.moe_experts > 0, "a MoE decoder"),
+                         (bool(cfg.quant_lanes()), "the quant lanes"),
+                         (bool(cfg.xent_chunk), "xent_chunk")):
+            if on:
+                raise NotImplementedError(
+                    f"{what} on a pipeline axis is not ported yet ({_LATER} "
+                    f"item 11)")
+        if not cfg.scan_layers:
+            raise ValueError("pipeline stages cut the stacked [L, ...] "
+                             "layers: they need scan_layers=True")
+        if cfg.n_layers % pp:
+            raise ValueError(f"n_layers={cfg.n_layers} does not divide over "
+                             f"pp={pp} stages")
     if mesh.shape[MODEL] == 1 and mesh.shape[SEQ] == 1:
         return
     if cfg.moe_experts > 0:
@@ -717,6 +809,12 @@ def _check_mesh(cfg: TransformerConfig, mesh: Optional[Mesh]) -> None:
                     ("vocab", cfg.vocab)):
         if n % tp:
             raise ValueError(f"{what}={n} does not divide over tp={tp}")
+
+
+def _block_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a block's attention and MLP run over: none on a pipeline
+    mesh, whose stages apply their blocks whole."""
+    return None if mesh is None or mesh.shape[PIPE] > 1 else mesh
 
 
 def _check_sharded(model: "Transformer", mesh: Mesh) -> None:

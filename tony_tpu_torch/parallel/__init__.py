@@ -16,11 +16,15 @@
   ``model`` group (the decoder's Megatron shards,
   :mod:`~tony_tpu_torch.parallel.tensor`) and the ``(data, seq)``
   gradient-sync group; ``model`` is innermost, so tp neighbours are
-  adjacent ranks. ``ep`` beside ``fsdp``, and ``tp`` or ``sp`` beside
-  ``fsdp`` or ``ep``, raise ``NotImplementedError`` (ROADMAP.md, queue
-  1 item 11). The other axes keep their names (:data:`AXES`) at size
-  1; asking for one of them raises ``NotImplementedError`` (ROADMAP.md,
-  queue 1: ``slices`` item 8, ``pp`` item 11).
+  adjacent ranks. The pipeline axis is ported beside data parallelism:
+  ``MeshSpec(dp=, pp=)`` adds the ``pipe`` group, over which the stages
+  of :mod:`~tony_tpu_torch.parallel.pipeline` send their microbatches;
+  the ranks along ``pipe`` read the same batch block. ``ep`` beside
+  ``fsdp``, ``tp`` or ``sp`` beside ``fsdp`` or ``ep``, and ``pp`` beside
+  any of ``fsdp``, ``ep``, ``sp`` and ``tp``, raise
+  ``NotImplementedError`` (ROADMAP.md, queue 1 item 11). The slice axis
+  keeps its name (:data:`AXES`) at size 1; asking for it raises
+  ``NotImplementedError`` (ROADMAP.md, queue 1 item 8).
 * :data:`RULES` and :func:`logical_spec` — the logical-axis → mesh-axis
   lookup, as data: a spec is a tuple with one entry per dim (``None``,
   an axis name or a tuple of names), what a ``PartitionSpec`` is to the
@@ -72,7 +76,7 @@ RULES: Tuple[Tuple[str, object], ...] = (
 )
 
 # MeshSpec field → (mesh axis, the ROADMAP item that ports it).
-_UNPORTED = {"pp": (PIPE, 11), "slices": (SLICE, 8)}
+_UNPORTED = {"slices": (SLICE, 8)}
 
 
 def logical_spec(*logical_axes: Optional[str],
@@ -158,18 +162,18 @@ class Mesh:
 
     def batch_index(self) -> Tuple[int, int]:
         """``(index, count)`` of this rank's block of the global batch
-        over :data:`BATCH_AXES`: the ranks along ``expert``, ``seq`` and
-        ``model`` share one block (the ``ShardSpec`` a rank's input
-        pipeline reads)."""
+        over :data:`BATCH_AXES`: the ranks along ``pipe``, ``expert``,
+        ``seq`` and ``model`` share one block (the ``ShardSpec`` a rank's
+        input pipeline reads)."""
         return self.index(BATCH_AXES), self.size(BATCH_AXES)
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One parallelism layout; the data, fsdp, expert, sequence and tensor
-    axes are ported (expert beside data; seq and model beside data and
-    each other, not beside fsdp or expert). ``dp=0`` resolves to the
-    world size over the other axes."""
+    """One parallelism layout; the data, fsdp, pipeline, expert, sequence
+    and tensor axes are ported (pipe and expert beside data; seq and
+    model beside data and each other, not beside fsdp or expert).
+    ``dp=0`` resolves to the world size over the other axes."""
     dp: int = 0
     fsdp: int = 1
     pp: int = 1
@@ -191,8 +195,8 @@ class MeshSpec:
                 raise NotImplementedError(
                     f"MeshSpec({field}={getattr(self, field)}): the {axis!r} "
                     f"axis is not ported yet (ROADMAP.md, queue 1 item "
-                    f"{item}); the data, fsdp, expert, seq and model "
-                    f"axes are")
+                    f"{item}); the data, fsdp, pipe, expert, seq and "
+                    f"model axes are")
         if self.ep > 1 and self.fsdp > 1:
             raise NotImplementedError(
                 f"MeshSpec(fsdp={self.fsdp}, ep={self.ep}): expert "
@@ -207,10 +211,20 @@ class MeshSpec:
                         f"{getattr(self, other)}): the {field} axis beside "
                         f"{other} is not ported yet (ROADMAP.md, queue 1 "
                         f"item 11); it runs beside data parallelism")
-        if min(self.fsdp, self.ep, self.sp, self.tp) < 1 or self.dp < 0:
+        if self.pp > 1:
+            for other in ("fsdp", "ep", "sp", "tp"):
+                if getattr(self, other) > 1:
+                    raise NotImplementedError(
+                        f"MeshSpec(pp={self.pp}, {other}="
+                        f"{getattr(self, other)}): the pipeline axis beside "
+                        f"{other} is not ported yet (ROADMAP.md, queue 1 "
+                        f"item 11); it runs beside data parallelism")
+        if min(self.fsdp, self.pp, self.ep, self.sp, self.tp) < 1 \
+                or self.dp < 0:
             raise ValueError(f"MeshSpec(dp={self.dp}, fsdp={self.fsdp}, "
-                             f"ep={self.ep}, sp={self.sp}, tp={self.tp}): "
-                             f"sizes must be positive (dp=0: the rest)")
+                             f"pp={self.pp}, ep={self.ep}, sp={self.sp}, "
+                             f"tp={self.tp}): sizes must be positive (dp=0: "
+                             f"the rest)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -223,13 +237,14 @@ class MeshSpec:
             raise ValueError(f"an NCCL process group cannot reduce tensors "
                              f"on {dev}")
         world = td.get_world_size()
-        rest = self.fsdp * self.ep * self.sp * self.tp
+        rest = self.fsdp * self.pp * self.ep * self.sp * self.tp
         if not self.dp and world % rest:
             raise ValueError(f"{world} devices not divisible by "
                              f"slices*fsdp*pp*ep*sp*tp={rest}")
         dp = self.dp or world // rest
         shape = dict.fromkeys(AXES, 1)
         shape[DATA], shape[FSDP], shape[EXPERT] = dp, self.fsdp, self.ep
+        shape[PIPE] = self.pp
         shape[SEQ], shape[MODEL] = self.sp, self.tp
         if dp * rest != world:
             named = {a: n for a, n in shape.items() if n > 1} or {DATA: 1}
@@ -243,7 +258,7 @@ class MeshSpec:
         # sequence-parallel mesh) that neither is trivial nor spans the
         # world, created by every rank in the same order.
         for axes in ((FSDP,), (DATA,), (EXPERT,), (SEQ,), (MODEL,),
-                     (DATA, SEQ)):
+                     (DATA, SEQ), (PIPE,)):
             key = tuple(a for a in axes if shape[a] > 1)
             if key in mesh.groups or not 1 < mesh.size(key) < world:
                 continue
@@ -276,10 +291,13 @@ from tony_tpu_torch.parallel.overlap import (  # noqa: E402  (re-export)
     DEFAULT_BUCKET_BYTES, GradBuckets, ResidentBuckets, ShardBuckets,
     fsdp_param_specs, microbatch_grads, sync_axes, sync_size)
 from tony_tpu_torch.parallel.sched import GatherPlan  # noqa: E402
+from tony_tpu_torch.parallel.pipeline import (  # noqa: E402  (re-export)
+    gpipe, gpipe_1f1b, pipelined_lm_logits, stage_split)
 
 __all__ = ["AXES", "BATCH_AXES", "DATA", "DEFAULT_BUCKET_BYTES", "EXPERT",
            "FSDP", "GatherPlan", "GradBuckets", "Layout", "MODEL", "Mesh",
            "MeshSpec", "PIPE", "RULES", "ResidentBuckets", "SEQ", "SLICE",
-           "ShardBuckets", "fsdp_param_specs", "layout_of",
-           "logical_spec", "microbatch_grads", "set_layout", "sync_axes",
+           "ShardBuckets", "fsdp_param_specs", "gpipe", "gpipe_1f1b",
+           "layout_of", "logical_spec", "microbatch_grads",
+           "pipelined_lm_logits", "set_layout", "stage_split", "sync_axes",
            "sync_size"]

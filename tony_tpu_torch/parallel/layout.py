@@ -11,9 +11,12 @@ global shape, the spec (one entry per dim, as
 and the slice's offset on it, and the rank's replica index: on the data
 axis, or on a tensor-parallel mesh over the data and seq axes (the
 ranks that hold the same shard; replica 0 writes the slice in a
-checkpoint, the reference's ``replica_id == 0`` rule). The train step detects a ZeRO-3 state from
-these layouts, and the checkpoint plane saves and restores each slice at
-its extent.
+checkpoint, the reference's ``replica_id == 0`` rule). A pipeline
+stage's layer is one index of its stacked ``[L, ...]`` leaf: its layout
+has the leaf's shape, spec ``("pipe", ...)`` and ``start`` the layer's
+index on dim 0, which the tensor drops (:attr:`Layout.stage_layer`).
+The train step detects a ZeRO-3 state from these layouts, and the
+checkpoint plane saves and restores each slice at its extent.
 """
 
 from __future__ import annotations
@@ -43,6 +46,12 @@ class Layout:
     @property
     def sharded(self) -> bool:
         return self.dim is not None
+
+    @property
+    def stage_layer(self) -> bool:
+        """A pipeline stage's layer: the tensor is index ``start`` of the
+        stacked leaf's dim 0 (over ``pipe``), that dim dropped."""
+        return self.dim == 0 and bool(self.spec) and self.spec[0] == "pipe"
 
     def offsets(self) -> Tuple[int, ...]:
         """The slice's start in every dim of the global array."""

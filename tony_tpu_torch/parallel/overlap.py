@@ -1285,12 +1285,14 @@ def full_params(params: Sequence[torch.Tensor], mesh: Any
     """Every parameter whole: a ZeRO-3 shard gathered over the fsdp group
     along its sharded dim (a new tensor), an expert mesh's experts over
     the expert group, a tensor-parallel shard over the model group, any
-    other parameter as it is. For evaluation and checks; the train steps
-    gather bucket by bucket."""
+    other parameter (a pipeline stage's layer too: the other stages hold
+    theirs) as it is. For evaluation and checks; the train steps gather
+    bucket by bucket."""
     out = []
     for p in params:
         lay = layout_of(p)
-        if lay is None or not lay.sharded:
+        if lay is None or not lay.sharded or lay.stage_layer:
+            # A pipeline stage's layer is whole (its stage holds it).
             out.append(p.detach())
             continue
         axis = next(a for a in (EXPERT, MODEL, FSDP)

@@ -19,12 +19,12 @@ for the ZeRO-3 forward gathers and the reduce records.
   quantize-on-gather lane of :mod:`tony_tpu_torch.ops.quant`.
 * :func:`record_reduce_levels` — the step's reduce levels in the unified
   registry (:func:`tony_tpu_torch.profiler.collective_report`).
+* :func:`record_pipeline_edges` — a pipeline schedule's stage edges in
+  the same registry (:mod:`~tony_tpu_torch.parallel.pipeline`);
 * :func:`moe_dispatch_ffn_combine` — the expert-parallel exchange of a
   MoE layer's capacity slots: one ``all_to_all`` over the expert group
   each way per capacity chunk, the next chunk's dispatch issued before
   this chunk's expert FFN runs.
-
-The pipeline edges wait for their slice (ROADMAP.md, queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -240,6 +240,21 @@ def record_reduce_levels(tag: str, levels: Sequence[dict]) -> None:
         profiler.record_collective(
             f"{tag}.grad.{lv['level']}.{lv['op']}", kind=lv["op"],
             plane="grad_reduce", axes=list(lv["axes"]), nbytes=nbytes)
+
+
+def record_pipeline_edges(tag: str, *, stages: int, microbatches: int,
+                          mb_nbytes: int, reverse: bool = False) -> None:
+    """Register a pipeline schedule's ring edges, as the reference does:
+    one microbatch buffer crosses a stage edge per tick (forward
+    fill/drain; the 1F1B backward runs the mirrored reverse ring too),
+    under ``<tag>.ppermute``."""
+    ticks = microbatches + stages - 1
+    directions = 2 if reverse else 1
+    profiler.record_collective(
+        f"{tag}.ppermute", kind="ppermute", plane="pipeline", axes=[PIPE],
+        nbytes=[mb_nbytes] * (ticks * directions), stages=stages,
+        microbatches=microbatches, ticks_per_direction=ticks,
+        directions=directions)
 
 
 def _issue_all_to_all(sent: torch.Tensor, group: Any) -> Tuple[torch.Tensor,

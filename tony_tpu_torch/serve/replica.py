@@ -434,7 +434,9 @@ class Replica:
         a first publish before the first interval (the router can only
         dial a replica whose ``rpc_port`` reached the AM), then one every
         ``stats_every_s``; on the way out the server's threads are
-        stopped and joined."""
+        stopped and joined, and the cache's host-offload worker
+        (``tony-kv-offload``) with them, so no replica thread outlives
+        it."""
         from tony_tpu_torch.rpc import RpcServer
 
         server = RpcServer(self.rpc_handler(), host=host, port=port)
@@ -471,6 +473,7 @@ class Replica:
         finally:
             self._publish = None
             server.stop()
+            self.engine.cache.close()
 
 
 class _ReplicaRpcHandler:

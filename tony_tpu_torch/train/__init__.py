@@ -51,8 +51,12 @@ state's ranks each write their shards. On a mesh with ``model`` or
 ``seq`` axes (``MeshSpec(dp=, sp=, tp=)``) the decoder's parameters are
 Megatron shards (:mod:`tony_tpu_torch.parallel.tensor`), attention runs
 around the seq ring and the grads are summed over the data and seq axes.
-The pipeline axis, the multi-slice reduce and the other pairings of the
-mesh axes are later slices (ROADMAP.md, queue 1 items 8 and 11).
+On a mesh with a ``pipe`` axis (``MeshSpec(dp=, pp=)``) each rank keeps
+its pipeline stage's layers, and the step's forward is
+:func:`tony_tpu_torch.parallel.pipeline.pipelined_lm_logits`
+(``make_train_step(forward=...)``). The multi-slice reduce and the
+other pairings of the mesh axes are later slices (ROADMAP.md, queue 1
+items 8 and 11).
 """
 
 from __future__ import annotations
@@ -80,7 +84,8 @@ from tony_tpu_torch.models.convert import (PortableState, jax_param_tree,
                                            portable_state)
 from tony_tpu_torch.ops.fused_optim import FusedOptimizer, bias_correction
 from tony_tpu_torch.parallel import (BATCH_AXES, DATA, EXPERT, FSDP, MODEL,
-                                     SEQ, Mesh, layout_of, logical_spec)
+                                     PIPE, SEQ, Mesh, layout_of,
+                                     logical_spec)
 from tony_tpu_torch.parallel import tensor as tpar
 from tony_tpu_torch.parallel.overlap import (DEFAULT_BUCKET_BYTES,
                                              GradBuckets, ResidentBuckets,
@@ -402,6 +407,17 @@ def create_train_state(model: nn.Module, tx: Any,
     It takes a :class:`GradientTransformation`; ``make_train_step`` is
     its step.
 
+    On a mesh with ``pp > 1`` (a decoder with a ``cut_to_stage``) each
+    rank keeps only its pipeline stage's layers, ``[s·L/S, (s+1)·L/S)``
+    for stage ``s`` of ``S``, with their optimizer slots; each kept
+    parameter and slot carries a
+    :class:`~tony_tpu_torch.parallel.layout.Layout` whose spec names
+    ``pipe`` on the stacked layer dim, and the embedding, the final norm
+    and the head stay whole. It takes a :class:`GradientTransformation`;
+    ``make_train_step(forward=...)`` with
+    :func:`~tony_tpu_torch.parallel.pipeline.pipelined_lm_logits` is its
+    step.
+
     ``tx`` is a :class:`GradientTransformation` (leaf-major state) or a
     :class:`~tony_tpu_torch.ops.fused_optim.FusedOptimizer`: then every
     parameter's storage moves into its flat per-bucket buffer of the tx's
@@ -425,7 +441,15 @@ def create_train_state(model: nn.Module, tx: Any,
             "a FusedOptimizer on an expert mesh (ep > 1) is not ported yet "
             "(ROADMAP.md, queue 1 item 11): its step, make_accum_train_step, "
             "does not take the expert axis")
-    zero3 = experts = tensor = False
+    zero3 = experts = tensor = staged = False
+    if mesh is not None and mesh.shape[PIPE] > 1:
+        if fused or not hasattr(model, "cut_to_stage"):
+            raise NotImplementedError(
+                f"the pipe axis takes a decoder (cut_to_stage) with a "
+                f"GradientTransformation; {type(model).__name__} with "
+                f"{type(tx).__name__} on it is not ported yet (ROADMAP.md, "
+                f"queue 1 item 11)")
+        staged = True
     if mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[SEQ] > 1):
         if fused or not hasattr(model, "set_mesh"):
             raise NotImplementedError(
@@ -455,6 +479,9 @@ def create_train_state(model: nn.Module, tx: Any,
         if tensor:
             tpar.shard_model(model, param_specs(model) if specs is None
                              else list(specs), mesh)
+        if staged:
+            model.cut_to_stage(mesh)
+            params = [p for p in model.parameters()]
     if fused:
         plan = tx.plan_for(params, mesh)
         buckets = ShardBuckets.adopt(plan, params) if zero3 \
@@ -463,7 +490,7 @@ def create_train_state(model: nn.Module, tx: Any,
                           opt_state=tx.init_state(params, plan=plan),
                           buckets=buckets, mesh=mesh)
     opt_state = tx.init(params)
-    if zero3 or experts or tensor:
+    if zero3 or experts or tensor or staged:
         _attach_slot_layouts(opt_state, params)
     return TrainState(step=0, model=model, tx=tx, opt_state=opt_state,
                       mesh=mesh)
@@ -538,17 +565,23 @@ def model_loss(model: nn.Module, batch: Dict[str, Any],
                loss_of: Callable[[Any, Dict[str, Any]], torch.Tensor],
                apply_kwargs_of: Optional[Callable[[Dict[str, Any]],
                                                   Dict[str, Any]]] = None,
-               mesh: Optional[Mesh] = None
+               mesh: Optional[Mesh] = None,
+               forward: Optional[Callable[[nn.Module, Dict[str, Any]],
+                                          Any]] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(loss_of(out, batch) + aux, aux)`` for one forward of ``model``
-    on ``batch["x"]``: ``aux`` is the auxiliary loss a MoE decoder
-    returns beside its output (``(out, aux)``), the reference's sown
-    ``losses`` summed; an f32 zero for any other model. On a ``mesh``
-    with a model or seq axis the output must be the block of a sharded
-    decoder (:class:`~tony_tpu_torch.parallel.tensor.ShardedLogits`):
-    whole logits there would be taken for the whole batch's."""
-    extra = apply_kwargs_of(batch) if apply_kwargs_of else {}
-    out = model(batch["x"], **extra)
+    on ``batch["x"]`` (``forward(model, batch)`` where given): ``aux`` is
+    the auxiliary loss a MoE decoder returns beside its output (``(out,
+    aux)``), the reference's sown ``losses`` summed; an f32 zero for any
+    other model. On a ``mesh`` with a model or seq axis the output must
+    be the block of a sharded decoder
+    (:class:`~tony_tpu_torch.parallel.tensor.ShardedLogits`): whole
+    logits there would be taken for the whole batch's."""
+    if forward is not None:
+        out = forward(model, batch)
+    else:
+        extra = apply_kwargs_of(batch) if apply_kwargs_of else {}
+        out = model(batch["x"], **extra)
     if getattr(getattr(model, "cfg", None), "moe_experts", 0) > 0:
         out, aux = out
     else:
@@ -578,14 +611,18 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
                     mesh: Optional[Mesh] = None,
                     seq_axis: Optional[bool] = None,
                     apply_kwargs_of: Optional[Callable[
-                        [Dict[str, Any]], Dict[str, Any]]] = None):
+                        [Dict[str, Any]], Dict[str, Any]]] = None,
+                    forward: Optional[Callable[[nn.Module, Dict[str, Any]],
+                                               Any]] = None):
     """The train step ``(state, batch) -> (state, metrics)``.
 
     ``loss_of(logits, batch)`` defaults to cross entropy on
     ``batch={'x', 'y'}``; ``apply_kwargs_of(batch)`` feeds extra kwargs to
     the model (``{"targets": batch["x"]}`` for a decoder with
     ``xent_chunk``, whose scalar loss ``loss_of`` then receives in place
-    of the logits). Metrics are 0-d tensors on the model's device:
+    of the logits); ``forward(model, batch)``, where given, is the
+    forward in place of ``model(batch["x"])`` (the pipelined one on a
+    pipeline mesh). Metrics are 0-d tensors on the model's device:
     ``loss`` (with the auxiliary loss), ``grad_norm`` (optax.global_norm
     of the f32 grads) and ``aux_loss`` (the MoE load-balancing loss a
     MoE decoder returns, summed over its layers, already in ``loss``; 0
@@ -639,7 +676,19 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
     leaves come out bitwise equal on the ``tp`` ranks: the tensor axis'
     all-reduces give every rank the same bits); ``grad_norm`` sums the
     ``model`` shards' squares over the model group and counts the
-    replicated leaves once."""
+    replicated leaves once.
+
+    On a pipeline mesh (``MeshSpec(dp=, pp=)``; :func:`create_train_state`
+    cut the decoder to its stage) the forward is ``forward``, e.g.
+    ``lambda m, b: pipelined_lm_logits(m, b["x"], mesh, n_stages=pp,
+    microbatches=M)`` (the reference's example loop,
+    ``examples/jax_llama_pp.py``): the ``pp`` ranks of a data index hold
+    the same rows and compute the same loss from the same replicated
+    output, so the loss is divided by ``dp`` alone, and every leaf, a
+    stage's layer or a replicated one (the embedding, the final norm,
+    the head: the same grads on every rank of the pipe group), is summed
+    over the data group; ``grad_norm`` sums the stage leaves' squares
+    over the pipe group and counts the replicated leaves once."""
     _check_seq_axis(mesh, seq_axis)
     if loss_of is None:
         loss_of = lambda logits, batch: cross_entropy_loss(logits,
@@ -661,7 +710,7 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
         for p in params:
             p.grad = None
         loss, aux = model_loss(model, batch, loss_of, apply_kwargs_of,
-                               mesh)
+                               mesh, forward)
         if mesh is not None:
             ranks = mesh.shape[DATA] * mesh.shape[EXPERT] * mesh.shape[SEQ]
             loss, aux = loss / ranks, aux / ranks
@@ -675,9 +724,11 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
                 [loss, aux]), reduce_plan, mesh)
         shard = tpar.model_leaves(params) if mesh is not None \
             and mesh.shape[MODEL] > 1 else [False] * len(params)
-        gnorm = global_norm([g for g, x, m in zip(grads, expert, shard)
-                             if not (x or m)])
-        for axis, own in ((EXPERT, expert), (MODEL, shard)):
+        stage = _stage_leaves(params, mesh)
+        gnorm = global_norm([g for g, x, m, st in zip(grads, expert, shard,
+                                                      stage)
+                             if not (x or m or st)])
+        for axis, own in ((EXPERT, expert), (MODEL, shard), (PIPE, stage)):
             if any(own):
                 sq = global_norm([g for g, x in zip(grads, own) if x]) ** 2
                 td.all_reduce(sq, group=mesh.group((axis,)))
@@ -690,7 +741,8 @@ def make_train_step(loss_of: Optional[Callable[[torch.Tensor, Dict[str, Any]],
 
     def _zero3_step(state, batch, params, specs):
         def loss_fn(mb):
-            return model_loss(state.model, mb, loss_of, apply_kwargs_of)
+            return model_loss(state.model, mb, loss_of, apply_kwargs_of,
+                              forward=forward)
 
         if not isinstance(state.tx, GradientTransformation):
             raise ValueError(f"make_train_step on a ZeRO-3 state needs a "
@@ -735,6 +787,15 @@ def _reduce_grads(grads: List[torch.Tensor], expert: List[bool],
         for i, g in zip(idx, plan.unpack(bufs[:len(plan.bucket_nbytes)])):
             grads[i] = g
     return scalars[0], scalars[1]
+
+
+def _stage_leaves(params: List[torch.Tensor], mesh: Optional[Mesh]
+                  ) -> List[bool]:
+    """Which parameters are layers of this rank's pipeline stage."""
+    if mesh is None or mesh.shape[PIPE] <= 1:
+        return [False] * len(params)
+    return [(lay := layout_of(p)) is not None and lay.stage_layer
+            for p in params]
 
 
 def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
@@ -829,10 +890,11 @@ def make_accum_train_step(loss_of: Optional[Callable[[torch.Tensor,
         raise NotImplementedError(
             "make_accum_train_step on an expert mesh (ep > 1) is not "
             "ported yet (ROADMAP.md, queue 1 item 11): use make_train_step")
-    if mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[SEQ] > 1):
+    if mesh is not None and (mesh.shape[MODEL] > 1 or mesh.shape[SEQ] > 1
+                             or mesh.shape[PIPE] > 1):
         raise NotImplementedError(
-            "make_accum_train_step on a mesh with a model or seq axis is "
-            "not ported yet (ROADMAP.md, queue 1 item 11): use "
+            "make_accum_train_step on a mesh with a model, seq or pipe axis "
+            "is not ported yet (ROADMAP.md, queue 1 item 11): use "
             "make_train_step")
     if reduce_op not in ("all_reduce", "reduce_scatter"):
         raise ValueError(f"unknown reduce op {reduce_op!r} "
@@ -1251,8 +1313,9 @@ def _validate_local_batch(mesh: Mesh, local_batch: Any,
     flat = _flatten(local_batch)
     if not flat:
         return
-    # The ranks along seq and model feed the same rows.
-    nproc = mesh.processes // (mesh.shape[SEQ] * mesh.shape[MODEL])
+    # The ranks along pipe, seq and model feed the same rows.
+    nproc = mesh.processes // (mesh.shape[PIPE] * mesh.shape[SEQ]
+                               * mesh.shape[MODEL])
     n_shards = math.prod(mesh.shape[a] for a in BATCH_AXES)
     ref_path = ref_dim = None
     for name, leaf in flat:
